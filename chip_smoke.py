@@ -1,0 +1,441 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA GPU.
+
+Run from the repository root:
+
+    python3 chip_smoke.py
+
+Phases, one line (or a few) each; any failure raises and exits non-zero:
+
+1. build   — compile ``csrc/similarity.cu`` and ``csrc/aggregate.cu`` for
+   ``sm_90a`` from the checkout and print the seconds it took;
+2. kernels — hold each kernel against its plain PyTorch version on the card
+   at the main path's shapes (Gram: |got − want| ≤ 1e-5·‖g_i‖·‖g_j‖, the
+   error on the scale of the entries; L1: atol 1e-4 on entries of order
+   0.1–50; aggregate: rtol and atol 2e-5) and check the port on the card
+   against the port on the CPU on a small input (equal plans, losses and
+   params to atol 1e-4);
+3. slice   — the Algorithm 2 FL round loop at the paper's MNIST width
+   (784 → 50 → 10, d = 39,760; 100 clients, m = 10, N = B = 50, lr 0.01):
+   5 rounds with the arccos measure, then 2 with L1. Kernel launch counts
+   are reset just before each run and read just after; each kernel of the
+   run must have launched;
+4. trace   — one more full-width round under ``torch.profiler``: device
+   busy time, and the idle share of that same round's wall time, and
+   device time by kernel;
+5. times   — each kernel, its plain version and one PyTorch library call
+   on the same inputs, timed with CUDA events (and device-busy time from
+   the profiler), beside the card's bound.
+
+The last lines are the card's name and power limit (nvidia-smi), a JSON
+object with one entry per kernel, and ``{"ok": true, "device": ...}``.
+The script imports neither JAX nor the JAX package ``repro``.
+"""
+from __future__ import annotations
+
+import json
+import math
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+SRC = ROOT / "src"
+
+# Published peaks (NVIDIA data sheets): device memory bytes/s and f32
+# FLOP/s outside the tensor cores, by the part the device name shows.
+PEAKS = {
+    "H100 PCIe": (2.0e12, 51e12),
+    "H100 NVL": (3.9e12, 60e12),
+    "H100 SXM": (3.35e12, 67e12),
+}
+
+SIM_SHAPES = [(100, 39760), (13, 101), (257, 8193)]  # the path's shape first
+SIM_SCALE = 1e-3  # update scale of G rows (θ_i − θ after lr-scaled SGD)
+SIM_ATOL = 1e-4  # L1: entries are sums of |differences|, 0.1–50 here
+# Gram: tolerance relative to ‖g_i‖·‖g_j‖, so the check is as strict at
+# every scale of G; the floor only covers a pair of zero rows
+GRAM_RTOL = 1e-5
+GRAM_FLOOR = 1e-30
+AGG_SHAPE = (11, 39760)  # m = 10 client rows + the θ^t row
+AGG_TOL = 2e-5
+WIDTH = (784, 50, 10)
+
+
+def fail(msg: str) -> None:
+    raise RuntimeError(msg)
+
+
+def peaks_for(name: str) -> tuple[str, float, float]:
+    for part in ("H100 PCIe", "H100 NVL"):
+        if part.split()[1] in name:
+            return (part, *PEAKS[part])
+    return ("H100 SXM", *PEAKS["H100 SXM"])
+
+
+def gram_rel_err(got, want, G) -> float:
+    """max |got − want| / (‖g_i‖·‖g_j‖ + floor) over the (n, n) Gram entries."""
+    norms = G.double().norm(dim=1)
+    scale = norms[:, None] * norms[None, :] + GRAM_FLOOR
+    return float(((got.double() - want.double()).abs() / scale).max())
+
+
+def time_ms(torch, fn, reps: int = 50) -> float:
+    """Mean ms per call over ``reps`` calls after warm-up, by CUDA events."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def phase_build():
+    from repro_torch.kernels import _build
+
+    t0 = time.perf_counter()
+    logs = _build.build()
+    secs = time.perf_counter() - t0
+    for name in _build.SOURCES:
+        _build.load(name)
+    print(f"build: {secs:.3f} s for {', '.join(s + '.cu' for s in _build.SOURCES)} (sm_90a)")
+    for name, log in logs.items():
+        for line in log.splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"  ptxas {name}: {line.strip()}")
+
+
+def phase_kernels(torch, gen):
+    from repro_torch.kernels.aggregate import ops as agg_ops
+    from repro_torch.kernels.aggregate.ref import aggregate_ref
+    from repro_torch.kernels.similarity import ops as sim_ops
+    from repro_torch.kernels.similarity.ref import gram_ref, l1_ref
+
+    err = {"gram": 0.0, "l1": 0.0, "aggregate": 0.0}
+    for n, d in SIM_SHAPES:
+        G = (SIM_SCALE * torch.randn((n, d), generator=gen)).cuda()
+        for op, ref in (("gram", gram_ref), ("l1", l1_ref)):
+            torch.cuda.synchronize()
+            got = sim_ops.pairwise_sums(G, op)
+            again = sim_ops.pairwise_sums(G, op)
+            want = ref(G)
+            torch.cuda.synchronize()
+            e = float((got - want).abs().max())
+            if op == "gram":
+                rel = gram_rel_err(got, want, G)
+                if not math.isfinite(rel) or rel > GRAM_RTOL:
+                    fail(f"gram kernel at ({n}, {d}): error {rel} of ‖g_i‖·‖g_j‖ > {GRAM_RTOL}")
+                limit = f"{rel:.3e} of ‖g_i‖·‖g_j‖ (limit {GRAM_RTOL})"
+            else:
+                if not math.isfinite(e) or e > SIM_ATOL:
+                    fail(f"l1 kernel at ({n}, {d}): max abs error {e} > {SIM_ATOL}")
+                limit = f"atol {SIM_ATOL}"
+            if not torch.equal(got, again):
+                fail(f"{op} kernel at ({n}, {d}) is not bit-reproducible")
+            err[op] = max(err[op], e)
+            print(f"kernels: {op} ({n}, {d}) max_abs_err {e:.3e}, {limit}, "
+                  f"max |want| {float(want.abs().max()):.3e}, reproducible")
+    k, p = AGG_SHAPE
+    U = torch.randn((k, p), generator=gen).cuda()
+    w = torch.rand((k,), generator=gen).cuda()
+    torch.cuda.synchronize()
+    got = agg_ops.aggregate_flat(U, w)
+    want = aggregate_ref(U, w)
+    torch.cuda.synchronize()
+    if not torch.allclose(got, want, rtol=AGG_TOL, atol=AGG_TOL):
+        fail(f"aggregate kernel at {AGG_SHAPE} disagrees with its plain version")
+    err["aggregate"] = float((got - want).abs().max())
+    print(f"kernels: aggregate {AGG_SHAPE} max_abs_err {err['aggregate']:.3e} (rtol=atol {AGG_TOL})")
+    return err
+
+
+def _tiny_run(device):
+    """3 Algorithm 2 rounds at a small width; returns (plans, losses, params)."""
+    import numpy as np
+
+    from repro_torch.core.samplers.algorithm2 import Algorithm2Sampler
+    from repro_torch.fl.partition import by_class_shards
+    from repro_torch.fl.server import FederatedServer, FLConfig
+    from repro_torch.models.simple import init_mlp, params_to_numpy
+    from repro_torch.optim.sgd import sgd
+
+    ds = by_class_shards(n_classes=10, clients_per_class=2, train_per_client=40,
+                         test_per_client=10, dim=16, seed=0)
+    params = init_mlp((16, 8, 10), seed=1, device="cpu")
+    d = sum(v.numel() for v in params.values())
+    sampler = Algorithm2Sampler(ds.population, 5, update_dim=d, seed=0, device=device)
+    plans, losses = [], []
+
+    def on_round(rec):
+        plans.append(np.array(sampler.plan.r_tokens))
+        losses.append(rec.train_loss)
+
+    cfg = FLConfig(n_rounds=3, n_local_steps=5, batch_size=8, seed=0)
+    with FederatedServer(ds, sampler, params, sgd(0.05), cfg, device=device) as srv:
+        srv.run(on_round=on_round)
+    return plans, np.array(losses), params_to_numpy(srv.params)
+
+
+def phase_small_input():
+    import numpy as np
+
+    cpu, gpu = _tiny_run("cpu"), _tiny_run("cuda")
+    for a, b in zip(cpu[0], gpu[0]):
+        if not np.array_equal(a, b):
+            fail("small input: the card's plan differs from the CPU's")
+    if not np.allclose(cpu[1], gpu[1], atol=1e-4):
+        fail(f"small input: losses differ, cpu {cpu[1]} vs cuda {gpu[1]}")
+    perr = max(float(np.abs(cpu[2][k] - gpu[2][k]).max()) for k in cpu[2])
+    if perr > 1e-4:
+        fail(f"small input: final params differ by {perr}")
+    print(f"kernels: small input, card vs CPU: plans equal over 3 rounds, "
+          f"max loss diff {float(np.abs(cpu[1] - gpu[1]).max()):.2e}, max param diff {perr:.2e}")
+
+
+def _slice_run(torch, ds, params, measure, n_rounds, label):
+    import numpy as np
+
+    from repro_torch.core.samplers.algorithm2 import Algorithm2Sampler
+    from repro_torch.core.samplers.base import validate_plan
+    from repro_torch.fl.server import FederatedServer, FLConfig
+    from repro_torch.kernels.aggregate import ops as agg_ops
+    from repro_torch.kernels.similarity import ops as sim_ops
+    from repro_torch.optim.sgd import sgd
+
+    d = sum(v.numel() for v in params.values())
+    sampler = Algorithm2Sampler(ds.population, 10, update_dim=d, seed=0, measure=measure)
+    cfg = FLConfig(n_rounds=n_rounds, n_local_steps=50, batch_size=50, seed=0)
+    recs, times = [], []
+    srv = FederatedServer(ds, sampler, params, sgd(0.01), cfg)
+    torch.cuda.synchronize()
+    sim_ops.launches.update(gram=0, l1=0)
+    agg_ops.launches.update(aggregate=0)
+    last = time.perf_counter()
+
+    def on_round(rec):
+        nonlocal last
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        times.append((now - last) * 1e3)
+        last = now
+        recs.append(rec)
+
+    with srv:
+        srv.run(on_round=on_round)
+    torch.cuda.synchronize()
+    counts = {**sim_ops.launches, **agg_ops.launches}
+    for rec, ms in zip(recs, times):
+        print(f"slice[{label}]: round {rec.round} {ms:.3f} ms, plan_build_ms "
+              f"{rec.plan_build_ms:.3f}, distinct {rec.n_distinct_clients}, "
+              f"train_loss {rec.train_loss:.4f}, test_acc {rec.test_acc:.4f}")
+    print(f"slice[{label}]: launches {json.dumps(counts)}")
+    if len(recs) != n_rounds:
+        fail(f"slice[{label}]: {len(recs)} rounds of {n_rounds}")
+    for rec in recs:
+        if not (math.isfinite(rec.train_loss) and 0.0 <= rec.test_acc <= 1.0):
+            fail(f"slice[{label}]: round {rec.round} loss/acc out of range")
+        if not 1 <= rec.n_distinct_clients <= 10:
+            fail(f"slice[{label}]: round {rec.round} drew {rec.n_distinct_clients} clients")
+    for k, v in srv.params.items():
+        if v.shape != params[k].shape or not bool(torch.isfinite(v).all()):
+            fail(f"slice[{label}]: parameter {k} is not finite or changed shape")
+    validate_plan(sampler.plan, ds.population)
+    if len(np.unique(sampler.plan.cluster_of[sampler.plan.cluster_of >= 0])) < 2:
+        fail(f"slice[{label}]: the plan never left the cold-start clustering")
+    sim_op = "l1" if measure == "l1" else "gram"
+    for name in (sim_op, "aggregate"):
+        if counts[name] <= 0:
+            fail(f"slice[{label}]: kernel {name} was never launched on the main path")
+    return srv.params, counts, float(np.median(times))
+
+
+def phase_slice(torch):
+    from repro_torch.fl.partition import by_class_shards
+    from repro_torch.models.simple import init_mlp
+
+    t0 = time.perf_counter()
+    ds = by_class_shards(n_classes=10, clients_per_class=10, train_per_client=500,
+                         test_per_client=100, dim=WIDTH[0], seed=0)
+    params = init_mlp(WIDTH, seed=0)
+    d = sum(v.numel() for v in params.values())
+    if d != 39760:
+        fail(f"model width d = {d}, expected 39760")
+    print(f"slice: dataset and init {time.perf_counter() - t0:.3f} s, d = {d}, "
+          f"{ds.n_clients} clients")
+    params, counts_a, round_ms = _slice_run(torch, ds, params, "arccos", 5, "arccos")
+    params, counts_l, _ = _slice_run(torch, ds, params, "l1", 2, "l1")
+    launches = {"gram": counts_a["gram"], "l1": counts_l["l1"], "aggregate": counts_a["aggregate"]}
+    return launches, ds, params, round_ms
+
+
+def _kernel_events(torch, prof):
+    cuda = torch.autograd.DeviceType.CUDA
+    return [e for e in prof.events() if e.device_type == cuda]
+
+
+def _busy_us(events) -> float:
+    """Length of the union of the events' device intervals, in µs."""
+    spans = sorted((e.time_range.start, e.time_range.end) for e in events)
+    busy, cur_s, cur_e = 0.0, None, None
+    for s0, e0 in spans:
+        if cur_e is None or s0 > cur_e:
+            if cur_e is not None:
+                busy += cur_e - cur_s
+            cur_s, cur_e = s0, e0
+        else:
+            cur_e = max(cur_e, e0)
+    return busy + (cur_e - cur_s if cur_e is not None else 0.0)
+
+
+def device_ms(torch, fn, reps: int = 20) -> float:
+    """Device-busy ms per call of ``fn``, from a torch.profiler trace."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return _busy_us(_kernel_events(torch, prof)) / 1e3 / reps
+
+
+def phase_trace(torch, ds, params, round_ms):
+    """One more arccos round under torch.profiler: device busy time by
+    kernel, and the idle share of that same round's wall time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core.samplers.algorithm2 import Algorithm2Sampler
+    from repro_torch.fl.server import FederatedServer, FLConfig
+    from repro_torch.optim.sgd import sgd
+
+    d = sum(v.numel() for v in params.values())
+    sampler = Algorithm2Sampler(ds.population, 10, update_dim=d, seed=1)
+    cfg = FLConfig(n_rounds=2, n_local_steps=50, batch_size=50, seed=1)
+    with FederatedServer(ds, sampler, params, sgd(0.01), cfg) as srv:
+        srv.run_round(0)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            srv.run_round(1)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+    events = _kernel_events(torch, prof)
+    if not events:
+        fail("trace: the profiler recorded no device activity in a round")
+    busy_ms = _busy_us(events) / 1e3
+    by_name: dict[str, list] = {}
+    for e in events:
+        entry = by_name.setdefault(e.name, [0, 0.0])
+        entry[0] += 1
+        entry[1] += (e.time_range.end - e.time_range.start) / 1e3
+    print(f"trace: one round, device busy {busy_ms:.3f} ms of its {wall_ms:.3f} ms wall "
+          f"({len(events)} device events), idle share {1 - busy_ms / wall_ms:.4f}; "
+          f"the unprofiled median round took {round_ms:.3f} ms")
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1][1])
+    for name, (count, ms) in ranked[:10]:
+        print(f"trace:   {ms:9.4f} ms  {count:5d}x  {name[:90]}")
+    for name, (count, ms) in ranked:
+        if "pairwise_" in name or "aggregate_" in name:
+            print(f"trace:   port kernel {ms:9.4f} ms  {count:5d}x  {name[:90]}")
+
+
+def phase_times(torch, gen, name, err, launches):
+    from repro_torch.kernels.aggregate import ops as agg_ops
+    from repro_torch.kernels.aggregate.ref import aggregate_ref
+    from repro_torch.kernels.similarity import ops as sim_ops
+    from repro_torch.kernels.similarity.ref import gram_ref, l1_ref
+
+    part, bw, f32 = peaks_for(name)
+    n, d = SIM_SHAPES[0]
+    G = (SIM_SCALE * torch.randn((n, d), generator=gen)).cuda()
+    k, p = AGG_SHAPE
+    U = torch.randn((k, p), generator=gen).cuda()
+    w = torch.rand((k,), generator=gen).cuda()
+    sim_bytes = 4 * (n * d + n * n)
+    sim_ops_count = n * (n + 1) * d  # the i <= j half: n(n+1)/2 pairs × d × 2
+    agg_bytes = 4 * (k * p + k + p)
+    rows = []
+    cases = [
+        ("similarity_gram", "src/repro_torch/csrc/similarity.cu",
+         "src/repro/kernels/similarity/kernel.py:142",
+         lambda: sim_ops.pairwise_sums(G, "gram"), lambda: gram_ref(G), lambda: G @ G.T,
+         sim_bytes, sim_ops_count),
+        ("similarity_l1", "src/repro_torch/csrc/similarity.cu",
+         "src/repro/kernels/similarity/kernel.py:142",
+         lambda: sim_ops.pairwise_sums(G, "l1"), lambda: l1_ref(G),
+         lambda: torch.cdist(G, G, p=1), sim_bytes, sim_ops_count),
+        ("aggregate", "src/repro_torch/csrc/aggregate.cu",
+         "src/repro/kernels/aggregate/kernel.py:33",
+         lambda: agg_ops.aggregate_flat(U, w), lambda: aggregate_ref(U, w),
+         lambda: torch.mv(U.T, w), agg_bytes, 2 * k * p),
+    ]
+    for kname, source, replaces, kern, plain, lib, nbytes, nops in cases:
+        ms = time_ms(torch, kern)
+        plain_ms = time_ms(torch, plain, reps=10)
+        lib_ms = time_ms(torch, lib)
+        dev = [device_ms(torch, f) for f in (kern, plain, lib)]
+        t_bytes = nbytes / bw * 1e3
+        t_ops = nops / f32 * 1e3
+        bound = max(t_bytes, t_ops)
+        key = {"similarity_gram": "gram", "similarity_l1": "l1"}.get(kname, "aggregate")
+        rows.append({
+            "name": kname, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": launches[key], "max_abs_err": err[key], "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": lib_ms,
+        })
+        print(f"times: {kname} {ms:.6f} ms, plain {plain_ms:.6f} ms, library {lib_ms:.6f} ms, "
+              f"bound {bound:.6f} ms ({rows[-1]['bound_by']}; {part} peaks "
+              f"{bw / 1e12:.2f} TB/s, {f32 / 1e12:.0f} TFLOP/s f32)")
+        print(f"times: {kname} device-busy per call (profiler): kernel {dev[0]:.6f} ms, "
+              f"plain {dev[1]:.6f} ms, library {dev[2]:.6f} ms"
+              + ("; the event time is wrapper-bound" if dev[0] < 0.5 * ms else ""))
+    return rows
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; this needs an NVIDIA GPU",
+              file=sys.stderr)
+        return 1
+    if not (SRC / "repro_torch").is_dir():
+        print(f"chip_smoke: no port package under {SRC}; run from a checkout of the repo",
+              file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(SRC))
+    # full f32 in every product: TF32 error can flip a Ward merge
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    name = torch.cuda.get_device_name(0)
+    gen = torch.Generator().manual_seed(0)
+    t0 = time.perf_counter()
+    phase_build()
+    err = phase_kernels(torch, gen)
+    phase_small_input()
+    launches, ds, params, round_ms = phase_slice(torch)
+    phase_trace(torch, ds, params, round_ms)
+    rows = phase_times(torch, gen, name, err, launches)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip()
+    print(f"total: {time.perf_counter() - t0:.3f} s")
+    print(smi)
+    print(json.dumps({"kernels": rows}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,155 @@
+# Adapted from src/repro/core/samplers/base.py, without availability,
+# overselection and checkpoint state.
+"""Sampler interface + Proposition-1 validation.
+
+A sampler consumes the client population (and, for Algorithm 2, the clients'
+representative gradients) and produces a :class:`SampleResult` per round.
+Plan-based samplers expose their ``SamplingPlan`` so its Proposition-1
+conditions can be checked exactly.
+
+Not ported yet: availability-conditioned and overselecting draws and the
+checkpointable sampler state (ROADMAP A10).
+"""
+from __future__ import annotations
+
+import abc
+from typing import Optional
+
+import numpy as np
+
+from repro_torch.core.types import ClientPopulation, SamplingPlan, SampleResult
+
+
+class ClientSampler(abc.ABC):
+    """Base class for all client-selection schemes."""
+
+    #: whether the scheme satisfies Assumption 4 (unbiased aggregation)
+    unbiased: bool = True
+    #: whether ``observe_updates`` feeds a re-clustering pipeline (so the
+    #: server should bother producing representative gradients)
+    consumes_updates: bool = False
+
+    def __init__(self, population: ClientPopulation, m: int, *, seed: int = 0):
+        if m <= 0:
+            raise ValueError("m must be positive")
+        self.population = population
+        self.m = int(m)
+        self._rng = np.random.default_rng(seed)
+
+    @abc.abstractmethod
+    def sample(self, round_idx: int) -> SampleResult:
+        """Draw the clients participating in round ``round_idx``."""
+
+    # Hooks -----------------------------------------------------------------
+    def observe_updates(self, client_ids: np.ndarray, updates: np.ndarray) -> None:
+        """Feed back the sampled clients' representative gradients.
+
+        ``updates`` is (len(client_ids), d) — the flattened ``θ_i - θ`` per
+        sampled client. Only similarity-based samplers use this.
+        """
+        del client_ids, updates
+
+    @property
+    def plan(self) -> Optional[SamplingPlan]:
+        """Current ``r_{k,i}`` matrix for plan-based samplers, else None."""
+        return None
+
+    def plan_telemetry(self) -> tuple[int, int]:
+        """(plan_version, plan_lag_rounds) of the plan the next draw uses.
+
+        Static-plan and plan-free samplers report (0, 0); samplers backed by
+        a :class:`repro_torch.fl.planner.PlanService` report the service's active
+        version and how many observed rounds it trails by (always 0 for the
+        synchronous planner).
+        """
+        return (0, 0)
+
+    def plan_cost_telemetry(self) -> tuple[float, float]:
+        """(plan_build_ms, plan_drift) of the backing plan service.
+
+        Plan-free and static-plan samplers report (-1.0, -1.0);
+        PlanService-backed samplers report the wall-clock ms of the most
+        recent completed rebuild and the drift statistic measured at the
+        most recent observation (-1.0 when the drift trigger is off). Lands
+        in ``RoundRecord.plan_build_ms`` / ``plan_drift``.
+        """
+        return (-1.0, -1.0)
+
+    def close(self) -> None:
+        """Release background resources (async planner workers)."""
+
+    # Shared machinery -------------------------------------------------------
+    def _draw_from_plan(self, plan: SamplingPlan) -> SampleResult:
+        """Sample l_k ~ W_k independently (the clustered-sampling draw).
+
+        One vectorized inverse-CDF draw over the (m, n) row-cumsum instead of
+        m ``rng.choice`` calls. The arithmetic mirrors ``Generator.choice``
+        exactly (per-row cumsum, normalize by the last entry, insertion index
+        with ties to the right) and ``rng.random(m)`` consumes the identical
+        uniform stream, so the draws are bit-for-bit those of the old loop.
+        """
+        n = self.population.n_clients
+        cdf = np.cumsum(plan.r, axis=1)
+        total = cdf[:, -1]
+        # rng.choice validated p per call — keep failing fast on
+        # degenerate rows (NaN-poisoned gradients, zero-mass urns)
+        # instead of silently collapsing every such draw onto client 0
+        bad = ~(np.isfinite(total) & (total > 0))
+        if bad.any():
+            k = int(np.argmax(bad))
+            raise ValueError(
+                f"plan row {k} is not a probability distribution "
+                f"(total mass {total[k]!r}); cannot draw from it"
+            )
+        cdf /= total[:, None]
+        u = self._rng.random(plan.m)
+        # searchsorted(side="right") per row: #{i: cdf[k,i] <= u_k};
+        # u < 1 and cdf[k,-1] == 1 exactly, so the index never reaches
+        # n. A zero-mass client repeats its predecessor's cdf value and
+        # can never be hit.
+        clients = (cdf <= u[:, None]).sum(axis=1).astype(np.int64)
+        counts = np.bincount(clients, minlength=n)
+        return SampleResult(clients=clients, agg_weights=counts / plan.m)
+
+
+def validate_plan(
+    plan: SamplingPlan, population: ClientPopulation, *, atol: float = 1e-9
+) -> None:
+    """Assert the two Proposition-1 conditions on an ``r`` matrix.
+
+    * eq. (7): every row of ``r`` is a probability distribution,
+    * eq. (8): every column sums to ``m * p_i`` (unbiasedness).
+
+    Raises ``ValueError`` with a precise diagnostic on violation. When the
+    plan carries its integer token allocation the check is exact.
+    """
+    r = plan.r
+    m, n = r.shape
+    if n != population.n_clients:
+        raise ValueError(f"plan covers {n} clients, population has {population.n_clients}")
+    if (r < -atol).any():
+        bad = np.argwhere(r < -atol)[0]
+        raise ValueError(f"negative probability r[{bad[0]},{bad[1]}] = {r[tuple(bad)]}")
+    row_sums = r.sum(axis=1)
+    if not np.allclose(row_sums, 1.0, atol=atol):
+        k = int(np.argmax(np.abs(row_sums - 1.0)))
+        raise ValueError(f"eq.(7) violated: sum_i r[{k},i] = {row_sums[k]!r} != 1")
+    col_sums = r.sum(axis=0)
+    target = plan.m * population.importances
+    if not np.allclose(col_sums, target, atol=atol):
+        i = int(np.argmax(np.abs(col_sums - target)))
+        raise ValueError(
+            f"eq.(8) violated: sum_k r[k,{i}] = {col_sums[i]!r} != m*p_i = {target[i]!r}"
+        )
+    if plan.r_tokens is not None:
+        tok = np.asarray(plan.r_tokens, dtype=np.int64)
+        M = population.total_samples
+        if (tok.sum(axis=1) != M).any():
+            raise ValueError("integer allocation: some urn does not hold exactly M tokens")
+        expect = plan.m * population.n_samples
+        if (tok.sum(axis=0) != expect).any():
+            i = int(np.argmax(tok.sum(axis=0) != expect))
+            raise ValueError(
+                f"integer allocation: client {i} allocated {tok.sum(axis=0)[i]} "
+                f"tokens, expected m*n_i = {expect[i]}"
+            )

@@ -1,0 +1,76 @@
+"""Server-side model aggregation through the aggregate kernel.
+
+Port of ``src/repro/fl/aggregation.py``. Unbiased schemes (eq. 4):
+``θ^{t+1} = Σ_k (1/m) θ_{l_k}`` — a weighted sum of the distinct updated
+models with the realized weights ``ω_i``; FedAvg-style biased sampling
+(eq. 3) adds ``stale_weight · θ^t``. Every form here stacks the flat client
+models, appends θ^t as one more row carrying ``stale_weight``, and sums the
+rows with :func:`repro_torch.kernels.aggregate.ops.aggregate_flat`.
+
+Flat vectors follow the reference's ``jax.tree_util`` order for a dict:
+leaves sorted by key.
+"""
+from __future__ import annotations
+
+from typing import Sequence
+
+import numpy as np
+import torch
+
+from repro_torch.kernels.aggregate.ops import aggregate_flat
+
+
+def flatten_params(tree: dict) -> torch.Tensor:
+    """Flatten a parameter dict into one vector (sorted-key order)."""
+    return torch.cat([tree[k].reshape(-1) for k in sorted(tree)])
+
+
+def unflatten_params(flat: torch.Tensor, like: dict) -> dict:
+    """Inverse of :func:`flatten_params` for the shapes and dtypes of ``like``."""
+    out, off = {}, 0
+    for k in sorted(like):
+        n = like[k].numel()
+        out[k] = flat[off : off + n].reshape(like[k].shape).to(like[k].dtype)
+        off += n
+    return out
+
+
+def stack_rows(global_params: dict, stacked_params: dict) -> torch.Tensor:
+    """(c + 1, p) f32 kernel input: the c flat client models of
+    ``stacked_params`` (leaves (c, ...)), then θ^t as the last row, each
+    written straight into one buffer."""
+    keys = sorted(global_params)
+    c = stacked_params[keys[0]].shape[0]
+    p = sum(global_params[k].numel() for k in keys)
+    dev = global_params[keys[0]].device
+    rows = torch.empty((c + 1, p), dtype=torch.float32, device=dev)
+    torch.cat([stacked_params[k].reshape(c, -1) for k in keys], dim=1, out=rows[:c])
+    torch.cat([global_params[k].reshape(-1) for k in keys], out=rows[c])
+    return rows
+
+
+def aggregate_rows(rows: torch.Tensor, weights, stale_weight: float) -> torch.Tensor:
+    """Σ_c w_c · rows[c] + stale_weight · rows[-1] for :func:`stack_rows`'
+    output, in one kernel launch."""
+    w = np.append(np.asarray(weights, dtype=np.float32), np.float32(stale_weight))
+    return aggregate_flat(rows, torch.as_tensor(w, device=rows.device))
+
+
+def aggregate_stacked(global_params: dict, stacked_params: dict, weights, stale_weight):
+    """Eq. 3/4 over a stacked client axis (leaves (c, ...)); padded slots
+    carry weight 0 and contribute nothing."""
+    flat = aggregate_rows(stack_rows(global_params, stacked_params), weights, stale_weight)
+    return unflatten_params(flat, global_params)
+
+
+def aggregate_round(
+    global_params: dict,
+    client_params: Sequence[dict],
+    client_weights: np.ndarray,
+    stale_weight: float = 0.0,
+):
+    """Combine distinct client models (+ optional stale global mass)."""
+    if len(client_params) != len(client_weights):
+        raise ValueError(f"{len(client_params)} models vs {len(client_weights)} weights")
+    stacked = {k: torch.stack([c[k] for c in client_params]) for k in global_params}
+    return aggregate_stacked(global_params, stacked, client_weights, stale_weight)

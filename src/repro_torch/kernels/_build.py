@@ -1,0 +1,101 @@
+"""Build the CUDA sources under ``repro_torch/csrc`` and load them with ctypes.
+
+Each ``csrc/<name>.cu`` has a plain C interface. At first use it is compiled
+with ``nvcc`` for ``sm_90a`` into ``<repo>/build/kernels/lib<name>-<hash>.so``
+(the hash is of the source and the flags, so an edited source is rebuilt)
+and loaded with :mod:`ctypes`. Nothing here runs at import time, so the
+module imports on a machine without ``nvcc`` or a GPU.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parents[1] / "csrc"
+#: ``<repo>/build/kernels`` — listed in ``.gitignore``
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+SOURCES = ("similarity", "aggregate")
+
+_lock = threading.Lock()
+_loaded: dict[str, ctypes.CDLL] = {}  # name -> library, one load per process
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(found):
+        raise RuntimeError("nvcc not found on PATH or in /usr/local/cuda/bin")
+    return found
+
+
+def _target(name: str) -> tuple[Path, Path]:
+    src = CSRC / f"{name}.cu"
+    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    return src, BUILD_DIR / f"lib{name}-{digest[:16]}.so"
+
+
+def build(names=SOURCES) -> dict[str, str]:
+    """Compile the named sources that are not built yet, all ``nvcc`` in parallel.
+
+    Returns ``{name: compiler output}`` (``-Xptxas -v`` register and
+    shared-memory report) for the sources it compiled. Raises on any
+    compiler error.
+    """
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = None
+    procs = {}
+    for name in names:
+        src, lib = _target(name)
+        if lib.exists():
+            continue
+        nvcc = nvcc or _nvcc()
+        tmp = lib.with_suffix(f".{os.getpid()}.tmp")
+        procs[name] = (
+            subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(src)],
+                stdout=subprocess.PIPE,
+                stderr=subprocess.STDOUT,
+                text=True,
+            ),
+            tmp,
+            lib,
+        )
+    logs, failed = {}, []
+    for name, (proc, tmp, lib) in procs.items():
+        out, _ = proc.communicate()
+        logs[name] = out
+        if proc.returncode != 0:
+            failed.append(f"{name}.cu (exit {proc.returncode}):\n{out}")
+            continue
+        os.replace(tmp, lib)  # atomic: a concurrent loader never sees half a file
+    if failed:
+        raise RuntimeError("nvcc failed for " + "\n".join(failed))
+    return logs
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The ctypes library for ``csrc/<name>.cu``, building it if needed."""
+    with _lock:
+        lib = _loaded.get(name)
+        if lib is None:
+            build((name,))
+            lib = ctypes.CDLL(str(_target(name)[1]))
+            _loaded[name] = lib
+        return lib
+
+
+def check(lib: ctypes.CDLL, err: int, what: str) -> None:
+    """Raise if a C entry point of ``lib`` returned a non-zero ``cudaError_t``."""
+    if err != 0:
+        lib.cuda_error_string.restype = ctypes.c_char_p
+        lib.cuda_error_string.argtypes = [ctypes.c_int]
+        msg = lib.cuda_error_string(err).decode()
+        raise RuntimeError(f"{what}: CUDA error {err} ({msg}) at launch")

@@ -1,0 +1,138 @@
+"""Pairwise client distances through the CUDA similarity kernel.
+
+Port of ``src/repro/kernels/similarity/ops.py``. :func:`pairwise_sums` is
+the kernel's wrapper: for a CUDA tensor it launches
+``csrc/similarity.cu`` (Gram or L1, i ≤ j tiles, d split across blocks
+into a fixed-order second pass), for a CPU tensor it runs the plain
+version in ``ref.py``. The reference's two Pallas kernels (the padded
+one-shot ``pairwise_kernel`` and the masked ``pairwise_kernel_fused``)
+compute the same function, so both entry points below,
+:func:`pairwise_distances_device` and :func:`pairwise_distances_streamed`,
+launch the one CUDA kernel; :func:`make_distance_fn` keeps the
+reference's ``STREAM_D_THRESHOLD`` switch between them.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.similarity.ref import (
+    _zero_diag_symmetrize,
+    distances_from_gram,
+    gram_ref,
+    l1_ref,
+)
+
+#: d above which the "auto" backend takes the streamed entry point.
+STREAM_D_THRESHOLD = 8192
+
+#: The kernel's tile edge and d-chunk, as in ``csrc/similarity.cu``.
+TILE = 64
+BK = 32
+#: Blocks the d-split aims for: two per SM of a 132-SM H100. A constant,
+#: not the card's SM count, so the split (and the bits) are the same on
+#: every card.
+TARGET_BLOCKS = 264
+
+_OPS = {"gram": 0, "l1": 1}
+
+#: Kernel launches per op since the count was last reset; a launch is one
+#: call of the C entry point (partial pass + reduce pass).
+launches = {"gram": 0, "l1": 0}
+
+
+def split_plan(n: int, d: int) -> tuple[int, int]:
+    """(splits, chunks per split) of the d axis for an (n, d) input."""
+    n_tiles = -(-n // TILE)
+    n_pairs = n_tiles * (n_tiles + 1) // 2
+    n_chunks = -(-d // BK)
+    splits = max(1, min(n_chunks, -(-TARGET_BLOCKS // n_pairs)))
+    per = -(-n_chunks // splits)
+    return -(-n_chunks // per), per
+
+
+@functools.cache
+def _lib():
+    """The similarity library, with its C signature bound once."""
+    lib = _build.load("similarity")
+    lib.pairwise_sums.restype = ctypes.c_int
+    lib.pairwise_sums.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    return lib
+
+
+def pairwise_sums(G: torch.Tensor, op: str) -> torch.Tensor:
+    """G (n, d) f32 -> (n, n): the Gram matrix (``op="gram"``) or L1 sums."""
+    if op not in _OPS:
+        raise ValueError(f"unknown op {op!r}; choose gram | l1")
+    if G.dim() != 2 or G.shape[0] < 1 or G.shape[1] < 1:
+        raise ValueError(f"G must be (n, d) with n, d >= 1, got {tuple(G.shape)}")
+    if G.dtype != torch.float32:
+        raise TypeError(f"G must be float32, got {G.dtype}")
+    if G.device.type == "cpu":
+        return gram_ref(G) if op == "gram" else l1_ref(G)
+    if G.device.type != "cuda":
+        raise ValueError(f"unsupported device {G.device}")
+    if not G.is_contiguous():
+        raise ValueError("G must be contiguous")
+    n, d = G.shape
+    splits, per = split_plan(n, d)
+    partial = torch.empty((splits, n, n), dtype=torch.float32, device=G.device)
+    out = torch.empty((n, n), dtype=torch.float32, device=G.device)
+    lib = _lib()
+    err = lib.pairwise_sums(
+        G.data_ptr(),
+        partial.data_ptr(),
+        out.data_ptr(),
+        n,
+        d,
+        _OPS[op],
+        splits,
+        per,
+        torch.cuda.current_stream(G.device).cuda_stream,
+    )
+    _build.check(lib, err, f"similarity kernel ({op})")
+    launches[op] += 1
+    return out
+
+
+def pairwise_distances_device(G, measure: str = "arccos") -> torch.Tensor:
+    """(n, d) representative gradients -> (n, n) distance matrix."""
+    if measure not in ("arccos", "l2", "l1"):
+        raise ValueError(f"unknown measure {measure!r}")
+    G = torch.as_tensor(G).to(torch.float32).contiguous()
+    if measure == "l1":
+        return _zero_diag_symmetrize(pairwise_sums(G, "l1"))
+    return distances_from_gram(pairwise_sums(G, "gram"), measure)
+
+
+def pairwise_distances_streamed(G, measure: str = "arccos") -> torch.Tensor:
+    """(n, d) -> (n, n) distances for model-sized d.
+
+    The same kernel launch as :func:`pairwise_distances_device`: the kernel
+    streams d in (64 × 32) shared-memory slices and splits it across
+    blocks, so G is never padded whatever its width. The reference's two
+    entry points differ (padded one-shot vs masked streaming); here the
+    switch in :func:`make_distance_fn` only keeps the reference's shape.
+    """
+    return pairwise_distances_device(G, measure)
+
+
+def make_distance_fn():
+    """Adapter matching ``repro_torch.core.samplers.algorithm2.DistanceFn``:
+    (G, measure) -> (n, n) numpy distances.
+
+    The one-shot entry point is used up to :data:`STREAM_D_THRESHOLD`
+    coordinates and the streamed one beyond it.
+    """
+
+    def fn(G, measure: str):
+        if G.shape[1] > STREAM_D_THRESHOLD:
+            out = pairwise_distances_streamed(G, measure)
+        else:
+            out = pairwise_distances_device(G, measure)
+        return out.cpu().numpy()
+
+    return fn

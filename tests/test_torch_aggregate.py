@@ -1,0 +1,70 @@
+"""The port's aggregate op against the JAX reference (Pallas interpret mode)."""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.fl.aggregation import aggregate_stacked as ref_aggregate_stacked
+from repro.kernels.aggregate.kernel import aggregate_kernel
+from repro_torch.fl.aggregation import aggregate_stacked
+from repro_torch.kernels.aggregate.ops import aggregate_flat
+
+RNG = np.random.default_rng(0)
+
+
+@pytest.mark.parametrize("k,p", [(1, 64), (7, 1000), (11, 12345)])
+def test_aggregate_matches_reference_kernel(k, p):
+    U = RNG.normal(size=(k, p)).astype(np.float32)
+    w = RNG.normal(size=(k,)).astype(np.float32)
+    want = np.asarray(aggregate_kernel(jnp.asarray(U), jnp.asarray(w), block_p=512, interpret=True))
+    got = aggregate_flat(torch.from_numpy(U), torch.from_numpy(w)).numpy()
+    np.testing.assert_allclose(got, want, rtol=2e-5, atol=2e-5)
+
+
+def _stacked(c, seed):
+    rng = np.random.default_rng(seed)
+    shapes = {"w0": (16, 8), "b0": (8,), "w1": (8, 10), "b1": (10,)}
+    glob = {k: rng.normal(size=s).astype(np.float32) for k, s in shapes.items()}
+    stacked = {k: rng.normal(size=(c,) + s).astype(np.float32) for k, s in shapes.items()}
+    return glob, stacked
+
+
+def test_stale_row_matches_reference_aggregate_stacked():
+    glob, stacked = _stacked(6, seed=1)
+    weights = np.array([0.2, 0.1, 0.1, 0.3, 0.0, 0.0], np.float32)
+    sw = 0.3
+    want = ref_aggregate_stacked(
+        {k: jnp.asarray(v) for k, v in glob.items()},
+        {k: jnp.asarray(v) for k, v in stacked.items()},
+        jnp.asarray(weights),
+        sw,
+    )
+    got = aggregate_stacked(
+        {k: torch.from_numpy(v) for k, v in glob.items()},
+        {k: torch.from_numpy(v) for k, v in stacked.items()},
+        weights,
+        sw,
+    )
+    assert sorted(got) == sorted(want)
+    for k in want:
+        np.testing.assert_allclose(got[k].numpy(), np.asarray(want[k]), rtol=2e-5, atol=2e-5)
+
+
+def test_padded_zero_weight_slots_add_nothing():
+    glob, stacked = _stacked(4, seed=2)
+    weights = np.array([0.25, 0.25, 0.5, 0.0], np.float32)
+    as_t = lambda d: {k: torch.from_numpy(v) for k, v in d.items()}
+    full = aggregate_stacked(as_t(glob), as_t(stacked), weights, 0.0)
+    live = aggregate_stacked(as_t(glob), {k: v[:3] for k, v in as_t(stacked).items()}, weights[:3], 0.0)
+    for k in full:
+        np.testing.assert_array_equal(full[k].numpy(), live[k].numpy())
+
+
+def test_wrapper_rejects_bad_input():
+    U = torch.zeros(3, 8)
+    with pytest.raises(ValueError):
+        aggregate_flat(U, torch.zeros(2))
+    with pytest.raises(TypeError):
+        aggregate_flat(U.double(), torch.zeros(3, dtype=torch.float64))
+    with pytest.raises(ValueError):
+        aggregate_flat(U.to("meta"), torch.zeros(3, device="meta"))

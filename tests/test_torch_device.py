@@ -1,0 +1,119 @@
+"""Device resolution: no silent CPU fallback, explicit device="cpu" works."""
+import shutil
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core.samplers.algorithm2 import Algorithm2Sampler
+from repro_torch.device import resolve_device
+from repro_torch.fl.engine import BatchedRoundEngine
+from repro_torch.fl.gradient_store import GradientStore
+from repro_torch.fl.partition import by_class_shards
+from repro_torch.fl.server import FederatedServer, FLConfig
+from repro_torch.kernels import _build
+from repro_torch.models.simple import init_mlp
+from repro_torch.optim.sgd import sgd
+
+DATA = dict(n_classes=4, clients_per_class=1, train_per_client=10, test_per_client=2, dim=8, seed=0)
+
+
+ENTRY_POINTS = [
+    "resolve_device", "init_mlp", "GradientStore", "BatchedRoundEngine",
+    "Algorithm2Sampler", "FederatedServer",
+]
+
+
+def _call(name, device):
+    """Call entry point ``name`` with ``device`` (None: its default)."""
+    ds = by_class_shards(**DATA)
+    kw = {} if device is None else {"device": device}
+    if name == "resolve_device":
+        return resolve_device(**kw)
+    if name == "init_mlp":
+        return init_mlp((8, 4), **kw)
+    if name == "GradientStore":
+        return GradientStore(4, 6, **kw)
+    if name == "BatchedRoundEngine":
+        return BatchedRoundEngine(ds, 2, 1, 2, **kw)
+    if name == "Algorithm2Sampler":
+        return Algorithm2Sampler(ds.population, 2, update_dim=6, **kw)
+    params = init_mlp((8, 4), device="cpu")
+    sampler = Algorithm2Sampler(ds.population, 2, update_dim=36, device="cpu")
+    return FederatedServer(ds, sampler, params, sgd(0.1), FLConfig(n_rounds=1), **kw)
+
+
+@pytest.mark.parametrize("name", ENTRY_POINTS)
+def test_default_device_raises_without_cuda(name):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA GPU is present, so the default device is valid")
+    with pytest.raises(RuntimeError, match="cuda"):
+        _call(name, None)
+
+
+@pytest.mark.parametrize("name", ENTRY_POINTS)
+def test_explicit_cpu_works(name):
+    _call(name, "cpu")
+
+
+def test_unknown_device_type_raises():
+    with pytest.raises(ValueError):
+        resolve_device("meta")
+
+
+def test_build_raises_without_nvcc(monkeypatch):
+    """Without nvcc the kernel build raises; nothing falls back to the plain
+    version."""
+    if shutil.which("nvcc"):
+        pytest.skip("nvcc is present")
+    monkeypatch.setattr(_build.os.path, "exists", lambda p: False)
+    with pytest.raises(RuntimeError, match="nvcc"):
+        _build._nvcc()
+
+
+def test_build_module_imports_without_nvcc():
+    assert set(_build.SOURCES) == {"similarity", "aggregate"}
+    for name in _build.SOURCES:
+        src, lib = _build._target(name)
+        assert src.exists()
+        assert lib.parent == _build.BUILD_DIR and lib.name.startswith(f"lib{name}-")
+
+
+def test_unported_options_raise():
+    ds = by_class_shards(**DATA)
+    with pytest.raises(NotImplementedError):
+        GradientStore(4, 6, sketch="srp", device="cpu")
+    with pytest.raises(NotImplementedError):
+        BatchedRoundEngine(ds, 2, 1, 2, device="cpu", mesh="2x1")
+    sampler = Algorithm2Sampler(ds.population, 2, update_dim=36, device="cpu")
+    params = init_mlp((8, 4), device="cpu")
+    for kw in ({"population": object()}, {"scheduler": object()}, {"availability": object()}):
+        with pytest.raises(NotImplementedError):
+            FederatedServer(ds, sampler, params, sgd(0.1), FLConfig(), device="cpu", **kw)
+    with pytest.raises(NotImplementedError):
+        FederatedServer(ds, sampler, params, sgd(0.1), FLConfig(mesh_spec="2x1"), device="cpu")
+
+
+def test_staging_budget_falls_back_to_compat():
+    ds = by_class_shards(**DATA)
+    sampler = Algorithm2Sampler(ds.population, 2, update_dim=36, device="cpu")
+    params = init_mlp((8, 4), device="cpu")
+    with pytest.warns(UserWarning, match="compat"):
+        srv = FederatedServer(ds, sampler, params, sgd(0.1), FLConfig(n_rounds=1, max_staged_bytes=1),
+                              device="cpu")
+    assert srv._engine is None
+    assert len(srv.run().records) == 1
+
+
+def test_store_update_semantics():
+    store = GradientStore(4, 3, staleness_decay=0.5, device="cpu")
+    store.update([1, 2], np.ones((2, 3), np.float32))
+    store.update([2, 9, 2], np.stack([np.full(3, 2.0), np.full(3, 7.0), np.full(3, 3.0)]).astype(np.float32))
+    G = store.asnumpy()
+    np.testing.assert_array_equal(G[1], np.full(3, 0.5))  # decayed once
+    np.testing.assert_array_equal(G[2], np.full(3, 3.0))  # last write wins
+    np.testing.assert_array_equal(G[[0, 3]], 0.0)  # id 9 dropped
+    snap = store.snapshot()
+    store.scatter_scaled([0], np.ones((1, 3), np.float32), scale=2.0)
+    assert snap[0].abs().sum() == 0  # snapshots are copies
+    np.testing.assert_array_equal(store.gather_rows([0]).numpy(), np.full((1, 3), 2.0))

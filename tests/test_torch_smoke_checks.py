@@ -1,0 +1,70 @@
+"""The kernel checks of ``chip_smoke.py``, held against wrong answers on the CPU.
+
+The smoke run holds the CUDA Gram kernel against its plain version with a
+tolerance relative to ‖g_i‖·‖g_j‖. These tests show that the check accepts
+a Gram summed in another f32 order and rejects a kernel that drops the
+ragged d tail (the last ``d mod 32`` columns, the kernel's d-chunk) or
+halves every entry, at each shape the smoke run checks.
+"""
+import importlib.util
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core.clustering.similarity import pairwise_distances
+from repro_torch.kernels.similarity import ops
+from repro_torch.kernels.similarity.ref import gram_ref
+
+ROOT = Path(__file__).resolve().parents[1]
+_spec = importlib.util.spec_from_file_location("chip_smoke", ROOT / "chip_smoke.py")
+smoke = importlib.util.module_from_spec(_spec)
+_spec.loader.exec_module(smoke)
+
+
+def _G(n, d):
+    rng = np.random.default_rng(0)
+    return torch.from_numpy((smoke.SIM_SCALE * rng.normal(size=(n, d))).astype(np.float32))
+
+
+def _split_gram(G, splits=88):
+    """G Gᵀ as f32 partial sums over d-splits added in a fixed order, the
+    way the CUDA kernel sums."""
+    out = torch.zeros((G.shape[0], G.shape[0]))
+    for part in torch.tensor_split(G, splits, dim=1):
+        out += part @ part.T
+    return out
+
+
+@pytest.mark.parametrize("n,d", smoke.SIM_SHAPES)
+def test_gram_check_accepts_other_f32_orders(n, d):
+    G = _G(n, d)
+    want = gram_ref(G)
+    exact = (G.double() @ G.double().T).float()
+    assert smoke.gram_rel_err(_split_gram(G), want, G) <= smoke.GRAM_RTOL
+    assert smoke.gram_rel_err(exact, want, G) <= smoke.GRAM_RTOL
+
+
+@pytest.mark.parametrize("wrong", ["drop_tail", "halve"])
+@pytest.mark.parametrize("n,d", smoke.SIM_SHAPES)
+def test_gram_check_rejects_wrong_kernels(n, d, wrong):
+    G = _G(n, d)
+    want = gram_ref(G)
+    if wrong == "drop_tail":
+        tail = d % ops.BK
+        assert tail > 0, "every checked shape has a ragged d tail"
+        got = gram_ref(G[:, : d - tail].contiguous())
+    else:
+        got = 0.5 * want
+    assert smoke.gram_rel_err(got, want, G) > smoke.GRAM_RTOL
+
+
+@pytest.mark.parametrize("measure", ["arccos", "l2", "l1"])
+@pytest.mark.parametrize("n,d", [(13, 101), (20, 300)])
+def test_cpu_ops_match_f64_definitions(measure, n, d):
+    """The port's CPU path against the f64 numpy measure definitions."""
+    G = (1e-2 * np.random.default_rng(5).normal(size=(n, d))).astype(np.float32)
+    G[[2, 6]] = 0.0  # never-sampled clients
+    got = ops.make_distance_fn()(torch.from_numpy(G), measure)
+    np.testing.assert_allclose(got, pairwise_distances(G, measure), atol=1e-4)
