@@ -7,28 +7,38 @@ Run from the repository root:
 
 Phases, one line (or a few) each; any failure raises and exits non-zero:
 
-1. build   — compile ``csrc/similarity.cu`` and ``csrc/aggregate.cu`` for
-   ``sm_90a`` from the checkout and print the seconds it took;
+1. build   — compile ``csrc/similarity.cu``, ``csrc/aggregate.cu`` and
+   ``csrc/sketch.cu`` for ``sm_90a`` from the checkout (all ``nvcc`` in
+   parallel) and print the seconds it took and each kernel's ptxas report;
 2. kernels — hold each kernel against its plain PyTorch version on the card
    at the main path's shapes (Gram: |got − want| ≤ 1e-5·‖g_i‖·‖g_j‖, the
    error on the scale of the entries; L1: atol 1e-4 on entries of order
-   0.1–50; aggregate: rtol and atol 2e-5) and check the port on the card
-   against the port on the CPU on a small input (equal plans, losses and
-   params to atol 1e-4);
+   0.1–50; aggregate: rtol and atol 2e-5; SRP: |got − want| ≤
+   1e-5·‖x_i‖·‖S_:,j‖ with ‖S_:,j‖ = √(d/d′), its signs bit-equal to the
+   plain version's, bit-reproducible and independent of the rows it is
+   batched with; countsketch bit-reproducible) and check the port on the
+   card against the port on the CPU on a small input (equal plans, losses
+   and params to atol 1e-4), unsketched and with the SRP sketch under Ward
+   and k-means;
 3. slice   — the Algorithm 2 FL round loop at the paper's MNIST width
    (784 → 50 → 10, d = 39,760; 100 clients, m = 10, N = B = 50, lr 0.01):
-   5 rounds with the arccos measure, then 2 with L1. Kernel launch counts
-   are reset just before each run and read just after; each kernel of the
-   run must have launched;
-4. trace   — one more full-width round under ``torch.profiler``: device
-   busy time, and the idle share of that same round's wall time, and
-   device time by kernel;
-5. times   — each kernel, its plain version and one PyTorch library call
+   5 rounds with the arccos measure, 2 with L1, and 5 arccos rounds with
+   the SRP sketch to d′ = 64 (``slice[srp]``). Kernel launch counts are
+   reset just before each run and read just after; each kernel of the run
+   must have launched, and ``slice[srp]`` once per round each;
+4. fleet   — Algorithm 2 over 100,000 clients (m = 20, d = 39,760,
+   ``sketch="srp"``, d′ = 64, ``clusterer="kmeans"``) observing 3 rounds of
+   64 update rows: the store's resident bytes, the sketch-plus-scatter
+   time and ``plan_build_ms``, with a valid plan rebuilt every round;
+5. trace   — one more full-width round under ``torch.profiler``, unsketched
+   and sketched: device busy time, the idle share of that same round's wall
+   time, and device time by kernel;
+6. times   — each kernel, its plain version and one PyTorch library call
    on the same inputs, timed with CUDA events (and device-busy time from
    the profiler), beside the card's bound.
 
 The last lines are the card's name and power limit (nvidia-smi), a JSON
-object with one entry per kernel, and ``{"ok": true, "device": ...}``.
+object with one entry per kernel and shape, and ``{"ok": true, "device": ...}``.
 The script imports neither JAX nor the JAX package ``repro``.
 """
 from __future__ import annotations
@@ -61,6 +71,15 @@ GRAM_FLOOR = 1e-30
 AGG_SHAPE = (11, 39760)  # m = 10 client rows + the θ^t row
 AGG_TOL = 2e-5
 WIDTH = (784, 50, 10)
+D_PRIME = 64  # sketch width of slice[srp] and the fleet (bench_store_scale's d')
+SKETCHED_SIM_SHAPE = (100, D_PRIME)  # the sketched store the similarity kernel reads
+# (c, d, d'): the round's 10 rows, the fleet's 64, a ragged shape, a tiny one
+SRP_SHAPES = [(10, 39760, D_PRIME), (64, 39760, D_PRIME), (13, 1037, 64), (8, 96, 8)]
+SRP_SEED = 7
+# SRP: tolerance relative to ‖x_i‖·‖S_:,j‖, the scale of an output entry
+SRP_RTOL = 1e-5
+SIGN_D = 1037  # the identity block whose sketch is S itself
+FLEET = dict(n=100_000, m=20, rows=64, rounds=3)
 
 
 def fail(msg: str) -> None:
@@ -78,6 +97,13 @@ def gram_rel_err(got, want, G) -> float:
     """max |got − want| / (‖g_i‖·‖g_j‖ + floor) over the (n, n) Gram entries."""
     norms = G.double().norm(dim=1)
     scale = norms[:, None] * norms[None, :] + GRAM_FLOOR
+    return float(((got.double() - want.double()).abs() / scale).max())
+
+
+def srp_rel_err(got, want, X, d_prime: int) -> float:
+    """max |got − want| / (‖x_i‖·√(d/d′) + floor) over the (c, d′) entries."""
+    col = math.sqrt(X.shape[1] / d_prime)  # ‖S_:,j‖: d entries of ±1/√d′
+    scale = X.double().norm(dim=1)[:, None] * col + GRAM_FLOOR
     return float(((got.double() - want.double()).abs() / scale).max())
 
 
@@ -141,6 +167,21 @@ def phase_kernels(torch, gen):
             err[op] = max(err[op], e)
             print(f"kernels: {op} ({n}, {d}) max_abs_err {e:.3e}, {limit}, "
                   f"max |want| {float(want.abs().max()):.3e}, reproducible")
+    n, d = SKETCHED_SIM_SHAPE
+    G = (SIM_SCALE * torch.randn((n, d), generator=gen)).cuda()
+    got, want = sim_ops.pairwise_sums(G, "gram"), gram_ref(G)
+    rel = gram_rel_err(got, want, G)
+    if not math.isfinite(rel) or rel > GRAM_RTOL:
+        fail(f"gram kernel at the sketched store's ({n}, {d}): error {rel} of ‖g_i‖·‖g_j‖")
+    got_l1, want_l1 = sim_ops.pairwise_sums(G, "l1"), l1_ref(G)
+    e_l1 = float((got_l1 - want_l1).abs().max())
+    if not math.isfinite(e_l1) or e_l1 > SIM_ATOL:
+        fail(f"l1 kernel at the sketched store's ({n}, {d}): max abs error {e_l1} > {SIM_ATOL}")
+    splits, per = sim_ops.split_plan(n, d)
+    print(f"kernels: gram and l1 ({n}, {d}) (the sketched store: {splits} d-splits of {per} "
+          f"chunk) gram {rel:.3e} of ‖g_i‖·‖g_j‖ (limit {GRAM_RTOL}), l1 max_abs_err {e_l1:.3e} "
+          f"(atol {SIM_ATOL})")
+    err["srp"] = phase_kernels_srp(torch, gen)
     k, p = AGG_SHAPE
     U = torch.randn((k, p), generator=gen).cuda()
     w = torch.rand((k,), generator=gen).cuda()
@@ -155,7 +196,53 @@ def phase_kernels(torch, gen):
     return err
 
 
-def _tiny_run(device):
+def phase_kernels_srp(torch, gen) -> float:
+    """The SRP kernel against its plain version, its sign bits and its
+    batch independence; countsketch's reproducibility. Returns the max abs
+    error over the checked shapes."""
+    from repro_torch.kernels.sketch import ops as sk_ops
+    from repro_torch.kernels.sketch.ops import CountSketcher
+    from repro_torch.kernels.sketch.ref import sketch_srp_plain, srp_sign_block
+
+    worst = 0.0
+    for c, d, dp in SRP_SHAPES:
+        X = (SIM_SCALE * torch.randn((c, d), generator=gen)).cuda()
+        got = sk_ops.srp_sketch(X, dp, SRP_SEED)
+        again = sk_ops.srp_sketch(X, dp, SRP_SEED)
+        head = sk_ops.srp_sketch(X[:5].contiguous(), dp, SRP_SEED)
+        want = sketch_srp_plain(X, dp, SRP_SEED)
+        torch.cuda.synchronize()
+        rel = srp_rel_err(got, want, X, dp)
+        e = float((got - want).abs().max())
+        if not math.isfinite(rel) or rel > SRP_RTOL:
+            fail(f"srp kernel at ({c}, {d}, {dp}): error {rel} of ‖x_i‖·‖S_:,j‖ > {SRP_RTOL}")
+        if not torch.equal(got, again):
+            fail(f"srp kernel at ({c}, {d}, {dp}) is not bit-reproducible")
+        if not torch.equal(got[:5], head):
+            fail(f"srp kernel at ({c}, {d}, {dp}): rows 0..4 change with the rows batched beside them")
+        worst = max(worst, e)
+        print(f"kernels: srp ({c}, {d}, {dp}) max_abs_err {e:.3e}, {rel:.3e} of ‖x_i‖·‖S_:,j‖ "
+              f"(limit {SRP_RTOL}), max |want| {float(want.abs().max()):.3e}, reproducible, "
+              f"rows 0..4 bit-equal alone")
+    eye = torch.eye(SIGN_D, dtype=torch.float32, device="cuda")
+    S = srp_sign_block(SRP_SEED, 0, SIGN_D, 64, SIGN_D, device="cuda")
+    got = sk_ops.srp_sketch(eye, 64, SRP_SEED)
+    torch.cuda.synchronize()
+    if not torch.equal(got, S) or not torch.equal(sketch_srp_plain(eye, 64, SRP_SEED), S):
+        fail("srp kernel: the sketch of the identity rows is not S bit for bit")
+    print(f"kernels: srp signs: the sketch of the ({SIGN_D} × {SIGN_D}) identity equals the "
+          f"plain version's S bit for bit")
+    X = (SIM_SCALE * torch.randn((64, 39760), generator=gen)).cuda()
+    cs = CountSketcher(39760, D_PRIME, SRP_SEED)
+    a, b = cs(X), cs(X)
+    torch.cuda.synchronize()
+    if not torch.equal(a, b):
+        fail("countsketch is not bit-reproducible on the card")
+    print(f"kernels: countsketch (64, 39760, {D_PRIME}) bit-reproducible call to call")
+    return worst
+
+
+def _tiny_run(device, **sampler_kw):
     """3 Algorithm 2 rounds at a small width; returns (plans, losses, params)."""
     import numpy as np
 
@@ -169,7 +256,7 @@ def _tiny_run(device):
                          test_per_client=10, dim=16, seed=0)
     params = init_mlp((16, 8, 10), seed=1, device="cpu")
     d = sum(v.numel() for v in params.values())
-    sampler = Algorithm2Sampler(ds.population, 5, update_dim=d, seed=0, device=device)
+    sampler = Algorithm2Sampler(ds.population, 5, update_dim=d, seed=0, device=device, **sampler_kw)
     plans, losses = [], []
 
     def on_round(rec):
@@ -182,23 +269,31 @@ def _tiny_run(device):
     return plans, np.array(losses), params_to_numpy(srv.params)
 
 
+SMALL_CONFIGS = {
+    "unsketched": {},
+    "srp+ward": {"sketch": "srp", "sketch_dim": 8},
+    "srp+kmeans": {"sketch": "srp", "sketch_dim": 8, "clusterer": "kmeans"},
+}
+
+
 def phase_small_input():
     import numpy as np
 
-    cpu, gpu = _tiny_run("cpu"), _tiny_run("cuda")
-    for a, b in zip(cpu[0], gpu[0]):
-        if not np.array_equal(a, b):
-            fail("small input: the card's plan differs from the CPU's")
-    if not np.allclose(cpu[1], gpu[1], atol=1e-4):
-        fail(f"small input: losses differ, cpu {cpu[1]} vs cuda {gpu[1]}")
-    perr = max(float(np.abs(cpu[2][k] - gpu[2][k]).max()) for k in cpu[2])
-    if perr > 1e-4:
-        fail(f"small input: final params differ by {perr}")
-    print(f"kernels: small input, card vs CPU: plans equal over 3 rounds, "
-          f"max loss diff {float(np.abs(cpu[1] - gpu[1]).max()):.2e}, max param diff {perr:.2e}")
+    for label, kw in SMALL_CONFIGS.items():
+        cpu, gpu = _tiny_run("cpu", **kw), _tiny_run("cuda", **kw)
+        for a, b in zip(cpu[0], gpu[0]):
+            if not np.array_equal(a, b):
+                fail(f"small input [{label}]: the card's plan differs from the CPU's")
+        if not np.allclose(cpu[1], gpu[1], atol=1e-4):
+            fail(f"small input [{label}]: losses differ, cpu {cpu[1]} vs cuda {gpu[1]}")
+        perr = max(float(np.abs(cpu[2][k] - gpu[2][k]).max()) for k in cpu[2])
+        if perr > 1e-4:
+            fail(f"small input [{label}]: final params differ by {perr}")
+        print(f"kernels: small input [{label}], card vs CPU: plans equal over 3 rounds, "
+              f"max loss diff {float(np.abs(cpu[1] - gpu[1]).max()):.2e}, max param diff {perr:.2e}")
 
 
-def _slice_run(torch, ds, params, measure, n_rounds, label):
+def _slice_run(torch, ds, params, measure, n_rounds, label, **sampler_kw):
     import numpy as np
 
     from repro_torch.core.samplers.algorithm2 import Algorithm2Sampler
@@ -206,16 +301,18 @@ def _slice_run(torch, ds, params, measure, n_rounds, label):
     from repro_torch.fl.server import FederatedServer, FLConfig
     from repro_torch.kernels.aggregate import ops as agg_ops
     from repro_torch.kernels.similarity import ops as sim_ops
+    from repro_torch.kernels.sketch import ops as sk_ops
     from repro_torch.optim.sgd import sgd
 
     d = sum(v.numel() for v in params.values())
-    sampler = Algorithm2Sampler(ds.population, 10, update_dim=d, seed=0, measure=measure)
+    sampler = Algorithm2Sampler(ds.population, 10, update_dim=d, seed=0, measure=measure, **sampler_kw)
     cfg = FLConfig(n_rounds=n_rounds, n_local_steps=50, batch_size=50, seed=0)
     recs, times = [], []
     srv = FederatedServer(ds, sampler, params, sgd(0.01), cfg)
     torch.cuda.synchronize()
     sim_ops.launches.update(gram=0, l1=0)
     agg_ops.launches.update(aggregate=0)
+    sk_ops.launches.update(srp=0)
     last = time.perf_counter()
 
     def on_round(rec):
@@ -229,7 +326,7 @@ def _slice_run(torch, ds, params, measure, n_rounds, label):
     with srv:
         srv.run(on_round=on_round)
     torch.cuda.synchronize()
-    counts = {**sim_ops.launches, **agg_ops.launches}
+    counts = {**sim_ops.launches, **agg_ops.launches, **sk_ops.launches}
     for rec, ms in zip(recs, times):
         print(f"slice[{label}]: round {rec.round} {ms:.3f} ms, plan_build_ms "
               f"{rec.plan_build_ms:.3f}, distinct {rec.n_distinct_clients}, "
@@ -252,7 +349,7 @@ def _slice_run(torch, ds, params, measure, n_rounds, label):
     for name in (sim_op, "aggregate"):
         if counts[name] <= 0:
             fail(f"slice[{label}]: kernel {name} was never launched on the main path")
-    return srv.params, counts, float(np.median(times))
+    return srv.params, counts, float(np.median(times)), sampler
 
 
 def phase_slice(torch):
@@ -268,10 +365,78 @@ def phase_slice(torch):
         fail(f"model width d = {d}, expected 39760")
     print(f"slice: dataset and init {time.perf_counter() - t0:.3f} s, d = {d}, "
           f"{ds.n_clients} clients")
-    params, counts_a, round_ms = _slice_run(torch, ds, params, "arccos", 5, "arccos")
-    params, counts_l, _ = _slice_run(torch, ds, params, "l1", 2, "l1")
-    launches = {"gram": counts_a["gram"], "l1": counts_l["l1"], "aggregate": counts_a["aggregate"]}
-    return launches, ds, params, round_ms
+    params, counts_a, round_ms, _ = _slice_run(torch, ds, params, "arccos", 5, "arccos")
+    params, counts_l, _, _ = _slice_run(torch, ds, params, "l1", 2, "l1")
+    params, counts_s, srp_round_ms, sampler = _slice_run(
+        torch, ds, params, "arccos", 5, "srp", sketch="srp", sketch_dim=D_PRIME)
+    store = sampler._store
+    if (store.dim, tuple(store.snapshot().shape)) != (D_PRIME, (ds.n_clients, D_PRIME)):
+        fail(f"slice[srp]: the store is {tuple(store.snapshot().shape)}, not ({ds.n_clients}, {D_PRIME})")
+    for name in ("srp", "gram", "aggregate"):
+        if counts_s[name] != 5:
+            fail(f"slice[srp]: {counts_s[name]} {name} launches in 5 rounds, expected 5")
+    print(f"slice[srp]: store ({ds.n_clients}, {store.dim}) f32, {store.nbytes} B; one srp, one "
+          f"gram on the sketched store and one aggregate launch per round")
+    launches = {"gram": counts_a["gram"], "l1": counts_l["l1"], "aggregate": counts_a["aggregate"],
+                "srp": counts_s["srp"], "gram_sketched": counts_s["gram"]}
+    return launches, ds, params, {"arccos": round_ms, "srp": srp_round_ms}
+
+
+def phase_fleet(torch) -> int:
+    """Algorithm 2 over a 100,000-client fleet on the sketched store:
+    bench_store_scale's full setting at the MLP's width."""
+    import numpy as np
+
+    from repro_torch.core.samplers.algorithm2 import Algorithm2Sampler
+    from repro_torch.core.samplers.base import validate_plan
+    from repro_torch.core.types import ClientPopulation
+    from repro_torch.fl.gradient_store import GradientStore
+    from repro_torch.kernels.sketch import ops as sk_ops
+
+    n, m, c, rounds = FLEET["n"], FLEET["m"], FLEET["rows"], FLEET["rounds"]
+    d = sum(a * b + b for a, b in zip(WIDTH[:-1], WIDTH[1:]))
+    pop = ClientPopulation(np.full(n, 100))
+    t0 = time.perf_counter()
+    sampler = Algorithm2Sampler(pop, m, update_dim=d, seed=0, sketch="srp", sketch_dim=D_PRIME,
+                                clusterer="kmeans")
+    torch.cuda.synchronize()
+    store = sampler._store
+    print(f"fleet: n = {n}, m = {m}, d = {d}, d' = {D_PRIME}: store {store.nbytes} B resident "
+          f"({store.nbytes / 1e6:.1f} MB) against {4 * n * d} B ({4 * n * d / 1e9:.1f} GB) "
+          f"unsketched; cold-start plan in {(time.perf_counter() - t0) * 1e3:.3f} ms")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    rng = np.random.default_rng(0)
+    blocks = [(rng.choice(n, size=c, replace=False),
+               SIM_SCALE * torch.randn((c, d), generator=gen, device="cuda")) for _ in range(rounds)]
+    probe = GradientStore(n, d, sketch="srp", sketch_dim=D_PRIME, sketch_seed=0)
+    ids, U = blocks[0]
+    scatter_ms = time_ms(torch, lambda: probe.update(ids, U), reps=20)
+    torch.cuda.synchronize()
+    sk_ops.launches.update(srp=0)
+    for r, (ids, U) in enumerate(blocks):
+        t1 = time.perf_counter()
+        sampler.observe_updates(ids, U)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t1) * 1e3
+        build_ms, _ = sampler.plan_cost_telemetry()
+        version, lag = sampler.plan_telemetry()
+        print(f"fleet: round {r} observe {wall:.3f} ms (sketch, scatter, snapshot, rebuild), "
+              f"plan_build_ms {build_ms:.3f}, plan version {version}, lag {lag}")
+        if (version, lag) != (r + 1, 0):
+            fail(f"fleet: round {r} left plan version {version} with lag {lag}; a rebuild was skipped")
+    launches = sk_ops.launches["srp"]
+    validate_plan(sampler.plan, pop)
+    G = store.snapshot()
+    rows = np.concatenate([ids for ids, _ in blocks])
+    if not bool(torch.isfinite(G).all()) or int((G.abs().sum(dim=1) > 0).sum()) != len(np.unique(rows)):
+        fail("fleet: the store does not hold exactly the observed rows, finite")
+    if launches != rounds:
+        fail(f"fleet: {launches} srp launches in {rounds} rounds")
+    groups = len(np.unique(sampler.plan.cluster_of[sampler.plan.cluster_of >= 0]))
+    print(f"fleet: sketch + scatter of ({c}, {d}) into the store {scatter_ms:.6f} ms (CUDA events, "
+          f"mean of 20); {launches} srp launches in {rounds} rounds; plan valid, {groups} groups")
+    sampler.close()
+    return launches
 
 
 def _kernel_events(torch, prof):
@@ -306,7 +471,7 @@ def device_ms(torch, fn, reps: int = 20) -> float:
     return _busy_us(_kernel_events(torch, prof)) / 1e3 / reps
 
 
-def phase_trace(torch, ds, params, round_ms):
+def phase_trace(torch, ds, params, round_ms, label="arccos", **sampler_kw):
     """One more arccos round under torch.profiler: device busy time by
     kernel, and the idle share of that same round's wall time."""
     from torch.profiler import ProfilerActivity, profile
@@ -316,7 +481,7 @@ def phase_trace(torch, ds, params, round_ms):
     from repro_torch.optim.sgd import sgd
 
     d = sum(v.numel() for v in params.values())
-    sampler = Algorithm2Sampler(ds.population, 10, update_dim=d, seed=1)
+    sampler = Algorithm2Sampler(ds.population, 10, update_dim=d, seed=1, **sampler_kw)
     cfg = FLConfig(n_rounds=2, n_local_steps=50, batch_size=50, seed=1)
     with FederatedServer(ds, sampler, params, sgd(0.01), cfg) as srv:
         srv.run_round(0)
@@ -328,22 +493,22 @@ def phase_trace(torch, ds, params, round_ms):
             wall_ms = (time.perf_counter() - t0) * 1e3
     events = _kernel_events(torch, prof)
     if not events:
-        fail("trace: the profiler recorded no device activity in a round")
+        fail(f"trace[{label}]: the profiler recorded no device activity in a round")
     busy_ms = _busy_us(events) / 1e3
     by_name: dict[str, list] = {}
     for e in events:
         entry = by_name.setdefault(e.name, [0, 0.0])
         entry[0] += 1
         entry[1] += (e.time_range.end - e.time_range.start) / 1e3
-    print(f"trace: one round, device busy {busy_ms:.3f} ms of its {wall_ms:.3f} ms wall "
+    print(f"trace[{label}]: one round, device busy {busy_ms:.3f} ms of its {wall_ms:.3f} ms wall "
           f"({len(events)} device events), idle share {1 - busy_ms / wall_ms:.4f}; "
           f"the unprofiled median round took {round_ms:.3f} ms")
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1][1])
     for name, (count, ms) in ranked[:10]:
-        print(f"trace:   {ms:9.4f} ms  {count:5d}x  {name[:90]}")
+        print(f"trace[{label}]:   {ms:9.4f} ms  {count:5d}x  {name[:90]}")
     for name, (count, ms) in ranked:
-        if "pairwise_" in name or "aggregate_" in name:
-            print(f"trace:   port kernel {ms:9.4f} ms  {count:5d}x  {name[:90]}")
+        if "pairwise_" in name or "aggregate_" in name or "srp_" in name:
+            print(f"trace[{label}]:   port kernel {ms:9.4f} ms  {count:5d}x  {name[:90]}")
 
 
 def phase_times(torch, gen, name, err, launches):
@@ -351,32 +516,60 @@ def phase_times(torch, gen, name, err, launches):
     from repro_torch.kernels.aggregate.ref import aggregate_ref
     from repro_torch.kernels.similarity import ops as sim_ops
     from repro_torch.kernels.similarity.ref import gram_ref, l1_ref
+    from repro_torch.kernels.sketch import ops as sk_ops
+    from repro_torch.kernels.sketch.ref import sketch_srp_plain, srp_sign_block
 
     part, bw, f32 = peaks_for(name)
     n, d = SIM_SHAPES[0]
     G = (SIM_SCALE * torch.randn((n, d), generator=gen)).cuda()
+    ns, ds_ = SKETCHED_SIM_SHAPE
+    Gs = (SIM_SCALE * torch.randn((ns, ds_), generator=gen)).cuda()
     k, p = AGG_SHAPE
     U = torch.randn((k, p), generator=gen).cuda()
     w = torch.rand((k,), generator=gen).cuda()
-    sim_bytes = 4 * (n * d + n * n)
-    sim_ops_count = n * (n + 1) * d  # the i <= j half: n(n+1)/2 pairs × d × 2
+    c10, dx, dp = SRP_SHAPES[0]
+    c64 = SRP_SHAPES[1][0]
+    X10 = (SIM_SCALE * torch.randn((c10, dx), generator=gen)).cuda()
+    X64 = (SIM_SCALE * torch.randn((c64, dx), generator=gen)).cuda()
+    # the yardstick torch.matmul(X, S) takes the (d, d') S materialised once;
+    # the port never does
+    S = srp_sign_block(SRP_SEED, 0, dx, dp, dx, device="cuda")
+
+    def sim_cost(n, d):  # bytes; FLOP of the i <= j half: n(n+1)/2 pairs × d × 2
+        return 4 * (n * d + n * n), n * (n + 1) * d
+
+    def srp_cost(c):
+        return 4 * (c * dx + c * dp), 2 * c * dx * dp
+
     agg_bytes = 4 * (k * p + k + p)
-    rows = []
+    src_sim, src_agg, src_srp = ("src/repro_torch/csrc/similarity.cu", "src/repro_torch/csrc/aggregate.cu",
+                                 "src/repro_torch/csrc/sketch.cu")
+    rep_sim, rep_agg, rep_srp = ("src/repro/kernels/similarity/kernel.py:142",
+                                 "src/repro/kernels/aggregate/kernel.py:33",
+                                 "src/repro/kernels/sketch/kernel.py:68")
     cases = [
-        ("similarity_gram", "src/repro_torch/csrc/similarity.cu",
-         "src/repro/kernels/similarity/kernel.py:142",
-         lambda: sim_ops.pairwise_sums(G, "gram"), lambda: gram_ref(G), lambda: G @ G.T,
-         sim_bytes, sim_ops_count),
-        ("similarity_l1", "src/repro_torch/csrc/similarity.cu",
-         "src/repro/kernels/similarity/kernel.py:142",
+        ("similarity_gram", src_sim, rep_sim, "gram",
+         lambda: sim_ops.pairwise_sums(G, "gram"), lambda: gram_ref(G), lambda: G @ G.T, *sim_cost(n, d)),
+        ("similarity_l1", src_sim, rep_sim, "l1",
          lambda: sim_ops.pairwise_sums(G, "l1"), lambda: l1_ref(G),
-         lambda: torch.cdist(G, G, p=1), sim_bytes, sim_ops_count),
-        ("aggregate", "src/repro_torch/csrc/aggregate.cu",
-         "src/repro/kernels/aggregate/kernel.py:33",
+         lambda: torch.cdist(G, G, p=1), *sim_cost(n, d)),
+        ("similarity_gram_d64", src_sim, rep_sim, "gram_sketched",
+         lambda: sim_ops.pairwise_sums(Gs, "gram"), lambda: gram_ref(Gs), lambda: Gs @ Gs.T,
+         *sim_cost(ns, ds_)),
+        ("aggregate", src_agg, rep_agg, "aggregate",
          lambda: agg_ops.aggregate_flat(U, w), lambda: aggregate_ref(U, w),
          lambda: torch.mv(U.T, w), agg_bytes, 2 * k * p),
+        ("srp_sketch", src_srp, rep_srp, "srp",
+         lambda: sk_ops.srp_sketch(X10, dp, SRP_SEED), lambda: sketch_srp_plain(X10, dp, SRP_SEED),
+         lambda: torch.matmul(X10, S), *srp_cost(c10)),
+        ("srp_sketch_fleet", src_srp, rep_srp, "srp_fleet",
+         lambda: sk_ops.srp_sketch(X64, dp, SRP_SEED), lambda: sketch_srp_plain(X64, dp, SRP_SEED),
+         lambda: torch.matmul(X64, S), *srp_cost(c64)),
     ]
-    for kname, source, replaces, kern, plain, lib, nbytes, nops in cases:
+    errs = {"gram": err["gram"], "l1": err["l1"], "gram_sketched": err["gram"],
+            "aggregate": err["aggregate"], "srp": err["srp"], "srp_fleet": err["srp"]}
+    rows = []
+    for kname, source, replaces, key, kern, plain, lib, nbytes, nops in cases:
         ms = time_ms(torch, kern)
         plain_ms = time_ms(torch, plain, reps=10)
         lib_ms = time_ms(torch, lib)
@@ -384,10 +577,9 @@ def phase_times(torch, gen, name, err, launches):
         t_bytes = nbytes / bw * 1e3
         t_ops = nops / f32 * 1e3
         bound = max(t_bytes, t_ops)
-        key = {"similarity_gram": "gram", "similarity_l1": "l1"}.get(kname, "aggregate")
         rows.append({
             "name": kname, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": launches[key], "max_abs_err": err[key], "ms": ms,
+            "launches": launches[key], "max_abs_err": errs[key], "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound,
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "library_ms": lib_ms,
@@ -423,7 +615,9 @@ def main() -> int:
     err = phase_kernels(torch, gen)
     phase_small_input()
     launches, ds, params, round_ms = phase_slice(torch)
-    phase_trace(torch, ds, params, round_ms)
+    launches["srp_fleet"] = phase_fleet(torch)
+    phase_trace(torch, ds, params, round_ms["arccos"])
+    phase_trace(torch, ds, params, round_ms["srp"], "srp", sketch="srp", sketch_dim=D_PRIME)
     rows = phase_times(torch, gen, name, err, launches)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

@@ -27,6 +27,7 @@ from repro_torch.core.samplers.store_backed import StoreBackedSampler
 from repro_torch.core.types import ClientPopulation, SamplingPlan
 
 # pairwise-distance backend signature: (G, measure) -> (n, n) distances
+# (a tensor on G's device, or a numpy array)
 DistanceFn = Callable[[object, str], np.ndarray]
 
 # clusterer signature: see repro_torch.core.clustering.backends
@@ -36,7 +37,9 @@ ClustererFn = Callable[..., list]
 def _resolve_distance_fn(distance_fn: Union[DistanceFn, str]) -> DistanceFn:
     """Map the sampler's ``distance_fn`` argument to a callable: ``"auto"``
     is the port's similarity op (the CUDA kernel for a CUDA G, its plain
-    version for a CPU G); a callable passes through."""
+    version for a CPU G), whose (n, n) output stays on G's device for the
+    clusterer to take (``"ward"`` copies it to the host, ``"ward_jit"``
+    does not); a callable passes through."""
     if callable(distance_fn):
         return distance_fn
     if distance_fn != "auto":
@@ -60,11 +63,13 @@ def build_plan_algorithm2(
 
     ``G`` is passed to the clustering backend untouched — a device tensor
     stays on the device through the O(n²d) distance stage; only the (n, n)
-    distances come back to the host for Ward, the cut and the urn
+    distances (``"ward"``) or linkage rows (``"ward_jit"``) or labels
+    (``"kmeans"``) come back to the host for the cut and the urn
     construction. ``distance_fn`` is ``"auto"`` (the similarity kernel) or
     a callable ``(G, measure) -> (n, n)``; ``clusterer`` names a
     :data:`repro_torch.core.clustering.backends.CLUSTERERS` entry
-    (``"ward"``) or is a callable with the same signature.
+    (``"ward"``, ``"ward_jit"``, ``"kmeans"``) or is a callable with the
+    same signature.
     """
     n = population.n_clients
     M = population.total_samples
@@ -128,15 +133,21 @@ class Algorithm2Sampler(StoreBackedSampler):
         rebuild_every: int = 1,
         drift_threshold: Optional[float] = None,
         sketch: Optional[str] = None,
+        sketch_dim: Optional[int] = None,
         device="cuda",
     ):
         """``distance_fn`` selects the O(n²d) pairwise-distance backend:
         ``"auto"`` (the CUDA similarity kernel on a CUDA store, its plain
         version on a CPU store) or a callable.
-        ``clusterer`` names a ``CLUSTERERS`` entry (``"ward"``) or is a
-        callable. ``staleness_decay``, ``planner``, ``rebuild_every`` and
-        ``drift_threshold`` are as in the reference sampler. ``sketch`` may
-        only be ``None`` or ``"identity"``. ``device`` holds the gradient
+        ``clusterer`` names a ``CLUSTERERS`` entry (``"ward"``,
+        ``"ward_jit"``, ``"kmeans"``) or is a callable. ``staleness_decay``,
+        ``planner``, ``rebuild_every`` and ``drift_threshold`` are as in the
+        reference sampler. ``sketch`` / ``sketch_dim`` attach the store's
+        sketch stage (a ``SKETCHERS`` name: ``"srp"``, ``"countsketch"``,
+        or ``"identity"``, bit for bit the unsketched store), seeded with
+        ``seed``: the engine's (c, d) updates are compressed to (c, d')
+        before the scatter, so the store, the similarity stage and the
+        clusterers work in sketch space. ``device`` holds the gradient
         store; the default ``"cuda"`` raises without a GPU."""
         self.measure = measure
         self._distance_fn = _resolve_distance_fn(distance_fn)
@@ -152,6 +163,7 @@ class Algorithm2Sampler(StoreBackedSampler):
             rebuild_every=rebuild_every,
             drift_threshold=drift_threshold,
             sketch=sketch,
+            sketch_dim=sketch_dim,
             device=device,
         )
 

@@ -7,9 +7,10 @@ device-resident :class:`repro_torch.fl.gradient_store.GradientStore`, a
 drift trigger), and the freshest completed plan is swapped in at each round
 boundary. Subclasses implement :meth:`StoreBackedSampler._build_plan`.
 
-Not ported yet: sketches other than ``"identity"``, the sharded store,
+The store's sketch stage (``sketch`` / ``sketch_dim``) is seeded with the
+sampler's ``seed``, as in the reference. Not ported yet: the sharded store,
 availability-restricted rebuilds and checkpointing of the store (ROADMAP
-A8, A10, A13).
+A10, A13).
 """
 from __future__ import annotations
 
@@ -36,6 +37,7 @@ class StoreBackedSampler(ClusteredSampler):
         rebuild_every: int = 1,
         drift_threshold: Optional[float] = None,
         sketch: Optional[str] = None,
+        sketch_dim: Optional[int] = None,
         device="cuda",
     ):
         """See :class:`~repro_torch.core.samplers.algorithm2.Algorithm2Sampler`
@@ -54,6 +56,8 @@ class StoreBackedSampler(ClusteredSampler):
             update_dim,
             staleness_decay=staleness_decay,
             sketch=sketch,
+            sketch_dim=sketch_dim,
+            sketch_seed=seed,
             device=device,
         )
         self._service = PlanService(
@@ -66,7 +70,7 @@ class StoreBackedSampler(ClusteredSampler):
         super().__init__(population, self._service.current().plan, seed=seed)
 
     def _build_plan(self, G) -> SamplingPlan:
-        """Map the gradient block (n, d) to this scheme's sampling plan."""
+        """Map the gradient block (n, d') to this scheme's sampling plan."""
         raise NotImplementedError
 
     def _swap_freshest(self) -> None:

@@ -23,7 +23,7 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
-SOURCES = ("similarity", "aggregate")
+SOURCES = ("similarity", "aggregate", "sketch")
 
 _lock = threading.Lock()
 _loaded: dict[str, ctypes.CDLL] = {}  # name -> library, one load per process

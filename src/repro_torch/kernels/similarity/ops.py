@@ -122,17 +122,16 @@ def pairwise_distances_streamed(G, measure: str = "arccos") -> torch.Tensor:
 
 def make_distance_fn():
     """Adapter matching ``repro_torch.core.samplers.algorithm2.DistanceFn``:
-    (G, measure) -> (n, n) numpy distances.
+    (G, measure) -> (n, n) distances, a tensor on G's device.
 
     The one-shot entry point is used up to :data:`STREAM_D_THRESHOLD`
-    coordinates and the streamed one beyond it.
+    coordinates and the streamed one beyond it. The distances stay on the
+    device: ``"ward"`` copies them to the host, ``"ward_jit"`` does not.
     """
 
     def fn(G, measure: str):
         if G.shape[1] > STREAM_D_THRESHOLD:
-            out = pairwise_distances_streamed(G, measure)
-        else:
-            out = pairwise_distances_device(G, measure)
-        return out.cpu().numpy()
+            return pairwise_distances_streamed(G, measure)
+        return pairwise_distances_device(G, measure)
 
     return fn

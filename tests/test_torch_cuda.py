@@ -14,6 +14,8 @@ from repro_torch.kernels.aggregate.ops import aggregate_flat
 from repro_torch.kernels.aggregate.ref import aggregate_ref
 from repro_torch.kernels.similarity import ops
 from repro_torch.kernels.similarity.ref import gram_ref, l1_ref
+from repro_torch.kernels.sketch import ops as sk_ops
+from repro_torch.kernels.sketch.ref import sketch_srp_plain, srp_sign_block
 
 pytestmark = pytest.mark.cuda
 
@@ -25,7 +27,7 @@ def cuda():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("n,d", [(13, 101), (100, 39760), (257, 8193), (1, 1)])
+@pytest.mark.parametrize("n,d", [(13, 101), (100, 39760), (100, 64), (257, 8193), (1, 1)])
 @pytest.mark.parametrize("op", ["gram", "l1"])
 def test_similarity_kernel_matches_plain(cuda, op, n, d):
     # update scale, as in tests/test_torch_similarity.py
@@ -64,3 +66,87 @@ def test_launch_counters_count_kernel_launches(cuda):
     ops.pairwise_distances_streamed(G, "l1")
     assert ops.launches["gram"] == before["gram"] + 1
     assert ops.launches["l1"] == before["l1"] + 1
+
+
+def _x(c, d, seed=5):
+    """(c, d) f32 rows at update scale."""
+    return torch.from_numpy((1e-3 * np.random.default_rng(seed).normal(size=(c, d))).astype(np.float32))
+
+
+@pytest.mark.parametrize("c,d,d_prime", [(10, 39760, 64), (64, 39760, 64), (13, 1037, 64), (8, 96, 8), (3, 100, 130)])
+def test_srp_kernel_matches_plain(cuda, c, d, d_prime):
+    X = _x(c, d).to(cuda)
+    got = sk_ops.srp_sketch(X, d_prime, 7)
+    want = sketch_srp_plain(X, d_prime, 7)
+    torch.cuda.synchronize()
+    # |got − want| ≤ 1e-5·‖x_i‖·‖S_:,j‖ with ‖S_:,j‖ = √(d/d'): the scale of an entry
+    scale = X.double().norm(dim=1)[:, None] * (d / d_prime) ** 0.5
+    assert float(((got.double() - want.double()).abs() / scale).max()) <= 1e-5
+    np.testing.assert_array_equal(got.cpu().numpy(), sk_ops.srp_sketch(X, d_prime, 7).cpu().numpy())
+
+
+def test_srp_kernel_signs_are_the_plain_bits(cuda):
+    """Each output of the identity rows has one nonzero term: it is S exactly."""
+    d = 1037
+    got = sk_ops.srp_sketch(torch.eye(d, device=cuda), 64, 12_345)
+    want = srp_sign_block(12_345, 0, d, 64, d, device=cuda)
+    np.testing.assert_array_equal(got.cpu().numpy().view(np.uint32), want.cpu().numpy().view(np.uint32))
+
+
+def test_srp_kernel_rows_do_not_depend_on_the_batch(cuda):
+    X = _x(64, 39760).to(cuda)
+    full = sk_ops.srp_sketch(X, 64, 0)
+    for lo, hi in ((0, 5), (7, 8), (30, 64)):
+        part = sk_ops.srp_sketch(X[lo:hi].contiguous(), 64, 0)
+        np.testing.assert_array_equal(part.cpu().numpy(), full[lo:hi].cpu().numpy())
+
+
+def test_srp_wrapper_raises_instead_of_falling_back(cuda):
+    X = _x(4, 64).to(cuda)
+    with pytest.raises(ValueError, match="contiguous"):
+        sk_ops.srp_sketch(X.T, 8, 0)
+    with pytest.raises(TypeError):
+        sk_ops.srp_sketch(X.double(), 8, 0)
+
+
+def test_srp_launch_count_counts_kernel_launches(cuda):
+    from repro_torch.fl.gradient_store import GradientStore
+
+    store = GradientStore(10, 200, sketch="srp", sketch_dim=8, device=cuda)
+    before = sk_ops.launches["srp"]
+    store.update([1, 2, 2], _x(3, 200).to(cuda))
+    store.scatter_scaled([3], _x(1, 200).to(cuda), scale=0.5)
+    store.update([11], _x(1, 200).to(cuda))  # every row dropped: no launch
+    assert sk_ops.launches["srp"] == before + 2
+
+
+def test_countsketch_is_bit_reproducible_on_the_card(cuda):
+    from repro_torch.kernels.sketch.ops import CountSketcher
+
+    X = _x(64, 39760).to(cuda)
+    cs = CountSketcher(39760, 64, 3)
+    np.testing.assert_array_equal(cs(X).cpu().numpy(), cs(X).cpu().numpy())
+    np.testing.assert_allclose(cs(X).cpu().numpy(), cs(X.cpu()).numpy(), rtol=1e-5, atol=1e-7)
+
+
+def test_kmeans_zero_row_tie_breaks_as_on_the_cpu(cuda):
+    """The zero-row tie of tests/test_torch_clustering.py resolves alike on
+    the card and the CPU: the centroid norms are summed in one fixed order."""
+    from repro_torch.core.clustering.device import kmeans_labels
+
+    G = np.random.default_rng(1).normal(size=(20, 6)).astype(np.float32)
+    G[::5] = 0.0
+    want = kmeans_labels(torch.from_numpy(G), 4, seed=0)
+    got = kmeans_labels(torch.from_numpy(G).to(cuda), 4, seed=0)
+    np.testing.assert_array_equal(got, want)
+
+
+def test_ward_device_on_the_card_matches_the_cpu(cuda):
+    from repro_torch.core.clustering.device import ward_linkage_device
+
+    X = np.random.default_rng(2).normal(size=(60, 8))
+    dist = torch.from_numpy(np.sqrt(((X[:, None] - X[None]) ** 2).sum(-1)))
+    want = ward_linkage_device(dist)
+    got = ward_linkage_device(dist.to(cuda))
+    np.testing.assert_array_equal(got[:, [0, 1, 3]], want[:, [0, 1, 3]])
+    np.testing.assert_allclose(got[:, 2], want[:, 2], rtol=1e-5)

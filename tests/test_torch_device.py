@@ -12,6 +12,7 @@ from repro_torch.fl.gradient_store import GradientStore
 from repro_torch.fl.partition import by_class_shards
 from repro_torch.fl.server import FederatedServer, FLConfig
 from repro_torch.kernels import _build
+from repro_torch.kernels.sketch.ref import countsketch_params, srp_sign_block
 from repro_torch.models.simple import init_mlp
 from repro_torch.optim.sgd import sgd
 
@@ -20,7 +21,8 @@ DATA = dict(n_classes=4, clients_per_class=1, train_per_client=10, test_per_clie
 
 ENTRY_POINTS = [
     "resolve_device", "init_mlp", "GradientStore", "BatchedRoundEngine",
-    "Algorithm2Sampler", "FederatedServer",
+    "Algorithm2Sampler", "FederatedServer", "srp_sign_block", "countsketch_params",
+    "GradientStore[srp]", "Algorithm2Sampler[srp,kmeans]",
 ]
 
 
@@ -34,10 +36,19 @@ def _call(name, device):
         return init_mlp((8, 4), **kw)
     if name == "GradientStore":
         return GradientStore(4, 6, **kw)
+    if name == "GradientStore[srp]":
+        return GradientStore(4, 6, sketch="srp", sketch_dim=3, **kw)
+    if name == "srp_sign_block":
+        return srp_sign_block(0, 0, 8, 4, 8, **kw)
+    if name == "countsketch_params":
+        return countsketch_params(8, 4, 0, **kw)
     if name == "BatchedRoundEngine":
         return BatchedRoundEngine(ds, 2, 1, 2, **kw)
     if name == "Algorithm2Sampler":
         return Algorithm2Sampler(ds.population, 2, update_dim=6, **kw)
+    if name == "Algorithm2Sampler[srp,kmeans]":
+        return Algorithm2Sampler(ds.population, 2, update_dim=6, sketch="srp", sketch_dim=3,
+                                 clusterer="kmeans", **kw)
     params = init_mlp((8, 4), device="cpu")
     sampler = Algorithm2Sampler(ds.population, 2, update_dim=36, device="cpu")
     return FederatedServer(ds, sampler, params, sgd(0.1), FLConfig(n_rounds=1), **kw)
@@ -72,7 +83,7 @@ def test_build_raises_without_nvcc(monkeypatch):
 
 
 def test_build_module_imports_without_nvcc():
-    assert set(_build.SOURCES) == {"similarity", "aggregate"}
+    assert set(_build.SOURCES) == {"similarity", "aggregate", "sketch"}
     for name in _build.SOURCES:
         src, lib = _build._target(name)
         assert src.exists()
@@ -81,8 +92,6 @@ def test_build_module_imports_without_nvcc():
 
 def test_unported_options_raise():
     ds = by_class_shards(**DATA)
-    with pytest.raises(NotImplementedError):
-        GradientStore(4, 6, sketch="srp", device="cpu")
     with pytest.raises(NotImplementedError):
         BatchedRoundEngine(ds, 2, 1, 2, device="cpu", mesh="2x1")
     sampler = Algorithm2Sampler(ds.population, 2, update_dim=36, device="cpu")

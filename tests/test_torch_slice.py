@@ -39,6 +39,10 @@ def _run(server, sampler):
         ("compat", {}),
         ("batched", {"rebuild_every": 2}),
         ("batched", {"drift_threshold": 0.3}),
+        ("batched", {"sketch": "srp", "sketch_dim": 8}),
+        ("batched", {"sketch": "countsketch", "sketch_dim": 8}),
+        ("batched", {"sketch": "srp", "sketch_dim": 8, "clusterer": "kmeans"}),
+        ("batched", {"clusterer": "ward_jit"}),
     ],
 )
 def test_slice_matches_reference(engine, planner):
@@ -98,3 +102,26 @@ def test_async_planner_flushes_to_sync():
             srv.run(on_round=on_round)
     for a, b in zip(plans["sync"], plans["async"]):
         np.testing.assert_array_equal(a, b)
+
+
+def test_identity_sketch_history_is_bitwise_unsketched():
+    """sketch="identity" runs the unsketched path: the same history, bit for bit."""
+    ds = by_class_shards(**DATA)
+    init = {k: np.asarray(v) for k, v in ref_init_mlp((16, 8, 10), seed=1).items()}
+    d = sum(v.size for v in init.values())
+    runs = {}
+    for sketch in (None, "identity"):
+        sampler = Algorithm2Sampler(ds.population, M, update_dim=d, seed=0, sketch=sketch, device="cpu")
+        srv = FederatedServer(ds, sampler, params_from_numpy(init, device="cpu"), sgd(LR),
+                              FLConfig(n_rounds=ROUNDS, n_local_steps=5, batch_size=8), device="cpu")
+        recs, plans = _run(srv, sampler)
+        runs[sketch] = (recs, plans, params_to_numpy(srv.params), sampler._store.asnumpy())
+    (r0, p0, w0, g0), (r1, p1, w1, g1) = runs[None], runs["identity"]
+    for a, b in zip(r0, r1):
+        assert (a.train_loss, a.test_acc) == (b.train_loss, b.test_acc)
+        np.testing.assert_array_equal(a.agg_weights, b.agg_weights)
+    for a, b in zip(p0, p1):
+        np.testing.assert_array_equal(a, b)
+    np.testing.assert_array_equal(g0, g1)
+    for k in w0:
+        np.testing.assert_array_equal(w0[k], w1[k])

@@ -4,7 +4,11 @@ The smoke run holds the CUDA Gram kernel against its plain version with a
 tolerance relative to ‖g_i‖·‖g_j‖. These tests show that the check accepts
 a Gram summed in another f32 order and rejects a kernel that drops the
 ragged d tail (the last ``d mod 32`` columns, the kernel's d-chunk) or
-halves every entry, at each shape the smoke run checks.
+halves every entry, at each shape the smoke run checks. The SRP check,
+relative to ‖x_i‖·‖S_:,j‖, gets the same treatment: it accepts two other
+f32 summation orders and rejects a kernel that drops the ragged d tail
+(``d mod 512``, the plain version's block, or ``d mod 64``, the kernel's
+k-tile) or reads the signs of the next row of k.
 """
 import importlib.util
 from pathlib import Path
@@ -16,6 +20,8 @@ import torch
 from repro_torch.core.clustering.similarity import pairwise_distances
 from repro_torch.kernels.similarity import ops
 from repro_torch.kernels.similarity.ref import gram_ref
+from repro_torch.kernels.sketch import ops as sk_ops
+from repro_torch.kernels.sketch.ref import sketch_srp_plain, srp_sign_block
 
 ROOT = Path(__file__).resolve().parents[1]
 _spec = importlib.util.spec_from_file_location("chip_smoke", ROOT / "chip_smoke.py")
@@ -68,3 +74,46 @@ def test_cpu_ops_match_f64_definitions(measure, n, d):
     G[[2, 6]] = 0.0  # never-sampled clients
     got = ops.make_distance_fn()(torch.from_numpy(G), measure)
     np.testing.assert_allclose(got, pairwise_distances(G, measure), atol=1e-4)
+
+
+def _X(c, d):
+    rng = np.random.default_rng(1)
+    return torch.from_numpy((smoke.SIM_SCALE * rng.normal(size=(c, d))).astype(np.float32))
+
+
+def _split_srp(X, d_prime, seed):
+    """X·S as the CUDA kernel sums it: an f32 partial per d-split of 64-wide
+    k-tiles, the partials added in split order."""
+    d = X.shape[1]
+    splits, per = sk_ops.split_plan(d, d_prime)
+    S = srp_sign_block(seed, 0, d, d_prime, d, device="cpu")
+    out = torch.zeros((X.shape[0], d_prime))
+    for s in range(splits):
+        lo, hi = s * per * sk_ops.TK, min(d, (s + 1) * per * sk_ops.TK)
+        out += X[:, lo:hi] @ S[lo:hi]
+    return out
+
+
+@pytest.mark.parametrize("c,d,d_prime", smoke.SRP_SHAPES)
+def test_srp_check_accepts_other_f32_orders(c, d, d_prime):
+    X = _X(c, d)
+    want = sketch_srp_plain(X, d_prime, smoke.SRP_SEED)
+    S = srp_sign_block(smoke.SRP_SEED, 0, d, d_prime, d, device="cpu")
+    exact = (X.double() @ S.double()).float()
+    assert smoke.srp_rel_err(_split_srp(X, d_prime, smoke.SRP_SEED), want, X, d_prime) <= smoke.SRP_RTOL
+    assert smoke.srp_rel_err(exact, want, X, d_prime) <= smoke.SRP_RTOL
+
+
+@pytest.mark.parametrize("wrong", ["drop_tail_512", "drop_tail_64", "signs_off_by_one_row"])
+@pytest.mark.parametrize("c,d,d_prime", smoke.SRP_SHAPES)
+def test_srp_check_rejects_wrong_kernels(c, d, d_prime, wrong):
+    X = _X(c, d)
+    want = sketch_srp_plain(X, d_prime, smoke.SRP_SEED)
+    S = srp_sign_block(smoke.SRP_SEED, 0, d, d_prime, d, device="cpu")
+    if wrong.startswith("drop_tail"):
+        tail = d % int(wrong.rsplit("_", 1)[1])
+        assert tail > 0, "every checked shape has a ragged d tail"
+        got = X[:, : d - tail] @ S[: d - tail]
+    else:
+        got = X @ srp_sign_block(smoke.SRP_SEED, 1, d, d_prime, d + 1, device="cpu")
+    assert smoke.srp_rel_err(got, want, X, d_prime) > smoke.SRP_RTOL
