@@ -7,19 +7,25 @@ Run from the repository root:
 
 Phases, one line (or a few) each; any failure raises and exits non-zero:
 
-1. build   — compile ``csrc/similarity.cu``, ``csrc/aggregate.cu`` and
-   ``csrc/sketch.cu`` for ``sm_90a`` from the checkout (all ``nvcc`` in
-   parallel) and print the seconds it took and each kernel's ptxas report;
+1. build   — compile ``csrc/similarity.cu``, ``csrc/aggregate.cu``,
+   ``csrc/sketch.cu`` and ``csrc/flash_attention.cu`` for ``sm_90a`` from
+   the checkout (all ``nvcc`` in parallel) and print the seconds it took
+   and each kernel's ptxas report;
 2. kernels — hold each kernel against its plain PyTorch version on the card
    at the main path's shapes (Gram: |got − want| ≤ 1e-5·‖g_i‖·‖g_j‖, the
    error on the scale of the entries; L1: atol 1e-4 on entries of order
    0.1–50; aggregate: rtol and atol 2e-5; SRP: |got − want| ≤
    1e-5·‖x_i‖·‖S_:,j‖ with ‖S_:,j‖ = √(d/d′), its signs bit-equal to the
    plain version's, bit-reproducible and independent of the rows it is
-   batched with; countsketch bit-reproducible) and check the port on the
-   card against the port on the CPU on a small input (equal plans, losses
-   and params to atol 1e-4), unsketched and with the SRP sketch under Ward
-   and k-means;
+   batched with; countsketch bit-reproducible; flash attention at the
+   reference's test shapes, a ragged S = T = 1,000 and the serve path's
+   (4, 1,000, 12, 2, 128) in bf16: atol 2e-5 in f32, and in bf16
+   min(3e-2, 2⁻⁷·(|want| + Σ_j p_ij·|v_j|)), the error on the scale of the
+   softmax-weighted |v|; bit-reproducible) and check the port on the card
+   against the port on the CPU on a small input (equal plans, losses and
+   params to atol 1e-4), unsketched and with the SRP sketch under Ward and
+   k-means, and the LM's greedy generations (reduced qwen2-1.5b at 2
+   layers, f32: equal token ids, logits to atol 1e-4);
 3. slice   — the Algorithm 2 FL round loop at the paper's MNIST width
    (784 → 50 → 10, d = 39,760; 100 clients, m = 10, N = B = 50, lr 0.01):
    5 rounds with the arccos measure, 2 with L1, and 5 arccos rounds with
@@ -33,7 +39,13 @@ Phases, one line (or a few) each; any failure raises and exits non-zero:
 5. trace   — one more full-width round under ``torch.profiler``, unsketched
    and sketched: device busy time, the idle share of that same round's wall
    time, and device time by kernel;
-6. times   — each kernel, its plain version and one PyTorch library call
+6. serve   — ``generate`` at qwen2-1.5b's full width and depth (28 layers,
+   d_model 1,536, vocab 151,936), bf16 over f32 random parameters, batch
+   4, prompt length 1,000, 16 greedy tokens: prefill ms, decode ms per
+   token, tokens/s, peak device memory, and exactly 28 flash launches in
+   the prefill and 0 in the decode; then one prefill and one decode step
+   under ``torch.profiler``, with the flash kernel's share of the prefill;
+7. times   — each kernel, its plain version and one PyTorch library call
    on the same inputs, timed with CUDA events (and device-busy time from
    the profiler), beside the card's bound.
 
@@ -53,12 +65,13 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
-# Published peaks (NVIDIA data sheets): device memory bytes/s and f32
-# FLOP/s outside the tensor cores, by the part the device name shows.
+# Published peaks (NVIDIA data sheets): device memory bytes/s, f32 FLOP/s
+# outside the tensor cores and bf16 dense tensor-core FLOP/s, by the part
+# the device name shows.
 PEAKS = {
-    "H100 PCIe": (2.0e12, 51e12),
-    "H100 NVL": (3.9e12, 60e12),
-    "H100 SXM": (3.35e12, 67e12),
+    "H100 PCIe": (2.0e12, 51e12, 756e12),
+    "H100 NVL": (3.9e12, 60e12, 835e12),
+    "H100 SXM": (3.35e12, 67e12, 989e12),
 }
 
 SIM_SHAPES = [(100, 39760), (13, 101), (257, 8193)]  # the path's shape first
@@ -80,13 +93,30 @@ SRP_SEED = 7
 SRP_RTOL = 1e-5
 SIGN_D = 1037  # the identity block whose sketch is S itself
 FLEET = dict(n=100_000, m=20, rows=64, rounds=3)
+DEV = "cuda"  # the LM phases' device
+# flash attention (B, S, H, KV, hd): the reference's test shapes
+# (tests/test_kernels.py), a ragged S = T = 1,000 at hd 128, and the serve
+# path's shape
+FLASH_F32_SHAPES = [(1, 32, 4, 4, 16), (2, 64, 8, 2, 32), (1, 48, 6, 1, 64), (2, 40, 4, 2, 8),
+                    (1, 1000, 4, 2, 128)]
+FLASH_PATH = (4, 1000, 12, 2, 128)
+FLASH_BF16_SHAPES = [(1, 32, 4, 2, 16), FLASH_PATH]
+FLASH_F32_ATOL = 2e-5  # the reference's
+FLASH_BF16_ATOL = 3e-2  # the reference's, the loosest the bf16 limit may be
+# bf16: two ulps (2⁻⁸ each) of the output's scale, which is bounded by the
+# softmax-weighted |v|: p rounded against another running max, and the
+# output rounded once
+FLASH_BF16_REL = 2.0**-7
+SERVE = dict(arch="qwen2-1.5b", batch=4, prompt_len=1000, gen=16)
+SERVE_SMALL = dict(arch="qwen2-1.5b", n_layers=2, batch=2, prompt_len=19, gen=6)
+SERVE_SMALL_ATOL = 1e-4
 
 
 def fail(msg: str) -> None:
     raise RuntimeError(msg)
 
 
-def peaks_for(name: str) -> tuple[str, float, float]:
+def peaks_for(name: str) -> tuple[str, float, float, float]:
     for part in ("H100 PCIe", "H100 NVL"):
         if part.split()[1] in name:
             return (part, *PEAKS[part])
@@ -105,6 +135,22 @@ def srp_rel_err(got, want, X, d_prime: int) -> float:
     col = math.sqrt(X.shape[1] / d_prime)  # ‖S_:,j‖: d entries of ±1/√d′
     scale = X.double().norm(dim=1)[:, None] * col + GRAM_FLOOR
     return float(((got.double() - want.double()).abs() / scale).max())
+
+
+def flash_excess(got, want, q, k, v) -> float:
+    """max |got − want| / limit over the outputs of a causal call: the limit
+    is FLASH_F32_ATOL for f32, and for bf16 min(FLASH_BF16_ATOL,
+    FLASH_BF16_REL·(|want| + A)) with A = Σ_j p_ij·|v_j|, the plain
+    version's f32 attention over |v|."""
+    import torch
+
+    from repro_torch.kernels.flash_attention.ref import flash_attention_plain
+
+    err = (got.float() - want.float()).abs()
+    if q.dtype == torch.float32:
+        return float(err.max()) / FLASH_F32_ATOL
+    scale = want.float().abs() + flash_attention_plain(q.float(), k.float(), v.float().abs())
+    return float((err / (FLASH_BF16_REL * scale).clamp(max=FLASH_BF16_ATOL)).max())
 
 
 def time_ms(torch, fn, reps: int = 50) -> float:
@@ -193,6 +239,7 @@ def phase_kernels(torch, gen):
         fail(f"aggregate kernel at {AGG_SHAPE} disagrees with its plain version")
     err["aggregate"] = float((got - want).abs().max())
     print(f"kernels: aggregate {AGG_SHAPE} max_abs_err {err['aggregate']:.3e} (rtol=atol {AGG_TOL})")
+    err["flash"] = phase_kernels_flash(torch, gen)
     return err
 
 
@@ -240,6 +287,81 @@ def phase_kernels_srp(torch, gen) -> float:
         fail("countsketch is not bit-reproducible on the card")
     print(f"kernels: countsketch (64, 39760, {D_PRIME}) bit-reproducible call to call")
     return worst
+
+
+def phase_kernels_flash(torch, gen) -> float:
+    """The flash kernel against its plain version at every listed shape,
+    causal; returns the max abs error at the serve path's shape."""
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention.ref import flash_attention_plain
+
+    path_err = None
+    for dtype, shapes in ((torch.float32, FLASH_F32_SHAPES), (torch.bfloat16, FLASH_BF16_SHAPES)):
+        for b, s, h, kv, hd in shapes:
+            q, k, v = (torch.randn(shape, generator=gen).to(DEV, dtype)
+                       for shape in ((b, s, h, hd), (b, s, kv, hd), (b, s, kv, hd)))
+            got = fa_ops.flash_attention_padded(q, k, v)
+            again = fa_ops.flash_attention_padded(q, k, v)
+            want = flash_attention_plain(q, k, v)
+            torch.cuda.synchronize()
+            if got.dtype != dtype or tuple(got.shape) != (b, s, h, hd):
+                fail(f"flash kernel at {(b, s, h, kv, hd)}: got {got.dtype} {tuple(got.shape)}")
+            e = float((got.float() - want.float()).abs().max())
+            excess = flash_excess(got, want, q, k, v)
+            if not math.isfinite(excess) or excess > 1.0:
+                fail(f"flash kernel at {(b, s, h, kv, hd)} {dtype}: max abs error {e}, "
+                     f"{excess:.3f}× its limit")
+            if not torch.equal(got, again):
+                fail(f"flash kernel at {(b, s, h, kv, hd)} {dtype} is not bit-reproducible")
+            limit = (f"atol {FLASH_F32_ATOL}" if dtype == torch.float32 else
+                     f"limit min({FLASH_BF16_ATOL}, 2^-7·(|want| + Σ p|v|))")
+            print(f"kernels: flash {dtype} (B, S, H, KV, hd) = {(b, s, h, kv, hd)} max_abs_err "
+                  f"{e:.3e}, {excess:.3f} of its {limit}, max |want| "
+                  f"{float(want.float().abs().max()):.3e}, reproducible")
+            if dtype == torch.bfloat16 and (b, s, h, kv, hd) == FLASH_PATH:
+                path_err = e
+    return path_err
+
+
+def _serve_small(torch, device):
+    """Greedy generations of reduced qwen2-1.5b at 2 layers in f32, from
+    parameters made on the CPU; returns (token ids, per-step logits)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import model as mdl
+
+    cfg = dataclasses.replace(get_config(SERVE_SMALL["arch"], reduced=True),
+                              n_layers=SERVE_SMALL["n_layers"])
+    params = mdl.init_params(cfg, 0, device="cpu").to(device)
+    g = torch.Generator().manual_seed(1)
+    prompts = torch.randint(0, cfg.vocab_size, (SERVE_SMALL["batch"], SERVE_SMALL["prompt_len"]),
+                            generator=g)
+    tokens, logits = generate(cfg, params, prompts, SERVE_SMALL["gen"], device=device)
+    return tokens.cpu(), logits.float().cpu()
+
+
+def phase_small_serve(torch):
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+
+    cpu = _serve_small(torch, "cpu")
+    fa_ops.launches.update(flash_attention=0)
+    gpu = _serve_small(torch, DEV)
+    torch.cuda.synchronize()
+    n = fa_ops.launches["flash_attention"]
+    if n != SERVE_SMALL["n_layers"]:
+        fail(f"small input [serve]: {n} flash launches, expected one per layer")
+    if not torch.equal(cpu[0], gpu[0]):
+        fail(f"small input [serve]: the card's tokens {gpu[0].tolist()} differ from the CPU's "
+             f"{cpu[0].tolist()}")
+    e = float((cpu[1] - gpu[1]).abs().max())
+    if not math.isfinite(e) or e > SERVE_SMALL_ATOL:
+        fail(f"small input [serve]: logits differ by {e} > {SERVE_SMALL_ATOL}")
+    print(f"kernels: small input [serve] (reduced qwen2-1.5b, 2 layers, f32, batch "
+          f"{SERVE_SMALL['batch']}, prompt {SERVE_SMALL['prompt_len']}, gen {SERVE_SMALL['gen']}), "
+          f"card vs CPU: token ids equal, max logit diff {e:.2e} (atol {SERVE_SMALL_ATOL}), "
+          f"{n} flash launches")
 
 
 def _tiny_run(device, **sampler_kw):
@@ -458,8 +580,12 @@ def _busy_us(events) -> float:
     return busy + (cur_e - cur_s if cur_e is not None else 0.0)
 
 
-def device_ms(torch, fn, reps: int = 20) -> float:
-    """Device-busy ms per call of ``fn``, from a torch.profiler trace."""
+def device_events(torch, fn, reps: int = 20) -> list:
+    """The device events torch.profiler keeps of ``reps`` calls of ``fn``.
+
+    On the H100 it may drop some of a short window's kernels (it kept 3 and
+    4 of 5 flash-attention launches in two runs), so a busy time divided by
+    ``reps`` can undercount."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -468,7 +594,12 @@ def device_ms(torch, fn, reps: int = 20) -> float:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    return _busy_us(_kernel_events(torch, prof)) / 1e3 / reps
+    return _kernel_events(torch, prof)
+
+
+def device_ms(torch, fn, reps: int = 20) -> float:
+    """Device-busy ms per call of ``fn``, from a torch.profiler trace."""
+    return _busy_us(device_events(torch, fn, reps)) / 1e3 / reps
 
 
 def phase_trace(torch, ds, params, round_ms, label="arccos", **sampler_kw):
@@ -491,24 +622,163 @@ def phase_trace(torch, ds, params, round_ms, label="arccos", **sampler_kw):
             srv.run_round(1)
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
+    _report_trace(torch, prof, wall_ms, label, "one round",
+                  f"; the unprofiled median round took {round_ms:.3f} ms")
+
+
+PORT_KERNELS = ("pairwise_", "aggregate_", "srp_", "flash_fwd")
+
+
+def _report_trace(torch, prof, wall_ms, label, what, note=""):
+    """Print device busy, idle share and device time by kernel; returns
+    (busy ms, {kernel name: device ms})."""
     events = _kernel_events(torch, prof)
     if not events:
-        fail(f"trace[{label}]: the profiler recorded no device activity in a round")
+        fail(f"trace[{label}]: the profiler recorded no device activity in {what}")
     busy_ms = _busy_us(events) / 1e3
     by_name: dict[str, list] = {}
     for e in events:
         entry = by_name.setdefault(e.name, [0, 0.0])
         entry[0] += 1
         entry[1] += (e.time_range.end - e.time_range.start) / 1e3
-    print(f"trace[{label}]: one round, device busy {busy_ms:.3f} ms of its {wall_ms:.3f} ms wall "
-          f"({len(events)} device events), idle share {1 - busy_ms / wall_ms:.4f}; "
-          f"the unprofiled median round took {round_ms:.3f} ms")
+    print(f"trace[{label}]: {what}, device busy {busy_ms:.3f} ms of its {wall_ms:.3f} ms wall "
+          f"({len(events)} device events), idle share {1 - busy_ms / wall_ms:.4f}{note}")
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1][1])
     for name, (count, ms) in ranked[:10]:
         print(f"trace[{label}]:   {ms:9.4f} ms  {count:5d}x  {name[:90]}")
     for name, (count, ms) in ranked:
-        if "pairwise_" in name or "aggregate_" in name or "srp_" in name:
+        if any(k in name for k in PORT_KERNELS):
             print(f"trace[{label}]:   port kernel {ms:9.4f} ms  {count:5d}x  {name[:90]}")
+    return busy_ms, {name: ms for name, (_, ms) in by_name.items()}
+
+
+def phase_serve(torch):
+    """``generate`` at qwen2-1.5b's full width and depth: the LM serve path."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import model as mdl
+
+    cfg = get_config(SERVE["arch"])
+    b, p, n_gen = SERVE["batch"], SERVE["prompt_len"], SERVE["gen"]
+    t0 = time.perf_counter()
+    params = mdl.init_params(cfg, 0, device=DEV)
+    g = torch.Generator(device=DEV).manual_seed(1)
+    prompts = torch.randint(0, cfg.vocab_size, (b, p), generator=g, device=DEV)
+    torch.cuda.synchronize()
+    print(f"serve: {cfg.name}, {cfg.n_layers} layers, d_model {cfg.d_model}, {cfg.n_heads} heads "
+          f"({cfg.n_kv_heads} kv), head_dim {cfg.resolved_head_dim}, d_ff {cfg.d_ff}, vocab "
+          f"{cfg.vocab_size}, {cfg.dtype} over {cfg.param_dtype}: {mdl.param_count(params)} "
+          f"parameters made on the card in {time.perf_counter() - t0:.3f} s")
+    generate(cfg, params, prompts, 2, device=DEV)  # warm-up: cuBLAS handles, kernel load
+    marks, counts = [], []
+
+    def on_step(phase, t):
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+        counts.append(fa_ops.launches["flash_attention"])
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa_ops.launches.update(flash_attention=0)
+    t0 = time.perf_counter()
+    tokens, logits = generate(cfg, params, prompts, n_gen, device=DEV, on_step=on_step)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    prefill_ms = (marks[0] - t0) * 1e3
+    decode_ms = (marks[-1] - marks[0]) * 1e3 / (n_gen - 1)
+    in_prefill, in_decode = counts[0], counts[-1] - counts[0]
+    print(f"serve: batch {b}, prompt {p}, {n_gen} tokens: prefill {prefill_ms:.3f} ms, decode "
+          f"{decode_ms:.3f} ms per step ({b * (n_gen - 1) / (marks[-1] - marks[0]):.1f} tokens/s "
+          f"decoding, {b * n_gen / (marks[-1] - t0):.1f} tokens/s end to end); peak device memory "
+          f"{peak} B ({peak / 2**30:.2f} GiB)")
+    print(f"serve: flash_attention launches: {in_prefill} in the prefill, {in_decode} in the "
+          f"{n_gen - 1} decode steps")
+    print(f"serve: first generated row {tokens[0].tolist()}")
+    if (in_prefill, in_decode) != (cfg.n_layers, 0):
+        fail(f"serve: flash launches {in_prefill} in the prefill and {in_decode} in the decode, "
+             f"expected {cfg.n_layers} and 0")
+    if tuple(tokens.shape) != (b, n_gen) or tuple(logits.shape) != (n_gen, b, cfg.vocab_size):
+        fail(f"serve: tokens {tuple(tokens.shape)}, logits {tuple(logits.shape)}")
+    if not bool(torch.isfinite(logits).all()):
+        fail("serve: logits are not finite")
+    if int(tokens.min()) < 0 or int(tokens.max()) >= cfg.vocab_size:
+        fail("serve: a token id is out of range")
+    if not torch.equal(tokens, logits.argmax(dim=-1).T):
+        fail("serve: the tokens are not the per-step argmax of the logits")
+    return cfg, params, prompts, in_prefill + in_decode
+
+
+def phase_serve_trace(torch, cfg, params, prompts):
+    """One prefill and one decode step under torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models import model as mdl
+
+    b, p = prompts.shape
+    with torch.inference_mode():
+        caches = mdl.init_cache(cfg, b, p + 2, device=DEV)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            hidden, caches = mdl.forward(cfg, params, prompts, caches=caches)
+            logits = mdl.logits_from_hidden(cfg, params, hidden[:, -1:, :])[:, 0]
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        busy, by_name = _report_trace(torch, prof, wall_ms, "prefill", f"one prefill of ({b}, {p})")
+        flash = sum(ms for name, ms in by_name.items() if "flash_fwd" in name)
+        print(f"trace[prefill]: flash kernel {flash:.3f} ms, {flash / busy:.4f} of the device-busy time")
+        tok = logits.argmax(dim=-1, keepdim=True)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            mdl.decode_step(cfg, params, tok, caches)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        _report_trace(torch, prof, wall_ms, "decode", "one decode step")
+
+
+def flash_time_row(torch, gen, name, err, launches):
+    """The flash kernel at the serve path's shape: its time, the plain
+    version's and scaled_dot_product_attention's, beside its bound."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention.ref import flash_attention_plain
+
+    part, bw, _, bf16 = peaks_for(name)
+    b, s, h, kv, hd = FLASH_PATH
+    q, k, v = (torch.randn(shape, generator=gen).to(DEV, torch.bfloat16)
+               for shape in ((b, s, h, hd), (b, s, kv, hd), (b, s, kv, hd)))
+    # the yardstick takes (B, H, S, hd) views; the port never calls it
+    qt, kt, vt = (a.transpose(1, 2) for a in (q, k, v))
+    kern = lambda: fa_ops.flash_attention_padded(q, k, v)
+    plain = lambda: flash_attention_plain(q, k, v)
+    lib = lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
+    ms, plain_ms, lib_ms = time_ms(torch, kern, reps=20), time_ms(torch, plain, reps=5), time_ms(torch, lib, reps=20)
+    dev = [device_ms(torch, f, reps=5) for f in (plain, lib)]
+    # the kernel's own device time: the mean of the launches the profiler kept
+    kept = [e for e in device_events(torch, kern, reps=20) if "flash_fwd" in e.name]
+    if not kept:
+        fail("times: the profiler kept no flash kernel of 20 launches")
+    dev.insert(0, sum(e.time_range.end - e.time_range.start for e in kept) / 1e3 / len(kept))
+    nbytes = 2 * (2 * b * s * h * hd + 2 * b * s * kv * hd)  # q, out, k, v read or written once
+    nops = 2 * b * h * s * s * hd  # causal: QKᵀ and PV over the lower triangle
+    t_bytes, t_ops = nbytes / bw * 1e3, nops / bf16 * 1e3
+    row = {
+        "name": "flash_attention", "route": "cuda", "source": "src/repro_torch/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention/kernel.py:70", "launches": launches,
+        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations", "library_ms": lib_ms,
+    }
+    print(f"times: flash_attention {FLASH_PATH} bf16 {ms:.6f} ms, plain {plain_ms:.6f} ms, library "
+          f"(scaled_dot_product_attention) {lib_ms:.6f} ms, bound {row['bound_ms']:.6f} ms "
+          f"({row['bound_by']}; {part} peaks {bw / 1e12:.2f} TB/s, {bf16 / 1e12:.0f} TFLOP/s bf16; "
+          f"{nbytes} B, {nops} FLOP)")
+    print(f"times: flash_attention device-busy per call (profiler): kernel {dev[0]:.6f} ms (mean of "
+          f"the {len(kept)} of 20 launches it kept), plain {dev[1]:.6f} ms, library {dev[2]:.6f} ms; "
+          f"kernel at {nops / (dev[0] * 1e-3) / 1e12:.1f} TFLOP/s")
+    return row
 
 
 def phase_times(torch, gen, name, err, launches):
@@ -519,7 +789,7 @@ def phase_times(torch, gen, name, err, launches):
     from repro_torch.kernels.sketch import ops as sk_ops
     from repro_torch.kernels.sketch.ref import sketch_srp_plain, srp_sign_block
 
-    part, bw, f32 = peaks_for(name)
+    part, bw, f32, _ = peaks_for(name)
     n, d = SIM_SHAPES[0]
     G = (SIM_SCALE * torch.randn((n, d), generator=gen)).cuda()
     ns, ds_ = SKETCHED_SIM_SHAPE
@@ -614,11 +884,15 @@ def main() -> int:
     phase_build()
     err = phase_kernels(torch, gen)
     phase_small_input()
+    phase_small_serve(torch)
     launches, ds, params, round_ms = phase_slice(torch)
     launches["srp_fleet"] = phase_fleet(torch)
     phase_trace(torch, ds, params, round_ms["arccos"])
     phase_trace(torch, ds, params, round_ms["srp"], "srp", sketch="srp", sketch_dim=D_PRIME)
+    cfg, lm, prompts, flash_launches = phase_serve(torch)
+    phase_serve_trace(torch, cfg, lm, prompts)
     rows = phase_times(torch, gen, name, err, launches)
+    rows.append(flash_time_row(torch, gen, name, err["flash"], flash_launches))
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,

@@ -23,7 +23,7 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
-SOURCES = ("similarity", "aggregate", "sketch")
+SOURCES = ("similarity", "aggregate", "sketch", "flash_attention")
 
 _lock = threading.Lock()
 _loaded: dict[str, ctypes.CDLL] = {}  # name -> library, one load per process

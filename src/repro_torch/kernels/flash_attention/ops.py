@@ -1,0 +1,84 @@
+"""Causal GQA attention through the CUDA flash kernel.
+
+Port of ``src/repro/kernels/flash_attention/ops.py``.
+:func:`flash_attention_padded` is the kernel's wrapper: for CUDA tensors it
+launches ``csrc/flash_attention.cu``, for CPU tensors it runs the plain
+version in ``ref.py``. The kernel takes the true S and T and masks the
+ragged tails itself, so nothing is padded or copied: q, k and v are read in
+their (B, S, H, hd) and (B, T, KV, hd) layouts by strides, and the output is
+written (B, S, H, hd). The reference's ``block_q`` / ``block_k`` /
+``interpret`` arguments choose Pallas tiles and interpret mode; the CUDA
+tiles are fixed in the source, so the port has no such arguments.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.flash_attention.ref import flash_attention_plain
+
+#: Kernel launches since the count was last reset.
+launches = {"flash_attention": 0}
+
+HD_MAX = 128  # the kernel keeps one row's accumulator of up to 128 dims in registers
+DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+@functools.cache
+def _lib():
+    """The flash-attention library, with its C signature bound once."""
+    lib = _build.load("flash_attention")
+    lib.flash_attention_fwd.restype = ctypes.c_int
+    lib.flash_attention_fwd.argtypes = (
+        [ctypes.c_void_p] * 4
+        + [ctypes.c_int] * 7
+        + [ctypes.c_longlong] * 12
+        + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+    )
+    return lib
+
+
+def flash_attention_padded(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool = True
+) -> torch.Tensor:
+    """q (B,S,H,hd), k/v (B,T,KV,hd), f32 or bf16 -> (B,S,H,hd) in q's dtype.
+
+    Query head h reads kv head h // (H / KV). With ``causal`` query i sees
+    keys j <= i; without it, every key j < T.
+    """
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
+        raise ValueError(f"need 4-d q, k, v, got {q.dim()}, {k.dim()}, {v.dim()} dims")
+    b, s, h, hd = q.shape
+    t, kv = k.shape[1], k.shape[2]
+    if tuple(v.shape) != tuple(k.shape) or k.shape[0] != b or k.shape[3] != hd:
+        raise ValueError(f"shapes q {tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)} "
+                         "are not (B,S,H,hd), (B,T,KV,hd), (B,T,KV,hd)")
+    if min(b, s, t, h, kv) < 1 or h % kv:
+        raise ValueError(f"need B, S, T, H, KV >= 1 and H % KV == 0, got H={h}, KV={kv}")
+    if hd % 8 or not 8 <= hd <= HD_MAX:
+        raise ValueError(f"head_dim {hd} must be a multiple of 8 in [8, {HD_MAX}]")
+    if q.dtype not in DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"need one dtype of float32 or bfloat16, got {q.dtype}, {k.dtype}, {v.dtype}")
+    if not (q.device == k.device == v.device):
+        raise ValueError(f"q on {q.device}, k on {k.device}, v on {v.device}")
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, causal=causal)
+    if q.device.type != "cuda":
+        raise ValueError(f"unsupported device {q.device}")
+    if q.stride(3) != 1 or k.stride(3) != 1 or v.stride(3) != 1:
+        raise ValueError("q, k and v must have unit stride along head_dim")
+    out = torch.empty((b, s, h, hd), dtype=q.dtype, device=q.device)
+    lib = _lib()
+    err = lib.flash_attention_fwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        DTYPES[q.dtype], b, s, t, h, kv, hd,
+        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
+        hd**-0.5, int(causal),
+        torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    _build.check(lib, err, "flash attention kernel")
+    launches["flash_attention"] += 1
+    return out

@@ -1,0 +1,120 @@
+"""Block init/apply for the dense ``("attn", "mlp")`` pair, pre-norm residuals.
+
+Port of ``src/repro/models/blocks.py``. One block =
+    x = x + attn(rmsnorm(x))
+    x = x + mlp(rmsnorm(x))
+
+A block's parameters are an ``nn.ModuleDict`` of ``nn.ParameterDict``s
+keyed as the reference's parameter dict (``norm1``, ``attn``, ``ffn_norm``,
+``mlp``), so the layer functions index both alike. ``block_apply`` runs in
+two modes: ``full`` (prefill — whole sequence, seeds the cache) and
+``decode`` (one token against the block's cache). The other mixers (mla,
+moe, rglru, mlstm, slstm, local, bidir) and cross-attention are not ported
+(ROADMAP A12).
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+from torch import nn
+
+from repro_torch.models.config import BlockSpec, ModelConfig
+from repro_torch.models.layers import attention as attn_lib
+from repro_torch.models.layers.mlp import init_mlp, mlp
+from repro_torch.models.layers.norms import rmsnorm
+
+DENSE: BlockSpec = ("attn", "mlp")
+
+
+def _check_kind(kind: BlockSpec) -> None:
+    if tuple(kind) != DENSE:
+        raise NotImplementedError(
+            f"block {kind} is not ported; only {DENSE} is (ROADMAP A12)")
+
+
+def as_module(params: dict) -> nn.ModuleDict:
+    """A block's nested dict of tensors -> frozen ``ModuleDict`` of ``ParameterDict``s."""
+    return nn.ModuleDict({
+        name: nn.ParameterDict({k: nn.Parameter(t, requires_grad=False) for k, t in sub.items()})
+        for name, sub in params.items()
+    })
+
+
+def init_block(cfg: ModelConfig, kind: BlockSpec, gen: Optional[torch.Generator], device) -> nn.ModuleDict:
+    _check_kind(kind)
+    return as_module({
+        "norm1": {"scale": torch.ones((cfg.d_model,), device=device)},
+        "attn": attn_lib.init_attention(cfg, gen, device),
+        "ffn_norm": {"scale": torch.ones((cfg.d_model,), device=device)},
+        "mlp": init_mlp(cfg.d_model, cfg.d_ff, gen, device),
+    })
+
+
+def init_block_cache(
+    cfg: ModelConfig, kind: BlockSpec, batch: int, cache_len: int, dtype, device,
+    *, decode_window: int = 0,
+) -> dict:
+    """Decode-state for one block. ``decode_window`` ring-buffers 'attn' blocks."""
+    _check_kind(kind)
+    length = min(cache_len, decode_window) if decode_window else cache_len
+    return attn_lib.init_kv_cache(cfg, batch, length, dtype, device)
+
+
+def _mixer_window(mixer: str, decode_window: int) -> int:
+    """The decode window of a mixer (the reference's "local" mixers use
+    ``cfg.sliding_window``; they are not ported)."""
+    return decode_window if mixer == "attn" else 0
+
+
+def block_apply(
+    cfg: ModelConfig,
+    kind: BlockSpec,
+    params: nn.ModuleDict,
+    x: torch.Tensor,
+    *,
+    angles: Optional[torch.Tensor],
+    mode: str,  # 'full' | 'decode'
+    cache: Optional[dict] = None,
+    decode_window: int = 0,
+) -> tuple[torch.Tensor, Optional[dict]]:
+    """Returns (x, new_cache)."""
+    _check_kind(kind)
+    h = rmsnorm(params["norm1"], x, cfg.norm_eps)
+    window = _mixer_window(kind[0], decode_window)
+    new_cache = cache
+    if mode == "full":
+        y, kv = attn_lib.attention_full(cfg, params["attn"], h, angles, window=window)
+        if cache is not None:
+            new_cache = pack_kv_cache(kv, cache["k"].shape[1], window, cache["k"].dtype)
+    else:
+        y, new_cache = attn_lib.attention_decode(cfg, params["attn"], h, angles, cache, window=window)
+    x = x + y
+    hf = rmsnorm(params["ffn_norm"], x, cfg.norm_eps)
+    return x + mlp(cfg, params["mlp"], hf), new_cache
+
+
+def pack_kv_cache(kv: dict, cache_len: int, window: int, dtype) -> dict:
+    """Seed a decode cache from prefill k/v (ring-rolled for windowed caches).
+
+    Ring invariant: slot ``p % window`` holds position ``p``. After a prefill
+    of length S the last ``window`` positions S-w..S-1 land at slots
+    ``(S-w+i) % w`` — i.e. the chronological tail rolled by ``S % w``.
+    """
+    k, v = kv["k"], kv["v"]
+    s = k.shape[1]
+    if window and s > window:
+        shift = s % window
+        k = torch.roll(k[:, -window:], shift, dims=1)
+        v = torch.roll(v[:, -window:], shift, dims=1)
+        pad = 0
+    else:
+        pad = cache_len - s
+
+    def seed(u):
+        out = torch.zeros((u.shape[0], u.shape[1] + max(pad, 0)) + tuple(u.shape[2:]),
+                          dtype=dtype, device=u.device)
+        out[:, : u.shape[1]] = u
+        return out
+
+    return {"k": seed(k), "v": seed(v), "pos": s}

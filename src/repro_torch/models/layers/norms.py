@@ -1,0 +1,30 @@
+"""Normalization layers (functional).
+
+Port of ``src/repro/models/layers/norms.py``: each computes in f32 and casts
+back to the input's dtype.
+"""
+from __future__ import annotations
+
+import torch
+
+
+def rmsnorm(params: dict, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    x32 = x.to(torch.float32)
+    var = x32.square().mean(dim=-1, keepdim=True)
+    out = x32 / torch.sqrt(var + eps)
+    return (out * params["scale"]).to(x.dtype)
+
+
+def layernorm(params: dict, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    x32 = x.to(torch.float32)
+    mean = x32.mean(dim=-1, keepdim=True)
+    var = x32.var(dim=-1, keepdim=True, correction=0)
+    out = (x32 - mean) / torch.sqrt(var + eps)
+    return (out * params["scale"] + params["bias"]).to(x.dtype)
+
+
+def rms_head_norm(scale: torch.Tensor, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """Per-head RMS norm over the trailing head_dim (Qwen3 qk-norm)."""
+    x32 = x.to(torch.float32)
+    var = x32.square().mean(dim=-1, keepdim=True)
+    return (x32 / torch.sqrt(var + eps) * scale).to(x.dtype)

@@ -150,3 +150,106 @@ def test_ward_device_on_the_card_matches_the_cpu(cuda):
     got = ward_linkage_device(dist.to(cuda))
     np.testing.assert_array_equal(got[:, [0, 1, 3]], want[:, [0, 1, 3]])
     np.testing.assert_allclose(got[:, 2], want[:, 2], rtol=1e-5)
+
+
+FLASH_SHAPES = [(1, 32, 4, 4, 16), (2, 64, 8, 2, 32), (1, 48, 6, 1, 64), (2, 40, 4, 2, 8),
+                (1, 1000, 4, 2, 128), (2, 77, 12, 2, 128), (4, 1000, 12, 2, 128)]
+
+
+def _flash_inputs(b, s, h, kv, hd, dtype, t=None, seed=6):
+    rng = np.random.default_rng(seed)
+    t = s if t is None else t
+    return tuple(torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to("cuda", dtype)
+                 for shape in ((b, s, h, hd), (b, t, kv, hd), (b, t, kv, hd)))
+
+
+def _flash_limit(want, q, k, v):
+    """atol 2e-5 in f32; in bf16 min(3e-2, 2^-7·(|want| + Σ_j p_ij|v_j|)),
+    the limits of chip_smoke.py's flash check."""
+    from repro_torch.kernels.flash_attention.ref import flash_attention_plain
+
+    if q.dtype == torch.float32:
+        return 2e-5
+    scale = want.float().abs() + flash_attention_plain(q.float(), k.float(), v.float().abs())
+    return (2.0**-7 * scale).clamp(max=3e-2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,h,kv,hd", FLASH_SHAPES)
+def test_flash_kernel_matches_plain(cuda, b, s, h, kv, hd, dtype):
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention.ref import flash_attention_plain
+
+    q, k, v = _flash_inputs(b, s, h, kv, hd, dtype)
+    got = fa_ops.flash_attention_padded(q, k, v)
+    want = flash_attention_plain(q, k, v)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == q.shape
+    assert bool(((got.float() - want.float()).abs() <= _flash_limit(want, q, k, v)).all())
+    # fixed k order: bit-reproducible from call to call
+    assert torch.equal(got, fa_ops.flash_attention_padded(q, k, v))
+
+
+@pytest.mark.parametrize("t", [48, 70])
+def test_flash_kernel_non_causal_masks_keys_past_t(cuda, t):
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention.ref import flash_attention_plain
+
+    q, k, v = _flash_inputs(2, 33, 4, 2, 32, torch.float32, t=t)
+    got = fa_ops.flash_attention_padded(q, k, v, causal=False)
+    want = flash_attention_plain(q, k, v, causal=False)
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), atol=2e-5)
+
+
+def test_flash_kernel_reads_strided_views(cuda):
+    """q, k, v as views into the fused (B, S, (H + 2·KV)·hd) projection: the
+    kernel reads them by strides and matches their contiguous copies."""
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+
+    b, s, h, kv, hd = 2, 50, 4, 2, 32
+    fused = torch.randn((b, s, (h + 2 * kv) * hd), device=cuda)
+    q = fused[..., : h * hd].unflatten(-1, (h, hd))
+    k = fused[..., h * hd: (h + kv) * hd].unflatten(-1, (kv, hd))
+    v = fused[..., (h + kv) * hd:].unflatten(-1, (kv, hd))
+    assert not q.is_contiguous()
+    got = fa_ops.flash_attention_padded(q, k, v)
+    want = fa_ops.flash_attention_padded(q.contiguous(), k.contiguous(), v.contiguous())
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("bad", ["float16", "hd_12", "hd_256", "h_mod_kv", "hd_stride"])
+def test_flash_wrapper_raises_instead_of_falling_back(cuda, bad):
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+
+    q, k, v = _flash_inputs(1, 8, 4, 2, 16, torch.float32)
+    if bad == "float16":
+        q, k, v = q.half(), k.half(), v.half()
+    elif bad == "hd_12":
+        q, k, v = (a[..., :12].contiguous() for a in (q, k, v))
+    elif bad == "hd_256":
+        q, k, v = (torch.zeros(a.shape[:3] + (256,), device=cuda) for a in (q, k, v))
+    elif bad == "h_mod_kv":
+        k, v = torch.zeros((1, 8, 3, 16), device=cuda), torch.zeros((1, 8, 3, 16), device=cuda)
+    else:
+        q = torch.zeros((1, 8, 4, 32), device=cuda)[..., ::2]
+    before = fa_ops.launches["flash_attention"]
+    with pytest.raises((ValueError, TypeError)):
+        fa_ops.flash_attention_padded(q, k, v)
+    assert fa_ops.launches["flash_attention"] == before
+
+
+def test_flash_launch_count_counts_prefill_layers(cuda):
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.launch.serve import generate
+    from repro_torch.models.model import init_params
+
+    cfg = dataclasses.replace(get_config("qwen2-1.5b", reduced=True), n_layers=3)
+    params = init_params(cfg, 0, device=cuda)
+    before = fa_ops.launches["flash_attention"]
+    tokens, _ = generate(cfg, params, torch.zeros((2, 9), dtype=torch.long, device=cuda), 4, device=cuda)
+    assert fa_ops.launches["flash_attention"] == before + 3  # one per layer, none in decode
+    assert tokens.shape == (2, 4)

@@ -12,7 +12,10 @@ from repro_torch.fl.gradient_store import GradientStore
 from repro_torch.fl.partition import by_class_shards
 from repro_torch.fl.server import FederatedServer, FLConfig
 from repro_torch.kernels import _build
+from repro_torch.configs import get_config
 from repro_torch.kernels.sketch.ref import countsketch_params, srp_sign_block
+from repro_torch.launch.serve import generate
+from repro_torch.models.model import init_cache, init_params
 from repro_torch.models.simple import init_mlp
 from repro_torch.optim.sgd import sgd
 
@@ -22,7 +25,8 @@ DATA = dict(n_classes=4, clients_per_class=1, train_per_client=10, test_per_clie
 ENTRY_POINTS = [
     "resolve_device", "init_mlp", "GradientStore", "BatchedRoundEngine",
     "Algorithm2Sampler", "FederatedServer", "srp_sign_block", "countsketch_params",
-    "GradientStore[srp]", "Algorithm2Sampler[srp,kmeans]",
+    "GradientStore[srp]", "Algorithm2Sampler[srp,kmeans]", "init_params[lm]", "init_cache[lm]",
+    "generate[lm]",
 ]
 
 
@@ -42,6 +46,14 @@ def _call(name, device):
         return srp_sign_block(0, 0, 8, 4, 8, **kw)
     if name == "countsketch_params":
         return countsketch_params(8, 4, 0, **kw)
+    if name.endswith("[lm]"):
+        cfg = get_config("qwen2-1.5b", reduced=True)
+        if name == "init_params[lm]":
+            return init_params(cfg, **kw)
+        if name == "init_cache[lm]":
+            return init_cache(cfg, 1, 4, **kw)
+        params = init_params(cfg, device="cpu")
+        return generate(cfg, params, torch.zeros((1, 3), dtype=torch.long), 2, **kw)
     if name == "BatchedRoundEngine":
         return BatchedRoundEngine(ds, 2, 1, 2, **kw)
     if name == "Algorithm2Sampler":
@@ -83,7 +95,7 @@ def test_build_raises_without_nvcc(monkeypatch):
 
 
 def test_build_module_imports_without_nvcc():
-    assert set(_build.SOURCES) == {"similarity", "aggregate", "sketch"}
+    assert set(_build.SOURCES) == {"similarity", "aggregate", "sketch", "flash_attention"}
     for name in _build.SOURCES:
         src, lib = _build._target(name)
         assert src.exists()

@@ -1,0 +1,124 @@
+"""Kernel B4's plain version and CPU wrapper against the JAX package's.
+
+The JAX side is ``flash_attention_padded(..., interpret=True)`` with the
+16-row tiles of ``tests/test_kernels.py``, its oracle ``attention_ref`` and
+the model layer's ``attend`` with ``causal_mask``. Tolerances: atol 2e-5
+in f32 (the reference's own; measured ≤ 6.6e-7: the two sum in other
+orders); in bf16 the outputs are bf16 of magnitude ≤ 4, so atol 1.6e-2
+(two bf16 ulps at 2–4, measured 7.8e-3) against the JAX kernel, whose p
+is rounded relative to a running max, and the reference's 3e-2 against
+its oracle.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import get_config as ref_get_config
+from repro.kernels.flash_attention.ops import flash_attention_padded as ref_flash
+from repro.kernels.flash_attention.ref import attention_ref as ref_attention_ref
+from repro.models.layers.attention import attend as ref_attend
+from repro.models.layers.attention import causal_mask as ref_causal_mask
+from repro_torch.kernels.flash_attention import ops
+from repro_torch.kernels.flash_attention.ref import attention_ref, flash_attention_plain
+
+F32_SHAPES = [(1, 32, 4, 4, 16), (2, 64, 8, 2, 32), (1, 48, 6, 1, 64), (2, 40, 4, 2, 8)]
+F32_ATOL = 2e-5
+BF16_ATOL = 1.6e-2
+
+
+def _qkv(b, s, h, kv, hd, t=None, seed=0):
+    rng = np.random.default_rng(seed)
+    t = s if t is None else t
+    return (rng.normal(size=(b, s, h, hd)).astype(np.float32),
+            rng.normal(size=(b, t, kv, hd)).astype(np.float32),
+            rng.normal(size=(b, t, kv, hd)).astype(np.float32))
+
+
+def _ref(q, k, v, dtype=jnp.float32, causal=True):
+    out = ref_flash(*(jnp.asarray(a, dtype) for a in (q, k, v)), causal=causal,
+                    block_q=16, block_k=16, interpret=True)
+    return np.asarray(out, np.float32)
+
+
+def _port(fn, q, k, v, dtype=torch.float32, causal=True):
+    out = fn(*(torch.from_numpy(a).to(dtype) for a in (q, k, v)), causal=causal)
+    assert out.dtype == dtype and tuple(out.shape) == q.shape
+    return out.float().numpy()
+
+
+PORT_FNS = {"plain": flash_attention_plain, "wrapper": ops.flash_attention_padded}
+
+
+@pytest.mark.parametrize("fn", PORT_FNS)
+@pytest.mark.parametrize("b,s,h,kv,hd", F32_SHAPES + [(2, 37, 4, 2, 32), (1, 130, 6, 3, 128)])
+def test_f32_matches_reference_kernel(fn, b, s, h, kv, hd):
+    """The reference's four test shapes, a ragged S (37: not a multiple of
+    the 16-row tiles) and the path's head_dim 128 at a ragged S."""
+    q, k, v = _qkv(b, s, h, kv, hd)
+    np.testing.assert_allclose(_port(PORT_FNS[fn], q, k, v), _ref(q, k, v), atol=F32_ATOL)
+
+
+@pytest.mark.parametrize("fn", PORT_FNS)
+@pytest.mark.parametrize("b,s,h,kv,hd", [(1, 32, 4, 2, 16), (2, 200, 4, 2, 32)])
+def test_bf16_matches_reference_kernel_and_oracle(fn, b, s, h, kv, hd):
+    q, k, v = _qkv(b, s, h, kv, hd, seed=1)
+    got = _port(PORT_FNS[fn], q, k, v, torch.bfloat16)
+    np.testing.assert_allclose(got, _ref(q, k, v, jnp.bfloat16), atol=BF16_ATOL)
+    oracle = ref_attention_ref(*(jnp.asarray(a, jnp.bfloat16) for a in (q, k, v)))
+    np.testing.assert_allclose(got, np.asarray(oracle, np.float32), atol=3e-2)
+
+
+@pytest.mark.parametrize("fn", PORT_FNS)
+def test_non_causal_matches_reference_at_a_block_multiple(fn):
+    """Non-causal calls are compared only where T is a multiple of the
+    reference's tile: for a ragged T the reference pads keys with zeros and
+    does not mask them (ROADMAP Queue C); the port masks k >= T."""
+    q, k, v = _qkv(2, 32, 4, 2, 16, t=48)
+    np.testing.assert_allclose(_port(PORT_FNS[fn], q, k, v, causal=False),
+                               _ref(q, k, v, causal=False), atol=F32_ATOL)
+
+
+def test_ragged_non_causal_masks_the_tail_unlike_the_reference():
+    q, k, v = _qkv(1, 16, 2, 1, 8, t=20)
+    got = _port(flash_attention_plain, q, k, v, causal=False)
+    exact = _port(lambda *a, causal: attention_ref(*a, causal=causal), q, k, v, causal=False)
+    np.testing.assert_allclose(got, exact, atol=F32_ATOL)
+    assert np.abs(got - _ref(q, k, v, causal=False)).max() > 1e-3  # the reference's padded keys
+
+
+@pytest.mark.parametrize("b,s,h,kv,hd", F32_SHAPES)
+def test_attention_ref_copy_matches_the_reference_oracle(b, s, h, kv, hd):
+    q, k, v = _qkv(b, s, h, kv, hd, seed=2)
+    want = np.asarray(ref_attention_ref(*(jnp.asarray(a) for a in (q, k, v))))
+    got = attention_ref(*(torch.from_numpy(a) for a in (q, k, v))).numpy()
+    np.testing.assert_allclose(got, want, atol=F32_ATOL)
+
+
+def test_wrapper_matches_the_model_layer():
+    """Kernel function == the reference model's attend() with causal_mask."""
+    cfg = ref_get_config("qwen2-1.5b", reduced=True)
+    b, s, h, kv, hd = 2, 32, cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    q, k, v = _qkv(b, s, h, kv, hd, seed=3)
+    want = ref_attend(cfg, jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), ref_causal_mask(s, s, 0))
+    got = _port(ops.flash_attention_padded, q, k, v)
+    np.testing.assert_allclose(got, np.asarray(want).reshape(b, s, h, hd), atol=F32_ATOL)
+
+
+@pytest.mark.parametrize("bad", ["hd", "hd_large", "gqa", "dtype", "mixed_dtype", "shape"])
+def test_wrapper_rejects_what_the_kernel_does_not_take(bad):
+    q, k, v = (torch.from_numpy(a) for a in _qkv(1, 8, 4, 2, 16))
+    if bad == "hd":
+        q, k, v = q[..., :12], k[..., :12], v[..., :12]
+    elif bad == "hd_large":
+        q, k, v = (torch.zeros(a.shape[:3] + (256,)) for a in (q, k, v))
+    elif bad == "gqa":
+        k, v = torch.zeros((1, 8, 3, 16)), torch.zeros((1, 8, 3, 16))
+    elif bad == "dtype":
+        q, k, v = q.half(), k.half(), v.half()
+    elif bad == "mixed_dtype":
+        v = v.bfloat16()
+    else:
+        v = v[:, :4]
+    with pytest.raises((ValueError, TypeError)):
+        ops.flash_attention_padded(q, k, v)

@@ -8,7 +8,12 @@ halves every entry, at each shape the smoke run checks. The SRP check,
 relative to ‖x_i‖·‖S_:,j‖, gets the same treatment: it accepts two other
 f32 summation orders and rejects a kernel that drops the ragged d tail
 (``d mod 512``, the plain version's block, or ``d mod 64``, the kernel's
-k-tile) or reads the signs of the next row of k.
+k-tile) or reads the signs of the next row of k. The flash-attention check
+(atol 2e-5 in f32; in bf16 relative to the softmax-weighted |v|) accepts
+the kernel's own order of work, an online softmax over 64-key tiles with p
+rounded against the running max, and rejects a kernel that drops the last
+partial k-tile or ignores the causal mask: a check must fail the kernels
+it exists to catch.
 """
 import importlib.util
 from pathlib import Path
@@ -117,3 +122,64 @@ def test_srp_check_rejects_wrong_kernels(c, d, d_prime, wrong):
     else:
         got = X @ srp_sign_block(smoke.SRP_SEED, 1, d, d_prime, d + 1, device="cpu")
     assert smoke.srp_rel_err(got, want, X, d_prime) > smoke.SRP_RTOL
+
+
+def _flash_online(q, k, v, bk=64, drop_last_partial=False, causal=True):
+    """The CUDA kernel's order of work in torch: 64-key tiles in order, the
+    running max, p rounded to v's dtype against it, f32 sums. The broken
+    variants drop the last partial k-tile or the causal mask."""
+    b, s, h, hd = q.shape
+    t, kv = k.shape[1], k.shape[2]
+    g = h // kv
+    qf = q.float().reshape(b, s, kv, g, hd)
+    m = torch.full((b, kv, g, s, 1), -1e30)
+    l = torch.zeros((b, kv, g, s, 1))
+    acc = torch.zeros((b, kv, g, s, hd))
+    rows = torch.arange(s)[:, None]
+    end = t - (t % bk) if drop_last_partial and t % bk else t
+    for k0 in range(0, end, bk):
+        kt, vt = k[:, k0:k0 + bk].float(), v[:, k0:k0 + bk]
+        sc = torch.einsum("bskgh,btkh->bkgst", qf, kt) * hd**-0.5
+        if causal:
+            sc = torch.where(k0 + torch.arange(kt.shape[1])[None, :] <= rows, sc, -1e30)
+        m_new = torch.maximum(m, sc.amax(dim=-1, keepdim=True))
+        p = torch.exp(sc - m_new)
+        alpha = torch.exp(m - m_new)
+        l = l * alpha + p.sum(dim=-1, keepdim=True)
+        acc = acc * alpha + torch.einsum("bkgst,btkh->bkgsh", p.to(v.dtype).float(), vt.float())
+        m = m_new
+    out = (acc / l.clamp_min(1e-30)).permute(0, 3, 1, 2, 4).reshape(b, s, h, hd)
+    return out.to(q.dtype)
+
+
+FLASH_CASES = ([(shape, torch.float32) for shape in smoke.FLASH_F32_SHAPES]
+               + [(shape, torch.bfloat16) for shape in smoke.FLASH_BF16_SHAPES])
+
+
+def _qkv(b, s, h, kv, hd, dtype):
+    rng = np.random.default_rng(2)
+    return tuple(torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(dtype)
+                 for shape in ((b, s, h, hd), (b, s, kv, hd), (b, s, kv, hd)))
+
+
+@pytest.mark.parametrize("shape,dtype", FLASH_CASES)
+def test_flash_check_accepts_the_kernels_order(shape, dtype):
+    from repro_torch.kernels.flash_attention.ref import flash_attention_plain
+
+    q, k, v = _qkv(*shape, dtype)
+    want = flash_attention_plain(q, k, v)
+    assert smoke.flash_excess(_flash_online(q, k, v), want, q, k, v) <= 1.0
+
+
+@pytest.mark.parametrize("wrong", ["drop_last_partial_tile", "no_causal_mask"])
+@pytest.mark.parametrize("shape,dtype", [c for c in FLASH_CASES if c[0][1] % 64])
+def test_flash_check_rejects_wrong_kernels(shape, dtype, wrong):
+    from repro_torch.kernels.flash_attention.ref import flash_attention_plain
+
+    q, k, v = _qkv(*shape, dtype)
+    want = flash_attention_plain(q, k, v)
+    if wrong == "drop_last_partial_tile":
+        got = _flash_online(q, k, v, drop_last_partial=True)
+    else:
+        got = _flash_online(q, k, v, causal=False)
+    assert smoke.flash_excess(got, want, q, k, v) > 1.0
