@@ -9,23 +9,32 @@ Phases, one line (or a few) each; any failure raises and exits non-zero:
 
 1. build   — compile ``csrc/similarity.cu``, ``csrc/aggregate.cu``,
    ``csrc/sketch.cu`` and ``csrc/flash_attention.cu`` for ``sm_90a`` from
-   the checkout (all ``nvcc`` in parallel) and print the seconds it took
-   and each kernel's ptxas report;
+   the checkout (all ``nvcc`` in parallel) and print the seconds it took,
+   each kernel's ptxas report (registers, spills; a spill in the bf16 flash
+   kernel fails the run) and the count of ``HMMA`` (tensor-core)
+   instructions of each flash kernel in ``cuobjdump -sass`` of the built
+   library (the bf16 kernel must have some);
 2. kernels — hold each kernel against its plain PyTorch version on the card
    at the main path's shapes (Gram: |got − want| ≤ 1e-5·‖g_i‖·‖g_j‖, the
    error on the scale of the entries; L1: atol 1e-4 on entries of order
    0.1–50; aggregate: rtol and atol 2e-5; SRP: |got − want| ≤
    1e-5·‖x_i‖·‖S_:,j‖ with ‖S_:,j‖ = √(d/d′), its signs bit-equal to the
    plain version's, bit-reproducible and independent of the rows it is
-   batched with; countsketch bit-reproducible; flash attention at the
-   reference's test shapes, a ragged S = T = 1,000 and the serve path's
-   (4, 1,000, 12, 2, 128) in bf16: atol 2e-5 in f32, and in bf16
+   batched with; countsketch bit-reproducible; flash attention, f32 on
+   the CUDA-core kernel at the reference's test shapes and a ragged
+   S = T = 1,000, bf16 on the tensor-core kernel at every padded head dim
+   (hd 8 to 128), ragged S = T of 1 to 1,000 around its 64-row tiles, the
+   serve path's (4, 1,000, 12, 2, 128), non-causal with a ragged T, and
+   views into a fused projection; atol 2e-5 in f32, and in bf16
    min(3e-2, 2⁻⁷·(|want| + Σ_j p_ij·|v_j|)), the error on the scale of the
-   softmax-weighted |v|; bit-reproducible) and check the port on the card
-   against the port on the CPU on a small input (equal plans, losses and
-   params to atol 1e-4), unsketched and with the SRP sketch under Ward and
-   k-means, and the LM's greedy generations (reduced qwen2-1.5b at 2
-   layers, f32: equal token ids, logits to atol 1e-4);
+   softmax-weighted |v|; bit-reproducible; a misaligned bf16 view raises
+   without a launch) and check the port on the card against the port on
+   the CPU on a small input (equal plans, losses and params to atol 1e-4),
+   unsketched and with the SRP sketch under Ward and k-means, and the LM's
+   greedy generations (reduced qwen2-1.5b at 2 layers: in f32 equal token
+   ids and logits to atol 1e-4; in bf16, through the tensor-core kernel,
+   logits to atol 0.1 and equal tokens wherever the CPU's top-2 margin
+   exceeds 0.2);
 3. slice   — the Algorithm 2 FL round loop at the paper's MNIST width
    (784 → 50 → 10, d = 39,760; 100 clients, m = 10, N = B = 50, lr 0.01):
    5 rounds with the arccos measure, 2 with L1, and 5 arccos rounds with
@@ -43,11 +52,17 @@ Phases, one line (or a few) each; any failure raises and exits non-zero:
    d_model 1,536, vocab 151,936), bf16 over f32 random parameters, batch
    4, prompt length 1,000, 16 greedy tokens: prefill ms, decode ms per
    token, tokens/s, peak device memory, and exactly 28 flash launches in
-   the prefill and 0 in the decode; then one prefill and one decode step
-   under ``torch.profiler``, with the flash kernel's share of the prefill;
+   the prefill and 0 in the decode; one more prefill with the attention
+   swapped for the plain version on the card, whose last-position tokens
+   must agree wherever its top-2 margin exceeds twice the largest logit
+   difference; then one prefill and one decode step under
+   ``torch.profiler``, with the flash kernel's share of the prefill;
 7. times   — each kernel, its plain version and one PyTorch library call
    on the same inputs, timed with CUDA events (and device-busy time from
-   the profiler), beside the card's bound.
+   the profiler), beside the card's bound; the flash kernel and
+   ``scaled_dot_product_attention`` in turns (kernel, library, library,
+   kernel), also with the queue filled ahead of the events, and the
+   TFLOP/s each reaches.
 
 The last lines are the card's name and power limit (nvidia-smi), a JSON
 object with one entry per kernel and shape, and ``{"ok": true, "device": ...}``.
@@ -100,7 +115,16 @@ DEV = "cuda"  # the LM phases' device
 FLASH_F32_SHAPES = [(1, 32, 4, 4, 16), (2, 64, 8, 2, 32), (1, 48, 6, 1, 64), (2, 40, 4, 2, 8),
                     (1, 1000, 4, 2, 128)]
 FLASH_PATH = (4, 1000, 12, 2, 128)
-FLASH_BF16_SHAPES = [(1, 32, 4, 2, 16), FLASH_PATH]
+FLASH_BF16_SHAPES = [
+    (1, 32, 4, 2, 16), FLASH_PATH,
+    # every padded head dim of the bf16 kernel (32, 64, 128); hd 8 and 72
+    # leave pad columns inside a 16-column k-step
+    (2, 70, 4, 2, 8), (1, 96, 4, 1, 32), (1, 130, 6, 2, 64), (1, 77, 4, 2, 72),
+    # ragged S = T around the 64-row q-tiles and 64-key k-tiles
+    (2, 1, 4, 2, 128), (1, 63, 4, 2, 128), (1, 65, 8, 2, 128), (2, 77, 12, 2, 128),
+    (1, 1000, 4, 2, 128),
+]
+FLASH_NONCAUSAL = [((2, 33, 4, 2, 32), t) for t in (48, 70)]  # ((B, S, H, KV, hd), T)
 FLASH_F32_ATOL = 2e-5  # the reference's
 FLASH_BF16_ATOL = 3e-2  # the reference's, the loosest the bf16 limit may be
 # bf16: two ulps (2⁻⁸ each) of the output's scale, which is bounded by the
@@ -110,6 +134,13 @@ FLASH_BF16_REL = 2.0**-7
 SERVE = dict(arch="qwen2-1.5b", batch=4, prompt_len=1000, gen=16)
 SERVE_SMALL = dict(arch="qwen2-1.5b", n_layers=2, batch=2, prompt_len=19, gen=6)
 SERVE_SMALL_ATOL = 1e-4
+# bf16: the bf16 model test's logit tolerance (tests/test_torch_lm_model.py),
+# and tokens must agree wherever the CPU's top-2 margin exceeds 0.2
+SERVE_SMALL_BF16_ATOL = 0.1
+SERVE_SMALL_BF16_MARGIN = 0.2
+# clock cycles the device sleeps before a timed run, so the host has queued
+# every call when the first starts (about 5 ms at 2 GHz)
+QUEUE_CYCLES = 10_000_000
 
 
 def fail(msg: str) -> None:
@@ -137,9 +168,9 @@ def srp_rel_err(got, want, X, d_prime: int) -> float:
     return float(((got.double() - want.double()).abs() / scale).max())
 
 
-def flash_excess(got, want, q, k, v) -> float:
-    """max |got − want| / limit over the outputs of a causal call: the limit
-    is FLASH_F32_ATOL for f32, and for bf16 min(FLASH_BF16_ATOL,
+def flash_excess(got, want, q, k, v, causal=True) -> float:
+    """max |got − want| / limit over the outputs of a call: the limit is
+    FLASH_F32_ATOL for f32, and for bf16 min(FLASH_BF16_ATOL,
     FLASH_BF16_REL·(|want| + A)) with A = Σ_j p_ij·|v_j|, the plain
     version's f32 attention over |v|."""
     import torch
@@ -149,15 +180,22 @@ def flash_excess(got, want, q, k, v) -> float:
     err = (got.float() - want.float()).abs()
     if q.dtype == torch.float32:
         return float(err.max()) / FLASH_F32_ATOL
-    scale = want.float().abs() + flash_attention_plain(q.float(), k.float(), v.float().abs())
+    scale = want.float().abs() + flash_attention_plain(q.float(), k.float(), v.float().abs(),
+                                                       causal=causal)
     return float((err / (FLASH_BF16_REL * scale).clamp(max=FLASH_BF16_ATOL)).max())
 
 
-def time_ms(torch, fn, reps: int = 50) -> float:
-    """Mean ms per call over ``reps`` calls after warm-up, by CUDA events."""
+def time_ms(torch, fn, reps: int = 50, queued: bool = False) -> float:
+    """Mean ms per call over ``reps`` calls after warm-up, by CUDA events.
+
+    With ``queued`` the device first sleeps QUEUE_CYCLES, so the host has
+    enqueued all ``reps`` calls before the first runs: the events then time
+    the device's work alone, however slow the host's calls are."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
+    if queued:
+        torch.cuda._sleep(QUEUE_CYCLES)
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
@@ -168,7 +206,63 @@ def time_ms(torch, fn, reps: int = 50) -> float:
     return start.elapsed_time(end) / reps
 
 
+def _kernel_name(mangled: str) -> str:
+    """``flash_fwd_mma<128>`` from an Itanium-mangled kernel name
+    (``_ZN12_GLOBAL__N_113flash_fwd_mmaILi128EEEv...``): the innermost
+    length-prefixed identifier and an integer template argument."""
+    import re
+
+    i = mangled.find("_Z")
+    if i < 0:
+        return mangled[:60]
+    i += 3 if mangled.startswith("_ZN", i) else 2
+    name = None
+    while found := re.match(r"\d+", mangled[i:]):
+        n, i = int(found.group()), i + len(found.group())
+        name, i = mangled[i:i + n], i + n
+    if name is None:
+        return mangled[:60]
+    arg = re.match(r"ILi(\d+)E", mangled[i:])
+    return name + (f"<{arg.group(1)}>" if arg else "")
+
+
+def ptxas_report(log: str) -> list[tuple[str, str]]:
+    """(kernel, line) for each register and spill line of a ``-Xptxas -v``
+    log, attributed to the entry function it follows."""
+    rows, fn = [], "?"
+    for line in log.splitlines():
+        if "Function properties for" in line:
+            fn = _kernel_name(line.split("Function properties for", 1)[1].strip())
+        elif "Compiling entry function" in line:
+            fn = _kernel_name(line.split("'")[1])
+        elif "registers" in line or "spill" in line:
+            rows.append((fn, line.strip()))
+    return rows
+
+
+def hmma_counts(lib_path) -> dict | None:
+    """{kernel: count of HMMA instructions} in ``cuobjdump -sass`` of the
+    library, or None where cuobjdump is missing."""
+    import shutil
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not Path(tool).exists():
+        return None
+    sass = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True, text=True,
+                          check=True, timeout=120).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            fn = _kernel_name(line.split("Function :", 1)[1].strip())
+            counts[fn] = 0
+        elif fn is not None and "HMMA" in line:
+            counts[fn] += 1
+    return counts
+
+
 def phase_build():
+    import re
+
     from repro_torch.kernels import _build
 
     t0 = time.perf_counter()
@@ -178,9 +272,20 @@ def phase_build():
         _build.load(name)
     print(f"build: {secs:.3f} s for {', '.join(s + '.cu' for s in _build.SOURCES)} (sm_90a)")
     for name, log in logs.items():
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  ptxas {name}: {line.strip()}")
+        for fn, line in ptxas_report(log):
+            print(f"  ptxas {name} {fn}: {line}")
+            if fn.startswith("flash_fwd_mma") and any(
+                    int(n) for n in re.findall(r"(\d+) bytes spill", line)):
+                fail(f"build: ptxas reports spills in {fn}: {line}")
+    lib = _build._target("flash_attention")[1]
+    counts = hmma_counts(lib)
+    if counts is None:
+        print(f"build: cuobjdump is missing; HMMA instructions of {lib.name} not counted")
+        return
+    print(f"build: HMMA instructions in cuobjdump -sass of {lib.name}: {json.dumps(counts)}")
+    mma = {fn: n for fn, n in counts.items() if fn.startswith("flash_fwd_mma")}
+    if not mma or not all(mma.values()):
+        fail(f"build: the bf16 flash kernel has no HMMA instruction: {json.dumps(counts)}")
 
 
 def phase_kernels(torch, gen):
@@ -289,43 +394,89 @@ def phase_kernels_srp(torch, gen) -> float:
     return worst
 
 
-def phase_kernels_flash(torch, gen) -> float:
-    """The flash kernel against its plain version at every listed shape,
-    causal; returns the max abs error at the serve path's shape."""
-    from repro_torch.kernels.flash_attention import ops as fa_ops
+def _flash_check(torch, label, got, q, k, v, causal=True, again=None) -> float:
+    """Hold one flash call against the plain version (and, with ``again``,
+    a second call bit for bit); print it and return its max abs error."""
     from repro_torch.kernels.flash_attention.ref import flash_attention_plain
+
+    want = flash_attention_plain(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    if got.dtype != q.dtype or got.shape != q.shape:
+        fail(f"flash kernel {label}: got {got.dtype} {tuple(got.shape)}")
+    e = float((got.float() - want.float()).abs().max())
+    excess = flash_excess(got, want, q, k, v, causal=causal)
+    if not math.isfinite(excess) or excess > 1.0:
+        fail(f"flash kernel {label}: max abs error {e}, {excess:.3f}× its limit")
+    if again is not None and not torch.equal(got, again):
+        fail(f"flash kernel {label} is not bit-reproducible")
+    limit = (f"atol {FLASH_F32_ATOL}" if q.dtype == torch.float32 else
+             f"limit min({FLASH_BF16_ATOL}, 2^-7·(|want| + Σ p|v|))")
+    print(f"kernels: flash {label} max_abs_err {e:.3e}, {excess:.3f} of its {limit}, max |want| "
+          f"{float(want.float().abs().max()):.3e}" + (", reproducible" if again is not None else ""))
+    return e
+
+
+def phase_kernels_flash(torch, gen) -> float:
+    """Both flash kernels against the plain version: causal at every listed
+    shape, non-causal with a ragged T, bf16 views into a fused projection,
+    and misaligned bf16 views that must raise; returns the max abs error at
+    the serve path's shape."""
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+
+    def inputs(b, s, h, kv, hd, dtype, t=None):
+        t = s if t is None else t
+        return (torch.randn(shape, generator=gen).to(DEV, dtype)
+                for shape in ((b, s, h, hd), (b, t, kv, hd), (b, t, kv, hd)))
 
     path_err = None
     for dtype, shapes in ((torch.float32, FLASH_F32_SHAPES), (torch.bfloat16, FLASH_BF16_SHAPES)):
-        for b, s, h, kv, hd in shapes:
-            q, k, v = (torch.randn(shape, generator=gen).to(DEV, dtype)
-                       for shape in ((b, s, h, hd), (b, s, kv, hd), (b, s, kv, hd)))
+        for shape in shapes:
+            q, k, v = inputs(*shape, dtype)
             got = fa_ops.flash_attention_padded(q, k, v)
             again = fa_ops.flash_attention_padded(q, k, v)
-            want = flash_attention_plain(q, k, v)
-            torch.cuda.synchronize()
-            if got.dtype != dtype or tuple(got.shape) != (b, s, h, hd):
-                fail(f"flash kernel at {(b, s, h, kv, hd)}: got {got.dtype} {tuple(got.shape)}")
-            e = float((got.float() - want.float()).abs().max())
-            excess = flash_excess(got, want, q, k, v)
-            if not math.isfinite(excess) or excess > 1.0:
-                fail(f"flash kernel at {(b, s, h, kv, hd)} {dtype}: max abs error {e}, "
-                     f"{excess:.3f}× its limit")
-            if not torch.equal(got, again):
-                fail(f"flash kernel at {(b, s, h, kv, hd)} {dtype} is not bit-reproducible")
-            limit = (f"atol {FLASH_F32_ATOL}" if dtype == torch.float32 else
-                     f"limit min({FLASH_BF16_ATOL}, 2^-7·(|want| + Σ p|v|))")
-            print(f"kernels: flash {dtype} (B, S, H, KV, hd) = {(b, s, h, kv, hd)} max_abs_err "
-                  f"{e:.3e}, {excess:.3f} of its {limit}, max |want| "
-                  f"{float(want.float().abs().max()):.3e}, reproducible")
-            if dtype == torch.bfloat16 and (b, s, h, kv, hd) == FLASH_PATH:
+            e = _flash_check(torch, f"{dtype} (B, S, H, KV, hd) = {shape}", got, q, k, v,
+                             again=again)
+            if dtype == torch.bfloat16 and shape == FLASH_PATH:
                 path_err = e
+    for dtype in (torch.float32, torch.bfloat16):
+        for shape, t in FLASH_NONCAUSAL:
+            q, k, v = inputs(*shape, dtype, t=t)
+            got = fa_ops.flash_attention_padded(q, k, v, causal=False)
+            again = fa_ops.flash_attention_padded(q, k, v, causal=False)
+            _flash_check(torch, f"{dtype} non-causal {shape} T = {t}", got, q, k, v,
+                         causal=False, again=again)
+    b, s, h, kv, hd = 2, 50, 4, 2, 32
+    fused = torch.randn((b, s, (h + 2 * kv) * hd), generator=gen).to(DEV, torch.bfloat16)
+    q, k, v = (fused[..., lo * hd: hi * hd].unflatten(-1, (hi - lo, hd))
+               for lo, hi in ((0, h), (h, h + kv), (h + kv, h + 2 * kv)))
+    got = fa_ops.flash_attention_padded(q, k, v)
+    if not torch.equal(got, fa_ops.flash_attention_padded(q.contiguous(), k.contiguous(),
+                                                          v.contiguous())):
+        fail("flash kernel: bf16 views into the fused projection differ from their copies")
+    _flash_check(torch, f"bf16 views into a fused ({b}, {s}, {(h + 2 * kv) * hd}) projection",
+                 got, q, k, v, again=fa_ops.flash_attention_padded(q, k, v))
+    flat = torch.zeros(2048, dtype=torch.bfloat16, device=DEV)
+    bad = {"a base 2 bytes past 16-byte alignment": flat[1:1 + 512].view(1, 8, 4, 16),
+           "a sequence stride of 68": flat[:8 * 68].view(1, 8, 68)[..., :64].unflatten(-1, (4, 16)),
+           "a head-dim stride of 2": flat[:1024].view(1, 8, 4, 32)[..., ::2]}
+    for what, q in bad.items():
+        before = fa_ops.launches["flash_attention"]
+        try:
+            fa_ops.flash_attention_padded(q, q[:, :, :2], q[:, :, :2])
+        except ValueError:
+            pass
+        else:
+            fail(f"flash wrapper: a bf16 view with {what} did not raise")
+        if fa_ops.launches["flash_attention"] != before:
+            fail(f"flash wrapper: a bf16 view with {what} moved the launch count")
+    print(f"kernels: flash bf16 views with {', '.join(bad)} raise ValueError, no launch")
     return path_err
 
 
-def _serve_small(torch, device):
-    """Greedy generations of reduced qwen2-1.5b at 2 layers in f32, from
-    parameters made on the CPU; returns (token ids, per-step logits)."""
+def _serve_small(torch, device, dtype="float32"):
+    """Greedy generations of reduced qwen2-1.5b at 2 layers with activations
+    in ``dtype``, from parameters made on the CPU; returns (token ids,
+    per-step logits)."""
     import dataclasses
 
     from repro_torch.configs import get_config
@@ -333,7 +484,7 @@ def _serve_small(torch, device):
     from repro_torch.models import model as mdl
 
     cfg = dataclasses.replace(get_config(SERVE_SMALL["arch"], reduced=True),
-                              n_layers=SERVE_SMALL["n_layers"])
+                              n_layers=SERVE_SMALL["n_layers"], dtype=dtype)
     params = mdl.init_params(cfg, 0, device="cpu").to(device)
     g = torch.Generator().manual_seed(1)
     prompts = torch.randint(0, cfg.vocab_size, (SERVE_SMALL["batch"], SERVE_SMALL["prompt_len"]),
@@ -342,26 +493,66 @@ def _serve_small(torch, device):
     return tokens.cpu(), logits.float().cpu()
 
 
-def phase_small_serve(torch):
+def _serve_small_pair(torch, dtype):
+    """The small serve on the CPU and on the card; the card's run must
+    launch the flash kernel once per layer."""
     from repro_torch.kernels.flash_attention import ops as fa_ops
 
-    cpu = _serve_small(torch, "cpu")
+    cpu = _serve_small(torch, "cpu", dtype)
     fa_ops.launches.update(flash_attention=0)
-    gpu = _serve_small(torch, DEV)
+    gpu = _serve_small(torch, DEV, dtype)
     torch.cuda.synchronize()
     n = fa_ops.launches["flash_attention"]
     if n != SERVE_SMALL["n_layers"]:
-        fail(f"small input [serve]: {n} flash launches, expected one per layer")
+        fail(f"small input [serve, {dtype}]: {n} flash launches, expected one per layer")
+    return cpu, gpu, n
+
+
+def phase_small_serve(torch):
+    label = (f"reduced qwen2-1.5b, 2 layers, batch {SERVE_SMALL['batch']}, prompt "
+             f"{SERVE_SMALL['prompt_len']}, gen {SERVE_SMALL['gen']}")
+    cpu, gpu, n = _serve_small_pair(torch, "float32")
     if not torch.equal(cpu[0], gpu[0]):
         fail(f"small input [serve]: the card's tokens {gpu[0].tolist()} differ from the CPU's "
              f"{cpu[0].tolist()}")
     e = float((cpu[1] - gpu[1]).abs().max())
     if not math.isfinite(e) or e > SERVE_SMALL_ATOL:
         fail(f"small input [serve]: logits differ by {e} > {SERVE_SMALL_ATOL}")
-    print(f"kernels: small input [serve] (reduced qwen2-1.5b, 2 layers, f32, batch "
-          f"{SERVE_SMALL['batch']}, prompt {SERVE_SMALL['prompt_len']}, gen {SERVE_SMALL['gen']}), "
-          f"card vs CPU: token ids equal, max logit diff {e:.2e} (atol {SERVE_SMALL_ATOL}), "
+    print(f"kernels: small input [serve] ({label}, f32), card vs CPU: token ids equal, max logit "
+          f"diff {e:.2e} (atol {SERVE_SMALL_ATOL}), {n} flash launches")
+    cpu, gpu, n = _serve_small_pair(torch, "bfloat16")
+    e, steps, held = _compare_bf16_generations(cpu, gpu)
+    print(f"kernels: small input [serve] ({label}, bf16 through the tensor-core kernel), card vs "
+          f"CPU: max logit diff {e:.2e} (atol {SERVE_SMALL_BF16_ATOL}) over {steps} row-steps, "
+          f"tokens equal at all {held} with a CPU top-2 margin above {SERVE_SMALL_BF16_MARGIN}, "
           f"{n} flash launches")
+
+
+def _compare_bf16_generations(cpu, gpu) -> tuple[float, int, int]:
+    """Per row, step by step until the row's tokens part: logits within
+    SERVE_SMALL_BF16_ATOL, and equal tokens wherever the CPU's top-2 margin
+    exceeds SERVE_SMALL_BF16_MARGIN. Past a step whose tokens differ the
+    row's contexts differ, so its later steps are not compared. Returns
+    (max logit diff, row-steps compared, row-steps held to equal tokens)."""
+    (tok_c, log_c), (tok_g, log_g) = cpu, gpu
+    worst, steps, held = 0.0, 0, 0
+    for row in range(tok_c.shape[0]):
+        for t in range(tok_c.shape[1]):
+            e = float((log_c[t, row] - log_g[t, row]).abs().max())
+            if not math.isfinite(e) or e > SERVE_SMALL_BF16_ATOL:
+                fail(f"small input [serve, bf16]: row {row} step {t} logits differ by {e} > "
+                     f"{SERVE_SMALL_BF16_ATOL}")
+            worst, steps = max(worst, e), steps + 1
+            top2 = log_c[t, row].topk(2).values
+            if float(top2[0] - top2[1]) > SERVE_SMALL_BF16_MARGIN:
+                held += 1
+                if tok_c[row, t] != tok_g[row, t]:
+                    fail(f"small input [serve, bf16]: row {row} step {t}: the card picks "
+                         f"{int(tok_g[row, t])}, the CPU {int(tok_c[row, t])}, at a margin of "
+                         f"{float(top2[0] - top2[1]):.3f}")
+            if tok_c[row, t] != tok_g[row, t]:
+                break
+    return worst, steps, held
 
 
 def _tiny_run(device, **sampler_kw):
@@ -706,7 +897,45 @@ def phase_serve(torch):
         fail("serve: a token id is out of range")
     if not torch.equal(tokens, logits.argmax(dim=-1).T):
         fail("serve: the tokens are not the per-step argmax of the logits")
+    _serve_against_plain(torch, cfg, params, prompts)
     return cfg, params, prompts, in_prefill + in_decode
+
+
+def _serve_against_plain(torch, cfg, params, prompts):
+    """One prefill through the kernel and one with the model's attention
+    swapped for the plain version on the card: the last-position tokens must
+    agree in every row whose plain top-2 margin exceeds twice the largest
+    logit difference."""
+    from repro_torch.kernels.flash_attention.ref import flash_attention_plain
+    from repro_torch.models import model as mdl
+    from repro_torch.models.layers import attention
+
+    def last_logits():
+        with torch.inference_mode():
+            caches = mdl.init_cache(cfg, prompts.shape[0], prompts.shape[1] + 1, device=DEV)
+            hidden, _ = mdl.forward(cfg, params, prompts, caches=caches)
+            return mdl.logits_from_hidden(cfg, params, hidden[:, -1:, :])[:, 0].float()
+
+    kernel = last_logits()
+    swapped = attention.flash_attention_padded
+    attention.flash_attention_padded = (
+        lambda q, k, v, causal=True: flash_attention_plain(q, k, v, causal=causal))
+    try:
+        plain = last_logits()
+    finally:
+        attention.flash_attention_padded = swapped
+    delta = float((kernel - plain).abs().max())
+    top2 = plain.topk(2, dim=-1).values
+    margin = top2[:, 0] - top2[:, 1]
+    decided = margin > 2 * delta
+    same = kernel.argmax(dim=-1) == plain.argmax(dim=-1)
+    if not math.isfinite(delta) or bool((decided & ~same).any()):
+        fail(f"serve: the kernel's prefill picks other tokens than the plain version's where the "
+             f"margin exceeds 2·{delta:.4f}: margins {margin.tolist()}, equal {same.tolist()}")
+    print(f"serve: prefill through the kernel vs the plain version on the card: max |Δ| of the "
+          f"last-position logits {delta:.4e}; tokens equal in {int(same.sum())} of "
+          f"{same.numel()} rows, {int(decided.sum())} rows with a margin above 2·max|Δ| "
+          f"(margins {[round(x, 4) for x in margin.tolist()]})")
 
 
 def phase_serve_trace(torch, cfg, params, prompts):
@@ -739,8 +968,10 @@ def phase_serve_trace(torch, cfg, params, prompts):
 
 
 def flash_time_row(torch, gen, name, err, launches):
-    """The flash kernel at the serve path's shape: its time, the plain
-    version's and scaled_dot_product_attention's, beside its bound."""
+    """The bf16 flash kernel at the serve path's shape: its time, the plain
+    version's and scaled_dot_product_attention's, beside its bound. The
+    kernel and the library are timed in turns (kernel, library, library,
+    kernel), by events as called and with the queue filled ahead."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention import ops as fa_ops
@@ -752,13 +983,22 @@ def flash_time_row(torch, gen, name, err, launches):
                for shape in ((b, s, h, hd), (b, s, kv, hd), (b, s, kv, hd)))
     # the yardstick takes (B, H, S, hd) views; the port never calls it
     qt, kt, vt = (a.transpose(1, 2) for a in (q, k, v))
-    kern = lambda: fa_ops.flash_attention_padded(q, k, v)
+    fns = {"kernel": lambda: fa_ops.flash_attention_padded(q, k, v),
+           "library": lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                                              enable_gqa=True)}
     plain = lambda: flash_attention_plain(q, k, v)
-    lib = lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
-    ms, plain_ms, lib_ms = time_ms(torch, kern, reps=20), time_ms(torch, plain, reps=5), time_ms(torch, lib, reps=20)
-    dev = [device_ms(torch, f, reps=5) for f in (plain, lib)]
+    called = {"kernel": [], "library": []}
+    queued = {"kernel": [], "library": []}
+    for who in ("kernel", "library", "library", "kernel"):
+        called[who].append(time_ms(torch, fns[who], reps=20))
+        queued[who].append(time_ms(torch, fns[who], reps=20, queued=True))
+    ms, lib_ms = (sum(called[w]) / 2 for w in ("kernel", "library"))
+    q_ms, q_lib = (sum(queued[w]) / 2 for w in ("kernel", "library"))
+    plain_ms = time_ms(torch, plain, reps=5)
+    lib_events = device_events(torch, fns["library"], reps=5)
+    dev = [device_ms(torch, plain, reps=5), _busy_us(lib_events) / 1e3 / 5]
     # the kernel's own device time: the mean of the launches the profiler kept
-    kept = [e for e in device_events(torch, kern, reps=20) if "flash_fwd" in e.name]
+    kept = [e for e in device_events(torch, fns["kernel"], reps=20) if "flash_fwd" in e.name]
     if not kept:
         fail("times: the profiler kept no flash kernel of 20 launches")
     dev.insert(0, sum(e.time_range.end - e.time_range.start for e in kept) / 1e3 / len(kept))
@@ -771,13 +1011,26 @@ def flash_time_row(torch, gen, name, err, launches):
         "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
         "bound_by": "bytes" if t_bytes >= t_ops else "operations", "library_ms": lib_ms,
     }
+
+    def tflops(t_ms):
+        return nops / (t_ms * 1e-3) / 1e12
+
     print(f"times: flash_attention {FLASH_PATH} bf16 {ms:.6f} ms, plain {plain_ms:.6f} ms, library "
           f"(scaled_dot_product_attention) {lib_ms:.6f} ms, bound {row['bound_ms']:.6f} ms "
           f"({row['bound_by']}; {part} peaks {bw / 1e12:.2f} TB/s, {bf16 / 1e12:.0f} TFLOP/s bf16; "
           f"{nbytes} B, {nops} FLOP)")
+    print(f"times: flash_attention in turns (kernel, library, library, kernel), ms per call by "
+          f"events as called: {called['kernel'][0]:.6f}, {called['library'][0]:.6f}, "
+          f"{called['library'][1]:.6f}, {called['kernel'][1]:.6f}; with the queue filled ahead: "
+          f"{queued['kernel'][0]:.6f}, {queued['library'][0]:.6f}, {queued['library'][1]:.6f}, "
+          f"{queued['kernel'][1]:.6f}")
+    print(f"times: flash_attention kernel {tflops(ms):.1f} TFLOP/s as called, {tflops(q_ms):.1f} "
+          f"queued; library {tflops(lib_ms):.1f} as called, {tflops(q_lib):.1f} queued; kernel / "
+          f"library {ms / lib_ms:.3f} as called, {q_ms / q_lib:.3f} queued")
     print(f"times: flash_attention device-busy per call (profiler): kernel {dev[0]:.6f} ms (mean of "
           f"the {len(kept)} of 20 launches it kept), plain {dev[1]:.6f} ms, library {dev[2]:.6f} ms; "
-          f"kernel at {nops / (dev[0] * 1e-3) / 1e12:.1f} TFLOP/s")
+          f"kernel at {tflops(dev[0]):.1f} TFLOP/s")
+    print(f"times: scaled_dot_product_attention ran {sorted({e.name[:80] for e in lib_events})}")
     return row
 
 

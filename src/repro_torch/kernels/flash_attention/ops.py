@@ -1,14 +1,19 @@
-"""Causal GQA attention through the CUDA flash kernel.
+"""Causal GQA attention through the CUDA flash kernels.
 
 Port of ``src/repro/kernels/flash_attention/ops.py``.
-:func:`flash_attention_padded` is the kernel's wrapper: for CUDA tensors it
+:func:`flash_attention_padded` is the kernels' wrapper: for CUDA tensors it
 launches ``csrc/flash_attention.cu``, for CPU tensors it runs the plain
-version in ``ref.py``. The kernel takes the true S and T and masks the
-ragged tails itself, so nothing is padded or copied: q, k and v are read in
-their (B, S, H, hd) and (B, T, KV, hd) layouts by strides, and the output is
-written (B, S, H, hd). The reference's ``block_q`` / ``block_k`` /
-``interpret`` arguments choose Pallas tiles and interpret mode; the CUDA
-tiles are fixed in the source, so the port has no such arguments.
+version in ``ref.py``. The source holds two kernels, chosen by dtype: bf16
+goes to ``flash_fwd_mma`` on the tensor cores, f32 to ``flash_fwd_f32`` on
+the CUDA cores (TF32 would break the f32 parity at atol 2e-5). Both take
+the true S and T and mask the ragged tails themselves, so nothing is padded
+or copied: q, k and v are read in their (B, S, H, hd) and (B, T, KV, hd)
+layouts by strides, and the output is written (B, S, H, hd). The bf16
+kernel copies 16-byte rows, so it needs 16-byte aligned bases and strides
+that are multiples of 8 elements; the wrapper raises on any other view.
+The reference's ``block_q`` / ``block_k`` / ``interpret`` arguments choose
+Pallas tiles and interpret mode; the CUDA tiles are fixed in the source, so
+the port has no such arguments.
 """
 from __future__ import annotations
 
@@ -23,7 +28,9 @@ from repro_torch.kernels.flash_attention.ref import flash_attention_plain
 #: Kernel launches since the count was last reset.
 launches = {"flash_attention": 0}
 
-HD_MAX = 128  # the kernel keeps one row's accumulator of up to 128 dims in registers
+# both routes stop at 128: the f32 kernel keeps a row's accumulator of up to
+# 128 dims in registers, and 128 is the bf16 kernel's widest padded head dim
+HD_MAX = 128
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -39,6 +46,12 @@ def _lib():
         + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
     )
     return lib
+
+
+def _strides(a: torch.Tensor) -> list[int]:
+    """The batch, sequence and head strides, 0 where the axis has size 1
+    (its index is always 0, so its stride is never used)."""
+    return [st if n > 1 else 0 for n, st in zip(a.shape[:3], a.stride()[:3])]
 
 
 def flash_attention_padded(
@@ -70,12 +83,20 @@ def flash_attention_padded(
         raise ValueError(f"unsupported device {q.device}")
     if q.stride(3) != 1 or k.stride(3) != 1 or v.stride(3) != 1:
         raise ValueError("q, k and v must have unit stride along head_dim")
+    strides = [_strides(a) for a in (q, k, v)]
+    if q.dtype == torch.bfloat16:
+        for name, a, st in zip("qkv", (q, k, v), strides):
+            if a.data_ptr() % 16 or any(x % 8 for x in st):
+                raise ValueError(
+                    f"bf16 {name} needs a 16-byte aligned base and batch, sequence and head "
+                    f"strides that are multiples of 8 elements, got address {a.data_ptr():#x} "
+                    f"and strides {tuple(a.stride()[:3])}")
     out = torch.empty((b, s, h, hd), dtype=q.dtype, device=q.device)
     lib = _lib()
     err = lib.flash_attention_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         DTYPES[q.dtype], b, s, t, h, kv, hd,
-        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
+        *strides[0], *strides[1], *strides[2], *_strides(out),
         hd**-0.5, int(causal),
         torch.cuda.current_stream(q.device).cuda_stream,
     )

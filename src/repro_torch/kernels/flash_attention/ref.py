@@ -1,8 +1,9 @@
 """Plain PyTorch versions of the flash-attention kernel.
 
-:func:`flash_attention_plain` computes the CUDA kernel's function; the
-wrapper in ``ops.py`` runs it for CPU tensors, and the card checks hold the
-kernel against it. :func:`attention_ref` is a copy of the reference's oracle
+:func:`flash_attention_plain` computes the CUDA kernels' function (the bf16
+tensor-core kernel's and the f32 CUDA-core kernel's); the wrapper in
+``ops.py`` runs it for CPU tensors, and the card checks hold both kernels
+against it. :func:`attention_ref` is a copy of the reference's oracle
 (``src/repro/kernels/flash_attention/ref.py``), for the CPU parity tests.
 """
 from __future__ import annotations

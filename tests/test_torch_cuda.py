@@ -153,7 +153,12 @@ def test_ward_device_on_the_card_matches_the_cpu(cuda):
 
 
 FLASH_SHAPES = [(1, 32, 4, 4, 16), (2, 64, 8, 2, 32), (1, 48, 6, 1, 64), (2, 40, 4, 2, 8),
-                (1, 1000, 4, 2, 128), (2, 77, 12, 2, 128), (4, 1000, 12, 2, 128)]
+                (1, 1000, 4, 2, 128), (2, 77, 12, 2, 128), (4, 1000, 12, 2, 128),
+                # every padded head dim of the bf16 kernel (32, 64, 128), pad columns
+                # inside a 16-column k-step (hd 8, 72), ragged S = T around its
+                # 64-row q-tiles and 64-key k-tiles
+                (2, 70, 4, 2, 8), (1, 32, 4, 2, 16), (1, 96, 4, 1, 32), (1, 130, 6, 2, 64),
+                (1, 77, 4, 2, 72), (2, 1, 4, 2, 128), (1, 63, 4, 2, 128), (1, 65, 8, 2, 128)]
 
 
 def _flash_inputs(b, s, h, kv, hd, dtype, t=None, seed=6):
@@ -163,14 +168,15 @@ def _flash_inputs(b, s, h, kv, hd, dtype, t=None, seed=6):
                  for shape in ((b, s, h, hd), (b, t, kv, hd), (b, t, kv, hd)))
 
 
-def _flash_limit(want, q, k, v):
+def _flash_limit(want, q, k, v, causal=True):
     """atol 2e-5 in f32; in bf16 min(3e-2, 2^-7·(|want| + Σ_j p_ij|v_j|)),
     the limits of chip_smoke.py's flash check."""
     from repro_torch.kernels.flash_attention.ref import flash_attention_plain
 
     if q.dtype == torch.float32:
         return 2e-5
-    scale = want.float().abs() + flash_attention_plain(q.float(), k.float(), v.float().abs())
+    scale = want.float().abs() + flash_attention_plain(q.float(), k.float(), v.float().abs(),
+                                                       causal=causal)
     return (2.0**-7 * scale).clamp(max=3e-2)
 
 
@@ -190,25 +196,31 @@ def test_flash_kernel_matches_plain(cuda, b, s, h, kv, hd, dtype):
     assert torch.equal(got, fa_ops.flash_attention_padded(q, k, v))
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("t", [48, 70])
-def test_flash_kernel_non_causal_masks_keys_past_t(cuda, t):
+def test_flash_kernel_non_causal_masks_keys_past_t(cuda, t, dtype):
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.flash_attention.ref import flash_attention_plain
 
-    q, k, v = _flash_inputs(2, 33, 4, 2, 32, torch.float32, t=t)
+    q, k, v = _flash_inputs(2, 33, 4, 2, 32, dtype, t=t)
     got = fa_ops.flash_attention_padded(q, k, v, causal=False)
     want = flash_attention_plain(q, k, v, causal=False)
     torch.cuda.synchronize()
-    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), atol=2e-5)
+    limit = _flash_limit(want, q, k, v, causal=False)
+    assert bool(((got.float() - want.float()).abs() <= limit).all())
+    assert torch.equal(got, fa_ops.flash_attention_padded(q, k, v, causal=False))
 
 
-def test_flash_kernel_reads_strided_views(cuda):
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_reads_strided_views(cuda, dtype):
     """q, k, v as views into the fused (B, S, (H + 2·KV)·hd) projection: the
-    kernel reads them by strides and matches their contiguous copies."""
+    kernel reads them by strides (16-byte copies in bf16), matches their
+    contiguous copies bit for bit and the plain version within its limit."""
     from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention.ref import flash_attention_plain
 
     b, s, h, kv, hd = 2, 50, 4, 2, 32
-    fused = torch.randn((b, s, (h + 2 * kv) * hd), device=cuda)
+    fused = torch.randn((b, s, (h + 2 * kv) * hd), device=cuda).to(dtype)
     q = fused[..., : h * hd].unflatten(-1, (h, hd))
     k = fused[..., h * hd: (h + kv) * hd].unflatten(-1, (kv, hd))
     v = fused[..., (h + kv) * hd:].unflatten(-1, (kv, hd))
@@ -216,9 +228,12 @@ def test_flash_kernel_reads_strided_views(cuda):
     got = fa_ops.flash_attention_padded(q, k, v)
     want = fa_ops.flash_attention_padded(q.contiguous(), k.contiguous(), v.contiguous())
     assert torch.equal(got, want)
+    plain = flash_attention_plain(q, k, v)
+    assert bool(((got.float() - plain.float()).abs() <= _flash_limit(plain, q, k, v)).all())
 
 
-@pytest.mark.parametrize("bad", ["float16", "hd_12", "hd_256", "h_mod_kv", "hd_stride"])
+@pytest.mark.parametrize("bad", ["float16", "hd_12", "hd_256", "h_mod_kv", "hd_stride",
+                                 "bf16_hd_stride", "bf16_misaligned_base", "bf16_seq_stride"])
 def test_flash_wrapper_raises_instead_of_falling_back(cuda, bad):
     from repro_torch.kernels.flash_attention import ops as fa_ops
 
@@ -231,8 +246,19 @@ def test_flash_wrapper_raises_instead_of_falling_back(cuda, bad):
         q, k, v = (torch.zeros(a.shape[:3] + (256,), device=cuda) for a in (q, k, v))
     elif bad == "h_mod_kv":
         k, v = torch.zeros((1, 8, 3, 16), device=cuda), torch.zeros((1, 8, 3, 16), device=cuda)
-    else:
+    elif bad == "hd_stride":
         q = torch.zeros((1, 8, 4, 32), device=cuda)[..., ::2]
+    else:
+        # the bf16 kernel copies 16-byte rows: a unit hd stride, a 16-byte
+        # aligned base and strides in multiples of 8 elements
+        flat = torch.zeros(2048, dtype=torch.bfloat16, device=cuda)
+        k, v = (a.to(torch.bfloat16) for a in (k, v))
+        if bad == "bf16_hd_stride":
+            q = flat[:1024].view(1, 8, 4, 32)[..., ::2]
+        elif bad == "bf16_misaligned_base":
+            q = flat[1:513].view(1, 8, 4, 16)
+        else:
+            q = flat[: 8 * 68].view(1, 8, 68)[..., :64].unflatten(-1, (4, 16))
     before = fa_ops.launches["flash_attention"]
     with pytest.raises((ValueError, TypeError)):
         fa_ops.flash_attention_padded(q, k, v)

@@ -10,11 +10,14 @@ f32 summation orders and rejects a kernel that drops the ragged d tail
 (``d mod 512``, the plain version's block, or ``d mod 64``, the kernel's
 k-tile) or reads the signs of the next row of k. The flash-attention check
 (atol 2e-5 in f32; in bf16 relative to the softmax-weighted |v|) accepts
-the kernel's own order of work, an online softmax over 64-key tiles with p
-rounded against the running max, and rejects a kernel that drops the last
-partial k-tile or ignores the causal mask: a check must fail the kernels
-it exists to catch.
+the kernels' own order of work, an online softmax over 64-key tiles with p
+rounded against the running max (exp in the f32 kernel, exp2 of scores
+scaled by hd^-½·log₂e in the bf16 one), and rejects a kernel that drops
+the last partial k-tile or ignores the causal mask, and a bf16 kernel that
+leaves garbage in the head-dim pad columns of Q and K or shifts the
+diagonal by one key: a check must fail the kernels it exists to catch.
 """
+import functools
 import importlib.util
 from pathlib import Path
 
@@ -124,27 +127,46 @@ def test_srp_check_rejects_wrong_kernels(c, d, d_prime, wrong):
     assert smoke.srp_rel_err(got, want, X, d_prime) > smoke.SRP_RTOL
 
 
-def _flash_online(q, k, v, bk=64, drop_last_partial=False, causal=True):
-    """The CUDA kernel's order of work in torch: 64-key tiles in order, the
-    running max, p rounded to v's dtype against it, f32 sums. The broken
-    variants drop the last partial k-tile or the causal mask."""
+LOG2E = 1.4426950408889634
+MASKS = {"j<=i": 0, "j<=i+1": 1, "j<i": -1}  # the causal mask, right and shifted
+
+
+def _flash_online(q, k, v, bk=64, drop_last_partial=False, causal=True, exp2=False,
+                  pad=None, mask="j<=i"):
+    """The CUDA kernels' order of work in torch: 64-key tiles in order, the
+    running max, p rounded to v's dtype against it, the denominator summed
+    from the unrounded p, f32 sums; with ``exp2`` the bf16 kernel's exp2 of
+    scores scaled by hd^-½·log₂e, and with ``pad="zeros"`` its Q and K
+    zero-filled up to its padded head dim (32, 64 or 128). The broken
+    variants drop the last partial k-tile or the causal mask, leave garbage
+    in those pad columns (``pad="garbage"``), or shift the causal mask by
+    one key (``mask``)."""
     b, s, h, hd = q.shape
     t, kv = k.shape[1], k.shape[2]
     g = h // kv
-    qf = q.float().reshape(b, s, kv, g, hd)
+    qf, kf = q.float(), k.float()
+    if pad is not None:
+        width = next(p for p in (32, 64, 128) if hd <= p) - hd
+        gen = torch.Generator().manual_seed(3)
+        fill = torch.zeros if pad == "zeros" else functools.partial(torch.randn, generator=gen)
+        qf, kf = (torch.cat([a, fill(a.shape[:3] + (width,)).to(q.dtype).float()], dim=-1)
+                  for a in (qf, kf))
+    qf = qf.reshape(b, s, kv, g, qf.shape[-1])
+    scale = hd**-0.5 * (LOG2E if exp2 else 1.0)
+    exp = torch.exp2 if exp2 else torch.exp
     m = torch.full((b, kv, g, s, 1), -1e30)
     l = torch.zeros((b, kv, g, s, 1))
     acc = torch.zeros((b, kv, g, s, hd))
-    rows = torch.arange(s)[:, None]
+    rows = torch.arange(s)[:, None] + MASKS[mask]
     end = t - (t % bk) if drop_last_partial and t % bk else t
     for k0 in range(0, end, bk):
-        kt, vt = k[:, k0:k0 + bk].float(), v[:, k0:k0 + bk]
-        sc = torch.einsum("bskgh,btkh->bkgst", qf, kt) * hd**-0.5
+        kt, vt = kf[:, k0:k0 + bk], v[:, k0:k0 + bk]
+        sc = torch.einsum("bskgh,btkh->bkgst", qf, kt) * scale
         if causal:
             sc = torch.where(k0 + torch.arange(kt.shape[1])[None, :] <= rows, sc, -1e30)
         m_new = torch.maximum(m, sc.amax(dim=-1, keepdim=True))
-        p = torch.exp(sc - m_new)
-        alpha = torch.exp(m - m_new)
+        p = exp(sc - m_new)
+        alpha = exp(m - m_new)
         l = l * alpha + p.sum(dim=-1, keepdim=True)
         acc = acc * alpha + torch.einsum("bkgst,btkh->bkgsh", p.to(v.dtype).float(), vt.float())
         m = m_new
@@ -168,18 +190,54 @@ def test_flash_check_accepts_the_kernels_order(shape, dtype):
 
     q, k, v = _qkv(*shape, dtype)
     want = flash_attention_plain(q, k, v)
-    assert smoke.flash_excess(_flash_online(q, k, v), want, q, k, v) <= 1.0
+    got = _flash_online(q, k, v, exp2=dtype == torch.bfloat16)
+    assert smoke.flash_excess(got, want, q, k, v) <= 1.0
 
 
+# a partial last tile to drop and, past S = 1, keys for the causal mask to hide
 @pytest.mark.parametrize("wrong", ["drop_last_partial_tile", "no_causal_mask"])
-@pytest.mark.parametrize("shape,dtype", [c for c in FLASH_CASES if c[0][1] % 64])
+@pytest.mark.parametrize("shape,dtype", [c for c in FLASH_CASES if c[0][1] % 64 and c[0][1] > 1])
 def test_flash_check_rejects_wrong_kernels(shape, dtype, wrong):
     from repro_torch.kernels.flash_attention.ref import flash_attention_plain
 
     q, k, v = _qkv(*shape, dtype)
     want = flash_attention_plain(q, k, v)
+    exp2 = dtype == torch.bfloat16
     if wrong == "drop_last_partial_tile":
-        got = _flash_online(q, k, v, drop_last_partial=True)
+        got = _flash_online(q, k, v, drop_last_partial=True, exp2=exp2)
     else:
-        got = _flash_online(q, k, v, causal=False)
+        got = _flash_online(q, k, v, causal=False, exp2=exp2)
+    assert smoke.flash_excess(got, want, q, k, v) > 1.0
+
+
+HD8 = next(shape for shape in smoke.FLASH_BF16_SHAPES if shape[-1] == 8)
+HD72 = next(shape for shape in smoke.FLASH_BF16_SHAPES if shape[-1] == 72)
+
+
+@pytest.mark.parametrize("shape", [smoke.FLASH_PATH, HD8])
+def test_flash_check_accepts_the_bf16_kernels_zero_padded_order(shape):
+    """The bf16 kernel's order with Q and K zero-filled up to its padded
+    head dim: the check passes it."""
+    from repro_torch.kernels.flash_attention.ref import flash_attention_plain
+
+    q, k, v = _qkv(*shape, torch.bfloat16)
+    want = flash_attention_plain(q, k, v)
+    got = _flash_online(q, k, v, exp2=True, pad="zeros")
+    assert smoke.flash_excess(got, want, q, k, v) <= 1.0
+
+
+@pytest.mark.parametrize("wrong,shape", [
+    ("pad_garbage", HD8), ("pad_garbage", HD72), ("pad_garbage", (1, 32, 4, 2, 16)),
+    ("mask_j<=i+1", HD8), ("mask_j<=i+1", smoke.FLASH_PATH),
+    ("mask_j<i", HD8), ("mask_j<i", smoke.FLASH_PATH),
+])
+def test_flash_check_rejects_wrong_bf16_kernels(wrong, shape):
+    from repro_torch.kernels.flash_attention.ref import flash_attention_plain
+
+    q, k, v = _qkv(*shape, torch.bfloat16)
+    want = flash_attention_plain(q, k, v)
+    if wrong == "pad_garbage":
+        got = _flash_online(q, k, v, exp2=True, pad="garbage")
+    else:
+        got = _flash_online(q, k, v, exp2=True, mask=wrong.removeprefix("mask_"))
     assert smoke.flash_excess(got, want, q, k, v) > 1.0
