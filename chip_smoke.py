@@ -1116,6 +1116,45 @@ def phase_times(torch, gen, name, err, launches):
     return rows
 
 
+def kernels_by_name(events) -> dict[str, tuple[int, float]]:
+    """{kernel name: (launches the profiler kept, mean device ms of one)}."""
+    by_name: dict[str, list] = {}
+    for e in events:
+        entry = by_name.setdefault(_kernel_name(e.name), [0, 0.0])
+        entry[0] += 1
+        entry[1] += (e.time_range.end - e.time_range.start) / 1e3
+    return {k: (n, ms / n) for k, (n, ms) in by_name.items()}
+
+
+def srp_turns(torch, gen):
+    """The SRP kernel at the main path's shapes (c = 10, a round's rows;
+    c = 64, the fleet's) and torch.matmul(X, S) in turns (kernel, matmul,
+    matmul, kernel), by events as called and with the queue filled ahead,
+    and the device time of each kernel one call launches, by name."""
+    from repro_torch.kernels.sketch import ops as sk_ops
+    from repro_torch.kernels.sketch.ref import srp_sign_block
+
+    _, dx, dp = SRP_SHAPES[0]
+    S = srp_sign_block(SRP_SEED, 0, dx, dp, dx, device="cuda")
+    for c in (SRP_SHAPES[0][0], SRP_SHAPES[1][0]):
+        X = (SIM_SCALE * torch.randn((c, dx), generator=gen)).cuda()
+        fns = {"kernel": lambda: sk_ops.srp_sketch(X, dp, SRP_SEED),
+               "matmul": lambda: torch.matmul(X, S)}
+        called, queued = {"kernel": [], "matmul": []}, {"kernel": [], "matmul": []}
+        for who in ("kernel", "matmul", "matmul", "kernel"):
+            called[who].append(time_ms(torch, fns[who]))
+            queued[who].append(time_ms(torch, fns[who], queued=True))
+        print(f"times: srp c = {c} in turns (kernel, matmul, matmul, kernel), ms per call by "
+              f"events as called: {called['kernel'][0]:.6f}, {called['matmul'][0]:.6f}, "
+              f"{called['matmul'][1]:.6f}, {called['kernel'][1]:.6f}; with the queue filled "
+              f"ahead: {queued['kernel'][0]:.6f}, {queued['matmul'][0]:.6f}, "
+              f"{queued['matmul'][1]:.6f}, {queued['kernel'][1]:.6f}")
+        for who in ("kernel", "matmul"):
+            split = kernels_by_name(device_events(torch, fns[who], reps=20))
+            print(f"times: srp c = {c} {who} device time by kernel over 20 calls (launches kept, "
+                  f"mean ms of one): " + ", ".join(f"{k} {n}x {ms:.6f}" for k, (n, ms) in split.items()))
+
+
 def main() -> int:
     import torch
 
@@ -1145,6 +1184,7 @@ def main() -> int:
     cfg, lm, prompts, flash_launches = phase_serve(torch)
     phase_serve_trace(torch, cfg, lm, prompts)
     rows = phase_times(torch, gen, name, err, launches)
+    srp_turns(torch, gen)
     rows.append(flash_time_row(torch, gen, name, err["flash"], flash_launches))
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

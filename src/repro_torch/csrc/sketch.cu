@@ -3,8 +3,7 @@
 // Replaces the TPU kernel `srp_sketch_kernel` (body `_srp_kernel`) in
 // src/repro/kernels/sketch/kernel.py. S is a (d, d') matrix of ±1/√d' whose
 // entry (k, j) is the low bit of murmur3's fmix32 over (k, j, seed); rows
-// k ≥ d are zero. S is never stored: each block regenerates its tiles from
-// the hash in shared memory.
+// k ≥ d are zero. S is never stored: each block hashes its own signs.
 //
 // Input X is (c, d) f32, row-major and contiguous; the output is (c, d') f32.
 // Arithmetic is f32 FMA on CUDA cores, no TF32: the sketched rows feed the
@@ -15,35 +14,48 @@
 // of X (0.47 µs at 3.35 TB/s); c = 64 is 4.86 µs against 3.04 µs. Both are
 // bounded by operations. The hash is d · d' = 2.54 M fmix32 evaluations of
 // about 10 integer operations each: it stays a small share only if each
-// sign tile is made once and applied to all the rows it meets, so a block
-// holds up to 64 rows of X against one tile.
+// sign is hashed once and applied to every row it meets, so a block holds
+// up to 64 rows of X against one column tile.
 //
 // Design:
-// * Grid (splits, column tiles of 64, row tiles of 64). A block owns a
-//   contiguous range of d in (64 × 64) k-tiles. For each k-tile it builds
-//   the (64 k × 64 j) sign tile in shared memory from the hash (uint32
-//   arithmetic wraps like the reference's), stages the (64 rows × 64 k)
-//   slice of X with coalesced, bounds-checked loads (no padded copy of X),
-//   and every thread adds up to 16 rows × 1 column of products into
-//   registers, skipping rows past c (the round has 10 of a tile's 64). X is
-//   read from shared memory four k at a time (one 16-byte broadcast load),
-//   the sum still taken k by k in order.
+// * Grid (splits, column tiles of 64, row tiles of 64). Split s owns k-tiles
+//   [s·per, (s+1)·per) of 64 columns of d; a split past the end writes
+//   zeros. The plan (`split_plan` in kernels/sketch/ops.py) depends on d
+//   only, never on c: a row's bits are the same whatever other rows share
+//   the call.
+// * At its start a block puts its whole X slice in flight with `cp.async`
+//   (rows < c only; 16 B a thread when d % 4 == 0 and X is 16-byte aligned,
+//   else 4 B; columns ≥ d zero-filled) into a ring of STAGES k-tiles of
+//   dynamic shared memory. At the main path's shapes (5 k-tiles a split)
+//   the whole slice is requested before the first product; at larger d the
+//   ring recycles, one stage per k-tile consumed.
+// * While the copies are in flight, the block hashes the signs of its
+//   k-tiles as bits: one 32-bit word per (column, 32 consecutive k), built
+//   by `__ballot_sync` over the lanes that hash consecutive k.
+// * Products: lane l of warp w owns columns l and l + 32 and rows w, w + 8,
+//   …, w + 56 of the tile, skipping rows past c. It reads its columns' sign
+//   words once per 32 k and X four k at a time (one 16-byte broadcast load
+//   that feeds eight FMAs); the sum is taken k by k in ascending order,
+//   acc = fmaf(x, ±scale, acc).
 // * Each split writes its partial sums to a (splits, c, d') scratch; a
-//   second pass adds the splits in a fixed order. No float atomics, so the
+//   second pass adds the splits in split order. No float atomics, so the
 //   result is bit-reproducible.
-// * The split count depends on d and d' only, never on c: a row's bits are
-//   the same whatever other rows share the call, so the store does not
-//   depend on how a round's rows were batched or deduplicated.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int TK = 64;   // k-tile: rows of S per shared-memory tile
+constexpr int TK = 64;   // k-tile: columns of d per ring stage
 constexpr int TJ = 64;   // columns of d' per block
 constexpr int TR = 64;   // rows of X per block
 constexpr int THREADS = 256;
-constexpr int RPT = TR / (THREADS / TJ);  // rows per thread: 16
+constexpr int WARPS = THREADS / 32;
+constexpr int RPW = TR / WARPS;           // rows per warp: 8
+constexpr int STAGES = 5;                 // k-tiles in flight: a split's whole slice at d = 39,760
+constexpr int WORDS = TK / 32;            // sign words per column per k-tile
+constexpr int HASH_BATCH = 8;             // hashes a lane has in flight
+constexpr int REDUCE_BATCH = 32;          // partials a reduce thread has in flight
+constexpr int MAX_DEVICES = 64;
 
 constexpr uint32_t C1 = 0x85EBCA6Bu;
 constexpr uint32_t C2 = 0xC2B2AE35u;
@@ -59,114 +71,233 @@ __device__ __forceinline__ uint32_t mix32(uint32_t h) {
   return h;
 }
 
-__global__ void __launch_bounds__(THREADS)
-srp_partial(const float* __restrict__ X, float* __restrict__ partial, int c, int d,
-            int d_prime, uint32_t seed_term, float scale, int tiles_per_split) {
-  __shared__ __align__(16) float Ss[TK][TJ];
-  __shared__ __align__(16) float Xs[TR][TK];
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// Copy `bytes` (16 or 0) of global memory into 16 shared bytes, zero-filling the rest.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
+               "r"(bytes)
+               : "memory");
+}
+
+// Copy `bytes` (4 or 0) of global memory into 4 shared bytes, zero-filling the rest.
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, int bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Request rows [r0, r0 + nr) × columns [k0, k0 + TK) of X into the stage
+// `xs` (nr rows of TK floats). Columns ≥ d arrive as zeros.
+__device__ __forceinline__ void issue_tile(float* xs, const float* __restrict__ X, int r0, int nr,
+                                           int d, int k0, bool vec) {
+  if (vec) {  // d % 4 == 0: a 4-column chunk lies wholly inside or outside d
+    for (int e = threadIdx.x; e < nr * (TK / 4); e += THREADS) {
+      const int r = e / (TK / 4);
+      const int col = k0 + 4 * (e % (TK / 4));
+      const bool in = col < d;
+      cp_async16(xs + r * TK + (col - k0), in ? X + (size_t)(r0 + r) * d + col : X, in ? 16 : 0);
+    }
+  } else {
+    for (int e = threadIdx.x; e < nr * TK; e += THREADS) {
+      const int r = e / TK;
+      const int col = k0 + e % TK;
+      const bool in = col < d;
+      cp_async4(xs + r * TK + (col - k0), in ? X + (size_t)(r0 + r) * d + col : X, in ? 4 : 0);
+    }
+  }
+}
+
+// Sign bits of k-tiles k0, k0 + TK, …, n_tiles of them, for columns
+// j0 .. j0 + TJ: word (t · WORDS + w) · TJ + jj holds bit b = 1 where
+// S[k0 + t·TK + 32w + b, j0 + jj] = +scale. Warp-wide: each lane hashes one
+// k of a word and the ballot gathers the word; a warp has HASH_BATCH
+// independent hashes in flight before its ballots.
+__device__ __forceinline__ void hash_tiles(uint32_t* sg, int k0, int n_tiles, int j0,
+                                           uint32_t seed_term) {
+  const int lane = threadIdx.x % 32;
+  const int total = n_tiles * WORDS * TJ;
+  for (int base = threadIdx.x / 32; base < total; base += WARPS * HASH_BATCH) {
+    uint32_t h[HASH_BATCH];  // total is a multiple of WARPS · HASH_BATCH: no guard
+#pragma unroll
+    for (int q = 0; q < HASH_BATCH; ++q) {
+      const int wd = base + q * WARPS;
+      const uint32_t k = (uint32_t)(k0 + (wd / TJ) * 32 + lane);  // (wd / TJ) = t · WORDS + w
+      const uint32_t j = (uint32_t)(j0 + wd % TJ);
+      h[q] = mix32((k * K_SALT) ^ (j * J_SALT) ^ seed_term);
+    }
+#pragma unroll
+    for (int q = 0; q < HASH_BATCH; ++q) {
+      const uint32_t bits = __ballot_sync(0xffffffffu, h[q] & 1u);
+      if (lane == 0) sg[base + q * WARPS] = bits;
+    }
+  }
+}
+
+// One k-tile's products for the NA rows warp, warp + 8, … of this warp and
+// the columns lane and lane + 32: each 16-byte load of X (a broadcast) feeds
+// eight FMAs. NA is a constant, so no row needs a guard and the loads can
+// run ahead.
+template <int NA>
+__device__ __forceinline__ void tile_products(float (&acc)[RPW][2], const float* xs,
+                                              const uint32_t* sg, int lane, int warp, float scale) {
+#pragma unroll
+  for (int w = 0; w < WORDS; ++w) {
+    uint32_t lo = sg[w * TJ + lane];
+    uint32_t hi = sg[w * TJ + lane + 32];
+#pragma unroll 2
+    for (int kk = 0; kk < 32; kk += 4) {
+      float s[2][4];
+#pragma unroll
+      for (int b = 0; b < 4; ++b) {
+        s[0][b] = (lo >> b) & 1u ? scale : -scale;
+        s[1][b] = (hi >> b) & 1u ? scale : -scale;
+      }
+      lo >>= 4;
+      hi >>= 4;
+#pragma unroll
+      for (int a = 0; a < NA; ++a) {
+        const float4 x = *reinterpret_cast<const float4*>(xs + (warp + WARPS * a) * TK + w * 32 + kk);
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          acc[a][h] = fmaf(x.x, s[h][0], acc[a][h]);
+          acc[a][h] = fmaf(x.y, s[h][1], acc[a][h]);
+          acc[a][h] = fmaf(x.z, s[h][2], acc[a][h]);
+          acc[a][h] = fmaf(x.w, s[h][3], acc[a][h]);
+        }
+      }
+    }
+  }
+}
+
+__global__ void __launch_bounds__(THREADS, 2)
+srp_partial(const float* __restrict__ X, float* __restrict__ partial, int c, int d, int d_prime,
+            uint32_t seed_term, float scale, int per, int rows, int vec) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* Xs = reinterpret_cast<float*>(smem);  // STAGES × rows × TK
+  uint32_t* Sg = reinterpret_cast<uint32_t*>(Xs + STAGES * rows * TK);  // STAGES × WORDS × TJ
 
   const int split = blockIdx.x;
   const int j0 = blockIdx.y * TJ;
   const int r0 = blockIdx.z * TR;
-  const int tid = threadIdx.x;
-  const int tx = tid % TJ;  // column of the tile
-  const int ty = tid / TJ;  // rows ty, ty + 4, ..., ty + 60 of the tile
-
-  float acc[RPT];
-#pragma unroll
-  for (int a = 0; a < RPT; ++a) acc[a] = 0.f;
-  // rows of this thread that exist: ty + 4a < min(TR, c - r0); warp-uniform
-  const int na = (min(TR, c - r0) - ty + 3) / 4;
+  const int lane = threadIdx.x % 32;  // columns lane and lane + 32 of the tile
+  const int warp = threadIdx.x / 32;  // rows warp, warp + 8, ..., warp + 56 of the tile
+  const int nr = min(TR, c - r0);
+  // rows of this warp that exist: warp + 8a < nr
+  const int na = (nr - warp + WARPS - 1) / WARPS;
 
   const int n_tiles = (d + TK - 1) / TK;
-  const int t_begin = split * tiles_per_split;
-  const int t_end = min(n_tiles, t_begin + tiles_per_split);
+  const int t_begin = split * per;
+  const int nt = max(0, min(per, n_tiles - t_begin));
 
-  for (int t = t_begin; t < t_end; ++t) {
-    const int k0 = t * TK;
+  // the slice's copies first, then the signs while they are in flight
 #pragma unroll
-    for (int q = 0; q < (TK * TJ) / THREADS; ++q) {
-      const int e = tid + q * THREADS;
-      const int kk = e / TJ;
-      const int jj = e % TJ;
-      const uint32_t k = (uint32_t)(k0 + kk);
-      const uint32_t j = (uint32_t)(j0 + jj);
-      const uint32_t h = mix32((k * K_SALT) ^ (j * J_SALT) ^ seed_term);
-      const float s = (h & 1u) ? scale : -scale;
-      Ss[kk][jj] = (k0 + kk < d) ? s : 0.f;
-    }
+  for (int s = 0; s < STAGES; ++s) {
+    if (s < nt) issue_tile(Xs + s * rows * TK, X, r0, nr, d, (t_begin + s) * TK, vec != 0);
+    cp_async_commit();
+  }
+  hash_tiles(Sg, t_begin * TK, min(nt, STAGES), j0, seed_term);
+
+  float acc[RPW][2];
 #pragma unroll
-    for (int q = 0; q < (TR * TK) / THREADS; ++q) {
-      const int e = tid + q * THREADS;
-      const int r = e / TK;
-      const int kk = e % TK;
-      const int row = r0 + r;
-      const int col = k0 + kk;
-      Xs[r][kk] = (row < c && col < d) ? X[(size_t)row * d + col] : 0.f;
+  for (int a = 0; a < RPW; ++a) acc[a][0] = acc[a][1] = 0.f;
+
+  for (int i = 0; i < nt; ++i) {
+    const int st = i % STAGES;
+    cp_async_wait<STAGES - 1>();  // k-tile i has landed
+    __syncthreads();              // for every thread, with its signs
+    const float* xs = Xs + st * rows * TK;
+    const uint32_t* sg = Sg + st * WORDS * TJ;
+    switch (na) {  // warp-uniform
+#define SRP_ROWS(n) \
+  case n:           \
+    tile_products<n>(acc, xs, sg, lane, warp, scale); \
+    break;
+      SRP_ROWS(1) SRP_ROWS(2) SRP_ROWS(3) SRP_ROWS(4) SRP_ROWS(5) SRP_ROWS(6) SRP_ROWS(7) SRP_ROWS(8)
+#undef SRP_ROWS
+      default:  // no row of this warp exists
+        break;
     }
-    __syncthreads();
-#pragma unroll 2
-    for (int kk = 0; kk < TK; kk += 4) {
-      const float s0 = Ss[kk][tx];
-      const float s1 = Ss[kk + 1][tx];
-      const float s2 = Ss[kk + 2][tx];
-      const float s3 = Ss[kk + 3][tx];
-#pragma unroll
-      for (int a = 0; a < RPT; ++a) {
-        if (a < na) {
-          const float4 x = *reinterpret_cast<const float4*>(&Xs[ty + 4 * a][kk]);
-          acc[a] = fmaf(x.x, s0, acc[a]);
-          acc[a] = fmaf(x.y, s1, acc[a]);
-          acc[a] = fmaf(x.z, s2, acc[a]);
-          acc[a] = fmaf(x.w, s3, acc[a]);
-        }
-      }
+    if (i + STAGES < nt) {  // recycle this stage for k-tile i + STAGES
+      __syncthreads();
+      issue_tile(Xs + st * rows * TK, X, r0, nr, d, (t_begin + i + STAGES) * TK, vec != 0);
+      hash_tiles(Sg + st * WORDS * TJ, (t_begin + i + STAGES) * TK, 1, j0, seed_term);
     }
-    __syncthreads();
+    cp_async_commit();
   }
 
-  const int col = j0 + tx;
-  if (col >= d_prime) return;
   float* out = partial + (size_t)split * c * d_prime;
 #pragma unroll
-  for (int a = 0; a < RPT; ++a) {
-    const int row = r0 + ty + 4 * a;
-    if (row < c) out[(size_t)row * d_prime + col] = acc[a];
+  for (int a = 0; a < RPW; ++a) {
+    const int row = r0 + warp + WARPS * a;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int col = j0 + lane + 32 * h;
+      if (row < c && col < d_prime) out[(size_t)row * d_prime + col] = acc[a][h];
+    }
   }
 }
 
-// out[i] = Σ_s partial[s, i] in split order.
-__global__ void srp_reduce(const float* __restrict__ partial, float* __restrict__ out,
-                           size_t cd, int splits) {
+// out[i] = Σ_s partial[s, i] in split order. A warp takes 32 consecutive
+// outputs; each thread has REDUCE_BATCH partials in flight at a time.
+__global__ void __launch_bounds__(256)
+srp_reduce(const float* __restrict__ partial, float* __restrict__ out, size_t cd, int splits) {
   const size_t idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (idx >= cd) return;
   float s = 0.f;
-#pragma unroll 8
-  for (int q = 0; q < splits; ++q) s += partial[(size_t)q * cd + idx];
+  for (int q0 = 0; q0 < splits; q0 += REDUCE_BATCH) {
+    float v[REDUCE_BATCH];
+#pragma unroll
+    for (int q = 0; q < REDUCE_BATCH; ++q)
+      if (q0 + q < splits) v[q] = __ldg(partial + (size_t)(q0 + q) * cd + idx);
+#pragma unroll
+    for (int q = 0; q < REDUCE_BATCH; ++q)
+      if (q0 + q < splits) s += v[q];
+  }
   out[idx] = s;
 }
 
 }  // namespace
 
 // X (c, d) f32 -> out (c, d_prime) f32. `partial` is a (splits, c, d_prime)
-// f32 scratch the caller allocates. `seed_term` is (seed · 0x165667B1) mod
-// 2^32 and `scale` is 1/√d' rounded to f32, both computed on the host as
-// the reference does. Returns the cudaError_t of the launches (0 = success).
-extern "C" int srp_sketch(const float* X, float* partial, float* out, int c, int d,
-                          int d_prime, unsigned int seed_term, float scale, int splits,
-                          int tiles_per_split, void* stream) {
-  if (c < 1 || d < 1 || d_prime < 1 || splits < 1 || tiles_per_split < 1)
-    return (int)cudaErrorInvalidValue;
+// f32 scratch the caller allocates; split s sums k-tiles [s·per, (s+1)·per).
+// `seed_term` is (seed · 0x165667B1) mod 2^32 and `scale` is 1/√d' rounded
+// to f32, both computed on the host as the reference does. Returns the
+// cudaError_t of the launches (0 = success).
+extern "C" int srp_sketch(const float* X, float* partial, float* out, int c, int d, int d_prime,
+                          unsigned int seed_term, float scale, int splits, int per, void* stream) {
+  if (c < 1 || d < 1 || d_prime < 1 || splits < 1 || per < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int rows = c < TR ? c : TR;
+  const int smem = (int)(STAGES * rows * TK * sizeof(float) + STAGES * WORDS * TJ * sizeof(uint32_t));
+  // the limit of dynamic shared memory set so far, per device (48 KB by default)
+  static int smem_set[MAX_DEVICES] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (dev >= MAX_DEVICES) return (int)cudaErrorInvalidDevice;
+  if (smem > 48 * 1024 && smem > smem_set[dev]) {
+    err = cudaFuncSetAttribute(srp_partial, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return (int)err;
+    smem_set[dev] = smem;
+  }
+  const int vec = (d % 4 == 0) && (reinterpret_cast<uintptr_t>(X) % 16 == 0);
   dim3 grid(splits, (d_prime + TJ - 1) / TJ, (c + TR - 1) / TR);
-  srp_partial<<<grid, THREADS, 0, s>>>(X, partial, c, d, d_prime, seed_term, scale,
-                                       tiles_per_split);
-  cudaError_t err = cudaGetLastError();
+  srp_partial<<<grid, THREADS, smem, s>>>(X, partial, c, d, d_prime, seed_term, scale, per, rows, vec);
+  err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const size_t cd = (size_t)c * d_prime;
-  const int rthreads = 256;
-  const unsigned rblocks = (unsigned)((cd + rthreads - 1) / rthreads);
-  srp_reduce<<<rblocks, rthreads, 0, s>>>(partial, out, cd, splits);
+  const unsigned rblocks = (unsigned)((cd + 255) / 256);
+  srp_reduce<<<rblocks, 256, 0, s>>>(partial, out, cd, splits);
   return (int)cudaGetLastError();
 }
 

@@ -43,26 +43,35 @@ SKETCH_BLOCK_D = 512
 #: The kernel's k-tile and column tile, as in ``csrc/sketch.cu``.
 TK = 64
 TJ = 64
-#: Blocks the d-split aims for, as in ``similarity/ops.py``: a constant, not
-#: the card's SM count, so the split (and the bits) are the same on every card.
-TARGET_BLOCKS = 264
+#: Splits of the d axis once d has that many k-tiles: a constant, not the
+#: card's SM count, so the split (and the bits) are the same on every card.
+SPLITS = 128
+#: Split counts are a multiple of this (a thread-block cluster of splits).
+CLUSTER = 8
 
 #: Kernel launches since the count was last reset; a launch is one call of
-#: the C entry point (partial pass + reduce pass).
+#: the C entry point.
 launches = {"srp": 0}
 
 
-def split_plan(d: int, d_prime: int) -> tuple[int, int]:
+def split_plan(d: int) -> tuple[int, int]:
     """(splits, k-tiles per split) of the d axis.
 
-    A function of d and d' only, never of the row count: a row's sketch is
-    the same bits whatever rows share the call.
+    ``SPLITS`` splits, or the multiple of ``CLUSTER`` at or above the k-tile
+    count when d has fewer; each takes ``per`` k-tiles of ``TK`` columns in
+    order, and a split past the end sums nothing. A function of d only, never
+    of the row count: a row's sketch is the same bits whatever rows share the
+    call.
     """
     n_tiles = -(-d // TK)
-    col_tiles = -(-d_prime // TJ)
-    splits = max(1, min(n_tiles, -(-TARGET_BLOCKS // col_tiles)))
-    per = -(-n_tiles // splits)
-    return -(-n_tiles // per), per
+    splits = SPLITS if n_tiles >= SPLITS else CLUSTER * -(-n_tiles // CLUSTER)
+    return splits, -(-n_tiles // splits)
+
+
+@functools.lru_cache(maxsize=64)
+def _launch_args(d: int, d_prime: int, seed: int) -> tuple[int, float, int, int]:
+    """(seed_term, scale, splits, per) of a call: fixed per (d, d', seed)."""
+    return (seed_term(seed), srp_scale(d_prime), *split_plan(d))
 
 
 @functools.cache
@@ -100,7 +109,7 @@ def srp_sketch(X: torch.Tensor, d_prime: int, seed: int, *, block_d: int = SKETC
     if not X.is_contiguous():
         raise ValueError("X must be contiguous")
     c, d = X.shape
-    splits, per = split_plan(d, d_prime)
+    term, scale, splits, per = _launch_args(d, d_prime, int(seed))
     partial = torch.empty((splits, c, d_prime), dtype=torch.float32, device=X.device)
     out = torch.empty((c, d_prime), dtype=torch.float32, device=X.device)
     lib = _lib()
@@ -111,8 +120,8 @@ def srp_sketch(X: torch.Tensor, d_prime: int, seed: int, *, block_d: int = SKETC
         c,
         d,
         d_prime,
-        seed_term(seed),
-        srp_scale(d_prime),
+        term,
+        scale,
         splits,
         per,
         torch.cuda.current_stream(X.device).cuda_stream,

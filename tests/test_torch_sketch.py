@@ -107,11 +107,15 @@ def test_countsketch_index_lists_each_bucket_in_order():
 
 
 def test_split_plan_covers_d_once():
-    for d, d_prime in [(39_760, 64), (1037, 64), (96, 8), (1, 1), (100_000, 200)]:
-        splits, per = ops.split_plan(d, d_prime)
+    """Every k-tile lies in exactly one split, the splits come in whole
+    clusters, and d = 39,760 gets 128 splits of 5 k-tiles (3 of them empty)."""
+    for d in (39_760, 1037, 96, 1, 100_000, 8193):
+        splits, per = ops.split_plan(d)
         n_tiles = -(-d // ops.TK)
-        assert splits >= 1 and per >= 1
-        assert (splits - 1) * per < n_tiles <= splits * per
+        assert splits % ops.CLUSTER == 0 and per >= 1
+        assert splits == (ops.SPLITS if n_tiles >= ops.SPLITS else ops.CLUSTER * -(-n_tiles // ops.CLUSTER))
+        assert (per - 1) * splits < n_tiles <= splits * per
+    assert ops.split_plan(39_760) == (128, 5)
 
 
 def test_srp_wrapper_rejects_bad_input():

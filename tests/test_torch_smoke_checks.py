@@ -93,7 +93,7 @@ def _split_srp(X, d_prime, seed):
     """X·S as the CUDA kernel sums it: an f32 partial per d-split of 64-wide
     k-tiles, the partials added in split order."""
     d = X.shape[1]
-    splits, per = sk_ops.split_plan(d, d_prime)
+    splits, per = sk_ops.split_plan(d)
     S = srp_sign_block(seed, 0, d, d_prime, d, device="cpu")
     out = torch.zeros((X.shape[0], d_prime))
     for s in range(splits):
