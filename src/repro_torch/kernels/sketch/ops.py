@@ -40,18 +40,25 @@ from repro_torch.kernels.sketch.ref import (
 #: order (the kernel's split is its own, see :func:`split_plan`).
 SKETCH_BLOCK_D = 512
 
-#: The kernel's k-tile and column tile, as in ``csrc/sketch.cu``.
+#: The kernel's k-tile, column tile and row tile, as in ``csrc/sketch.cu``.
 TK = 64
 TJ = 64
+TR = 64
 #: Splits of the d axis once d has that many k-tiles: a constant, not the
 #: card's SM count, so the split (and the bits) are the same on every card.
 SPLITS = 128
-#: Split counts are a multiple of this (a thread-block cluster of splits).
+#: Split counts are a multiple of this: the kernel reduces each cluster of
+#: CLUSTER splits in shared memory, then the clusters in order.
 CLUSTER = 8
 
 #: Kernel launches since the count was last reset; a launch is one call of
 #: the C entry point.
 launches = {"srp": 0}
+
+#: (device index, stream) -> int32 tickets, one per (column tile, row tile)
+#: of a call. Zeroed once; the kernel leaves them at zero, so a stream's
+#: calls launch nothing else, and two streams never share a ticket.
+_tickets: dict[tuple[int, int], torch.Tensor] = {}
 
 
 def split_plan(d: int) -> tuple[int, int]:
@@ -80,13 +87,25 @@ def _lib():
     lib = _build.load("sketch")
     lib.srp_sketch.restype = ctypes.c_int
     lib.srp_sketch.argtypes = (
-        [ctypes.c_void_p] * 3
+        [ctypes.c_void_p] * 4
         + [ctypes.c_int] * 3
         + [ctypes.c_uint32, ctypes.c_float]
         + [ctypes.c_int] * 2
         + [ctypes.c_void_p]
     )
+    lib.srp_launch_info.restype = ctypes.c_int
+    lib.srp_launch_info.argtypes = [ctypes.c_int] + [ctypes.POINTER(ctypes.c_int)] * 3
     return lib
+
+
+def launch_info(c: int) -> tuple[int, int, int]:
+    """(dynamic shared memory of a block in bytes, clusters the current card
+    holds at once, and at one block an SM) for a call with c rows."""
+    lib = _lib()
+    smem, clusters, one = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    err = lib.srp_launch_info(int(c), ctypes.byref(smem), ctypes.byref(clusters), ctypes.byref(one))
+    _build.check(lib, err, "srp launch info")
+    return smem.value, clusters.value, one.value
 
 
 def srp_sketch(X: torch.Tensor, d_prime: int, seed: int, *, block_d: int = SKETCH_BLOCK_D) -> torch.Tensor:
@@ -110,13 +129,21 @@ def srp_sketch(X: torch.Tensor, d_prime: int, seed: int, *, block_d: int = SKETC
         raise ValueError("X must be contiguous")
     c, d = X.shape
     term, scale, splits, per = _launch_args(d, d_prime, int(seed))
-    partial = torch.empty((splits, c, d_prime), dtype=torch.float32, device=X.device)
+    stream = torch.cuda.current_stream(X.device).cuda_stream
+    tiles = -(-d_prime // TJ) * -(-c // TR)
+    tickets = _tickets.get((X.device.index, stream))
+    if tickets is None or tickets.numel() < tiles:
+        tickets = _tickets[(X.device.index, stream)] = torch.zeros(
+            max(tiles, 64), dtype=torch.int32, device=X.device
+        )
+    scratch = torch.empty((splits // CLUSTER, c, d_prime), dtype=torch.float32, device=X.device)
     out = torch.empty((c, d_prime), dtype=torch.float32, device=X.device)
     lib = _lib()
     err = lib.srp_sketch(
         X.data_ptr(),
-        partial.data_ptr(),
+        scratch.data_ptr(),
         out.data_ptr(),
+        tickets.data_ptr(),
         c,
         d,
         d_prime,
@@ -124,7 +151,7 @@ def srp_sketch(X: torch.Tensor, d_prime: int, seed: int, *, block_d: int = SKETC
         scale,
         splits,
         per,
-        torch.cuda.current_stream(X.device).cuda_stream,
+        stream,
     )
     _build.check(lib, err, "srp sketch kernel")
     launches["srp"] += 1

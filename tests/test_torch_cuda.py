@@ -73,7 +73,13 @@ def _x(c, d, seed=5):
     return torch.from_numpy((1e-3 * np.random.default_rng(seed).normal(size=(c, d))).astype(np.float32))
 
 
-@pytest.mark.parametrize("c,d,d_prime", [(10, 39760, 64), (64, 39760, 64), (13, 1037, 64), (8, 96, 8), (3, 100, 130)])
+# the round's and the fleet's shapes; c = 130 spans three row tiles with a
+# ticket each; d = 96 and 100 have fewer k-tiles than splits
+SRP_SHAPES = [(10, 39760, 64), (64, 39760, 64), (13, 1037, 64), (8, 96, 8), (3, 100, 130),
+              (130, 39760, 64), (5, 96, 64)]
+
+
+@pytest.mark.parametrize("c,d,d_prime", SRP_SHAPES)
 def test_srp_kernel_matches_plain(cuda, c, d, d_prime):
     X = _x(c, d).to(cuda)
     got = sk_ops.srp_sketch(X, d_prime, 7)
@@ -99,6 +105,34 @@ def test_srp_kernel_rows_do_not_depend_on_the_batch(cuda):
     for lo, hi in ((0, 5), (7, 8), (30, 64)):
         part = sk_ops.srp_sketch(X[lo:hi].contiguous(), 64, 0)
         np.testing.assert_array_equal(part.cpu().numpy(), full[lo:hi].cpu().numpy())
+
+
+def test_srp_kernel_tickets_reset_between_calls(cuda):
+    """Back-to-back calls at alternating shapes, unsynchronised, are each
+    bit-equal to the same call made alone."""
+    inputs = [(_x(c, d, seed=c + d).to(cuda), d_prime) for c, d, d_prime in SRP_SHAPES]
+    alone = []
+    for X, d_prime in inputs:
+        alone.append(sk_ops.srp_sketch(X, d_prime, 7).cpu().numpy())
+    got = [sk_ops.srp_sketch(X, d_prime, 7) for _ in range(3) for X, d_prime in inputs]
+    for i, y in enumerate(got):
+        np.testing.assert_array_equal(y.cpu().numpy(), alone[i % len(inputs)])
+
+
+def test_srp_kernel_is_one_device_kernel_a_call(cuda):
+    from torch.profiler import ProfilerActivity, profile
+
+    X = _x(10, 39760).to(cuda)
+    sk_ops.srp_sketch(X, 64, 7)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(20):
+            sk_ops.srp_sketch(X, 64, 7)
+        torch.cuda.synchronize()
+    events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    # one kernel name only; the profiler on the card may drop a launch or two
+    assert {("srp_" in e.name) for e in events} == {True}
+    assert 18 <= len(events) <= 20
 
 
 def test_srp_wrapper_raises_instead_of_falling_back(cuda):

@@ -5,10 +5,12 @@ tolerance relative to ‖g_i‖·‖g_j‖. These tests show that the check acce
 a Gram summed in another f32 order and rejects a kernel that drops the
 ragged d tail (the last ``d mod 32`` columns, the kernel's d-chunk) or
 halves every entry, at each shape the smoke run checks. The SRP check,
-relative to ‖x_i‖·‖S_:,j‖, gets the same treatment: it accepts two other
-f32 summation orders and rejects a kernel that drops the ragged d tail
+relative to ‖x_i‖·‖S_:,j‖, gets the same treatment: it accepts the kernel's
+order (128 d-splits summed in clusters of 8, then the clusters in order)
+and the exact sum, and rejects a kernel that drops the ragged d tail
 (``d mod 512``, the plain version's block, or ``d mod 64``, the kernel's
-k-tile) or reads the signs of the next row of k. The flash-attention check
+k-tile), reads the signs of the next row of k, drops one cluster partial,
+counts one twice (a stale ticket) or shifts the splits' k-ranges by a tile. The flash-attention check
 (atol 2e-5 in f32; in bf16 relative to the softmax-weighted |v|) accepts
 the kernels' own order of work, an online softmax over 64-key tiles with p
 rounded against the running max (exp in the f32 kernel, exp2 of scores
@@ -89,16 +91,34 @@ def _X(c, d):
     return torch.from_numpy((smoke.SIM_SCALE * rng.normal(size=(c, d))).astype(np.float32))
 
 
-def _split_srp(X, d_prime, seed):
+def _split_srp(X, d_prime, seed, wrong=None):
     """X·S as the CUDA kernel sums it: an f32 partial per d-split of 64-wide
-    k-tiles, the partials added in split order."""
+    k-tiles; the partials of each cluster of 8 splits added in rank order,
+    then the cluster sums in cluster order. ``wrong`` names a fault of the
+    fused reduction: ``"drop_cluster"`` leaves one cluster partial out,
+    ``"cluster_twice"`` adds one twice (a stale ticket), ``"k_off_by_one_tile"``
+    shifts every split's k-range by one tile."""
     d = X.shape[1]
     splits, per = sk_ops.split_plan(d)
     S = srp_sign_block(seed, 0, d, d_prime, d, device="cpu")
-    out = torch.zeros((X.shape[0], d_prime))
+    shift = sk_ops.TK if wrong == "k_off_by_one_tile" else 0
+    parts = []
     for s in range(splits):
-        lo, hi = s * per * sk_ops.TK, min(d, (s + 1) * per * sk_ops.TK)
-        out += X[:, lo:hi] @ S[lo:hi]
+        lo, hi = min(d, s * per * sk_ops.TK + shift), min(d, (s + 1) * per * sk_ops.TK + shift)
+        parts.append(X[:, lo:hi] @ S[lo:hi])
+    clusters = []
+    for q in range(0, splits, sk_ops.CLUSTER):
+        acc = parts[q]
+        for r in range(1, sk_ops.CLUSTER):
+            acc = acc + parts[q + r]
+        clusters.append(acc)
+    if wrong == "drop_cluster":
+        clusters[0] = torch.zeros_like(clusters[0])
+    elif wrong == "cluster_twice":
+        clusters.insert(0, clusters[0])
+    out = clusters[0]
+    for part in clusters[1:]:
+        out = out + part
     return out
 
 
@@ -112,7 +132,11 @@ def test_srp_check_accepts_other_f32_orders(c, d, d_prime):
     assert smoke.srp_rel_err(exact, want, X, d_prime) <= smoke.SRP_RTOL
 
 
-@pytest.mark.parametrize("wrong", ["drop_tail_512", "drop_tail_64", "signs_off_by_one_row"])
+@pytest.mark.parametrize(
+    "wrong",
+    ["drop_tail_512", "drop_tail_64", "signs_off_by_one_row", "drop_cluster", "cluster_twice",
+     "k_off_by_one_tile"],
+)
 @pytest.mark.parametrize("c,d,d_prime", smoke.SRP_SHAPES)
 def test_srp_check_rejects_wrong_kernels(c, d, d_prime, wrong):
     X = _X(c, d)
@@ -122,8 +146,10 @@ def test_srp_check_rejects_wrong_kernels(c, d, d_prime, wrong):
         tail = d % int(wrong.rsplit("_", 1)[1])
         assert tail > 0, "every checked shape has a ragged d tail"
         got = X[:, : d - tail] @ S[: d - tail]
-    else:
+    elif wrong == "signs_off_by_one_row":
         got = X @ srp_sign_block(smoke.SRP_SEED, 1, d, d_prime, d + 1, device="cpu")
+    else:
+        got = _split_srp(X, d_prime, smoke.SRP_SEED, wrong)
     assert smoke.srp_rel_err(got, want, X, d_prime) > smoke.SRP_RTOL
 
 
