@@ -21,8 +21,8 @@ Phases, one line (or a few) each; any failure raises and exits non-zero:
    1e-5·‖x_i‖·‖S_:,j‖ with ‖S_:,j‖ = √(d/d′), its signs bit-equal to the
    plain version's, bit-reproducible and independent of the rows it is
    batched with, calls at alternating shapes back to back each bit-equal
-   to the same call alone (its tickets reset), and one device kernel a
-   call in a profiler window; countsketch bit-reproducible; flash attention, f32 on
+   to the same call alone, and its two device kernels once each a call in
+   a profiler window; countsketch bit-reproducible; flash attention, f32 on
    the CUDA-core kernel at the reference's test shapes and a ragged
    S = T = 1,000, bf16 on the tensor-core kernel at every padded head dim
    (hd 8 to 128), ragged S = T of 1 to 1,000 around its 64-row tiles, the
@@ -106,7 +106,7 @@ D_PRIME = 64  # sketch width of slice[srp] and the fleet (bench_store_scale's d'
 SKETCHED_SIM_SHAPE = (100, D_PRIME)  # the sketched store the similarity kernel reads
 # (c, d, d'): the round's 10 rows, the fleet's 64, a ragged shape, tiny ones
 # with fewer k-tiles than splits (d = 96: 2 k-tiles, 8 splits), and 130 rows
-# over three row tiles, each with its own ticket
+# over three row tiles
 SRP_SHAPES = [(10, 39760, D_PRIME), (64, 39760, D_PRIME), (13, 1037, 64), (8, 96, 8),
               (5, 96, 64), (130, 39760, D_PRIME)]
 SRP_SEED = 7
@@ -383,12 +383,10 @@ def phase_kernels_srp(torch, gen) -> float:
               f"(limit {SRP_RTOL}), max |want| {float(want.abs().max()):.3e}, reproducible, "
               f"rows 0..4 bit-equal alone")
     srp_alternating(torch, gen)
-    srp_one_kernel(torch, gen)
-    for c in (SRP_SHAPES[0][0], SRP_SHAPES[1][0]):
-        smem, clusters, one = sk_ops.launch_info(c)
-        print(f"kernels: srp at c = {c}: {smem} B of dynamic shared memory a block; the card holds "
-              f"{clusters} clusters of {sk_ops.CLUSTER} at once, {one} at one block an SM "
-              f"({sk_ops.split_plan(SRP_SHAPES[0][1])[0] // sk_ops.CLUSTER} a call at d = {SRP_SHAPES[0][1]})")
+    srp_kernels_a_call(torch, gen)
+    print(f"kernels: srp partial pass: {sk_ops.smem_bytes(SRP_SHAPES[0][0])} B of dynamic shared "
+          f"memory a block at c = {SRP_SHAPES[0][0]}, {sk_ops.smem_bytes(SRP_SHAPES[1][0])} B at "
+          f"c = {SRP_SHAPES[1][0]}")
     eye = torch.eye(SIGN_D, dtype=torch.float32, device="cuda")
     S = srp_sign_block(SRP_SEED, 0, SIGN_D, 64, SIGN_D, device="cuda")
     got = sk_ops.srp_sketch(eye, 64, SRP_SEED)
@@ -409,7 +407,7 @@ def phase_kernels_srp(torch, gen) -> float:
 
 def srp_alternating(torch, gen):
     """Calls at alternating shapes, back to back with no synchronisation,
-    each bit-equal to the same call made alone: the tickets reset."""
+    each bit-equal to the same call made alone."""
     from repro_torch.kernels.sketch import ops as sk_ops
 
     inputs = [((SIM_SCALE * torch.randn((c, d), generator=gen)).cuda(), dp) for c, d, dp in SRP_SHAPES]
@@ -427,23 +425,26 @@ def srp_alternating(torch, gen):
           f"bit-equal to the same call alone")
 
 
-def srp_one_kernel(torch, gen, reps: int = 20):
-    """torch.profiler over ``reps`` calls sees one device kernel, the SRP
-    kernel, and no more launches than calls. The profiler on the card drops
-    a launch now and then (it kept 19 of 20 of each SRP kernel in a window),
-    so up to 2 fewer are accepted; a second kernel, a copy or a fill per call
-    would add ``reps`` events of another name."""
+SRP_KERNELS = ("srp_partial", "srp_reduce")  # the device kernels of one call, once each
+
+
+def srp_kernels_a_call(torch, gen, reps: int = 20):
+    """torch.profiler over ``reps`` calls sees each of SRP_KERNELS at most
+    ``reps`` times and nothing else. The profiler on the card drops a launch
+    now and then (it kept 19 of 20 of each SRP kernel in a window), so up to
+    2 fewer are accepted; a kernel launched twice, or a copy or a fill per
+    call, would show ``reps`` more events."""
     from repro_torch.kernels.sketch import ops as sk_ops
 
     c, d, dp = SRP_SHAPES[0]
     X = (SIM_SCALE * torch.randn((c, d), generator=gen)).cuda()
     events = device_events(torch, lambda: sk_ops.srp_sketch(X, dp, SRP_SEED), reps=reps)
-    names = sorted({_kernel_name(e.name) for e in events})
-    if len(names) != 1 or "srp_" not in names[0] or not reps - 2 <= len(events) <= reps:
-        fail(f"srp kernel: {len(events)} device events of {names} in {reps} calls; expected one "
-             f"SRP kernel a call")
-    print(f"kernels: srp one device kernel a call: the profiler saw {len(events)} launches of "
-          f"{names[0]} in {reps} calls and nothing else")
+    counts = {k: sum(k in e.name for e in events) for k in SRP_KERNELS}
+    others = sorted({_kernel_name(e.name) for e in events if not any(k in e.name for k in SRP_KERNELS)})
+    if others or not all(reps - 2 <= n <= reps for n in counts.values()):
+        fail(f"srp: {counts} and {others} in {reps} calls; expected each of {SRP_KERNELS} once a call")
+    print(f"kernels: srp device kernels a call: the profiler saw {json.dumps(counts)} in {reps} "
+          f"calls and nothing else")
 
 
 def _flash_check(torch, label, got, q, k, v, causal=True, again=None) -> float:

@@ -37,23 +37,23 @@
 //   words once per 32 k and X four k at a time (one 16-byte broadcast load
 //   that feeds eight FMAs); the sum is taken k by k in ascending order,
 //   acc = fmaf(x, ±scale, acc).
-// * The reduction over splits runs in the same launch. The grid's split
-//   axis is cut into clusters of CLUSTER blocks (16 clusters at 128 splits).
-//   Each block leaves its (rows × 64) partial in its own shared memory; rank
-//   r of a cluster adds its 1/CLUSTER share of the outputs over ranks
-//   0 .. CLUSTER − 1 in rank order, reading its peers' shared memory, and
-//   writes that cluster partial to a (clusters, c, d') scratch. Rank 0 then
-//   draws a ticket for its (column tile, row tile); the cluster that draws
-//   the last one adds the cluster partials in cluster order and writes Y,
-//   and resets the ticket to 0 for the next call. The sum is
-//   ((p₀ + … + p₇) + (p₈ + … + p₁₅)) + …, fixed by index and never by
-//   arrival: no float atomics, so the result is bit-reproducible. Nothing
-//   waits on another cluster, so clusters may run in waves.
-#include <cooperative_groups.h>
+// * Each split writes its partial sums to a (splits, c, d') scratch, and a
+//   second kernel adds them in a fixed order: each group of GROUP splits in
+//   split order, then the group sums in group order,
+//   ((p₀ + … + p₇) + (p₈ + … + p₁₅)) + …. A block of the second kernel takes
+//   32 outputs; warp g loads its group's GROUP partials at once, so the
+//   whole sum costs one round trip to L2. No float atomics, so the result
+//   is bit-reproducible.
+// * Why two kernels: the same order in one launch, with each group a
+//   thread-block cluster reduced through distributed shared memory and the
+//   last cluster (by ticket) adding the group sums, was built and measured
+//   on an H100 SXM (PERF.md, Findings): the card holds 15 clusters of 8 with
+//   one block an SM, so the 16th shares SMs with another and doubles the
+//   launch's time (0.021 ms at c = 10 and 0.037 at c = 64), and its
+//   epilogue of cluster barriers, fences and a ticket costs about what the
+//   second launch does.
 #include <cuda_runtime.h>
 #include <stdint.h>
-
-namespace cg = cooperative_groups;
 
 namespace {
 
@@ -66,8 +66,8 @@ constexpr int RPW = TR / WARPS;           // rows per warp: 8
 constexpr int STAGES = 5;                 // k-tiles in flight: a split's whole slice at d = 39,760
 constexpr int WORDS = TK / 32;            // sign words per column per k-tile
 constexpr int HASH_BATCH = 8;             // hashes a lane has in flight
-constexpr int CLUSTER = 8;                // splits a cluster reduces in shared memory
-constexpr int MAX_CLUSTERS = 16;          // 128 splits at most
+constexpr int GROUP = 8;                  // splits the reduction adds in order first
+constexpr int MAX_GROUPS = 16;            // 128 splits at most
 constexpr int MAX_DEVICES = 64;
 
 constexpr uint32_t C1 = 0x85EBCA6Bu;
@@ -192,10 +192,9 @@ __device__ __forceinline__ void tile_products(float (&acc)[RPW][2], const float*
   }
 }
 
-__global__ void __cluster_dims__(CLUSTER, 1, 1) __launch_bounds__(THREADS, 2)
-srp_cluster(const float* __restrict__ X, float* __restrict__ scratch, float* __restrict__ out,
-            int* __restrict__ tickets, int c, int d, int d_prime, uint32_t seed_term, float scale,
-            int per, int rows, int vec) {
+__global__ void __launch_bounds__(THREADS, 2)
+srp_partial(const float* __restrict__ X, float* __restrict__ partial, int c, int d, int d_prime,
+            uint32_t seed_term, float scale, int per, int rows, int vec) {
   extern __shared__ __align__(16) unsigned char smem[];
   float* Xs = reinterpret_cast<float*>(smem);  // STAGES × rows × TK
   uint32_t* Sg = reinterpret_cast<uint32_t*>(Xs + STAGES * rows * TK);  // STAGES × WORDS × TJ
@@ -249,132 +248,92 @@ srp_cluster(const float* __restrict__ X, float* __restrict__ scratch, float* __r
     cp_async_commit();
   }
 
-  // this split's partial into its own shared memory: the ring is free
-  cp_async_wait<0>();
-  __syncthreads();
-  float* P = Xs;  // nr × TJ
+  float* out = partial + (size_t)split * c * d_prime;
 #pragma unroll
   for (int a = 0; a < RPW; ++a) {
-    if (a < na) {
-      P[(warp + WARPS * a) * TJ + lane] = acc[a][0];
-      P[(warp + WARPS * a) * TJ + lane + 32] = acc[a][1];
+    const int row = r0 + warp + WARPS * a;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int col = j0 + lane + 32 * h;
+      if (row < c && col < d_prime) out[(size_t)row * d_prime + col] = acc[a][h];
     }
-  }
-  cg::cluster_group cluster = cg::this_cluster();
-  const int rank = (int)cluster.block_rank();
-  const int n_clusters = gridDim.x / CLUSTER;
-  const size_t plane = (size_t)c * d_prime;
-  cluster.sync();  // every split of the cluster has its partial in place
-
-  // rank r sums outputs r·THREADS + t, + CLUSTER·THREADS, … over the ranks in order
-  for (int o = rank * THREADS + (int)threadIdx.x; o < nr * TJ; o += CLUSTER * THREADS) {
-    float v[CLUSTER];
-#pragma unroll
-    for (int q = 0; q < CLUSTER; ++q) v[q] = *cluster.map_shared_rank(P + o, q);
-    float sum = v[0];
-#pragma unroll
-    for (int q = 1; q < CLUSTER; ++q) sum += v[q];
-    const int col = j0 + o % TJ;
-    if (col < d_prime)
-      scratch[(blockIdx.x / CLUSTER) * plane + (size_t)(r0 + o / TJ) * d_prime + col] = sum;
-  }
-  __threadfence();
-  cluster.sync();  // no peer reads this block's shared memory after this
-
-  __shared__ int last;  // this cluster drew the tile's last ticket
-  if (rank == 0 && threadIdx.x == 0) {
-    __threadfence();
-    int* ticket = tickets + blockIdx.z * gridDim.y + blockIdx.y;
-    const int is_last = atomicAdd(ticket, 1) == n_clusters - 1;
-    if (is_last) *ticket = 0;  // every cluster of the tile has drawn: ready for the next call
-    for (int q = 0; q < CLUSTER; ++q) *cluster.map_shared_rank(&last, q) = is_last;
-  }
-  cluster.sync();
-  if (!last) return;
-  __threadfence();
-  for (int o = rank * THREADS + (int)threadIdx.x; o < nr * TJ; o += CLUSTER * THREADS) {
-    const int col = j0 + o % TJ;
-    if (col >= d_prime) continue;
-    const size_t idx = (size_t)(r0 + o / TJ) * d_prime + col;
-    float v[MAX_CLUSTERS];
-#pragma unroll
-    for (int q = 0; q < MAX_CLUSTERS; ++q)
-      if (q < n_clusters) v[q] = __ldcg(scratch + q * plane + idx);
-    float sum = v[0];
-#pragma unroll
-    for (int q = 1; q < MAX_CLUSTERS; ++q)
-      if (q < n_clusters) sum += v[q];
-    out[idx] = sum;
   }
 }
 
-// Dynamic shared memory of a block at c rows: the X ring and the sign words.
+// out[i] = ((p₀ + … + p₇) + (p₈ + … + p₁₅)) + … over the split partials p
+// of output i. A block takes 32 consecutive outputs: warp g adds the GROUP
+// partials of group g with all its loads in flight, and warp 0 adds the
+// group sums in group order.
+__global__ void __launch_bounds__(32 * MAX_GROUPS)
+srp_reduce(const float* __restrict__ partial, float* __restrict__ out, size_t cd) {
+  __shared__ float sums[MAX_GROUPS][32];
+  const int lane = threadIdx.x % 32;
+  const int g = threadIdx.x / 32;
+  const int groups = blockDim.x / 32;
+  const size_t idx = (size_t)blockIdx.x * 32 + lane;
+  if (idx < cd) {
+    float v[GROUP];
+#pragma unroll
+    for (int q = 0; q < GROUP; ++q) v[q] = __ldg(partial + (size_t)(g * GROUP + q) * cd + idx);
+    float s = v[0];
+#pragma unroll
+    for (int q = 1; q < GROUP; ++q) s += v[q];
+    sums[g][lane] = s;
+  }
+  __syncthreads();
+  if (g == 0 && idx < cd) {
+    float s = sums[0][lane];
+    for (int q = 1; q < groups; ++q) s += sums[q][lane];
+    out[idx] = s;
+  }
+}
+
+// Dynamic shared memory of a partial-pass block at c rows: the X ring and
+// the sign words.
 int smem_bytes(int c) {
   const int rows = c < TR ? c : TR;
   return (int)(STAGES * rows * TK * sizeof(float) + STAGES * WORDS * TJ * sizeof(uint32_t));
 }
 
-// Let the kernel take `smem` bytes of dynamic shared memory on the current device.
-cudaError_t allow_smem(int smem) {
-  // the limit set so far, per device (48 KB by default)
+}  // namespace
+
+// X (c, d) f32 -> out (c, d_prime) f32. `partial` is a (splits, c, d_prime)
+// f32 scratch the caller allocates; split s sums k-tiles [s·per, (s+1)·per),
+// and `splits` is a multiple of GROUP, at most GROUP · MAX_GROUPS.
+// `seed_term` is (seed · 0x165667B1) mod 2^32 and `scale` is 1/√d' rounded
+// to f32, both computed on the host as the reference does. Returns the
+// cudaError_t of the launches (0 = success).
+extern "C" int srp_sketch(const float* X, float* partial, float* out, int c, int d, int d_prime,
+                          unsigned int seed_term, float scale, int splits, int per, void* stream) {
+  if (c < 1 || d < 1 || d_prime < 1 || per < 1 || splits < GROUP || splits % GROUP != 0 ||
+      splits > GROUP * MAX_GROUPS)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int rows = c < TR ? c : TR;
+  const int smem = smem_bytes(c);
+  // the limit of dynamic shared memory set so far, per device (48 KB by default)
   static int smem_set[MAX_DEVICES] = {};
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  if (dev >= MAX_DEVICES) return cudaErrorInvalidDevice;
+  if (err != cudaSuccess) return (int)err;
+  if (dev >= MAX_DEVICES) return (int)cudaErrorInvalidDevice;
   if (smem > 48 * 1024 && smem > smem_set[dev]) {
-    err = cudaFuncSetAttribute(srp_cluster, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return err;
+    err = cudaFuncSetAttribute(srp_partial, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return (int)err;
     smem_set[dev] = smem;
   }
-  return cudaSuccess;
-}
-
-}  // namespace
-
-// X (c, d) f32 -> out (c, d_prime) f32, in one launch. `scratch` is a
-// (splits / CLUSTER, c, d_prime) f32 scratch and `tickets` an int32 buffer of
-// at least ⌈d'/64⌉·⌈c/64⌉ zeros, both owned by the caller; the kernel leaves
-// the tickets at zero. Split s sums k-tiles [s·per, (s+1)·per); `splits` is
-// a multiple of CLUSTER, at most CLUSTER · MAX_CLUSTERS. `seed_term` is
-// (seed · 0x165667B1) mod 2^32 and `scale` is 1/√d' rounded to f32, both
-// computed on the host as the reference does. Returns the cudaError_t of the
-// launch (0 = success).
-extern "C" int srp_sketch(const float* X, float* scratch, float* out, int* tickets, int c, int d,
-                          int d_prime, unsigned int seed_term, float scale, int splits, int per,
-                          void* stream) {
-  if (c < 1 || d < 1 || d_prime < 1 || per < 1 || splits < CLUSTER || splits % CLUSTER != 0 ||
-      splits > CLUSTER * MAX_CLUSTERS)
-    return (int)cudaErrorInvalidValue;
-  const int rows = c < TR ? c : TR;
-  const int smem = smem_bytes(c);
-  cudaError_t err = allow_smem(smem);
-  if (err != cudaSuccess) return (int)err;
   const int vec = (d % 4 == 0) && (reinterpret_cast<uintptr_t>(X) % 16 == 0);
   dim3 grid(splits, (d_prime + TJ - 1) / TJ, (c + TR - 1) / TR);
-  srp_cluster<<<grid, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
-      X, scratch, out, tickets, c, d, d_prime, seed_term, scale, per, rows, vec);
+  srp_partial<<<grid, THREADS, smem, s>>>(X, partial, c, d, d_prime, seed_term, scale, per, rows, vec);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const size_t cd = (size_t)c * d_prime;
+  srp_reduce<<<(unsigned)((cd + 31) / 32), 32 * (splits / GROUP), 0, s>>>(partial, out, cd);
   return (int)cudaGetLastError();
 }
 
-// The dynamic shared memory of a block at c rows, and how many clusters of
-// the kernel the current device holds at once at that size and at one
-// block an SM (shared memory padded past half an SM's). Returns the
-// cudaError_t of the queries.
-extern "C" int srp_launch_info(int c, int* smem, int* max_clusters, int* max_clusters_one_a_sm) {
-  *smem = smem_bytes(c);
-  const int one_a_sm = 120 * 1024;
-  cudaError_t err = allow_smem(one_a_sm > *smem ? one_a_sm : *smem);
-  if (err != cudaSuccess) return (int)err;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(CLUSTER * MAX_CLUSTERS, 1, 1);
-  cfg.blockDim = dim3(THREADS, 1, 1);
-  cfg.dynamicSmemBytes = (size_t)*smem;
-  err = cudaOccupancyMaxActiveClusters(max_clusters, srp_cluster, &cfg);
-  if (err != cudaSuccess) return (int)err;
-  cfg.dynamicSmemBytes = (size_t)(one_a_sm > *smem ? one_a_sm : *smem);
-  return (int)cudaOccupancyMaxActiveClusters(max_clusters_one_a_sm, srp_cluster, &cfg);
-}
+// Dynamic shared memory of a partial-pass block for a call with c rows.
+extern "C" int srp_smem_bytes(int c) { return smem_bytes(c); }
 
 extern "C" const char* cuda_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));

@@ -40,38 +40,32 @@ from repro_torch.kernels.sketch.ref import (
 #: order (the kernel's split is its own, see :func:`split_plan`).
 SKETCH_BLOCK_D = 512
 
-#: The kernel's k-tile, column tile and row tile, as in ``csrc/sketch.cu``.
+#: The kernel's k-tile and column tile, as in ``csrc/sketch.cu``.
 TK = 64
 TJ = 64
-TR = 64
 #: Splits of the d axis once d has that many k-tiles: a constant, not the
 #: card's SM count, so the split (and the bits) are the same on every card.
 SPLITS = 128
-#: Split counts are a multiple of this: the kernel reduces each cluster of
-#: CLUSTER splits in shared memory, then the clusters in order.
-CLUSTER = 8
+#: Split counts are a multiple of this: the reduction adds each group of
+#: GROUP splits in order, then the group sums in order.
+GROUP = 8
 
 #: Kernel launches since the count was last reset; a launch is one call of
 #: the C entry point.
 launches = {"srp": 0}
 
-#: (device index, stream) -> int32 tickets, one per (column tile, row tile)
-#: of a call. Zeroed once; the kernel leaves them at zero, so a stream's
-#: calls launch nothing else, and two streams never share a ticket.
-_tickets: dict[tuple[int, int], torch.Tensor] = {}
-
 
 def split_plan(d: int) -> tuple[int, int]:
     """(splits, k-tiles per split) of the d axis.
 
-    ``SPLITS`` splits, or the multiple of ``CLUSTER`` at or above the k-tile
+    ``SPLITS`` splits, or the multiple of ``GROUP`` at or above the k-tile
     count when d has fewer; each takes ``per`` k-tiles of ``TK`` columns in
     order, and a split past the end sums nothing. A function of d only, never
     of the row count: a row's sketch is the same bits whatever rows share the
     call.
     """
     n_tiles = -(-d // TK)
-    splits = SPLITS if n_tiles >= SPLITS else CLUSTER * -(-n_tiles // CLUSTER)
+    splits = SPLITS if n_tiles >= SPLITS else GROUP * -(-n_tiles // GROUP)
     return splits, -(-n_tiles // splits)
 
 
@@ -87,25 +81,20 @@ def _lib():
     lib = _build.load("sketch")
     lib.srp_sketch.restype = ctypes.c_int
     lib.srp_sketch.argtypes = (
-        [ctypes.c_void_p] * 4
+        [ctypes.c_void_p] * 3
         + [ctypes.c_int] * 3
         + [ctypes.c_uint32, ctypes.c_float]
         + [ctypes.c_int] * 2
         + [ctypes.c_void_p]
     )
-    lib.srp_launch_info.restype = ctypes.c_int
-    lib.srp_launch_info.argtypes = [ctypes.c_int] + [ctypes.POINTER(ctypes.c_int)] * 3
+    lib.srp_smem_bytes.restype = ctypes.c_int
+    lib.srp_smem_bytes.argtypes = [ctypes.c_int]
     return lib
 
 
-def launch_info(c: int) -> tuple[int, int, int]:
-    """(dynamic shared memory of a block in bytes, clusters the current card
-    holds at once, and at one block an SM) for a call with c rows."""
-    lib = _lib()
-    smem, clusters, one = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
-    err = lib.srp_launch_info(int(c), ctypes.byref(smem), ctypes.byref(clusters), ctypes.byref(one))
-    _build.check(lib, err, "srp launch info")
-    return smem.value, clusters.value, one.value
+def smem_bytes(c: int) -> int:
+    """Dynamic shared memory of a partial-pass block for a call with c rows."""
+    return _lib().srp_smem_bytes(int(c))
 
 
 def srp_sketch(X: torch.Tensor, d_prime: int, seed: int, *, block_d: int = SKETCH_BLOCK_D) -> torch.Tensor:
@@ -129,21 +118,13 @@ def srp_sketch(X: torch.Tensor, d_prime: int, seed: int, *, block_d: int = SKETC
         raise ValueError("X must be contiguous")
     c, d = X.shape
     term, scale, splits, per = _launch_args(d, d_prime, int(seed))
-    stream = torch.cuda.current_stream(X.device).cuda_stream
-    tiles = -(-d_prime // TJ) * -(-c // TR)
-    tickets = _tickets.get((X.device.index, stream))
-    if tickets is None or tickets.numel() < tiles:
-        tickets = _tickets[(X.device.index, stream)] = torch.zeros(
-            max(tiles, 64), dtype=torch.int32, device=X.device
-        )
-    scratch = torch.empty((splits // CLUSTER, c, d_prime), dtype=torch.float32, device=X.device)
+    partial = torch.empty((splits, c, d_prime), dtype=torch.float32, device=X.device)
     out = torch.empty((c, d_prime), dtype=torch.float32, device=X.device)
     lib = _lib()
     err = lib.srp_sketch(
         X.data_ptr(),
-        scratch.data_ptr(),
+        partial.data_ptr(),
         out.data_ptr(),
-        tickets.data_ptr(),
         c,
         d,
         d_prime,
@@ -151,7 +132,7 @@ def srp_sketch(X: torch.Tensor, d_prime: int, seed: int, *, block_d: int = SKETC
         scale,
         splits,
         per,
-        stream,
+        torch.cuda.current_stream(X.device).cuda_stream,
     )
     _build.check(lib, err, "srp sketch kernel")
     launches["srp"] += 1

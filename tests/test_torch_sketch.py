@@ -108,12 +108,12 @@ def test_countsketch_index_lists_each_bucket_in_order():
 
 def test_split_plan_covers_d_once():
     """Every k-tile lies in exactly one split, the splits come in whole
-    clusters, and d = 39,760 gets 128 splits of 5 k-tiles (3 of them empty)."""
+    groups, and d = 39,760 gets 128 splits of 5 k-tiles (3 of them empty)."""
     for d in (39_760, 1037, 96, 1, 100_000, 8193):
         splits, per = ops.split_plan(d)
         n_tiles = -(-d // ops.TK)
-        assert splits % ops.CLUSTER == 0 and per >= 1
-        assert splits == (ops.SPLITS if n_tiles >= ops.SPLITS else ops.CLUSTER * -(-n_tiles // ops.CLUSTER))
+        assert splits % ops.GROUP == 0 and per >= 1
+        assert splits == (ops.SPLITS if n_tiles >= ops.SPLITS else ops.GROUP * -(-n_tiles // ops.GROUP))
         assert (per - 1) * splits < n_tiles <= splits * per
     assert ops.split_plan(39_760) == (128, 5)
 

@@ -5,12 +5,12 @@ tolerance relative to ‖g_i‖·‖g_j‖. These tests show that the check acce
 a Gram summed in another f32 order and rejects a kernel that drops the
 ragged d tail (the last ``d mod 32`` columns, the kernel's d-chunk) or
 halves every entry, at each shape the smoke run checks. The SRP check,
-relative to ‖x_i‖·‖S_:,j‖, gets the same treatment: it accepts the kernel's
-order (128 d-splits summed in clusters of 8, then the clusters in order)
-and the exact sum, and rejects a kernel that drops the ragged d tail
+relative to ‖x_i‖·‖S_:,j‖, gets the same treatment: it accepts the kernels'
+order (128 d-splits summed in groups of 8, then the groups in order) and
+the exact sum, and rejects a kernel that drops the ragged d tail
 (``d mod 512``, the plain version's block, or ``d mod 64``, the kernel's
-k-tile), reads the signs of the next row of k, drops one cluster partial,
-counts one twice (a stale ticket) or shifts the splits' k-ranges by a tile. The flash-attention check
+k-tile), reads the signs of the next row of k, drops one group sum, counts
+one twice (a stale ticket) or shifts the splits' k-ranges by a tile. The flash-attention check
 (atol 2e-5 in f32; in bf16 relative to the softmax-weighted |v|) accepts
 the kernels' own order of work, an online softmax over 64-key tiles with p
 rounded against the running max (exp in the f32 kernel, exp2 of scores
@@ -92,12 +92,12 @@ def _X(c, d):
 
 
 def _split_srp(X, d_prime, seed, wrong=None):
-    """X·S as the CUDA kernel sums it: an f32 partial per d-split of 64-wide
-    k-tiles; the partials of each cluster of 8 splits added in rank order,
-    then the cluster sums in cluster order. ``wrong`` names a fault of the
-    fused reduction: ``"drop_cluster"`` leaves one cluster partial out,
-    ``"cluster_twice"`` adds one twice (a stale ticket), ``"k_off_by_one_tile"``
-    shifts every split's k-range by one tile."""
+    """X·S as the CUDA kernels sum it: an f32 partial per d-split of 64-wide
+    k-tiles; the partials of each group of 8 splits added in split order,
+    then the group sums in group order. ``wrong`` names a fault of that
+    reduction: ``"drop_group"`` leaves one group sum out, ``"group_twice"``
+    adds one twice (as a stale ticket would in a one-launch version),
+    ``"k_off_by_one_tile"`` shifts every split's k-range by one tile."""
     d = X.shape[1]
     splits, per = sk_ops.split_plan(d)
     S = srp_sign_block(seed, 0, d, d_prime, d, device="cpu")
@@ -106,18 +106,18 @@ def _split_srp(X, d_prime, seed, wrong=None):
     for s in range(splits):
         lo, hi = min(d, s * per * sk_ops.TK + shift), min(d, (s + 1) * per * sk_ops.TK + shift)
         parts.append(X[:, lo:hi] @ S[lo:hi])
-    clusters = []
-    for q in range(0, splits, sk_ops.CLUSTER):
+    groups = []
+    for q in range(0, splits, sk_ops.GROUP):
         acc = parts[q]
-        for r in range(1, sk_ops.CLUSTER):
+        for r in range(1, sk_ops.GROUP):
             acc = acc + parts[q + r]
-        clusters.append(acc)
-    if wrong == "drop_cluster":
-        clusters[0] = torch.zeros_like(clusters[0])
-    elif wrong == "cluster_twice":
-        clusters.insert(0, clusters[0])
-    out = clusters[0]
-    for part in clusters[1:]:
+        groups.append(acc)
+    if wrong == "drop_group":
+        groups[0] = torch.zeros_like(groups[0])
+    elif wrong == "group_twice":
+        groups.insert(0, groups[0])
+    out = groups[0]
+    for part in groups[1:]:
         out = out + part
     return out
 
@@ -134,7 +134,7 @@ def test_srp_check_accepts_other_f32_orders(c, d, d_prime):
 
 @pytest.mark.parametrize(
     "wrong",
-    ["drop_tail_512", "drop_tail_64", "signs_off_by_one_row", "drop_cluster", "cluster_twice",
+    ["drop_tail_512", "drop_tail_64", "signs_off_by_one_row", "drop_group", "group_twice",
      "k_off_by_one_tile"],
 )
 @pytest.mark.parametrize("c,d,d_prime", smoke.SRP_SHAPES)
