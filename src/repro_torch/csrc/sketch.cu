@@ -30,8 +30,10 @@
 //   the whole slice is requested before the first product; at larger d the
 //   ring recycles, one stage per k-tile consumed.
 // * While the copies are in flight, the block hashes the signs of its
-//   k-tiles as bits: one 32-bit word per (column, 32 consecutive k), built
-//   by `__ballot_sync` over the lanes that hash consecutive k.
+//   k-tiles as bits: one 32-bit word per (column, 32 consecutive k), each
+//   half-word built by one thread from 16 independent hashes (a k-tile is
+//   one half-word a thread). A ballot across the lanes that hash
+//   consecutive k was 1 µs slower a call at c = 10 on an H100 SXM.
 // * Products: lane l of warp w owns columns l and l + 32 and rows w, w + 8,
 //   …, w + 56 of the tile, skipping rows past c. It reads its columns' sign
 //   words once per 32 k and X four k at a time (one 16-byte broadcast load
@@ -42,8 +44,11 @@
 //   split order, then the group sums in group order,
 //   ((p₀ + … + p₇) + (p₈ + … + p₁₅)) + …. A block of the second kernel takes
 //   32 outputs; warp g loads its group's GROUP partials at once, so the
-//   whole sum costs one round trip to L2. No float atomics, so the result
-//   is bit-reproducible.
+//   whole sum costs one round trip to L2. It is launched as a programmatic
+//   dependent of the first (it may be scheduled as the first starts, and
+//   `griddepcontrol.wait` holds it until the partials are written), which
+//   hides most of a launch's gap. No float atomics, so the result is
+//   bit-reproducible.
 // * Why two kernels: the same order in one launch, with each group a
 //   thread-block cluster reduced through distributed shared memory and the
 //   last cluster (by ticket) adding the group sums, was built and measured
@@ -65,7 +70,6 @@ constexpr int WARPS = THREADS / 32;
 constexpr int RPW = TR / WARPS;           // rows per warp: 8
 constexpr int STAGES = 5;                 // k-tiles in flight: a split's whole slice at d = 39,760
 constexpr int WORDS = TK / 32;            // sign words per column per k-tile
-constexpr int HASH_BATCH = 8;             // hashes a lane has in flight
 constexpr int GROUP = 8;                  // splits the reduction adds in order first
 constexpr int MAX_GROUPS = 16;            // 128 splits at most
 constexpr int MAX_DEVICES = 64;
@@ -132,27 +136,20 @@ __device__ __forceinline__ void issue_tile(float* xs, const float* __restrict__ 
 
 // Sign bits of k-tiles k0, k0 + TK, …, n_tiles of them, for columns
 // j0 .. j0 + TJ: word (t · WORDS + w) · TJ + jj holds bit b = 1 where
-// S[k0 + t·TK + 32w + b, j0 + jj] = +scale. Warp-wide: each lane hashes one
-// k of a word and the ballot gathers the word; a warp has HASH_BATCH
-// independent hashes in flight before its ballots.
+// S[k0 + t·TK + 32w + b, j0 + jj] = +scale. A thread hashes the 16
+// consecutive k of one half-word (a k-tile has THREADS of them) and stores
+// it whole; the 16 hashes are independent, so they overlap.
 __device__ __forceinline__ void hash_tiles(uint32_t* sg, int k0, int n_tiles, int j0,
                                            uint32_t seed_term) {
-  const int lane = threadIdx.x % 32;
-  const int total = n_tiles * WORDS * TJ;
-  for (int base = threadIdx.x / 32; base < total; base += WARPS * HASH_BATCH) {
-    uint32_t h[HASH_BATCH];  // total is a multiple of WARPS · HASH_BATCH: no guard
+  uint16_t* half = reinterpret_cast<uint16_t*>(sg);
+  for (int hw = threadIdx.x; hw < n_tiles * WORDS * TJ * 2; hw += THREADS) {
+    const int wd = hw / 2;
+    const uint32_t kbase = (uint32_t)(k0 + (wd / TJ) * 32 + (hw % 2) * 16);
+    const uint32_t jt = ((uint32_t)(j0 + wd % TJ) * J_SALT) ^ seed_term;
+    uint32_t bits = 0;
 #pragma unroll
-    for (int q = 0; q < HASH_BATCH; ++q) {
-      const int wd = base + q * WARPS;
-      const uint32_t k = (uint32_t)(k0 + (wd / TJ) * 32 + lane);  // (wd / TJ) = t · WORDS + w
-      const uint32_t j = (uint32_t)(j0 + wd % TJ);
-      h[q] = mix32((k * K_SALT) ^ (j * J_SALT) ^ seed_term);
-    }
-#pragma unroll
-    for (int q = 0; q < HASH_BATCH; ++q) {
-      const uint32_t bits = __ballot_sync(0xffffffffu, h[q] & 1u);
-      if (lane == 0) sg[base + q * WARPS] = bits;
-    }
+    for (int b = 0; b < 16; ++b) bits |= (mix32(((kbase + b) * K_SALT) ^ jt) & 1u) << b;
+    half[hw] = (uint16_t)bits;  // little-endian: half-word 0 holds bits 0-15
   }
 }
 
@@ -208,6 +205,8 @@ srp_partial(const float* __restrict__ X, float* __restrict__ partial, int c, int
   // rows of this warp that exist: warp + 8a < nr
   const int na = (nr - warp + WARPS - 1) / WARPS;
 
+  // the reduce pass may be scheduled now; it waits for this grid's results
+  asm volatile("griddepcontrol.launch_dependents;" ::: "memory");
   const int n_tiles = (d + TK - 1) / TK;
   const int t_begin = split * per;
   const int nt = max(0, min(per, n_tiles - t_begin));
@@ -271,6 +270,7 @@ srp_reduce(const float* __restrict__ partial, float* __restrict__ out, size_t cd
   const int g = threadIdx.x / 32;
   const int groups = blockDim.x / 32;
   const size_t idx = (size_t)blockIdx.x * 32 + lane;
+  asm volatile("griddepcontrol.wait;" ::: "memory");  // the partial pass has finished
   if (idx < cd) {
     float v[GROUP];
 #pragma unroll
@@ -328,7 +328,17 @@ extern "C" int srp_sketch(const float* X, float* partial, float* out, int c, int
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const size_t cd = (size_t)c * d_prime;
-  srp_reduce<<<(unsigned)((cd + 31) / 32), 32 * (splits / GROUP), 0, s>>>(partial, out, cd);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)((cd + 31) / 32), 1, 1);
+  cfg.blockDim = dim3(32 * (splits / GROUP), 1, 1);
+  cfg.stream = s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, srp_reduce, (const float*)partial, out, cd);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 
