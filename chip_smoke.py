@@ -842,8 +842,14 @@ def device_events(torch, fn, reps: int = 20) -> list:
 
 
 def device_ms(torch, fn, reps: int = 20) -> float:
-    """Device-busy ms per call of ``fn``, from a torch.profiler trace."""
-    return _busy_us(device_events(torch, fn, reps)) / 1e3 / reps
+    """Device-busy ms per call of ``fn``, from a torch.profiler trace; NaN
+    where the profiler kept no device event of the window."""
+    events = device_events(torch, fn, reps)
+    return _busy_us(events) / 1e3 / reps if events else math.nan
+
+
+def _ms(t: float) -> str:
+    return "not measured (the profiler kept no device event)" if math.isnan(t) else f"{t:.6f} ms"
 
 
 def phase_trace(torch, ds, params, round_ms, label="arccos", **sampler_kw):
@@ -1163,8 +1169,8 @@ def phase_times(torch, gen, name, err, launches):
         print(f"times: {kname} {ms:.6f} ms, plain {plain_ms:.6f} ms, library {lib_ms:.6f} ms, "
               f"bound {bound:.6f} ms ({rows[-1]['bound_by']}; {part} peaks "
               f"{bw / 1e12:.2f} TB/s, {f32 / 1e12:.0f} TFLOP/s f32)")
-        print(f"times: {kname} device-busy per call (profiler): kernel {dev[0]:.6f} ms, "
-              f"plain {dev[1]:.6f} ms, library {dev[2]:.6f} ms"
+        print(f"times: {kname} device-busy per call (profiler): kernel {_ms(dev[0])}, "
+              f"plain {_ms(dev[1])}, library {_ms(dev[2])}"
               + ("; the event time is wrapper-bound" if dev[0] < 0.5 * ms else ""))
     return rows
 
@@ -1180,10 +1186,11 @@ def kernels_by_name(events) -> dict[str, tuple[int, float]]:
 
 
 def srp_turns(torch, gen):
-    """The SRP kernel at the main path's shapes (c = 10, a round's rows;
+    """The SRP kernels at the main path's shapes (c = 10, a round's rows;
     c = 64, the fleet's) and torch.matmul(X, S) in turns (kernel, matmul,
     matmul, kernel), by events as called and with the queue filled ahead,
-    and the device time of each kernel one call launches, by name."""
+    and the device time of each kernel one call launches, by name, with
+    the call's device-busy time."""
     from repro_torch.kernels.sketch import ops as sk_ops
     from repro_torch.kernels.sketch.ref import srp_sign_block
 
@@ -1203,9 +1210,14 @@ def srp_turns(torch, gen):
               f"ahead: {queued['kernel'][0]:.6f}, {queued['matmul'][0]:.6f}, "
               f"{queued['matmul'][1]:.6f}, {queued['kernel'][1]:.6f}")
         for who in ("kernel", "matmul"):
-            split = kernels_by_name(device_events(torch, fns[who], reps=20))
+            events = device_events(torch, fns[who], reps=20)
+            split = kernels_by_name(events)
+            launches = max(n for n, _ in split.values())
             print(f"times: srp c = {c} {who} device time by kernel over 20 calls (launches kept, "
-                  f"mean ms of one): " + ", ".join(f"{k} {n}x {ms:.6f}" for k, (n, ms) in split.items()))
+                  f"mean ms of one): " + ", ".join(f"{k} {n}x {ms:.6f}" for k, (n, ms) in split.items())
+                  + f"; device-busy {_busy_us(events) / 1e3 / launches:.6f} ms a call (the union of "
+                  f"the spans; srp_reduce is a programmatic dependent launch, so its span includes "
+                  f"its wait for srp_partial)")
 
 
 def main() -> int:

@@ -4,11 +4,12 @@
 A :class:`Registry` is a dict with manners: registration can be guarded
 against silent overwrites, lookups of unknown names raise a precise error
 listing what *is* registered, and ``register`` doubles as a decorator.
-The seed registries are ``repro_torch.core.samplers.SAMPLERS`` (client-selection
-schemes) and ``repro_torch.fl.engine.ENGINES`` (round execution engines); the
-spec layer (``repro_torch.fl.experiment``) resolves every name through them, so
-extending the system is ``register_sampler("mine", MySampler)`` plus a
-spec dict — no call-site surgery.
+The port's registries are ``repro_torch.fl.engine.ENGINES`` (round
+execution engines), ``repro_torch.kernels.sketch.SKETCHERS`` (the gradient
+store's sketch stage) and ``repro_torch.core.clustering.backends.CLUSTERERS``.
+The reference's sampler registry (``SAMPLERS``, ``register_sampler``) arrives
+with the port's other samplers (ROADMAP A14), and the spec layer that
+resolves names through the registries with ``fl/experiment.py`` (A6).
 """
 from __future__ import annotations
 

@@ -31,9 +31,8 @@
 //   ring recycles, one stage per k-tile consumed.
 // * While the copies are in flight, the block hashes the signs of its
 //   k-tiles as bits: one 32-bit word per (column, 32 consecutive k), each
-//   half-word built by one thread from 16 independent hashes (a k-tile is
-//   one half-word a thread). A ballot across the lanes that hash
-//   consecutive k was 1 µs slower a call at c = 10 on an H100 SXM.
+//   half-word built by one thread from 16 independent hashes that overlap
+//   (a k-tile is one half-word a thread), with no ballot across lanes.
 // * Products: lane l of warp w owns columns l and l + 32 and rows w, w + 8,
 //   …, w + 56 of the tile, skipping rows past c. It reads its columns' sign
 //   words once per 32 k and X four k at a time (one 16-byte broadcast load

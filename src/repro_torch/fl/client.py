@@ -63,8 +63,9 @@ local_update = local_steps
 
 
 def draw_batch_indices(
-    rng: np.random.Generator, n_data: int, n_steps: int, batch_size: int, device="cpu"
+    rng: np.random.Generator, n_data: int, n_steps: int, batch_size: int, device
 ) -> torch.Tensor:
-    """Pre-draw the (N, B) batch index matrix for one client round."""
+    """Pre-draw the (N, B) batch index matrix for one client round, on
+    ``device`` (the caller's; there is no default device)."""
     idx = rng.integers(0, n_data, size=(n_steps, batch_size))
     return torch.as_tensor(idx, dtype=torch.int64, device=device)
