@@ -438,7 +438,7 @@ def srp_kernels_a_call(torch, gen, reps: int = 20):
 
     c, d, dp = SRP_SHAPES[0]
     X = (SIM_SCALE * torch.randn((c, d), generator=gen)).cuda()
-    events = device_events(torch, lambda: sk_ops.srp_sketch(X, dp, SRP_SEED), reps=reps)
+    events = kept_device_events(torch, lambda: sk_ops.srp_sketch(X, dp, SRP_SEED), reps=reps)
     counts = {k: sum(k in e.name for e in events) for k in SRP_KERNELS}
     others = sorted({_kernel_name(e.name) for e in events if not any(k in e.name for k in SRP_KERNELS)})
     if others or not all(reps - 2 <= n <= reps for n in counts.values()):
@@ -841,10 +841,21 @@ def device_events(torch, fn, reps: int = 20) -> list:
     return _kernel_events(torch, prof)
 
 
+def kept_device_events(torch, fn, reps: int = 20, tries: int = 3) -> list:
+    """device_events of the first of ``tries`` windows in which the profiler
+    kept any device event (on the card it sometimes keeps none of a short
+    window, which says nothing of the calls); [] if it kept none in all."""
+    for _ in range(tries):
+        events = device_events(torch, fn, reps)
+        if events:
+            return events
+    return []
+
+
 def device_ms(torch, fn, reps: int = 20) -> float:
     """Device-busy ms per call of ``fn``, from a torch.profiler trace; NaN
-    where the profiler kept no device event of the window."""
-    events = device_events(torch, fn, reps)
+    where the profiler kept no device event."""
+    events = kept_device_events(torch, fn, reps)
     return _busy_us(events) / 1e3 / reps if events else math.nan
 
 
@@ -1210,7 +1221,11 @@ def srp_turns(torch, gen):
               f"ahead: {queued['kernel'][0]:.6f}, {queued['matmul'][0]:.6f}, "
               f"{queued['matmul'][1]:.6f}, {queued['kernel'][1]:.6f}")
         for who in ("kernel", "matmul"):
-            events = device_events(torch, fns[who], reps=20)
+            events = kept_device_events(torch, fns[who], reps=20)
+            if not events:
+                print(f"times: srp c = {c} {who} device time by kernel: not measured (the profiler "
+                      f"kept no device event in 3 windows)")
+                continue
             split = kernels_by_name(events)
             launches = max(n for n, _ in split.values())
             print(f"times: srp c = {c} {who} device time by kernel over 20 calls (launches kept, "

@@ -127,12 +127,15 @@ def test_srp_kernel_is_two_device_kernels_a_call(cuda):
     X = _x(10, 39760).to(cuda)
     sk_ops.srp_sketch(X, 64, 7)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(20):
-            sk_ops.srp_sketch(X, 64, 7)
-        torch.cuda.synchronize()
-    events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-    # the profiler on the card may drop a launch or two of a window
+    for _ in range(3):  # the profiler on the card sometimes keeps no event of a window
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(20):
+                sk_ops.srp_sketch(X, 64, 7)
+            torch.cuda.synchronize()
+        events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        if events:
+            break
+    # and it may drop a launch or two of one it keeps
     for name in ("srp_partial", "srp_reduce"):
         assert 18 <= sum(name in e.name for e in events) <= 20
     assert all("srp_partial" in e.name or "srp_reduce" in e.name for e in events)
