@@ -1065,10 +1065,10 @@ def flash_time_row(torch, gen, name, err, launches):
     ms, lib_ms = (sum(called[w]) / 2 for w in ("kernel", "library"))
     q_ms, q_lib = (sum(queued[w]) / 2 for w in ("kernel", "library"))
     plain_ms = time_ms(torch, plain, reps=5)
-    lib_events = device_events(torch, fns["library"], reps=5)
+    lib_events = kept_device_events(torch, fns["library"], reps=5)
     dev = [device_ms(torch, plain, reps=5), _busy_us(lib_events) / 1e3 / 5]
     # the kernel's own device time: the mean of the launches the profiler kept
-    kept = [e for e in device_events(torch, fns["kernel"], reps=20) if "flash_fwd" in e.name]
+    kept = [e for e in kept_device_events(torch, fns["kernel"], reps=20) if "flash_fwd" in e.name]
     if not kept:
         fail("times: the profiler kept no flash kernel of 20 launches")
     dev.insert(0, sum(e.time_range.end - e.time_range.start for e in kept) / 1e3 / len(kept))
@@ -1231,8 +1231,8 @@ def srp_turns(torch, gen):
             print(f"times: srp c = {c} {who} device time by kernel over 20 calls (launches kept, "
                   f"mean ms of one): " + ", ".join(f"{k} {n}x {ms:.6f}" for k, (n, ms) in split.items())
                   + f"; device-busy {_busy_us(events) / 1e3 / launches:.6f} ms a call (the union of "
-                  f"the spans; srp_reduce is a programmatic dependent launch, so its span includes "
-                  f"its wait for srp_partial)")
+                  f"the spans" + ("; srp_reduce is a programmatic dependent launch, so its span "
+                                  "includes its wait for srp_partial)" if who == "kernel" else ")"))
 
 
 def main() -> int:
