@@ -4,10 +4,12 @@
 The card's machine has no ``ncu``, so this script times the phases of the
 partial pass from inside it. It copies ``src/repro_torch/csrc/sketch.cu``
 into ``build/srp_probe/``, adds ``%globaltimer`` stamps to the partial pass
-(thread 0 of every block: at its start, after its copies are issued, after
-its signs are hashed, when its first k-tile has landed, after its products),
-builds variants with nvcc, and prints for each the median of every phase
-over the blocks and the time a call takes with the queue filled ahead
+(in every block: when the copying half of the threads has issued its
+copies, when the hashing half has hashed the signs, when the first k-tile
+is ready for every thread, when the products are done, each from the
+block's start), builds variants with nvcc, and prints for each the median
+of every stamp over the blocks and the time a call takes with the queue
+filled ahead
 (partial and reduce pass, CUDA events over 50 calls), at the main path's
 shapes (c = 10 and 64, d = 39,760, d' = 64). The variants tell the costs
 apart; all but the first compute wrong sums and are only timed:
@@ -53,20 +55,25 @@ def patch(src: str) -> str:
         ("            uint32_t seed_term, float scale, int per, int rows, int vec) {",
          "            uint32_t seed_term, float scale, int per, int rows, int vec,\n"
          "            unsigned long long* ts) {\n"
-         "  unsigned long long t0, t1, t2, t3 = 0, t4;\n  " + STAMP.format("t0")),
-        ("  hash_tiles(Sg, t_begin * TK, min(nt, STAGES), j0, seed_term);\n",
-         "  " + STAMP.format("t1") + "\n#ifdef PROBE_NO_HASH\n"
-         "  for (int q = threadIdx.x; q < STAGES * WORDS * TJ; q += THREADS) Sg[q] = 0x5a5a5a5au ^ q;\n"
-         "#else\n  hash_tiles(Sg, t_begin * TK, min(nt, STAGES), j0, seed_term);\n#endif\n"
-         "  " + STAMP.format("t2") + "\n"),
+         "  unsigned long long t0, t1 = 0, t2 = 0, t3 = 0, t4;\n  " + STAMP.format("t0") + "\n"
+         "  unsigned long long* p = ts + 5 * (blockIdx.x + gridDim.x * (blockIdx.y + gridDim.y * blockIdx.z));"),
+        ("      cp_async_commit();\n    }\n  } else {\n",
+         "      cp_async_commit();\n    }\n    " + STAMP.format("t1") + "\n  } else {\n"),
+        ("    hash_tiles(Sg, t_begin * TK, min(nt, STAGES), j0, seed_term, threadIdx.x - COPIERS,\n"
+         "               THREADS - COPIERS);\n",
+         "#ifdef PROBE_NO_HASH\n"
+         "    for (int q = threadIdx.x - COPIERS; q < STAGES * WORDS * TJ; q += THREADS - COPIERS)\n"
+         "      Sg[q] = 0x5a5a5a5au ^ q;\n#else\n"
+         "    hash_tiles(Sg, t_begin * TK, min(nt, STAGES), j0, seed_term, threadIdx.x - COPIERS,\n"
+         "               THREADS - COPIERS);\n#endif\n"
+         "    " + STAMP.format("t2") + "\n    if (threadIdx.x == COPIERS && ts) p[2] = t2 - t0;\n"),
         ("    __syncthreads();              // for every thread, with its signs\n",
          "    __syncthreads();              // for every thread, with its signs\n"
          "    if (i == 0) " + STAMP.format("t3") + "\n"),
         ("  float* out = partial + (size_t)split * c * d_prime;",
          "  " + STAMP.format("t4") + "\n"
          "  if (threadIdx.x == 0 && ts) {\n"
-         "    unsigned long long* p = ts + 5 * (blockIdx.x + gridDim.x * (blockIdx.y + gridDim.y * blockIdx.z));\n"
-         "    p[0] = t0; p[1] = t1; p[2] = t2; p[3] = t3; p[4] = t4;\n  }\n"
+         "    p[0] = t0; p[1] = t1 - t0; p[3] = t3 ? t3 - t0 : 0; p[4] = t4 - t0;\n  }\n"
          "  float* out = partial + (size_t)split * c * d_prime;"),
         ("        s[0][b] = (lo >> b) & 1u ? scale : -scale;\n"
          "        s[1][b] = (hi >> b) & 1u ? scale : -scale;",
@@ -158,16 +165,17 @@ def main() -> int:
             call(ts.data_ptr())
             torch.cuda.synchronize()
             rows = ts.view(splits, 5).cpu().tolist()
-            working = [r for r in rows if r[3]]  # blocks with a k-tile (t3 stamped)
-            med = [statistics.median(r[i + 1] - r[i] for r in working) for i in range(4)]
-            first, last = min(r[0] for r in rows), max(r[4] for r in rows)
+            working = [r for r in rows if r[3]]  # blocks with a k-tile
+            med = [statistics.median(r[i] for r in working) for i in (1, 2, 3, 4)]
+            first = min(r[0] for r in rows)
+            last = max(r[0] + r[4] for r in rows)
             check = ""
             if name == "as built":
                 check = f"; max |got - plain| {float((out - want).abs().max()):.3e}"
             print(f"srp_phase_probe: c = {c} {name}: {us:.2f} us a call (queue filled); partial pass "
-                  f"{last - first} ns first start to last end; median ns a block: issue copies "
-                  f"{med[0]:.0f}, hash {med[1]:.0f}, first k-tile lands {med[2]:.0f}, products "
-                  f"{med[3]:.0f}{check}", flush=True)
+                  f"{last - first} ns first start to last end; median ns from a block's start: "
+                  f"copies issued {med[0]:.0f}, signs hashed {med[1]:.0f}, first k-tile ready "
+                  f"{med[2]:.0f}, products done {med[3]:.0f}{check}", flush=True)
     return 0
 
 

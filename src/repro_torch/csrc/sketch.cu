@@ -29,10 +29,10 @@
 //   dynamic shared memory. At the main path's shapes (5 k-tiles a split)
 //   the whole slice is requested before the first product; at larger d the
 //   ring recycles, one stage per k-tile consumed.
-// * While the copies are in flight, the block hashes the signs of its
-//   k-tiles as bits: one 32-bit word per (column, 32 consecutive k), each
-//   half-word built by one thread from 16 independent hashes that overlap
-//   (a k-tile is one half-word a thread), with no ballot across lanes.
+// * Half the block's threads issue those copies while the other half hash
+//   the signs of its k-tiles as bits: one 32-bit word per (column, 32
+//   consecutive k), each half-word built by one thread from 16 independent
+//   hashes that overlap, with no ballot across lanes.
 // * Products: lane l of warp w owns columns l and l + 32 and rows w, w + 8,
 //   …, w + 56 of the tile, skipping rows past c. It reads its columns' sign
 //   words once per 32 k and X four k at a time (one 16-byte broadcast load
@@ -67,6 +67,7 @@ constexpr int TR = 64;   // rows of X per block
 constexpr int THREADS = 256;
 constexpr int WARPS = THREADS / 32;
 constexpr int RPW = TR / WARPS;           // rows per warp: 8
+constexpr int COPIERS = THREADS / 2;      // threads that issue a block's first copies
 constexpr int STAGES = 5;                 // k-tiles in flight: a split's whole slice at d = 39,760
 constexpr int WORDS = TK / 32;            // sign words per column per k-tile
 constexpr int GROUP = 8;                  // splits the reduction adds in order first
@@ -113,18 +114,19 @@ __device__ __forceinline__ void cp_async_wait() {
 }
 
 // Request rows [r0, r0 + nr) × columns [k0, k0 + TK) of X into the stage
-// `xs` (nr rows of TK floats). Columns ≥ d arrive as zeros.
+// `xs` (nr rows of TK floats), spread over threads tid, tid + nth, ….
+// Columns ≥ d arrive as zeros.
 __device__ __forceinline__ void issue_tile(float* xs, const float* __restrict__ X, int r0, int nr,
-                                           int d, int k0, bool vec) {
+                                           int d, int k0, bool vec, int tid, int nth) {
   if (vec) {  // d % 4 == 0: a 4-column chunk lies wholly inside or outside d
-    for (int e = threadIdx.x; e < nr * (TK / 4); e += THREADS) {
+    for (int e = tid; e < nr * (TK / 4); e += nth) {
       const int r = e / (TK / 4);
       const int col = k0 + 4 * (e % (TK / 4));
       const bool in = col < d;
       cp_async16(xs + r * TK + (col - k0), in ? X + (size_t)(r0 + r) * d + col : X, in ? 16 : 0);
     }
   } else {
-    for (int e = threadIdx.x; e < nr * TK; e += THREADS) {
+    for (int e = tid; e < nr * TK; e += nth) {
       const int r = e / TK;
       const int col = k0 + e % TK;
       const bool in = col < d;
@@ -135,13 +137,13 @@ __device__ __forceinline__ void issue_tile(float* xs, const float* __restrict__ 
 
 // Sign bits of k-tiles k0, k0 + TK, …, n_tiles of them, for columns
 // j0 .. j0 + TJ: word (t · WORDS + w) · TJ + jj holds bit b = 1 where
-// S[k0 + t·TK + 32w + b, j0 + jj] = +scale. A thread hashes the 16
-// consecutive k of one half-word (a k-tile has THREADS of them) and stores
-// it whole; the 16 hashes are independent, so they overlap.
+// S[k0 + t·TK + 32w + b, j0 + jj] = +scale. Thread tid (of nth) hashes
+// the 16 consecutive k of half-words tid, tid + nth, … and stores each
+// whole; the 16 hashes are independent, so they overlap.
 __device__ __forceinline__ void hash_tiles(uint32_t* sg, int k0, int n_tiles, int j0,
-                                           uint32_t seed_term) {
+                                           uint32_t seed_term, int tid, int nth) {
   uint16_t* half = reinterpret_cast<uint16_t*>(sg);
-  for (int hw = threadIdx.x; hw < n_tiles * WORDS * TJ * 2; hw += THREADS) {
+  for (int hw = tid; hw < n_tiles * WORDS * TJ * 2; hw += nth) {
     const int wd = hw / 2;
     const uint32_t kbase = (uint32_t)(k0 + (wd / TJ) * 32 + (hw % 2) * 16);
     const uint32_t jt = ((uint32_t)(j0 + wd % TJ) * J_SALT) ^ seed_term;
@@ -210,13 +212,21 @@ srp_partial(const float* __restrict__ X, float* __restrict__ partial, int c, int
   const int t_begin = split * per;
   const int nt = max(0, min(per, n_tiles - t_begin));
 
-  // the slice's copies first, then the signs while they are in flight
+  // half the threads put the slice's copies in flight while the other half
+  // hash its signs; group s of every thread holds k-tile s's copies, if any
+  if (threadIdx.x < COPIERS) {
 #pragma unroll
-  for (int s = 0; s < STAGES; ++s) {
-    if (s < nt) issue_tile(Xs + s * rows * TK, X, r0, nr, d, (t_begin + s) * TK, vec != 0);
-    cp_async_commit();
+    for (int s = 0; s < STAGES; ++s) {
+      if (s < nt)
+        issue_tile(Xs + s * rows * TK, X, r0, nr, d, (t_begin + s) * TK, vec != 0, threadIdx.x, COPIERS);
+      cp_async_commit();
+    }
+  } else {
+    hash_tiles(Sg, t_begin * TK, min(nt, STAGES), j0, seed_term, threadIdx.x - COPIERS,
+               THREADS - COPIERS);
+#pragma unroll
+    for (int s = 0; s < STAGES; ++s) cp_async_commit();
   }
-  hash_tiles(Sg, t_begin * TK, min(nt, STAGES), j0, seed_term);
 
   float acc[RPW][2];
 #pragma unroll
@@ -240,8 +250,9 @@ srp_partial(const float* __restrict__ X, float* __restrict__ partial, int c, int
     }
     if (i + STAGES < nt) {  // recycle this stage for k-tile i + STAGES
       __syncthreads();
-      issue_tile(Xs + st * rows * TK, X, r0, nr, d, (t_begin + i + STAGES) * TK, vec != 0);
-      hash_tiles(Sg + st * WORDS * TJ, (t_begin + i + STAGES) * TK, 1, j0, seed_term);
+      issue_tile(Xs + st * rows * TK, X, r0, nr, d, (t_begin + i + STAGES) * TK, vec != 0, threadIdx.x,
+                 THREADS);
+      hash_tiles(Sg + st * WORDS * TJ, (t_begin + i + STAGES) * TK, 1, j0, seed_term, threadIdx.x, THREADS);
     }
     cp_async_commit();
   }
