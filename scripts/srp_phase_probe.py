@@ -66,7 +66,7 @@ def patch(src: str) -> str:
          "      Sg[q] = 0x5a5a5a5au ^ q;\n#else\n"
          "    hash_tiles(Sg, t_begin * TK, min(nt, STAGES), j0, seed_term, threadIdx.x - COPIERS,\n"
          "               THREADS - COPIERS);\n#endif\n"
-         "    " + STAMP.format("t2") + "\n    if (threadIdx.x == COPIERS && ts) p[2] = t2 - t0;\n"),
+         "    " + STAMP.format("t2") + "\n    if (threadIdx.x == COPIERS && ts) p[2] = t2;\n"),
         ("    __syncthreads();              // for every thread, with its signs\n",
          "    __syncthreads();              // for every thread, with its signs\n"
          "    if (i == 0) " + STAMP.format("t3") + "\n"),
@@ -166,6 +166,8 @@ def main() -> int:
             torch.cuda.synchronize()
             rows = ts.view(splits, 5).cpu().tolist()
             working = [r for r in rows if r[3]]  # blocks with a k-tile
+            for r in working:  # the hashing thread's stamp is absolute; thread 0's t0 is the start
+                r[2] -= r[0]
             med = [statistics.median(r[i] for r in working) for i in (1, 2, 3, 4)]
             first = min(r[0] for r in rows)
             last = max(r[0] + r[4] for r in rows)
