@@ -40,7 +40,9 @@ SRC = ROOT / "src" / "repro_torch" / "csrc" / "sketch.cu"
 OUT = ROOT / "build" / "srp_probe"
 SHAPES = [(10, 39760, 64), (64, 39760, 64)]
 SEED = 7
-STAMP = 'asm volatile("mov.u64 %0, %%globaltimer;" : "=l"({}));'
+# "memory" keeps the compiler from moving a stamp across the loads, stores
+# and barriers around it
+STAMP = 'asm volatile("mov.u64 %0, %%globaltimer;" : "=l"({}) :: "memory");'
 VARIANTS = {
     "as built": [],
     "no hash": ["-DPROBE_NO_HASH"],
