@@ -1196,12 +1196,39 @@ def kernels_by_name(events) -> dict[str, tuple[int, float]]:
     return {k: (n, ms / n) for k, (n, ms) in by_name.items()}
 
 
+def kernel_turns(torch, label, kernel, lib_name, lib, note=""):
+    """A kernel's wrapper and one library call in turns (kernel, library,
+    library, kernel), by events as called and with the queue filled ahead,
+    and the device time of each kernel one call launches, by name, with the
+    call's device-busy time (the union of its spans). ``note`` follows the
+    kernel's line."""
+    fns = {"kernel": kernel, lib_name: lib}
+    called, queued = {"kernel": [], lib_name: []}, {"kernel": [], lib_name: []}
+    for who in ("kernel", lib_name, lib_name, "kernel"):
+        called[who].append(time_ms(torch, fns[who]))
+        queued[who].append(time_ms(torch, fns[who], queued=True))
+    print(f"times: {label} in turns (kernel, {lib_name}, {lib_name}, kernel), ms per call by "
+          f"events as called: {called['kernel'][0]:.6f}, {called[lib_name][0]:.6f}, "
+          f"{called[lib_name][1]:.6f}, {called['kernel'][1]:.6f}; with the queue filled "
+          f"ahead: {queued['kernel'][0]:.6f}, {queued[lib_name][0]:.6f}, "
+          f"{queued[lib_name][1]:.6f}, {queued['kernel'][1]:.6f}")
+    for who in ("kernel", lib_name):
+        events = kept_device_events(torch, fns[who], reps=20)
+        if not events:
+            print(f"times: {label} {who} device time by kernel: not measured (the profiler "
+                  f"kept no device event in 3 windows)")
+            continue
+        split = kernels_by_name(events)
+        launches = max(n for n, _ in split.values())
+        print(f"times: {label} {who} device time by kernel over 20 calls (launches kept, "
+              f"mean ms of one): " + ", ".join(f"{k} {n}x {ms:.6f}" for k, (n, ms) in split.items())
+              + f"; device-busy {_busy_us(events) / 1e3 / launches:.6f} ms a call (the union of "
+              f"the spans" + (note if who == "kernel" else "") + ")")
+
+
 def srp_turns(torch, gen):
     """The SRP kernels at the main path's shapes (c = 10, a round's rows;
-    c = 64, the fleet's) and torch.matmul(X, S) in turns (kernel, matmul,
-    matmul, kernel), by events as called and with the queue filled ahead,
-    and the device time of each kernel one call launches, by name, with
-    the call's device-busy time."""
+    c = 64, the fleet's) and torch.matmul(X, S) in turns."""
     from repro_torch.kernels.sketch import ops as sk_ops
     from repro_torch.kernels.sketch.ref import srp_sign_block
 
@@ -1209,30 +1236,26 @@ def srp_turns(torch, gen):
     S = srp_sign_block(SRP_SEED, 0, dx, dp, dx, device="cuda")
     for c in (SRP_SHAPES[0][0], SRP_SHAPES[1][0]):
         X = (SIM_SCALE * torch.randn((c, dx), generator=gen)).cuda()
-        fns = {"kernel": lambda: sk_ops.srp_sketch(X, dp, SRP_SEED),
-               "matmul": lambda: torch.matmul(X, S)}
-        called, queued = {"kernel": [], "matmul": []}, {"kernel": [], "matmul": []}
-        for who in ("kernel", "matmul", "matmul", "kernel"):
-            called[who].append(time_ms(torch, fns[who]))
-            queued[who].append(time_ms(torch, fns[who], queued=True))
-        print(f"times: srp c = {c} in turns (kernel, matmul, matmul, kernel), ms per call by "
-              f"events as called: {called['kernel'][0]:.6f}, {called['matmul'][0]:.6f}, "
-              f"{called['matmul'][1]:.6f}, {called['kernel'][1]:.6f}; with the queue filled "
-              f"ahead: {queued['kernel'][0]:.6f}, {queued['matmul'][0]:.6f}, "
-              f"{queued['matmul'][1]:.6f}, {queued['kernel'][1]:.6f}")
-        for who in ("kernel", "matmul"):
-            events = kept_device_events(torch, fns[who], reps=20)
-            if not events:
-                print(f"times: srp c = {c} {who} device time by kernel: not measured (the profiler "
-                      f"kept no device event in 3 windows)")
-                continue
-            split = kernels_by_name(events)
-            launches = max(n for n, _ in split.values())
-            print(f"times: srp c = {c} {who} device time by kernel over 20 calls (launches kept, "
-                  f"mean ms of one): " + ", ".join(f"{k} {n}x {ms:.6f}" for k, (n, ms) in split.items())
-                  + f"; device-busy {_busy_us(events) / 1e3 / launches:.6f} ms a call (the union of "
-                  f"the spans" + ("; srp_reduce is a programmatic dependent launch, so its span "
-                                  "includes its wait for srp_partial)" if who == "kernel" else ")"))
+        kernel_turns(torch, f"srp c = {c}", lambda: sk_ops.srp_sketch(X, dp, SRP_SEED), "matmul",
+                     lambda: torch.matmul(X, S),
+                     "; srp_reduce is a programmatic dependent launch, so its span includes its "
+                     "wait for srp_partial")
+
+
+def sim_turns(torch, gen):
+    """The similarity kernels at the main path's shapes (Gram and L1 at
+    (100, 39,760), the Gram at the sketched store's (100, 64)) and the
+    library calls ``G @ G.T`` and ``torch.cdist(G, G, p=1)`` in turns."""
+    from repro_torch.kernels.similarity import ops as sim_ops
+
+    for (n, d), op in ((SIM_SHAPES[0], "gram"), (SIM_SHAPES[0], "l1"), (SKETCHED_SIM_SHAPE, "gram")):
+        G = (SIM_SCALE * torch.randn((n, d), generator=gen)).cuda()
+        lib_name, lib = (("matmul", lambda: G @ G.T) if op == "gram" else
+                         ("cdist", lambda: torch.cdist(G, G, p=1)))
+        splits, per = sim_ops.split_plan(n, d)
+        kernel_turns(torch, f"similarity {op} ({n}, {d})", lambda: sim_ops.pairwise_sums(G, op),
+                     lib_name, lib, f"; {splits} d-splits of {per} chunks; a second kernel, if any, "
+                     "is a programmatic dependent launch, so its span includes its wait")
 
 
 def main() -> int:
@@ -1265,6 +1288,7 @@ def main() -> int:
     phase_serve_trace(torch, cfg, lm, prompts)
     rows = phase_times(torch, gen, name, err, launches)
     srp_turns(torch, gen)
+    sim_turns(torch, gen)
     rows.append(flash_time_row(torch, gen, name, err["flash"], flash_launches))
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

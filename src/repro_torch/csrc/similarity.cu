@@ -6,49 +6,163 @@
 // same function, because zero padding is exact for both ops, so here they
 // are one kernel templated on the op that masks its own ragged edges.
 //
-// Input G is (n, d) f32, row-major and contiguous; the output is (n, n) f32.
-// Arithmetic is full f32 with FMA on CUDA cores: no TF32, no tensor cores,
-// because a plan is discrete and a TF32 error can flip a Ward merge.
+// Input G is (n, d) f32, row-major and contiguous; the output is (n, n) f32,
+// symmetric bit for bit. Arithmetic is full f32 on the CUDA cores: no TF32,
+// no tensor cores, because a plan is discrete and a TF32 error can flip a
+// Ward merge.
 //
-// Bound on an H100 SXM at the main path's shape (n = 100, d = 39,760):
-// G is 15.9 MB, about 4.7 µs at 3.35 TB/s; the i ≤ j half of the Gram is
-// n(n+1)·d ≈ 0.40 GFLOP, about 6 µs at 67 TFLOP/s of f32 FMA. So the work is
-// bounded by operations, and at n = 100 the real limit is too few output
-// tiles: n = 100 gives 3 tiles with i ≤ j for 132 SMs.
+// Bound on an H100 SXM at the main path's shape (n = 100, d = 39,760): G is
+// 15.9 MB, 4.7 µs at 3.35 TB/s. The i ≤ j half is n(n+1)/2 · d = 200.8 M
+// products. The Gram spends one FFMA on each, 6.0 µs at 67 TFLOP/s; L1
+// spends two FP32-pipe instructions (FADD a − b, then FADD acc + |·| with
+// the |·| as an operand modifier), 12.0 µs. Both are bounded by the FP32
+// pipe, so every design point below is about feeding it.
 //
 // Design:
-// * 64×64 output tiles, 256 threads, 4×4 outputs per thread in registers
-//   (rows ty + 16·a, columns tx + 16·b, so shared-memory reads are free of
-//   bank conflicts). (64 × 32)-slices of the two row blocks of G are staged
-//   through shared memory with bounds-checked loads (zero outside n and d).
-// * Only tiles with block-row ≤ block-column are computed; the reduce pass
-//   mirrors them.
-// * d is split across blocks to fill the card. Each split writes its partial
-//   sums to a (splits, n, n) scratch; no float atomics. The second pass adds
-//   the splits in a fixed order, so the result is bit-reproducible.
+// * The triangle, cut in 16 × 16 sub-tiles. Rows are cut in tiles of 64; a
+//   block takes a pair of row tiles (bi ≤ bj) and one split of d. Warp w
+//   owns sub-tile row w / 2 of the pair and sub-tile columns 2(w % 2) and
+//   2(w % 2) + 1, keeping only those on or above the diagonal whose first
+//   row and column are < n. So at n = 100 the kernel runs 28 sub-tiles,
+//   7,168 products a column of d where 5,050 are needed (1.42×); a warp with
+//   no sub-tile only copies. Entries below the diagonal of a diagonal
+//   sub-tile are computed and never written: the lower triangle is written
+//   as the mirror of the upper, so out == out.T bit for bit.
+// * Copies in flight. d is walked in chunks of 32 columns through a ring of
+//   STAGES shared-memory stages filled by `cp.async`: while chunk t is
+//   multiplied, chunks t + 1 … t + 3 are on their way. A diagonal pair
+//   copies one row tile, any other pair two. A copy is 16 bytes where
+//   d % 4 == 0 and G is 16-byte aligned (rows then are too), else 4 bytes;
+//   columns ≥ d and rows ≥ n arrive as zeros through the copy's source size.
+// * FMA-fed register tiles. Lane (ty, tx) = (lane / 8, lane % 8) of a warp
+//   holds rows 4q + ty (q < 4) of its sub-tile row and columns 8s + tx
+//   (s < 4, two per sub-tile) in 16 registers. Each step of 4 columns of d
+//   reads 4 + 4 float4 (LDS.128) for 64 FFMA, 8 FFMA a shared load (4 with
+//   one sub-tile). Shared rows are 36 floats (144 bytes), so the 4 rows a
+//   load touches, and the 8 columns, lie in distinct 16-byte bank groups:
+//   no bank conflicts. Each entry sums its k in ascending order.
+// * Split and reduce in a fixed order. d is split so that a call has about
+//   TARGET_BLOCKS blocks (kernels/similarity/ops.py `split_plan`, a function
+//   of (n, d) only, never of the card). With one split the partial pass
+//   writes both triangles of `out` itself: one launch (the sketched store's
+//   (100, 64) is one). Otherwise each split writes its i ≤ j sums, packed by
+//   row, to a (splits, n(n+1)/2) scratch, and a second kernel adds them in
+//   a fixed order, each group of GROUP splits in split order and then the
+//   group sums in group order, ((p₀ + … + p₇) + (p₈ + … + p₁₅)) + …, with a
+//   warp loading its group's partials at once (one round trip to L2). It
+//   is a programmatic dependent launch of the first (scheduled as the first
+//   starts, held by `griddepcontrol.wait`), and writes each sum and its
+//   mirror. No float atomics: the result is bit-reproducible.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int TILE = 64;
-constexpr int BK = 32;
-constexpr int THREADS = 256;
+constexpr int TILE = 64;              // rows of a row tile; a block takes a pair of them
+constexpr int SUB = 16;               // edge of a sub-tile, the grain of the triangle
+constexpr int SUBS = TILE / SUB;      // sub-tile rows (and columns) of a tile: 4
+constexpr int BK = 32;                // columns of d a chunk (a ring stage)
+constexpr int LD = BK + 4;            // floats a shared row: 144 bytes, conflict-free LDS.128
+constexpr int STAGES = 4;             // chunks in the ring
+constexpr int THREADS = 256;          // 8 warps: 4 sub-tile rows × 2 column halves
+constexpr int GROUP = 8;              // splits the reduction adds in order first
+constexpr int MAX_GROUPS = 16;        // 128 splits at most
+constexpr int MAX_DEVICES = 64;
+constexpr int SMEM = STAGES * 2 * TILE * LD * (int)sizeof(float);  // 73,728 bytes
 
 enum Op { GRAM = 0, L1 = 1 };
 
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// Copy `bytes` (16 or 0) of global memory into 16 shared bytes, zero-filling the rest.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
+               "r"(bytes)
+               : "memory");
+}
+
+// Copy `bytes` (4 or 0) of global memory into 4 shared bytes, zero-filling the rest.
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, int bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Request rows [r0, r0 + nr) × columns [k0, k0 + BK) of G into `dst` (nr
+// shared rows of LD floats). Rows ≥ n and columns ≥ d arrive as zeros.
+__device__ __forceinline__ void issue_rows(float* dst, const float* __restrict__ G, int r0, int nr,
+                                           int n, int d, int k0, bool vec) {
+  if (vec) {  // d % 4 == 0: a 4-column piece lies wholly inside or outside d
+    for (int e = threadIdx.x; e < nr * (BK / 4); e += THREADS) {
+      const int r = e / (BK / 4);
+      const int col = k0 + 4 * (e % (BK / 4));
+      const bool in = r0 + r < n && col < d;
+      cp_async16(dst + r * LD + (col - k0), in ? G + (size_t)(r0 + r) * d + col : G, in ? 16 : 0);
+    }
+  } else {
+    for (int e = threadIdx.x; e < nr * BK; e += THREADS) {
+      const int r = e / BK;
+      const int col = k0 + e % BK;
+      const bool in = r0 + r < n && col < d;
+      cp_async4(dst + r * LD + (col - k0), in ? G + (size_t)(r0 + r) * d + col : G, in ? 4 : 0);
+    }
+  }
+}
+
 template <int OP>
-__device__ __forceinline__ float accumulate(float acc, float a, float b) {
+__device__ __forceinline__ float step(float acc, float a, float b) {
   if (OP == GRAM) return fmaf(a, b, acc);
   return acc + fabsf(a - b);
 }
 
+// One chunk's products for a warp's NS column slots (two a sub-tile): `as`
+// points at row ty of its sub-tile row, `bs` at column tx of its first
+// sub-tile column. Four columns of d a step, each in ascending order.
+template <int OP, int NS>
+__device__ __forceinline__ void chunk_products(float (&acc)[4][4], const float* as, const float* bs) {
+#pragma unroll
+  for (int kk = 0; kk < BK; kk += 4) {
+    float4 a[4], b[NS];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) a[q] = *reinterpret_cast<const float4*>(as + 4 * q * LD + kk);
+#pragma unroll
+    for (int s = 0; s < NS; ++s) b[s] = *reinterpret_cast<const float4*>(bs + 8 * s * LD + kk);
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+#pragma unroll
+      for (int s = 0; s < NS; ++s) {
+        float v = acc[q][s];
+        v = step<OP>(v, a[q].x, b[s].x);
+        v = step<OP>(v, a[q].y, b[s].y);
+        v = step<OP>(v, a[q].z, b[s].z);
+        v = step<OP>(v, a[q].w, b[s].w);
+        acc[q][s] = v;
+      }
+  }
+}
+
+// Offset of entry (i, j), i ≤ j, in the upper triangle packed by row.
+__device__ __forceinline__ size_t tri(int i, int j, int n) {
+  return (size_t)i * n - (size_t)i * (i - 1) / 2 + (size_t)(j - i);
+}
+
 template <int OP>
-__global__ void __launch_bounds__(THREADS)
-pairwise_partial(const float* __restrict__ G, float* __restrict__ partial,
-                 int n, int d, int n_tiles, int chunks_per_split) {
-  __shared__ float As[TILE][BK + 1];
-  __shared__ float Bs[TILE][BK + 1];
+__global__ void __launch_bounds__(THREADS, 2)
+pairwise_partial(const float* __restrict__ G, float* __restrict__ partial, float* __restrict__ out,
+                 int n, int d, int n_tiles, int per, int vec) {
+  extern __shared__ __align__(16) float smem[];  // STAGES × (row tile, column tile) × TILE × LD
+
+  // the reduce pass may be scheduled now; it waits for this grid's results
+  asm volatile("griddepcontrol.launch_dependents;" ::: "memory");
 
   // tile pair p -> (bi, bj) with bi <= bj, enumerated row by row
   int p = blockIdx.x;
@@ -58,108 +172,165 @@ pairwise_partial(const float* __restrict__ G, float* __restrict__ partial,
     ++bi;
   }
   const int bj = bi + p;
+  const bool diag = bi == bj;
   const int i0 = bi * TILE;
   const int j0 = bj * TILE;
-  const int split = blockIdx.y;
+  // rows of each tile to copy: its sub-tile rows that hold a row < n
+  const int ni = min(TILE, (n - i0 + SUB - 1) / SUB * SUB);
+  const int nj = min(TILE, (n - j0 + SUB - 1) / SUB * SUB);
 
-  const int tid = threadIdx.x;
-  const int tx = tid % 16;
-  const int ty = tid / 16;
+  const int n_chunks = (d + BK - 1) / BK;
+  const int c_begin = blockIdx.y * per;
+  const int nc = max(0, min(per, n_chunks - c_begin));
+
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int a = warp / 2;  // sub-tile row
+  const int h = warp % 2;  // column half: sub-tile columns 2h, 2h + 1
+  const int c0 = max(2 * h, diag ? a : 0);
+  const int c1 = min(2 * h + 2, (nj + SUB - 1) / SUB);
+  const int ns = SUB * a < ni ? 2 * max(0, c1 - c0) : 0;  // column slots: 0, 2 or 4
+  const int ty = lane / 8;
+  const int tx = lane % 8;
+
+  auto stage = [&](int s) { return smem + s * 2 * TILE * LD; };
+  auto issue = [&](int s, int c) {
+    float* st = stage(s);
+    issue_rows(st, G, i0, ni, n, d, c * BK, vec != 0);
+    if (!diag) issue_rows(st + TILE * LD, G, j0, nj, n, d, c * BK, vec != 0);
+  };
+
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < nc) issue(s, c_begin + s);
+    cp_async_commit();
+  }
 
   float acc[4][4];
 #pragma unroll
-  for (int a = 0; a < 4; ++a)
+  for (int q = 0; q < 4; ++q)
 #pragma unroll
-    for (int b = 0; b < 4; ++b) acc[a][b] = 0.f;
+    for (int s = 0; s < 4; ++s) acc[q][s] = 0.f;
 
-  const int n_chunks = (d + BK - 1) / BK;
-  const int c_begin = split * chunks_per_split;
-  const int c_end = min(n_chunks, c_begin + chunks_per_split);
-
-  for (int c = c_begin; c < c_end; ++c) {
-    const int k0 = c * BK;
-    // 64 rows × 32 columns per block = 2048 values, 8 per thread; a warp
-    // reads 32 consecutive columns of one row (one 128-byte line).
-#pragma unroll
-    for (int q = 0; q < (TILE * BK) / THREADS; ++q) {
-      const int e = tid + q * THREADS;
-      const int r = e / BK;
-      const int k = e % BK;
-      const int col = k0 + k;
-      const bool col_ok = col < d;
-      const int gi = i0 + r;
-      const int gj = j0 + r;
-      As[r][k] = (col_ok && gi < n) ? G[(size_t)gi * d + col] : 0.f;
-      Bs[r][k] = (col_ok && gj < n) ? G[(size_t)gj * d + col] : 0.f;
+  for (int i = 0; i < nc; ++i) {
+    cp_async_wait<STAGES - 2>();  // chunk i has landed
+    __syncthreads();              // for every thread; and chunk i − 1's stage is free
+    if (i + STAGES - 1 < nc) issue((i + STAGES - 1) % STAGES, c_begin + i + STAGES - 1);
+    cp_async_commit();
+    const float* st = stage(i % STAGES);
+    const float* as = st + (SUB * a + ty) * LD;
+    const float* bs = (diag ? st : st + TILE * LD) + (SUB * c0 + tx) * LD;
+    if (ns == 4) {  // warp-uniform
+      chunk_products<OP, 4>(acc, as, bs);
+    } else if (ns == 2) {
+      chunk_products<OP, 2>(acc, as, bs);
     }
-    __syncthreads();
-#pragma unroll 8
-    for (int k = 0; k < BK; ++k) {
-      float av[4], bv[4];
-#pragma unroll
-      for (int a = 0; a < 4; ++a) av[a] = As[ty + 16 * a][k];
-#pragma unroll
-      for (int b = 0; b < 4; ++b) bv[b] = Bs[tx + 16 * b][k];
-#pragma unroll
-      for (int a = 0; a < 4; ++a)
-#pragma unroll
-        for (int b = 0; b < 4; ++b) acc[a][b] = accumulate<OP>(acc[a][b], av[a], bv[b]);
-    }
-    __syncthreads();
   }
 
-  float* out = partial + (size_t)split * n * n;
 #pragma unroll
-  for (int a = 0; a < 4; ++a) {
-    const int r = i0 + ty + 16 * a;
-    if (r >= n) continue;
+  for (int q = 0; q < 4; ++q) {
+    const int row = i0 + SUB * a + 4 * q + ty;
 #pragma unroll
-    for (int b = 0; b < 4; ++b) {
-      const int col = j0 + tx + 16 * b;
-      if (col < n) out[(size_t)r * n + col] = acc[a][b];
+    for (int s = 0; s < 4; ++s) {
+      const int col = j0 + SUB * c0 + 8 * s + tx;
+      if (s < ns && row < n && col < n && row <= col) {
+        if (gridDim.y == 1) {
+          out[(size_t)row * n + col] = acc[q][s];
+          out[(size_t)col * n + row] = acc[q][s];
+        } else {
+          partial[(size_t)blockIdx.y * ((size_t)n * (n + 1) / 2) + tri(row, col, n)] = acc[q][s];
+        }
+      }
     }
   }
 }
 
-// out[r, c] = Σ_s partial[s, r', c'] in split order, where (r', c') is (r, c)
-// if its tile lies on or above the tile diagonal, else the mirrored (c, r).
-__global__ void pairwise_reduce(const float* __restrict__ partial, float* __restrict__ out,
-                                int n, int splits) {
-  const size_t idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  const size_t nn = (size_t)n * n;
-  if (idx >= nn) return;
-  const int r = (int)(idx / n);
-  const int c = (int)(idx % n);
-  const size_t src = (r / TILE <= c / TILE) ? idx : (size_t)c * n + r;
-  float s = 0.f;
-  for (int q = 0; q < splits; ++q) s += partial[(size_t)q * nn + src];
-  out[idx] = s;
+// out[i, j] = out[j, i] = ((p₀ + … + p₇) + (p₈ + … + p₁₅)) + … over the
+// split partials p of entry (i, j), i ≤ j; the last group may hold fewer
+// than GROUP. A block takes 32 consecutive packed entries: warp g adds the
+// partials of group g with all its loads in flight, and warp 0 adds the
+// group sums in group order.
+__global__ void __launch_bounds__(32 * MAX_GROUPS)
+pairwise_reduce(const float* __restrict__ partial, float* __restrict__ out, int n, int splits) {
+  __shared__ float sums[MAX_GROUPS][32];
+  const int lane = threadIdx.x % 32;
+  const int g = threadIdx.x / 32;
+  const int groups = blockDim.x / 32;
+  const size_t T = (size_t)n * (n + 1) / 2;
+  const size_t t = (size_t)blockIdx.x * 32 + lane;
+  asm volatile("griddepcontrol.wait;" ::: "memory");  // the partial pass has finished
+  if (t < T) {
+    float v[GROUP];
+#pragma unroll
+    for (int q = 0; q < GROUP; ++q)
+      v[q] = g * GROUP + q < splits ? __ldg(partial + (size_t)(g * GROUP + q) * T + t) : 0.f;
+    float s = v[0];
+#pragma unroll
+    for (int q = 1; q < GROUP; ++q)
+      if (g * GROUP + q < splits) s += v[q];
+    sums[g][lane] = s;
+  }
+  __syncthreads();
+  if (g == 0 && t < T) {
+    float s = sums[0][lane];
+    for (int q = 1; q < groups; ++q) s += sums[q][lane];
+    // row i of entry t: the first i with tri(i + 1, i + 1) > t
+    const float b = 2.f * n + 1.f;
+    int i = (int)((b - sqrtf(fmaxf(0.f, b * b - 8.f * (float)t))) * 0.5f);
+    i = max(0, min(i, n - 1));
+    while (i > 0 && tri(i, i, n) > t) --i;
+    while (i + 1 < n && tri(i + 1, i + 1, n) <= t) ++i;
+    const int j = i + (int)(t - tri(i, i, n));
+    out[(size_t)i * n + j] = s;
+    out[(size_t)j * n + i] = s;
+  }
 }
 
 }  // namespace
 
-// G (n, d) f32 -> out (n, n) f32. `partial` is a (splits, n, n) f32 scratch
-// the caller allocates; `op` is 0 for the Gram, 1 for L1. Returns the
-// cudaError_t of the launches (0 = success).
-extern "C" int pairwise_sums(const float* G, float* partial, float* out, int n, int d,
-                             int op, int splits, int chunks_per_split, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int n_tiles = (n + TILE - 1) / TILE;
-  const int n_pairs = n_tiles * (n_tiles + 1) / 2;
-  dim3 grid(n_pairs, splits);
-  if (op == GRAM) {
-    pairwise_partial<GRAM><<<grid, THREADS, 0, s>>>(G, partial, n, d, n_tiles, chunks_per_split);
-  } else if (op == L1) {
-    pairwise_partial<L1><<<grid, THREADS, 0, s>>>(G, partial, n, d, n_tiles, chunks_per_split);
-  } else {
+// G (n, d) f32 -> out (n, n) f32. Split s sums chunks [s·per, (s+1)·per) of
+// BK columns; with splits > 1, `partial` is a (splits, n(n+1)/2) f32 scratch
+// the caller allocates (unused with one split), and splits ≤ GROUP ·
+// MAX_GROUPS. `op` is 0 for the Gram, 1 for L1. Returns the cudaError_t of
+// the launches (0 = success).
+extern "C" int pairwise_sums(const float* G, float* partial, float* out, int n, int d, int op,
+                             int splits, int per, void* stream) {
+  if (n < 1 || d < 1 || per < 1 || splits < 1 || splits > GROUP * MAX_GROUPS || (op != GRAM && op != L1))
     return (int)cudaErrorInvalidValue;
-  }
-  cudaError_t err = cudaGetLastError();
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  // whether the limit of dynamic shared memory is set, per device and op
+  static bool smem_set[MAX_DEVICES][2] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return (int)err;
-  const size_t nn = (size_t)n * n;
-  const int rthreads = 256;
-  const unsigned rblocks = (unsigned)((nn + rthreads - 1) / rthreads);
-  pairwise_reduce<<<rblocks, rthreads, 0, s>>>(partial, out, n, splits);
+  if (dev >= MAX_DEVICES) return (int)cudaErrorInvalidDevice;
+  if (!smem_set[dev][op]) {
+    err = cudaFuncSetAttribute(op == GRAM ? pairwise_partial<GRAM> : pairwise_partial<L1>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
+    if (err != cudaSuccess) return (int)err;
+    smem_set[dev][op] = true;
+  }
+  const int vec = (d % 4 == 0) && (reinterpret_cast<uintptr_t>(G) % 16 == 0);
+  const int n_tiles = (n + TILE - 1) / TILE;
+  const dim3 grid(n_tiles * (n_tiles + 1) / 2, splits);
+  if (op == GRAM)
+    pairwise_partial<GRAM><<<grid, THREADS, SMEM, s>>>(G, partial, out, n, d, n_tiles, per, vec);
+  else
+    pairwise_partial<L1><<<grid, THREADS, SMEM, s>>>(G, partial, out, n, d, n_tiles, per, vec);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || splits == 1) return (int)err;
+  const size_t T = (size_t)n * (n + 1) / 2;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)((T + 31) / 32), 1, 1);
+  cfg.blockDim = dim3(32 * ((splits + GROUP - 1) / GROUP), 1, 1);
+  cfg.stream = s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, pairwise_reduce, (const float*)partial, out, n, splits);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 

@@ -2,9 +2,11 @@
 
 Port of ``src/repro/kernels/similarity/ops.py``. :func:`pairwise_sums` is
 the kernel's wrapper: for a CUDA tensor it launches
-``csrc/similarity.cu`` (Gram or L1, i ≤ j tiles, d split across blocks
-into a fixed-order second pass), for a CPU tensor it runs the plain
-version in ``ref.py``. The reference's two Pallas kernels (the padded
+``csrc/similarity.cu`` (Gram or L1 over the i ≤ j triangle in 16 × 16
+sub-tiles; d split across blocks by :func:`split_plan`, with the splits
+added in a fixed grouped order by a second kernel, or written straight to
+the output by the one launch when the plan has one split), for a CPU tensor
+it runs the plain version in ``ref.py``. The reference's two Pallas kernels (the padded
 one-shot ``pairwise_kernel`` and the masked ``pairwise_kernel_fused``)
 compute the same function, so both entry points below,
 :func:`pairwise_distances_device` and :func:`pairwise_distances_streamed`,
@@ -29,27 +31,43 @@ from repro_torch.kernels.similarity.ref import (
 #: d above which the "auto" backend takes the streamed entry point.
 STREAM_D_THRESHOLD = 8192
 
-#: The kernel's tile edge and d-chunk, as in ``csrc/similarity.cu``.
+#: As in ``csrc/similarity.cu``: a block takes a pair of TILE-row tiles,
+#: walks d in chunks of BK columns (a ragged last chunk is zero-filled), and
+#: its warps skip the 16 × 16 sub-tiles below the diagonal or past n.
 TILE = 64
 BK = 32
 #: Blocks the d-split aims for: two per SM of a 132-SM H100. A constant,
 #: not the card's SM count, so the split (and the bits) are the same on
 #: every card.
 TARGET_BLOCKS = 264
+#: Chunks a split takes at least: below 2·MIN_CHUNKS chunks a call is one
+#: split and one launch.
+MIN_CHUNKS = 4
+#: The reduction adds each group of GROUP splits in split order, then the
+#: group sums in group order; at most MAX_SPLITS splits.
+GROUP = 8
+MAX_SPLITS = 128
 
 _OPS = {"gram": 0, "l1": 1}
 
 #: Kernel launches per op since the count was last reset; a launch is one
-#: call of the C entry point (partial pass + reduce pass).
+#: call of the C entry point (the partial pass, and the reduce pass where
+#: the plan has more than one split).
 launches = {"gram": 0, "l1": 0}
 
 
 def split_plan(n: int, d: int) -> tuple[int, int]:
-    """(splits, chunks per split) of the d axis for an (n, d) input."""
+    """(splits, chunks per split) of the d axis for an (n, d) input.
+
+    About TARGET_BLOCKS blocks over the tile pairs and at most MAX_SPLITS
+    splits; split s takes chunks [s·per, (s+1)·per) with per ≥ MIN_CHUNKS
+    where there are two splits or more, and none is empty. A function of
+    (n, d) only.
+    """
     n_tiles = -(-n // TILE)
     n_pairs = n_tiles * (n_tiles + 1) // 2
     n_chunks = -(-d // BK)
-    splits = max(1, min(n_chunks, -(-TARGET_BLOCKS // n_pairs)))
+    splits = max(1, min(MAX_SPLITS, -(-TARGET_BLOCKS // n_pairs), n_chunks // MIN_CHUNKS))
     per = -(-n_chunks // splits)
     return -(-n_chunks // per), per
 
@@ -79,12 +97,14 @@ def pairwise_sums(G: torch.Tensor, op: str) -> torch.Tensor:
         raise ValueError("G must be contiguous")
     n, d = G.shape
     splits, per = split_plan(n, d)
-    partial = torch.empty((splits, n, n), dtype=torch.float32, device=G.device)
     out = torch.empty((n, n), dtype=torch.float32, device=G.device)
+    # the packed i <= j sums of each split; one split writes `out` itself
+    partial = (torch.empty((splits, n * (n + 1) // 2), dtype=torch.float32, device=G.device)
+               if splits > 1 else None)
     lib = _lib()
     err = lib.pairwise_sums(
         G.data_ptr(),
-        partial.data_ptr(),
+        None if partial is None else partial.data_ptr(),
         out.data_ptr(),
         n,
         d,
@@ -112,8 +132,8 @@ def pairwise_distances_streamed(G, measure: str = "arccos") -> torch.Tensor:
     """(n, d) -> (n, n) distances for model-sized d.
 
     The same kernel launch as :func:`pairwise_distances_device`: the kernel
-    streams d in (64 × 32) shared-memory slices and splits it across
-    blocks, so G is never padded whatever its width. The reference's two
+    streams d in 32-column chunks through shared memory and splits it
+    across blocks, so G is never padded whatever its width. The reference's two
     entry points differ (padded one-shot vs masked streaming); here the
     switch in :func:`make_distance_fn` only keeps the reference's shape.
     """
