@@ -212,24 +212,32 @@ def time_ms(torch, fn, reps: int = 50, queued: bool = False) -> float:
     return start.elapsed_time(end) / reps
 
 
-def _kernel_name(mangled: str) -> str:
+def _kernel_name(name: str) -> str:
     """``flash_fwd_mma<128>`` from an Itanium-mangled kernel name
-    (``_ZN12_GLOBAL__N_113flash_fwd_mmaILi128EEEv...``): the innermost
-    length-prefixed identifier and an integer template argument."""
+    (``_ZN12_GLOBAL__N_113flash_fwd_mmaILi128EEEv...``: the innermost
+    length-prefixed identifier and its integer template arguments), or from
+    a demangled one (``void (anonymous namespace)::pairwise_partial<0, 8>(float
+    const*, ...)``: the last name before the arguments)."""
     import re
 
-    i = mangled.find("_Z")
+    i = name.find("_Z")
     if i < 0:
-        return mangled[:60]
-    i += 3 if mangled.startswith("_ZN", i) else 2
-    name = None
-    while found := re.match(r"\d+", mangled[i:]):
+        head = name.replace("(anonymous namespace)::", "").split("(", 1)[0].removeprefix("void ").strip()
+        depth, cut = 0, 0
+        for k, ch in enumerate(head):
+            depth += (ch == "<") - (ch == ">")
+            if depth == 0 and head.startswith("::", k):
+                cut = k + 2
+        return head[cut:].replace(" ", "")[:60] or name[:60]
+    i += 3 if name.startswith("_ZN", i) else 2
+    ident = None
+    while found := re.match(r"\d+", name[i:]):
         n, i = int(found.group()), i + len(found.group())
-        name, i = mangled[i:i + n], i + n
-    if name is None:
-        return mangled[:60]
-    arg = re.match(r"ILi(\d+)E", mangled[i:])
-    return name + (f"<{arg.group(1)}>" if arg else "")
+        ident, i = name[i:i + n], i + n
+    if ident is None:
+        return name[:60]
+    args = re.match(r"I((?:Li\d+E)+)E", name[i:])
+    return ident + (f"<{','.join(re.findall(r'Li(\d+)E', args.group(1)))}>" if args else "")
 
 
 def ptxas_report(log: str) -> list[tuple[str, str]]:
@@ -246,9 +254,11 @@ def ptxas_report(log: str) -> list[tuple[str, str]]:
     return rows
 
 
-def hmma_counts(lib_path) -> dict | None:
-    """{kernel: count of HMMA instructions} in ``cuobjdump -sass`` of the
-    library, or None where cuobjdump is missing."""
+def sass_counts(lib_path, ops=("HMMA",)) -> dict | None:
+    """{kernel: {op: count of its instructions}} in ``cuobjdump -sass`` of
+    the library, for each opcode in ``ops`` (matched as a whole word before
+    any modifier), or None where cuobjdump is missing."""
+    import re
     import shutil
 
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
@@ -256,14 +266,20 @@ def hmma_counts(lib_path) -> dict | None:
         return None
     sass = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True, text=True,
                           check=True, timeout=120).stdout
+    pattern = re.compile(r"\s(" + "|".join(ops) + r")[\s.]")
     counts, fn = {}, None
     for line in sass.splitlines():
         if "Function :" in line:
             fn = _kernel_name(line.split("Function :", 1)[1].strip())
-            counts[fn] = 0
-        elif fn is not None and "HMMA" in line:
-            counts[fn] += 1
+            counts[fn] = dict.fromkeys(ops, 0)
+        elif fn is not None and (found := pattern.search(line)):
+            counts[fn][found.group(1)] += 1
     return counts
+
+
+# FP32-pipe opcodes of the similarity kernels: the Gram's product is FFMA,
+# L1's is FADD a − b and FADD acc + |·|; any other would be a third
+SIM_SASS_OPS = ("FFMA", "FADD", "FMUL", "FMNMX", "FSEL", "LDS", "LDGSTS")
 
 
 def phase_build():
@@ -280,14 +296,20 @@ def phase_build():
     for name, log in logs.items():
         for fn, line in ptxas_report(log):
             print(f"  ptxas {name} {fn}: {line}")
-            if fn.startswith("flash_fwd_mma") and any(
+            if fn.startswith(("flash_fwd_mma", "pairwise_")) and any(
                     int(n) for n in re.findall(r"(\d+) bytes spill", line)):
                 fail(f"build: ptxas reports spills in {fn}: {line}")
+    sim = sass_counts(_build._target("similarity")[1], SIM_SASS_OPS)
     lib = _build._target("flash_attention")[1]
-    counts = hmma_counts(lib)
-    if counts is None:
+    counts = sass_counts(lib)
+    if counts is None or sim is None:
         print(f"build: cuobjdump is missing; HMMA instructions of {lib.name} not counted")
         return
+    print(f"build: similarity instructions in cuobjdump -sass by kernel: {json.dumps(sim)}")
+    for fn, c in sim.items():
+        if fn.startswith("pairwise_partial<1") and (c["FFMA"] or c["FMUL"] or c["FMNMX"] or c["FSEL"]):
+            fail(f"build: the L1 kernel {fn} has FP32 instructions besides FADD: {c}")
+    counts = {fn: c["HMMA"] for fn, c in counts.items()}
     print(f"build: HMMA instructions in cuobjdump -sass of {lib.name}: {json.dumps(counts)}")
     mma = {fn: n for fn, n in counts.items() if fn.startswith("flash_fwd_mma")}
     if not mma or not all(mma.values()):
@@ -321,9 +343,11 @@ def phase_kernels(torch, gen):
                 limit = f"atol {SIM_ATOL}"
             if not torch.equal(got, again):
                 fail(f"{op} kernel at ({n}, {d}) is not bit-reproducible")
+            if not torch.equal(got, got.T):
+                fail(f"{op} kernel at ({n}, {d}) is not symmetric bit for bit")
             err[op] = max(err[op], e)
             print(f"kernels: {op} ({n}, {d}) max_abs_err {e:.3e}, {limit}, "
-                  f"max |want| {float(want.abs().max()):.3e}, reproducible")
+                  f"max |want| {float(want.abs().max()):.3e}, reproducible, symmetric")
     n, d = SKETCHED_SIM_SHAPE
     G = (SIM_SCALE * torch.randn((n, d), generator=gen)).cuda()
     got, want = sim_ops.pairwise_sums(G, "gram"), gram_ref(G)
@@ -335,9 +359,15 @@ def phase_kernels(torch, gen):
     if not math.isfinite(e_l1) or e_l1 > SIM_ATOL:
         fail(f"l1 kernel at the sketched store's ({n}, {d}): max abs error {e_l1} > {SIM_ATOL}")
     splits, per = sim_ops.split_plan(n, d)
-    print(f"kernels: gram and l1 ({n}, {d}) (the sketched store: {splits} d-splits of {per} "
-          f"chunk) gram {rel:.3e} of ‖g_i‖·‖g_j‖ (limit {GRAM_RTOL}), l1 max_abs_err {e_l1:.3e} "
-          f"(atol {SIM_ATOL})")
+    if splits != 1:
+        fail(f"similarity at the sketched store's ({n}, {d}): {splits} d-splits, expected one launch")
+    for what, a in (("gram", got), ("l1", got_l1)):
+        if not torch.equal(a, a.T) or not torch.equal(a, sim_ops.pairwise_sums(G, what)):
+            fail(f"{what} kernel at ({n}, {d}) is not symmetric and bit-reproducible")
+    print(f"kernels: gram and l1 ({n}, {d}) (the sketched store: {splits} d-split of {per} "
+          f"chunks, one launch) gram {rel:.3e} of ‖g_i‖·‖g_j‖ (limit {GRAM_RTOL}), l1 max_abs_err "
+          f"{e_l1:.3e} (atol {SIM_ATOL}), symmetric and reproducible bit for bit")
+    sim_kernels_a_call(torch, gen)
     err["srp"] = phase_kernels_srp(torch, gen)
     k, p = AGG_SHAPE
     U = torch.randn((k, p), generator=gen).cuda()
@@ -425,26 +455,41 @@ def srp_alternating(torch, gen):
           f"bit-equal to the same call alone")
 
 
-SRP_KERNELS = ("srp_partial", "srp_reduce")  # the device kernels of one call, once each
+def kernels_a_call(torch, label, fn, names, reps: int = 20):
+    """torch.profiler over ``reps`` calls of ``fn`` sees each device kernel
+    named in ``names`` at most ``reps`` times and nothing else. The profiler
+    on the card drops a launch now and then (it kept 19 of 20 of each SRP
+    kernel in a window), so up to 2 fewer are accepted; a kernel launched
+    twice, or a copy or a fill per call, would show ``reps`` more events."""
+    events = kept_device_events(torch, fn, reps=reps)
+    counts = {k: sum(_kernel_name(e.name).startswith(k) for e in events) for k in names}
+    others = sorted({_kernel_name(e.name) for e in events
+                     if not any(_kernel_name(e.name).startswith(k) for k in names)})
+    if others or not all(reps - 2 <= n <= reps for n in counts.values()):
+        fail(f"{label}: {counts} and {others} in {reps} calls; expected each of {names} once a call")
+    print(f"kernels: {label} device kernels a call: the profiler saw {json.dumps(counts)} in {reps} "
+          f"calls and nothing else")
 
 
-def srp_kernels_a_call(torch, gen, reps: int = 20):
-    """torch.profiler over ``reps`` calls sees each of SRP_KERNELS at most
-    ``reps`` times and nothing else. The profiler on the card drops a launch
-    now and then (it kept 19 of 20 of each SRP kernel in a window), so up to
-    2 fewer are accepted; a kernel launched twice, or a copy or a fill per
-    call, would show ``reps`` more events."""
+def srp_kernels_a_call(torch, gen):
     from repro_torch.kernels.sketch import ops as sk_ops
 
     c, d, dp = SRP_SHAPES[0]
     X = (SIM_SCALE * torch.randn((c, d), generator=gen)).cuda()
-    events = kept_device_events(torch, lambda: sk_ops.srp_sketch(X, dp, SRP_SEED), reps=reps)
-    counts = {k: sum(k in e.name for e in events) for k in SRP_KERNELS}
-    others = sorted({_kernel_name(e.name) for e in events if not any(k in e.name for k in SRP_KERNELS)})
-    if others or not all(reps - 2 <= n <= reps for n in counts.values()):
-        fail(f"srp: {counts} and {others} in {reps} calls; expected each of {SRP_KERNELS} once a call")
-    print(f"kernels: srp device kernels a call: the profiler saw {json.dumps(counts)} in {reps} "
-          f"calls and nothing else")
+    kernels_a_call(torch, "srp", lambda: sk_ops.srp_sketch(X, dp, SRP_SEED), ("srp_partial", "srp_reduce"))
+
+
+def sim_kernels_a_call(torch, gen):
+    """The similarity call at the main path's (100, 39,760) is the partial
+    pass and the reduce pass; at the sketched store's (100, 64), one split,
+    the partial pass alone."""
+    from repro_torch.kernels.similarity import ops as sim_ops
+
+    for (n, d), names in ((SIM_SHAPES[0], ("pairwise_partial", "pairwise_reduce")),
+                          (SKETCHED_SIM_SHAPE, ("pairwise_partial",))):
+        G = (SIM_SCALE * torch.randn((n, d), generator=gen)).cuda()
+        for op in ("gram", "l1"):
+            kernels_a_call(torch, f"similarity {op} ({n}, {d})", lambda: sim_ops.pairwise_sums(G, op), names)
 
 
 def _flash_check(torch, label, got, q, k, v, causal=True, again=None) -> float:
@@ -1128,8 +1173,11 @@ def phase_times(torch, gen, name, err, launches):
     # the port never does
     S = srp_sign_block(SRP_SEED, 0, dx, dp, dx, device="cuda")
 
-    def sim_cost(n, d):  # bytes; FLOP of the i <= j half: n(n+1)/2 pairs × d × 2
-        return 4 * (n * d + n * n), n * (n + 1) * d
+    # bytes; operations of the i <= j half, n(n+1)/2 pairs × d, in FLOP at the
+    # f32 peak: the Gram's FFMA is 2 FLOP, L1's FADD a − b and FADD acc + |·|
+    # are two FP32-pipe slots, 4 FLOP of the peak
+    def sim_cost(n, d, slots=1):
+        return 4 * (n * d + n * n), slots * n * (n + 1) * d
 
     def srp_cost(c):
         return 4 * (c * dx + c * dp), 2 * c * dx * dp
@@ -1145,7 +1193,7 @@ def phase_times(torch, gen, name, err, launches):
          lambda: sim_ops.pairwise_sums(G, "gram"), lambda: gram_ref(G), lambda: G @ G.T, *sim_cost(n, d)),
         ("similarity_l1", src_sim, rep_sim, "l1",
          lambda: sim_ops.pairwise_sums(G, "l1"), lambda: l1_ref(G),
-         lambda: torch.cdist(G, G, p=1), *sim_cost(n, d)),
+         lambda: torch.cdist(G, G, p=1), *sim_cost(n, d, slots=2)),
         ("similarity_gram_d64", src_sim, rep_sim, "gram_sketched",
          lambda: sim_ops.pairwise_sums(Gs, "gram"), lambda: gram_ref(Gs), lambda: Gs @ Gs.T,
          *sim_cost(ns, ds_)),
@@ -1161,6 +1209,11 @@ def phase_times(torch, gen, name, err, launches):
     ]
     errs = {"gram": err["gram"], "l1": err["l1"], "gram_sketched": err["gram"],
             "aggregate": err["aggregate"], "srp": err["srp"], "srp_fleet": err["srp"]}
+    # what the operation count of a bound stands for, where it is not plain FLOP
+    notes = {"similarity_gram": "one FFMA (2 FLOP) per product of the i <= j half",
+             "similarity_l1": "two FP32-pipe instructions per element of the i <= j half (FADD a - b, "
+                              "FADD acc + |.|), counted as 4 FLOP at the f32 peak",
+             "similarity_gram_d64": "one FFMA (2 FLOP) per product of the i <= j half"}
     rows = []
     for kname, source, replaces, key, kern, plain, lib, nbytes, nops in cases:
         ms = time_ms(torch, kern)
@@ -1177,6 +1230,8 @@ def phase_times(torch, gen, name, err, launches):
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "library_ms": lib_ms,
         })
+        if kname in notes:
+            rows[-1]["bound_note"] = notes[kname]
         print(f"times: {kname} {ms:.6f} ms, plain {plain_ms:.6f} ms, library {lib_ms:.6f} ms, "
               f"bound {bound:.6f} ms ({rows[-1]['bound_by']}; {part} peaks "
               f"{bw / 1e12:.2f} TB/s, {f32 / 1e12:.0f} TFLOP/s f32)")

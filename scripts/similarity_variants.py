@@ -2,15 +2,21 @@
 """Variants of the similarity kernel, side by side on the card.
 
 Builds ``src/repro_torch/csrc/similarity.cu`` as it is and variants of it
-that change one knob each (the unrolling of the k-step loop, the launch
-bounds, the ring's depth) into ``build/similarity_variants/``, prints each
-build's ptxas report, and, for each variant and each split plan in
-``PLANS``, checks the sums at the main path's shapes against the plain
-version (Gram: |got − want| ≤ 1e-5·‖g_i‖·‖g_j‖; L1: atol 1e-4; symmetric
-bit for bit) and prints the ms a call takes with the queue filled ahead
-(CUDA events over 50 calls) and the device-busy ms a call (torch.profiler
-over 20). The split plan is an argument of the C entry point, so plans
-other than ``ops.split_plan``'s are timed through the same build.
+that change one knob each (the ring's depth, the Gram's loads in flight
+across steps, the unrolling of its k loop, the tile of one-split calls)
+into ``build/similarity_variants/``, prints each build's ptxas report,
+and, for each variant, each split plan (chunks a split in ``PERS``
+beside ``ops.split_plan``'s) and each lane tile (8 × 8 and 4 × 4), checks
+the sums at the main path's shapes against the plain version (Gram:
+|got − want| ≤ 1e-5·‖g_i‖·‖g_j‖; L1: atol 1e-4; symmetric bit for bit) and
+prints the ms a call takes with the queue filled ahead (CUDA events over 50
+calls) and the device-busy ms a call (torch.profiler over 20). The split
+plan and the lane tile are arguments of the C entry point, so every plan
+is timed through the same build. The ``stamped`` variant adds
+``%globaltimer`` stamps to the partial pass and prints, per call, the
+median over the blocks of when thread 0 has issued its first copies, has
+its first chunk, has done its products and has stored its sums, each from
+its block's start (the card's machine has no ``ncu``).
 
 Run from the repository root on a machine with an NVIDIA GPU and nvcc:
 
@@ -33,19 +39,55 @@ sys.path.insert(0, str(ROOT))
 SRC = ROOT / "src" / "repro_torch" / "csrc" / "similarity.cu"
 OUT = ROOT / "build" / "similarity_variants"
 SHAPES = [((100, 39760), "gram"), ((100, 39760), "l1"), ((100, 64), "gram")]
-UNROLL = "#pragma unroll\n  for (int kk = 0; kk < BK; kk += 4) {"
-BOUNDS = "__launch_bounds__(THREADS, 2)"
-STAGES = "constexpr int STAGES = 4;"
+STAGES = "constexpr int STAGES = 3;"
+SMALL = "constexpr int SMALL_GROUPS = 4;"
+GRAM_DOUBLE = "  if (OP == GRAM) {\n    float4 x0[TS]"
+GRAM_LOOP = "#pragma unroll 1\n    for (int kk = 0; kk < BK; kk += 8) {"
+REDUCE = "constexpr int REDUCE_WARPS = 32;"
+# "memory" keeps the compiler from moving a stamp across the loads, stores
+# and barriers around it
+STAMP = 'asm volatile("mov.u64 %0, %%globaltimer;" : "=l"({}) :: "memory");'
+# %globaltimer stamps of thread 0 of each block, from the block's start:
+# prologue copies issued, first chunk ready, products done, sums stored
+STAMPED = [
+    ('  asm volatile("griddepcontrol.launch_dependents;" ::: "memory");\n',
+     '  asm volatile("griddepcontrol.launch_dependents;" ::: "memory");\n'
+     '  unsigned long long t0, t1, t2 = 0, t3, t4;\n  ' + STAMP.format("t0") + "\n"),
+    ("  float acc[TS][TS];\n#pragma unroll\n  for (int q = 0; q < TS; ++q)\n",
+     "  " + STAMP.format("t1") + "\n  float acc[TS][TS];\n#pragma unroll\n  for (int q = 0; q < TS; ++q)\n"),
+    ("    cp_async_commit();\n    const float* st = smem + (i % STAGES) * stage_floats;\n",
+     "    cp_async_commit();\n    if (i == 0) " + STAMP.format("t2") + "\n"
+     "    const float* st = smem + (i % STAGES) * stage_floats;\n"),
+    ("  if (gridDim.y > 1) {\n    if (ac.x < 0) return;",
+     "  " + STAMP.format("t3") + "\n"
+     "  struct Stamp {\n    unsigned long long* p; unsigned long long t0, t1, t2, t3; int on;\n"
+     "    __device__ ~Stamp() {\n      unsigned long long t4;\n      " + STAMP.format("t4") + "\n"
+     "      if (on) { p[0] = t1 - t0; p[1] = t2 ? t2 - t0 : 0; p[2] = t3 - t0; p[3] = t4 - t0; }\n    }\n"
+     "  } stamp{g_stamps + 4 * (blockIdx.x + gridDim.x * blockIdx.y), t0, t1, t2, t3,\n"
+     "          threadIdx.x == 0 && blockIdx.x + gridDim.x * blockIdx.y < MAX_STAMPED};\n"
+     "  if (gridDim.y > 1) {\n    if (ac.x < 0) return;"),
+    ("template <int OP, int TS, int TG>\n__global__ void __launch_bounds__(MAX_THREADS)\npairwise_partial(",
+     "constexpr int MAX_STAMPED = 4096;\n__device__ unsigned long long g_stamps[4 * MAX_STAMPED];\n"
+     "template <int OP, int TS, int TG>\n__global__ void __launch_bounds__(MAX_THREADS)\npairwise_partial("),
+    ('extern "C" long long pairwise_scratch_floats(',
+     'extern "C" int read_stamps(unsigned long long* host, int blocks) {\n'
+     '  return (int)cudaMemcpyFromSymbol(host, g_stamps, 4 * sizeof(unsigned long long) *\n'
+     '                                   (blocks < MAX_STAMPED ? blocks : MAX_STAMPED));\n}\n\n'
+     'extern "C" long long pairwise_scratch_floats('),
+]
 VARIANTS = {
     "as built": [],
-    "k-step unroll 2": [(UNROLL, UNROLL.replace("unroll", "unroll 2"))],
-    "k-step unroll 1": [(UNROLL, UNROLL.replace("unroll", "unroll 1"))],
-    "launch bounds (256, 1)": [(BOUNDS, BOUNDS.replace("2)", "1)"))],
-    "launch bounds (256, 3)": [(BOUNDS, BOUNDS.replace("2)", "3)"))],
-    "3 stages, unroll 2": [(STAGES, STAGES.replace("4", "3")), (UNROLL, UNROLL.replace("unroll", "unroll 2"))],
+    "stamped": STAMPED,
+    "4 stages": [(STAGES, STAGES.replace("3", "4"))],
+    # the Gram's steps as L1's: each step's loads, then its products
+    "Gram single-buffered": [(GRAM_DOUBLE, GRAM_DOUBLE.replace("OP == GRAM", "OP < 0"))],
+    "Gram k loop unrolled": [(GRAM_LOOP, GRAM_LOOP.replace("unroll 1", "unroll"))],
+    # two groups a warp of the reduce pass at 249 splits
+    "reduce 16 warps a block": [(REDUCE, REDUCE.replace("32", "16"))],
+    # one-split calls in tiles as large as the split calls'
+    "4 × 4 tiles of 16 groups": [(SMALL, SMALL.replace("4", "16"))],
 }
-# (n, d) -> split plans to time beside ops.split_plan's: target blocks a call
-TARGETS = (264, 396, 528)
+PERS = (3, 4, 5, 8, 15)  # chunks a split, beside ops.split_plan's
 
 
 def build(name: str, edits) -> tuple[Path, str]:
@@ -63,15 +105,36 @@ def build(name: str, edits) -> tuple[Path, str]:
                                  stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
 
 
-def plan_for(n: int, d: int, target: int) -> tuple[int, int]:
+def plans_for(n: int, d: int) -> list[tuple[int, int]]:
+    """(splits, per): ops.split_plan's, and one a value of PERS that d allows."""
     from repro_torch.kernels.similarity import ops
 
-    n_tiles = -(-n // ops.TILE)
-    n_pairs = n_tiles * (n_tiles + 1) // 2
     n_chunks = -(-d // ops.BK)
-    splits = max(1, min(ops.MAX_SPLITS, -(-target // n_pairs), n_chunks // ops.MIN_CHUNKS))
-    per = -(-n_chunks // splits)
-    return -(-n_chunks // per), per
+    plans = {ops.split_plan(n, d)}
+    plans |= {(-(-n_chunks // per), per) for per in PERS if per < n_chunks}
+    return sorted(plans)
+
+
+def print_stamps(lib, torch, call, splits, ts, n):
+    """Medians over the blocks of one call, µs from each block's start."""
+    import re
+    import statistics
+
+    call()
+    torch.cuda.synchronize()
+    small = int(re.search(r"SMALL_GROUPS = (\d+);", SRC.read_text()).group(1))
+    groups = -(-n // ts)
+    n_tiles = -(-groups // (16 if ts == 8 else small))
+    blocks = n_tiles * (n_tiles + 1) // 2 * splits
+    buf = (ctypes.c_ulonglong * (4 * min(blocks, 4096)))()
+    lib.read_stamps.restype = ctypes.c_int
+    if lib.read_stamps(buf, blocks):
+        raise RuntimeError("read_stamps failed")
+    cols = [[buf[4 * b + k] / 1e3 for b in range(min(blocks, 4096))] for k in range(4)]
+    names = ("copies issued", "first chunk ready", "products done", "sums stored")
+    print("    stamps (median µs from the block's start): " + ", ".join(
+        f"{nm} {statistics.median(c):.3f}" for nm, c in zip(names, cols))
+        + f"; max sums stored {max(cols[3]):.3f}")
 
 
 def main() -> int:
@@ -95,21 +158,22 @@ def main() -> int:
                 print(f"ptxas [{name}] {fn}: {line}")
         libs[name] = ctypes.CDLL(str(lib))
         libs[name].pairwise_sums.restype = ctypes.c_int
-        libs[name].pairwise_sums.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+        libs[name].pairwise_sums.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+        libs[name].pairwise_scratch_floats.restype = ctypes.c_longlong
+        libs[name].pairwise_scratch_floats.argtypes = [ctypes.c_int] * 2
 
     gen = torch.Generator().manual_seed(0)
     for (n, d), op in SHAPES:
         G = (smoke.SIM_SCALE * torch.randn((n, d), generator=gen)).cuda()
         want = gram_ref(G) if op == "gram" else l1_ref(G)
-        plans = sorted({plan_for(n, d, t) for t in TARGETS})
         for name, lib in libs.items():
-            for splits, per in plans:
+            for (splits, per), ts in ((plan, ts) for plan in plans_for(n, d) for ts in (8, 4)):
                 out = torch.empty((n, n), device="cuda")
-                part = torch.empty((splits, n * (n + 1) // 2), device="cuda")
+                part = torch.empty((splits, lib.pairwise_scratch_floats(n, ts)), device="cuda")
 
                 def call():
                     err = lib.pairwise_sums(G.data_ptr(), part.data_ptr(), out.data_ptr(), n, d,
-                                            0 if op == "gram" else 1, splits, per,
+                                            0 if op == "gram" else 1, splits, per, ts,
                                             torch.cuda.current_stream().cuda_stream)
                     if err:
                         raise RuntimeError(f"{name}: CUDA error {err}")
@@ -123,11 +187,13 @@ def main() -> int:
                     e = float((out - want).abs().max())
                     ok = e <= smoke.SIM_ATOL
                 if not ok or not torch.equal(out, out.T):
-                    raise SystemExit(f"{name} {op} ({n}, {d}) plan {splits}×{per}: error {e}")
+                    raise SystemExit(f"{name} {op} ({n}, {d}) plan {splits}×{per} lane tile {ts}: error {e}")
                 queued = smoke.time_ms(torch, call, queued=True)
                 busy = smoke.device_ms(torch, call)
-                print(f"[{name}] {op} ({n}, {d}) {splits} splits of {per} chunks: queued "
+                print(f"[{name}] {op} ({n}, {d}) {splits} splits of {per} chunks, {ts} × {ts} a lane: queued "
                       f"{queued:.6f} ms a call, device-busy {busy:.6f} ms, error {e:.3e}")
+                if name == "stamped":
+                    print_stamps(lib, torch, call, splits, ts, n)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip())
     return 0

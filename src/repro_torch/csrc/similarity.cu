@@ -16,61 +16,73 @@
 // products. The Gram spends one FFMA on each, 6.0 µs at 67 TFLOP/s; L1
 // spends two FP32-pipe instructions (FADD a − b, then FADD acc + |·| with
 // the |·| as an operand modifier), 12.0 µs. Both are bounded by the FP32
-// pipe, so every design point below is about feeding it.
+// pipe. What feeds it is shared memory: an SM moves 128 bytes a clock from
+// it, one float to each lane of a warp, while its FP32 pipe takes four warp
+// instructions a clock; so a value a lane loads must feed four FFMA, and a
+// lane's register tile must be 8 × 8 (8 + 8 loads for 64 FFMA a column of
+// d). Warp-sized tiles of the triangle (16 × 16 and 16 × 32, 4 × 2 and
+// 4 × 4 a lane) were built and measured slower (PERF.md, Findings): their
+// loads, not their products, set the time.
 //
 // Design:
-// * The triangle, cut in 16 × 16 sub-tiles. Rows are cut in tiles of 64; a
-//   block takes a pair of row tiles (bi ≤ bj) and one split of d. Warp w
-//   owns sub-tile row w / 2 of the pair and sub-tile columns 2(w % 2) and
-//   2(w % 2) + 1, keeping only those on or above the diagonal whose first
-//   row and column are < n. So at n = 100 the kernel runs 28 sub-tiles,
-//   7,168 products a column of d where 5,050 are needed (1.42×); a warp with
-//   no sub-tile only copies. Entries below the diagonal of a diagonal
-//   sub-tile are computed and never written: the lower triangle is written
-//   as the mirror of the upper, so out == out.T bit for bit.
-// * Copies in flight. d is walked in chunks of 32 columns through a ring of
-//   STAGES shared-memory stages filled by `cp.async`: while chunk t is
-//   multiplied, chunks t + 1 … t + 3 are on their way. A diagonal pair
-//   copies one row tile, any other pair two. A copy is 16 bytes where
-//   d % 4 == 0 and G is 16-byte aligned (rows then are too), else 4 bytes;
-//   columns ≥ d and rows ≥ n arrive as zeros through the copy's source size.
-// * FMA-fed register tiles. Lane (ty, tx) = (lane / 8, lane % 8) of a warp
-//   holds rows 4q + ty (q < 4) of its sub-tile row and columns 8s + tx
-//   (s < 4, two per sub-tile) in 16 registers. Each step of 4 columns of d
-//   reads 4 + 4 float4 (LDS.128) for 64 FFMA, 8 FFMA a shared load (4 with
-//   one sub-tile). Shared rows are 36 floats (144 bytes), so the 4 rows a
-//   load touches, and the 8 columns, lie in distinct 16-byte bank groups:
-//   no bank conflicts. Each entry sums its k in ascending order.
+// * The triangle, cut in TS × TS blocks, one a lane. Rows are cut in groups
+//   of TS (8, or 4 for a one-split call, see below) and the groups in tiles
+//   of 16; a block takes a pair of tiles (bi ≤ bj) and one split of d, and
+//   its lane t owns task t: block (a, c) of the pair, a ≤ c on a diagonal
+//   pair, enumerated row by row, only groups that hold a row < n. At
+//   n = 100 that is 91 tasks of 8 × 8, 5,824 products a column of d where
+//   5,050 are needed (1.15×), in 3 warps. Entries below the diagonal of a
+//   diagonal block are computed and never written: the lower triangle is
+//   written as the mirror of the upper, so out == out.T bit for bit.
+// * Loads without bank conflicts. Lanes of a quarter-warp share a row group
+//   (one address, a broadcast) or hold neighbouring groups. A shared row is
+//   BK + 4 floats and each group of TS rows is skewed by one more 16-byte
+//   unit, so row TS·g + q of 4-column piece p lies in bank group
+//   (q + (TS + 1)·g + p) mod 8: neighbouring groups never meet.
+// * Copies in flight. d is walked in chunks of BK = 32 columns through a
+//   ring of STAGES shared-memory stages filled by `cp.async`: while chunk t
+//   is multiplied, chunks t + 1 … t + STAGES − 1 are on their way. A
+//   diagonal pair copies one row tile, any other pair two. A copy is 16
+//   bytes where d % 4 == 0 and G is 16-byte aligned (rows then are too),
+//   else 4 bytes; columns ≥ d and rows ≥ n arrive as zeros through the
+//   copy's source size. Each entry sums its k in ascending order.
 // * Split and reduce in a fixed order. d is split so that a call has about
-//   TARGET_BLOCKS blocks (kernels/similarity/ops.py `split_plan`, a function
-//   of (n, d) only, never of the card). With one split the partial pass
-//   writes both triangles of `out` itself: one launch (the sketched store's
-//   (100, 64) is one). Otherwise each split writes its i ≤ j sums, packed by
-//   row, to a (splits, n(n+1)/2) scratch, and a second kernel adds them in
-//   a fixed order, each group of GROUP splits in split order and then the
-//   group sums in group order, ((p₀ + … + p₇) + (p₈ + … + p₁₅)) + …, with a
-//   warp loading its group's partials at once (one round trip to L2). It
-//   is a programmatic dependent launch of the first (scheduled as the first
-//   starts, held by `griddepcontrol.wait`), and writes each sum and its
-//   mirror. No float atomics: the result is bit-reproducible.
+//   TARGET_BLOCKS blocks (kernels/similarity/ops.py `split_plan`, a
+//   function of (n, d) only, never of the card). With one split the partial
+//   pass writes both triangles of `out` itself, one launch; there the time
+//   is latency, not issue, so the lane tile is 4 × 4 (four times the lanes,
+//   each a quarter of the chain). Otherwise each split writes its i ≤ j
+//   sums, packed by row, to a (splits, n(n+1)/2) scratch, and a second
+//   kernel adds them in a fixed order, each group of GROUP splits in split
+//   order and then the group sums in group order, ((p₀ + … + p₇) + (p₈ +
+//   … + p₁₅)) + …, with a group's partials loaded at once (one round trip
+//   to L2). It is a programmatic dependent launch of the first (scheduled
+//   as the first starts, held by `griddepcontrol.wait`), and writes each
+//   sum and its mirror. No float atomics: the result is bit-reproducible.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int TILE = 64;              // rows of a row tile; a block takes a pair of them
-constexpr int SUB = 16;               // edge of a sub-tile, the grain of the triangle
-constexpr int SUBS = TILE / SUB;      // sub-tile rows (and columns) of a tile: 4
-constexpr int BK = 32;                // columns of d a chunk (a ring stage)
-constexpr int LD = BK + 4;            // floats a shared row: 144 bytes, conflict-free LDS.128
-constexpr int STAGES = 4;             // chunks in the ring
-constexpr int THREADS = 256;          // 8 warps: 4 sub-tile rows × 2 column halves
-constexpr int GROUP = 8;              // splits the reduction adds in order first
-constexpr int MAX_GROUPS = 16;        // 128 splits at most
+constexpr int BK = 32;              // columns of d a chunk (a ring stage)
+constexpr int LD = BK + 4;          // floats a shared row
+constexpr int TILE_GROUPS = 16;     // row groups of a tile at the 8 × 8 lane tile
+constexpr int SMALL_GROUPS = 4;     // row groups of a tile at the 4 × 4 lane tile (one split)
+constexpr int STAGES = 3;           // chunks in the ring
+constexpr int MAX_THREADS = TILE_GROUPS * TILE_GROUPS;  // the tasks of an off-diagonal pair
+constexpr int GROUP = 8;            // splits the reduction adds in order first
+constexpr int MAX_GROUPS = 64;      // 512 splits at most
+constexpr int REDUCE_WARPS = 32;   // a reduce block: one group a warp up to 256 splits
 constexpr int MAX_DEVICES = 64;
-constexpr int SMEM = STAGES * 2 * TILE * LD * (int)sizeof(float);  // 73,728 bytes
 
 enum Op { GRAM = 0, L1 = 1 };
+
+// floats of a row group of TS rows in shared memory: skewed by one 16-byte unit
+template <int TS>
+__host__ __device__ constexpr int group_floats() { return TS * LD + 4; }
+
+template <int TS>
+__device__ __forceinline__ int row_offset(int r) { return (r / TS) * group_floats<TS>() + (r % TS) * LD; }
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -97,23 +109,26 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// Request rows [r0, r0 + nr) × columns [k0, k0 + BK) of G into `dst` (nr
-// shared rows of LD floats). Rows ≥ n and columns ≥ d arrive as zeros.
+// Request rows [r0, r0 + nr) × columns [k0, k0 + BK) of G into the tile
+// `dst`. Rows ≥ n and columns ≥ d arrive as zeros.
+template <int TS>
 __device__ __forceinline__ void issue_rows(float* dst, const float* __restrict__ G, int r0, int nr,
                                            int n, int d, int k0, bool vec) {
   if (vec) {  // d % 4 == 0: a 4-column piece lies wholly inside or outside d
-    for (int e = threadIdx.x; e < nr * (BK / 4); e += THREADS) {
+    for (int e = threadIdx.x; e < nr * (BK / 4); e += blockDim.x) {
       const int r = e / (BK / 4);
       const int col = k0 + 4 * (e % (BK / 4));
       const bool in = r0 + r < n && col < d;
-      cp_async16(dst + r * LD + (col - k0), in ? G + (size_t)(r0 + r) * d + col : G, in ? 16 : 0);
+      cp_async16(dst + row_offset<TS>(r) + (col - k0), in ? G + (size_t)(r0 + r) * d + col : G,
+                 in ? 16 : 0);
     }
   } else {
-    for (int e = threadIdx.x; e < nr * BK; e += THREADS) {
+    for (int e = threadIdx.x; e < nr * BK; e += blockDim.x) {
       const int r = e / BK;
       const int col = k0 + e % BK;
       const bool in = r0 + r < n && col < d;
-      cp_async4(dst + r * LD + (col - k0), in ? G + (size_t)(r0 + r) * d + col : G, in ? 4 : 0);
+      cp_async4(dst + row_offset<TS>(r) + (col - k0), in ? G + (size_t)(r0 + r) * d + col : G,
+                in ? 4 : 0);
     }
   }
 }
@@ -124,80 +139,125 @@ __device__ __forceinline__ float step(float acc, float a, float b) {
   return acc + fabsf(a - b);
 }
 
-// One chunk's products for a warp's NS column slots (two a sub-tile): `as`
-// points at row ty of its sub-tile row, `bs` at column tx of its first
-// sub-tile column. Four columns of d a step, each in ascending order.
-template <int OP, int NS>
-__device__ __forceinline__ void chunk_products(float (&acc)[4][4], const float* as, const float* bs) {
+template <int E>
+__device__ __forceinline__ float part(float4 v) {
+  return E == 0 ? v.x : E == 1 ? v.y : E == 2 ? v.z : v.w;
+}
+
+// Column E of a step into every entry of the block: the TS·TS sums are
+// independent, so an entry's next product comes TS·TS instructions later.
+template <int OP, int TS, int E>
+__device__ __forceinline__ void column(float (&acc)[TS][TS], const float4 (&x)[TS], const float4 (&y)[TS]) {
 #pragma unroll
-  for (int kk = 0; kk < BK; kk += 4) {
-    float4 a[4], b[NS];
+  for (int r = 0; r < TS; ++r)
 #pragma unroll
-    for (int q = 0; q < 4; ++q) a[q] = *reinterpret_cast<const float4*>(as + 4 * q * LD + kk);
+    for (int q = 0; q < TS; ++q) acc[q][r] = step<OP>(acc[q][r], part<E>(x[q]), part<E>(y[r]));
+}
+
+template <int TS>
+__device__ __forceinline__ void load_step(float4 (&x)[TS], float4 (&y)[TS], const float* as, const float* bs,
+                                          int kk) {
 #pragma unroll
-    for (int s = 0; s < NS; ++s) b[s] = *reinterpret_cast<const float4*>(bs + 8 * s * LD + kk);
+  for (int q = 0; q < TS; ++q) x[q] = *reinterpret_cast<const float4*>(as + q * LD + kk);
 #pragma unroll
-    for (int q = 0; q < 4; ++q)
-#pragma unroll
-      for (int s = 0; s < NS; ++s) {
-        float v = acc[q][s];
-        v = step<OP>(v, a[q].x, b[s].x);
-        v = step<OP>(v, a[q].y, b[s].y);
-        v = step<OP>(v, a[q].z, b[s].z);
-        v = step<OP>(v, a[q].w, b[s].w);
-        acc[q][s] = v;
-      }
+  for (int r = 0; r < TS; ++r) y[r] = *reinterpret_cast<const float4*>(bs + r * LD + kk);
+}
+
+template <int OP, int TS>
+__device__ __forceinline__ void step_products(float (&acc)[TS][TS], const float4 (&x)[TS], const float4 (&y)[TS]) {
+  column<OP, TS, 0>(acc, x, y);
+  column<OP, TS, 1>(acc, x, y);
+  column<OP, TS, 2>(acc, x, y);
+  column<OP, TS, 3>(acc, x, y);
+}
+
+// One chunk's products of a lane's TS × TS block: `as` and `bs` point at
+// the first row of its row group and of its column group. Four columns of
+// d a step, TS + TS loads of 16 bytes for TS·TS·4 products, each entry's k
+// in ascending order. The Gram keeps the next step's loads in flight during
+// this step's products; L1, with two instructions a product, hides them
+// without, and leaves the registers that would take free.
+template <int OP, int TS>
+__device__ __forceinline__ void chunk_products(float (&acc)[TS][TS], const float* as, const float* bs) {
+  if (OP == GRAM) {
+    float4 x0[TS], y0[TS], x1[TS], y1[TS];
+    load_step<TS>(x0, y0, as, bs, 0);
+#pragma unroll 1
+    for (int kk = 0; kk < BK; kk += 8) {
+      load_step<TS>(x1, y1, as, bs, kk + 4);
+      step_products<OP, TS>(acc, x0, y0);
+      if (kk + 8 < BK) load_step<TS>(x0, y0, as, bs, kk + 8);
+      step_products<OP, TS>(acc, x1, y1);
+    }
+  } else {
+    float4 x[TS], y[TS];
+#pragma unroll 1
+    for (int kk = 0; kk < BK; kk += 4) {
+      load_step<TS>(x, y, as, bs, kk);
+      step_products<OP, TS>(acc, x, y);
+    }
   }
 }
 
-// Offset of entry (i, j), i ≤ j, in the upper triangle packed by row.
-__device__ __forceinline__ size_t tri(int i, int j, int n) {
-  return (size_t)i * n - (size_t)i * (i - 1) / 2 + (size_t)(j - i);
-}
-
-template <int OP>
-__global__ void __launch_bounds__(THREADS, 2)
-pairwise_partial(const float* __restrict__ G, float* __restrict__ partial, float* __restrict__ out,
-                 int n, int d, int n_tiles, int per, int vec) {
-  extern __shared__ __align__(16) float smem[];  // STAGES × (row tile, column tile) × TILE × LD
-
-  // the reduce pass may be scheduled now; it waits for this grid's results
-  asm volatile("griddepcontrol.launch_dependents;" ::: "memory");
-
-  // tile pair p -> (bi, bj) with bi <= bj, enumerated row by row
-  int p = blockIdx.x;
+// Tile pair p -> (bi, bj) with bi <= bj, enumerated row by row.
+__device__ __forceinline__ int2 pair_of(int p, int n_tiles) {
   int bi = 0;
   while (p >= n_tiles - bi) {
     p -= n_tiles - bi;
     ++bi;
   }
-  const int bj = bi + p;
-  const bool diag = bi == bj;
-  const int i0 = bi * TILE;
-  const int j0 = bj * TILE;
-  // rows of each tile to copy: its sub-tile rows that hold a row < n
-  const int ni = min(TILE, (n - i0 + SUB - 1) / SUB * SUB);
-  const int nj = min(TILE, (n - j0 + SUB - 1) / SUB * SUB);
+  return make_int2(bi, bi + p);
+}
+
+// Lane t's task in a pair of tiles with ga and gc row groups that hold a
+// row < n: block (a, c), a ≤ c on a diagonal pair, enumerated row by row;
+// a = −1 where the lane has none.
+__device__ __forceinline__ int2 task_of(int t, bool diag, int ga, int gc) {
+  if (!diag) return t < ga * gc ? make_int2(t / gc, t % gc) : make_int2(-1, 0);
+  for (int a = 0; a < ga; ++a) {
+    if (t < ga - a) return make_int2(a, a + t);
+    t -= ga - a;
+  }
+  return make_int2(-1, 0);
+}
+
+// Row groups of tile b (of tg groups of ts rows) that hold a row < n.
+__device__ __forceinline__ int groups_in(int b, int ts, int tg, int n) {
+  return min(tg, (n - b * ts * tg + ts - 1) / ts);
+}
+
+// Grid (tile pairs, splits), a lane a task. `tile_floats` is the shared
+// memory of one tile of a stage (its row groups that hold a row < n, at
+// most TG). With one split the sums go to `out`, else to
+// `partial` as (splits, tile pairs, TS·TS, lanes): entry (q, r) of every
+// lane's block side by side, so each store of a warp is 128 contiguous
+// bytes.
+template <int OP, int TS, int TG>
+__global__ void __launch_bounds__(MAX_THREADS)
+pairwise_partial(const float* __restrict__ G, float* __restrict__ partial, float* __restrict__ out,
+                 int n, int d, int n_tiles, int per, int vec, int tile_floats) {
+  extern __shared__ __align__(16) float smem[];  // STAGES × (row tile[, column tile])
+
+  // the reduce pass may be scheduled now; it waits for this grid's results
+  asm volatile("griddepcontrol.launch_dependents;" ::: "memory");
+
+  const int2 bij = pair_of(blockIdx.x, n_tiles);
+  const bool diag = bij.x == bij.y;
+  const int i0 = bij.x * TS * TG;
+  const int j0 = bij.y * TS * TG;
+  const int ga = groups_in(bij.x, TS, TG, n);
+  const int gc = groups_in(bij.y, TS, TG, n);
+  const int stage_floats = (n_tiles > 1 ? 2 : 1) * tile_floats;
+  const int2 ac = task_of(threadIdx.x, diag, ga, gc);  // this lane's block (a, c)
 
   const int n_chunks = (d + BK - 1) / BK;
   const int c_begin = blockIdx.y * per;
   const int nc = max(0, min(per, n_chunks - c_begin));
 
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int a = warp / 2;  // sub-tile row
-  const int h = warp % 2;  // column half: sub-tile columns 2h, 2h + 1
-  const int c0 = max(2 * h, diag ? a : 0);
-  const int c1 = min(2 * h + 2, (nj + SUB - 1) / SUB);
-  const int ns = SUB * a < ni ? 2 * max(0, c1 - c0) : 0;  // column slots: 0, 2 or 4
-  const int ty = lane / 8;
-  const int tx = lane % 8;
-
-  auto stage = [&](int s) { return smem + s * 2 * TILE * LD; };
-  auto issue = [&](int s, int c) {
-    float* st = stage(s);
-    issue_rows(st, G, i0, ni, n, d, c * BK, vec != 0);
-    if (!diag) issue_rows(st + TILE * LD, G, j0, nj, n, d, c * BK, vec != 0);
+  auto issue = [&](int s, int chunk) {
+    float* st = smem + s * stage_floats;
+    issue_rows<TS>(st, G, i0, ga * TS, n, d, chunk * BK, vec != 0);
+    if (!diag) issue_rows<TS>(st + tile_floats, G, j0, gc * TS, n, d, chunk * BK, vec != 0);
   };
 
 #pragma unroll
@@ -206,40 +266,42 @@ pairwise_partial(const float* __restrict__ G, float* __restrict__ partial, float
     cp_async_commit();
   }
 
-  float acc[4][4];
+  float acc[TS][TS];
 #pragma unroll
-  for (int q = 0; q < 4; ++q)
+  for (int q = 0; q < TS; ++q)
 #pragma unroll
-    for (int s = 0; s < 4; ++s) acc[q][s] = 0.f;
+    for (int r = 0; r < TS; ++r) acc[q][r] = 0.f;
 
   for (int i = 0; i < nc; ++i) {
     cp_async_wait<STAGES - 2>();  // chunk i has landed
     __syncthreads();              // for every thread; and chunk i − 1's stage is free
     if (i + STAGES - 1 < nc) issue((i + STAGES - 1) % STAGES, c_begin + i + STAGES - 1);
     cp_async_commit();
-    const float* st = stage(i % STAGES);
-    const float* as = st + (SUB * a + ty) * LD;
-    const float* bs = (diag ? st : st + TILE * LD) + (SUB * c0 + tx) * LD;
-    if (ns == 4) {  // warp-uniform
-      chunk_products<OP, 4>(acc, as, bs);
-    } else if (ns == 2) {
-      chunk_products<OP, 2>(acc, as, bs);
-    }
+    const float* st = smem + (i % STAGES) * stage_floats;
+    if (ac.x >= 0)
+      chunk_products<OP, TS>(acc, st + ac.x * group_floats<TS>(),
+                             (diag ? st : st + tile_floats) + ac.y * group_floats<TS>());
   }
 
+  if (gridDim.y > 1) {
+    if (ac.x < 0) return;
+    float* dst = partial + ((size_t)blockIdx.y * gridDim.x + blockIdx.x) * (TS * TS) * blockDim.x + threadIdx.x;
 #pragma unroll
-  for (int q = 0; q < 4; ++q) {
-    const int row = i0 + SUB * a + 4 * q + ty;
+    for (int q = 0; q < TS; ++q)
 #pragma unroll
-    for (int s = 0; s < 4; ++s) {
-      const int col = j0 + SUB * c0 + 8 * s + tx;
-      if (s < ns && row < n && col < n && row <= col) {
-        if (gridDim.y == 1) {
-          out[(size_t)row * n + col] = acc[q][s];
-          out[(size_t)col * n + row] = acc[q][s];
-        } else {
-          partial[(size_t)blockIdx.y * ((size_t)n * (n + 1) / 2) + tri(row, col, n)] = acc[q][s];
-        }
+      for (int r = 0; r < TS; ++r) dst[(size_t)(q * TS + r) * blockDim.x] = acc[q][r];
+    return;
+  }
+  if (ac.x < 0) return;
+#pragma unroll
+  for (int q = 0; q < TS; ++q) {
+    const int row = i0 + TS * ac.x + q;
+#pragma unroll
+    for (int r = 0; r < TS; ++r) {
+      const int col = j0 + TS * ac.y + r;
+      if (row <= col && col < n) {
+        out[(size_t)row * n + col] = acc[q][r];
+        out[(size_t)col * n + row] = acc[q][r];
       }
     }
   }
@@ -247,91 +309,136 @@ pairwise_partial(const float* __restrict__ G, float* __restrict__ partial, float
 
 // out[i, j] = out[j, i] = ((p₀ + … + p₇) + (p₈ + … + p₁₅)) + … over the
 // split partials p of entry (i, j), i ≤ j; the last group may hold fewer
-// than GROUP. A block takes 32 consecutive packed entries: warp g adds the
-// partials of group g with all its loads in flight, and warp 0 adds the
-// group sums in group order.
-__global__ void __launch_bounds__(32 * MAX_GROUPS)
-pairwise_reduce(const float* __restrict__ partial, float* __restrict__ out, int n, int splits) {
+// than GROUP. A block takes 32 consecutive partial entries (one (q, r) of
+// 32 lanes of one tile pair): its warp w adds the partials of groups w,
+// w + warps, … (a group's loads all in flight), and warp 0 adds the group
+// sums in group order and writes the entries that lie in the i ≤ j
+// triangle of out.
+__global__ void __launch_bounds__(32 * REDUCE_WARPS)
+pairwise_reduce(const float* __restrict__ partial, float* __restrict__ out, int n, int splits, int ts,
+                int tg, int n_tiles, int lanes) {
   __shared__ float sums[MAX_GROUPS][32];
   const int lane = threadIdx.x % 32;
-  const int g = threadIdx.x / 32;
-  const int groups = blockDim.x / 32;
-  const size_t T = (size_t)n * (n + 1) / 2;
+  const int w = threadIdx.x / 32;
+  const int warps = blockDim.x / 32;
+  const int groups = (splits + GROUP - 1) / GROUP;
+  const size_t per_split = (size_t)n_tiles * (n_tiles + 1) / 2 * ts * ts * lanes;
   const size_t t = (size_t)blockIdx.x * 32 + lane;
+  const int l = (int)(t % lanes);
+  const int e = (int)(t / lanes % (ts * ts));
+  const int2 bij = pair_of((int)(t / lanes / (ts * ts)), n_tiles);
+  const int2 ac = task_of(l, bij.x == bij.y, groups_in(bij.x, ts, tg, n), groups_in(bij.y, ts, tg, n));
+  const int i = bij.x * ts * tg + ts * ac.x + e / ts;
+  const int j = bij.y * ts * tg + ts * ac.y + e % ts;
+  const bool in = ac.x >= 0 && i <= j && j < n;
   asm volatile("griddepcontrol.wait;" ::: "memory");  // the partial pass has finished
-  if (t < T) {
-    float v[GROUP];
+  if (in) {
+    for (int g = w; g < groups; g += warps) {
+      float v[GROUP];
 #pragma unroll
-    for (int q = 0; q < GROUP; ++q)
-      v[q] = g * GROUP + q < splits ? __ldg(partial + (size_t)(g * GROUP + q) * T + t) : 0.f;
-    float s = v[0];
+      for (int q = 0; q < GROUP; ++q)
+        v[q] = g * GROUP + q < splits ? __ldg(partial + (size_t)(g * GROUP + q) * per_split + t) : 0.f;
+      float s = v[0];
 #pragma unroll
-    for (int q = 1; q < GROUP; ++q)
-      if (g * GROUP + q < splits) s += v[q];
-    sums[g][lane] = s;
+      for (int q = 1; q < GROUP; ++q)
+        if (g * GROUP + q < splits) s += v[q];
+      sums[g][lane] = s;
+    }
   }
   __syncthreads();
-  if (g == 0 && t < T) {
+  if (w == 0 && in) {
     float s = sums[0][lane];
-    for (int q = 1; q < groups; ++q) s += sums[q][lane];
-    // row i of entry t: the first i with tri(i + 1, i + 1) > t
-    const float b = 2.f * n + 1.f;
-    int i = (int)((b - sqrtf(fmaxf(0.f, b * b - 8.f * (float)t))) * 0.5f);
-    i = max(0, min(i, n - 1));
-    while (i > 0 && tri(i, i, n) > t) --i;
-    while (i + 1 < n && tri(i + 1, i + 1, n) <= t) ++i;
-    const int j = i + (int)(t - tri(i, i, n));
+    for (int g = 1; g < groups; ++g) s += sums[g][lane];
     out[(size_t)i * n + j] = s;
     out[(size_t)j * n + i] = s;
   }
 }
 
+// Row groups a tile at lane tile ts.
+int tile_groups_for(int ts) { return ts == 8 ? TILE_GROUPS : SMALL_GROUPS; }
+
+// Tiles, row groups a tile holds in shared memory, and lanes a block of a
+// call with lane tile ts.
+void launch_shape(int n, int ts, int* n_tiles, int* tile_groups, int* lanes) {
+  const int tg = tile_groups_for(ts);
+  const int groups = (n + ts - 1) / ts;
+  *n_tiles = (groups + tg - 1) / tg;
+  *tile_groups = groups < tg ? groups : tg;
+  // one lane a task: the triangle of a lone tile, else a full pair
+  const int tasks = *n_tiles > 1 ? tg * tg : *tile_groups * (*tile_groups + 1) / 2;
+  *lanes = (tasks + 31) / 32 * 32;
+}
+
+template <int OP, int TS, int TG>
+cudaError_t launch_partial(const float* G, float* partial, float* out, int n, int d, int splits, int per,
+                           cudaStream_t s) {
+  // the limit of dynamic shared memory set so far, per device (48 KB by default)
+  static int smem_set[MAX_DEVICES] = {};
+  int n_tiles, tile_groups, lanes;
+  launch_shape(n, TS, &n_tiles, &tile_groups, &lanes);
+  const int tile_floats = tile_groups * group_floats<TS>();
+  const int smem = STAGES * (n_tiles > 1 ? 2 : 1) * tile_floats * (int)sizeof(float);
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev >= MAX_DEVICES) return cudaErrorInvalidDevice;
+  if (smem > 48 * 1024 && smem > smem_set[dev]) {
+    err = cudaFuncSetAttribute(pairwise_partial<OP, TS, TG>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               smem);
+    if (err != cudaSuccess) return err;
+    smem_set[dev] = smem;
+  }
+  const int vec = (d % 4 == 0) && (reinterpret_cast<uintptr_t>(G) % 16 == 0);
+  const dim3 grid(n_tiles * (n_tiles + 1) / 2, splits);
+  pairwise_partial<OP, TS, TG><<<grid, lanes, smem, s>>>(G, partial, out, n, d, n_tiles, per, vec, tile_floats);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // G (n, d) f32 -> out (n, n) f32. Split s sums chunks [s·per, (s+1)·per) of
-// BK columns; with splits > 1, `partial` is a (splits, n(n+1)/2) f32 scratch
-// the caller allocates (unused with one split), and splits ≤ GROUP ·
-// MAX_GROUPS. `op` is 0 for the Gram, 1 for L1. Returns the cudaError_t of
-// the launches (0 = success).
+// BK columns; with splits > 1, `partial` is a f32 scratch of
+// pairwise_scratch_floats(n, ts) a split that the caller allocates (unused
+// with one split), and splits ≤ GROUP · MAX_GROUPS. `op` is 0 for the Gram, 1 for L1; `ts` is the lane tile, 8 or
+// 4. Returns the cudaError_t of the launches (0 = success).
 extern "C" int pairwise_sums(const float* G, float* partial, float* out, int n, int d, int op,
-                             int splits, int per, void* stream) {
-  if (n < 1 || d < 1 || per < 1 || splits < 1 || splits > GROUP * MAX_GROUPS || (op != GRAM && op != L1))
+                             int splits, int per, int ts, void* stream) {
+  if (n < 1 || d < 1 || per < 1 || splits < 1 || splits > GROUP * MAX_GROUPS || (op != GRAM && op != L1) ||
+      (ts != 4 && ts != 8))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  // whether the limit of dynamic shared memory is set, per device and op
-  static bool smem_set[MAX_DEVICES][2] = {};
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return (int)err;
-  if (dev >= MAX_DEVICES) return (int)cudaErrorInvalidDevice;
-  if (!smem_set[dev][op]) {
-    err = cudaFuncSetAttribute(op == GRAM ? pairwise_partial<GRAM> : pairwise_partial<L1>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
-    if (err != cudaSuccess) return (int)err;
-    smem_set[dev][op] = true;
-  }
-  const int vec = (d % 4 == 0) && (reinterpret_cast<uintptr_t>(G) % 16 == 0);
-  const int n_tiles = (n + TILE - 1) / TILE;
-  const dim3 grid(n_tiles * (n_tiles + 1) / 2, splits);
+  cudaError_t err;
   if (op == GRAM)
-    pairwise_partial<GRAM><<<grid, THREADS, SMEM, s>>>(G, partial, out, n, d, n_tiles, per, vec);
+    err = ts == 8 ? launch_partial<GRAM, 8, TILE_GROUPS>(G, partial, out, n, d, splits, per, s)
+                  : launch_partial<GRAM, 4, SMALL_GROUPS>(G, partial, out, n, d, splits, per, s);
   else
-    pairwise_partial<L1><<<grid, THREADS, SMEM, s>>>(G, partial, out, n, d, n_tiles, per, vec);
-  err = cudaGetLastError();
+    err = ts == 8 ? launch_partial<L1, 8, TILE_GROUPS>(G, partial, out, n, d, splits, per, s)
+                  : launch_partial<L1, 4, SMALL_GROUPS>(G, partial, out, n, d, splits, per, s);
   if (err != cudaSuccess || splits == 1) return (int)err;
-  const size_t T = (size_t)n * (n + 1) / 2;
+  int n_tiles, tile_groups, lanes;
+  launch_shape(n, ts, &n_tiles, &tile_groups, &lanes);
+  const size_t per_split = (size_t)n_tiles * (n_tiles + 1) / 2 * ts * ts * lanes;
+  const int groups = (splits + GROUP - 1) / GROUP;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((unsigned)((T + 31) / 32), 1, 1);
-  cfg.blockDim = dim3(32 * ((splits + GROUP - 1) / GROUP), 1, 1);
+  cfg.gridDim = dim3((unsigned)(per_split / 32), 1, 1);
+  cfg.blockDim = dim3(32 * (groups < REDUCE_WARPS ? groups : REDUCE_WARPS), 1, 1);
   cfg.stream = s;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
   attr[0].val.programmaticStreamSerializationAllowed = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, pairwise_reduce, (const float*)partial, out, n, splits);
+  err = cudaLaunchKernelEx(&cfg, pairwise_reduce, (const float*)partial, out, n, splits, ts,
+                           tile_groups_for(ts), n_tiles, lanes);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
+}
+
+// Floats of the partial-sum scratch a split takes at lane tile ts.
+extern "C" long long pairwise_scratch_floats(int n, int ts) {
+  int n_tiles, tile_groups, lanes;
+  launch_shape(n, ts, &n_tiles, &tile_groups, &lanes);
+  return (long long)n_tiles * (n_tiles + 1) / 2 * ts * ts * lanes;
 }
 
 extern "C" const char* cuda_error_string(int err) {

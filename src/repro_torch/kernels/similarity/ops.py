@@ -31,14 +31,14 @@ from repro_torch.kernels.similarity.ref import (
 #: d above which the "auto" backend takes the streamed entry point.
 STREAM_D_THRESHOLD = 8192
 
-#: As in ``csrc/similarity.cu``: a block takes a pair of TILE-row tiles,
-#: walks d in chunks of BK columns (a ragged last chunk is zero-filled), and
-#: its warps skip the 16 × 16 sub-tiles below the diagonal or past n.
-TILE = 64
+#: As in ``csrc/similarity.cu``: d is walked in chunks of BK columns (a
+#: ragged last chunk is zero-filled); a lane owns an 8 × 8 block of the
+#: triangle (4 × 4 in a one-split call, see :func:`lane_tile`), and a block
+#: a pair of TILE-row tiles of them.
+TILE = 128
 BK = 32
-#: Blocks the d-split aims for: two per SM of a 132-SM H100. A constant,
-#: not the card's SM count, so the split (and the bits) are the same on
-#: every card.
+#: Blocks the d-split aims for. A constant, not the card's SM count, so the
+#: split (and the bits) are the same on every card.
 TARGET_BLOCKS = 264
 #: Chunks a split takes at least: below 2·MIN_CHUNKS chunks a call is one
 #: split and one launch.
@@ -46,7 +46,7 @@ MIN_CHUNKS = 4
 #: The reduction adds each group of GROUP splits in split order, then the
 #: group sums in group order; at most MAX_SPLITS splits.
 GROUP = 8
-MAX_SPLITS = 128
+MAX_SPLITS = 512
 
 _OPS = {"gram": 0, "l1": 1}
 
@@ -72,12 +72,21 @@ def split_plan(n: int, d: int) -> tuple[int, int]:
     return -(-n_chunks // per), per
 
 
+def lane_tile(splits: int) -> int:
+    """Rows and columns of the block of the triangle one lane owns: 8, or 4
+    in a one-split call, whose time is latency rather than issue (four
+    times the lanes, each with a quarter of the chain)."""
+    return 4 if splits == 1 else 8
+
+
 @functools.cache
 def _lib():
     """The similarity library, with its C signature bound once."""
     lib = _build.load("similarity")
     lib.pairwise_sums.restype = ctypes.c_int
-    lib.pairwise_sums.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    lib.pairwise_sums.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    lib.pairwise_scratch_floats.restype = ctypes.c_longlong
+    lib.pairwise_scratch_floats.argtypes = [ctypes.c_int] * 2
     return lib
 
 
@@ -97,11 +106,12 @@ def pairwise_sums(G: torch.Tensor, op: str) -> torch.Tensor:
         raise ValueError("G must be contiguous")
     n, d = G.shape
     splits, per = split_plan(n, d)
-    out = torch.empty((n, n), dtype=torch.float32, device=G.device)
-    # the packed i <= j sums of each split; one split writes `out` itself
-    partial = (torch.empty((splits, n * (n + 1) // 2), dtype=torch.float32, device=G.device)
-               if splits > 1 else None)
+    ts = lane_tile(splits)
     lib = _lib()
+    out = torch.empty((n, n), dtype=torch.float32, device=G.device)
+    # each split's sums, lane by lane; one split writes `out` itself
+    partial = (torch.empty((splits, lib.pairwise_scratch_floats(n, ts)), dtype=torch.float32,
+                           device=G.device) if splits > 1 else None)
     err = lib.pairwise_sums(
         G.data_ptr(),
         None if partial is None else partial.data_ptr(),
@@ -111,6 +121,7 @@ def pairwise_sums(G: torch.Tensor, op: str) -> torch.Tensor:
         _OPS[op],
         splits,
         per,
+        ts,
         torch.cuda.current_stream(G.device).cuda_stream,
     )
     _build.check(lib, err, f"similarity kernel ({op})")

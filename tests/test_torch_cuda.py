@@ -27,7 +27,14 @@ def cuda():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("n,d", [(13, 101), (100, 39760), (100, 64), (257, 8193), (1, 1)])
+# the gates' shapes; n on both sides of the 8- and 16-row groups and of the
+# 128-row tile (16, 17, 33, 129); d % 4 != 0 with several splits (1001,
+# 4099); one split at n = 33 and at the sketched store's (100, 64)
+SIM_SHAPES = [(13, 101), (100, 39760), (100, 64), (257, 8193), (1, 1), (16, 256), (17, 1001),
+              (33, 100), (129, 4099)]
+
+
+@pytest.mark.parametrize("n,d", SIM_SHAPES)
 @pytest.mark.parametrize("op", ["gram", "l1"])
 def test_similarity_kernel_matches_plain(cuda, op, n, d):
     # update scale, as in tests/test_torch_similarity.py
@@ -57,6 +64,36 @@ def test_aggregate_kernel_matches_plain(cuda, k, p):
     want = aggregate_ref(U, w)
     torch.cuda.synchronize()
     np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), rtol=2e-5, atol=2e-5)
+
+
+def _device_kernels(fn, reps=20):
+    """Names of the device events torch.profiler keeps of ``reps`` calls."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):  # the profiler on the card sometimes keeps no event of a window
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        events = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        if events:
+            return events
+    return []
+
+
+@pytest.mark.parametrize("n,d,kernels", [(100, 39760, ("pairwise_partial", "pairwise_reduce")),
+                                         (100, 64, ("pairwise_partial",))])
+def test_similarity_kernel_launches_a_call(cuda, n, d, kernels):
+    """Two device kernels a call where d is split, one where it is not, and
+    nothing else (no copy, no fill)."""
+    G = _x(n, d).to(cuda)
+    events = _device_kernels(lambda: ops.pairwise_sums(G, "gram"))
+    # the profiler may drop a launch or two of a window it keeps
+    for name in kernels:
+        assert 18 <= sum(name in e for e in events) <= 20
+    assert all(any(name in e for name in kernels) for e in events)
 
 
 def test_launch_counters_count_kernel_launches(cuda):
