@@ -11,13 +11,19 @@ Phases, one line (or a few) each; any failure raises and exits non-zero:
    ``csrc/sketch.cu`` and ``csrc/flash_attention.cu`` for ``sm_90a`` from
    the checkout (all ``nvcc`` in parallel) and print the seconds it took,
    each kernel's ptxas report (registers, spills; a spill in the bf16 flash
-   kernel fails the run) and the count of ``HMMA`` (tensor-core)
-   instructions of each flash kernel in ``cuobjdump -sass`` of the built
-   library (the bf16 kernel must have some);
+   kernel or a similarity kernel fails the run), the FP32 and load
+   instructions of each similarity kernel in ``cuobjdump -sass`` (an L1
+   kernel with an FP32 instruction besides FADD fails it) and the count of
+   ``HMMA`` (tensor-core) instructions of each flash kernel (the bf16
+   kernel must have some);
 2. kernels — hold each kernel against its plain PyTorch version on the card
    at the main path's shapes (Gram: |got − want| ≤ 1e-5·‖g_i‖·‖g_j‖, the
    error on the scale of the entries; L1: atol 1e-4 on entries of order
-   0.1–50; aggregate: rtol and atol 2e-5; SRP: |got − want| ≤
+   0.1–50; both bit-reproducible and symmetric bit for bit, the sketched
+   store's (100, 64) in one split, and the device kernels of a call in a
+   profiler window: partial and reduce pass once each at (100, 39,760),
+   the partial pass alone at (100, 64); aggregate: rtol and atol 2e-5; SRP:
+   |got − want| ≤
    1e-5·‖x_i‖·‖S_:,j‖ with ‖S_:,j‖ = √(d/d′), its signs bit-equal to the
    plain version's, bit-reproducible and independent of the rows it is
    batched with, calls at alternating shapes back to back each bit-equal
@@ -65,7 +71,9 @@ Phases, one line (or a few) each; any failure raises and exits non-zero:
    ``scaled_dot_product_attention`` in turns (kernel, library, library,
    kernel), also with the queue filled ahead of the events, and the
    TFLOP/s each reaches; the SRP kernel and ``torch.matmul(X, S)`` in
-   turns at c = 10 and 64, with the device time of each kernel they launch.
+   turns at c = 10 and 64, and the similarity kernel and ``G @ G.T`` /
+   ``torch.cdist(G, G, p=1)`` in turns at (100, 39,760) and (100, 64), with
+   the device time of each kernel they launch.
 
 The last lines are the card's name and power limit (nvidia-smi), a JSON
 object with one entry per kernel and shape, and ``{"ok": true, "device": ...}``.

@@ -16,24 +16,26 @@
 // products. The Gram spends one FFMA on each, 6.0 µs at 67 TFLOP/s; L1
 // spends two FP32-pipe instructions (FADD a − b, then FADD acc + |·| with
 // the |·| as an operand modifier), 12.0 µs. Both are bounded by the FP32
-// pipe. What feeds it is shared memory: an SM moves 128 bytes a clock from
-// it, one float to each lane of a warp, while its FP32 pipe takes four warp
-// instructions a clock; so a value a lane loads must feed four FFMA, and a
-// lane's register tile must be 8 × 8 (8 + 8 loads for 64 FFMA a column of
-// d). Warp-sized tiles of the triangle (16 × 16 and 16 × 32, 4 × 2 and
-// 4 × 4 a lane) were built and measured slower (PERF.md, Findings): their
-// loads, not their products, set the time.
+// pipe. What feeds it is shared memory: a warp's LDS.128 takes an SM's
+// shared-memory pipe 4 clocks (2 where the warp reads at most 4 distinct
+// addresses), one 16-byte value to each lane, while the FP32 pipe takes 4
+// warp instructions a clock. So a lane's register tile must be large:
+// 8 × 8 entries take 8 + 8 loads for 64 FFMA a column of d. Tiles of the
+// triangle a warp wide (16 × 16 and 16 × 32, 4 × 2 and 4 × 4 a lane) were
+// built first and measured slower (PERF.md, Findings): their loads, not
+// their products, set the time.
 //
 // Design:
 // * The triangle, cut in TS × TS blocks, one a lane. Rows are cut in groups
-//   of TS (8, or 4 for a one-split call, see below) and the groups in tiles
-//   of 16; a block takes a pair of tiles (bi ≤ bj) and one split of d, and
-//   its lane t owns task t: block (a, c) of the pair, a ≤ c on a diagonal
-//   pair, enumerated row by row, only groups that hold a row < n. At
-//   n = 100 that is 91 tasks of 8 × 8, 5,824 products a column of d where
-//   5,050 are needed (1.15×), in 3 warps. Entries below the diagonal of a
-//   diagonal block are computed and never written: the lower triangle is
-//   written as the mirror of the upper, so out == out.T bit for bit.
+//   of TS and the groups in tiles of TG; a block takes a pair of tiles
+//   (bi ≤ bj) and one split of d, and its lane t owns task t: block (a, c)
+//   of the pair, a ≤ c on a diagonal pair, enumerated row by row, only
+//   groups that hold a row < n. Calls with a split d take 8 × 8 blocks in
+//   tiles of 16 groups: at n = 100, 91 tasks of 64 entries, 5,824 products
+//   a column of d where 5,050 are needed (1.15×), in 3 warps. Entries below
+//   the diagonal of a diagonal block are computed and never written: the
+//   lower triangle is written as the mirror of the upper, so out == out.T
+//   bit for bit.
 // * Loads without bank conflicts. Lanes of a quarter-warp share a row group
 //   (one address, a broadcast) or hold neighbouring groups. A shared row is
 //   BK + 4 floats and each group of TS rows is skewed by one more 16-byte
@@ -41,24 +43,28 @@
 //   (q + (TS + 1)·g + p) mod 8: neighbouring groups never meet.
 // * Copies in flight. d is walked in chunks of BK = 32 columns through a
 //   ring of STAGES shared-memory stages filled by `cp.async`: while chunk t
-//   is multiplied, chunks t + 1 … t + STAGES − 1 are on their way. A
-//   diagonal pair copies one row tile, any other pair two. A copy is 16
-//   bytes where d % 4 == 0 and G is 16-byte aligned (rows then are too),
-//   else 4 bytes; columns ≥ d and rows ≥ n arrive as zeros through the
-//   copy's source size. Each entry sums its k in ascending order.
+//   is multiplied, chunks t + 1 and t + 2 are on their way. A diagonal pair
+//   copies one row tile, any other pair two. A copy is 16 bytes where
+//   d % 4 == 0 and G is 16-byte aligned (rows then are too), else 4 bytes;
+//   columns ≥ d and rows ≥ n arrive as zeros through the copy's source
+//   size. Each entry sums its k in ascending order; the Gram keeps the next
+//   step's loads in flight during this step's products.
 // * Split and reduce in a fixed order. d is split so that a call has about
 //   TARGET_BLOCKS blocks (kernels/similarity/ops.py `split_plan`, a
-//   function of (n, d) only, never of the card). With one split the partial
-//   pass writes both triangles of `out` itself, one launch; there the time
-//   is latency, not issue, so the lane tile is 4 × 4 (four times the lanes,
-//   each a quarter of the chain). Otherwise each split writes its i ≤ j
-//   sums, packed by row, to a (splits, n(n+1)/2) scratch, and a second
-//   kernel adds them in a fixed order, each group of GROUP splits in split
-//   order and then the group sums in group order, ((p₀ + … + p₇) + (p₈ +
-//   … + p₁₅)) + …, with a group's partials loaded at once (one round trip
-//   to L2). It is a programmatic dependent launch of the first (scheduled
-//   as the first starts, held by `griddepcontrol.wait`), and writes each
-//   sum and its mirror. No float atomics: the result is bit-reproducible.
+//   function of (n, d) only, never of the card). Each split writes its sums
+//   to a scratch lane by lane, entry (q, r) of 32 lanes in 128 contiguous
+//   bytes, and a second kernel adds them in a fixed order, each group of
+//   GROUP splits in split order and then the group sums in group order,
+//   ((p₀ + … + p₇) + (p₈ + … + p₁₅)) + …, one warp a group with its loads
+//   all in flight. It is a programmatic dependent launch of the first
+//   (scheduled as the first starts, held by `griddepcontrol.wait`), and
+//   writes each sum and its mirror. No float atomics: the result is
+//   bit-reproducible.
+// * One split, one launch. Where d is short (the sketched store's d′ = 64)
+//   the plan has one split and the partial pass writes both triangles of
+//   `out` itself. There the time is latency, not issue: the blocks are
+//   4 × 4 a lane in tiles of 4 groups, so 28 blocks share n = 100 and a
+//   lane's chain is a quarter as long.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -369,6 +375,13 @@ void launch_shape(int n, int ts, int* n_tiles, int* tile_groups, int* lanes) {
   *lanes = (tasks + 31) / 32 * 32;
 }
 
+// Floats of one split's sums: TS·TS entries of every lane of every tile pair.
+long long scratch_floats(int n, int ts) {
+  int n_tiles, tile_groups, lanes;
+  launch_shape(n, ts, &n_tiles, &tile_groups, &lanes);
+  return (long long)n_tiles * (n_tiles + 1) / 2 * ts * ts * lanes;
+}
+
 template <int OP, int TS, int TG>
 cudaError_t launch_partial(const float* G, float* partial, float* out, int n, int d, int splits, int per,
                            cudaStream_t s) {
@@ -397,10 +410,11 @@ cudaError_t launch_partial(const float* G, float* partial, float* out, int n, in
 }  // namespace
 
 // G (n, d) f32 -> out (n, n) f32. Split s sums chunks [s·per, (s+1)·per) of
-// BK columns; with splits > 1, `partial` is a f32 scratch of
+// BK columns; with splits > 1, `partial` is an f32 scratch of
 // pairwise_scratch_floats(n, ts) a split that the caller allocates (unused
-// with one split), and splits ≤ GROUP · MAX_GROUPS. `op` is 0 for the Gram, 1 for L1; `ts` is the lane tile, 8 or
-// 4. Returns the cudaError_t of the launches (0 = success).
+// with one split), and splits ≤ GROUP · MAX_GROUPS. `op` is 0 for the
+// Gram, 1 for L1; `ts` is the lane tile, 8 or 4. Returns the cudaError_t
+// of the launches (0 = success).
 extern "C" int pairwise_sums(const float* G, float* partial, float* out, int n, int d, int op,
                              int splits, int per, int ts, void* stream) {
   if (n < 1 || d < 1 || per < 1 || splits < 1 || splits > GROUP * MAX_GROUPS || (op != GRAM && op != L1) ||
@@ -417,10 +431,9 @@ extern "C" int pairwise_sums(const float* G, float* partial, float* out, int n, 
   if (err != cudaSuccess || splits == 1) return (int)err;
   int n_tiles, tile_groups, lanes;
   launch_shape(n, ts, &n_tiles, &tile_groups, &lanes);
-  const size_t per_split = (size_t)n_tiles * (n_tiles + 1) / 2 * ts * ts * lanes;
   const int groups = (splits + GROUP - 1) / GROUP;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((unsigned)(per_split / 32), 1, 1);
+  cfg.gridDim = dim3((unsigned)(scratch_floats(n, ts) / 32), 1, 1);
   cfg.blockDim = dim3(32 * (groups < REDUCE_WARPS ? groups : REDUCE_WARPS), 1, 1);
   cfg.stream = s;
   cudaLaunchAttribute attr[1];
@@ -435,11 +448,7 @@ extern "C" int pairwise_sums(const float* G, float* partial, float* out, int n, 
 }
 
 // Floats of the partial-sum scratch a split takes at lane tile ts.
-extern "C" long long pairwise_scratch_floats(int n, int ts) {
-  int n_tiles, tile_groups, lanes;
-  launch_shape(n, ts, &n_tiles, &tile_groups, &lanes);
-  return (long long)n_tiles * (n_tiles + 1) / 2 * ts * ts * lanes;
-}
+extern "C" long long pairwise_scratch_floats(int n, int ts) { return scratch_floats(n, ts); }
 
 extern "C" const char* cuda_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));

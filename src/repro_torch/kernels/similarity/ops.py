@@ -2,11 +2,12 @@
 
 Port of ``src/repro/kernels/similarity/ops.py``. :func:`pairwise_sums` is
 the kernel's wrapper: for a CUDA tensor it launches
-``csrc/similarity.cu`` (Gram or L1 over the i ≤ j triangle in 16 × 16
-sub-tiles; d split across blocks by :func:`split_plan`, with the splits
-added in a fixed grouped order by a second kernel, or written straight to
-the output by the one launch when the plan has one split), for a CPU tensor
-it runs the plain version in ``ref.py``. The reference's two Pallas kernels (the padded
+``csrc/similarity.cu`` (Gram or L1 over the i ≤ j triangle, one 8 × 8
+block of it a lane; d split across blocks by :func:`split_plan` and the
+splits added in a fixed grouped order by a second kernel, or, where the
+plan has one split, 4 × 4 a lane written straight to the output by the one
+launch), for a CPU tensor it runs the plain version in ``ref.py``. The
+reference's two Pallas kernels (the padded
 one-shot ``pairwise_kernel`` and the masked ``pairwise_kernel_fused``)
 compute the same function, so both entry points below,
 :func:`pairwise_distances_device` and :func:`pairwise_distances_streamed`,
@@ -33,11 +34,12 @@ STREAM_D_THRESHOLD = 8192
 
 #: As in ``csrc/similarity.cu``: d is walked in chunks of BK columns (a
 #: ragged last chunk is zero-filled); a lane owns an 8 × 8 block of the
-#: triangle (4 × 4 in a one-split call, see :func:`lane_tile`), and a block
-#: a pair of TILE-row tiles of them.
+#: triangle and a block a pair of TILE-row tiles of them (4 × 4 blocks in
+#: 16-row tiles in a one-split call, see :func:`lane_tile`).
 TILE = 128
 BK = 32
-#: Blocks the d-split aims for. A constant, not the card's SM count, so the
+#: Blocks the d-split aims for: two per SM of a 132-SM H100, as many as
+#: its registers hold at once. A constant, not the card's SM count, so the
 #: split (and the bits) are the same on every card.
 TARGET_BLOCKS = 264
 #: Chunks a split takes at least: below 2·MIN_CHUNKS chunks a call is one
@@ -74,8 +76,9 @@ def split_plan(n: int, d: int) -> tuple[int, int]:
 
 def lane_tile(splits: int) -> int:
     """Rows and columns of the block of the triangle one lane owns: 8, or 4
-    in a one-split call, whose time is latency rather than issue (four
-    times the lanes, each with a quarter of the chain)."""
+    in a one-split call, whose time is latency rather than issue (the
+    kernel then cuts the rows in 16-row tiles: more blocks, each lane with
+    a quarter of the chain)."""
     return 4 if splits == 1 else 8
 
 

@@ -55,10 +55,17 @@ def test_zero_rows(measure):
 
 
 def test_split_plan_covers_d():
-    for n, d in [(13, 101), (100, 39760), (257, 8193), (1, 1)]:
+    for n, d in [(13, 101), (100, 39760), (100, 64), (257, 8193), (1, 1), (17, 1001), (3, 10**6)]:
         splits, per = ops.split_plan(n, d)
         n_chunks = -(-d // ops.BK)
+        # every split holds a chunk and the splits cover d
         assert splits * per >= n_chunks > (splits - 1) * per
+        assert 1 <= splits <= ops.MAX_SPLITS
+        assert splits == 1 or per >= ops.MIN_CHUNKS
+    # the main path's store: one split and one launch; at model width, 249
+    # splits of 5 chunks, added in 32 groups
+    assert ops.split_plan(100, 64) == (1, 2)
+    assert ops.split_plan(100, 39760) == (249, 5)
 
 
 def test_wrapper_rejects_bad_input():

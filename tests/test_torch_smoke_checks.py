@@ -2,9 +2,12 @@
 
 The smoke run holds the CUDA Gram kernel against its plain version with a
 tolerance relative to ‖g_i‖·‖g_j‖. These tests show that the check accepts
-a Gram summed in another f32 order and rejects a kernel that drops the
-ragged d tail (the last ``d mod 32`` columns, the kernel's d-chunk) or
-halves every entry, at each shape the smoke run checks. The SRP check,
+the kernels' order (``ops.split_plan``'s d-splits of 32-column chunks,
+summed in groups of 8, then the groups in order) and the exact sum, and
+rejects a kernel that drops the ragged d tail (the last ``d mod 32``
+columns, the kernel's d-chunk), halves every entry, drops one group sum,
+counts one twice or shifts the splits' k-ranges by a chunk, at each shape
+the smoke run checks. The SRP check,
 relative to ‖x_i‖·‖S_:,j‖, gets the same treatment: it accepts the kernels'
 order (128 d-splits summed in groups of 8, then the groups in order) and
 the exact sum, and rejects a kernel that drops the ragged d tail
@@ -44,12 +47,34 @@ def _G(n, d):
     return torch.from_numpy((smoke.SIM_SCALE * rng.normal(size=(n, d))).astype(np.float32))
 
 
-def _split_gram(G, splits=88):
-    """G Gᵀ as f32 partial sums over d-splits added in a fixed order, the
-    way the CUDA kernel sums."""
-    out = torch.zeros((G.shape[0], G.shape[0]))
-    for part in torch.tensor_split(G, splits, dim=1):
-        out += part @ part.T
+def _split_gram(G, wrong=None):
+    """G Gᵀ as the CUDA kernels sum it: an f32 partial per d-split of
+    ``ops.BK``-wide chunks (``ops.split_plan``); the partials of each group
+    of ``ops.GROUP`` splits added in split order (the last group may hold
+    fewer), then the group sums in group order; one split is the sum
+    itself. ``wrong`` names a fault of that reduction: ``"drop_group"``
+    leaves one group sum out, ``"group_twice"`` adds one twice,
+    ``"k_off_by_one_chunk"`` shifts every split's k-range by one chunk."""
+    d = G.shape[1]
+    splits, per = ops.split_plan(*G.shape)
+    shift = ops.BK if wrong == "k_off_by_one_chunk" else 0
+    parts = []
+    for s in range(splits):
+        part = G[:, min(d, s * per * ops.BK + shift):min(d, (s + 1) * per * ops.BK + shift)]
+        parts.append(part @ part.T)
+    groups = []
+    for q in range(0, splits, ops.GROUP):
+        acc = parts[q]
+        for p in parts[q + 1:q + ops.GROUP]:
+            acc = acc + p
+        groups.append(acc)
+    if wrong == "drop_group":
+        groups[0] = torch.zeros_like(groups[0])
+    elif wrong == "group_twice":
+        groups.insert(0, groups[0])
+    out = groups[0]
+    for g in groups[1:]:
+        out = out + g
     return out
 
 
@@ -60,6 +85,14 @@ def test_gram_check_accepts_other_f32_orders(n, d):
     exact = (G.double() @ G.double().T).float()
     assert smoke.gram_rel_err(_split_gram(G), want, G) <= smoke.GRAM_RTOL
     assert smoke.gram_rel_err(exact, want, G) <= smoke.GRAM_RTOL
+
+
+@pytest.mark.parametrize("wrong", ["drop_group", "group_twice", "k_off_by_one_chunk"])
+@pytest.mark.parametrize("n,d", smoke.SIM_SHAPES)
+def test_gram_check_rejects_wrong_reductions(n, d, wrong):
+    G = _G(n, d)
+    got = _split_gram(G, wrong)
+    assert smoke.gram_rel_err(got, gram_ref(G), G) > smoke.GRAM_RTOL
 
 
 @pytest.mark.parametrize("wrong", ["drop_tail", "halve"])
