@@ -2,8 +2,9 @@
 """Variants of the similarity kernel, side by side on the card.
 
 Builds ``src/repro_torch/csrc/similarity.cu`` as it is and variants of it
-that change one knob each (the ring's depth, the Gram's loads in flight
-across steps, the unrolling of its k loop, the tile of one-split calls)
+that change one knob each (the ring's depth, the loads of the next step
+in flight during a step's products, the unrolling of the k loop, the
+reduce pass's warps and launch, the tile of one-split calls)
 into ``build/similarity_variants/``, prints each build's ptxas report,
 and, for each variant, each split plan (chunks a split in ``PERS``
 beside ``ops.split_plan``'s) and each lane tile (8 × 8 and 4 × 4), checks
@@ -41,8 +42,20 @@ OUT = ROOT / "build" / "similarity_variants"
 SHAPES = [((100, 39760), "gram"), ((100, 39760), "l1"), ((100, 64), "gram")]
 STAGES = "constexpr int STAGES = 3;"
 SMALL = "constexpr int SMALL_GROUPS = 4;"
-GRAM_DOUBLE = "  if (OP == GRAM) {\n    float4 x0[TS]"
-GRAM_LOOP = "#pragma unroll 1\n    for (int kk = 0; kk < BK; kk += 8) {"
+GRAM_LOOP = "  if (OP == GRAM) {\n#pragma unroll\n"
+L1_LOOP = "  } else {\n#pragma unroll 1\n"
+# the next step's loads in flight during this step's products, both ops
+DOUBLE = """  float4 x0[TS], y0[TS], x1[TS], y1[TS];
+  load_step<TS>(x0, y0, as, bs, 0);
+#pragma unroll 1
+  for (int kk = 0; kk < BK; kk += 8) {
+    load_step<TS>(x1, y1, as, bs, kk + 4);
+    step_products<OP, TS>(acc, x0, y0);
+    if (kk + 8 < BK) load_step<TS>(x0, y0, as, bs, kk + 8);
+    step_products<OP, TS>(acc, x1, y1);
+  }
+  return;
+"""
 REDUCE = "constexpr int REDUCE_WARPS = 32;"
 PDL = "  cfg.numAttrs = 1;"
 WAIT = '  asm volatile("griddepcontrol.wait;" ::: "memory");  // the partial pass has finished\n'
@@ -82,9 +95,10 @@ VARIANTS = {
     "as built": [],
     "stamped": STAMPED,
     "4 stages": [(STAGES, STAGES.replace("3", "4"))],
-    # the Gram's steps as L1's: each step's loads, then its products
-    "Gram single-buffered": [(GRAM_DOUBLE, GRAM_DOUBLE.replace("OP == GRAM", "OP < 0"))],
-    "Gram k loop unrolled": [(GRAM_LOOP, GRAM_LOOP.replace("unroll 1", "unroll"))],
+    "Gram k loop rolled": [(GRAM_LOOP, GRAM_LOOP.replace("unroll", "unroll 1"))],
+    "L1 k loop unrolled": [(L1_LOOP, L1_LOOP.replace("unroll 1", "unroll"))],
+    "loads a step ahead": [("  float4 x[TS], y[TS];\n  if (OP == GRAM) {",
+                            DOUBLE + "  float4 x[TS], y[TS];\n  if (OP == GRAM) {")],
     # two groups a warp of the reduce pass at 249 splits
     "reduce 16 warps a block": [(REDUCE, REDUCE.replace("32", "16"))],
     # the reduce pass as a plain launch after the partial pass

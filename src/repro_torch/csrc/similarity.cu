@@ -47,8 +47,7 @@
 //   copies one row tile, any other pair two. A copy is 16 bytes where
 //   d % 4 == 0 and G is 16-byte aligned (rows then are too), else 4 bytes;
 //   columns ≥ d and rows ≥ n arrive as zeros through the copy's source
-//   size. Each entry sums its k in ascending order; the Gram keeps the next
-//   step's loads in flight during this step's products.
+//   size. Each entry sums its k in ascending order.
 // * Split and reduce in a fixed order. d is split so that a call has about
 //   TARGET_BLOCKS blocks (kernels/similarity/ops.py `split_plan`, a
 //   function of (n, d) only, never of the card). Each split writes its sums
@@ -180,23 +179,19 @@ __device__ __forceinline__ void step_products(float (&acc)[TS][TS], const float4
 // One chunk's products of a lane's TS × TS block: `as` and `bs` point at
 // the first row of its row group and of its column group. Four columns of
 // d a step, TS + TS loads of 16 bytes for TS·TS·4 products, each entry's k
-// in ascending order. The Gram keeps the next step's loads in flight during
-// this step's products; L1, with two instructions a product, hides them
-// without, and leaves the registers that would take free.
+// in ascending order. The Gram's steps are unrolled, so the compiler issues
+// a step's loads among the previous step's FFMA; L1's, twice the
+// instructions, measured slower so (PERF.md, Findings).
 template <int OP, int TS>
 __device__ __forceinline__ void chunk_products(float (&acc)[TS][TS], const float* as, const float* bs) {
+  float4 x[TS], y[TS];
   if (OP == GRAM) {
-    float4 x0[TS], y0[TS], x1[TS], y1[TS];
-    load_step<TS>(x0, y0, as, bs, 0);
-#pragma unroll 1
-    for (int kk = 0; kk < BK; kk += 8) {
-      load_step<TS>(x1, y1, as, bs, kk + 4);
-      step_products<OP, TS>(acc, x0, y0);
-      if (kk + 8 < BK) load_step<TS>(x0, y0, as, bs, kk + 8);
-      step_products<OP, TS>(acc, x1, y1);
+#pragma unroll
+    for (int kk = 0; kk < BK; kk += 4) {
+      load_step<TS>(x, y, as, bs, kk);
+      step_products<OP, TS>(acc, x, y);
     }
   } else {
-    float4 x[TS], y[TS];
 #pragma unroll 1
     for (int kk = 0; kk < BK; kk += 4) {
       load_step<TS>(x, y, as, bs, kk);
