@@ -7,7 +7,8 @@ in flight during a step's products, the unrolling of the k loop, the
 reduce pass's warps and launch, the tile of one-split calls)
 into ``build/similarity_variants/``, prints each build's ptxas report,
 and, for each variant, each split plan (chunks a split in ``PERS``
-beside ``ops.split_plan``'s) and each lane tile (8 × 8 and 4 × 4), checks
+beside ``ops.split_plan``'s) and each lane tile (the split calls' 8 × 4 and
+the one-split calls' 4 × 4), checks
 the sums at the main path's shapes against the plain version (Gram:
 |got − want| ≤ 1e-5·‖g_i‖·‖g_j‖; L1: atol 1e-4; symmetric bit for bit) and
 prints the ms a call takes with the queue filled ahead (CUDA events over 50
@@ -29,6 +30,7 @@ patches.
 from __future__ import annotations
 
 import ctypes
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -42,17 +44,18 @@ OUT = ROOT / "build" / "similarity_variants"
 SHAPES = [((100, 39760), "gram"), ((100, 39760), "l1"), ((100, 64), "gram")]
 STAGES = "constexpr int STAGES = 3;"
 SMALL = "constexpr int SMALL_GROUPS = 4;"
+COLS = "constexpr int COL_TILE = 4;"
 GRAM_LOOP = "  if (OP == GRAM) {\n#pragma unroll\n"
 L1_LOOP = "  } else {\n#pragma unroll 1\n"
 # the next step's loads in flight during this step's products, both ops
-DOUBLE = """  float4 x0[TS], y0[TS], x1[TS], y1[TS];
-  load_step<TS>(x0, y0, as, bs, 0);
+DOUBLE = """  float4 x0[TR], y0[TC], x1[TR], y1[TC];
+  load_step<TR, TC>(x0, y0, as, bs, 0);
 #pragma unroll 1
   for (int kk = 0; kk < BK; kk += 8) {
-    load_step<TS>(x1, y1, as, bs, kk + 4);
-    step_products<OP, TS>(acc, x0, y0);
-    if (kk + 8 < BK) load_step<TS>(x0, y0, as, bs, kk + 8);
-    step_products<OP, TS>(acc, x1, y1);
+    load_step<TR, TC>(x1, y1, as, bs, kk + 4);
+    step_products<OP, TR, TC>(acc, x0, y0);
+    if (kk + 8 < BK) load_step<TR, TC>(x0, y0, as, bs, kk + 8);
+    step_products<OP, TR, TC>(acc, x1, y1);
   }
   return;
 """
@@ -69,8 +72,8 @@ STAMPED = [
     ('  asm volatile("griddepcontrol.launch_dependents;" ::: "memory");\n',
      '  asm volatile("griddepcontrol.launch_dependents;" ::: "memory");\n'
      '  unsigned long long t0, t1, t2 = 0, t3, t4;\n  ' + STAMP.format("t0") + "\n"),
-    ("  float acc[TS][TS];\n#pragma unroll\n  for (int q = 0; q < TS; ++q)\n",
-     "  " + STAMP.format("t1") + "\n  float acc[TS][TS];\n#pragma unroll\n  for (int q = 0; q < TS; ++q)\n"),
+    ("  float acc[TR][TC];\n",
+     "  " + STAMP.format("t1") + "\n  float acc[TR][TC];\n"),
     ("    cp_async_commit();\n    const float* st = smem + (i % STAGES) * stage_floats;\n",
      "    cp_async_commit();\n    if (i == 0) " + STAMP.format("t2") + "\n"
      "    const float* st = smem + (i % STAGES) * stage_floats;\n"),
@@ -82,9 +85,9 @@ STAMPED = [
      "  } stamp{g_stamps + 4 * (blockIdx.x + gridDim.x * blockIdx.y), t0, t1, t2, t3,\n"
      "          threadIdx.x == 0 && blockIdx.x + gridDim.x * blockIdx.y < MAX_STAMPED};\n"
      "  if (gridDim.y > 1) {\n    if (ac.x < 0) return;"),
-    ("template <int OP, int TS, int TG>\n__global__ void __launch_bounds__(MAX_THREADS)\npairwise_partial(",
+    ("template <int OP, int TR, int TC, int TG>\n__global__ void __launch_bounds__(MAX_THREADS)\n",
      "constexpr int MAX_STAMPED = 4096;\n__device__ unsigned long long g_stamps[4 * MAX_STAMPED];\n"
-     "template <int OP, int TS, int TG>\n__global__ void __launch_bounds__(MAX_THREADS)\npairwise_partial("),
+     "template <int OP, int TR, int TC, int TG>\n__global__ void __launch_bounds__(MAX_THREADS)\n"),
     ('extern "C" long long pairwise_scratch_floats(',
      'extern "C" int read_stamps(unsigned long long* host, int blocks) {\n'
      '  return (int)cudaMemcpyFromSymbol(host, g_stamps, 4 * sizeof(unsigned long long) *\n'
@@ -95,10 +98,11 @@ VARIANTS = {
     "as built": [],
     "stamped": STAMPED,
     "4 stages": [(STAGES, STAGES.replace("3", "4"))],
+    "8 × 8 lane tiles": [(COLS, COLS.replace("4", "8"))],
     "Gram k loop rolled": [(GRAM_LOOP, GRAM_LOOP.replace("unroll", "unroll 1"))],
     "L1 k loop unrolled": [(L1_LOOP, L1_LOOP.replace("unroll 1", "unroll"))],
-    "loads a step ahead": [("  float4 x[TS], y[TS];\n  if (OP == GRAM) {",
-                            DOUBLE + "  float4 x[TS], y[TS];\n  if (OP == GRAM) {")],
+    "loads a step ahead": [("  float4 x[TR], y[TC];\n  if (OP == GRAM) {",
+                            DOUBLE + "  float4 x[TR], y[TC];\n  if (OP == GRAM) {")],
     # two groups a warp of the reduce pass at 249 splits
     "reduce 16 warps a block": [(REDUCE, REDUCE.replace("32", "16"))],
     # the reduce pass as a plain launch after the partial pass
@@ -113,7 +117,9 @@ TIMED_ONLY = {"reduce returns after its wait"}
 PERS = (3, 4, 5, 8, 15)  # chunks a split, beside ops.split_plan's
 
 
-def build(name: str, edits) -> tuple[Path, str]:
+def build(name: str, edits) -> tuple[Path, subprocess.Popen, int]:
+    """Write the variant's source and start nvcc on it; returns (library,
+    process, columns of a split call's lane tile)."""
     src = SRC.read_text()
     for old, new in edits:
         if old not in src:
@@ -124,8 +130,9 @@ def build(name: str, edits) -> tuple[Path, str]:
     cu.write_text(src)
     from repro_torch.kernels import _build
 
+    cols = int(re.search(r"COL_TILE = (\d+);", src).group(1))
     return lib, subprocess.Popen([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(lib), str(cu)],
-                                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), cols
 
 
 def plans_for(n: int, d: int) -> list[tuple[int, int]]:
@@ -140,7 +147,6 @@ def plans_for(n: int, d: int) -> list[tuple[int, int]]:
 
 def print_stamps(lib, torch, call, splits, ts, n):
     """Medians over the blocks of one call, µs from each block's start."""
-    import re
     import statistics
 
     call()
@@ -171,8 +177,8 @@ def main() -> int:
         return 1
     OUT.mkdir(parents=True, exist_ok=True)
     procs = {name: build(name, edits) for name, edits in VARIANTS.items()}
-    libs = {}
-    for name, (lib, proc) in procs.items():
+    libs, cols = {}, {}
+    for name, (lib, proc, cols[name]) in procs.items():
         log, _ = proc.communicate()
         if proc.returncode != 0:
             raise SystemExit(f"nvcc failed for {name}:\n{log}")
@@ -210,10 +216,11 @@ def main() -> int:
                     e = float((out - want).abs().max())
                     ok = e <= smoke.SIM_ATOL
                 if name not in TIMED_ONLY and (not ok or not torch.equal(out, out.T)):
-                    raise SystemExit(f"{name} {op} ({n}, {d}) plan {splits}×{per} lane tile {ts}: error {e}")
+                    raise SystemExit(f"{name} {op} ({n}, {d}) plan {splits} × {per}, lane tile {ts}: error {e}")
                 queued = smoke.time_ms(torch, call, queued=True)
                 busy = smoke.device_ms(torch, call)
-                print(f"[{name}] {op} ({n}, {d}) {splits} splits of {per} chunks, {ts} × {ts} a lane: queued "
+                tile = f"{ts} × {cols[name] if ts == 8 else ts}"
+                print(f"[{name}] {op} ({n}, {d}) {splits} splits of {per} chunks, {tile} a lane: queued "
                       f"{queued:.6f} ms a call, device-busy {busy:.6f} ms, error {e:.3e}")
                 if name == "stamped":
                     print_stamps(lib, torch, call, splits, ts, n)

@@ -16,31 +16,37 @@
 // products. The Gram spends one FFMA on each, 6.0 µs at 67 TFLOP/s; L1
 // spends two FP32-pipe instructions (FADD a − b, then FADD acc + |·| with
 // the |·| as an operand modifier), 12.0 µs. Both are bounded by the FP32
-// pipe. What feeds it is shared memory: a warp's LDS.128 takes an SM's
-// shared-memory pipe 4 clocks (2 where the warp reads at most 4 distinct
-// addresses), one 16-byte value to each lane, while the FP32 pipe takes 4
-// warp instructions a clock. So a lane's register tile must be large:
-// 8 × 8 entries take 8 + 8 loads for 64 FFMA a column of d. Tiles of the
-// triangle a warp wide (16 × 16 and 16 × 32, 4 × 2 and 4 × 4 a lane) were
-// built first and measured slower (PERF.md, Findings): their loads, not
-// their products, set the time.
+// pipe, and two things starve it. Shared memory: an SM retires 0.49
+// LDS.128 a clock where a warp reads 8 or more distinct addresses, 0.66
+// where it reads at most 4, one 16-byte value to each lane, while the FP32
+// pipe takes 4 warp instructions a clock (scripts/sm_rates_probe.py); so
+// a lane's register tile must be large. And the four schedulers of an SM:
+// one warp a scheduler reaches 0.75 of the pipe, two 0.88, so an SM needs
+// its warps spread evenly. Tiles of the triangle a warp wide (16 × 16,
+// 4 × 2 and 4 × 4 a lane) were built first and lost to their loads; 8 × 8
+// blocks a lane lost ~10 % to 8 × 4 (blocks of 3 warps, two an SM, leave
+// two schedulers one warp); both measured in PERF.md, Findings.
 //
 // Design:
-// * The triangle, cut in TS × TS blocks, one a lane. Rows are cut in groups
-//   of TS and the groups in tiles of TG; a block takes a pair of tiles
-//   (bi ≤ bj) and one split of d, and its lane t owns task t: block (a, c)
-//   of the pair, a ≤ c on a diagonal pair, enumerated row by row, only
-//   groups that hold a row < n. Calls with a split d take 8 × 8 blocks in
-//   tiles of 16 groups: at n = 100, 91 tasks of 64 entries, 5,824 products
-//   a column of d where 5,050 are needed (1.15×), in 3 warps. Entries below
-//   the diagonal of a diagonal block are computed and never written: the
-//   lower triangle is written as the mirror of the upper, so out == out.T
-//   bit for bit.
+// * The triangle, cut in TR × TC blocks, one a lane. Rows are cut in
+//   groups of TR (the block's rows) or TC (its columns), and in tiles of TG
+//   row groups; a block takes a pair of tiles (bi ≤ bj) and one split of
+//   d, and its lane t owns task t: block (a, c) of the pair, enumerated row
+//   by row, on a diagonal pair only those that reach the i ≤ j half
+//   (c ≥ a·TR/TC), and only groups that hold a row < n. Calls with a split
+//   d take 8 × 4 blocks (ROW_TILE × COL_TILE) in 128-row tiles: at
+//   n = 100, 169 tasks of 32 entries, 5,408 products a column of d where
+//   5,050 are needed (1.07×), in 6 warps, two blocks an SM: three warps a
+//   scheduler. Each step of 4 columns of d a lane loads 8 + 4 float4
+//   (LDS.128) for 128 products. Entries below the diagonal of a diagonal
+//   block are computed and never written: the lower triangle is written
+//   as the mirror of the upper, so out == out.T bit for bit.
 // * Loads without bank conflicts. Lanes of a quarter-warp share a row group
-//   (one address, a broadcast) or hold neighbouring groups. A shared row is
-//   BK + 4 floats and each group of TS rows is skewed by one more 16-byte
-//   unit, so row TS·g + q of 4-column piece p lies in bank group
-//   (q + (TS + 1)·g + p) mod 8: neighbouring groups never meet.
+//   (one address, a broadcast) or hold neighbouring column groups. A shared
+//   row is BK + 4 floats and each group of 8 rows is skewed by one more
+//   16-byte unit, so row r of 4-column piece p lies in bank group
+//   (r + r / 8 + p) mod 8: eight neighbouring column groups of 4 rows never
+//   meet.
 // * Copies in flight. d is walked in chunks of BK = 32 columns through a
 //   ring of STAGES shared-memory stages filled by `cp.async`: while chunk t
 //   is multiplied, chunks t + 1 and t + 2 are on their way. A diagonal pair
@@ -62,8 +68,8 @@
 // * One split, one launch. Where d is short (the sketched store's d′ = 64)
 //   the plan has one split and the partial pass writes both triangles of
 //   `out` itself. There the time is latency, not issue: the blocks are
-//   4 × 4 a lane in tiles of 4 groups, so 28 blocks share n = 100 and a
-//   lane's chain is a quarter as long.
+//   4 × 4 a lane (SMALL_TILE) in 16-row tiles, so 28 blocks share n = 100
+//   and a lane holds half the sums of a split call's lane.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -71,10 +77,14 @@ namespace {
 
 constexpr int BK = 32;              // columns of d a chunk (a ring stage)
 constexpr int LD = BK + 4;          // floats a shared row
-constexpr int TILE_GROUPS = 16;     // row groups of a tile at the 8 × 8 lane tile
-constexpr int SMALL_GROUPS = 4;     // row groups of a tile at the 4 × 4 lane tile (one split)
+constexpr int ROW_TILE = 8;         // rows of a lane's block in a split call
+constexpr int COL_TILE = 4;         // its columns
+constexpr int TILE_GROUPS = 16;     // row groups of a tile in a split call: 128 rows
+constexpr int SMALL_TILE = 4;       // rows and columns of a lane's block in a one-split call
+constexpr int SMALL_GROUPS = 4;     // its row groups a tile: 16 rows
 constexpr int STAGES = 3;           // chunks in the ring
-constexpr int MAX_THREADS = TILE_GROUPS * TILE_GROUPS;  // the tasks of an off-diagonal pair
+// the tasks of an off-diagonal pair in a split call
+constexpr int MAX_THREADS = TILE_GROUPS * TILE_GROUPS * ROW_TILE / COL_TILE;
 constexpr int GROUP = 8;            // splits the reduction adds in order first
 constexpr int MAX_GROUPS = 64;      // 512 splits at most
 constexpr int REDUCE_WARPS = 32;   // a reduce block: one group a warp up to 256 splits
@@ -82,12 +92,12 @@ constexpr int MAX_DEVICES = 64;
 
 enum Op { GRAM = 0, L1 = 1 };
 
-// floats of a row group of TS rows in shared memory: skewed by one 16-byte unit
-template <int TS>
-__host__ __device__ constexpr int group_floats() { return TS * LD + 4; }
+// floats of a row group of TR rows in shared memory: skewed by one 16-byte unit
+template <int TR>
+__host__ __device__ constexpr int group_floats() { return TR * LD + 4; }
 
-template <int TS>
-__device__ __forceinline__ int row_offset(int r) { return (r / TS) * group_floats<TS>() + (r % TS) * LD; }
+template <int TR>
+__device__ __forceinline__ int row_offset(int r) { return (r / TR) * group_floats<TR>() + (r % TR) * LD; }
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -116,7 +126,7 @@ __device__ __forceinline__ void cp_async_wait() {
 
 // Request rows [r0, r0 + nr) × columns [k0, k0 + BK) of G into the tile
 // `dst`. Rows ≥ n and columns ≥ d arrive as zeros.
-template <int TS>
+template <int TR>
 __device__ __forceinline__ void issue_rows(float* dst, const float* __restrict__ G, int r0, int nr,
                                            int n, int d, int k0, bool vec) {
   if (vec) {  // d % 4 == 0: a 4-column piece lies wholly inside or outside d
@@ -124,7 +134,7 @@ __device__ __forceinline__ void issue_rows(float* dst, const float* __restrict__
       const int r = e / (BK / 4);
       const int col = k0 + 4 * (e % (BK / 4));
       const bool in = r0 + r < n && col < d;
-      cp_async16(dst + row_offset<TS>(r) + (col - k0), in ? G + (size_t)(r0 + r) * d + col : G,
+      cp_async16(dst + row_offset<TR>(r) + (col - k0), in ? G + (size_t)(r0 + r) * d + col : G,
                  in ? 16 : 0);
     }
   } else {
@@ -132,7 +142,7 @@ __device__ __forceinline__ void issue_rows(float* dst, const float* __restrict__
       const int r = e / BK;
       const int col = k0 + e % BK;
       const bool in = r0 + r < n && col < d;
-      cp_async4(dst + row_offset<TS>(r) + (col - k0), in ? G + (size_t)(r0 + r) * d + col : G,
+      cp_async4(dst + row_offset<TR>(r) + (col - k0), in ? G + (size_t)(r0 + r) * d + col : G,
                 in ? 4 : 0);
     }
   }
@@ -149,53 +159,54 @@ __device__ __forceinline__ float part(float4 v) {
   return E == 0 ? v.x : E == 1 ? v.y : E == 2 ? v.z : v.w;
 }
 
-// Column E of a step into every entry of the block: the TS·TS sums are
-// independent, so an entry's next product comes TS·TS instructions later.
-template <int OP, int TS, int E>
-__device__ __forceinline__ void column(float (&acc)[TS][TS], const float4 (&x)[TS], const float4 (&y)[TS]) {
+// Column E of a step into every entry of the block: the TR·TC sums are
+// independent, so an entry's next product comes TR·TC instructions later.
+template <int OP, int TR, int TC, int E>
+__device__ __forceinline__ void column(float (&acc)[TR][TC], const float4 (&x)[TR], const float4 (&y)[TC]) {
 #pragma unroll
-  for (int r = 0; r < TS; ++r)
+  for (int r = 0; r < TC; ++r)
 #pragma unroll
-    for (int q = 0; q < TS; ++q) acc[q][r] = step<OP>(acc[q][r], part<E>(x[q]), part<E>(y[r]));
+    for (int q = 0; q < TR; ++q) acc[q][r] = step<OP>(acc[q][r], part<E>(x[q]), part<E>(y[r]));
 }
 
-template <int TS>
-__device__ __forceinline__ void load_step(float4 (&x)[TS], float4 (&y)[TS], const float* as, const float* bs,
+template <int TR, int TC>
+__device__ __forceinline__ void load_step(float4 (&x)[TR], float4 (&y)[TC], const float* as, const float* bs,
                                           int kk) {
 #pragma unroll
-  for (int q = 0; q < TS; ++q) x[q] = *reinterpret_cast<const float4*>(as + q * LD + kk);
+  for (int q = 0; q < TR; ++q) x[q] = *reinterpret_cast<const float4*>(as + q * LD + kk);
 #pragma unroll
-  for (int r = 0; r < TS; ++r) y[r] = *reinterpret_cast<const float4*>(bs + r * LD + kk);
+  for (int r = 0; r < TC; ++r) y[r] = *reinterpret_cast<const float4*>(bs + r * LD + kk);
 }
 
-template <int OP, int TS>
-__device__ __forceinline__ void step_products(float (&acc)[TS][TS], const float4 (&x)[TS], const float4 (&y)[TS]) {
-  column<OP, TS, 0>(acc, x, y);
-  column<OP, TS, 1>(acc, x, y);
-  column<OP, TS, 2>(acc, x, y);
-  column<OP, TS, 3>(acc, x, y);
+template <int OP, int TR, int TC>
+__device__ __forceinline__ void step_products(float (&acc)[TR][TC], const float4 (&x)[TR],
+                                              const float4 (&y)[TC]) {
+  column<OP, TR, TC, 0>(acc, x, y);
+  column<OP, TR, TC, 1>(acc, x, y);
+  column<OP, TR, TC, 2>(acc, x, y);
+  column<OP, TR, TC, 3>(acc, x, y);
 }
 
-// One chunk's products of a lane's TS × TS block: `as` and `bs` point at
-// the first row of its row group and of its column group. Four columns of
-// d a step, TS + TS loads of 16 bytes for TS·TS·4 products, each entry's k
+// One chunk's products of a lane's TR × TC block: `as` and `bs` point at
+// the first shared row of its row group and of its column group. Four columns of
+// d a step, TR + TC loads of 16 bytes for TR·TC·4 products, each entry's k
 // in ascending order. The Gram's steps are unrolled, so the compiler issues
 // a step's loads among the previous step's FFMA; L1's, twice the
 // instructions, measured slower so (PERF.md, Findings).
-template <int OP, int TS>
-__device__ __forceinline__ void chunk_products(float (&acc)[TS][TS], const float* as, const float* bs) {
-  float4 x[TS], y[TS];
+template <int OP, int TR, int TC>
+__device__ __forceinline__ void chunk_products(float (&acc)[TR][TC], const float* as, const float* bs) {
+  float4 x[TR], y[TC];
   if (OP == GRAM) {
 #pragma unroll
     for (int kk = 0; kk < BK; kk += 4) {
-      load_step<TS>(x, y, as, bs, kk);
-      step_products<OP, TS>(acc, x, y);
+      load_step<TR, TC>(x, y, as, bs, kk);
+      step_products<OP, TR, TC>(acc, x, y);
     }
   } else {
 #pragma unroll 1
     for (int kk = 0; kk < BK; kk += 4) {
-      load_step<TS>(x, y, as, bs, kk);
-      step_products<OP, TS>(acc, x, y);
+      load_step<TR, TC>(x, y, as, bs, kk);
+      step_products<OP, TR, TC>(acc, x, y);
     }
   }
 }
@@ -210,30 +221,32 @@ __device__ __forceinline__ int2 pair_of(int p, int n_tiles) {
   return make_int2(bi, bi + p);
 }
 
-// Lane t's task in a pair of tiles with ga and gc row groups that hold a
-// row < n: block (a, c), a ≤ c on a diagonal pair, enumerated row by row;
-// a = −1 where the lane has none.
-__device__ __forceinline__ int2 task_of(int t, bool diag, int ga, int gc) {
+// Lane t's task in a pair of tiles with ga row groups (of tr rows) and gc
+// column groups (of tc rows) that hold a row < n: block (a, c), enumerated
+// row by row, on a diagonal pair only those that reach the i ≤ j half
+// (c ≥ a·tr/tc); a = −1 where the lane has none.
+__device__ __forceinline__ int2 task_of(int t, bool diag, int ga, int gc, int tr, int tc) {
   if (!diag) return t < ga * gc ? make_int2(t / gc, t % gc) : make_int2(-1, 0);
   for (int a = 0; a < ga; ++a) {
-    if (t < ga - a) return make_int2(a, a + t);
-    t -= ga - a;
+    const int c0 = a * tr / tc;
+    if (t < gc - c0) return make_int2(a, c0 + t);
+    t -= gc - c0;
   }
   return make_int2(-1, 0);
 }
 
-// Row groups of tile b (of tg groups of ts rows) that hold a row < n.
-__device__ __forceinline__ int groups_in(int b, int ts, int tg, int n) {
-  return min(tg, (n - b * ts * tg + ts - 1) / ts);
+// Groups of g rows of tile b (of `rows` rows) that hold a row < n.
+__device__ __forceinline__ int groups_in(int b, int rows, int g, int n) {
+  return min(rows / g, (n - b * rows + g - 1) / g);
 }
 
-// Grid (tile pairs, splits), a lane a task. `tile_floats` is the shared
-// memory of one tile of a stage (its row groups that hold a row < n, at
-// most TG). With one split the sums go to `out`, else to
-// `partial` as (splits, tile pairs, TS·TS, lanes): entry (q, r) of every
+// Grid (tile pairs, splits), a lane a task; a tile is TG row groups of TR
+// rows. `tile_floats` is the shared memory of one tile of a stage (its row
+// groups that hold a row < n). With one split the sums go to `out`, else to
+// `partial` as (splits, tile pairs, TR·TC, lanes): entry (q, r) of every
 // lane's block side by side, so each store of a warp is 128 contiguous
 // bytes.
-template <int OP, int TS, int TG>
+template <int OP, int TR, int TC, int TG>
 __global__ void __launch_bounds__(MAX_THREADS)
 pairwise_partial(const float* __restrict__ G, float* __restrict__ partial, float* __restrict__ out,
                  int n, int d, int n_tiles, int per, int vec, int tile_floats) {
@@ -242,14 +255,15 @@ pairwise_partial(const float* __restrict__ G, float* __restrict__ partial, float
   // the reduce pass may be scheduled now; it waits for this grid's results
   asm volatile("griddepcontrol.launch_dependents;" ::: "memory");
 
+  constexpr int ROWS = TR * TG;  // rows of a tile
   const int2 bij = pair_of(blockIdx.x, n_tiles);
   const bool diag = bij.x == bij.y;
-  const int i0 = bij.x * TS * TG;
-  const int j0 = bij.y * TS * TG;
-  const int ga = groups_in(bij.x, TS, TG, n);
-  const int gc = groups_in(bij.y, TS, TG, n);
+  const int i0 = bij.x * ROWS;
+  const int j0 = bij.y * ROWS;
+  const int ga = groups_in(bij.x, ROWS, TR, n);
   const int stage_floats = (n_tiles > 1 ? 2 : 1) * tile_floats;
-  const int2 ac = task_of(threadIdx.x, diag, ga, gc);  // this lane's block (a, c)
+  // this lane's block (a, c): rows i0 + TR·a …, columns j0 + TC·c …
+  const int2 ac = task_of(threadIdx.x, diag, ga, groups_in(bij.y, ROWS, TC, n), TR, TC);
 
   const int n_chunks = (d + BK - 1) / BK;
   const int c_begin = blockIdx.y * per;
@@ -257,8 +271,9 @@ pairwise_partial(const float* __restrict__ G, float* __restrict__ partial, float
 
   auto issue = [&](int s, int chunk) {
     float* st = smem + s * stage_floats;
-    issue_rows<TS>(st, G, i0, ga * TS, n, d, chunk * BK, vec != 0);
-    if (!diag) issue_rows<TS>(st + tile_floats, G, j0, gc * TS, n, d, chunk * BK, vec != 0);
+    issue_rows<TR>(st, G, i0, ga * TR, n, d, chunk * BK, vec != 0);
+    if (!diag)
+      issue_rows<TR>(st + tile_floats, G, j0, groups_in(bij.y, ROWS, TR, n) * TR, n, d, chunk * BK, vec != 0);
   };
 
 #pragma unroll
@@ -267,11 +282,11 @@ pairwise_partial(const float* __restrict__ G, float* __restrict__ partial, float
     cp_async_commit();
   }
 
-  float acc[TS][TS];
+  float acc[TR][TC];
 #pragma unroll
-  for (int q = 0; q < TS; ++q)
+  for (int q = 0; q < TR; ++q)
 #pragma unroll
-    for (int r = 0; r < TS; ++r) acc[q][r] = 0.f;
+    for (int r = 0; r < TC; ++r) acc[q][r] = 0.f;
 
   for (int i = 0; i < nc; ++i) {
     cp_async_wait<STAGES - 2>();  // chunk i has landed
@@ -280,26 +295,26 @@ pairwise_partial(const float* __restrict__ G, float* __restrict__ partial, float
     cp_async_commit();
     const float* st = smem + (i % STAGES) * stage_floats;
     if (ac.x >= 0)
-      chunk_products<OP, TS>(acc, st + ac.x * group_floats<TS>(),
-                             (diag ? st : st + tile_floats) + ac.y * group_floats<TS>());
+      chunk_products<OP, TR, TC>(acc, st + ac.x * group_floats<TR>(),
+                                 (diag ? st : st + tile_floats) + row_offset<TR>(TC * ac.y));
   }
 
   if (gridDim.y > 1) {
     if (ac.x < 0) return;
-    float* dst = partial + ((size_t)blockIdx.y * gridDim.x + blockIdx.x) * (TS * TS) * blockDim.x + threadIdx.x;
+    float* dst = partial + ((size_t)blockIdx.y * gridDim.x + blockIdx.x) * (TR * TC) * blockDim.x + threadIdx.x;
 #pragma unroll
-    for (int q = 0; q < TS; ++q)
+    for (int q = 0; q < TR; ++q)
 #pragma unroll
-      for (int r = 0; r < TS; ++r) dst[(size_t)(q * TS + r) * blockDim.x] = acc[q][r];
+      for (int r = 0; r < TC; ++r) dst[(size_t)(q * TC + r) * blockDim.x] = acc[q][r];
     return;
   }
   if (ac.x < 0) return;
 #pragma unroll
-  for (int q = 0; q < TS; ++q) {
-    const int row = i0 + TS * ac.x + q;
+  for (int q = 0; q < TR; ++q) {
+    const int row = i0 + TR * ac.x + q;
 #pragma unroll
-    for (int r = 0; r < TS; ++r) {
-      const int col = j0 + TS * ac.y + r;
+    for (int r = 0; r < TC; ++r) {
+      const int col = j0 + TC * ac.y + r;
       if (row <= col && col < n) {
         out[(size_t)row * n + col] = acc[q][r];
         out[(size_t)col * n + row] = acc[q][r];
@@ -314,23 +329,24 @@ pairwise_partial(const float* __restrict__ G, float* __restrict__ partial, float
 // 32 lanes of one tile pair): its warp w adds the partials of groups w,
 // w + warps, … (a group's loads all in flight), and warp 0 adds the group
 // sums in group order and writes the entries that lie in the i ≤ j
-// triangle of out.
+// triangle of out. The lane tile is tr × tc in tiles of tg row groups.
 __global__ void __launch_bounds__(32 * REDUCE_WARPS)
-pairwise_reduce(const float* __restrict__ partial, float* __restrict__ out, int n, int splits, int ts,
-                int tg, int n_tiles, int lanes) {
+pairwise_reduce(const float* __restrict__ partial, float* __restrict__ out, int n, int splits, int tr,
+                int tc, int tg, int n_tiles, int lanes) {
   __shared__ float sums[MAX_GROUPS][32];
   const int lane = threadIdx.x % 32;
   const int w = threadIdx.x / 32;
   const int warps = blockDim.x / 32;
   const int groups = (splits + GROUP - 1) / GROUP;
-  const size_t per_split = (size_t)n_tiles * (n_tiles + 1) / 2 * ts * ts * lanes;
+  const int rows = tr * tg;
+  const size_t per_split = (size_t)n_tiles * (n_tiles + 1) / 2 * tr * tc * lanes;
   const size_t t = (size_t)blockIdx.x * 32 + lane;
   const int l = (int)(t % lanes);
-  const int e = (int)(t / lanes % (ts * ts));
-  const int2 bij = pair_of((int)(t / lanes / (ts * ts)), n_tiles);
-  const int2 ac = task_of(l, bij.x == bij.y, groups_in(bij.x, ts, tg, n), groups_in(bij.y, ts, tg, n));
-  const int i = bij.x * ts * tg + ts * ac.x + e / ts;
-  const int j = bij.y * ts * tg + ts * ac.y + e % ts;
+  const int e = (int)(t / lanes % (tr * tc));
+  const int2 bij = pair_of((int)(t / lanes / (tr * tc)), n_tiles);
+  const int2 ac = task_of(l, bij.x == bij.y, groups_in(bij.x, rows, tr, n), groups_in(bij.y, rows, tc, n), tr, tc);
+  const int i = bij.x * rows + tr * ac.x + e / tc;
+  const int j = bij.y * rows + tc * ac.y + e % tc;
   const bool in = ac.x >= 0 && i <= j && j < n;
   asm volatile("griddepcontrol.wait;" ::: "memory");  // the partial pass has finished
   if (in) {
@@ -355,50 +371,61 @@ pairwise_reduce(const float* __restrict__ partial, float* __restrict__ out, int 
   }
 }
 
-// Row groups a tile at lane tile ts.
-int tile_groups_for(int ts) { return ts == 8 ? TILE_GROUPS : SMALL_GROUPS; }
+// A call's shape: a lane's block is tr × tc, a tile tg row groups of tr
+// rows; tiles and tile pairs; row groups a tile holds in shared memory;
+// lanes a block (one a task: the triangle of a lone tile, else a full pair).
+struct Shape {
+  int tr, tc, tg, n_tiles, pairs, tile_groups, lanes;
+};
 
-// Tiles, row groups a tile holds in shared memory, and lanes a block of a
-// call with lane tile ts.
-void launch_shape(int n, int ts, int* n_tiles, int* tile_groups, int* lanes) {
-  const int tg = tile_groups_for(ts);
-  const int groups = (n + ts - 1) / ts;
-  *n_tiles = (groups + tg - 1) / tg;
-  *tile_groups = groups < tg ? groups : tg;
-  // one lane a task: the triangle of a lone tile, else a full pair
-  const int tasks = *n_tiles > 1 ? tg * tg : *tile_groups * (*tile_groups + 1) / 2;
-  *lanes = (tasks + 31) / 32 * 32;
+Shape shape_of(int n, int ts) {
+  Shape sh;
+  sh.tr = ts == 8 ? ROW_TILE : SMALL_TILE;
+  sh.tc = ts == 8 ? COL_TILE : SMALL_TILE;
+  sh.tg = ts == 8 ? TILE_GROUPS : SMALL_GROUPS;
+  const int rows = sh.tr * sh.tg;
+  sh.n_tiles = (n + rows - 1) / rows;
+  sh.pairs = sh.n_tiles * (sh.n_tiles + 1) / 2;
+  const int ga = (n + sh.tr - 1) / sh.tr;
+  sh.tile_groups = ga < sh.tg ? ga : sh.tg;
+  int tasks = sh.tg * sh.tg * sh.tr / sh.tc;
+  if (sh.n_tiles == 1) {
+    const int gc = (n + sh.tc - 1) / sh.tc;
+    tasks = 0;
+    for (int a = 0; a < ga; ++a) tasks += gc - a * sh.tr / sh.tc;
+  }
+  sh.lanes = (tasks + 31) / 32 * 32;
+  return sh;
 }
 
-// Floats of one split's sums: TS·TS entries of every lane of every tile pair.
+// Floats of one split's sums: tr·tc entries of every lane of every tile pair.
 long long scratch_floats(int n, int ts) {
-  int n_tiles, tile_groups, lanes;
-  launch_shape(n, ts, &n_tiles, &tile_groups, &lanes);
-  return (long long)n_tiles * (n_tiles + 1) / 2 * ts * ts * lanes;
+  const Shape sh = shape_of(n, ts);
+  return (long long)sh.pairs * sh.tr * sh.tc * sh.lanes;
 }
 
-template <int OP, int TS, int TG>
+template <int OP, int TR, int TC, int TG>
 cudaError_t launch_partial(const float* G, float* partial, float* out, int n, int d, int splits, int per,
                            cudaStream_t s) {
   // the limit of dynamic shared memory set so far, per device (48 KB by default)
   static int smem_set[MAX_DEVICES] = {};
-  int n_tiles, tile_groups, lanes;
-  launch_shape(n, TS, &n_tiles, &tile_groups, &lanes);
-  const int tile_floats = tile_groups * group_floats<TS>();
-  const int smem = STAGES * (n_tiles > 1 ? 2 : 1) * tile_floats * (int)sizeof(float);
+  const Shape sh = shape_of(n, TR == ROW_TILE ? 8 : 4);
+  const int tile_floats = sh.tile_groups * group_floats<TR>();
+  const int smem = STAGES * (sh.n_tiles > 1 ? 2 : 1) * tile_floats * (int)sizeof(float);
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
   if (dev >= MAX_DEVICES) return cudaErrorInvalidDevice;
   if (smem > 48 * 1024 && smem > smem_set[dev]) {
-    err = cudaFuncSetAttribute(pairwise_partial<OP, TS, TG>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+    err = cudaFuncSetAttribute(pairwise_partial<OP, TR, TC, TG>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                smem);
     if (err != cudaSuccess) return err;
     smem_set[dev] = smem;
   }
   const int vec = (d % 4 == 0) && (reinterpret_cast<uintptr_t>(G) % 16 == 0);
-  const dim3 grid(n_tiles * (n_tiles + 1) / 2, splits);
-  pairwise_partial<OP, TS, TG><<<grid, lanes, smem, s>>>(G, partial, out, n, d, n_tiles, per, vec, tile_floats);
+  const dim3 grid(sh.pairs, splits);
+  pairwise_partial<OP, TR, TC, TG><<<grid, sh.lanes, smem, s>>>(G, partial, out, n, d, sh.n_tiles, per, vec,
+                                                                 tile_floats);
   return cudaGetLastError();
 }
 
@@ -408,8 +435,9 @@ cudaError_t launch_partial(const float* G, float* partial, float* out, int n, in
 // BK columns; with splits > 1, `partial` is an f32 scratch of
 // pairwise_scratch_floats(n, ts) a split that the caller allocates (unused
 // with one split), and splits ≤ GROUP · MAX_GROUPS. `op` is 0 for the
-// Gram, 1 for L1; `ts` is the lane tile, 8 or 4. Returns the cudaError_t
-// of the launches (0 = success).
+// Gram, 1 for L1; `ts` picks the lane tile: 8 for ROW_TILE × COL_TILE in
+// 128-row tiles, 4 for 4 × 4 in 16-row tiles. Returns the cudaError_t of
+// the launches (0 = success).
 extern "C" int pairwise_sums(const float* G, float* partial, float* out, int n, int d, int op,
                              int splits, int per, int ts, void* stream) {
   if (n < 1 || d < 1 || per < 1 || splits < 1 || splits > GROUP * MAX_GROUPS || (op != GRAM && op != L1) ||
@@ -418,14 +446,13 @@ extern "C" int pairwise_sums(const float* G, float* partial, float* out, int n, 
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (op == GRAM)
-    err = ts == 8 ? launch_partial<GRAM, 8, TILE_GROUPS>(G, partial, out, n, d, splits, per, s)
-                  : launch_partial<GRAM, 4, SMALL_GROUPS>(G, partial, out, n, d, splits, per, s);
+    err = ts == 8 ? launch_partial<GRAM, ROW_TILE, COL_TILE, TILE_GROUPS>(G, partial, out, n, d, splits, per, s)
+                  : launch_partial<GRAM, SMALL_TILE, SMALL_TILE, SMALL_GROUPS>(G, partial, out, n, d, splits, per, s);
   else
-    err = ts == 8 ? launch_partial<L1, 8, TILE_GROUPS>(G, partial, out, n, d, splits, per, s)
-                  : launch_partial<L1, 4, SMALL_GROUPS>(G, partial, out, n, d, splits, per, s);
+    err = ts == 8 ? launch_partial<L1, ROW_TILE, COL_TILE, TILE_GROUPS>(G, partial, out, n, d, splits, per, s)
+                  : launch_partial<L1, SMALL_TILE, SMALL_TILE, SMALL_GROUPS>(G, partial, out, n, d, splits, per, s);
   if (err != cudaSuccess || splits == 1) return (int)err;
-  int n_tiles, tile_groups, lanes;
-  launch_shape(n, ts, &n_tiles, &tile_groups, &lanes);
+  const Shape sh = shape_of(n, ts);
   const int groups = (splits + GROUP - 1) / GROUP;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3((unsigned)(scratch_floats(n, ts) / 32), 1, 1);
@@ -436,8 +463,8 @@ extern "C" int pairwise_sums(const float* G, float* partial, float* out, int n, 
   attr[0].val.programmaticStreamSerializationAllowed = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, pairwise_reduce, (const float*)partial, out, n, splits, ts,
-                           tile_groups_for(ts), n_tiles, lanes);
+  err = cudaLaunchKernelEx(&cfg, pairwise_reduce, (const float*)partial, out, n, splits, sh.tr, sh.tc, sh.tg,
+                           sh.n_tiles, sh.lanes);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }

@@ -2,7 +2,7 @@
 
 Port of ``src/repro/kernels/similarity/ops.py``. :func:`pairwise_sums` is
 the kernel's wrapper: for a CUDA tensor it launches
-``csrc/similarity.cu`` (Gram or L1 over the i ≤ j triangle, one 8 × 8
+``csrc/similarity.cu`` (Gram or L1 over the i ≤ j triangle, one 8 × 4
 block of it a lane; d split across blocks by :func:`split_plan` and the
 splits added in a fixed grouped order by a second kernel, or, where the
 plan has one split, 4 × 4 a lane written straight to the output by the one
@@ -33,7 +33,7 @@ from repro_torch.kernels.similarity.ref import (
 STREAM_D_THRESHOLD = 8192
 
 #: As in ``csrc/similarity.cu``: d is walked in chunks of BK columns (a
-#: ragged last chunk is zero-filled); a lane owns an 8 × 8 block of the
+#: ragged last chunk is zero-filled); a lane owns an 8 × 4 block of the
 #: triangle and a block a pair of TILE-row tiles of them (4 × 4 blocks in
 #: 16-row tiles in a one-split call, see :func:`lane_tile`).
 TILE = 128
@@ -75,10 +75,10 @@ def split_plan(n: int, d: int) -> tuple[int, int]:
 
 
 def lane_tile(splits: int) -> int:
-    """Rows and columns of the block of the triangle one lane owns: 8, or 4
-    in a one-split call, whose time is latency rather than issue (the
-    kernel then cuts the rows in 16-row tiles: more blocks, each lane with
-    a quarter of the chain)."""
+    """Rows of the block of the triangle one lane owns: 8 (an 8 × 4 block),
+    or 4 (4 × 4) in a one-split call, whose time is latency rather than
+    issue (the kernel then cuts the rows in 16-row tiles: more blocks,
+    fewer sums a lane)."""
     return 4 if splits == 1 else 8
 
 
