@@ -2,9 +2,10 @@
 """Variants of the similarity kernel, side by side on the card.
 
 Builds ``src/repro_torch/csrc/similarity.cu`` as it is and variants of it
-that change one knob each (the ring's depth, the loads of the next step
-in flight during a step's products, the unrolling of the k loop, the
-reduce pass's warps and launch, the tile of one-split calls)
+that change one knob each (the ring's depth, the lane tile's columns, the
+unrolling of the k loop, the loads of the next step in flight during a
+step's products, the reduce pass's warps and launch, the tile of
+one-split calls)
 into ``build/similarity_variants/``, prints each build's ptxas report,
 and, for each variant, each split plan (chunks a split in ``PERS``
 beside ``ops.split_plan``'s) and each lane tile (the split calls' 8 × 4 and
@@ -45,8 +46,7 @@ SHAPES = [((100, 39760), "gram"), ((100, 39760), "l1"), ((100, 64), "gram")]
 STAGES = "constexpr int STAGES = 3;"
 SMALL = "constexpr int SMALL_GROUPS = 4;"
 COLS = "constexpr int COL_TILE = 4;"
-GRAM_LOOP = "  if (OP == GRAM) {\n#pragma unroll\n"
-L1_LOOP = "  } else {\n#pragma unroll 1\n"
+LOOP = "#pragma unroll\n  for (int kk = 0; kk < BK; kk += 4) {"
 # the next step's loads in flight during this step's products, both ops
 DOUBLE = """  float4 x0[TR], y0[TC], x1[TR], y1[TC];
   load_step<TR, TC>(x0, y0, as, bs, 0);
@@ -59,7 +59,7 @@ DOUBLE = """  float4 x0[TR], y0[TC], x1[TR], y1[TC];
   }
   return;
 """
-REDUCE = "constexpr int REDUCE_WARPS = 32;"
+REDUCE = "constexpr int REDUCE_WARPS = 16;"
 PDL = "  cfg.numAttrs = 1;"
 WAIT = '  asm volatile("griddepcontrol.wait;" ::: "memory");  // the partial pass has finished\n'
 
@@ -99,12 +99,11 @@ VARIANTS = {
     "stamped": STAMPED,
     "4 stages": [(STAGES, STAGES.replace("3", "4"))],
     "8 × 8 lane tiles": [(COLS, COLS.replace("4", "8"))],
-    "Gram k loop rolled": [(GRAM_LOOP, GRAM_LOOP.replace("unroll", "unroll 1"))],
-    "L1 k loop unrolled": [(L1_LOOP, L1_LOOP.replace("unroll 1", "unroll"))],
-    "loads a step ahead": [("  float4 x[TR], y[TC];\n  if (OP == GRAM) {",
-                            DOUBLE + "  float4 x[TR], y[TC];\n  if (OP == GRAM) {")],
-    # two groups a warp of the reduce pass at 249 splits
-    "reduce 16 warps a block": [(REDUCE, REDUCE.replace("32", "16"))],
+    "k loop rolled": [(LOOP, LOOP.replace("unroll", "unroll 1"))],
+    "loads a step ahead": [("  float4 x[TR], y[TC];\n#pragma unroll\n",
+                            DOUBLE + "  float4 x[TR], y[TC];\n#pragma unroll\n")],
+    # one group a warp of the reduce pass at 249 splits
+    "reduce 32 warps a block": [(REDUCE, REDUCE.replace("16", "32"))],
     # the reduce pass as a plain launch after the partial pass
     "reduce without PDL": [(PDL, "  cfg.numAttrs = 0;")],
     # only timed (wrong sums): the reduce pass waits for the partial pass,

@@ -87,7 +87,9 @@ constexpr int STAGES = 3;           // chunks in the ring
 constexpr int MAX_THREADS = TILE_GROUPS * TILE_GROUPS * ROW_TILE / COL_TILE;
 constexpr int GROUP = 8;            // splits the reduction adds in order first
 constexpr int MAX_GROUPS = 64;      // 512 splits at most
-constexpr int REDUCE_WARPS = 32;   // a reduce block: one group a warp up to 256 splits
+// warps of a reduce block: with two partial-pass blocks an SM its
+// registers still fit beside them, so it is resident before they finish
+constexpr int REDUCE_WARPS = 16;
 constexpr int MAX_DEVICES = 64;
 
 enum Op { GRAM = 0, L1 = 1 };
@@ -188,26 +190,17 @@ __device__ __forceinline__ void step_products(float (&acc)[TR][TC], const float4
 }
 
 // One chunk's products of a lane's TR × TC block: `as` and `bs` point at
-// the first shared row of its row group and of its column group. Four columns of
-// d a step, TR + TC loads of 16 bytes for TR·TC·4 products, each entry's k
-// in ascending order. The Gram's steps are unrolled, so the compiler issues
-// a step's loads among the previous step's FFMA; L1's, twice the
-// instructions, measured slower so (PERF.md, Findings).
+// the first shared row of its row group and of its column group. Four
+// columns of d a step, TR + TC loads of 16 bytes for TR·TC·4 products,
+// each entry's k in ascending order. The steps are unrolled, so the
+// compiler issues a step's loads among the previous step's products.
 template <int OP, int TR, int TC>
 __device__ __forceinline__ void chunk_products(float (&acc)[TR][TC], const float* as, const float* bs) {
   float4 x[TR], y[TC];
-  if (OP == GRAM) {
 #pragma unroll
-    for (int kk = 0; kk < BK; kk += 4) {
-      load_step<TR, TC>(x, y, as, bs, kk);
-      step_products<OP, TR, TC>(acc, x, y);
-    }
-  } else {
-#pragma unroll 1
-    for (int kk = 0; kk < BK; kk += 4) {
-      load_step<TR, TC>(x, y, as, bs, kk);
-      step_products<OP, TR, TC>(acc, x, y);
-    }
+  for (int kk = 0; kk < BK; kk += 4) {
+    load_step<TR, TC>(x, y, as, bs, kk);
+    step_products<OP, TR, TC>(acc, x, y);
   }
 }
 
