@@ -397,12 +397,12 @@ long long scratch_floats(int n, int ts) {
   return (long long)sh.pairs * sh.tr * sh.tc * sh.lanes;
 }
 
+// The partial pass of a call of shape `sh` (its tr, tc and tg are TR, TC and TG).
 template <int OP, int TR, int TC, int TG>
 cudaError_t launch_partial(const float* G, float* partial, float* out, int n, int d, int splits, int per,
-                           cudaStream_t s) {
+                           const Shape& sh, cudaStream_t s) {
   // the limit of dynamic shared memory set so far, per device (48 KB by default)
   static int smem_set[MAX_DEVICES] = {};
-  const Shape sh = shape_of(n, TR == ROW_TILE ? 8 : 4);
   const int tile_floats = sh.tile_groups * group_floats<TR>();
   const int smem = STAGES * (sh.n_tiles > 1 ? 2 : 1) * tile_floats * (int)sizeof(float);
   int dev = 0;
@@ -437,15 +437,17 @@ extern "C" int pairwise_sums(const float* G, float* partial, float* out, int n, 
       (ts != 4 && ts != 8))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const Shape sh = shape_of(n, ts);
   cudaError_t err;
   if (op == GRAM)
-    err = ts == 8 ? launch_partial<GRAM, ROW_TILE, COL_TILE, TILE_GROUPS>(G, partial, out, n, d, splits, per, s)
-                  : launch_partial<GRAM, SMALL_TILE, SMALL_TILE, SMALL_GROUPS>(G, partial, out, n, d, splits, per, s);
+    err = ts == 8 ? launch_partial<GRAM, ROW_TILE, COL_TILE, TILE_GROUPS>(G, partial, out, n, d, splits, per, sh, s)
+                  : launch_partial<GRAM, SMALL_TILE, SMALL_TILE, SMALL_GROUPS>(G, partial, out, n, d, splits, per,
+                                                                                sh, s);
   else
-    err = ts == 8 ? launch_partial<L1, ROW_TILE, COL_TILE, TILE_GROUPS>(G, partial, out, n, d, splits, per, s)
-                  : launch_partial<L1, SMALL_TILE, SMALL_TILE, SMALL_GROUPS>(G, partial, out, n, d, splits, per, s);
+    err = ts == 8 ? launch_partial<L1, ROW_TILE, COL_TILE, TILE_GROUPS>(G, partial, out, n, d, splits, per, sh, s)
+                  : launch_partial<L1, SMALL_TILE, SMALL_TILE, SMALL_GROUPS>(G, partial, out, n, d, splits, per,
+                                                                              sh, s);
   if (err != cudaSuccess || splits == 1) return (int)err;
-  const Shape sh = shape_of(n, ts);
   const int groups = (splits + GROUP - 1) / GROUP;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3((unsigned)(scratch_floats(n, ts) / 32), 1, 1);
