@@ -19,7 +19,7 @@
 // pipe, and two things starve it. Shared memory: an SM retires 0.49
 // LDS.128 a clock where a warp reads 8 or more distinct addresses, 0.66
 // where it reads at most 4, one 16-byte value to each lane, while the FP32
-// pipe takes 4 warp instructions a clock (scripts/sm_rates_probe.py); so
+// pipe takes 4 warp instructions a clock (kernels/sm_rates.py); so
 // a lane's register tile must be large. And the four schedulers of an SM:
 // one warp a scheduler reaches 0.75 of the pipe, two 0.88, so an SM needs
 // its warps spread evenly. Tiles of the triangle a warp wide (16 × 16,

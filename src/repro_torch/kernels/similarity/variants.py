@@ -21,9 +21,10 @@ median over the blocks of when thread 0 has issued its first copies, has
 its first chunk, has done its products and has stored its sums, each from
 its block's start (the card's machine has no ``ncu``).
 
-Run from the repository root on a machine with an NVIDIA GPU and nvcc:
+Run from the repository root on a machine with an NVIDIA GPU and nvcc
+(it reads ``chip_smoke.py``'s checks and timers from the root):
 
-    python3 scripts/similarity_variants.py
+    PYTHONPATH=src python3 -m repro_torch.kernels.similarity.variants
 
 It fails, naming the text, if the kernel source no longer has a line it
 patches.
@@ -36,10 +37,7 @@ import subprocess
 import sys
 from pathlib import Path
 
-ROOT = Path(__file__).resolve().parents[1]
-sys.path.insert(0, str(ROOT / "src"))
-sys.path.insert(0, str(ROOT))
-
+ROOT = Path(__file__).resolve().parents[4]  # the repository
 SRC = ROOT / "src" / "repro_torch" / "csrc" / "similarity.cu"
 OUT = ROOT / "build" / "similarity_variants"
 SHAPES = [((100, 39760), "gram"), ((100, 39760), "l1"), ((100, 64), "gram")]
@@ -168,6 +166,7 @@ def print_stamps(lib, torch, call, splits, ts, n):
 def main() -> int:
     import torch
 
+    sys.path.insert(0, str(ROOT))
     import chip_smoke as smoke
     from repro_torch.kernels.similarity.ref import gram_ref, l1_ref
 

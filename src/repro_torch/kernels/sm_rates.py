@@ -14,7 +14,7 @@ prints, on the card the script runs on:
 
 Run from the repository root on a machine with an NVIDIA GPU and nvcc:
 
-    python3 scripts/sm_rates_probe.py
+    PYTHONPATH=src python3 -m repro_torch.kernels.sm_rates
 """
 from __future__ import annotations
 
@@ -23,7 +23,7 @@ import subprocess
 import sys
 from pathlib import Path
 
-ROOT = Path(__file__).resolve().parents[1]
+ROOT = Path(__file__).resolve().parents[3]  # the repository
 OUT = ROOT / "build" / "sm_rates_probe"
 
 SOURCE = r"""
@@ -131,7 +131,7 @@ int main() {
 def main() -> int:
     nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
     if not Path(nvcc).exists():
-        print("sm_rates_probe: needs nvcc", file=sys.stderr)
+        print("sm_rates: needs nvcc", file=sys.stderr)
         return 1
     OUT.mkdir(parents=True, exist_ok=True)
     src, exe = OUT / "sm_rates.cu", OUT / "sm_rates"
