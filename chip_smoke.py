@@ -108,6 +108,9 @@ SIM_ATOL = 1e-4  # L1: entries are sums of |differences|, 0.1–50 here
 GRAM_RTOL = 1e-5
 GRAM_FLOOR = 1e-30
 AGG_SHAPE = (11, 39760)  # m = 10 client rows + the θ^t row
+# the main path's, bench_round_engine's m = 40, and a ragged p whose rows
+# are not 16-byte aligned
+AGG_SHAPES = [AGG_SHAPE, (41, 39760), (11, 39759)]
 AGG_TOL = 2e-5
 WIDTH = (784, 50, 10)
 D_PRIME = 64  # sketch width of slice[srp] and the fleet (bench_store_scale's d')
@@ -285,6 +288,35 @@ def sass_counts(lib_path, ops=("HMMA",)) -> dict | None:
     return counts
 
 
+def sass_loads_ahead(lib_path) -> dict | None:
+    """{kernel: [128-bit LDG before its first FFMA, LDG before it, LDG in
+    all, FFMA in all]} in ``cuobjdump -sass`` of the library (in code
+    order), or None where cuobjdump is missing."""
+    import re
+    import shutil
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not Path(tool).exists():
+        return None
+    sass = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True, text=True,
+                          check=True, timeout=120).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            fn = _kernel_name(line.split("Function :", 1)[1].strip())
+            counts[fn] = [0, 0, 0, 0]
+        elif fn is not None and (op := re.search(r"\s(LDG|FFMA)([.\w]*)\s", line)):
+            c = counts[fn]
+            if op.group(1) == "FFMA":
+                c[3] += 1
+                continue
+            c[2] += 1
+            if not c[3]:
+                c[1] += 1
+                c[0] += ".128" in op.group(2)
+    return counts
+
+
 # FP32-pipe opcodes of the similarity kernels: the Gram's product is FFMA,
 # L1's is FADD a − b and FADD acc + |·|; any other would be a third
 SIM_SASS_OPS = ("FFMA", "FADD", "FMUL", "FMNMX", "FSEL", "LDS", "LDGSTS")
@@ -304,7 +336,7 @@ def phase_build():
     for name, log in logs.items():
         for fn, line in ptxas_report(log):
             print(f"  ptxas {name} {fn}: {line}")
-            if fn.startswith(("flash_fwd_mma", "pairwise_")) and any(
+            if fn.startswith(("flash_fwd_mma", "pairwise_", "aggregate_")) and any(
                     int(n) for n in re.findall(r"(\d+) bytes spill", line)):
                 fail(f"build: ptxas reports spills in {fn}: {line}")
     sim = sass_counts(_build._target("similarity")[1], SIM_SASS_OPS)
@@ -314,6 +346,9 @@ def phase_build():
         print(f"build: cuobjdump is missing; HMMA instructions of {lib.name} not counted")
         return
     print(f"build: similarity instructions in cuobjdump -sass by kernel: {json.dumps(sim)}")
+    agg = sass_loads_ahead(_build._target("aggregate")[1])
+    print(f"build: aggregate global loads by kernel (128-bit ones before the first FFMA, all "
+          f"before it, all; FFMA): {json.dumps(agg)}")
     for fn, c in sim.items():
         if fn.startswith("pairwise_partial<1") and (c["FFMA"] or c["FMUL"] or c["FMNMX"] or c["FSEL"]):
             fail(f"build: the L1 kernel {fn} has FP32 instructions besides FADD: {c}")
@@ -377,19 +412,48 @@ def phase_kernels(torch, gen):
           f"{e_l1:.3e} (atol {SIM_ATOL}), symmetric and reproducible bit for bit")
     sim_kernels_a_call(torch, gen)
     err["srp"] = phase_kernels_srp(torch, gen)
-    k, p = AGG_SHAPE
-    U = torch.randn((k, p), generator=gen).cuda()
-    w = torch.rand((k,), generator=gen).cuda()
-    torch.cuda.synchronize()
-    got = agg_ops.aggregate_flat(U, w)
-    want = aggregate_ref(U, w)
-    torch.cuda.synchronize()
-    if not torch.allclose(got, want, rtol=AGG_TOL, atol=AGG_TOL):
-        fail(f"aggregate kernel at {AGG_SHAPE} disagrees with its plain version")
-    err["aggregate"] = float((got - want).abs().max())
-    print(f"kernels: aggregate {AGG_SHAPE} max_abs_err {err['aggregate']:.3e} (rtol=atol {AGG_TOL})")
+    err["aggregate"] = phase_kernels_agg(torch, gen)
     err["flash"] = phase_kernels_flash(torch, gen)
     return err
+
+
+def phase_kernels_agg(torch, gen) -> float:
+    """The aggregate kernel against its plain version at AGG_SHAPES;
+    bit-reproducible, bit-equal between an aligned and a misaligned layout
+    of the same values and whether or not p % 4 == 0, and one device kernel
+    a call. Returns the max abs error at the main path's shape."""
+    from repro_torch.kernels.aggregate import ops as agg_ops
+    from repro_torch.kernels.aggregate.ref import aggregate_ref
+
+    path_err = None
+    for k, p in AGG_SHAPES:
+        U = torch.randn((k, p), generator=gen).cuda()
+        w = torch.rand((k,), generator=gen).cuda()
+        got, again = agg_ops.aggregate_flat(U, w), agg_ops.aggregate_flat(U, w)
+        want = aggregate_ref(U, w)
+        # the same values 4 bytes past 16-byte alignment, and with one more
+        # column (p + 1 rows: another alignment for every row but the first)
+        flat = torch.empty(k * p + 1, device="cuda")
+        shifted = flat[1:].view(k, p)
+        shifted.copy_(U)
+        wide = torch.cat([U, torch.randn((k, 1), generator=gen).cuda()], dim=1)
+        got_shifted, got_wide = agg_ops.aggregate_flat(shifted, w), agg_ops.aggregate_flat(wide, w)
+        torch.cuda.synchronize()
+        e = float((got - want).abs().max())
+        if not torch.allclose(got, want, rtol=AGG_TOL, atol=AGG_TOL):
+            fail(f"aggregate kernel at ({k}, {p}): max abs error {e}, beyond rtol=atol {AGG_TOL}")
+        if not torch.equal(got, again):
+            fail(f"aggregate kernel at ({k}, {p}) is not bit-reproducible")
+        if not torch.equal(got, got_shifted) or not torch.equal(got, got_wide[:p]):
+            fail(f"aggregate kernel at ({k}, {p}): the same values in another layout sum to other bits")
+        if (k, p) == AGG_SHAPE:
+            path_err = e
+        print(f"kernels: aggregate ({k}, {p}) max_abs_err {e:.3e} (rtol=atol {AGG_TOL}), max |want| "
+              f"{float(want.abs().max()):.3e}, reproducible, bit-equal 4 bytes off alignment and "
+              f"at p + 1")
+        kernels_a_call(torch, f"aggregate ({k}, {p})", lambda: agg_ops.aggregate_flat(U, w),
+                       ("aggregate_",))
+    return path_err
 
 
 def phase_kernels_srp(torch, gen) -> float:
@@ -1321,6 +1385,88 @@ def sim_turns(torch, gen):
                      "is a programmatic dependent launch, so its span includes its wait")
 
 
+def agg_turns(torch, gen):
+    """The aggregate kernel at the main path's (11, 39,760) and
+    bench_round_engine's (41, 39,760) and torch.mv(U.T, w) in turns; an
+    empty kernel on the same grid (the launch floor); the wrapper's host
+    time step by step."""
+    from repro_torch.kernels.aggregate import ops as agg_ops
+
+    lib = agg_ops._lib()
+    path = None
+    for k, p in AGG_SHAPES[:2]:
+        U = torch.randn((k, p), generator=gen).cuda()
+        w = torch.rand((k,), generator=gen).cuda()
+        path = path or (U, w)
+        kernel_turns(torch, f"aggregate ({k}, {p})", lambda: agg_ops.aggregate_flat(U, w), "mv",
+                     lambda: torch.mv(U.T, w), "; U is L2-warm: the same rows every call")
+        blocks, threads = agg_ops.launch_plan(k, p)
+
+        def floor():
+            if lib.aggregate_empty_launch(blocks, threads, torch.cuda.current_stream().cuda_stream):
+                fail("times: the empty aggregate kernel did not launch")
+
+        print(f"times: aggregate ({k}, {p}) launch floor, an empty kernel on the same grid "
+              f"({blocks} blocks of {threads} threads): {time_ms(torch, floor):.6f} ms a call as "
+              f"called, {time_ms(torch, floor, queued=True):.6f} queued; device-busy "
+              f"{_ms(device_ms(torch, floor))}")
+    agg_wrapper_steps(torch, *path)
+
+
+def agg_wrapper_steps(torch, U, w, calls: int = 2000):
+    """Host µs a call of the aggregate wrapper, step by step: perf_counter
+    over ``calls`` calls of each cumulative prefix of its work (a Python
+    call, the checks, the output's allocation, the stream, the ctypes call
+    and launch), beside the whole wrapper and torch.mv(U.T, w)."""
+    from repro_torch.kernels.aggregate import ops as agg_ops
+
+    lib = agg_ops._lib()
+    k, p = U.shape
+
+    def checks():
+        if U.dim() != 2 or U.shape[0] < 1 or U.shape[1] < 1:
+            fail("shape")
+        if tuple(w.shape) != (U.shape[0],):
+            fail("shape")
+        if U.dtype != torch.float32 or w.dtype != torch.float32:
+            fail("dtype")
+        if U.device != w.device:
+            fail("device")
+        if U.device.type == "cpu" or U.device.type != "cuda":
+            fail("device")
+        if not (U.is_contiguous() and w.is_contiguous()):
+            fail("contiguous")
+
+    def alloc():
+        checks()
+        return torch.empty(p, dtype=torch.float32, device=U.device)
+
+    def stream():
+        alloc()
+        return torch.cuda.current_stream(U.device).cuda_stream
+
+    def launch():
+        out = alloc()
+        lib.aggregate_rows(U.data_ptr(), w.data_ptr(), out.data_ptr(), k, p,
+                           torch.cuda.current_stream(U.device).cuda_stream)
+
+    steps = {"a Python call": lambda: None, "+ checks": checks, "+ torch.empty": alloc,
+             "+ the stream": stream, "+ data_ptr, ctypes and the launch": launch,
+             "the wrapper": lambda: agg_ops.aggregate_flat(U, w), "torch.mv": lambda: torch.mv(U.T, w)}
+    us = {}
+    for label, fn in steps.items():
+        for _ in range(100):
+            fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        us[label] = (time.perf_counter() - t0) * 1e6 / calls
+        torch.cuda.synchronize()
+    print(f"times: aggregate ({k}, {p}) wrapper host µs a call (perf_counter over {calls} calls, "
+          f"cumulative): " + ", ".join(f"{label} {t:.3f}" for label, t in us.items()))
+
+
 def main() -> int:
     import torch
 
@@ -1352,6 +1498,7 @@ def main() -> int:
     rows = phase_times(torch, gen, name, err, launches)
     srp_turns(torch, gen)
     sim_turns(torch, gen)
+    agg_turns(torch, gen)
     rows.append(flash_time_row(torch, gen, name, err["flash"], flash_launches))
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

@@ -24,7 +24,15 @@ def _lib():
     lib = _build.load("aggregate")
     lib.aggregate_rows.restype = ctypes.c_int
     lib.aggregate_rows.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+    lib.aggregate_empty_launch.restype = ctypes.c_int
+    lib.aggregate_empty_launch.argtypes = [ctypes.c_int] * 2 + [ctypes.c_void_p]
     return lib
+
+
+def launch_plan(k: int, p: int) -> tuple[int, int]:
+    """(blocks, threads) of the aligned kernel's grid: one float4 column a
+    thread, 128-thread blocks."""
+    return -(-(p // 4) // 128), 128
 
 
 def aggregate_flat(updates: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
