@@ -81,6 +81,7 @@ The script imports neither JAX nor the JAX package ``repro``.
 """
 from __future__ import annotations
 
+import ctypes
 import json
 import math
 import subprocess
@@ -1400,7 +1401,7 @@ def agg_turns(torch, gen):
         path = path or (U, w)
         kernel_turns(torch, f"aggregate ({k}, {p})", lambda: agg_ops.aggregate_flat(U, w), "mv",
                      lambda: torch.mv(U.T, w), "; U is L2-warm: the same rows every call")
-        blocks, threads = agg_ops.launch_plan(k, p)
+        _, blocks, threads = agg_ops.launch_plan(k, p)
 
         def floor():
             if lib.aggregate_empty_launch(blocks, threads, torch.cuda.current_stream().cuda_stream):
@@ -1416,55 +1417,75 @@ def agg_turns(torch, gen):
 def agg_wrapper_steps(torch, U, w, calls: int = 2000):
     """Host µs a call of the aggregate wrapper, step by step: perf_counter
     over ``calls`` calls of each cumulative prefix of its work (a Python
-    call, the checks, the output's allocation, the stream, the ctypes call
-    and launch), beside the whole wrapper and torch.mv(U.T, w)."""
+    call, the checks, the plan, the output's allocation, the stream, the
+    ctypes call and launch), beside the whole wrapper and torch.mv(U.T, w);
+    then some of the steps alone and the calls they replaced."""
     from repro_torch.kernels.aggregate import ops as agg_ops
 
     lib = agg_ops._lib()
+    lib.cuda_error_string.restype = ctypes.c_char_p
+    lib.cuda_error_string.argtypes = [ctypes.c_int]
     k, p = U.shape
+    dev = U.get_device()
+    raw_stream = torch._C._cuda_getCurrentRawStream
 
     def checks():
-        if U.dim() != 2 or U.shape[0] < 1 or U.shape[1] < 1:
-            fail("shape")
-        if tuple(w.shape) != (U.shape[0],):
+        shape = U.shape
+        if len(shape) != 2 or shape[0] < 1 or shape[1] < 1 or w.shape != shape[:1]:
             fail("shape")
         if U.dtype != torch.float32 or w.dtype != torch.float32:
             fail("dtype")
-        if U.device != w.device:
-            fail("device")
-        if U.device.type == "cpu" or U.device.type != "cuda":
+        if not U.is_cuda or w.get_device() != U.get_device():
             fail("device")
         if not (U.is_contiguous() and w.is_contiguous()):
             fail("contiguous")
 
-    def alloc():
+    def plan():
         checks()
-        return torch.empty(p, dtype=torch.float32, device=U.device)
+        return agg_ops.launch_plan(k, p)
+
+    def alloc():
+        plan()
+        return U.new_empty(p)
 
     def stream():
         alloc()
-        return torch.cuda.current_stream(U.device).cuda_stream
+        return raw_stream(dev)
 
     def launch():
-        out = alloc()
-        lib.aggregate_rows(U.data_ptr(), w.data_ptr(), out.data_ptr(), k, p,
-                           torch.cuda.current_stream(U.device).cuda_stream)
+        rows, blocks, threads = plan()
+        out = U.new_empty(p)
+        lib.aggregate_rows(U.data_ptr(), w.data_ptr(), out.data_ptr(), k, p, rows, blocks, threads,
+                           raw_stream(dev))
 
-    steps = {"a Python call": lambda: None, "+ checks": checks, "+ torch.empty": alloc,
-             "+ the stream": stream, "+ data_ptr, ctypes and the launch": launch,
+    rows, blocks, threads = agg_ops.launch_plan(k, p)
+    steps = {"a Python call": lambda: None, "+ checks": checks, "+ the plan": plan,
+             "+ new_empty": alloc, "+ the raw stream": stream,
+             "+ data_ptr, ctypes and the launch": launch,
              "the wrapper": lambda: agg_ops.aggregate_flat(U, w), "torch.mv": lambda: torch.mv(U.T, w)}
-    us = {}
-    for label, fn in steps.items():
-        for _ in range(100):
-            fn()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(calls):
-            fn()
-        us[label] = (time.perf_counter() - t0) * 1e6 / calls
-        torch.cuda.synchronize()
+    alone = {"torch.empty(p, dtype, device)": lambda: torch.empty(p, dtype=torch.float32, device=U.device),
+             "new_empty": lambda: U.new_empty(p),
+             "torch.cuda.current_stream(dev).cuda_stream": lambda: torch.cuda.current_stream(dev).cuda_stream,
+             "_cuda_getCurrentRawStream": lambda: raw_stream(dev),
+             "a ctypes call (cuda_error_string)": lambda: lib.cuda_error_string(0),
+             "ctypes and an empty launch": lambda: lib.aggregate_empty_launch(blocks, threads, raw_stream(dev))}
+
+    def host_us(fns):
+        us = {}
+        for label, fn in fns.items():
+            for _ in range(100):
+                fn()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(calls):
+                fn()
+            us[label] = (time.perf_counter() - t0) * 1e6 / calls
+            torch.cuda.synchronize()
+        return ", ".join(f"{label} {t:.3f}" for label, t in us.items())
+
     print(f"times: aggregate ({k}, {p}) wrapper host µs a call (perf_counter over {calls} calls, "
-          f"cumulative): " + ", ".join(f"{label} {t:.3f}" for label, t in us.items()))
+          f"cumulative): {host_us(steps)}")
+    print(f"times: aggregate host µs a call of single steps: {host_us(alone)}")
 
 
 def main() -> int:

@@ -9,63 +9,214 @@
 // Bound on an H100 SXM at the main path's shape (k = 11, p = 39,760): the
 // kernel must read k·p·4 B ≈ 1.75 MB and write p·4 B ≈ 0.16 MB, about
 // 0.57 µs at 3.35 TB/s; 2·k·p ≈ 0.87 MFLOP is negligible. It is bounded by
-// bytes, and at this size by the launch itself.
+// bytes, and at this size by the launch itself: an empty kernel on the same
+// grid takes about 0.84 µs of device time (PERF.md). What is left to win is
+// latency: the rows must reach the SMs in as few round trips as possible.
 //
-// Design: each thread owns 4 consecutive columns and reads them as one
-// float4 when the rows are 16-byte aligned (p % 4 == 0 and aligned base
-// pointers), else one column with scalar loads. It walks k in a fixed
-// order, so the result is bit-reproducible. Arithmetic is f32 FMA.
+// Design:
+// * A thread owns one group of 4 columns; a block of `threads` owns
+//   4·threads consecutive columns. The plan (`launch_plan` in
+//   kernels/aggregate/ops.py) depends on (k, p) only: threads =
+//   ⌈groups / 132⌉, so the grid is about one block on each SM of a 132-SM
+//   H100 and none waits for a second wave.
+// * Rows are taken in passes of R (16 for k ≤ 16, else 32), fully
+//   unrolled: every row's 16-byte load of the pass (`ld.global.nc`) and
+//   its weight are issued before the pass's first FMA, so a pass costs one
+//   round trip to L2 or memory, and k ≤ 32 costs one. Further passes add to
+//   the same accumulator.
+// * Fixed order: every output is fmaf(w[k-1], U[k-1, j], … fmaf(w[0],
+//   U[0, j], 0)), rows ascending, whatever the pass, the layout or the
+//   column's place in the grid. A call is bit-reproducible, and the same
+//   values give the same bits in any layout.
+// * Layout: where every row is 16-byte aligned (p % 4 == 0 and U and out
+//   16-byte aligned) a group is one float4 load a row and one float4
+//   store; otherwise (a ragged p, a view off alignment) the same grid takes
+//   4-byte loads, thread t of a block reading columns t, t + threads,
+//   t + 2·threads and t + 3·threads of its block's span, so each warp load
+//   is 128 contiguous bytes.
+// * Arithmetic is f32 FMA on the CUDA cores; no atomics.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int THREADS = 128;
+constexpr int MAX_THREADS = 256;  // ops.MAX_THREADS
 
-__global__ void __launch_bounds__(THREADS)
+template <int R>
+__global__ void __launch_bounds__(MAX_THREADS)
 aggregate_vec4(const float4* __restrict__ U, const float* __restrict__ w,
                float4* __restrict__ out, int k, int p4) {
   const int j = blockIdx.x * blockDim.x + threadIdx.x;
   if (j >= p4) return;
+  const float4* col = U + j;
   float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
-  for (int r = 0; r < k; ++r) {
-    const float wr = w[r];
-    const float4 u = U[(size_t)r * p4 + j];
-    acc.x = fmaf(wr, u.x, acc.x);
-    acc.y = fmaf(wr, u.y, acc.y);
-    acc.z = fmaf(wr, u.z, acc.z);
-    acc.w = fmaf(wr, u.w, acc.w);
+  for (int r0 = 0; r0 < k; r0 += R) {
+    float4 u[R];
+    float wr[R];
+#pragma unroll
+    for (int i = 0; i < R; ++i)
+      if (r0 + i < k) u[i] = __ldg(col + (size_t)(r0 + i) * p4);
+#pragma unroll
+    for (int i = 0; i < R; ++i)
+      if (r0 + i < k) wr[i] = __ldg(w + r0 + i);
+#pragma unroll
+    for (int i = 0; i < R; ++i) {
+      if (r0 + i < k) {
+        acc.x = fmaf(wr[i], u[i].x, acc.x);
+        acc.y = fmaf(wr[i], u[i].y, acc.y);
+        acc.z = fmaf(wr[i], u[i].z, acc.z);
+        acc.w = fmaf(wr[i], u[i].w, acc.w);
+      }
+    }
   }
   out[j] = acc;
 }
 
-__global__ void __launch_bounds__(THREADS)
+template <int R>
+__global__ void __launch_bounds__(MAX_THREADS)
 aggregate_scalar(const float* __restrict__ U, const float* __restrict__ w,
                  float* __restrict__ out, int k, int p) {
-  const int j = blockIdx.x * blockDim.x + threadIdx.x;
-  if (j >= p) return;
-  float acc = 0.f;
-  for (int r = 0; r < k; ++r) acc = fmaf(w[r], U[(size_t)r * p + j], acc);
-  out[j] = acc;
+  const int T = blockDim.x;
+  const int c0 = 4 * T * blockIdx.x + threadIdx.x;  // columns c0 + c·T, c < 4
+  if (c0 >= p) return;
+  float acc[4] = {0.f, 0.f, 0.f, 0.f};
+  for (int r0 = 0; r0 < k; r0 += R) {
+    float u[R][4];
+    float wr[R];
+#pragma unroll
+    for (int i = 0; i < R; ++i)
+#pragma unroll
+      for (int c = 0; c < 4; ++c)
+        if (r0 + i < k && c0 + c * T < p) u[i][c] = __ldg(U + (size_t)(r0 + i) * p + c0 + c * T);
+#pragma unroll
+    for (int i = 0; i < R; ++i)
+      if (r0 + i < k) wr[i] = __ldg(w + r0 + i);
+#pragma unroll
+    for (int i = 0; i < R; ++i)
+#pragma unroll
+      for (int c = 0; c < 4; ++c)
+        if (r0 + i < k) acc[c] = fmaf(wr[i], u[i][c], acc[c]);
+  }
+#pragma unroll
+  for (int c = 0; c < 4; ++c)
+    if (c0 + c * T < p) out[c0 + c * T] = acc[c];
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* ptr) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(ptr));
+}
+
+// The same passes with the block's slab of each pass copied to shared
+// memory by the Tensor Memory Accelerator: thread 0 issues one
+// `cp.async.bulk` a row, completing on one mbarrier; rows 16-byte aligned
+// only.
+template <int R>
+__global__ void __launch_bounds__(MAX_THREADS)
+aggregate_tma(const float4* __restrict__ U, const float* __restrict__ w,
+              float4* __restrict__ out, int k, int p4) {
+  extern __shared__ __align__(128) float4 slab[];  // [R][blockDim.x]
+  __shared__ __align__(8) uint64_t bar;
+  const int T = blockDim.x, t = threadIdx.x;
+  const int g0 = blockIdx.x * T;
+  const int ng = min(T, p4 - g0);
+  const uint32_t b = smem_u32(&bar);
+  if (t == 0) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(b) : "memory");
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+  float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+  uint32_t phase = 0;
+  for (int r0 = 0; r0 < k; r0 += R, phase ^= 1) {
+    const int n = min(R, k - r0);
+    if (t == 0) {
+      const uint32_t bytes = 16u * ng;
+      asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(b), "r"(bytes * n)
+                   : "memory");
+      for (int i = 0; i < n; ++i)
+        asm volatile(
+            "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];"
+            ::"r"(smem_u32(slab + i * T)), "l"(U + (size_t)(r0 + i) * p4 + g0), "r"(bytes), "r"(b)
+            : "memory");
+    }
+    float wr[R];
+#pragma unroll
+    for (int i = 0; i < R; ++i)
+      if (i < n) wr[i] = __ldg(w + r0 + i);
+    uint32_t done = 0;
+    while (!done)
+      asm volatile(
+          "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+          " selp.u32 %0, 1, 0, p;\n}\n"
+          : "=r"(done) : "r"(b), "r"(phase) : "memory");
+    if (t < ng) {
+#pragma unroll
+      for (int i = 0; i < R; ++i) {
+        if (i < n) {
+          const float4 u = slab[i * T + t];
+          acc.x = fmaf(wr[i], u.x, acc.x);
+          acc.y = fmaf(wr[i], u.y, acc.y);
+          acc.z = fmaf(wr[i], u.z, acc.z);
+          acc.w = fmaf(wr[i], u.w, acc.w);
+        }
+      }
+    }
+    __syncthreads();  // the slab is free for the next pass
+  }
+  if (t < ng) out[g0 + t] = acc;
+}
+
+template <int R>
+int launch(const float* U, const float* w, float* out, int k, int p, int blocks, int threads,
+           cudaStream_t s) {
+  const bool aligned = (p % 4 == 0) && (reinterpret_cast<uintptr_t>(U) % 16 == 0) &&
+                       (reinterpret_cast<uintptr_t>(out) % 16 == 0);
+  if (aligned)
+    aggregate_vec4<R><<<blocks, threads, 0, s>>>(reinterpret_cast<const float4*>(U), w,
+                                                 reinterpret_cast<float4*>(out), k, p / 4);
+  else
+    aggregate_scalar<R><<<blocks, threads, 0, s>>>(U, w, out, k, p);
+  return (int)cudaGetLastError();
+}
+
+template <int R>
+int launch_tma(const float* U, const float* w, float* out, int k, int p, int blocks, int threads,
+               cudaStream_t s) {
+  const bool aligned = (p % 4 == 0) && (reinterpret_cast<uintptr_t>(U) % 16 == 0) &&
+                       (reinterpret_cast<uintptr_t>(out) % 16 == 0);
+  if (!aligned) return launch<R>(U, w, out, k, p, blocks, threads, s);
+  const int smem = R * threads * 16;
+  static bool attr = false;
+  if (!attr) {
+    cudaFuncSetAttribute(aggregate_tma<R>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         R * MAX_THREADS * 16);
+    attr = true;
+  }
+  aggregate_tma<R><<<blocks, threads, smem, s>>>(reinterpret_cast<const float4*>(U), w,
+                                                 reinterpret_cast<float4*>(out), k, p / 4);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// U (k, p) f32, w (k,) f32 -> out (p,) f32, all on the device. Returns the
+// U (k, p) f32, w (k,) f32 -> out (p,) f32, all on the device, on the plan
+// (rows a pass, blocks, threads) of ops.launch_plan. Returns the
 // cudaError_t of the launch (0 = success).
-extern "C" int aggregate_rows(const float* U, const float* w, float* out, int k, int p,
-                              void* stream) {
+extern "C" int aggregate_rows(const float* U, const float* w, float* out, int k, int p, int rows,
+                              int blocks, int threads, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bool aligned = (p % 4 == 0) && (reinterpret_cast<uintptr_t>(U) % 16 == 0) &&
-                       (reinterpret_cast<uintptr_t>(out) % 16 == 0);
-  if (aligned) {
-    const int p4 = p / 4;
-    aggregate_vec4<<<(p4 + THREADS - 1) / THREADS, THREADS, 0, s>>>(
-        reinterpret_cast<const float4*>(U), w, reinterpret_cast<float4*>(out), k, p4);
-  } else {
-    aggregate_scalar<<<(p + THREADS - 1) / THREADS, THREADS, 0, s>>>(U, w, out, k, p);
-  }
-  return (int)cudaGetLastError();
+  if (rows == 16) return launch<16>(U, w, out, k, p, blocks, threads, s);
+  if (rows == 32) return launch<32>(U, w, out, k, p, blocks, threads, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The TMA version of aggregate_rows (aligned rows; others as aggregate_rows).
+extern "C" int aggregate_rows_tma(const float* U, const float* w, float* out, int k, int p,
+                                  int rows, int blocks, int threads, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (rows == 16) return launch_tma<16>(U, w, out, k, p, blocks, threads, s);
+  if (rows == 32) return launch_tma<32>(U, w, out, k, p, blocks, threads, s);
+  return (int)cudaErrorInvalidValue;
 }
 
 // An empty kernel on a grid of `blocks` × `threads`: the launch floor a call

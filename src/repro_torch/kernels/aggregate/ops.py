@@ -1,8 +1,9 @@
 """Weighted sum of stacked flat rows through the CUDA aggregate kernel.
 
 Port of ``src/repro/kernels/aggregate/ops.py``. :func:`aggregate_flat` is
-the kernel's wrapper: for CUDA tensors it launches ``csrc/aggregate.cu``,
-for CPU tensors it runs the plain version in ``ref.py``.
+the kernel's wrapper: for CUDA tensors it launches ``csrc/aggregate.cu``
+on the grid of :func:`launch_plan`, for CPU tensors it runs the plain
+version in ``ref.py``.
 """
 from __future__ import annotations
 
@@ -14,54 +15,68 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.aggregate.ref import aggregate_ref
 
+#: SMs of an H100 SXM. A constant, not the card's count, so the plan is the
+#: same on every card (the bits are in any case: each column's sum has one
+#: order).
+SMS = 132
+#: The kernels' ``__launch_bounds__``: a block's threads at most.
+MAX_THREADS = 256
+#: Rows a pass, by k: all rows of a pass are in flight at once.
+PASS_ROWS = (16, 32)
+
 #: Kernel launches since the count was last reset.
 launches = {"aggregate": 0}
 
 
 @functools.cache
 def _lib():
-    """The aggregate library, with its C signature bound once."""
+    """The aggregate library, with its C signatures bound once."""
     lib = _build.load("aggregate")
-    lib.aggregate_rows.restype = ctypes.c_int
-    lib.aggregate_rows.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+    for fn in (lib.aggregate_rows, lib.aggregate_rows_tma):
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
     lib.aggregate_empty_launch.restype = ctypes.c_int
     lib.aggregate_empty_launch.argtypes = [ctypes.c_int] * 2 + [ctypes.c_void_p]
     return lib
 
 
-def launch_plan(k: int, p: int) -> tuple[int, int]:
-    """(blocks, threads) of the aligned kernel's grid: one float4 column a
-    thread, 128-thread blocks."""
-    return -(-(p // 4) // 128), 128
+@functools.cache
+def launch_plan(k: int, p: int) -> tuple[int, int, int]:
+    """(rows a pass, blocks, threads) for a (k, p) call: one thread a group
+    of 4 columns, ⌈groups / SMS⌉ threads a block (at least one warp, at
+    most MAX_THREADS), so the grid is one block on each SM; 16 rows a pass
+    up to k = 16, else 32."""
+    groups = -(-p // 4)
+    threads = min(MAX_THREADS, max(32, -(-groups // SMS)))
+    rows = PASS_ROWS[0] if k <= PASS_ROWS[0] else PASS_ROWS[1]
+    return rows, -(-groups // threads), threads
 
 
 def aggregate_flat(updates: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
     """(k, p) f32 stacked flat rows × (k,) f32 weights -> (p,) Σ_k w_k U_k."""
-    if updates.dim() != 2 or updates.shape[0] < 1 or updates.shape[1] < 1:
-        raise ValueError(f"updates must be (k, p) with k, p >= 1, got {tuple(updates.shape)}")
-    if tuple(weights.shape) != (updates.shape[0],):
-        raise ValueError(f"weights shape {tuple(weights.shape)} != ({updates.shape[0]},)")
+    shape = updates.shape
+    if len(shape) != 2 or shape[0] < 1 or shape[1] < 1:
+        raise ValueError(f"updates must be (k, p) with k, p >= 1, got {tuple(shape)}")
+    if weights.shape != shape[:1]:
+        raise ValueError(f"weights shape {tuple(weights.shape)} != ({shape[0]},)")
     if updates.dtype != torch.float32 or weights.dtype != torch.float32:
         raise TypeError(f"need float32, got {updates.dtype} and {weights.dtype}")
-    if updates.device != weights.device:
-        raise ValueError(f"updates on {updates.device}, weights on {weights.device}")
-    if updates.device.type == "cpu":
+    if not updates.is_cuda:
+        if updates.device.type != "cpu" or weights.device.type != "cpu":
+            raise ValueError(f"unsupported devices {updates.device} and {weights.device}")
         return aggregate_ref(updates, weights)
-    if updates.device.type != "cuda":
-        raise ValueError(f"unsupported device {updates.device}")
+    dev = updates.get_device()
+    if weights.get_device() != dev:
+        raise ValueError(f"updates on {updates.device}, weights on {weights.device}")
     if not (updates.is_contiguous() and weights.is_contiguous()):
         raise ValueError("updates and weights must be contiguous")
-    k, p = updates.shape
-    out = torch.empty(p, dtype=torch.float32, device=updates.device)
+    k, p = shape
+    rows, blocks, threads = launch_plan(k, p)
+    out = updates.new_empty(p)
     lib = _lib()
-    err = lib.aggregate_rows(
-        updates.data_ptr(),
-        weights.data_ptr(),
-        out.data_ptr(),
-        k,
-        p,
-        torch.cuda.current_stream(updates.device).cuda_stream,
-    )
-    _build.check(lib, err, "aggregate kernel")
+    err = lib.aggregate_rows(updates.data_ptr(), weights.data_ptr(), out.data_ptr(), k, p, rows,
+                             blocks, threads, torch._C._cuda_getCurrentRawStream(dev))
+    if err:
+        _build.check(lib, err, "aggregate kernel")
     launches["aggregate"] += 1
     return out

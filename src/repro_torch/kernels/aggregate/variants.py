@@ -1,12 +1,18 @@
 #!/usr/bin/env python3
-"""The aggregate kernel's checks and times on the card, without the rest of the smoke.
+"""The aggregate kernel's designs and grids side by side on the card.
 
-Builds the kernels, runs ``chip_smoke.py``'s aggregate checks
+Builds the kernels and runs ``chip_smoke.py``'s aggregate checks
 (``phase_kernels_agg``: the plain version at its shapes, bit-reproducible,
-bit-equal across layouts, one device kernel a call) and its times
-(``agg_turns``: the kernel and ``torch.mv(U.T, w)`` in turns at (11, 39,760)
-and (41, 39,760), the empty kernel's launch floor on the same grid, the
-wrapper's host µs step by step).
+bit-equal across layouts, one device kernel a call). Then, at (11, 39,760)
+and (41, 39,760), for each design of ``csrc/aggregate.cu`` (``registers``:
+every row of a pass loaded into registers; ``tma``: each row of a pass
+copied to shared memory by one ``cp.async.bulk``) and each block size (the
+plan's, and 64, 96 and 128 threads), it checks the sums against the plain
+version (rtol = atol 2e-5, and bit-equal to the wrapper's) and prints the
+ms a call with the queue filled ahead (CUDA events over 50 calls), the
+device-busy ms a call (torch.profiler over 20) and an empty kernel's on the
+same grid. Last, ``agg_turns``: the wrapper and ``torch.mv(U.T, w)`` in
+turns, the launch floor and the wrapper's host µs step by step.
 
 Run from the repository root on a machine with an NVIDIA GPU and nvcc:
 
@@ -19,6 +25,7 @@ import sys
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[4]  # the repository
+THREADS = (64, 96, 128)  # block sizes beside the plan's
 
 
 def main() -> int:
@@ -26,6 +33,8 @@ def main() -> int:
 
     sys.path.insert(0, str(ROOT))
     import chip_smoke as smoke
+    from repro_torch.kernels.aggregate import ops
+    from repro_torch.kernels.aggregate.ref import aggregate_ref
 
     if not torch.cuda.is_available():
         print("aggregate variants: needs an NVIDIA GPU", file=sys.stderr)
@@ -33,6 +42,41 @@ def main() -> int:
     gen = torch.Generator().manual_seed(0)
     smoke.phase_build()
     smoke.phase_kernels_agg(torch, gen)
+    lib = ops._lib()
+    designs = {"registers": lib.aggregate_rows, "tma": lib.aggregate_rows_tma}
+    for k, p in smoke.AGG_SHAPES[:2]:
+        U = torch.randn((k, p), generator=gen).cuda()
+        w = torch.rand((k,), generator=gen).cuda()
+        want, kept = aggregate_ref(U, w), ops.aggregate_flat(U, w)
+        rows, _, planned = ops.launch_plan(k, p)
+        for threads in (planned, *THREADS):
+            blocks = -(-(-(-p // 4)) // threads)
+
+            def floor():
+                lib.aggregate_empty_launch(blocks, threads, torch.cuda.current_stream().cuda_stream)
+
+            print(f"[empty kernel] ({k}, {p}) {blocks} × {threads}: queued "
+                  f"{smoke.time_ms(torch, floor, queued=True):.6f} ms a call, device-busy "
+                  f"{smoke._ms(smoke.device_ms(torch, floor))}")
+            for name, fn in designs.items():
+                out = torch.empty(p, device="cuda")
+
+                def call():
+                    err = fn(U.data_ptr(), w.data_ptr(), out.data_ptr(), k, p, rows, blocks, threads,
+                             torch.cuda.current_stream().cuda_stream)
+                    if err:
+                        raise RuntimeError(f"{name}: CUDA error {err}")
+
+                call()
+                torch.cuda.synchronize()
+                e = float((out - want).abs().max())
+                if not torch.allclose(out, want, rtol=smoke.AGG_TOL, atol=smoke.AGG_TOL):
+                    raise SystemExit(f"{name} ({k}, {p}) {blocks} × {threads}: error {e}")
+                if not torch.equal(out, kept):
+                    raise SystemExit(f"{name} ({k}, {p}) {blocks} × {threads}: other bits than the wrapper's")
+                print(f"[{name}] ({k}, {p}) {rows} rows a pass, {blocks} × {threads}: queued "
+                      f"{smoke.time_ms(torch, call, queued=True):.6f} ms a call, device-busy "
+                      f"{smoke._ms(smoke.device_ms(torch, call))}, error {e:.3e}")
     smoke.agg_turns(torch, gen)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip())
