@@ -334,12 +334,15 @@ def phase_build():
     for name in _build.SOURCES:
         _build.load(name)
     print(f"build: {secs:.3f} s for {', '.join(s + '.cu' for s in _build.SOURCES)} (sm_90a)")
+    spills = []
     for name, log in logs.items():
         for fn, line in ptxas_report(log):
             print(f"  ptxas {name} {fn}: {line}")
             if fn.startswith(("flash_fwd_mma", "pairwise_", "aggregate_")) and any(
                     int(n) for n in re.findall(r"(\d+) bytes spill", line)):
-                fail(f"build: ptxas reports spills in {fn}: {line}")
+                spills.append(f"{fn}: {line}")
+    if spills:
+        fail(f"build: ptxas reports spills in {'; '.join(spills)}")
     sim = sass_counts(_build._target("similarity")[1], SIM_SASS_OPS)
     lib = _build._target("flash_attention")[1]
     counts = sass_counts(lib)

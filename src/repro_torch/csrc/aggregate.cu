@@ -72,6 +72,7 @@ aggregate_vec4(const float4* __restrict__ U, const float* __restrict__ w,
   out[j] = acc;
 }
 
+// Passes of R rows; at most 16, since each row is 4 loads here.
 template <int R>
 __global__ void __launch_bounds__(MAX_THREADS)
 aggregate_scalar(const float* __restrict__ U, const float* __restrict__ w,
@@ -175,7 +176,7 @@ int launch(const float* U, const float* w, float* out, int k, int p, int blocks,
     aggregate_vec4<R><<<blocks, threads, 0, s>>>(reinterpret_cast<const float4*>(U), w,
                                                  reinterpret_cast<float4*>(out), k, p / 4);
   else
-    aggregate_scalar<R><<<blocks, threads, 0, s>>>(U, w, out, k, p);
+    aggregate_scalar<(R < 16 ? R : 16)><<<blocks, threads, 0, s>>>(U, w, out, k, p);
   return (int)cudaGetLastError();
 }
 
