@@ -1404,7 +1404,7 @@ def agg_turns(torch, gen):
         path = path or (U, w)
         kernel_turns(torch, f"aggregate ({k}, {p})", lambda: agg_ops.aggregate_flat(U, w), "mv",
                      lambda: torch.mv(U.T, w), "; U is L2-warm: the same rows every call")
-        _, blocks, threads = agg_ops.launch_plan(k, p)
+        *_, blocks, threads = agg_ops.launch_plan(k, p)
 
         def floor():
             if lib.aggregate_empty_launch(blocks, threads, torch.cuda.current_stream().cuda_stream):
@@ -1456,12 +1456,12 @@ def agg_wrapper_steps(torch, U, w, calls: int = 2000):
         return raw_stream(dev)
 
     def launch():
-        rows, blocks, threads = plan()
+        vec, rows, blocks, threads = plan()
         out = U.new_empty(p)
-        lib.aggregate_rows(U.data_ptr(), w.data_ptr(), out.data_ptr(), k, p, rows, blocks, threads,
-                           raw_stream(dev))
+        lib.aggregate_rows(U.data_ptr(), w.data_ptr(), out.data_ptr(), k, p, vec, rows, blocks,
+                           threads, raw_stream(dev))
 
-    rows, blocks, threads = agg_ops.launch_plan(k, p)
+    *_, blocks, threads = agg_ops.launch_plan(k, p)
     steps = {"a Python call": lambda: None, "+ checks": checks, "+ the plan": plan,
              "+ new_empty": alloc, "+ the raw stream": stream,
              "+ data_ptr, ctypes and the launch": launch,

@@ -42,181 +42,116 @@ namespace {
 
 constexpr int MAX_THREADS = 256;  // ops.MAX_THREADS
 
-template <int R>
+// V consecutive floats, loaded and stored as one access of 4·V bytes.
+template <int V>
+struct alignas(4 * V) Pack {
+  float v[V];
+};
+
+// Rows 4·V-byte aligned: thread j owns columns [V·j, V·j + V).
+template <int V, int R>
 __global__ void __launch_bounds__(MAX_THREADS)
-aggregate_vec4(const float4* __restrict__ U, const float* __restrict__ w,
-               float4* __restrict__ out, int k, int p4) {
+aggregate_vec(const Pack<V>* __restrict__ U, const float* __restrict__ w,
+              Pack<V>* __restrict__ out, int k, int pv) {
   const int j = blockIdx.x * blockDim.x + threadIdx.x;
-  if (j >= p4) return;
-  const float4* col = U + j;
-  float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+  if (j >= pv) return;
+  const Pack<V>* col = U + j;
+  Pack<V> acc;
+#pragma unroll
+  for (int c = 0; c < V; ++c) acc.v[c] = 0.f;
   for (int r0 = 0; r0 < k; r0 += R) {
-    float4 u[R];
+    Pack<V> u[R];
     float wr[R];
 #pragma unroll
     for (int i = 0; i < R; ++i)
-      if (r0 + i < k) u[i] = __ldg(col + (size_t)(r0 + i) * p4);
+      if (r0 + i < k) u[i] = col[(size_t)(r0 + i) * pv];
 #pragma unroll
     for (int i = 0; i < R; ++i)
       if (r0 + i < k) wr[i] = __ldg(w + r0 + i);
 #pragma unroll
-    for (int i = 0; i < R; ++i) {
+    for (int i = 0; i < R; ++i)
       if (r0 + i < k) {
-        acc.x = fmaf(wr[i], u[i].x, acc.x);
-        acc.y = fmaf(wr[i], u[i].y, acc.y);
-        acc.z = fmaf(wr[i], u[i].z, acc.z);
-        acc.w = fmaf(wr[i], u[i].w, acc.w);
+#pragma unroll
+        for (int c = 0; c < V; ++c) acc.v[c] = fmaf(wr[i], u[i].v[c], acc.v[c]);
       }
-    }
   }
   out[j] = acc;
 }
 
-// Passes of R rows; at most 16, since each row is 4 loads here.
-template <int R>
+// Any layout: the same grid, 4-byte loads; thread t of a block owns
+// columns t + c·T, c < V, of the block's span of V·T columns. Passes of at
+// most 64 / V rows, since each row is V loads here.
+template <int V, int R>
 __global__ void __launch_bounds__(MAX_THREADS)
 aggregate_scalar(const float* __restrict__ U, const float* __restrict__ w,
                  float* __restrict__ out, int k, int p) {
   const int T = blockDim.x;
-  const int c0 = 4 * T * blockIdx.x + threadIdx.x;  // columns c0 + c·T, c < 4
+  const int c0 = V * T * blockIdx.x + threadIdx.x;
   if (c0 >= p) return;
-  float acc[4] = {0.f, 0.f, 0.f, 0.f};
+  float acc[V];
+#pragma unroll
+  for (int c = 0; c < V; ++c) acc[c] = 0.f;
   for (int r0 = 0; r0 < k; r0 += R) {
-    float u[R][4];
+    float u[R][V];
     float wr[R];
 #pragma unroll
     for (int i = 0; i < R; ++i)
 #pragma unroll
-      for (int c = 0; c < 4; ++c)
+      for (int c = 0; c < V; ++c)
         if (r0 + i < k && c0 + c * T < p) u[i][c] = __ldg(U + (size_t)(r0 + i) * p + c0 + c * T);
 #pragma unroll
     for (int i = 0; i < R; ++i)
       if (r0 + i < k) wr[i] = __ldg(w + r0 + i);
 #pragma unroll
     for (int i = 0; i < R; ++i)
+      if (r0 + i < k) {
 #pragma unroll
-      for (int c = 0; c < 4; ++c)
-        if (r0 + i < k) acc[c] = fmaf(wr[i], u[i][c], acc[c]);
+        for (int c = 0; c < V; ++c) acc[c] = fmaf(wr[i], u[i][c], acc[c]);
+      }
   }
 #pragma unroll
-  for (int c = 0; c < 4; ++c)
+  for (int c = 0; c < V; ++c)
     if (c0 + c * T < p) out[c0 + c * T] = acc[c];
 }
 
-__device__ __forceinline__ uint32_t smem_u32(const void* ptr) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(ptr));
-}
-
-// The same passes with the block's slab of each pass copied to shared
-// memory by the Tensor Memory Accelerator: thread 0 issues one
-// `cp.async.bulk` a row, completing on one mbarrier; rows 16-byte aligned
-// only.
-template <int R>
-__global__ void __launch_bounds__(MAX_THREADS)
-aggregate_tma(const float4* __restrict__ U, const float* __restrict__ w,
-              float4* __restrict__ out, int k, int p4) {
-  extern __shared__ __align__(128) float4 slab[];  // [R][blockDim.x]
-  __shared__ __align__(8) uint64_t bar;
-  const int T = blockDim.x, t = threadIdx.x;
-  const int g0 = blockIdx.x * T;
-  const int ng = min(T, p4 - g0);
-  const uint32_t b = smem_u32(&bar);
-  if (t == 0) {
-    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(b) : "memory");
-    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
-  }
-  __syncthreads();
-  float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
-  uint32_t phase = 0;
-  for (int r0 = 0; r0 < k; r0 += R, phase ^= 1) {
-    const int n = min(R, k - r0);
-    if (t == 0) {
-      const uint32_t bytes = 16u * ng;
-      asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(b), "r"(bytes * n)
-                   : "memory");
-      for (int i = 0; i < n; ++i)
-        asm volatile(
-            "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];"
-            ::"r"(smem_u32(slab + i * T)), "l"(U + (size_t)(r0 + i) * p4 + g0), "r"(bytes), "r"(b)
-            : "memory");
-    }
-    float wr[R];
-#pragma unroll
-    for (int i = 0; i < R; ++i)
-      if (i < n) wr[i] = __ldg(w + r0 + i);
-    uint32_t done = 0;
-    while (!done)
-      asm volatile(
-          "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-          " selp.u32 %0, 1, 0, p;\n}\n"
-          : "=r"(done) : "r"(b), "r"(phase) : "memory");
-    if (t < ng) {
-#pragma unroll
-      for (int i = 0; i < R; ++i) {
-        if (i < n) {
-          const float4 u = slab[i * T + t];
-          acc.x = fmaf(wr[i], u.x, acc.x);
-          acc.y = fmaf(wr[i], u.y, acc.y);
-          acc.z = fmaf(wr[i], u.z, acc.z);
-          acc.w = fmaf(wr[i], u.w, acc.w);
-        }
-      }
-    }
-    __syncthreads();  // the slab is free for the next pass
-  }
-  if (t < ng) out[g0 + t] = acc;
-}
-
-template <int R>
+template <int V, int R>
 int launch(const float* U, const float* w, float* out, int k, int p, int blocks, int threads,
            cudaStream_t s) {
-  const bool aligned = (p % 4 == 0) && (reinterpret_cast<uintptr_t>(U) % 16 == 0) &&
-                       (reinterpret_cast<uintptr_t>(out) % 16 == 0);
+  const bool aligned = (p % V == 0) && (reinterpret_cast<uintptr_t>(U) % (4 * V) == 0) &&
+                       (reinterpret_cast<uintptr_t>(out) % (4 * V) == 0);
   if (aligned)
-    aggregate_vec4<R><<<blocks, threads, 0, s>>>(reinterpret_cast<const float4*>(U), w,
-                                                 reinterpret_cast<float4*>(out), k, p / 4);
+    aggregate_vec<V, R><<<blocks, threads, 0, s>>>(reinterpret_cast<const Pack<V>*>(U), w,
+                                                   reinterpret_cast<Pack<V>*>(out), k, p / V);
   else
-    aggregate_scalar<(R < 16 ? R : 16)><<<blocks, threads, 0, s>>>(U, w, out, k, p);
+    aggregate_scalar<V, (R * V <= 64 ? R : 64 / V)><<<blocks, threads, 0, s>>>(U, w, out, k, p);
   return (int)cudaGetLastError();
 }
 
-template <int R>
-int launch_tma(const float* U, const float* w, float* out, int k, int p, int blocks, int threads,
-               cudaStream_t s) {
-  const bool aligned = (p % 4 == 0) && (reinterpret_cast<uintptr_t>(U) % 16 == 0) &&
-                       (reinterpret_cast<uintptr_t>(out) % 16 == 0);
-  if (!aligned) return launch<R>(U, w, out, k, p, blocks, threads, s);
-  const int smem = R * threads * 16;
-  static bool attr = false;
-  if (!attr) {
-    cudaFuncSetAttribute(aggregate_tma<R>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         R * MAX_THREADS * 16);
-    attr = true;
+template <int V>
+int launch_rows(const float* U, const float* w, float* out, int k, int p, int rows, int blocks,
+                int threads, cudaStream_t s) {
+  switch (rows) {
+    case 4: return launch<V, 4>(U, w, out, k, p, blocks, threads, s);
+    case 8: return launch<V, 8>(U, w, out, k, p, blocks, threads, s);
+    case 16: return launch<V, 16>(U, w, out, k, p, blocks, threads, s);
+    case 32: return launch<V, 32>(U, w, out, k, p, blocks, threads, s);
   }
-  aggregate_tma<R><<<blocks, threads, smem, s>>>(reinterpret_cast<const float4*>(U), w,
-                                                 reinterpret_cast<float4*>(out), k, p / 4);
-  return (int)cudaGetLastError();
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 // U (k, p) f32, w (k,) f32 -> out (p,) f32, all on the device, on the plan
-// (rows a pass, blocks, threads) of ops.launch_plan. Returns the
-// cudaError_t of the launch (0 = success).
-extern "C" int aggregate_rows(const float* U, const float* w, float* out, int k, int p, int rows,
-                              int blocks, int threads, void* stream) {
+// (columns a thread, rows a pass, blocks, threads) of ops.launch_plan.
+// Returns the cudaError_t of the launch (0 = success).
+extern "C" int aggregate_rows(const float* U, const float* w, float* out, int k, int p, int vec,
+                              int rows, int blocks, int threads, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (rows == 16) return launch<16>(U, w, out, k, p, blocks, threads, s);
-  if (rows == 32) return launch<32>(U, w, out, k, p, blocks, threads, s);
-  return (int)cudaErrorInvalidValue;
-}
-
-// The TMA version of aggregate_rows (aligned rows; others as aggregate_rows).
-extern "C" int aggregate_rows_tma(const float* U, const float* w, float* out, int k, int p,
-                                  int rows, int blocks, int threads, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (rows == 16) return launch_tma<16>(U, w, out, k, p, blocks, threads, s);
-  if (rows == 32) return launch_tma<32>(U, w, out, k, p, blocks, threads, s);
+  switch (vec) {
+    case 1: return launch_rows<1>(U, w, out, k, p, rows, blocks, threads, s);
+    case 2: return launch_rows<2>(U, w, out, k, p, rows, blocks, threads, s);
+    case 4: return launch_rows<4>(U, w, out, k, p, rows, blocks, threads, s);
+  }
   return (int)cudaErrorInvalidValue;
 }
 

@@ -23,6 +23,8 @@ SMS = 132
 MAX_THREADS = 256
 #: Rows a pass, by k: all rows of a pass are in flight at once.
 PASS_ROWS = (16, 32)
+#: Columns a thread (one load of 4·VEC bytes a row where rows are aligned).
+VEC = 4
 
 #: Kernel launches since the count was last reset.
 launches = {"aggregate": 0}
@@ -32,24 +34,23 @@ launches = {"aggregate": 0}
 def _lib():
     """The aggregate library, with its C signatures bound once."""
     lib = _build.load("aggregate")
-    for fn in (lib.aggregate_rows, lib.aggregate_rows_tma):
-        fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    lib.aggregate_rows.restype = ctypes.c_int
+    lib.aggregate_rows.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
     lib.aggregate_empty_launch.restype = ctypes.c_int
     lib.aggregate_empty_launch.argtypes = [ctypes.c_int] * 2 + [ctypes.c_void_p]
     return lib
 
 
 @functools.cache
-def launch_plan(k: int, p: int) -> tuple[int, int, int]:
-    """(rows a pass, blocks, threads) for a (k, p) call: one thread a group
-    of 4 columns, ⌈groups / SMS⌉ threads a block (at least one warp, at
-    most MAX_THREADS), so the grid is one block on each SM; 16 rows a pass
-    up to k = 16, else 32."""
-    groups = -(-p // 4)
+def launch_plan(k: int, p: int) -> tuple[int, int, int, int]:
+    """(columns a thread, rows a pass, blocks, threads) for a (k, p) call:
+    ⌈p / VEC⌉ column groups, ⌈groups / SMS⌉ threads a block (at least one
+    warp, at most MAX_THREADS), so the grid is one block on each SM; 16
+    rows a pass up to k = 16, else 32."""
+    groups = -(-p // VEC)
     threads = min(MAX_THREADS, max(32, -(-groups // SMS)))
     rows = PASS_ROWS[0] if k <= PASS_ROWS[0] else PASS_ROWS[1]
-    return rows, -(-groups // threads), threads
+    return VEC, rows, -(-groups // threads), threads
 
 
 def aggregate_flat(updates: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
@@ -71,11 +72,11 @@ def aggregate_flat(updates: torch.Tensor, weights: torch.Tensor) -> torch.Tensor
     if not (updates.is_contiguous() and weights.is_contiguous()):
         raise ValueError("updates and weights must be contiguous")
     k, p = shape
-    rows, blocks, threads = launch_plan(k, p)
+    vec, rows, blocks, threads = launch_plan(k, p)
     out = updates.new_empty(p)
     lib = _lib()
-    err = lib.aggregate_rows(updates.data_ptr(), weights.data_ptr(), out.data_ptr(), k, p, rows,
-                             blocks, threads, torch._C._cuda_getCurrentRawStream(dev))
+    err = lib.aggregate_rows(updates.data_ptr(), weights.data_ptr(), out.data_ptr(), k, p, vec,
+                             rows, blocks, threads, torch._C._cuda_getCurrentRawStream(dev))
     if err:
         _build.check(lib, err, "aggregate kernel")
     launches["aggregate"] += 1

@@ -1,18 +1,18 @@
 #!/usr/bin/env python3
-"""The aggregate kernel's designs and grids side by side on the card.
+"""The aggregate kernel's plans side by side on the card.
 
 Builds the kernels and runs ``chip_smoke.py``'s aggregate checks
 (``phase_kernels_agg``: the plain version at its shapes, bit-reproducible,
 bit-equal across layouts, one device kernel a call). Then, at (11, 39,760)
-and (41, 39,760), for each design of ``csrc/aggregate.cu`` (``registers``:
-every row of a pass loaded into registers; ``tma``: each row of a pass
-copied to shared memory by one ``cp.async.bulk``) and each block size (the
-plan's, and 64, 96 and 128 threads), it checks the sums against the plain
-version (rtol = atol 2e-5, and bit-equal to the wrapper's) and prints the
-ms a call with the queue filled ahead (CUDA events over 50 calls), the
-device-busy ms a call (torch.profiler over 20) and an empty kernel's on the
-same grid. Last, ``agg_turns``: the wrapper and ``torch.mv(U.T, w)`` in
-turns, the launch floor and the wrapper's host µs step by step.
+and (41, 39,760), for each plan of ``csrc/aggregate.cu`` of ``plans``
+(columns a thread, rows a pass, threads a block; blocks to cover p), it
+checks the sums against the plain version (rtol = atol 2e-5, and bit-equal
+to the wrapper's) and prints the ms a call with the queue filled ahead
+(CUDA events over 50 calls), the device-busy ms a call (torch.profiler over
+20) and an empty kernel's on the same grid. Then the wrapper's plan and
+``torch.mv(U.T, w)`` device-busy over k = 1 to 128 at p = 39,760. Last,
+``agg_turns``: the wrapper and ``torch.mv`` in turns, the launch floor and
+the wrapper's host µs step by step.
 
 Run from the repository root on a machine with an NVIDIA GPU and nvcc:
 
@@ -25,7 +25,18 @@ import sys
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[4]  # the repository
-THREADS = (64, 96, 128)  # block sizes beside the plan's
+
+
+def plans(k: int, p: int) -> list[tuple[int, int, int]]:
+    """(columns a thread, rows a pass, threads a block): each of 1, 2 and 4
+    columns a thread with each of 4 to 32 rows a pass, at ⌈groups / 132⌉
+    threads a block; the wrapper's plan at 64, 96 and 128 threads."""
+    from repro_torch.kernels.aggregate import ops
+
+    vec, rows, _, threads = ops.launch_plan(k, p)
+    out = [(v, r, min(ops.MAX_THREADS, max(32, -(-(-(-p // v)) // ops.SMS))))
+           for v in (4, 2, 1) for r in (4, 8, 16, 32)]
+    return out + [(vec, rows, t) for t in (64, 96, 128)]
 
 
 def main() -> int:
@@ -43,40 +54,46 @@ def main() -> int:
     smoke.phase_build()
     smoke.phase_kernels_agg(torch, gen)
     lib = ops._lib()
-    designs = {"registers": lib.aggregate_rows, "tma": lib.aggregate_rows_tma}
+    stream = torch.cuda.current_stream().cuda_stream
     for k, p in smoke.AGG_SHAPES[:2]:
         U = torch.randn((k, p), generator=gen).cuda()
         w = torch.rand((k,), generator=gen).cuda()
         want, kept = aggregate_ref(U, w), ops.aggregate_flat(U, w)
-        rows, _, planned = ops.launch_plan(k, p)
-        for threads in (planned, *THREADS):
-            blocks = -(-(-(-p // 4)) // threads)
+        floors = {}
+        for vec, rows, threads in plans(k, p):
+            blocks = -(-(-(-p // vec)) // threads)
+            if (blocks, threads) not in floors:
+                def floor():
+                    lib.aggregate_empty_launch(blocks, threads, stream)
 
-            def floor():
-                lib.aggregate_empty_launch(blocks, threads, torch.cuda.current_stream().cuda_stream)
+                floors[blocks, threads] = (smoke.time_ms(torch, floor, queued=True),
+                                           smoke.device_ms(torch, floor))
+            out = torch.empty(p, device="cuda")
 
-            print(f"[empty kernel] ({k}, {p}) {blocks} × {threads}: queued "
-                  f"{smoke.time_ms(torch, floor, queued=True):.6f} ms a call, device-busy "
-                  f"{smoke._ms(smoke.device_ms(torch, floor))}")
-            for name, fn in designs.items():
-                out = torch.empty(p, device="cuda")
+            def call():
+                err = lib.aggregate_rows(U.data_ptr(), w.data_ptr(), out.data_ptr(), k, p, vec, rows,
+                                         blocks, threads, stream)
+                if err:
+                    raise RuntimeError(f"CUDA error {err}")
 
-                def call():
-                    err = fn(U.data_ptr(), w.data_ptr(), out.data_ptr(), k, p, rows, blocks, threads,
-                             torch.cuda.current_stream().cuda_stream)
-                    if err:
-                        raise RuntimeError(f"{name}: CUDA error {err}")
-
-                call()
-                torch.cuda.synchronize()
-                e = float((out - want).abs().max())
-                if not torch.allclose(out, want, rtol=smoke.AGG_TOL, atol=smoke.AGG_TOL):
-                    raise SystemExit(f"{name} ({k}, {p}) {blocks} × {threads}: error {e}")
-                if not torch.equal(out, kept):
-                    raise SystemExit(f"{name} ({k}, {p}) {blocks} × {threads}: other bits than the wrapper's")
-                print(f"[{name}] ({k}, {p}) {rows} rows a pass, {blocks} × {threads}: queued "
-                      f"{smoke.time_ms(torch, call, queued=True):.6f} ms a call, device-busy "
-                      f"{smoke._ms(smoke.device_ms(torch, call))}, error {e:.3e}")
+            call()
+            torch.cuda.synchronize()
+            e = float((out - want).abs().max())
+            label = f"({k}, {p}) {vec} columns a thread, {rows} rows a pass, {blocks} × {threads}"
+            if not torch.allclose(out, want, rtol=smoke.AGG_TOL, atol=smoke.AGG_TOL):
+                raise SystemExit(f"{label}: error {e}")
+            if not torch.equal(out, kept):
+                raise SystemExit(f"{label}: other bits than the wrapper's")
+            print(f"[plan] {label}: queued {smoke.time_ms(torch, call, queued=True):.6f} ms a call, "
+                  f"device-busy {smoke._ms(smoke.device_ms(torch, call))}; empty kernel "
+                  f"{floors[blocks, threads][0]:.6f}, {smoke._ms(floors[blocks, threads][1])}")
+    p = smoke.AGG_SHAPE[1]
+    for k in (1, 4, 8, 11, 16, 24, 32, 41, 64, 128):
+        U = torch.randn((k, p), generator=gen).cuda()
+        w = torch.rand((k,), generator=gen).cuda()
+        print(f"[k sweep] ({k}, {p}) plan {ops.launch_plan(k, p)}: device-busy kernel "
+              f"{smoke._ms(smoke.device_ms(torch, lambda: ops.aggregate_flat(U, w)))}, torch.mv "
+              f"{smoke._ms(smoke.device_ms(torch, lambda: torch.mv(U.T, w)))}")
     smoke.agg_turns(torch, gen)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip())
