@@ -1456,9 +1456,9 @@ def agg_wrapper_steps(torch, U, w, calls: int = 2000):
         return raw_stream(dev)
 
     def launch():
-        vec, rows, blocks, threads = plan()
+        vec, rows, ahead, blocks, threads = plan()
         out = U.new_empty(p)
-        lib.aggregate_rows(U.data_ptr(), w.data_ptr(), out.data_ptr(), k, p, vec, rows, blocks,
+        lib.aggregate_rows(U.data_ptr(), w.data_ptr(), out.data_ptr(), k, p, vec, rows, ahead, blocks,
                            threads, raw_stream(dev))
 
     *_, blocks, threads = agg_ops.launch_plan(k, p)

@@ -50,6 +50,29 @@ struct alignas(4 * V) Pack {
 
 // Rows 4·V-byte aligned: thread j owns columns [V·j, V·j + V).
 template <int V, int R>
+__device__ __forceinline__ void load_pass(Pack<V> (&u)[R], float (&wr)[R], const Pack<V>* col,
+                                          const float* w, int r0, int k, int pv) {
+#pragma unroll
+  for (int i = 0; i < R; ++i)
+    if (r0 + i < k) u[i] = col[(size_t)(r0 + i) * pv];
+#pragma unroll
+  for (int i = 0; i < R; ++i)
+    if (r0 + i < k) wr[i] = __ldg(w + r0 + i);
+}
+
+template <int V, int R>
+__device__ __forceinline__ void add_pass(Pack<V>& acc, const Pack<V> (&u)[R], const float (&wr)[R],
+                                         int r0, int k) {
+#pragma unroll
+  for (int i = 0; i < R; ++i)
+    if (r0 + i < k) {
+#pragma unroll
+      for (int c = 0; c < V; ++c) acc.v[c] = fmaf(wr[i], u[i].v[c], acc.v[c]);
+    }
+}
+
+// AHEAD: the next pass's loads are issued before this pass's FMAs.
+template <int V, int R, bool AHEAD>
 __global__ void __launch_bounds__(MAX_THREADS)
 aggregate_vec(const Pack<V>* __restrict__ U, const float* __restrict__ w,
               Pack<V>* __restrict__ out, int k, int pv) {
@@ -59,21 +82,21 @@ aggregate_vec(const Pack<V>* __restrict__ U, const float* __restrict__ w,
   Pack<V> acc;
 #pragma unroll
   for (int c = 0; c < V; ++c) acc.v[c] = 0.f;
-  for (int r0 = 0; r0 < k; r0 += R) {
-    Pack<V> u[R];
-    float wr[R];
-#pragma unroll
-    for (int i = 0; i < R; ++i)
-      if (r0 + i < k) u[i] = col[(size_t)(r0 + i) * pv];
-#pragma unroll
-    for (int i = 0; i < R; ++i)
-      if (r0 + i < k) wr[i] = __ldg(w + r0 + i);
-#pragma unroll
-    for (int i = 0; i < R; ++i)
-      if (r0 + i < k) {
-#pragma unroll
-        for (int c = 0; c < V; ++c) acc.v[c] = fmaf(wr[i], u[i].v[c], acc.v[c]);
-      }
+  Pack<V> a[R], b[R];
+  float wa[R], wb[R];
+  if (AHEAD) {
+    load_pass<V, R>(a, wa, col, w, 0, k, pv);
+    for (int r0 = 0; r0 < k; r0 += 2 * R) {
+      load_pass<V, R>(b, wb, col, w, r0 + R, k, pv);
+      add_pass<V, R>(acc, a, wa, r0, k);
+      load_pass<V, R>(a, wa, col, w, r0 + 2 * R, k, pv);
+      add_pass<V, R>(acc, b, wb, r0 + R, k);
+    }
+  } else {
+    for (int r0 = 0; r0 < k; r0 += R) {
+      load_pass<V, R>(a, wa, col, w, r0, k, pv);
+      add_pass<V, R>(acc, a, wa, r0, k);
+    }
   }
   out[j] = acc;
 }
@@ -115,26 +138,28 @@ aggregate_scalar(const float* __restrict__ U, const float* __restrict__ w,
 }
 
 template <int V, int R>
-int launch(const float* U, const float* w, float* out, int k, int p, int blocks, int threads,
-           cudaStream_t s) {
+int launch(const float* U, const float* w, float* out, int k, int p, int ahead, int blocks,
+           int threads, cudaStream_t s) {
   const bool aligned = (p % V == 0) && (reinterpret_cast<uintptr_t>(U) % (4 * V) == 0) &&
                        (reinterpret_cast<uintptr_t>(out) % (4 * V) == 0);
-  if (aligned)
-    aggregate_vec<V, R><<<blocks, threads, 0, s>>>(reinterpret_cast<const Pack<V>*>(U), w,
-                                                   reinterpret_cast<Pack<V>*>(out), k, p / V);
+  if (aligned && ahead)
+    aggregate_vec<V, R, true><<<blocks, threads, 0, s>>>(reinterpret_cast<const Pack<V>*>(U), w,
+                                                         reinterpret_cast<Pack<V>*>(out), k, p / V);
+  else if (aligned)
+    aggregate_vec<V, R, false><<<blocks, threads, 0, s>>>(reinterpret_cast<const Pack<V>*>(U), w,
+                                                          reinterpret_cast<Pack<V>*>(out), k, p / V);
   else
     aggregate_scalar<V, (R * V <= 64 ? R : 64 / V)><<<blocks, threads, 0, s>>>(U, w, out, k, p);
   return (int)cudaGetLastError();
 }
 
 template <int V>
-int launch_rows(const float* U, const float* w, float* out, int k, int p, int rows, int blocks,
-                int threads, cudaStream_t s) {
+int launch_rows(const float* U, const float* w, float* out, int k, int p, int rows, int ahead,
+                int blocks, int threads, cudaStream_t s) {
   switch (rows) {
-    case 4: return launch<V, 4>(U, w, out, k, p, blocks, threads, s);
-    case 8: return launch<V, 8>(U, w, out, k, p, blocks, threads, s);
-    case 16: return launch<V, 16>(U, w, out, k, p, blocks, threads, s);
-    case 32: return launch<V, 32>(U, w, out, k, p, blocks, threads, s);
+    case 4: return launch<V, 4>(U, w, out, k, p, ahead, blocks, threads, s);
+    case 8: return launch<V, 8>(U, w, out, k, p, ahead, blocks, threads, s);
+    case 16: return launch<V, 16>(U, w, out, k, p, ahead, blocks, threads, s);
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -142,15 +167,16 @@ int launch_rows(const float* U, const float* w, float* out, int k, int p, int ro
 }  // namespace
 
 // U (k, p) f32, w (k,) f32 -> out (p,) f32, all on the device, on the plan
-// (columns a thread, rows a pass, blocks, threads) of ops.launch_plan.
+// (columns a thread, rows a pass, next pass ahead, blocks, threads) of
+// ops.launch_plan.
 // Returns the cudaError_t of the launch (0 = success).
 extern "C" int aggregate_rows(const float* U, const float* w, float* out, int k, int p, int vec,
-                              int rows, int blocks, int threads, void* stream) {
+                              int rows, int ahead, int blocks, int threads, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (vec) {
-    case 1: return launch_rows<1>(U, w, out, k, p, rows, blocks, threads, s);
-    case 2: return launch_rows<2>(U, w, out, k, p, rows, blocks, threads, s);
-    case 4: return launch_rows<4>(U, w, out, k, p, rows, blocks, threads, s);
+    case 1: return launch_rows<1>(U, w, out, k, p, rows, ahead, blocks, threads, s);
+    case 2: return launch_rows<2>(U, w, out, k, p, rows, ahead, blocks, threads, s);
+    case 4: return launch_rows<4>(U, w, out, k, p, rows, ahead, blocks, threads, s);
   }
   return (int)cudaErrorInvalidValue;
 }

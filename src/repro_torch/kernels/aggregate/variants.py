@@ -27,16 +27,17 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[4]  # the repository
 
 
-def plans(k: int, p: int) -> list[tuple[int, int, int]]:
-    """(columns a thread, rows a pass, threads a block): each of 1, 2 and 4
-    columns a thread with each of 4 to 32 rows a pass, at ⌈groups / 132⌉
-    threads a block; the wrapper's plan at 64, 96 and 128 threads."""
+def plans(k: int, p: int) -> list[tuple[int, int, int, int]]:
+    """(columns a thread, rows a pass, next pass ahead, threads a block):
+    1, 2 or 4 columns a thread, 4, 8 or 16 rows a pass, with and without
+    the next pass ahead, at ⌈groups / 132⌉ threads a block; the wrapper's
+    plan at 64, 128 and 256 threads."""
     from repro_torch.kernels.aggregate import ops
 
-    vec, rows, _, threads = ops.launch_plan(k, p)
-    out = [(v, r, min(ops.MAX_THREADS, max(32, -(-(-(-p // v)) // ops.SMS))))
-           for v in (4, 2, 1) for r in (4, 8, 16, 32)]
-    return out + [(vec, rows, t) for t in (64, 96, 128)]
+    vec, rows, ahead, _, threads = ops.launch_plan(k, p)
+    out = [(v, r, a, min(ops.MAX_THREADS, max(32, -(-(-(-p // v)) // ops.SMS))))
+           for v in (4, 2, 1) for r in (4, 8, 16) for a in (0, 1)]
+    return out + [(vec, rows, ahead, t) for t in (64, 128, 256)]
 
 
 def main() -> int:
@@ -60,7 +61,7 @@ def main() -> int:
         w = torch.rand((k,), generator=gen).cuda()
         want, kept = aggregate_ref(U, w), ops.aggregate_flat(U, w)
         floors = {}
-        for vec, rows, threads in plans(k, p):
+        for vec, rows, ahead, threads in plans(k, p):
             blocks = -(-(-(-p // vec)) // threads)
             if (blocks, threads) not in floors:
                 def floor():
@@ -72,14 +73,15 @@ def main() -> int:
 
             def call():
                 err = lib.aggregate_rows(U.data_ptr(), w.data_ptr(), out.data_ptr(), k, p, vec, rows,
-                                         blocks, threads, stream)
+                                         ahead, blocks, threads, stream)
                 if err:
                     raise RuntimeError(f"CUDA error {err}")
 
             call()
             torch.cuda.synchronize()
             e = float((out - want).abs().max())
-            label = f"({k}, {p}) {vec} columns a thread, {rows} rows a pass, {blocks} × {threads}"
+            label = (f"({k}, {p}) {vec} columns a thread, {rows} rows a pass"
+                     f"{', the next ahead' if ahead else ''}, {blocks} × {threads}")
             if not torch.allclose(out, want, rtol=smoke.AGG_TOL, atol=smoke.AGG_TOL):
                 raise SystemExit(f"{label}: error {e}")
             if not torch.equal(out, kept):
@@ -88,7 +90,7 @@ def main() -> int:
                   f"device-busy {smoke._ms(smoke.device_ms(torch, call))}; empty kernel "
                   f"{floors[blocks, threads][0]:.6f}, {smoke._ms(floors[blocks, threads][1])}")
     p = smoke.AGG_SHAPE[1]
-    for k in (1, 4, 8, 11, 16, 24, 32, 41, 64, 128):
+    for k in (1, 4, 8, 11, 16, 24, 32, 41, 64, 128, 300):
         U = torch.randn((k, p), generator=gen).cuda()
         w = torch.rand((k,), generator=gen).cuda()
         print(f"[k sweep] ({k}, {p}) plan {ops.launch_plan(k, p)}: device-busy kernel "
