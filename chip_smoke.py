@@ -290,7 +290,7 @@ def sass_counts(lib_path, ops=("HMMA",)) -> dict | None:
 
 
 def sass_loads_ahead(lib_path) -> dict | None:
-    """{kernel: [128-bit LDG before its first FFMA, LDG before it, LDG in
+    """{kernel: [LDG before its first FFMA, 64-bit ones among them, LDG in
     all, FFMA in all]} in ``cuobjdump -sass`` of the library (in code
     order), or None where cuobjdump is missing."""
     import re
@@ -313,8 +313,8 @@ def sass_loads_ahead(lib_path) -> dict | None:
                 continue
             c[2] += 1
             if not c[3]:
-                c[1] += 1
-                c[0] += ".128" in op.group(2)
+                c[0] += 1
+                c[1] += ".64" in op.group(2)
     return counts
 
 
@@ -351,8 +351,8 @@ def phase_build():
         return
     print(f"build: similarity instructions in cuobjdump -sass by kernel: {json.dumps(sim)}")
     agg = sass_loads_ahead(_build._target("aggregate")[1])
-    print(f"build: aggregate global loads by kernel (128-bit ones before the first FFMA, all "
-          f"before it, all; FFMA): {json.dumps(agg)}")
+    print(f"build: aggregate global loads by kernel (before the first FFMA, 64-bit ones among "
+          f"them, all; FFMA): {json.dumps(agg)}")
     for fn, c in sim.items():
         if fn.startswith("pairwise_partial<1") and (c["FFMA"] or c["FMUL"] or c["FMNMX"] or c["FSEL"]):
             fail(f"build: the L1 kernel {fn} has FP32 instructions besides FADD: {c}")
@@ -1404,7 +1404,7 @@ def agg_turns(torch, gen):
         path = path or (U, w)
         kernel_turns(torch, f"aggregate ({k}, {p})", lambda: agg_ops.aggregate_flat(U, w), "mv",
                      lambda: torch.mv(U.T, w), "; U is L2-warm: the same rows every call")
-        *_, blocks, threads = agg_ops.launch_plan(k, p)
+        blocks, threads = agg_ops.launch_plan(k, p)
 
         def floor():
             if lib.aggregate_empty_launch(blocks, threads, torch.cuda.current_stream().cuda_stream):
@@ -1456,12 +1456,12 @@ def agg_wrapper_steps(torch, U, w, calls: int = 2000):
         return raw_stream(dev)
 
     def launch():
-        vec, rows, ahead, blocks, threads = plan()
+        blocks, threads = plan()
         out = U.new_empty(p)
-        lib.aggregate_rows(U.data_ptr(), w.data_ptr(), out.data_ptr(), k, p, vec, rows, ahead, blocks,
-                           threads, raw_stream(dev))
+        lib.aggregate_rows(U.data_ptr(), w.data_ptr(), out.data_ptr(), k, p, blocks, threads,
+                           raw_stream(dev))
 
-    *_, blocks, threads = agg_ops.launch_plan(k, p)
+    blocks, threads = agg_ops.launch_plan(k, p)
     steps = {"a Python call": lambda: None, "+ checks": checks, "+ the plan": plan,
              "+ new_empty": alloc, "+ the raw stream": stream,
              "+ data_ptr, ctypes and the launch": launch,

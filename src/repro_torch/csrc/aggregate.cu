@@ -10,30 +10,29 @@
 // kernel must read k·p·4 B ≈ 1.75 MB and write p·4 B ≈ 0.16 MB, about
 // 0.57 µs at 3.35 TB/s; 2·k·p ≈ 0.87 MFLOP is negligible. It is bounded by
 // bytes, and at this size by the launch itself: an empty kernel on the same
-// grid takes about 0.84 µs of device time (PERF.md). What is left to win is
+// grid takes about 0.87 µs of device time (PERF.md). What is left to win is
 // latency: the rows must reach the SMs in as few round trips as possible.
 //
-// Design:
-// * A thread owns one group of 4 columns; a block of `threads` owns
-//   4·threads consecutive columns. The plan (`launch_plan` in
-//   kernels/aggregate/ops.py) depends on (k, p) only: threads =
-//   ⌈groups / 132⌉, so the grid is about one block on each SM of a 132-SM
-//   H100 and none waits for a second wave.
-// * Rows are taken in passes of R (16 for k ≤ 16, else 32), fully
-//   unrolled: every row's 16-byte load of the pass (`ld.global.nc`) and
-//   its weight are issued before the pass's first FMA, so a pass costs one
-//   round trip to L2 or memory, and k ≤ 32 costs one. Further passes add to
-//   the same accumulator.
+// Design (measured against other plans and a TMA version on an H100 SXM:
+// PERF.md, Findings, PR 18):
+// * A thread owns VEC = 2 columns; a block of `threads` owns 2·threads
+//   consecutive columns. The plan (`launch_plan` in kernels/aggregate/ops.py)
+//   depends on (k, p) only: threads = ⌈⌈p / 2⌉ / 132⌉, so the grid is one
+//   block on each SM of a 132-SM H100 and none waits for a second wave.
+// * Rows are taken in passes of ROWS = 8, every load of a pass (and its 8
+//   weights) issued before its first FMA, and the next pass's loads issued
+//   before this pass's FMAs: 16 rows in flight, one round trip to L2 or
+//   memory for every 8 rows after the first 8. Longer passes were slower:
+//   their unrolled code outweighs the round trips they save.
 // * Fixed order: every output is fmaf(w[k-1], U[k-1, j], … fmaf(w[0],
 //   U[0, j], 0)), rows ascending, whatever the pass, the layout or the
 //   column's place in the grid. A call is bit-reproducible, and the same
 //   values give the same bits in any layout.
-// * Layout: where every row is 16-byte aligned (p % 4 == 0 and U and out
-//   16-byte aligned) a group is one float4 load a row and one float4
-//   store; otherwise (a ragged p, a view off alignment) the same grid takes
-//   4-byte loads, thread t of a block reading columns t, t + threads,
-//   t + 2·threads and t + 3·threads of its block's span, so each warp load
-//   is 128 contiguous bytes.
+// * Layout: where every row is 8-byte aligned (p even, U and out 8-byte
+//   aligned) a thread's 2 columns are one 8-byte load a row and one store;
+//   otherwise (an odd p, a view off alignment) the same grid takes 4-byte
+//   loads, thread t of a block reading columns t and t + threads of its
+//   block's span, so each warp load is 128 contiguous bytes.
 // * Arithmetic is f32 FMA on the CUDA cores; no atomics.
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -41,144 +40,102 @@
 namespace {
 
 constexpr int MAX_THREADS = 256;  // ops.MAX_THREADS
+constexpr int VEC = 2;            // ops.VEC: columns a thread
+constexpr int ROWS = 8;           // rows a pass
 
-// V consecutive floats, loaded and stored as one access of 4·V bytes.
-template <int V>
-struct alignas(4 * V) Pack {
-  float v[V];
+struct alignas(4 * VEC) Cols {
+  float v[VEC];
 };
 
-// Rows 4·V-byte aligned: thread j owns columns [V·j, V·j + V).
-template <int V, int R>
-__device__ __forceinline__ void load_pass(Pack<V> (&u)[R], float (&wr)[R], const Pack<V>* col,
-                                          const float* w, int r0, int k, int pv) {
+// Issue the loads of rows [r0, r0 + ROWS) ∩ [0, k): `load(r)` gives the
+// thread's columns of row r.
+template <class Load>
+__device__ __forceinline__ void load_pass(Cols (&u)[ROWS], float (&wr)[ROWS], Load load,
+                                          const float* __restrict__ w, int r0, int k) {
 #pragma unroll
-  for (int i = 0; i < R; ++i)
-    if (r0 + i < k) u[i] = col[(size_t)(r0 + i) * pv];
+  for (int i = 0; i < ROWS; ++i)
+    if (r0 + i < k) u[i] = load(r0 + i);
 #pragma unroll
-  for (int i = 0; i < R; ++i)
+  for (int i = 0; i < ROWS; ++i)
     if (r0 + i < k) wr[i] = __ldg(w + r0 + i);
 }
 
-template <int V, int R>
-__device__ __forceinline__ void add_pass(Pack<V>& acc, const Pack<V> (&u)[R], const float (&wr)[R],
+__device__ __forceinline__ void add_pass(Cols& acc, const Cols (&u)[ROWS], const float (&wr)[ROWS],
                                          int r0, int k) {
 #pragma unroll
-  for (int i = 0; i < R; ++i)
+  for (int i = 0; i < ROWS; ++i)
     if (r0 + i < k) {
 #pragma unroll
-      for (int c = 0; c < V; ++c) acc.v[c] = fmaf(wr[i], u[i].v[c], acc.v[c]);
+      for (int c = 0; c < VEC; ++c) acc.v[c] = fmaf(wr[i], u[i].v[c], acc.v[c]);
     }
 }
 
-// AHEAD: the next pass's loads are issued before this pass's FMAs.
-template <int V, int R, bool AHEAD>
+// Σ_r w[r]·U[r, ·] over the thread's columns, rows ascending, one pass
+// ahead.
+template <class Load>
+__device__ __forceinline__ Cols column_sums(Load load, const float* __restrict__ w, int k) {
+  Cols acc;
+#pragma unroll
+  for (int c = 0; c < VEC; ++c) acc.v[c] = 0.f;
+  Cols a[ROWS], b[ROWS];
+  float wa[ROWS], wb[ROWS];
+  load_pass(a, wa, load, w, 0, k);
+  for (int r0 = 0; r0 < k; r0 += 2 * ROWS) {
+    load_pass(b, wb, load, w, r0 + ROWS, k);
+    add_pass(acc, a, wa, r0, k);
+    load_pass(a, wa, load, w, r0 + 2 * ROWS, k);
+    add_pass(acc, b, wb, r0 + ROWS, k);
+  }
+  return acc;
+}
+
+// Rows 8-byte aligned: thread j owns columns 2j and 2j + 1.
 __global__ void __launch_bounds__(MAX_THREADS)
-aggregate_vec(const Pack<V>* __restrict__ U, const float* __restrict__ w,
-              Pack<V>* __restrict__ out, int k, int pv) {
+aggregate_vec2(const Cols* __restrict__ U, const float* __restrict__ w, Cols* __restrict__ out,
+               int k, int pv) {
   const int j = blockIdx.x * blockDim.x + threadIdx.x;
   if (j >= pv) return;
-  const Pack<V>* col = U + j;
-  Pack<V> acc;
-#pragma unroll
-  for (int c = 0; c < V; ++c) acc.v[c] = 0.f;
-  Pack<V> a[R], b[R];
-  float wa[R], wb[R];
-  if (AHEAD) {
-    load_pass<V, R>(a, wa, col, w, 0, k, pv);
-    for (int r0 = 0; r0 < k; r0 += 2 * R) {
-      load_pass<V, R>(b, wb, col, w, r0 + R, k, pv);
-      add_pass<V, R>(acc, a, wa, r0, k);
-      load_pass<V, R>(a, wa, col, w, r0 + 2 * R, k, pv);
-      add_pass<V, R>(acc, b, wb, r0 + R, k);
-    }
-  } else {
-    for (int r0 = 0; r0 < k; r0 += R) {
-      load_pass<V, R>(a, wa, col, w, r0, k, pv);
-      add_pass<V, R>(acc, a, wa, r0, k);
-    }
-  }
-  out[j] = acc;
+  const Cols* col = U + j;
+  out[j] = column_sums([&](int r) { return col[(size_t)r * pv]; }, w, k);
 }
 
-// Any layout: the same grid, 4-byte loads; thread t of a block owns
-// columns t + c·T, c < V, of the block's span of V·T columns. Passes of at
-// most 64 / V rows, since each row is V loads here.
-template <int V, int R>
+// Any layout: thread t of block b owns columns c0 = 2·T·b + t and c0 + T.
 __global__ void __launch_bounds__(MAX_THREADS)
 aggregate_scalar(const float* __restrict__ U, const float* __restrict__ w,
                  float* __restrict__ out, int k, int p) {
   const int T = blockDim.x;
-  const int c0 = V * T * blockIdx.x + threadIdx.x;
+  const int c0 = VEC * T * blockIdx.x + threadIdx.x, c1 = c0 + T;
   if (c0 >= p) return;
-  float acc[V];
-#pragma unroll
-  for (int c = 0; c < V; ++c) acc[c] = 0.f;
-  for (int r0 = 0; r0 < k; r0 += R) {
-    float u[R][V];
-    float wr[R];
-#pragma unroll
-    for (int i = 0; i < R; ++i)
-#pragma unroll
-      for (int c = 0; c < V; ++c)
-        if (r0 + i < k && c0 + c * T < p) u[i][c] = __ldg(U + (size_t)(r0 + i) * p + c0 + c * T);
-#pragma unroll
-    for (int i = 0; i < R; ++i)
-      if (r0 + i < k) wr[i] = __ldg(w + r0 + i);
-#pragma unroll
-    for (int i = 0; i < R; ++i)
-      if (r0 + i < k) {
-#pragma unroll
-        for (int c = 0; c < V; ++c) acc[c] = fmaf(wr[i], u[i][c], acc[c]);
-      }
-  }
-#pragma unroll
-  for (int c = 0; c < V; ++c)
-    if (c0 + c * T < p) out[c0 + c * T] = acc[c];
-}
-
-template <int V, int R>
-int launch(const float* U, const float* w, float* out, int k, int p, int ahead, int blocks,
-           int threads, cudaStream_t s) {
-  const bool aligned = (p % V == 0) && (reinterpret_cast<uintptr_t>(U) % (4 * V) == 0) &&
-                       (reinterpret_cast<uintptr_t>(out) % (4 * V) == 0);
-  if (aligned && ahead)
-    aggregate_vec<V, R, true><<<blocks, threads, 0, s>>>(reinterpret_cast<const Pack<V>*>(U), w,
-                                                         reinterpret_cast<Pack<V>*>(out), k, p / V);
-  else if (aligned)
-    aggregate_vec<V, R, false><<<blocks, threads, 0, s>>>(reinterpret_cast<const Pack<V>*>(U), w,
-                                                          reinterpret_cast<Pack<V>*>(out), k, p / V);
-  else
-    aggregate_scalar<V, (R * V <= 64 ? R : 64 / V)><<<blocks, threads, 0, s>>>(U, w, out, k, p);
-  return (int)cudaGetLastError();
-}
-
-template <int V>
-int launch_rows(const float* U, const float* w, float* out, int k, int p, int rows, int ahead,
-                int blocks, int threads, cudaStream_t s) {
-  switch (rows) {
-    case 4: return launch<V, 4>(U, w, out, k, p, ahead, blocks, threads, s);
-    case 8: return launch<V, 8>(U, w, out, k, p, ahead, blocks, threads, s);
-    case 16: return launch<V, 16>(U, w, out, k, p, ahead, blocks, threads, s);
-  }
-  return (int)cudaErrorInvalidValue;
+  const bool second = c1 < p;
+  const Cols acc = column_sums(
+      [&](int r) {
+        const float* row = U + (size_t)r * p;
+        Cols x;
+        x.v[0] = __ldg(row + c0);
+        x.v[1] = second ? __ldg(row + c1) : 0.f;
+        return x;
+      },
+      w, k);
+  out[c0] = acc.v[0];
+  if (second) out[c1] = acc.v[1];
 }
 
 }  // namespace
 
-// U (k, p) f32, w (k,) f32 -> out (p,) f32, all on the device, on the plan
-// (columns a thread, rows a pass, next pass ahead, blocks, threads) of
-// ops.launch_plan.
-// Returns the cudaError_t of the launch (0 = success).
-extern "C" int aggregate_rows(const float* U, const float* w, float* out, int k, int p, int vec,
-                              int rows, int ahead, int blocks, int threads, void* stream) {
+// U (k, p) f32, w (k,) f32 -> out (p,) f32, all on the device, on the grid
+// (blocks, threads) of ops.launch_plan. Returns the cudaError_t of the
+// launch (0 = success).
+extern "C" int aggregate_rows(const float* U, const float* w, float* out, int k, int p, int blocks,
+                              int threads, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (vec) {
-    case 1: return launch_rows<1>(U, w, out, k, p, rows, ahead, blocks, threads, s);
-    case 2: return launch_rows<2>(U, w, out, k, p, rows, ahead, blocks, threads, s);
-    case 4: return launch_rows<4>(U, w, out, k, p, rows, ahead, blocks, threads, s);
-  }
-  return (int)cudaErrorInvalidValue;
+  const bool aligned = (p % VEC == 0) && (reinterpret_cast<uintptr_t>(U) % (4 * VEC) == 0) &&
+                       (reinterpret_cast<uintptr_t>(out) % (4 * VEC) == 0);
+  if (aligned)
+    aggregate_vec2<<<blocks, threads, 0, s>>>(reinterpret_cast<const Cols*>(U), w,
+                                              reinterpret_cast<Cols*>(out), k, p / VEC);
+  else
+    aggregate_scalar<<<blocks, threads, 0, s>>>(U, w, out, k, p);
+  return (int)cudaGetLastError();
 }
 
 // An empty kernel on a grid of `blocks` × `threads`: the launch floor a call

@@ -21,12 +21,9 @@ from repro_torch.kernels.aggregate.ref import aggregate_ref
 SMS = 132
 #: The kernels' ``__launch_bounds__``: a block's threads at most.
 MAX_THREADS = 256
-#: Rows a pass: all rows of a pass are in flight at once.
-ROWS = 8
-#: Columns a thread (one load of 4·VEC bytes a row where rows are aligned).
+#: Columns a thread, as in the kernel (one 4·VEC-byte load a row where rows
+#: are aligned).
 VEC = 2
-#: 1: the next pass's loads are issued before this pass's FMAs.
-AHEAD = 1
 
 #: Kernel launches since the count was last reset.
 launches = {"aggregate": 0}
@@ -37,21 +34,21 @@ def _lib():
     """The aggregate library, with its C signatures bound once."""
     lib = _build.load("aggregate")
     lib.aggregate_rows.restype = ctypes.c_int
-    lib.aggregate_rows.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    lib.aggregate_rows.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
     lib.aggregate_empty_launch.restype = ctypes.c_int
     lib.aggregate_empty_launch.argtypes = [ctypes.c_int] * 2 + [ctypes.c_void_p]
     return lib
 
 
 @functools.cache
-def launch_plan(k: int, p: int) -> tuple[int, int, int, int, int]:
-    """(columns a thread, rows a pass, next pass ahead, blocks, threads) for
-    a (k, p) call: ⌈p / VEC⌉ column groups, ⌈groups / SMS⌉ threads a block
-    (at least one warp, at most MAX_THREADS), so the grid is one block on
-    each SM."""
+def launch_plan(k: int, p: int) -> tuple[int, int]:
+    """(blocks, threads) for a (k, p) call: ⌈p / VEC⌉ column groups, one a
+    thread, ⌈groups / SMS⌉ threads a block (at least one warp, at most
+    MAX_THREADS), so the grid is one block on each SM. The kernel takes the
+    rows in passes whatever k is, so k does not change the grid."""
     groups = -(-p // VEC)
     threads = min(MAX_THREADS, max(32, -(-groups // SMS)))
-    return VEC, ROWS, AHEAD, -(-groups // threads), threads
+    return -(-groups // threads), threads
 
 
 def aggregate_flat(updates: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
@@ -73,11 +70,11 @@ def aggregate_flat(updates: torch.Tensor, weights: torch.Tensor) -> torch.Tensor
     if not (updates.is_contiguous() and weights.is_contiguous()):
         raise ValueError("updates and weights must be contiguous")
     k, p = shape
-    vec, rows, ahead, blocks, threads = launch_plan(k, p)
+    blocks, threads = launch_plan(k, p)
     out = updates.new_empty(p)
     lib = _lib()
-    err = lib.aggregate_rows(updates.data_ptr(), weights.data_ptr(), out.data_ptr(), k, p, vec,
-                             rows, ahead, blocks, threads, torch._C._cuda_getCurrentRawStream(dev))
+    err = lib.aggregate_rows(updates.data_ptr(), weights.data_ptr(), out.data_ptr(), k, p, blocks,
+                             threads, torch._C._cuda_getCurrentRawStream(dev))
     if err:
         _build.check(lib, err, "aggregate kernel")
     launches["aggregate"] += 1
