@@ -11,9 +11,11 @@ Phases, one line (or a few) each; any failure raises and exits non-zero:
    ``csrc/sketch.cu`` and ``csrc/flash_attention.cu`` for ``sm_90a`` from
    the checkout (all ``nvcc`` in parallel) and print the seconds it took,
    each kernel's ptxas report (registers, spills; a spill in the bf16 flash
-   kernel or a similarity kernel fails the run), the FP32 and load
-   instructions of each similarity kernel in ``cuobjdump -sass`` (an L1
-   kernel with an FP32 instruction besides FADD fails it) and the count of
+   kernel, a similarity kernel or an aggregate kernel fails the run), the
+   FP32 and load instructions of each similarity kernel in ``cuobjdump
+   -sass`` (an L1 kernel with an FP32 instruction besides FADD fails it),
+   the global loads each aggregate kernel issues before its first FFMA (the
+   aligned kernel must issue a whole pass of row loads) and the count of
    ``HMMA`` (tensor-core) instructions of each flash kernel (the bf16
    kernel must have some);
 2. kernels — hold each kernel against its plain PyTorch version on the card
@@ -22,7 +24,10 @@ Phases, one line (or a few) each; any failure raises and exits non-zero:
    0.1–50; both bit-reproducible and symmetric bit for bit, the sketched
    store's (100, 64) in one split, and the device kernels of a call in a
    profiler window: partial and reduce pass once each at (100, 39,760),
-   the partial pass alone at (100, 64); aggregate: rtol and atol 2e-5; SRP:
+   the partial pass alone at (100, 64); aggregate at (11, 39,760),
+   (41, 39,760) and a ragged (11, 39,759): rtol and atol 2e-5,
+   bit-reproducible, bit-equal for the same values 4 bytes off alignment
+   and with one more column, one device kernel a call; SRP:
    |got − want| ≤
    1e-5·‖x_i‖·‖S_:,j‖ with ‖S_:,j‖ = √(d/d′), its signs bit-equal to the
    plain version's, bit-reproducible and independent of the rows it is
@@ -71,9 +76,12 @@ Phases, one line (or a few) each; any failure raises and exits non-zero:
    ``scaled_dot_product_attention`` in turns (kernel, library, library,
    kernel), also with the queue filled ahead of the events, and the
    TFLOP/s each reaches; the SRP kernel and ``torch.matmul(X, S)`` in
-   turns at c = 10 and 64, and the similarity kernel and ``G @ G.T`` /
-   ``torch.cdist(G, G, p=1)`` in turns at (100, 39,760) and (100, 64), with
-   the device time of each kernel they launch.
+   turns at c = 10 and 64, the similarity kernel and ``G @ G.T`` /
+   ``torch.cdist(G, G, p=1)`` in turns at (100, 39,760) and (100, 64), and
+   the aggregate kernel and ``torch.mv(U.T, w)`` in turns at (11, 39,760)
+   and (41, 39,760), with the device time of each kernel they launch; an
+   empty kernel on the aggregate's grid (the launch floor); the aggregate
+   wrapper's host µs step by step.
 
 The last lines are the card's name and power limit (nvidia-smi), a JSON
 object with one entry per kernel and shape, and ``{"ok": true, "device": ...}``.
@@ -113,6 +121,7 @@ AGG_SHAPE = (11, 39760)  # m = 10 client rows + the θ^t row
 # are not 16-byte aligned
 AGG_SHAPES = [AGG_SHAPE, (41, 39760), (11, 39759)]
 AGG_TOL = 2e-5
+AGG_PASS_ROWS = 8  # rows a pass of csrc/aggregate.cu, all in flight before the pass's FMAs
 WIDTH = (784, 50, 10)
 D_PRIME = 64  # sketch width of slice[srp] and the fleet (bench_store_scale's d')
 SKETCHED_SIM_SHAPE = (100, D_PRIME)  # the sketched store the similarity kernel reads
@@ -344,15 +353,18 @@ def phase_build():
     if spills:
         fail(f"build: ptxas reports spills in {'; '.join(spills)}")
     sim = sass_counts(_build._target("similarity")[1], SIM_SASS_OPS)
+    agg = sass_loads_ahead(_build._target("aggregate")[1])
     lib = _build._target("flash_attention")[1]
     counts = sass_counts(lib)
-    if counts is None or sim is None:
+    if counts is None or sim is None or agg is None:
         print(f"build: cuobjdump is missing; HMMA instructions of {lib.name} not counted")
         return
     print(f"build: similarity instructions in cuobjdump -sass by kernel: {json.dumps(sim)}")
-    agg = sass_loads_ahead(_build._target("aggregate")[1])
     print(f"build: aggregate global loads by kernel (before the first FFMA, 64-bit ones among "
           f"them, all; FFMA): {json.dumps(agg)}")
+    if agg.get("aggregate_vec2", [0, 0])[1] < AGG_PASS_ROWS:
+        fail(f"build: aggregate_vec2 issues fewer than {AGG_PASS_ROWS} 8-byte row loads before "
+             f"its first FFMA: a pass's rows are not all in flight ({agg.get('aggregate_vec2')})")
     for fn, c in sim.items():
         if fn.startswith("pairwise_partial<1") and (c["FFMA"] or c["FMUL"] or c["FMNMX"] or c["FSEL"]):
             fail(f"build: the L1 kernel {fn} has FP32 instructions besides FADD: {c}")

@@ -7,12 +7,14 @@ import torch
 from repro.fl.aggregation import aggregate_stacked as ref_aggregate_stacked
 from repro.kernels.aggregate.kernel import aggregate_kernel
 from repro_torch.fl.aggregation import aggregate_stacked
-from repro_torch.kernels.aggregate.ops import aggregate_flat
+from repro_torch.kernels.aggregate import ops
+from repro_torch.kernels.aggregate.ops import aggregate_flat, launch_plan
 
 RNG = np.random.default_rng(0)
 
 
-@pytest.mark.parametrize("k,p", [(1, 64), (7, 1000), (11, 12345)])
+# (41, 39,760): bench_round_engine's m = 40 and θ^t; (11, 39,759): a ragged p
+@pytest.mark.parametrize("k,p", [(1, 64), (7, 1000), (11, 12345), (41, 39760), (11, 39759)])
 def test_aggregate_matches_reference_kernel(k, p):
     U = RNG.normal(size=(k, p)).astype(np.float32)
     w = RNG.normal(size=(k,)).astype(np.float32)
@@ -68,3 +70,46 @@ def test_wrapper_rejects_bad_input():
         aggregate_flat(U.double(), torch.zeros(3, dtype=torch.float64))
     with pytest.raises(ValueError):
         aggregate_flat(U.to("meta"), torch.zeros(3, device="meta"))
+
+
+def _columns_of_grid(p, blocks, threads, aligned):
+    """How many times each of p columns is owned under csrc/aggregate.cu's
+    index map: aligned, thread j = b·T + t < p / 2 owns columns 2j and
+    2j + 1; otherwise thread t of block b owns c0 = 2·T·b + t (if c0 < p)
+    and c0 + T (if < p)."""
+    owned = np.zeros(p, np.int64)
+    b, t = np.meshgrid(np.arange(blocks), np.arange(threads), indexing="ij")
+    if aligned:
+        j = (b * threads + t).ravel()
+        j = j[j < p // ops.VEC]
+        for c in range(ops.VEC):
+            np.add.at(owned, ops.VEC * j + c, 1)
+    else:
+        c0 = (ops.VEC * threads * b + t).ravel()
+        c0 = c0[c0 < p]
+        for c in range(ops.VEC):
+            cols = c0 + c * threads
+            np.add.at(owned, cols[cols < p], 1)
+    return owned
+
+
+@pytest.mark.parametrize("p", [1, 2, 3, 64, 1001, 4099, 39759, 39760, 39761, 100_003, 2_000_000])
+def test_launch_plan_covers_every_column_once(p):
+    blocks, threads = launch_plan(11, p)
+    for aligned in ([False] if p % ops.VEC else [True, False]):
+        np.testing.assert_array_equal(_columns_of_grid(p, blocks, threads, aligned), 1)
+
+
+@pytest.mark.parametrize("p", [1, 64, 39759, 39760, 2_000_000])
+def test_launch_plan_is_one_block_an_sm_and_depends_on_the_shape_only(p):
+    plans = {launch_plan(k, p) for k in (1, 11, 41, 300)}
+    assert len(plans) == 1  # the kernel walks k in passes: k never changes the grid
+    blocks, threads = plans.pop()
+    groups = -(-p // ops.VEC)
+    assert 32 <= threads <= ops.MAX_THREADS
+    assert (blocks - 1) * threads < groups <= blocks * threads  # no block without a column
+    if groups <= ops.SMS * ops.MAX_THREADS:
+        assert blocks <= ops.SMS  # no second wave on a 132-SM card
+    else:
+        assert threads == ops.MAX_THREADS
+    assert launch_plan(11, 39760) == (132, 151)  # the main path's grid

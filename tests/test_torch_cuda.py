@@ -10,6 +10,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.kernels.aggregate import ops as agg_ops
 from repro_torch.kernels.aggregate.ops import aggregate_flat
 from repro_torch.kernels.aggregate.ref import aggregate_ref
 from repro_torch.kernels.similarity import ops
@@ -55,15 +56,70 @@ def test_similarity_kernel_matches_plain(cuda, op, n, d):
     np.testing.assert_array_equal(got.cpu().numpy(), got.T.cpu().numpy())
 
 
-@pytest.mark.parametrize("k,p", [(11, 39760), (3, 1001), (1, 1)])
+# the main path's (11, 39,760), bench_round_engine's (41, 39,760), a ragged
+# p, k of several 8-row passes (300), odd p with rows off alignment
+AGG_SHAPES = [(11, 39760), (41, 39760), (11, 39759), (300, 4099), (3, 1001), (1, 1), (17, 2)]
+
+
+def _agg_inputs(k, p, seed=4):
+    rng = np.random.default_rng(seed)
+    U = torch.from_numpy(rng.normal(size=(k, p)).astype(np.float32)).cuda()
+    w = torch.from_numpy(rng.normal(size=(k,)).astype(np.float32)).cuda()
+    return U, w
+
+
+@pytest.mark.parametrize("k,p", AGG_SHAPES)
 def test_aggregate_kernel_matches_plain(cuda, k, p):
-    rng = np.random.default_rng(4)
-    U = torch.from_numpy(rng.normal(size=(k, p)).astype(np.float32)).to(cuda)
-    w = torch.from_numpy(rng.normal(size=(k,)).astype(np.float32)).to(cuda)
+    U, w = _agg_inputs(k, p)
     got = aggregate_flat(U, w)
     want = aggregate_ref(U, w)
     torch.cuda.synchronize()
     np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("k,p", AGG_SHAPES)
+def test_aggregate_kernel_is_bit_reproducible(cuda, k, p):
+    U, w = _agg_inputs(k, p)
+    assert torch.equal(aggregate_flat(U, w), aggregate_flat(U, w))
+
+
+@pytest.mark.parametrize("k,p", AGG_SHAPES)
+def test_aggregate_kernel_same_bits_in_any_layout(cuda, k, p):
+    """One fixed FMA order for every column: the same values 4 bytes off
+    alignment, and with one more column (other row alignments), sum to the
+    same bits as the aligned call."""
+    U, w = _agg_inputs(k, p)
+    got = aggregate_flat(U, w)
+    flat = torch.empty(k * p + 1, device=cuda)
+    shifted = flat[1:].view(k, p)
+    shifted.copy_(U)
+    wide = torch.cat([U, torch.ones((k, 1), device=cuda)], dim=1)
+    assert torch.equal(aggregate_flat(shifted, w), got)
+    assert torch.equal(aggregate_flat(wide, w)[:p], got)
+
+
+@pytest.mark.parametrize("k,p", [(11, 39760), (41, 39760), (11, 39759)])
+def test_aggregate_kernel_launches_a_call(cuda, k, p):
+    """One aggregate_ device kernel a call and nothing else (no copy, no
+    fill), and one count a call."""
+    U, w = _agg_inputs(k, p)
+    before = agg_ops.launches["aggregate"]
+    aggregate_flat(U, w)
+    assert agg_ops.launches["aggregate"] == before + 1
+    events = _device_kernels(lambda: aggregate_flat(U, w))
+    # the profiler may drop a launch or two of a window it keeps
+    assert 18 <= len(events) <= 20
+    assert all("aggregate_" in e for e in events)
+
+
+def test_aggregate_wrapper_raises_instead_of_falling_back(cuda):
+    U, w = _agg_inputs(3, 8)
+    with pytest.raises(ValueError):
+        aggregate_flat(U, w.cpu())
+    with pytest.raises(ValueError):
+        aggregate_flat(U.T, torch.zeros(8, device=cuda))  # not contiguous
+    with pytest.raises(TypeError):
+        aggregate_flat(U.half(), w)
 
 
 def _device_kernels(fn, reps=20):
