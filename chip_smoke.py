@@ -275,11 +275,9 @@ def ptxas_report(log: str) -> list[tuple[str, str]]:
     return rows
 
 
-def sass_counts(lib_path, ops=("HMMA",)) -> dict | None:
-    """{kernel: {op: count of its instructions}} in ``cuobjdump -sass`` of
-    the library, for each opcode in ``ops`` (matched as a whole word before
-    any modifier), or None where cuobjdump is missing."""
-    import re
+def sass_by_kernel(lib_path) -> dict | None:
+    """{kernel: its instruction lines in ``cuobjdump -sass`` of the library,
+    in code order}, or None where cuobjdump is missing."""
     import shutil
 
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
@@ -287,36 +285,45 @@ def sass_counts(lib_path, ops=("HMMA",)) -> dict | None:
         return None
     sass = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True, text=True,
                           check=True, timeout=120).stdout
-    pattern = re.compile(r"\s(" + "|".join(ops) + r")[\s.]")
-    counts, fn = {}, None
+    lines, fn = {}, None
     for line in sass.splitlines():
         if "Function :" in line:
             fn = _kernel_name(line.split("Function :", 1)[1].strip())
-            counts[fn] = dict.fromkeys(ops, 0)
-        elif fn is not None and (found := pattern.search(line)):
+            lines[fn] = []
+        elif fn is not None:
+            lines[fn].append(line)
+    return lines
+
+
+def sass_counts(lib_path, ops=("HMMA",)) -> dict | None:
+    """{kernel: {op: count of its instructions}} in ``cuobjdump -sass`` of
+    the library, for each opcode in ``ops`` (matched as a whole word before
+    any modifier), or None where cuobjdump is missing."""
+    import re
+
+    if (sass := sass_by_kernel(lib_path)) is None:
+        return None
+    pattern = re.compile(r"\s(" + "|".join(ops) + r")[\s.]")
+    counts = {}
+    for fn, lines in sass.items():
+        counts[fn] = dict.fromkeys(ops, 0)
+        for found in filter(None, map(pattern.search, lines)):
             counts[fn][found.group(1)] += 1
     return counts
 
 
 def sass_loads_ahead(lib_path) -> dict | None:
     """{kernel: [LDG before its first FFMA, 64-bit ones among them, LDG in
-    all, FFMA in all]} in ``cuobjdump -sass`` of the library (in code
-    order), or None where cuobjdump is missing."""
+    all, FFMA in all]} in ``cuobjdump -sass`` of the library, or None where
+    cuobjdump is missing."""
     import re
-    import shutil
 
-    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-    if not Path(tool).exists():
+    if (sass := sass_by_kernel(lib_path)) is None:
         return None
-    sass = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True, text=True,
-                          check=True, timeout=120).stdout
-    counts, fn = {}, None
-    for line in sass.splitlines():
-        if "Function :" in line:
-            fn = _kernel_name(line.split("Function :", 1)[1].strip())
-            counts[fn] = [0, 0, 0, 0]
-        elif fn is not None and (op := re.search(r"\s(LDG|FFMA)([.\w]*)\s", line)):
-            c = counts[fn]
+    counts = {}
+    for fn, lines in sass.items():
+        c = counts[fn] = [0, 0, 0, 0]
+        for op in filter(None, (re.search(r"\s(LDG|FFMA)((?:\.\w+)*)\s", line) for line in lines)):
             if op.group(1) == "FFMA":
                 c[3] += 1
                 continue
@@ -1409,11 +1416,15 @@ def agg_turns(torch, gen):
     from repro_torch.kernels.aggregate import ops as agg_ops
 
     lib = agg_ops._lib()
+    part, bw, *_ = peaks_for(torch.cuda.get_device_name(0))
     path = None
     for k, p in AGG_SHAPES[:2]:
         U = torch.randn((k, p), generator=gen).cuda()
         w = torch.rand((k,), generator=gen).cuda()
         path = path or (U, w)
+        nbytes = 4 * (k * p + k + p)
+        print(f"times: aggregate ({k}, {p}) bound {nbytes / bw * 1e3:.6f} ms ({nbytes} B read or "
+              f"written once at {part}'s {bw / 1e12:.2f} TB/s)")
         kernel_turns(torch, f"aggregate ({k}, {p})", lambda: agg_ops.aggregate_flat(U, w), "mv",
                      lambda: torch.mv(U.T, w), "; U is L2-warm: the same rows every call")
         blocks, threads = agg_ops.launch_plan(k, p)

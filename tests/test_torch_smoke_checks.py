@@ -21,6 +21,10 @@ scaled by hd^-½·log₂e in the bf16 one), and rejects a kernel that drops
 the last partial k-tile or ignores the causal mask, and a bf16 kernel that
 leaves garbage in the head-dim pad columns of Q and K or shifts the
 diagonal by one key: a check must fail the kernels it exists to catch.
+The aggregate check (rtol = atol 2e-5) accepts the kernel's ascending FMA
+chain and rejects a kernel that drops the θ^t row, the last column or
+pairs each row with the next row's weight; the build's SASS count of row
+loads before the first FFMA is read from the right kernel and opcodes.
 """
 import functools
 import importlib.util
@@ -300,3 +304,79 @@ def test_flash_check_rejects_wrong_bf16_kernels(wrong, shape):
     else:
         got = _flash_online(q, k, v, exp2=True, mask=wrong.removeprefix("mask_"))
     assert smoke.flash_excess(got, want, q, k, v) > 1.0
+
+
+def _fma_chain(U, w, wrong=None):
+    """Σ_r w[r]·U[r] as csrc/aggregate.cu sums it: fmaf(w[r], U[r, j], acc)
+    from acc = 0, rows ascending (each fmaf taken in f64, one rounding to
+    f32). ``wrong``: ``"drop_last_row"`` leaves the θ^t row out,
+    ``"drop_last_column"`` leaves the last output 0, ``"weights_off_by_one"``
+    pairs row r with w[r + 1]."""
+    U64, w64 = U.double(), w.double()
+    if wrong == "weights_off_by_one":
+        w64 = torch.roll(w64, -1)
+    rows = U.shape[0] - (wrong == "drop_last_row")
+    acc = torch.zeros(U.shape[1], dtype=torch.float32)
+    for r in range(rows):
+        acc = (w64[r] * U64[r] + acc.double()).float()
+    if wrong == "drop_last_column":
+        acc[-1] = 0.0
+    return acc
+
+
+def _agg_inputs(k, p):
+    rng = np.random.default_rng(1)
+    return (torch.from_numpy(rng.normal(size=(k, p)).astype(np.float32)),
+            torch.from_numpy(rng.random(k).astype(np.float32)))
+
+
+def _agg_check(got, want):
+    return torch.allclose(got, want, rtol=smoke.AGG_TOL, atol=smoke.AGG_TOL)
+
+
+@pytest.mark.parametrize("k,p", smoke.AGG_SHAPES)
+def test_aggregate_check_accepts_the_kernels_order(k, p):
+    from repro_torch.kernels.aggregate.ref import aggregate_ref
+
+    U, w = _agg_inputs(k, p)
+    assert _agg_check(_fma_chain(U, w), aggregate_ref(U, w))
+
+
+@pytest.mark.parametrize("wrong", ["drop_last_row", "drop_last_column", "weights_off_by_one"])
+@pytest.mark.parametrize("k,p", smoke.AGG_SHAPES)
+def test_aggregate_check_rejects_wrong_kernels(k, p, wrong):
+    from repro_torch.kernels.aggregate.ref import aggregate_ref
+
+    U, w = _agg_inputs(k, p)
+    assert not _agg_check(_fma_chain(U, w, wrong), aggregate_ref(U, w))
+
+
+SASS = """
+        code for sm_90a
+                Function : _ZN12_GLOBAL__N_114aggregate_vec2EPKNS_4ColsEPKfPS0_ii
+        /*0000*/                   LDC R1, c[0x0][0x28] ;
+        /*0010*/                   LDG.E.64.CONSTANT R4, desc[UR4][R2.64] ;
+        /*0020*/                   LDG.E.CONSTANT R6, desc[UR4][R8.64] ;
+        /*0030*/                   LDGSTS.E.128 [R12], desc[UR4][R2.64] ;
+        /*0040*/                   LDG.E.64.CONSTANT R14, desc[UR4][R2.64+0x10] ;
+        /*0050*/                   FFMA R10, R6, R4, RZ ;
+        /*0060*/                   LDG.E.64.CONSTANT R4, desc[UR4][R2.64+0x20] ;
+        /*0070*/                   FFMA R10, R6, R14, R10 ;
+                Function : _ZN12_GLOBAL__N_116aggregate_scalarEPKfS1_Pfii
+        /*0000*/                   FFMA R10, R6, R4, RZ ;
+        /*0010*/                   LDG.E.CONSTANT R6, desc[UR4][R8.64] ;
+"""
+
+
+def test_sass_loads_ahead_counts_row_loads_before_the_first_ffma(monkeypatch):
+    import shutil
+    import subprocess
+    import sys
+    from types import SimpleNamespace
+
+    monkeypatch.setattr(shutil, "which", lambda tool: sys.executable)
+    monkeypatch.setattr(subprocess, "run", lambda *a, **k: SimpleNamespace(stdout=SASS))
+    assert smoke.sass_loads_ahead("lib.so") == {"aggregate_vec2": [3, 2, 4, 2],
+                                                "aggregate_scalar": [0, 0, 1, 1]}
+    assert smoke.sass_counts("lib.so", ("FFMA", "LDGSTS")) == {
+        "aggregate_vec2": {"FFMA": 2, "LDGSTS": 1}, "aggregate_scalar": {"FFMA": 1, "LDGSTS": 0}}
