@@ -89,36 +89,6 @@ __device__ __forceinline__ Cols column_sums(Load load, const float* __restrict__
   return acc;
 }
 
-// Two passes ahead: 24 rows in flight.
-template <class Load>
-__device__ __forceinline__ Cols column_sums_deep(Load load, const float* __restrict__ w, int k) {
-  Cols acc;
-#pragma unroll
-  for (int c = 0; c < VEC; ++c) acc.v[c] = 0.f;
-  Cols a[ROWS], b[ROWS], d[ROWS];
-  float wa[ROWS], wb[ROWS], wd[ROWS];
-  load_pass(a, wa, load, w, 0, k);
-  load_pass(b, wb, load, w, ROWS, k);
-  for (int r0 = 0; r0 < k; r0 += 3 * ROWS) {
-    load_pass(d, wd, load, w, r0 + 2 * ROWS, k);
-    add_pass(acc, a, wa, r0, k);
-    load_pass(a, wa, load, w, r0 + 3 * ROWS, k);
-    add_pass(acc, b, wb, r0 + ROWS, k);
-    load_pass(b, wb, load, w, r0 + 4 * ROWS, k);
-    add_pass(acc, d, wd, r0 + 2 * ROWS, k);
-  }
-  return acc;
-}
-
-__global__ void __launch_bounds__(MAX_THREADS)
-aggregate_vec2_deep(const Cols* __restrict__ U, const float* __restrict__ w, Cols* __restrict__ out,
-                    int k, int pv) {
-  const int j = blockIdx.x * blockDim.x + threadIdx.x;
-  if (j >= pv) return;
-  const Cols* col = U + j;
-  out[j] = column_sums_deep([&](int r) { return col[(size_t)r * pv]; }, w, k);
-}
-
 // Rows 8-byte aligned: thread j owns columns 2j and 2j + 1.
 __global__ void __launch_bounds__(MAX_THREADS)
 aggregate_vec2(const Cols* __restrict__ U, const float* __restrict__ w, Cols* __restrict__ out,
@@ -165,14 +135,6 @@ extern "C" int aggregate_rows(const float* U, const float* w, float* out, int k,
                                               reinterpret_cast<Cols*>(out), k, p / VEC);
   else
     aggregate_scalar<<<blocks, threads, 0, s>>>(U, w, out, k, p);
-  return (int)cudaGetLastError();
-}
-
-extern "C" int aggregate_rows_deep(const float* U, const float* w, float* out, int k, int p,
-                                   int blocks, int threads, void* stream) {
-  if (p % VEC || reinterpret_cast<uintptr_t>(U) % (4 * VEC)) return (int)cudaErrorInvalidValue;
-  aggregate_vec2_deep<<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(
-      reinterpret_cast<const Cols*>(U), w, reinterpret_cast<Cols*>(out), k, p / VEC);
   return (int)cudaGetLastError();
 }
 

@@ -24,7 +24,6 @@ TMA version; PERF.md names them.)
 """
 from __future__ import annotations
 
-import ctypes
 import subprocess
 import sys
 from pathlib import Path
@@ -81,29 +80,12 @@ def main() -> int:
                   f"{smoke.time_ms(torch, floor, queued=True):.6f}, "
                   f"{smoke._ms(smoke.device_ms(torch, floor))}")
     p = smoke.AGG_SHAPE[1]
-    lib.aggregate_rows_deep.restype = ctypes.c_int
-    lib.aggregate_rows_deep.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
     for k in (1, 4, 8, 11, 16, 24, 32, 41, 64, 128, 300):
         U = torch.randn((k, p), generator=gen).cuda()
         w = torch.rand((k,), generator=gen).cuda()
-        out = torch.empty(p, device="cuda")
-        blocks, threads = ops.launch_plan(k, p)
-
-        def deep():
-            if lib.aggregate_rows_deep(U.data_ptr(), w.data_ptr(), out.data_ptr(), k, p, blocks,
-                                       threads, stream):
-                raise RuntimeError("deep: launch failed")
-
-        deep()
-        torch.cuda.synchronize()
-        if not torch.equal(out, ops.aggregate_flat(U, w)):
-            raise SystemExit(f"deep ({k}, {p}): other bits than the wrapper's")
         print(f"[k sweep] ({k}, {p}) plan {ops.launch_plan(k, p)}: device-busy kernel "
-              f"{smoke._ms(smoke.device_ms(torch, lambda: ops.aggregate_flat(U, w)))}, two passes "
-              f"ahead {smoke._ms(smoke.device_ms(torch, deep))}, torch.mv "
-              f"{smoke._ms(smoke.device_ms(torch, lambda: torch.mv(U.T, w)))}; queued kernel "
-              f"{smoke.time_ms(torch, lambda: ops.aggregate_flat(U, w), queued=True):.6f}, two "
-              f"passes ahead {smoke.time_ms(torch, deep, queued=True):.6f}")
+              f"{smoke._ms(smoke.device_ms(torch, lambda: ops.aggregate_flat(U, w)))}, torch.mv "
+              f"{smoke._ms(smoke.device_ms(torch, lambda: torch.mv(U.T, w)))}")
     smoke.agg_turns(torch, gen)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip())
