@@ -10,20 +10,20 @@
 // kernel must read k·p·4 B ≈ 1.75 MB and write p·4 B ≈ 0.16 MB, about
 // 0.57 µs at 3.35 TB/s; 2·k·p ≈ 0.87 MFLOP is negligible. It is bounded by
 // bytes, and at this size by the launch itself: an empty kernel on the same
-// grid takes about 0.87 µs of device time (PERF.md). What is left to win is
+// grid takes 0.7–0.9 µs of device time (PERF.md). What is left to win is
 // latency: the rows must reach the SMs in as few round trips as possible.
 //
 // Design (measured against other plans and a TMA version on an H100 SXM:
 // PERF.md, Findings, PR 18):
 // * A thread owns VEC = 2 columns; a block of `threads` owns 2·threads
 //   consecutive columns. The plan (`launch_plan` in kernels/aggregate/ops.py)
-//   depends on (k, p) only: threads = ⌈⌈p / 2⌉ / 132⌉, so the grid is one
+//   depends on p alone: threads = ⌈⌈p / 2⌉ / 132⌉, so the grid is one
 //   block on each SM of a 132-SM H100 and none waits for a second wave.
 // * Rows are taken in passes of ROWS = 8, every load of a pass (and its 8
 //   weights) issued before its first FMA, and the next pass's loads issued
-//   before this pass's FMAs: 16 rows in flight, one round trip to L2 or
-//   memory for every 8 rows after the first 8. Longer passes were slower:
-//   their unrolled code outweighs the round trips they save.
+//   before this pass's FMAs: up to 16 rows in flight. Longer passes, and a
+//   second pass ahead, were slower: their code costs more at launch than
+//   the round trips they save.
 // * Fixed order: every output is fmaf(w[k-1], U[k-1, j], … fmaf(w[0],
 //   U[0, j], 0)), rows ascending, whatever the pass, the layout or the
 //   column's place in the grid. A call is bit-reproducible, and the same
