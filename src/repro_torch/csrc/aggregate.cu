@@ -14,7 +14,7 @@
 // latency: the rows must reach the SMs in as few round trips as possible.
 //
 // Design (measured against other plans and a TMA version on an H100 SXM:
-// PERF.md, Findings, PR 18):
+// PERF.md, Findings):
 // * A thread owns VEC = 2 columns; a block of `threads` owns 2·threads
 //   consecutive columns. The plan (`launch_plan` in kernels/aggregate/ops.py)
 //   depends on p alone: threads = ⌈⌈p / 2⌉ / 132⌉, so the grid is one
