@@ -81,10 +81,32 @@ Phases, one line (or a few) each; any failure raises and exits non-zero:
    the aggregate kernel and ``torch.mv(U.T, w)`` in turns at (11, 39,760)
    and (41, 39,760), with the device time of each kernel they launch; an
    empty kernel on the aggregate's grid (the launch floor); the aggregate
-   wrapper's host µs step by step.
+   wrapper's host µs step by step;
+8. paper   — the paper's experiments through the port's runners and sweep
+   layer (``run_sweep(..., device="cuda")``) at the MNIST width (dim 784,
+   the 784 → 50 → 10 MLP, m = 10, N = 10, B = 50, lr 0.05): Fig. 1's four
+   schemes on ``by_class_shards`` (100 clients × 500 train / 100 test) and
+   Fig. 2's md and algorithm2 over four Dirichlet α on the unbalanced
+   profile, each 2 seeds × 5 rounds, with every grid row and each α's
+   ``clustered_gain``; one Algorithm 2 cell with the SRP sketch to d′ = 64
+   (3 rounds); the variance table's rows; fig1 at dim 32 on the card
+   against the CPU (equal draws, weights and Algorithm 2 plans; losses to
+   atol 1e-4). Gates: 10 distinct clients in every algorithm1 and target
+   round and 10 classes in every target round; eqs. 17 and 23 for every
+   client of Algorithm 1's plan and of Algorithm 2's cold-start and
+   re-clustered plans, and Section 4's ⌊m p_i⌋ + 2 urns a client on
+   Algorithm 1's and the cold-start plan; MD's all-distinct probability
+   equal to 100!/(90!·100¹⁰) to 1e-12; 10 distinct clients in all 500 of
+   Algorithm 1's balanced draws; counts reset at the phase's start and
+   read at its end: one aggregate launch a round on the card, one Gram
+   launch an Algorithm 2 plan build, one SRP launch a sketched round. It
+   prints each scheme's round ms (host clock ending in
+   ``torch.cuda.synchronize()``) and ``plan_build_ms``.
 
 The last lines are the card's name and power limit (nvidia-smi), a JSON
-object with one entry per kernel and shape, and ``{"ok": true, "device": ...}``.
+object with one entry per kernel and shape (with the paper phase's
+launches as ``paper_launches`` for the Gram, aggregate and SRP rows), and
+``{"ok": true, "device": ...}``.
 The script imports neither JAX nor the JAX package ``repro``.
 """
 from __future__ import annotations
@@ -981,10 +1003,11 @@ def device_events(torch, fn, reps: int = 20) -> list:
     return _kernel_events(torch, prof)
 
 
-def kept_device_events(torch, fn, reps: int = 20, tries: int = 3) -> list:
+def kept_device_events(torch, fn, reps: int = 20, tries: int = 5) -> list:
     """device_events of the first of ``tries`` windows in which the profiler
     kept any device event (on the card it sometimes keeps none of a short
-    window, which says nothing of the calls); [] if it kept none in all."""
+    window, which says nothing of the calls; once none of three windows in a
+    row); [] if it kept none in all."""
     for _ in range(tries):
         events = device_events(torch, fn, reps)
         if events:
@@ -1514,6 +1537,299 @@ def agg_wrapper_steps(torch, U, w, calls: int = 2000):
     print(f"times: aggregate host µs a call of single steps: {host_us(alone)}")
 
 
+# the paper phase: the runners' sweeps at the paper's MNIST width
+PAPER_DATA = {"dim": WIDTH[0], "train_per_client": 500, "test_per_client": 100}  # by_class_shards
+PAPER_ROUNDS, PAPER_SEEDS, PAPER_SKETCH_ROUNDS = 5, 2, 3
+PAPER_LOSS_ATOL = 1e-4  # the slice phase's card-vs-CPU tolerance
+
+
+class PaperProbe:
+    """What the paper phase runs, counted and timed around the port's own
+    calls: each round's wall ms (host clock ending in
+    ``torch.cuda.synchronize()``) and ``plan_build_ms`` by sweep and scheme,
+    rounds run on the card, and every Algorithm 2 plan build with its
+    tokens, by device. Patches ``FederatedServer.run_round`` and
+    ``Algorithm2Sampler._build_plan`` for the ``with`` block only."""
+
+    def __init__(self, torch):
+        from repro_torch.core.samplers import SAMPLERS
+        from repro_torch.core.samplers.algorithm2 import Algorithm2Sampler
+        from repro_torch.fl.server import FederatedServer
+
+        self.torch = torch
+        self.scheme_of = {cls: name for name, cls in SAMPLERS.items()}
+        self.label = ""
+        self.rounds: dict[tuple[str, str], list[tuple[float, float]]] = {}
+        self.card_rounds = 0
+        self.builds: dict[str, list] = {"cuda": [], "cpu": []}
+        self._targets = [(FederatedServer, "run_round", self._run_round),
+                         (Algorithm2Sampler, "_build_plan", self._build_plan)]
+        self._saved = []
+
+    def __enter__(self):
+        for cls, attr, wrap in self._targets:
+            orig = getattr(cls, attr)
+            self._saved.append((cls, attr, orig))
+            setattr(cls, attr, wrap(orig))
+        return self
+
+    def __exit__(self, *exc):
+        for cls, attr, orig in self._saved:
+            setattr(cls, attr, orig)
+
+    def _run_round(self, orig):
+        def run_round(srv, t):
+            t0 = time.perf_counter()
+            rec = orig(srv, t)
+            if srv.device.type == "cuda":
+                self.torch.cuda.synchronize()
+                self.card_rounds += 1
+                key = (self.label, self.scheme_of[type(srv.sampler)])
+                self.rounds.setdefault(key, []).append(
+                    ((time.perf_counter() - t0) * 1e3, rec.plan_build_ms))
+            return rec
+        return run_round
+
+    def _build_plan(self, orig):
+        def build_plan(sampler, G):
+            plan = orig(sampler, G)
+            self.builds[sampler._store.device.type].append(plan.r_tokens.copy())
+            return plan
+        return build_plan
+
+
+def _paper_sweep(runner_sweep: dict, rounds: int, n_seeds: int, data: dict) -> dict:
+    """A runner's SWEEP with the data options, depth and seeds set by path."""
+    import copy
+
+    from repro_torch.fl.sweep import set_by_path
+
+    d = copy.deepcopy(runner_sweep)
+    for key, value in data.items():
+        set_by_path(d, f"base.data.options.{key}", value)
+    set_by_path(d, "base.train.n_rounds", rounds)
+    set_by_path(d, "n_seeds", n_seeds)
+    return d
+
+
+def _paper_histories(store_root: str, label: str, sweep: dict) -> list:
+    """[(cell, History)] of a sweep that run_sweep_emit left under store_root."""
+    from repro_torch.fl.sweep import RunStore, SweepSpec
+
+    store = RunStore(Path(store_root) / label)
+    return [(c, store.read_history(c.cell_id)) for c in SweepSpec.from_dict(sweep).cells()]
+
+
+def paper_fig1(probe, store_root: str) -> None:
+    from repro_torch.benchmarks import fig1_controlled
+    from repro_torch.benchmarks.common import run_sweep_emit
+
+    sweep = _paper_sweep(fig1_controlled.SWEEP, PAPER_ROUNDS, PAPER_SEEDS, PAPER_DATA)
+    probe.label = "fig1"
+    run_sweep_emit(sweep, "fig1", stats=fig1_controlled.STATS, device="cuda")
+    for cell, hist in _paper_histories(store_root, "fig1", sweep):
+        name = cell.spec.sampler.name
+        if len(hist.records) != PAPER_ROUNDS:
+            fail(f"paper[fig1]: {name} seed {cell.seed_index} ran {len(hist.records)} rounds")
+        for rec in hist.records:
+            if not (math.isfinite(rec.train_loss) and 0.0 <= rec.test_acc <= 1.0):
+                fail(f"paper[fig1]: {name} round {rec.round} loss/acc out of range")
+            if name in ("algorithm1", "target") and rec.n_distinct_clients != 10:
+                fail(f"paper[fig1]: {name} round {rec.round} drew {rec.n_distinct_clients} "
+                     "distinct clients, not 10 (each urn holds 10 whole clients)")
+            if name == "target" and rec.n_distinct_classes != 10:
+                fail(f"paper[fig1]: target round {rec.round} covered {rec.n_distinct_classes} classes")
+    print("paper[fig1]: every algorithm1 and target round drew 10 distinct clients, "
+          "every target round 10 classes")
+
+
+def paper_fig2(probe, store_root: str) -> None:
+    from repro_torch.benchmarks import fig2_dirichlet
+    from repro_torch.benchmarks.common import emit, run_sweep_emit
+
+    sweep = _paper_sweep(fig2_dirichlet.SWEEP, PAPER_ROUNDS, PAPER_SEEDS, {"dim": WIDTH[0]})
+    probe.label = "fig2"
+    agg = run_sweep_emit(sweep, "fig2", device="cuda")
+    for alpha in fig2_dirichlet.ALPHAS:
+        rows = {r["sampler.name"]: r for r in agg if r["data.options.alpha"] == str(alpha)}
+        gain = rows["md"]["final_loss_mean"] - rows["algorithm2"]["final_loss_mean"]
+        emit(f"fig2/alpha={alpha}/clustered_gain", 0.0, f"loss_delta={gain:.4f}")
+    for cell, hist in _paper_histories(store_root, "fig2", sweep):
+        if len(hist.records) != PAPER_ROUNDS or not all(
+                math.isfinite(r.train_loss) for r in hist.records):
+            fail(f"paper[fig2]: cell {cell.cell_id} did not run {PAPER_ROUNDS} finite rounds")
+
+
+def paper_sketched(probe, torch) -> None:
+    """One Algorithm 2 cell with the SRP sketch to d' = 64, through the spec."""
+    import tempfile
+
+    from repro_torch.benchmarks import fig1_controlled
+    from repro_torch.fl.sweep import RunStore, SweepSpec, run_sweep, set_by_path
+
+    sweep = _paper_sweep(fig1_controlled.SWEEP, PAPER_SKETCH_ROUNDS, 1, PAPER_DATA)
+    sweep["axes"] = {}
+    set_by_path(sweep, "base.sampler", {"name": "algorithm2", "m": 10})
+    set_by_path(sweep, "base.planner", {"sketch": "srp", "sketch_dim": D_PRIME})
+    probe.label = "sketched"
+    with tempfile.TemporaryDirectory(prefix="paper-sketched-") as root:
+        run_sweep(sweep, root, device="cuda")
+        (cell,) = SweepSpec.from_dict(sweep).cells()
+        hist = RunStore(root).read_history(cell.cell_id)
+    for rec in hist.records:
+        print(f"paper[sketched]: round {rec.round} plan_build_ms {rec.plan_build_ms:.3f}, "
+              f"distinct {rec.n_distinct_clients}, train_loss {rec.train_loss:.4f}, "
+              f"test_acc {rec.test_acc:.4f}")
+    if len(hist.records) != PAPER_SKETCH_ROUNDS:
+        fail(f"paper[sketched]: {len(hist.records)} rounds of {PAPER_SKETCH_ROUNDS}")
+
+
+def paper_table(torch, gen) -> None:
+    """The runner's rows, then the paper's theorems on the card's plans."""
+    import numpy as np
+
+    from repro_torch.benchmarks import table_variance
+    from repro_torch.core import ClientPopulation, max_draws_bound
+    from repro_torch.core.statistics import (
+        clustered_inclusion_probability,
+        md_inclusion_probability,
+        md_prob_all_distinct,
+        variance_reduction,
+    )
+    from repro_torch.fl.experiment import build_sampler
+
+    table_variance.main(["--device", "cuda"])
+    pop = ClientPopulation(table_variance.PROFILE)
+    m, p = 10, pop.importances
+    d = WIDTH[0] * WIDTH[1] + WIDTH[1] + WIDTH[1] * WIDTH[2] + WIDTH[2]
+    a1 = build_sampler({"name": "algorithm1", "m": m}, pop)
+    a2 = build_sampler({"name": "algorithm2", "m": m}, pop, update_dim=d, device="cuda")
+    cold = a2.plan
+    # re-cluster from representative gradients of every client at the MLP's width
+    a2.observe_updates(np.arange(pop.n_clients),
+                       (SIM_SCALE * torch.randn((pop.n_clients, d), generator=gen)).cuda())
+    bound = np.floor(m * p) + 2
+    for name, plan in (("algorithm1", a1.plan), ("algorithm2", cold), ("algorithm2 re-clustered", a2.plan)):
+        vr = variance_reduction(plan, pop)
+        incl = clustered_inclusion_probability(plan) - md_inclusion_probability(p, m)
+        support = max_draws_bound(plan)
+        if vr.min() < -1e-12:
+            fail(f"paper[table]: {name}: eq. 17 variance reduction {vr.min():.3e} < 0")
+        if incl.min() < -1e-12:
+            fail(f"paper[table]: {name}: eq. 23 inclusion below MD's by {-incl.min():.3e}")
+        print(f"paper[table]: {name}: min variance reduction {vr.min():.3e}, min inclusion gain "
+              f"{incl.min():.3e}, max support {int(support.max())} (clients over "
+              f"floor(m p_i) + 2: {int((support > bound).sum())})")
+    # Section 4's bound is Algorithm 1's; the runner's Algorithm 2 row reads the cold-start plan
+    for name, plan in (("algorithm1", a1.plan), ("algorithm2", cold)):
+        if (max_draws_bound(plan) > bound).any():
+            fail(f"paper[table]: {name}: a client in more than floor(m p_i) + 2 urns")
+    exact = math.factorial(100) / (math.factorial(90) * 100**10)
+    got = md_prob_all_distinct(np.full(100, 0.01), m)
+    if abs(got - exact) > 1e-12:
+        fail(f"paper[table]: md_prob_all_distinct {got!r} != 100!/(90!·100^10) = {exact!r}")
+    bal = build_sampler({"name": "algorithm1", "m": m}, ClientPopulation(np.full(100, 500)))
+    distinct = sum(len(bal.sample(t).unique_clients) == m for t in range(500))
+    if distinct != 500:
+        fail(f"paper[table]: Algorithm 1 drew 10 distinct clients in {distinct} of 500 draws")
+    print(f"paper[table]: md_prob_all_distinct {got!r} (exact {exact!r}); Algorithm 1 drew 10 "
+          "distinct clients in 500 of 500 balanced draws")
+    for s in (a1, a2, bal):
+        s.close()
+
+
+def paper_card_vs_cpu(probe) -> None:
+    """fig1's sweep at dim 32, 2 rounds, 1 seed, on the card and on the CPU."""
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch.benchmarks import fig1_controlled
+    from repro_torch.fl.sweep import RunStore, SweepSpec, run_sweep
+
+    sweep = _paper_sweep(fig1_controlled.SWEEP, 2, 1, {})
+    cells = SweepSpec.from_dict(sweep).cells()
+    hists = {}
+    first = {dev: len(probe.builds[dev]) for dev in probe.builds}
+    for dev in ("cuda", "cpu"):
+        probe.label = f"card-vs-cpu[{dev}]"
+        with tempfile.TemporaryDirectory(prefix=f"paper-{dev}-") as root:
+            run_sweep(sweep, root, device=dev)
+            hists[dev] = [RunStore(root).read_history(c.cell_id) for c in cells]
+    worst = 0.0
+    for cell, card, cpu in zip(cells, hists["cuda"], hists["cpu"]):
+        for a, b in zip(card.records, cpu.records):
+            if not np.array_equal(a.agg_weights, b.agg_weights):
+                fail(f"paper[card vs CPU]: {cell.spec.sampler.name} round {a.round}: draws differ")
+            worst = max(worst, abs(a.train_loss - b.train_loss))
+    if worst > PAPER_LOSS_ATOL:
+        fail(f"paper[card vs CPU]: losses differ by {worst:.3e} > {PAPER_LOSS_ATOL}")
+    plans = {dev: probe.builds[dev][first[dev]:] for dev in probe.builds}
+    if len(plans["cuda"]) != len(plans["cpu"]) or not all(
+            np.array_equal(a, b) for a, b in zip(plans["cuda"], plans["cpu"])):
+        fail("paper[card vs CPU]: Algorithm 2's plans differ")
+    print(f"paper[card vs CPU]: fig1 at dim 32, 2 rounds, 1 seed: equal draws and agg_weights "
+          f"in {len(cells)} cells, {len(plans['cuda'])} equal Algorithm 2 plans, max loss diff "
+          f"{worst:.2e}")
+
+
+def phase_paper(torch, gen) -> dict:
+    """The paper's experiments through the port's runners and sweep layer on
+    the card: Fig. 1, Fig. 2, a sketched cell, the variance table, and a
+    small fig1 sweep on the card against the CPU. Returns the launches."""
+    import os
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch.kernels.aggregate import ops as agg_ops
+    from repro_torch.kernels.similarity import ops as sim_ops
+    from repro_torch.kernels.sketch import ops as sk_ops
+
+    t0 = time.perf_counter()
+    saved_store = os.environ.get("BENCH_SWEEP_STORE")
+    with tempfile.TemporaryDirectory(prefix="paper-") as root, PaperProbe(torch) as probe:
+        os.environ["BENCH_SWEEP_STORE"] = root  # keep the runners' stores to read the rounds
+        try:
+            torch.cuda.synchronize()
+            sim_ops.launches.update(gram=0, l1=0)
+            agg_ops.launches.update(aggregate=0)
+            sk_ops.launches.update(srp=0)
+            paper_fig1(probe, root)
+            paper_fig2(probe, root)
+            srp_before = sk_ops.launches["srp"]
+            paper_sketched(probe, torch)
+            srp_sketched = sk_ops.launches["srp"] - srp_before
+            paper_table(torch, gen)
+            paper_card_vs_cpu(probe)
+            torch.cuda.synchronize()
+            launches = {**sim_ops.launches, **agg_ops.launches, **sk_ops.launches}
+        finally:
+            if saved_store is None:
+                os.environ.pop("BENCH_SWEEP_STORE", None)
+            else:
+                os.environ["BENCH_SWEEP_STORE"] = saved_store
+    card_builds = len(probe.builds["cuda"])
+    print(f"paper: launches {json.dumps(launches)}; {probe.card_rounds} rounds and "
+          f"{card_builds} Algorithm 2 plan builds on the card")
+    if launches["aggregate"] != probe.card_rounds:
+        fail(f"paper: {launches['aggregate']} aggregate launches in {probe.card_rounds} rounds")
+    if launches["gram"] != card_builds or launches["l1"] != 0:
+        fail(f"paper: {launches['gram']} gram and {launches['l1']} l1 launches for "
+             f"{card_builds} Algorithm 2 plan builds")
+    if launches["srp"] != srp_sketched or srp_sketched != PAPER_SKETCH_ROUNDS:
+        fail(f"paper: {launches['srp']} srp launches, {srp_sketched} in the sketched cell's "
+             f"{PAPER_SKETCH_ROUNDS} rounds")
+    for (label, scheme), rows in probe.rounds.items():
+        ms = np.array([r[0] for r in rows])
+        build = np.array([r[1] for r in rows])
+        print(f"times: paper[{label}] {scheme}: {len(rows)} rounds, round ms median "
+              f"{np.median(ms):.3f} (min {ms.min():.3f}, max {ms.max():.3f}), plan_build_ms median "
+              f"{np.median(build):.3f}")
+    print(f"paper: {time.perf_counter() - t0:.3f} s")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -1547,6 +1863,11 @@ def main() -> int:
     sim_turns(torch, gen)
     agg_turns(torch, gen)
     rows.append(flash_time_row(torch, gen, name, err["flash"], flash_launches))
+    paper = phase_paper(torch, gen)
+    for row in rows:
+        key = {"similarity_gram": "gram", "aggregate": "aggregate", "srp_sketch": "srp"}.get(row["name"])
+        if key is not None:
+            row["paper_launches"] = paper[key]
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,

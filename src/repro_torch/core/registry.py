@@ -4,12 +4,14 @@
 A :class:`Registry` is a dict with manners: registration can be guarded
 against silent overwrites, lookups of unknown names raise a precise error
 listing what *is* registered, and ``register`` doubles as a decorator.
-The port's registries are ``repro_torch.fl.engine.ENGINES`` (round
-execution engines), ``repro_torch.kernels.sketch.SKETCHERS`` (the gradient
-store's sketch stage) and ``repro_torch.core.clustering.backends.CLUSTERERS``.
-The reference's sampler registry (``SAMPLERS``, ``register_sampler``) arrives
-with the port's other samplers (ROADMAP A14), and the spec layer that
-resolves names through the registries with ``fl/experiment.py`` (A6).
+The port's registries are ``repro_torch.core.samplers.SAMPLERS``
+(client-selection schemes), ``repro_torch.fl.engine.ENGINES`` (round
+execution engines), ``repro_torch.fl.experiment.DATASETS`` (partitions),
+``repro_torch.kernels.sketch.SKETCHERS`` (the gradient store's sketch stage)
+and ``repro_torch.core.clustering.backends.CLUSTERERS``; the spec layer
+(``repro_torch.fl.experiment``) resolves every name through them, so
+extending the port is ``register_sampler("mine", MySampler)`` plus a spec
+dict.
 """
 from __future__ import annotations
 

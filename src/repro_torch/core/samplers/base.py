@@ -7,8 +7,11 @@ representative gradients) and produces a :class:`SampleResult` per round.
 Plan-based samplers expose their ``SamplingPlan`` so its Proposition-1
 conditions can be checked exactly.
 
-Not ported yet: availability-conditioned and overselecting draws and the
-checkpointable sampler state (ROADMAP A10).
+Not ported yet (ROADMAP A10): ``conditional_plan`` and the
+availability-conditioned ``sample(t, available=)``, the overselecting
+``sample_overselect`` and the checkpointable sampler state. Every port
+sampler (``md``, ``uniform``, ``algorithm1``, ``algorithm2``, ``target``)
+takes ``sample(round_idx)`` alone.
 """
 from __future__ import annotations
 
@@ -153,3 +156,12 @@ def validate_plan(
                 f"integer allocation: client {i} allocated {tok.sum(axis=0)[i]} "
                 f"tokens, expected m*n_i = {expect[i]}"
             )
+
+
+def max_draws_bound(plan: SamplingPlan) -> np.ndarray:
+    """Upper bound on how many times each client can be drawn = #{k: r_{k,i} > 0}.
+
+    For Algorithm 1 this is at most ``floor(m p_i) + 2`` (Section 4 of the
+    paper), versus ``m`` for MD sampling.
+    """
+    return (plan.r > 0).sum(axis=0)

@@ -15,8 +15,10 @@ Two execution engines (``FLConfig.engine``): ``"batched"`` (default, all
 clients as one stacked step, :mod:`repro_torch.fl.engine`) and
 ``"compat"`` (a per-client loop, the numerics reference).
 
-Not ported yet (ROADMAP A10, A13): client churn (``population``), round
-schedulers, availability tracking, checkpoint/resume and mesh sharding.
+Not ported yet: client churn (``population``), round schedulers,
+availability tracking and checkpoint/resume (ROADMAP A10), and mesh
+sharding (A13). The spec layer refuses the same at the spec's level
+(``repro_torch.fl.experiment.build_experiment``).
 """
 from __future__ import annotations
 
