@@ -572,20 +572,27 @@ def srp_alternating(torch, gen):
           f"bit-equal to the same call alone")
 
 
-def kernels_a_call(torch, label, fn, names, reps: int = 20):
+def kernels_a_call(torch, label, fn, names, reps: int = 20, windows: int = 5):
     """torch.profiler over ``reps`` calls of ``fn`` sees each device kernel
     named in ``names`` at most ``reps`` times and nothing else. The profiler
-    on the card drops a launch now and then (it kept 19 of 20 of each SRP
-    kernel in a window), so up to 2 fewer are accepted; a kernel launched
-    twice, or a copy or a fill per call, would show ``reps`` more events."""
-    events = kept_device_events(torch, fn, reps=reps)
-    counts = {k: sum(_kernel_name(e.name).startswith(k) for e in events) for k in names}
-    others = sorted({_kernel_name(e.name) for e in events
-                     if not any(_kernel_name(e.name).startswith(k) for k in names)})
-    if others or not all(reps - 2 <= n <= reps for n in counts.values()):
-        fail(f"{label}: {counts} and {others} in {reps} calls; expected each of {names} once a call")
-    print(f"kernels: {label} device kernels a call: the profiler saw {json.dumps(counts)} in {reps} "
-          f"calls and nothing else")
+    on the card drops launches now and then (it kept 19 of 20 of each SRP
+    kernel in a window, 7 of 20 aggregate launches in another, none of a
+    window at times), so up to 2 fewer are accepted, and a window that kept
+    fewer is profiled again, up to ``windows`` windows: dropped events only
+    lower the counts. A kernel launched twice, or a copy or a fill per call,
+    would show ``reps`` more events, and fails at the first window."""
+    for _ in range(windows):
+        events = device_events(torch, fn, reps=reps)
+        counts = {k: sum(_kernel_name(e.name).startswith(k) for e in events) for k in names}
+        others = sorted({_kernel_name(e.name) for e in events
+                         if not any(_kernel_name(e.name).startswith(k) for k in names)})
+        if others or any(n > reps for n in counts.values()):
+            break
+        if all(n >= reps - 2 for n in counts.values()):
+            print(f"kernels: {label} device kernels a call: the profiler saw {json.dumps(counts)} "
+                  f"in {reps} calls and nothing else")
+            return
+    fail(f"{label}: {counts} and {others} in {reps} calls; expected each of {names} once a call")
 
 
 def srp_kernels_a_call(torch, gen):
@@ -1003,11 +1010,10 @@ def device_events(torch, fn, reps: int = 20) -> list:
     return _kernel_events(torch, prof)
 
 
-def kept_device_events(torch, fn, reps: int = 20, tries: int = 5) -> list:
+def kept_device_events(torch, fn, reps: int = 20, tries: int = 3) -> list:
     """device_events of the first of ``tries`` windows in which the profiler
     kept any device event (on the card it sometimes keeps none of a short
-    window, which says nothing of the calls; once none of three windows in a
-    row); [] if it kept none in all."""
+    window, which says nothing of the calls); [] if it kept none in all."""
     for _ in range(tries):
         events = device_events(torch, fn, reps)
         if events:

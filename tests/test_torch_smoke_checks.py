@@ -24,7 +24,10 @@ diagonal by one key: a check must fail the kernels it exists to catch.
 The aggregate check (rtol = atol 2e-5) accepts the kernel's ascending FMA
 chain and rejects a kernel that drops the θ^t row, the last column or
 pairs each row with the next row's weight; the build's SASS count of row
-loads before the first FFMA is read from the right kernel and opcodes.
+loads before the first FFMA is read from the right kernel and opcodes. The
+kernels-a-call check profiles another window only when the profiler kept
+fewer events than launched, and fails at once on a launch too many or
+another kernel beside the expected ones.
 """
 import functools
 import importlib.util
@@ -380,3 +383,36 @@ def test_sass_loads_ahead_counts_row_loads_before_the_first_ffma(monkeypatch):
                                                 "aggregate_scalar": [0, 0, 1, 1]}
     assert smoke.sass_counts("lib.so", ("FFMA", "LDGSTS")) == {
         "aggregate_vec2": {"FFMA": 2, "LDGSTS": 1}, "aggregate_scalar": {"FFMA": 1, "LDGSTS": 0}}
+
+
+AGG_EVENT = "_ZN12_GLOBAL__N_114aggregate_vec2EPKfS1_Pfii"
+
+
+@pytest.mark.parametrize("windows,passes,profiled", [
+    ([20], True, 1),
+    ([18], True, 1),  # the profiler dropped 2: accepted
+    ([7, 20], True, 2),  # it dropped 13: profiled again
+    ([0, 0, 0, 0, 19], True, 5),
+    ([0, 0, 0, 0, 0], False, 5),  # never a full window: the kernel did not run a call
+    ([21, 20], False, 1),  # a launch too many: fails at once, drops cannot add events
+    (["other", 20], False, 1),  # a copy or a fill beside the kernel: fails at once
+])
+def test_kernels_a_call_profiles_again_only_when_events_were_dropped(monkeypatch, windows,
+                                                                     passes, profiled):
+    from types import SimpleNamespace
+
+    def window(w):
+        if w == "other":
+            return [SimpleNamespace(name=AGG_EVENT)] * 20 + [SimpleNamespace(name="fill_kernel")]
+        return [SimpleNamespace(name=AGG_EVENT)] * w
+
+    seen = iter(windows)
+    calls = []
+    monkeypatch.setattr(smoke, "device_events",
+                        lambda torch_, fn, reps: calls.append(reps) or window(next(seen)))
+    if passes:
+        smoke.kernels_a_call(torch, "aggregate", lambda: None, ("aggregate_",))
+    else:
+        with pytest.raises(RuntimeError, match="expected each of"):
+            smoke.kernels_a_call(torch, "aggregate", lambda: None, ("aggregate_",))
+    assert calls == [20] * profiled
