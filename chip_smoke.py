@@ -101,12 +101,34 @@ Phases, one line (or a few) each; any failure raises and exits non-zero:
    read at its end: one aggregate launch a round on the card, one Gram
    launch an Algorithm 2 plan build, one SRP launch a sketched round. It
    prints each scheme's round ms (host clock ending in
-   ``torch.cuda.synchronize()``) and ``plan_build_ms``.
+   ``torch.cuda.synchronize()``) and ``plan_build_ms``;
+9. zoo     — the scheme zoo and client churn at the same width: the port's
+   ``scheme_race`` grid (md, uniform, algorithm2, stratified, importance,
+   dp_stratified, hybrid; ``by_class_shards``, 100 clients × 500 / 100,
+   m = 10) × 2 seeds × 5 rounds through ``run_sweep(..., device="cuda")``,
+   with the race's rows (loss, acc, rounds_to_acc, agg_weight_var);
+   algorithm2 and stratified under Poisson churn with the availability
+   tracker at threshold 0.95 (so from round 2 on algorithm2's rebuilds
+   cluster only the clients seen the round before; at least one must),
+   and md under 20 % mid-round dropout, 5 rounds each, gated on
+   every drawn client being available and ``n_available`` / ``n_dropped``
+   equal to the population's masks recomputed on the host; a sketched
+   stratified cell (d′ = 64, 3 rounds); the zoo and a churned algorithm2
+   at dim 32 on the card against the CPU (equal draws, equal plans, a
+   restricted rebuild among them, importance's q within 1e-6 relative,
+   losses to atol 1e-4); the
+   md-vs-``importance(mix=1.0)`` parity gate on the card. Counts reset at
+   the phase's start and read at its end: one aggregate launch a round on
+   the card, one Gram launch a plan build of algorithm2, stratified,
+   dp_stratified and hybrid (each scheme's builds counted on their own,
+   so dp_stratified's host-noised release must reach B1 on the card) and
+   none in importance's, one SRP launch a sketched round. It prints each
+   scheme's round ms and ``plan_build_ms`` and the DP release's ms.
 
 The last lines are the card's name and power limit (nvidia-smi), a JSON
-object with one entry per kernel and shape (with the paper phase's
-launches as ``paper_launches`` for the Gram, aggregate and SRP rows), and
-``{"ok": true, "device": ...}``.
+object with one entry per kernel and shape (with the paper and zoo
+phases' launches as ``paper_launches`` and ``zoo_launches`` for the Gram,
+aggregate and SRP rows), and ``{"ok": true, "device": ...}``.
 The script imports neither JAX nor the JAX package ``repro``.
 """
 from __future__ import annotations
@@ -1836,6 +1858,290 @@ def phase_paper(torch, gen) -> dict:
     return launches
 
 
+# the zoo phase: the scheme race and client churn at the paper's MNIST width
+ZOO_ROUNDS, ZOO_SEEDS, ZOO_SKETCH_ROUNDS, ZOO_SMALL_ROUNDS = 5, 2, 3, 2
+ZOO_B1 = ("algorithm2", "stratified", "dp_stratified", "hybrid")  # plan builds that run B1
+ZOO_Q_RTOL = 1e-6  # importance's q: f32 norms summed in another order on the card
+ZOO_POISSON = {"name": "poisson", "seed": 1, "options": {"join_rate": 0.3, "leave_rate": 0.3}}
+# a client missing from the last round scores 0.9 < 0.95, so from round 1 on
+# algorithm2's rebuilds cluster only the clients seen in the round before
+ZOO_TRACK = {"track_availability": True, "avail_threshold": 0.95}
+ZOO_CHURN = {  # label: (scheme, population section, track availability)
+    "algorithm2+poisson": ("algorithm2", ZOO_POISSON, True),
+    "stratified+poisson": ("stratified", ZOO_POISSON, True),
+    "md+dropout": ("md", {"name": "dropout", "options": {"rate": 0.2}}, False),
+}
+
+
+class ZooProbe(PaperProbe):
+    """The paper phase's probe, widened to the zoo: each round's draw with
+    its availability mask, and every plan build of a store-backed scheme
+    by (label, scheme, device) with the Gram launches it made and whether
+    the tracker restricted it, and the wall ms of each DP release on the
+    card by label. Patches for the ``with`` block only."""
+
+    def __init__(self, torch):
+        super().__init__(torch)
+        from repro_torch.core.samplers.schemes import (
+            DPStratifiedSampler,
+            HybridSampler,
+            ImportanceSampler,
+            StratifiedSampler,
+        )
+        from repro_torch.core.samplers.algorithm2 import Algorithm2Sampler
+        from repro_torch.fl.server import FederatedServer
+
+        self.draws: dict[tuple[str, str, str], list] = {}
+        self.zoo_builds: dict[tuple[str, str, str], list] = {}
+        self.release_ms: dict[str, list[float]] = {}
+        self._targets = [(FederatedServer, "run_round", self._run_round),
+                         (FederatedServer, "_phase_draw", self._phase_draw),
+                         (DPStratifiedSampler, "_observe_snapshot", self._release)]
+        self._targets += [(cls, "_build_plan", self._build_plan) for cls in (
+            Algorithm2Sampler, StratifiedSampler, HybridSampler, ImportanceSampler)]
+
+    def _key(self, sampler, device) -> tuple[str, str, str]:
+        return (self.label, self.scheme_of[type(sampler)], device.type)
+
+    def _phase_draw(self, orig):
+        def phase_draw(srv, t, available):
+            out = orig(srv, t, available)
+            self.draws.setdefault(self._key(srv.sampler, srv.device), []).append(
+                (t, None if available is None else available.copy(), out[0].clients.copy()))
+            return out
+        return phase_draw
+
+    def _build_plan(self, orig):
+        from repro_torch.kernels.similarity import ops as sim_ops
+
+        def build_plan(sampler, G):
+            gram = sim_ops.launches["gram"]
+            restricted = sampler._cluster_mask() is not None
+            plan = orig(sampler, G)
+            self.zoo_builds.setdefault(self._key(sampler, sampler._store.device), []).append(
+                (plan, sim_ops.launches["gram"] - gram, restricted))
+            return plan
+        return build_plan
+
+    def _release(self, orig):
+        def release(sampler):
+            t0 = time.perf_counter()
+            out = orig(sampler)
+            if out.device.type == "cuda":
+                self.torch.cuda.synchronize()
+                self.release_ms.setdefault(self.label, []).append((time.perf_counter() - t0) * 1e3)
+            return out
+        return release
+
+
+def _zoo_histories(root: str, sweep: dict) -> list:
+    from repro_torch.fl.sweep import RunStore, SweepSpec
+
+    return [(c, RunStore(root).read_history(c.cell_id)) for c in SweepSpec.from_dict(sweep).cells()]
+
+
+def zoo_race(probe, root: str) -> None:
+    """The port's scheme_race grid at the paper's MNIST width on the card."""
+    from repro_torch.benchmarks import scheme_race
+
+    sweep = _paper_sweep(scheme_race.race_sweep(smoke=False), ZOO_ROUNDS, ZOO_SEEDS, PAPER_DATA)
+    probe.label = "race"
+    scheme_race.run_race(sweep, root, device="cuda")
+    for cell, hist in _zoo_histories(root, sweep):
+        name = cell.spec.sampler.name
+        if len(hist.records) != ZOO_ROUNDS or not all(
+                math.isfinite(r.train_loss) and 0.0 <= r.test_acc <= 1.0 for r in hist.records):
+            fail(f"zoo[race]: {name} seed {cell.seed_index} did not run {ZOO_ROUNDS} finite rounds")
+
+
+def zoo_churn(probe) -> None:
+    """Churned runs through build_experiment; the draws held to the
+    population's masks recomputed on the host."""
+    import numpy as np
+
+    from repro_torch.benchmarks import scheme_race
+    from repro_torch.fl.experiment import build_experiment
+    from repro_torch.fl.population import build_population
+
+    base = _paper_sweep(scheme_race.race_sweep(smoke=False), ZOO_ROUNDS, 1, PAPER_DATA)["base"]
+    for label, (scheme, population, tracked) in ZOO_CHURN.items():
+        spec = {**base, "sampler": {"name": scheme, "m": 10}, "population": population}
+        if tracked:
+            spec["scheduler"] = ZOO_TRACK
+        probe.label = f"churn[{label}]"
+        with build_experiment(spec, device="cuda") as srv:
+            hist = srv.run()
+            pop = build_population(population, srv.dataset.n_clients)
+        draws = probe.draws[(probe.label, scheme, "cuda")]
+        for rec, (t, avail, clients) in zip(hist.records, draws, strict=True):
+            want = pop.available_mask(t)
+            if not np.array_equal(avail, want) or not want[clients].all():
+                fail(f"zoo[{label}]: round {t} drew a client the population had offline")
+            dropped = int(pop.dropout_mask(t, np.unique(clients)).sum())
+            if (rec.n_available, rec.n_dropped) != (int(want.sum()), dropped):
+                fail(f"zoo[{label}]: round {t} n_available/n_dropped {rec.n_available}/"
+                     f"{rec.n_dropped}, the host's masks {int(want.sum())}/{dropped}")
+            if not math.isfinite(rec.train_loss) or (tracked and not 0.0 <= rec.avail_score_min <= 1.0):
+                fail(f"zoo[{label}]: round {t} loss or presence score out of range")
+        restricted = ""
+        if scheme == "algorithm2":  # the scheme whose rebuilds honour the tracker
+            builds = probe.zoo_builds[(probe.label, scheme, "cuda")]
+            n = sum(b[2] for b in builds)
+            if n == 0:
+                fail(f"zoo[{label}]: no rebuild was restricted to the tracker's active clients")
+            restricted = f", {n} of {len(builds)} rebuilds restricted to the active clients"
+        print(f"zoo[{label}]: n_available {[r.n_available for r in hist.records]}, n_dropped "
+              f"{[r.n_dropped for r in hist.records]}, avail_score_min "
+              f"{[round(r.avail_score_min, 4) for r in hist.records]}, final loss "
+              f"{hist.records[-1].train_loss:.4f}; every draw available, counts equal the "
+              f"host's masks{restricted}")
+
+
+def zoo_sketched(probe) -> None:
+    """One stratified cell with the SRP sketch to d' = 64, through the spec."""
+    import tempfile
+
+    from repro_torch.benchmarks import scheme_race
+    from repro_torch.fl.sweep import run_sweep, set_by_path
+
+    sweep = _paper_sweep(scheme_race.race_sweep(smoke=False), ZOO_SKETCH_ROUNDS, 1, PAPER_DATA)
+    sweep["axes"] = {}
+    set_by_path(sweep, "base.sampler", {"name": "stratified", "m": 10})
+    set_by_path(sweep, "base.planner", {"sketch": "srp", "sketch_dim": D_PRIME})
+    probe.label = "sketched"
+    with tempfile.TemporaryDirectory(prefix="zoo-sketched-") as root:
+        run_sweep(sweep, root, device="cuda")
+        ((_, hist),) = _zoo_histories(root, sweep)
+    if len(hist.records) != ZOO_SKETCH_ROUNDS:
+        fail(f"zoo[sketched]: {len(hist.records)} rounds of {ZOO_SKETCH_ROUNDS}")
+    print(f"zoo[sketched]: stratified, d' = {D_PRIME}: plan_build_ms "
+          f"{[round(r.plan_build_ms, 3) for r in hist.records]}, final loss "
+          f"{hist.records[-1].train_loss:.4f}")
+
+
+def zoo_card_vs_cpu(probe) -> None:
+    """The zoo and a churned algorithm2 at dim 32 on the card and the CPU:
+    equal draws, plans and losses (importance: q within ZOO_Q_RTOL). The
+    churned run takes one round more, so that its last rebuild is
+    restricted to the tracker's active clients."""
+    import copy
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch.benchmarks import scheme_race
+    from repro_torch.fl.sweep import run_sweep
+
+    sweep = _paper_sweep(scheme_race.race_sweep(smoke=False), ZOO_SMALL_ROUNDS, 1, {})
+    scheme, population, _ = ZOO_CHURN["algorithm2+poisson"]
+    sweep["axes"] = {"sampler.name": ["stratified", "importance", "dp_stratified", "hybrid"]}
+    churned = copy.deepcopy({**sweep, "axes": {"sampler.name": [scheme]}})
+    churned["base"].update(population=population, scheduler=ZOO_TRACK)
+    churned["base"]["train"]["n_rounds"] = ZOO_SMALL_ROUNDS + 1
+    losses = {}
+    for dev in ("cuda", "cpu"):
+        probe.label = f"card-vs-cpu[{dev}]"
+        for sw in (sweep, churned):
+            with tempfile.TemporaryDirectory(prefix=f"zoo-{dev}-") as root:
+                run_sweep(sw, root, device=dev)
+                for cell, hist in _zoo_histories(root, sw):
+                    losses[(dev, cell.spec.sampler.name)] = [r.train_loss for r in hist.records]
+    worst_loss, worst_q, n_plans, n_restricted = 0.0, 0.0, 0, 0
+    for name in ("stratified", "importance", "dp_stratified", "hybrid", "algorithm2"):
+        card, cpu = (("card-vs-cpu[cuda]", name, "cuda"), ("card-vs-cpu[cpu]", name, "cpu"))
+        for (ta, _, ca), (tb, _, cb) in zip(probe.draws[card], probe.draws[cpu], strict=True):
+            if ta != tb or not np.array_equal(ca, cb):
+                fail(f"zoo[card vs CPU]: {name} round {ta}: draws differ")
+        for (pa, _, ra), (pb, _, rb) in zip(probe.zoo_builds[card], probe.zoo_builds[cpu], strict=True):
+            if name == "importance":
+                worst_q = max(worst_q, float(np.max(np.abs(pa.r - pb.r) / pb.r)))
+            elif ra != rb or not (np.array_equal(pa.r_tokens, pb.r_tokens)
+                                  and np.array_equal(pa.cluster_of, pb.cluster_of)):
+                fail(f"zoo[card vs CPU]: {name}: plans differ")
+            n_plans += 1
+            n_restricted += ra
+        worst_loss = max(worst_loss, float(np.max(np.abs(
+            np.subtract(losses[("cuda", name)], losses[("cpu", name)])))))
+    if worst_q > ZOO_Q_RTOL:
+        fail(f"zoo[card vs CPU]: importance's q differs by {worst_q:.3e} relative > {ZOO_Q_RTOL}")
+    if worst_loss > PAPER_LOSS_ATOL:
+        fail(f"zoo[card vs CPU]: losses differ by {worst_loss:.3e} > {PAPER_LOSS_ATOL}")
+    if n_restricted == 0:
+        fail("zoo[card vs CPU]: no plan build was restricted to the tracker's active clients")
+    print(f"zoo[card vs CPU]: dim 32, {ZOO_SMALL_ROUNDS} rounds, the zoo and a churned algorithm2 "
+          f"({ZOO_SMALL_ROUNDS + 1}): equal draws, {n_plans} equal plans ({n_restricted} restricted "
+          f"to the active clients; importance's q within {worst_q:.2e} relative), max loss diff "
+          f"{worst_loss:.2e}")
+
+
+def phase_zoo(torch) -> dict:
+    """The scheme race, churned runs, a sketched stratified cell, the zoo
+    on the card against the CPU and the md-vs-importance parity gate, on
+    the card. Returns the launches."""
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch.benchmarks import scheme_race
+    from repro_torch.kernels.aggregate import ops as agg_ops
+    from repro_torch.kernels.similarity import ops as sim_ops
+    from repro_torch.kernels.sketch import ops as sk_ops
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="zoo-") as root, ZooProbe(torch) as probe:
+        torch.cuda.synchronize()
+        sim_ops.launches.update(gram=0, l1=0)
+        agg_ops.launches.update(aggregate=0)
+        sk_ops.launches.update(srp=0)
+        zoo_race(probe, root)
+        zoo_churn(probe)
+        srp_before = sk_ops.launches["srp"]
+        zoo_sketched(probe)
+        srp_sketched = sk_ops.launches["srp"] - srp_before
+        zoo_card_vs_cpu(probe)
+        probe.label = "parity"
+        try:
+            scheme_race.check_md_importance_parity(device="cuda")
+        except SystemExit as e:
+            fail(f"zoo[parity]: {e}")
+        torch.cuda.synchronize()
+        launches = {**sim_ops.launches, **agg_ops.launches, **sk_ops.launches}
+    builds = {}  # scheme -> (plan builds on the card, gram launches they made)
+    for (_, scheme, dev), rows in probe.zoo_builds.items():
+        if dev == "cuda":
+            n, g = builds.get(scheme, (0, 0))
+            builds[scheme] = (n + len(rows), g + sum(r[1] for r in rows))
+    b1_builds = sum(builds[s][0] for s in ZOO_B1)
+    print(f"zoo: launches {json.dumps(launches)}; {probe.card_rounds} rounds on the card; plan "
+          f"builds on the card (gram launches in them): "
+          + ", ".join(f"{s} {n} ({g})" for s, (n, g) in sorted(builds.items())))
+    if launches["aggregate"] != probe.card_rounds:
+        fail(f"zoo: {launches['aggregate']} aggregate launches in {probe.card_rounds} rounds")
+    if launches["gram"] != b1_builds or launches["l1"] != 0:
+        fail(f"zoo: {launches['gram']} gram and {launches['l1']} l1 launches for {b1_builds} "
+             f"plan builds of {', '.join(ZOO_B1)}")
+    for scheme, (n, g) in builds.items():
+        want = n if scheme in ZOO_B1 else 0
+        if g != want or (scheme in ZOO_B1 and n == 0):
+            fail(f"zoo: {scheme}'s {n} plan builds on the card made {g} gram launches, not {want}")
+    if launches["srp"] != srp_sketched or srp_sketched != ZOO_SKETCH_ROUNDS:
+        fail(f"zoo: {launches['srp']} srp launches, {srp_sketched} in the sketched cell's "
+             f"{ZOO_SKETCH_ROUNDS} rounds")
+    for (label, scheme), rows in probe.rounds.items():
+        ms = np.array([r[0] for r in rows])
+        build = np.array([r[1] for r in rows])
+        print(f"times: zoo[{label}] {scheme}: {len(rows)} rounds, round ms median "
+              f"{np.median(ms):.3f} (min {ms.min():.3f}, max {ms.max():.3f}), plan_build_ms median "
+              f"{np.median(build):.3f}")
+    for label, rows in probe.release_ms.items():
+        ms = np.array(rows)
+        print(f"times: zoo[{label}] dp_stratified release (clip + noise on the host, back to the "
+              f"card): {len(rows)}, ms median {np.median(ms):.3f} (min {ms.min():.3f}, "
+              f"max {ms.max():.3f})")
+    print(f"zoo: {time.perf_counter() - t0:.3f} s")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -1870,10 +2176,12 @@ def main() -> int:
     agg_turns(torch, gen)
     rows.append(flash_time_row(torch, gen, name, err["flash"], flash_launches))
     paper = phase_paper(torch, gen)
+    zoo = phase_zoo(torch)
     for row in rows:
         key = {"similarity_gram": "gram", "aggregate": "aggregate", "srp_sketch": "srp"}.get(row["name"])
         if key is not None:
             row["paper_launches"] = paper[key]
+            row["zoo_launches"] = zoo[key]
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,

@@ -1,10 +1,13 @@
-# Adapted from src/repro/core/__init__.py, without the scheme zoo (ROADMAP A9).
-"""Host-side (numpy) client-selection core, mirroring ``repro.core``.
+# Copied from src/repro/core/__init__.py.
+"""Clustered client sampling for federated learning (Fraboni et al., ICML'21),
+the port's host-side (numpy) client-selection core.
 
 Public API:
   - ClientPopulation / SamplingPlan / SampleResult datatypes
   - samplers: UniformSampler (FedAvg), MDSampler, Algorithm1Sampler,
-    Algorithm2Sampler, TargetSampler and the generic ClusteredSampler
+    Algorithm2Sampler, TargetSampler, generic ClusteredSampler, and the
+    scheme zoo (StratifiedSampler, ImportanceSampler, DPStratifiedSampler,
+    HybridSampler) on the shared StoreBackedSampler contract
   - validate_plan: exact Proposition-1 checking
   - statistics: closed-form variance / inclusion-probability formulas
 """
@@ -17,12 +20,18 @@ from repro_torch.core.samplers import (
     Algorithm2Sampler,
     ClientSampler,
     ClusteredSampler,
+    DPStratifiedSampler,
+    HybridSampler,
+    ImportanceSampler,
     MDSampler,
     StoreBackedSampler,
+    StratifiedSampler,
     TargetSampler,
     UniformSampler,
     build_plan_algorithm1,
     build_plan_algorithm2,
+    build_plan_hybrid,
+    build_plan_stratified,
     build_plan_target,
     max_draws_bound,
     validate_plan,
@@ -41,9 +50,15 @@ __all__ = [
     "Algorithm1Sampler",
     "Algorithm2Sampler",
     "TargetSampler",
+    "StratifiedSampler",
+    "ImportanceSampler",
+    "DPStratifiedSampler",
+    "HybridSampler",
     "build_plan_algorithm1",
     "build_plan_algorithm2",
     "build_plan_target",
+    "build_plan_stratified",
+    "build_plan_hybrid",
     "validate_plan",
     "max_draws_bound",
     "statistics",

@@ -7,8 +7,9 @@ listing what *is* registered, and ``register`` doubles as a decorator.
 The port's registries are ``repro_torch.core.samplers.SAMPLERS``
 (client-selection schemes), ``repro_torch.fl.engine.ENGINES`` (round
 execution engines), ``repro_torch.fl.experiment.DATASETS`` (partitions),
-``repro_torch.kernels.sketch.SKETCHERS`` (the gradient store's sketch stage)
-and ``repro_torch.core.clustering.backends.CLUSTERERS``; the spec layer
+``repro_torch.kernels.sketch.SKETCHERS`` (the gradient store's sketch stage),
+``repro_torch.core.clustering.backends.CLUSTERERS`` and
+``repro_torch.fl.population.POPULATIONS`` (client churn); the spec layer
 (``repro_torch.fl.experiment``) resolves every name through them, so
 extending the port is ``register_sampler("mine", MySampler)`` plus a spec
 dict.

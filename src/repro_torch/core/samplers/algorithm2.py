@@ -1,5 +1,5 @@
-# Adapted from src/repro/core/samplers/algorithm2.py: build_plan_algorithm2
-# without the availability mask (cluster_mask); Algorithm2Sampler in torch.
+# Adapted from src/repro/core/samplers/algorithm2.py: Algorithm2Sampler in
+# torch, without the sharded store and checkpoint state.
 """Algorithm 2 — clustered sampling based on model similarity (Section 5).
 
 Pipeline per re-clustering round:
@@ -49,6 +49,29 @@ def _resolve_distance_fn(distance_fn: Union[DistanceFn, str]) -> DistanceFn:
     return make_distance_fn()
 
 
+def _fit_chunks(ids: np.ndarray, mass: np.ndarray, capacity: int) -> list[np.ndarray]:
+    """Greedy first-fit packing of ``ids`` into chunks of mass <= capacity.
+
+    Every pool client's remainder mass is < M by construction (it is
+    ``m·n_i mod M``), so each singleton fits and the greedy pass always
+    succeeds; the chunk count is at most twice the optimum, which only
+    costs a few extra (still feasible) groups.
+    """
+    chunks: list[np.ndarray] = []
+    cur: list[int] = []
+    cur_mass = 0
+    for i in ids:
+        mi = int(mass[i])
+        if cur and cur_mass + mi > capacity:
+            chunks.append(np.asarray(cur, dtype=np.int64))
+            cur, cur_mass = [], 0
+        cur.append(int(i))
+        cur_mass += mi
+    if cur:
+        chunks.append(np.asarray(cur, dtype=np.int64))
+    return chunks
+
+
 def build_plan_algorithm2(
     population: ClientPopulation,
     m: int,
@@ -58,6 +81,7 @@ def build_plan_algorithm2(
     distance_fn: Union[DistanceFn, str] = "auto",
     clusterer: Union[ClustererFn, str] = "ward",
     clusterer_seed: int = 0,
+    cluster_mask: Optional[np.ndarray] = None,
 ) -> SamplingPlan:
     """Build the similarity-clustered ``r`` matrix for one round.
 
@@ -70,6 +94,18 @@ def build_plan_algorithm2(
     :data:`repro_torch.core.clustering.backends.CLUSTERERS` entry
     (``"ward"``, ``"ward_jit"``, ``"kmeans"``) or is a callable with the
     same signature.
+
+    ``cluster_mask`` ((n,) bool, optional) restricts the expensive
+    *similarity clustering* to the masked-in clients — the FedSTaS-style
+    restratification over the recently-available fleet. Masked-out pool
+    clients keep their exact eq. (8) token mass but are packed into greedy
+    capacity-feasible filler groups (``cluster_of = -1``) instead of riding
+    the O(n²d + n³) pipeline. Because every group still carries <= M tokens
+    over the same ``m_pool·M`` total, the allocation stays a valid eq. (8)
+    plan — Proposition 1 exactness and ``conditional_plan`` unbiasedness
+    over any availability mask hold regardless of the mask that built it.
+    A degenerate mask (all-in, or excluding every pool client) falls back
+    to the unrestricted build.
     """
     n = population.n_clients
     M = population.total_samples
@@ -90,19 +126,39 @@ def build_plan_algorithm2(
     cluster_of = np.full(n, -1, dtype=np.int64)
     if m_pool > 0:
         pool = np.flatnonzero(pool_mass > 0)
-        groups_local = resolve_clusterer(clusterer)(
-            G[pool],
-            pool_mass[pool],
-            m_pool,
+        mask = None
+        if cluster_mask is not None:
+            cm = np.asarray(cluster_mask, dtype=bool)
+            if cm.shape != (n,):
+                raise ValueError(f"cluster_mask shape {cm.shape} != ({n},)")
+            if not cm.all() and cm[pool].any():
+                mask = cm
+        cluster = resolve_clusterer(clusterer)
+        if mask is None:
+            clustered, chunks = pool, []
+            m_target = m_pool
+        else:
+            clustered = pool[mask[pool]]
+            chunks = _fit_chunks(pool[~mask[pool]], pool_mass, M)
+            # the clusterer needs >= 1 target group and cannot cut more
+            # groups than it has clients; feasibility of the combined
+            # grouping is automatic (every group <= M over m_pool·M total
+            # mass forces K >= m_pool)
+            m_target = max(1, min(clustered.size, m_pool - len(chunks)))
+        groups_local = cluster(
+            G[clustered],
+            pool_mass[clustered],
+            m_target,
             M,
             measure=measure,
             distance_fn=_resolve_distance_fn(distance_fn),
             seed=clusterer_seed,
         )
-        groups = [pool[g] for g in groups_local]
+        groups = [clustered[g] for g in groups_local]
         for gid, g in enumerate(groups):
-            cluster_of[g] = gid
-        tokens[urn:, :] = allocate_by_groups(pool_mass, m_pool, M, groups)
+            cluster_of[g] = gid  # filler chunks stay -1: not similarity groups
+        pool_tokens = allocate_by_groups(pool_mass, m_pool, M, groups + chunks)
+        tokens[urn:, :] = pool_tokens
 
     return SamplingPlan(r=tokens / M, r_tokens=tokens, cluster_of=cluster_of)
 
@@ -176,4 +232,8 @@ class Algorithm2Sampler(StoreBackedSampler):
             distance_fn=self._distance_fn,
             clusterer=self._clusterer,
             clusterer_seed=self._clusterer_seed,
+            # None unless an AvailabilityTracker is attached; read at build
+            # time (the tracker replaces its score tensor, never mutates it,
+            # so the async worker sees a consistent mask)
+            cluster_mask=self._cluster_mask(),
         )

@@ -1,17 +1,30 @@
-# Adapted from src/repro/core/samplers/base.py, without availability,
-# overselection and checkpoint state.
-"""Sampler interface + Proposition-1 validation.
+# Adapted from src/repro/core/samplers/base.py, without overselection and
+# checkpoint state.
+"""Sampler interface + Proposition-1 validation + availability conditioning.
 
 A sampler consumes the client population (and, for Algorithm 2, the clients'
 representative gradients) and produces a :class:`SampleResult` per round.
 Plan-based samplers expose their ``SamplingPlan`` so its Proposition-1
 conditions can be checked exactly.
 
-Not ported yet (ROADMAP A10): ``conditional_plan`` and the
-availability-conditioned ``sample(t, available=)``, the overselecting
-``sample_overselect`` and the checkpointable sampler state. Every port
-sampler (``md``, ``uniform``, ``algorithm1``, ``algorithm2``, ``target``)
-takes ``sample(round_idx)`` alone.
+Availability conditioning (the continuous-service path): ``sample(t,
+available=mask)`` restricts the draw to the currently-available client set.
+For plan-based schemes the restriction is :func:`conditional_plan` — each
+urn is masked to the available columns and re-normalized, and the urn's
+per-draw aggregation weight becomes its share of the total available mass
+instead of the unconditional ``1/m``. That importance correction is what
+keeps the scheme unbiased *over the available set*: for any plan satisfying
+eq. (8),
+
+    E[ω_i | available] = p_i·a_i / Σ_j p_j·a_j
+
+— exactly the re-normalized data ratios (property-tested on the port's
+plans in ``tests/test_torch_statistics.py``). Urns whose entire mass is
+unavailable draw nothing; realized weights still sum to 1 whenever any
+available mass exists.
+
+Not ported yet (ROADMAP A10): the overselecting ``sample_overselect`` and
+the checkpointable sampler state.
 """
 from __future__ import annotations
 
@@ -23,6 +36,38 @@ import numpy as np
 from repro_torch.core.types import ClientPopulation, SamplingPlan, SampleResult
 
 
+def conditional_plan(
+    plan: SamplingPlan, available: np.ndarray
+) -> tuple[np.ndarray, np.ndarray]:
+    """Condition a sampling plan on an availability mask.
+
+    Returns ``(r_cond, urn_weights)`` where ``r_cond[k]`` is urn ``k``'s
+    draw distribution restricted to the available columns (zero rows for
+    urns with no available mass) and ``urn_weights[k]`` is the aggregation
+    weight one draw from urn ``k`` carries: ``s_k / Σ_j s_j`` with ``s_k``
+    the urn's available mass. For a plan satisfying eq. (8) this makes the
+    conditional expectation of the realized weights exactly the
+    re-normalized importances ``p_i·a_i / Σ_j p_j·a_j`` (with full
+    availability it degenerates to ``1/m`` per draw, the unconditional
+    scheme). Raises if no urn has any available mass.
+    """
+    a = np.asarray(available, dtype=bool)
+    if a.shape != (plan.n_clients,):
+        raise ValueError(
+            f"availability mask shape {a.shape} != ({plan.n_clients},)"
+        )
+    masked = plan.r * a
+    s = masked.sum(axis=1)  # available mass per urn
+    total = s.sum()
+    if not (np.isfinite(total) and total > 0):
+        raise ValueError(
+            "no sampling-plan mass on the available client set — every urn "
+            "is fully masked out; nothing can be drawn"
+        )
+    r_cond = np.divide(masked, s[:, None], out=np.zeros_like(masked), where=s[:, None] > 0)
+    return r_cond, s / total
+
+
 class ClientSampler(abc.ABC):
     """Base class for all client-selection schemes."""
 
@@ -31,6 +76,12 @@ class ClientSampler(abc.ABC):
     #: whether ``observe_updates`` feeds a re-clustering pipeline (so the
     #: server should bother producing representative gradients)
     consumes_updates: bool = False
+    #: whether the urn-cyclic overselection re-weighting
+    #: (``sample_overselect``, not ported yet) is exact for this scheme —
+    #: requires the plan rows to *be* the draw distributions with eq. (8)
+    #: column sums; schemes that re-weight draws themselves (``importance``)
+    #: opt out
+    supports_overselect: bool = True
 
     def __init__(self, population: ClientPopulation, m: int, *, seed: int = 0):
         if m <= 0:
@@ -40,8 +91,18 @@ class ClientSampler(abc.ABC):
         self._rng = np.random.default_rng(seed)
 
     @abc.abstractmethod
-    def sample(self, round_idx: int) -> SampleResult:
-        """Draw the clients participating in round ``round_idx``."""
+    def sample(
+        self, round_idx: int, available: Optional[np.ndarray] = None
+    ) -> SampleResult:
+        """Draw the clients participating in round ``round_idx``.
+
+        ``available`` is an optional boolean (n,) mask restricting the draw
+        to the currently-available client set (``None`` = everyone, the
+        paper's fixed-population behaviour, bit-identical to the
+        pre-availability code path). Plan-based schemes condition through
+        :func:`conditional_plan`; see the module docstring for the
+        unbiasedness-over-the-available-set guarantee.
+        """
 
     # Hooks -----------------------------------------------------------------
     def observe_updates(self, client_ids: np.ndarray, updates: np.ndarray) -> None:
@@ -82,7 +143,9 @@ class ClientSampler(abc.ABC):
         """Release background resources (async planner workers)."""
 
     # Shared machinery -------------------------------------------------------
-    def _draw_from_plan(self, plan: SamplingPlan) -> SampleResult:
+    def _draw_from_plan(
+        self, plan: SamplingPlan, available: Optional[np.ndarray] = None
+    ) -> SampleResult:
         """Sample l_k ~ W_k independently (the clustered-sampling draw).
 
         One vectorized inverse-CDF draw over the (m, n) row-cumsum instead of
@@ -90,29 +153,65 @@ class ClientSampler(abc.ABC):
         exactly (per-row cumsum, normalize by the last entry, insertion index
         with ties to the right) and ``rng.random(m)`` consumes the identical
         uniform stream, so the draws are bit-for-bit those of the old loop.
+
+        ``available`` conditions the draw on an availability mask (see
+        :func:`conditional_plan`): masked urns re-normalize over their
+        available columns and carry their share of the available mass as the
+        per-draw aggregation weight; urns with no available mass draw
+        nothing (still consuming their uniform, so the stream stays aligned
+        across scenarios). An all-true mask takes the unconditional path —
+        bit-identical to ``available=None``.
         """
         n = self.population.n_clients
-        cdf = np.cumsum(plan.r, axis=1)
-        total = cdf[:, -1]
-        # rng.choice validated p per call — keep failing fast on
-        # degenerate rows (NaN-poisoned gradients, zero-mass urns)
-        # instead of silently collapsing every such draw onto client 0
-        bad = ~(np.isfinite(total) & (total > 0))
-        if bad.any():
-            k = int(np.argmax(bad))
-            raise ValueError(
-                f"plan row {k} is not a probability distribution "
-                f"(total mass {total[k]!r}); cannot draw from it"
-            )
-        cdf /= total[:, None]
+        if available is not None:
+            a = np.asarray(available, dtype=bool)
+            if a.shape != (n,):
+                raise ValueError(f"availability mask shape {a.shape} != ({n},)")
+            if a.all():
+                available = None
+        if available is None:
+            cdf = np.cumsum(plan.r, axis=1)
+            total = cdf[:, -1]
+            # rng.choice validated p per call — keep failing fast on
+            # degenerate rows (NaN-poisoned gradients, zero-mass urns)
+            # instead of silently collapsing every such draw onto client 0
+            bad = ~(np.isfinite(total) & (total > 0))
+            if bad.any():
+                k = int(np.argmax(bad))
+                raise ValueError(
+                    f"plan row {k} is not a probability distribution "
+                    f"(total mass {total[k]!r}); cannot draw from it"
+                )
+            cdf /= total[:, None]
+            u = self._rng.random(plan.m)
+            # searchsorted(side="right") per row: #{i: cdf[k,i] <= u_k};
+            # u < 1 and cdf[k,-1] == 1 exactly, so the index never reaches
+            # n. A zero-mass client repeats its predecessor's cdf value and
+            # can never be hit.
+            clients = (cdf <= u[:, None]).sum(axis=1).astype(np.int64)
+            counts = np.bincount(clients, minlength=n)
+            return SampleResult(clients=clients, agg_weights=counts / plan.m)
+
+        # availability-conditioned draw
+        masked = plan.r * a
+        s = masked.sum(axis=1)  # available mass per urn
+        total = float(s.sum())
+        if not np.isfinite(total):
+            raise ValueError("plan mass on the available set is not finite")
         u = self._rng.random(plan.m)
-        # searchsorted(side="right") per row: #{i: cdf[k,i] <= u_k};
-        # u < 1 and cdf[k,-1] == 1 exactly, so the index never reaches
-        # n. A zero-mass client repeats its predecessor's cdf value and
-        # can never be hit.
-        clients = (cdf <= u[:, None]).sum(axis=1).astype(np.int64)
-        counts = np.bincount(clients, minlength=n)
-        return SampleResult(clients=clients, agg_weights=counts / plan.m)
+        agg = np.zeros(n)
+        if total <= 0:
+            # every urn fully masked out: nothing to draw — the caller
+            # (FederatedServer) turns this into EmptyRoundError
+            return SampleResult(clients=np.empty(0, np.int64), agg_weights=agg)
+        active = s > 0
+        cdf = np.cumsum(masked[active], axis=1)
+        cdf /= cdf[:, -1][:, None]
+        clients = (cdf <= u[active, None]).sum(axis=1).astype(np.int64)
+        # importance-corrected urn weights: urn k's draw carries s_k / Σ s_j
+        # so E[ω_i | available] is exactly the re-normalized importances
+        np.add.at(agg, clients, s[active] / total)
+        return SampleResult(clients=clients, agg_weights=agg)
 
 
 def validate_plan(

@@ -1,5 +1,5 @@
-# Adapted from src/repro/core/samplers/clustered.py, without availability
-# and checkpoint state.
+# Adapted from src/repro/core/samplers/clustered.py, without checkpoint
+# state.
 """Generic clustered sampler: m independent draws from an arbitrary plan.
 
 Any ``r`` matrix satisfying Proposition 1 can be plugged in — Algorithms 1
@@ -7,6 +7,10 @@ and 2 are factories producing such plans; this class does the actual
 per-round drawing (Section 3.1).
 """
 from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
 
 from repro_torch.core.samplers.base import ClientSampler, validate_plan
 from repro_torch.core.types import ClientPopulation, SamplingPlan, SampleResult
@@ -39,6 +43,8 @@ class ClusteredSampler(ClientSampler):
             raise ValueError(f"plan has m={plan.m}, sampler has m={self.m}")
         self._plan = plan
 
-    def sample(self, round_idx: int) -> SampleResult:
+    def sample(
+        self, round_idx: int, available: Optional[np.ndarray] = None
+    ) -> SampleResult:
         del round_idx
-        return self._draw_from_plan(self._plan)
+        return self._draw_from_plan(self._plan, available)

@@ -1,4 +1,4 @@
-# Adapted from src/repro/core/samplers/md.py, without the availability mask.
+# Copied from src/repro/core/samplers/md.py.
 """MD sampling (Li et al., 2018) — the paper's reference scheme.
 
 ``m`` iid draws from the multinomial W_0 with P(i) = p_i; aggregation
@@ -6,6 +6,8 @@ weight 1/m per draw (eq. 4). Special case of clustered sampling with
 ``W_k = W_0`` for every k.
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import numpy as np
 
@@ -25,6 +27,10 @@ class MDSampler(ClientSampler):
     def plan(self) -> SamplingPlan:
         return self._plan
 
-    def sample(self, round_idx: int) -> SampleResult:
+    def sample(
+        self, round_idx: int, available: Optional[np.ndarray] = None
+    ) -> SampleResult:
         del round_idx
-        return self._draw_from_plan(self._plan)
+        # under an availability mask every row conditions to p·a / Σ p_j a_j
+        # — MD sampling restricted to the available set, still unbiased there
+        return self._draw_from_plan(self._plan, available)

@@ -32,9 +32,10 @@ packages. The device is a runtime argument of the builders, never a spec
 key: a spec that named a device would hash to another cell.
 
 Not ported yet, refused by :func:`build_experiment` with
-``NotImplementedError``: a non-default ``population`` or ``scheduler``
-section and ``train.checkpoint_every > 0`` (ROADMAP A10), and an
-``engine.mesh_spec`` (A13).
+``NotImplementedError``: a scheduler other than ``"sync"`` or with options
+and ``train.checkpoint_every > 0`` (ROADMAP A10), and an
+``engine.mesh_spec`` (A13). Every ``population`` section and
+``scheduler.track_availability`` are built.
 
 Everything model-sized stays inferred: ``update_dim`` (the flattened MLP
 size Algorithm 2's gradient store needs) and the class count come from the
@@ -501,7 +502,8 @@ def build_sampler(
     ``planner`` kwarg accept a non-default one); ``update_dim`` is the
     flattened model size handed to similarity-based schemes unless the spec
     pins its own in ``options``. ``device`` holds the gradient store of the
-    schemes that have one (Algorithm 2); the host-only schemes ignore it.
+    schemes that have one (Algorithm 2 and the scheme zoo); the host-only
+    schemes ignore it.
     """
     spec = SamplerSpec.from_dict(spec) if isinstance(spec, dict) else spec
     cls = SAMPLERS.get(spec.name)
@@ -568,15 +570,12 @@ def _infer_n_classes(dataset: FederatedDataset) -> int:
 
 def _refuse_unported(spec: ExperimentSpec) -> None:
     """Raise for the spec sections the port cannot build yet."""
-    if not spec.population.is_default:
+    sched = spec.scheduler
+    if sched.name != "sync" or sched.options:
         raise NotImplementedError(
-            f"population {spec.population.to_dict()} is not ported (ROADMAP A10); "
-            "leave the population section at its default"
-        )
-    if not spec.scheduler.is_default:
-        raise NotImplementedError(
-            f"scheduler {spec.scheduler.to_dict()} is not ported (ROADMAP A10); "
-            "leave the scheduler section at its default"
+            f"scheduler {sched.to_dict()}: round schedulers are not ported "
+            "(ROADMAP A10); keep name 'sync' with no options "
+            "(track_availability is ported)"
         )
     if spec.train.checkpoint_every > 0:
         raise NotImplementedError(
@@ -612,8 +611,15 @@ def build_experiment(
     :func:`~repro_torch.models.simple.init_mlp`, seeded with
     ``train.model_seed``; they are not the reference's numbers (its
     ``init_mlp`` draws with jax's threefry).
+
+    A non-default ``population`` section attaches its population process;
+    ``scheduler.track_availability`` attaches an
+    :class:`~repro_torch.fl.availability.AvailabilityTracker` on ``device``
+    to the server and, when the scheme is store-backed, to the sampler.
     """
     from repro_torch.fl.aggregation import flatten_params
+    from repro_torch.fl.availability import AvailabilityTracker
+    from repro_torch.fl.population import build_population
     from repro_torch.models.simple import accuracy, classification_loss, fedprox_loss, init_mlp
     from repro_torch.optim.sgd import sgd
 
@@ -649,11 +655,30 @@ def build_experiment(
         engine=spec.engine.name,
         max_staged_bytes=spec.engine.max_staged_bytes,
     )
+    # the default spec attaches no process at all: batch experiments stay on
+    # the exact fixed-population code path (n_available=-1 telemetry included)
+    pop = (
+        None
+        if spec.population.is_default
+        else build_population(spec.population, ds.population.n_clients)
+    )
+    availability = None
+    sched = spec.scheduler
+    if sched.track_availability:
+        availability = AvailabilityTracker(
+            ds.population.n_clients,
+            decay=sched.avail_decay,
+            threshold=sched.avail_threshold,
+            late_credit=sched.late_credit,
+            device=device,
+        )
+        if hasattr(sampler, "attach_availability"):
+            sampler.attach_availability(availability)
     lf = loss_fn if loss_fn is not None else (fedprox_loss if tr.fedprox_mu else classification_loss)
     af = acc_fn if acc_fn is not None else accuracy
     return FederatedServer(
         ds, sampler, params, sgd(tr.lr, tr.momentum), cfg, loss_fn=lf, acc_fn=af,
-        device=device,
+        population=pop, availability=availability, device=device,
     )
 
 

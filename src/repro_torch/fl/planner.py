@@ -1,5 +1,4 @@
-# Adapted from src/repro/fl/planner.py, without the availability churn term
-# and checkpoint restore.
+# Adapted from src/repro/fl/planner.py, without checkpoint restore.
 """Asynchronous re-clustering planner: plan *building* off the critical path.
 
 The paper's server "overlaps re-clustering with client local work"
@@ -74,6 +73,14 @@ class AssignmentDriftMonitor:
     never-baselined cold start report ``inf``: when churn cannot be
     measured, the trigger errs toward rebuilding.
 
+    With availability tracking on, each observation also carries the
+    tracker's active-client mask, and :meth:`drift` adds a *churn* term: the
+    fraction of clients whose active bit flipped since the baseline. Fleet
+    turnover alone (clients aging out of the presence window, newcomers
+    crossing the threshold) then triggers a rebuild even when the surviving
+    clients' gradients have not drifted — a mask of ``None`` means the full
+    fleet, so the term is 0 whenever tracking is off.
+
     All heavy ops run through :mod:`repro_torch.core.clustering.device`, so a
     device-resident snapshot never round-trips to host (only the scalar
     comes back). State swaps are atomic single-attribute stores, safe for
@@ -82,14 +89,22 @@ class AssignmentDriftMonitor:
 
     def __init__(self):
         self._state: Optional[tuple[Any, np.ndarray]] = None  # (centroids, baseline)
+        self._active: Optional[np.ndarray] = None  # baseline mask; None = full fleet
 
-    def rebaseline(self, snapshot: Any, plan: SamplingPlan) -> None:
-        """Freeze ``plan``'s clusters over ``snapshot`` as the new baseline."""
+    def rebaseline(
+        self, snapshot: Any, plan: SamplingPlan, active: Optional[np.ndarray] = None
+    ) -> None:
+        """Freeze ``plan``'s clusters over ``snapshot`` as the new baseline.
+
+        ``active`` is the availability mask the rebuild was restricted to
+        (None = full fleet); it becomes the reference for the churn term.
+        """
         from repro_torch.core.clustering.device import (
             cluster_centroids,
             nearest_centroid_labels,
         )
 
+        self._active = None if active is None else np.asarray(active, dtype=bool).copy()
         labels = None if plan.cluster_of is None else np.asarray(plan.cluster_of)
         if labels is None or not (labels >= 0).any():
             self._state = None
@@ -98,8 +113,22 @@ class AssignmentDriftMonitor:
         centroids = cluster_centroids(snapshot, labels, k)
         self._state = (centroids, nearest_centroid_labels(snapshot, centroids))
 
-    def drift(self, snapshot: Any) -> float:
-        """Assignment churn of ``snapshot`` against the baseline."""
+    def _churn(self, active: Optional[np.ndarray]) -> float:
+        """Fraction of clients whose active bit flipped since the baseline."""
+        if active is None and self._active is None:
+            return 0.0
+        if self._active is not None:
+            ref = self._active
+            new = (
+                np.ones_like(ref) if active is None else np.asarray(active, dtype=bool)
+            )
+        else:
+            new = np.asarray(active, dtype=bool)
+            ref = np.ones_like(new)
+        return float(np.mean(new != ref))
+
+    def drift(self, snapshot: Any, active: Optional[np.ndarray] = None) -> float:
+        """Assignment churn of ``snapshot`` plus the fleet-turnover term."""
         from repro_torch.core.clustering.device import nearest_centroid_labels
 
         state = self._state
@@ -107,7 +136,7 @@ class AssignmentDriftMonitor:
             return float("inf")
         centroids, baseline = state
         fresh = nearest_centroid_labels(snapshot, centroids)
-        return float(np.mean(fresh != baseline))
+        return float(np.mean(fresh != baseline)) + self._churn(active)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -180,8 +209,8 @@ class PlanService:
         if self._monitor is not None:
             self._monitor.rebaseline(initial_input, self._current.plan)
         self._completed: Optional[VersionedPlan] = None  # built, not yet polled
-        # latest-wins (version, snapshot) awaiting the worker
-        self._pending: Optional[tuple[int, Any]] = None
+        # latest-wins (version, snapshot, active-mask) awaiting the worker
+        self._pending: Optional[tuple[int, Any, Optional[np.ndarray]]] = None
         self._building = False
         self._closed = False
         self._error: Optional[BaseException] = None
@@ -197,7 +226,7 @@ class PlanService:
         return plan
 
     # -- producer side ------------------------------------------------------
-    def observe(self, snapshot: Any) -> None:
+    def observe(self, snapshot: Any, active: Optional[np.ndarray] = None) -> None:
         """Record one observation and (re)build the plan from ``snapshot``.
 
         Sync: builds inline; :meth:`poll` returns the fresh plan immediately
@@ -207,11 +236,18 @@ class PlanService:
         a multiple of k only advance the counter (no rebuild, no snapshot
         retained). With ``drift_threshold`` set, the drift statistic decides
         instead: below threshold the observation only advances the counter.
+
+        ``active`` is the availability tracker's current active-client mask
+        (None = full fleet). It feeds the drift monitor's churn term and is
+        re-baselined alongside the plan, so fleet turnover counts toward the
+        rebuild trigger; the build itself reads its cluster restriction from
+        the sampler at build time (the tracker replaces its score tensor,
+        never mutates it, so the worker sees a consistent mask).
         """
         self._raise_pending_error()
         self._obs_seen += 1
         if self.drift_threshold is not None:
-            self._last_drift = self._monitor.drift(snapshot)
+            self._last_drift = self._monitor.drift(snapshot, active)
             if not self._last_drift >= self.drift_threshold:
                 return
         elif self._obs_seen % self.rebuild_every != 0:
@@ -219,14 +255,14 @@ class PlanService:
         if self.mode == "sync":
             plan = self._timed_build(snapshot)
             if self._monitor is not None:
-                self._monitor.rebaseline(snapshot, plan)
+                self._monitor.rebaseline(snapshot, plan, active)
             with self._cond:
                 self._completed = VersionedPlan(plan, self._obs_seen)
             return
         with self._cond:
             if self._closed:
                 raise RuntimeError("PlanService is closed")
-            self._pending = (self._obs_seen, snapshot)
+            self._pending = (self._obs_seen, snapshot, active)
             if self._worker is None:
                 self._worker = threading.Thread(
                     target=self._worker_loop, name="plan-service", daemon=True
@@ -241,13 +277,13 @@ class PlanService:
                     self._cond.wait()
                 if self._closed and self._pending is None:
                     return
-                version, snapshot = self._pending
+                version, snapshot, active = self._pending
                 self._pending = None
                 self._building = True
             try:
                 plan = self._timed_build(snapshot)
                 if self._monitor is not None:
-                    self._monitor.rebaseline(snapshot, plan)
+                    self._monitor.rebaseline(snapshot, plan, active)
             except BaseException as e:  # surfaced on the next observe/poll/flush
                 with self._cond:
                     self._error = e

@@ -161,9 +161,17 @@ def make_distance_fn():
     The one-shot entry point is used up to :data:`STREAM_D_THRESHOLD`
     coordinates and the streamed one beyond it. The distances stay on the
     device: ``"ward"`` copies them to the host, ``"ward_jit"`` does not.
+    G must be a tensor: a host array would reach the plain version on the
+    CPU with the card idle, so ``fn`` raises on one instead of converting.
     """
 
     def fn(G, measure: str):
+        if not isinstance(G, torch.Tensor):
+            raise TypeError(
+                f"distance op needs G as a torch tensor on its device, got "
+                f"{type(G).__name__}; move host arrays to the store's device "
+                "first (torch.as_tensor(G, device=...))"
+            )
         if G.shape[1] > STREAM_D_THRESHOLD:
             return pairwise_distances_streamed(G, measure)
         return pairwise_distances_device(G, measure)

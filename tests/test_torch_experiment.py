@@ -7,6 +7,7 @@ import pytest
 
 import repro_torch.models.simple as port_simple
 from repro.fl import experiment as ref_exp
+from repro.fl.population import build_population as ref_build_population
 from repro.models.simple import init_mlp as ref_init_mlp
 from repro_torch.core import SAMPLERS
 from repro_torch.fl import experiment as exp
@@ -120,9 +121,9 @@ def test_device_is_not_a_spec_option():
 
 
 @pytest.mark.parametrize("section,value,item", [
-    ("population", {"name": "poisson", "options": {"leave_rate": 0.2}}, "A10"),
     ("scheduler", {"name": "deadline"}, "A10"),
-    ("scheduler", {"track_availability": True}, "A10"),
+    ("scheduler", {"name": "overselect", "track_availability": True}, "A10"),
+    ("scheduler", {"name": "sync", "options": {"beta": 0.5}}, "A10"),
     ("train", {**TRAIN, "checkpoint_every": 2}, "A10"),
     ("engine", {"mesh_spec": "auto"}, "A13"),
     ("engine", {"mesh_spec": [1, 1]}, "A13"),
@@ -130,6 +131,24 @@ def test_device_is_not_a_spec_option():
 def test_unported_sections_raise(section, value, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         exp.build_experiment({**_spec("md"), section: value}, device="cpu")
+
+
+@pytest.mark.parametrize("section,value", [
+    ("population", {"name": "poisson", "options": {"leave_rate": 0.2}}),
+    ("population", {"name": "periodic", "seed": 3, "options": {"period": 4}}),
+    ("scheduler", {"track_availability": True, "avail_decay": 0.8}),
+])
+def test_population_and_tracking_sections_build(section, value):
+    with exp.build_experiment({**_spec("algorithm2"), section: value}, device="cpu") as srv:
+        if section == "population":
+            want = ref_build_population(value, srv.dataset.n_clients)
+            assert type(srv.population).__name__ == type(want).__name__
+            np.testing.assert_array_equal(srv.population.available_mask(3), want.available_mask(3))
+            assert srv.availability is None
+        else:
+            assert srv.population is None
+            assert srv.availability.decay == 0.8
+            assert srv.sampler._avail_tracker is srv.availability
 
 
 def test_default_device_raises_without_a_gpu():

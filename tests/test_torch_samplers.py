@@ -7,6 +7,7 @@ from repro.core import SAMPLERS as REF_SAMPLERS
 from repro.core import ClientPopulation as RefPopulation
 from repro.core import max_draws_bound as ref_max_draws_bound
 from repro.core import validate_plan as ref_validate_plan
+from repro.core.samplers.base import conditional_plan as ref_conditional_plan
 from repro_torch.benchmarks.table_variance import PROFILE
 from repro_torch.core import (
     SAMPLERS,
@@ -17,10 +18,10 @@ from repro_torch.core import (
     register_sampler,
     validate_plan,
 )
+from repro_torch.core.samplers.base import conditional_plan
 from repro_torch.core.samplers.md import MDSampler
 
 M, ROUNDS = 10, 50
-ZOO = {"stratified", "importance", "dp_stratified", "hybrid"}  # ROADMAP A9
 
 
 def _sizes(kind: str) -> np.ndarray:
@@ -71,8 +72,8 @@ def _assert_plans_equal(got, want):
             np.testing.assert_array_equal(g, w)
 
 
-def test_samplers_registry_is_the_references_less_the_zoo():
-    assert SAMPLERS.names() == sorted(set(REF_SAMPLERS.names()) - ZOO)
+def test_samplers_registry_is_the_references():
+    assert SAMPLERS.names() == REF_SAMPLERS.names()
 
 
 def test_register_sampler_override_rule():
@@ -163,3 +164,73 @@ def test_algorithm1_telemetry_is_static():
     assert port.plan_cost_telemetry()[0] >= 0.0
     port.close()
     ref.close()
+
+
+# --------------------------------------------------------------------------
+# availability conditioning
+# --------------------------------------------------------------------------
+def _masks(n: int, rng) -> list:
+    """Random masks, the all-true mask, one lone client and the empty mask."""
+    lone = np.zeros(n, bool)
+    lone[n // 2] = True
+    return [rng.random(n) < 0.5, rng.random(n) < 0.9, np.ones(n, bool), lone, np.zeros(n, bool)]
+
+
+@pytest.mark.parametrize("kind", ["balanced", "unbalanced", "random"])
+@pytest.mark.parametrize("name", ["md", "algorithm1", "algorithm2", "target"])
+def test_conditional_plan_equals_reference(name, kind):
+    sizes = _sizes(kind)
+    ref, port = _pair(name, sizes)
+    try:
+        for a in _masks(len(sizes), np.random.default_rng(1))[:-1]:
+            (got_r, got_w), (want_r, want_w) = conditional_plan(port.plan, a), ref_conditional_plan(ref.plan, a)
+            np.testing.assert_array_equal(got_r, want_r)
+            np.testing.assert_array_equal(got_w, want_w)
+        for bad in (np.zeros(len(sizes), bool), np.ones(len(sizes) + 1, bool)):
+            with pytest.raises(ValueError) as want:
+                ref_conditional_plan(ref.plan, bad)
+            with pytest.raises(ValueError) as got:
+                conditional_plan(port.plan, bad)
+            assert str(got.value) == str(want.value)
+    finally:
+        ref.close()
+        port.close()
+
+
+@pytest.mark.parametrize("kind", ["balanced", "unbalanced", "random"])
+@pytest.mark.parametrize("name", ["md", "uniform", "algorithm1", "algorithm2", "target"])
+def test_masked_draws_bit_equal_reference(name, kind):
+    """50 rounds under a rotation of masks — random, all-true, one lone
+    client, fully masked — plus unmasked rounds between them: clients,
+    agg_weights and stale_weight bit-equal, so the uniform stream stays
+    aligned through empty rounds too."""
+    sizes = _sizes(kind)
+    ref, port = _pair(name, sizes)
+    rng = np.random.default_rng(0)
+    try:
+        for t in range(ROUNDS):
+            masks = _masks(len(sizes), rng)
+            a = None if t % 6 == 5 else masks[t % 6]
+            want, got = ref.sample(t, a), port.sample(t, a)
+            np.testing.assert_array_equal(got.clients, want.clients)
+            np.testing.assert_array_equal(got.agg_weights, want.agg_weights)
+            assert got.stale_weight == want.stale_weight
+            if a is not None:
+                assert (got.agg_weights[~a] == 0).all()
+                if not a.any():
+                    assert got.clients.size == 0
+    finally:
+        ref.close()
+        port.close()
+
+
+@pytest.mark.parametrize("name", ["md", "algorithm1", "target"])
+def test_all_true_mask_is_the_unmasked_draw(name):
+    sizes = _sizes("balanced")
+    _, a = _pair(name, sizes, seed=3)
+    _, b = _pair(name, sizes, seed=3)
+    for t in range(20):
+        x, y = a.sample(t, np.ones(len(sizes), bool)), b.sample(t)
+        np.testing.assert_array_equal(x.clients, y.clients)
+        np.testing.assert_array_equal(x.agg_weights, y.agg_weights)
+    assert a.supports_overselect and b.supports_overselect
