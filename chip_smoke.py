@@ -123,12 +123,35 @@ Phases, one line (or a few) each; any failure raises and exits non-zero:
    dp_stratified and hybrid (each scheme's builds counted on their own,
    so dp_stratified's host-noised release must reach B1 on the card) and
    none in importance's, one SRP launch a sketched round. It prints each
-   scheme's round ms and ``plan_build_ms`` and the DP release's ms.
+   scheme's round ms and ``plan_build_ms`` and the DP release's ms;
+10. sched  — round schedulers, overselection, checkpoint/resume and the
+   service at the same width (algorithm2, Ward, arccos, sync planner,
+   ``PAPER_TRAIN``, 6 rounds a run): an explicit ``SyncScheduler``
+   bit-identical to no scheduler (params and every record); ``deadline``
+   (straggle 0.3, slow 2, discount 0.5) under Poisson churn with the
+   tracker at 0.95, gated on ``n_late`` equal to the latency model's mask
+   recomputed on the host over the drawn, available, not-dropped clients,
+   each round harvesting the round before's late clients, and no late
+   update in its round's observation; run twice, bit-identical; killed at
+   round 3 with a harvest pending and resumed by a fresh server,
+   bit-identical in params, history and store, with no plan build or Gram
+   launch at the restore; the same with the SRP sketch to d′ = 64;
+   ``overselect`` β = 0.5 (at most m draws aggregated, ``n_late`` the
+   surplus, realized plus stale weight 1 within 1e-12; importance raises);
+   a dim-32 bundle from the card resumed on the CPU (equal draws and plans
+   for 2 rounds); ``fl_service --device cuda`` as a subprocess, SIGTERMed
+   after 3 status lines and resumed (exit 0 both times, a contiguous
+   history, agg_weights equal to the in-process run). Counts reset at the
+   phase's start: one aggregate launch a card round, one Gram launch an
+   Algorithm 2 build on the card, one SRP launch a sketched observation
+   or harvest scatter with rows. It prints each run's round ms and
+   ``plan_build_ms`` and the checkpoint's write ms, bytes and resume ms.
 
 The last lines are the card's name and power limit (nvidia-smi), a JSON
-object with one entry per kernel and shape (with the paper and zoo
-phases' launches as ``paper_launches`` and ``zoo_launches`` for the Gram,
-aggregate and SRP rows), and ``{"ok": true, "device": ...}``.
+object with one entry per kernel and shape (with the paper, zoo and
+sched phases' launches as ``paper_launches``, ``zoo_launches`` and
+``sched_launches`` for the Gram, aggregate and SRP rows), and
+``{"ok": true, "device": ...}``.
 The script imports neither JAX nor the JAX package ``repro``.
 """
 from __future__ import annotations
@@ -1605,11 +1628,14 @@ class PaperProbe:
         for cls, attr, orig in self._saved:
             setattr(cls, attr, orig)
 
+    def _card(self, device) -> bool:
+        return device.type == "cuda"
+
     def _run_round(self, orig):
         def run_round(srv, t):
             t0 = time.perf_counter()
             rec = orig(srv, t)
-            if srv.device.type == "cuda":
+            if self._card(srv.device):
                 self.torch.cuda.synchronize()
                 self.card_rounds += 1
                 key = (self.label, self.scheme_of[type(srv.sampler)])
@@ -1901,7 +1927,7 @@ class ZooProbe(PaperProbe):
             Algorithm2Sampler, StratifiedSampler, HybridSampler, ImportanceSampler)]
 
     def _key(self, sampler, device) -> tuple[str, str, str]:
-        return (self.label, self.scheme_of[type(sampler)], device.type)
+        return (self.label, self.scheme_of[type(sampler)], "cuda" if self._card(device) else "cpu")
 
     def _phase_draw(self, orig):
         def phase_draw(srv, t, available):
@@ -2142,6 +2168,420 @@ def phase_zoo(torch) -> dict:
     return launches
 
 
+# the sched phase: round schedulers, overselection, checkpoint/resume and
+# the FL service at the paper's MNIST width
+SCHED_ROUNDS, SCHED_KILL, SCHED_CONTINUE = 6, 3, 2
+SCHED_DEADLINE = {"name": "deadline", "options": {"straggle_frac": 0.3, "slow_factor": 2.0,
+                                                  "harvest_discount": 0.5}, **ZOO_TRACK}
+SCHED_OVERSELECT = {"name": "overselect", "options": {"beta": 0.5}}
+SCHED_MASS_ATOL = 1e-12  # realized weights + stale weight of an overselected round
+SCHED_SERVICE_STOP = 3  # status lines before the service gets its SIGTERM
+SERVICE_DEVICE = "cuda"
+
+
+class SchedProbe(ZooProbe):
+    """The zoo probe, widened to the sched phase: each round's whole draw
+    (the thinned ``SampleResult``), each store-backed observation with its
+    client ids, and each deadline harvest scatter with its row count, by
+    label."""
+
+    def __init__(self, torch):
+        super().__init__(torch)
+        from repro_torch.core.samplers.store_backed import StoreBackedSampler
+        from repro_torch.fl.scheduler import DeadlineScheduler
+
+        self.t = -1
+        self.results: dict[str, list] = {}
+        self.observed: dict[str, list] = {}
+        self.harvests: dict[str, list] = {}
+        self._targets += [(StoreBackedSampler, "observe_updates", self._observe),
+                          (DeadlineScheduler, "begin_round", self._begin_round)]
+
+    def _run_round(self, orig):
+        timed = super()._run_round(orig)
+
+        def run_round(srv, t):
+            self.t = t
+            return timed(srv, t)
+        return run_round
+
+    def _phase_draw(self, orig):
+        drawn = super()._phase_draw(orig)
+
+        def phase_draw(srv, t, available):
+            out = drawn(srv, t, available)
+            self.results.setdefault(self.label, []).append(
+                (t, None if available is None else available.copy(), out[0]))
+            return out
+        return phase_draw
+
+    def _observe(self, orig):
+        import numpy as np
+
+        def observe(sampler, ids, updates):
+            self.observed.setdefault(self.label, []).append(
+                (self.t, np.array(ids), self._card(sampler._store.device)))
+            return orig(sampler, ids, updates)
+        return observe
+
+    def _begin_round(self, orig):
+        def begin_round(sched, t, sampler):
+            n = orig(sched, t, sampler)
+            store = getattr(sampler, "gradient_store", None)
+            self.harvests.setdefault(self.label, []).append(
+                (t, n, store is not None and self._card(store.device)))
+            return n
+        return begin_round
+
+
+def _sched_base(data: dict) -> dict:
+    """The race's base spec at ``data``'s options: by_class_shards with 100
+    clients, PAPER_TRAIN, algorithm2 (Ward, arccos, sync planner), m = 10."""
+    from repro_torch.benchmarks import scheme_race
+
+    base = _paper_sweep(scheme_race.race_sweep(smoke=False), SCHED_ROUNDS, 1, data)["base"]
+    return {**base, "sampler": {"name": "algorithm2", "m": 10}}
+
+
+def _sched_state(srv) -> tuple:
+    """(records with wall-clock telemetry normalized, params, store) — the
+    bits a kill and resume must reproduce."""
+    recs = json.loads(srv.history.to_json())
+    for r in recs:
+        r["plan_build_ms"] = -1.0
+    params = {k: v.detach().cpu().numpy().copy() for k, v in srv.params.items()}
+    store = getattr(srv.sampler, "gradient_store", None)
+    return recs, params, None if store is None else store.asnumpy().copy()
+
+
+def _same_state(a, b) -> bool:
+    import numpy as np
+
+    return (a[0] == b[0] and a[1].keys() == b[1].keys()
+            and all(np.array_equal(a[1][k], b[1][k]) for k in a[1])
+            and ((a[2] is None and b[2] is None) or np.array_equal(a[2], b[2])))
+
+
+def _sched_run(probe, label, spec, ds):
+    """One run on the card through build_experiment; returns the finished
+    server's state and the server (closed)."""
+    from repro_torch.fl.experiment import build_experiment
+
+    probe.label = label
+    with build_experiment(spec, dataset=ds, device="cuda") as srv:
+        srv.run()
+    return _sched_state(srv), srv
+
+
+def sched_sync_parity(probe, base, ds) -> None:
+    """An explicit SyncScheduler against scheduler=None, bit for bit."""
+    from repro_torch.fl.experiment import build_experiment
+    from repro_torch.fl.scheduler import SyncScheduler
+
+    none, _ = _sched_run(probe, "none", base, ds)
+    probe.label = "sync"
+    with build_experiment(base, dataset=ds, device="cuda") as srv:
+        srv.scheduler = SyncScheduler(srv.dataset.n_clients, srv.sampler.m)
+        srv.run()
+    if not _same_state(none, _sched_state(srv)):
+        fail("sched[sync]: an explicit SyncScheduler is not bit-identical to scheduler=None")
+    print(f"sched[sync]: {SCHED_ROUNDS} rounds with an explicit SyncScheduler bit-identical to "
+          "scheduler=None (params, agg_weights, losses, plan versions)")
+
+
+def sched_deadline(probe, spec, ds, label):
+    """The deadline run under Poisson churn with the tracker, gated against
+    the latency model and the population's masks recomputed on the host;
+    then the same run again, which must be bit-identical."""
+    import numpy as np
+
+    from repro_torch.fl.population import build_population
+    from repro_torch.fl.scheduler import LatencyModel
+
+    state, srv = _sched_run(probe, label, spec, ds)
+    hist = srv.history.records
+    opts = spec["scheduler"]["options"]
+    model = LatencyModel(ds.n_clients, seed=spec["scheduler"].get("seed", 0),
+                         straggle_frac=opts["straggle_frac"], slow_factor=opts["slow_factor"])
+    pop = build_population(spec["population"], ds.n_clients)
+    observed = {t: ids for t, ids, _ in probe.observed[label]}
+    late_before = 0
+    for rec, (t, avail, res) in zip(hist, probe.results[label], strict=True):
+        distinct = np.unique(res.clients)
+        want_avail = pop.available_mask(t)
+        if not np.array_equal(avail, want_avail) or not want_avail[distinct].all():
+            fail(f"sched[{label}]: round {t} drew a client the population had offline")
+        dropped = pop.dropout_mask(t, distinct)
+        late = (model.latencies(t)[distinct] > 1.0) & ~dropped
+        if rec.n_late != int(late.sum()) or rec.n_dropped != int(dropped.sum()):
+            fail(f"sched[{label}]: round {t} n_late/n_dropped {rec.n_late}/{rec.n_dropped}, the "
+                 f"host's latency and dropout masks {int(late.sum())}/{int(dropped.sum())}")
+        if set(distinct[late]) & set(observed.get(t, [])):
+            fail(f"sched[{label}]: round {t} observed a late client's update")
+        if rec.n_harvested != late_before:
+            fail(f"sched[{label}]: round {t} harvested {rec.n_harvested}, the round before had "
+                 f"{late_before} late")
+        late_before = rec.n_late
+    if sum(r.n_harvested for r in hist) == 0:
+        fail(f"sched[{label}]: no round harvested a late update")
+    again, _ = _sched_run(probe, f"{label}[again]", spec, ds)
+    if not _same_state(state, again):
+        fail(f"sched[{label}]: two uninterrupted runs differ (params, records or store)")
+    print(f"sched[{label}]: n_late {[r.n_late for r in hist]}, n_harvested "
+          f"{[r.n_harvested for r in hist]}, n_available {[r.n_available for r in hist]}, final "
+          f"loss {hist[-1].train_loss:.4f}; n_late equals the host's latency mask over the drawn, "
+          f"available, not-dropped clients, no late update observed in its round; a second run "
+          "bit-identical")
+    return state
+
+
+def sched_kill_resume(probe, spec, ds, label, full, torch) -> dict:
+    """A bundle at round SCHED_KILL with a non-empty harvest buffer, resumed
+    by a fresh server: bit-identical to the uninterrupted run, no Gram
+    launch at the restore. Returns the write/resume times and bytes."""
+    import os
+    import tempfile
+
+    from repro_torch.fl.experiment import build_experiment
+    from repro_torch.kernels.similarity import ops as sim_ops
+
+    with tempfile.TemporaryDirectory(prefix="sched-") as root:
+        path = os.path.join(root, "ck.npz")
+        probe.label = f"{label}[kill]"
+        with build_experiment(spec, dataset=ds, device="cuda", checkpoint_path=path) as srv:
+            for t in range(SCHED_KILL):
+                srv.run_round(t)
+            if srv.scheduler._harvest_ids.size == 0:
+                fail(f"sched[{label}]: the bundle at round {SCHED_KILL} holds no harvest")
+            harvest = int(srv.scheduler._harvest_ids.size)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            srv.checkpoint()
+            write_ms = (time.perf_counter() - t0) * 1e3
+        nbytes = os.path.getsize(path)
+        probe.label = f"{label}[resume]"
+        with build_experiment(spec, dataset=ds, device="cuda", checkpoint_path=path) as srv:
+            torch.cuda.synchronize()
+            gram = sim_ops.launches["gram"]
+            builds = len(probe.zoo_builds.get(probe._key(srv.sampler, srv.device), []))
+            t0 = time.perf_counter()
+            start = srv.resume()
+            torch.cuda.synchronize()
+            resume_ms = (time.perf_counter() - t0) * 1e3
+            restore_gram = sim_ops.launches["gram"] - gram
+            restore_builds = len(probe.zoo_builds.get(probe._key(srv.sampler, srv.device), [])) - builds
+            if start != SCHED_KILL or restore_gram or restore_builds:
+                fail(f"sched[{label}]: resume at {start}, {restore_gram} Gram launches and "
+                     f"{restore_builds} plan builds at the restore")
+            if not probe._card(srv.params["w0"].device):
+                fail(f"sched[{label}]: restored params on {srv.params['w0'].device}")
+            srv.run()
+        resumed = _sched_state(srv)
+    if not _same_state(full, resumed):
+        fail(f"sched[{label}]: the resumed run is not bit-identical to the uninterrupted one")
+    print(f"sched[{label}]: bundle at round {SCHED_KILL} ({harvest} harvested rows pending, "
+          f"{nbytes} B), resumed for rounds {SCHED_KILL}-{SCHED_ROUNDS - 1} bit-identical to the "
+          "uninterrupted run (params, history, store); no plan build or Gram launch at the restore")
+    d = sum(v.numel() for v in srv.params.values())
+    return {"write_ms": write_ms, "bytes": nbytes, "resume_ms": resume_ms, "d": d}
+
+
+def sched_overselect(probe, base, ds) -> None:
+    """Overselection at beta 0.5: at most m draws aggregated, the surplus
+    reported as n_late, the mass whole; importance refuses it."""
+    import math as _math
+
+    from repro_torch.fl.experiment import build_experiment
+
+    m, beta = base["sampler"]["m"], SCHED_OVERSELECT["options"]["beta"]
+    surplus = max(1, _math.ceil(beta * m))
+    spec = {**base, "scheduler": SCHED_OVERSELECT}
+    _, srv = _sched_run(probe, "overselect", spec, ds)
+    worst = 0.0
+    for rec, (t, _, res) in zip(srv.history.records, probe.results["overselect"], strict=True):
+        if res.clients.size > m or rec.n_late != m + surplus - res.clients.size:
+            fail(f"sched[overselect]: round {t} kept {res.clients.size} draws with n_late "
+                 f"{rec.n_late}; drew {m + surplus}, aggregates at most {m}")
+        worst = max(worst, abs(float(res.agg_weights.sum()) + res.stale_weight - 1.0))
+    if worst > SCHED_MASS_ATOL:
+        fail(f"sched[overselect]: realized + stale weight off 1 by {worst:.3e}")
+    probe.label = "overselect[importance]"
+    with build_experiment({**spec, "sampler": {"name": "importance", "m": m}}, dataset=ds,
+                          device="cuda") as imp:
+        try:
+            imp.run_round(0)
+        except NotImplementedError:
+            pass
+        else:
+            fail("sched[overselect]: importance accepted overselection")
+    print(f"sched[overselect]: beta {beta}: {m + surplus} draws, {m} aggregated and n_late "
+          f"{[r.n_late for r in srv.history.records]} every round; realized + stale weight within "
+          f"{worst:.2e} of 1; importance raises NotImplementedError")
+
+
+def sched_bundle_on_cpu(probe, torch) -> None:
+    """At dim 32: a bundle written on the card resumes on a CPU server, and
+    the next rounds' draws and plans equal the card's own continuation."""
+    import os
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch.fl.experiment import build_dataset, build_experiment
+
+    spec = {**_sched_base({}), "population": ZOO_POISSON, "scheduler": SCHED_DEADLINE}
+    spec["train"] = {**spec["train"], "n_rounds": SCHED_KILL + SCHED_CONTINUE}
+    ds = build_dataset(spec["data"])
+    with tempfile.TemporaryDirectory(prefix="sched-cpu-") as root:
+        path = os.path.join(root, "ck.npz")
+        probe.label = "bundle[card]"
+        with build_experiment(spec, dataset=ds, device="cuda", checkpoint_path=path) as card:
+            for t in range(SCHED_KILL):
+                card.run_round(t)
+            card.checkpoint()
+            n_builds = len(probe.zoo_builds[probe._key(card.sampler, card.device)])
+            for t in range(SCHED_KILL, SCHED_KILL + SCHED_CONTINUE):
+                card.run_round(t)
+        probe.label = "bundle[cpu]"
+        with build_experiment(spec, dataset=ds, device="cpu", checkpoint_path=path) as cpu:
+            cpu.resume()
+            if cpu.params["w0"].device.type != "cpu":
+                fail("sched[bundle]: a CPU server restored params off the CPU")
+            cpu.run()
+    card_key, cpu_key = ("bundle[card]", "algorithm2", "cuda"), ("bundle[cpu]", "algorithm2", "cpu")
+    card_draws = probe.draws[card_key][SCHED_KILL:]
+    for (ta, _, ca), (tb, _, cb) in zip(card_draws, probe.draws[cpu_key], strict=True):
+        if ta != tb or not np.array_equal(ca, cb):
+            fail(f"sched[bundle]: round {ta}: the CPU's draws differ from the card's")
+    card_plans = probe.zoo_builds[card_key][n_builds:]
+    cpu_plans = probe.zoo_builds[cpu_key][1:]  # after the CPU server's cold start
+    if len(card_plans) != SCHED_CONTINUE:
+        fail(f"sched[bundle]: {len(card_plans)} card plan builds after the bundle")
+    for (pa, _, _), (pb, _, _) in zip(card_plans, cpu_plans, strict=True):
+        if not (np.array_equal(pa.r_tokens, pb.r_tokens) and np.array_equal(pa.cluster_of, pb.cluster_of)):
+            fail("sched[bundle]: the CPU's plans differ from the card's")
+    worst = max((abs(a.train_loss - b.train_loss) for a, b in zip(
+        card.history.records[SCHED_KILL:], cpu.history.records[SCHED_KILL:], strict=True)
+        if not (math.isnan(a.train_loss) and math.isnan(b.train_loss))), default=0.0)
+    if not worst <= PAPER_LOSS_ATOL:
+        fail(f"sched[bundle]: losses differ by {worst:.3e} > {PAPER_LOSS_ATOL}")
+    print(f"sched[bundle]: dim 32, a card bundle at round {SCHED_KILL} resumed on the CPU: "
+          f"{SCHED_CONTINUE} rounds of equal draws and {len(card_plans)} equal plans, max loss diff "
+          f"{worst:.2e}")
+
+
+def sched_service(spec, want) -> None:
+    """``python3 -m repro_torch.launch.fl_service`` as a process: SIGTERM
+    after its SCHED_SERVICE_STOP-th status line, exit 0, --resume to the
+    end; the history contiguous and its agg_weights equal to ``want``'s."""
+    import os
+    import signal
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch.fl.history import History
+
+    spec = {**spec, "train": {**spec["train"], "checkpoint_every": 2}}
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="sched-svc-") as root:
+        hist_path = os.path.join(root, "history.json")
+        cmd = [sys.executable, "-m", "repro_torch.launch.fl_service", "--device", SERVICE_DEVICE,
+               "--spec", json.dumps(spec), "--checkpoint", os.path.join(root, "svc.npz"),
+               "--history", hist_path]
+        env = {**os.environ, "PYTHONPATH": str(SRC)}
+        outs, cuts = [], []
+        for extra in (["--throttle", "0.5"], ["--resume"]):
+            proc = subprocess.Popen(cmd + extra, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                    text=True, env=env)
+            try:
+                lines = []
+                if "--resume" not in extra:
+                    for line in proc.stdout:
+                        lines.append(line)
+                        if sum(ln.startswith("[round ") for ln in lines) == SCHED_SERVICE_STOP:
+                            proc.send_signal(signal.SIGTERM)
+                            break
+                out, err = proc.communicate(timeout=600)
+            finally:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+            outs.append("".join(lines) + out)
+            if proc.returncode != 0:
+                fail(f"sched[service]: exit {proc.returncode} ({' '.join(extra)}): {err[-2000:]}")
+            cuts.append(len(History.from_json(open(hist_path).read()).records))
+        got = History.from_json(open(hist_path).read()).records
+    if "stop requested" not in outs[0] or f"resuming at round {cuts[0]}" not in outs[1]:
+        fail(f"sched[service]: no clean stop and resume in the logs: {outs}")
+    if [r.round for r in got] != list(range(SCHED_ROUNDS)) or not SCHED_SERVICE_STOP <= cuts[0] < SCHED_ROUNDS:
+        fail(f"sched[service]: history rounds {[r.round for r in got]} after a stop at {cuts[0]}")
+    for g, w in zip(got, want, strict=True):
+        if not np.array_equal(np.asarray(g.agg_weights), np.asarray(w["agg_weights"])):
+            fail(f"sched[service]: round {g.round}'s agg_weights differ from the in-process run")
+    print(f"sched[service]: SIGTERM after {SCHED_SERVICE_STOP} status lines, exit 0 with "
+          f"{cuts[0]} rounds checkpointed; --resume ran to round {SCHED_ROUNDS - 1}, exit 0; history "
+          f"contiguous, agg_weights equal to the in-process run ({time.perf_counter() - t0:.3f} s)")
+
+
+def phase_sched(torch) -> dict:
+    """Round schedulers, overselection, checkpoint/resume and the service
+    at the paper's MNIST width on the card. Returns the launches."""
+    import numpy as np
+
+    from repro_torch.fl.experiment import build_dataset
+    from repro_torch.kernels.aggregate import ops as agg_ops
+    from repro_torch.kernels.similarity import ops as sim_ops
+    from repro_torch.kernels.sketch import ops as sk_ops
+
+    t0 = time.perf_counter()
+    base = _sched_base(PAPER_DATA)
+    ds = build_dataset(base["data"])
+    deadline = {**base, "population": ZOO_POISSON, "scheduler": SCHED_DEADLINE}
+    sketched = {**deadline, "planner": {"sketch": "srp", "sketch_dim": D_PRIME}}
+    with SchedProbe(torch) as probe:
+        torch.cuda.synchronize()
+        sim_ops.launches.update(gram=0, l1=0)
+        agg_ops.launches.update(aggregate=0)
+        sk_ops.launches.update(srp=0)
+        sched_sync_parity(probe, base, ds)
+        full = sched_deadline(probe, deadline, ds, "deadline")
+        ck = sched_kill_resume(probe, deadline, ds, "deadline", full, torch)
+        full_srp = sched_deadline(probe, sketched, ds, "deadline[srp]")
+        sched_kill_resume(probe, sketched, ds, "deadline[srp]", full_srp, torch)
+        sched_overselect(probe, base, ds)
+        sched_bundle_on_cpu(probe, torch)
+        torch.cuda.synchronize()
+        launches = {**sim_ops.launches, **agg_ops.launches, **sk_ops.launches}
+    sched_service(deadline, full[0])
+    builds = sum(len(rows) for (_, scheme, dev), rows in probe.zoo_builds.items()
+                 if dev == "cuda" and scheme == "algorithm2")
+    srp_labels = [k for k in probe.observed if k.startswith("deadline[srp]")]
+    srp_want = (sum(card and ids.size > 0 for k in srp_labels for _, ids, card in probe.observed[k])
+                + sum(card and n > 0 for k in srp_labels for _, n, card in probe.harvests.get(k, [])))
+    print(f"sched: launches {json.dumps(launches)}; predicted: aggregate {probe.card_rounds} (card "
+          f"rounds), gram {builds} (Algorithm 2 plan builds on the card, none at a restore), srp "
+          f"{srp_want} (sketched observe calls and harvest scatters with rows)")
+    if launches["aggregate"] != probe.card_rounds:
+        fail(f"sched: {launches['aggregate']} aggregate launches in {probe.card_rounds} card rounds")
+    if launches["gram"] != builds or launches["l1"] != 0:
+        fail(f"sched: {launches['gram']} gram and {launches['l1']} l1 launches for {builds} "
+             "Algorithm 2 plan builds on the card")
+    if launches["srp"] != srp_want:
+        fail(f"sched: {launches['srp']} srp launches, {srp_want} sketched observe calls and "
+             "harvest scatters with rows")
+    for (label, scheme), rows in probe.rounds.items():
+        ms = np.array([r[0] for r in rows])
+        build = np.array([r[1] for r in rows])
+        print(f"times: sched[{label}] {scheme}: {len(rows)} rounds, round ms median "
+              f"{np.median(ms):.3f} (min {ms.min():.3f}, max {ms.max():.3f}), plan_build_ms median "
+              f"{np.median(build):.3f}")
+    print(f"times: sched checkpoint at ({ds.n_clients}, {ck['d']}): "
+          f"write ms {ck['write_ms']:.3f}, bundle bytes {ck['bytes']}, resume ms {ck['resume_ms']:.3f}")
+    print(f"sched: {time.perf_counter() - t0:.3f} s")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -2177,11 +2617,13 @@ def main() -> int:
     rows.append(flash_time_row(torch, gen, name, err["flash"], flash_launches))
     paper = phase_paper(torch, gen)
     zoo = phase_zoo(torch)
+    sched = phase_sched(torch)
     for row in rows:
         key = {"similarity_gram": "gram", "aggregate": "aggregate", "srp_sketch": "srp"}.get(row["name"])
         if key is not None:
             row["paper_launches"] = paper[key]
             row["zoo_launches"] = zoo[key]
+            row["sched_launches"] = sched[key]
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,

@@ -1,5 +1,5 @@
 # Adapted from src/repro/core/samplers/algorithm2.py: Algorithm2Sampler in
-# torch, without the sharded store and checkpoint state.
+# torch, without the sharded store.
 """Algorithm 2 — clustered sampling based on model similarity (Section 5).
 
 Pipeline per re-clustering round:
@@ -20,6 +20,7 @@ from __future__ import annotations
 from typing import Callable, Optional, Union
 
 import numpy as np
+import torch
 
 from repro_torch.core.allocation import allocate_by_groups
 from repro_torch.core.clustering.backends import resolve_clusterer
@@ -34,16 +35,42 @@ DistanceFn = Callable[[object, str], np.ndarray]
 ClustererFn = Callable[..., list]
 
 
-def _resolve_distance_fn(distance_fn: Union[DistanceFn, str]) -> DistanceFn:
-    """Map the sampler's ``distance_fn`` argument to a callable: ``"auto"``
-    is the port's similarity op (the CUDA kernel for a CUDA G, its plain
-    version for a CPU G), whose (n, n) output stays on G's device for the
-    clusterer to take (``"ward"`` copies it to the host, ``"ward_jit"``
-    does not); a callable passes through."""
+# backend names that map to the port's similarity op: the reference's
+# jax/Pallas backends, which on the card are all the one CUDA kernel
+_DEVICE_BACKENDS = ("auto", "streamed", "chunked", "pallas", "pallas-interpret")
+
+
+def _host_distances(G, measure: str) -> np.ndarray:
+    """The f64 host measure (:func:`repro_torch.core.clustering.similarity.
+    pairwise_distances`) on a host copy of ``G``, tensor or numpy."""
+    from repro_torch.core.clustering.similarity import pairwise_distances
+
+    if isinstance(G, torch.Tensor):
+        G = G.cpu().numpy()
+    return pairwise_distances(G, measure)
+
+
+def _resolve_distance_fn(distance_fn: Union[DistanceFn, str, None]) -> DistanceFn:
+    """Map the sampler's ``distance_fn`` argument to a callable.
+
+    Every name the reference takes builds here. ``None`` and ``"numpy"``
+    are the f64 host measure (:func:`_host_distances`) — a named host
+    measure is the caller's choice. ``"auto"``, ``"streamed"``,
+    ``"chunked"``, ``"pallas"`` and ``"pallas-interpret"`` are the port's
+    similarity op (the CUDA kernel for a CUDA G, its plain version for a
+    CPU G; a host array raises), whose (n, n) output stays on G's device
+    for the clusterer to take (``"ward"`` copies it to the host,
+    ``"ward_jit"`` does not). A callable passes through.
+    """
     if callable(distance_fn):
         return distance_fn
-    if distance_fn != "auto":
-        raise ValueError(f"unknown distance backend {distance_fn!r}; pass 'auto' or a callable")
+    if distance_fn is None or distance_fn == "numpy":
+        return _host_distances
+    if distance_fn not in _DEVICE_BACKENDS:
+        raise ValueError(
+            f"unknown distance backend {distance_fn!r}; choose from "
+            f"{' | '.join(_DEVICE_BACKENDS)} | numpy, None or a callable"
+        )
     from repro_torch.kernels.similarity.ops import make_distance_fn
 
     return make_distance_fn()
@@ -78,7 +105,7 @@ def build_plan_algorithm2(
     G,
     *,
     measure: str = "arccos",
-    distance_fn: Union[DistanceFn, str] = "auto",
+    distance_fn: Union[DistanceFn, str, None] = "auto",
     clusterer: Union[ClustererFn, str] = "ward",
     clusterer_seed: int = 0,
     cluster_mask: Optional[np.ndarray] = None,
@@ -89,8 +116,8 @@ def build_plan_algorithm2(
     stays on the device through the O(n²d) distance stage; only the (n, n)
     distances (``"ward"``) or linkage rows (``"ward_jit"``) or labels
     (``"kmeans"``) come back to the host for the cut and the urn
-    construction. ``distance_fn`` is ``"auto"`` (the similarity kernel) or
-    a callable ``(G, measure) -> (n, n)``; ``clusterer`` names a
+    construction. ``distance_fn`` is a backend name (see
+    :func:`_resolve_distance_fn`) or a callable ``(G, measure) -> (n, n)``; ``clusterer`` names a
     :data:`repro_torch.core.clustering.backends.CLUSTERERS` entry
     (``"ward"``, ``"ward_jit"``, ``"kmeans"``) or is a callable with the
     same signature.
@@ -174,6 +201,8 @@ class Algorithm2Sampler(StoreBackedSampler):
     swapped in at each round boundary.
     """
 
+    scheme_name = "algorithm2"
+
     def __init__(
         self,
         population: ClientPopulation,
@@ -182,7 +211,7 @@ class Algorithm2Sampler(StoreBackedSampler):
         *,
         measure: str = "arccos",
         seed: int = 0,
-        distance_fn: Union[DistanceFn, str] = "auto",
+        distance_fn: Union[DistanceFn, str, None] = "auto",
         clusterer: Union[ClustererFn, str] = "ward",
         staleness_decay: float = 1.0,
         planner: str = "sync",
@@ -194,7 +223,9 @@ class Algorithm2Sampler(StoreBackedSampler):
     ):
         """``distance_fn`` selects the O(n²d) pairwise-distance backend:
         ``"auto"`` (the CUDA similarity kernel on a CUDA store, its plain
-        version on a CPU store) or a callable.
+        version on a CPU store; the reference's other device names map to
+        the same op), ``None`` / ``"numpy"`` (the f64 host measure) or a
+        callable.
         ``clusterer`` names a ``CLUSTERERS`` entry (``"ward"``,
         ``"ward_jit"``, ``"kmeans"``) or is a callable. ``staleness_decay``,
         ``planner``, ``rebuild_every`` and ``drift_threshold`` are as in the

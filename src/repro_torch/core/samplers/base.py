@@ -1,5 +1,4 @@
-# Adapted from src/repro/core/samplers/base.py, without overselection and
-# checkpoint state.
+# Copied from src/repro/core/samplers/base.py.
 """Sampler interface + Proposition-1 validation + availability conditioning.
 
 A sampler consumes the client population (and, for Algorithm 2, the clients'
@@ -23,8 +22,11 @@ plans in ``tests/test_torch_statistics.py``). Urns whose entire mass is
 unavailable draw nothing; realized weights still sum to 1 whenever any
 available mass exists.
 
-Not ported yet (ROADMAP A10): the overselecting ``sample_overselect`` and
-the checkpointable sampler state.
+Samplers are also checkpointable: :meth:`ClientSampler.state_arrays` /
+:meth:`~ClientSampler.state_meta` export the rng bit-generator state (plus
+plan matrices and the gradient store for the schemes that carry them), and
+:meth:`~ClientSampler.load_state` restores them bit-exactly — the sampler
+half of ``FederatedServer``'s crash-safe ``ServerState`` bundle.
 """
 from __future__ import annotations
 
@@ -76,11 +78,10 @@ class ClientSampler(abc.ABC):
     #: whether ``observe_updates`` feeds a re-clustering pipeline (so the
     #: server should bother producing representative gradients)
     consumes_updates: bool = False
-    #: whether the urn-cyclic overselection re-weighting
-    #: (``sample_overselect``, not ported yet) is exact for this scheme —
-    #: requires the plan rows to *be* the draw distributions with eq. (8)
-    #: column sums; schemes that re-weight draws themselves (``importance``)
-    #: opt out
+    #: whether :meth:`sample_overselect`'s urn-cyclic re-weighting is exact
+    #: for this scheme — requires the plan rows to *be* the draw
+    #: distributions with eq. (8) column sums; schemes that re-weight draws
+    #: themselves (``importance``) opt out
     supports_overselect: bool = True
 
     def __init__(self, population: ClientPopulation, m: int, *, seed: int = 0):
@@ -141,6 +142,34 @@ class ClientSampler(abc.ABC):
 
     def close(self) -> None:
         """Release background resources (async planner workers)."""
+
+    # Checkpointable state ---------------------------------------------------
+    # The array/meta split mirrors repro_torch.checkpoint's save_checkpoint(tree,
+    # extra=...): arrays ride in the .npz pytree, meta in the JSON sidecar.
+    def prepare_state(self) -> None:
+        """Quiesce background work so the exported state is well-defined.
+
+        Called by the server immediately before :meth:`state_arrays` /
+        :meth:`state_meta`; async-planner samplers flush their in-flight
+        rebuild here so the checkpoint captures the sync fixed point.
+        """
+
+    def state_arrays(self) -> dict:
+        """Array-valued state (plan matrices, gradient stores); may be {}."""
+        return {}
+
+    def state_meta(self) -> dict:
+        """JSON-serializable state: at minimum the rng bit-generator state."""
+        return {"rng": self._rng.bit_generator.state}
+
+    def load_state(self, meta: dict, arrays: dict) -> None:
+        """Restore what :meth:`state_arrays`/:meth:`state_meta` exported.
+
+        Bit-exact: after loading, the sampler's future draws equal those of
+        the instance that was checkpointed.
+        """
+        del arrays
+        self._rng.bit_generator.state = meta["rng"]
 
     # Shared machinery -------------------------------------------------------
     def _draw_from_plan(
@@ -212,6 +241,118 @@ class ClientSampler(abc.ABC):
         # so E[ω_i | available] is exactly the re-normalized importances
         np.add.at(agg, clients, s[active] / total)
         return SampleResult(clients=clients, agg_weights=agg)
+
+
+    # -- overselection -------------------------------------------------------
+    def sample_overselect(
+        self,
+        round_idx: int,
+        n_draws: int,
+        available: Optional[np.ndarray] = None,
+    ) -> SampleResult:
+        """Draw ``n_draws > m`` weighted draws from the current plan.
+
+        The overselection scheduler's draw primitive: urns are re-used
+        cyclically (draw ``j`` comes from urn ``j mod m``) and each draw
+        from urn ``k`` carries ``w_k / c_k`` — ``w_k`` the urn's draw
+        weight (``1/m``; its share of available mass when conditioned) and
+        ``c_k`` how many of the ``n_draws`` use urn ``k`` — so summed over
+        all draws ``E[ω_i] = p_i`` exactly for any eq. (8) plan (and the
+        re-normalized ``p_i·a_i / Σ_j p_j·a_j`` under a mask). The result's
+        ``draw_weights`` carries the per-draw weights the scheduler thins.
+
+        Only meaningful for plan-based schemes whose rows are the actual
+        draw distributions (``supports_overselect``); plan-free samplers
+        raise.
+        """
+        del round_idx
+        if not self.supports_overselect:
+            raise NotImplementedError(
+                f"{type(self).__name__} re-weights its draws itself; the "
+                "urn-cyclic overselection re-weighting would not be unbiased "
+                "for it — pick a plan-based scheme for scheduler='overselect'"
+            )
+        plan = self.plan
+        if plan is None:
+            raise NotImplementedError(
+                f"{type(self).__name__} holds no sampling plan; "
+                "scheduler='overselect' needs a plan-based scheme"
+            )
+        return self._draw_from_plan_overselect(plan, n_draws, available)
+
+    def _draw_from_plan_overselect(
+        self,
+        plan: SamplingPlan,
+        n_draws: int,
+        available: Optional[np.ndarray] = None,
+    ) -> SampleResult:
+        """The cyclic-urn weighted draw behind :meth:`sample_overselect`.
+
+        Mirrors :meth:`_draw_from_plan`'s vectorized inverse-CDF arithmetic
+        (per-row cumsum, ties right, one uniform per draw) over the urn
+        sequence ``0..m-1, 0..`` of length ``n_draws``. Conditioning
+        follows :func:`conditional_plan`: masked urns re-normalize over
+        their available columns, urns with no available mass consume their
+        uniforms but draw nothing, and per-draw weights use the urn's share
+        of the total available mass.
+        """
+        if n_draws < plan.m:
+            raise ValueError(
+                f"n_draws={n_draws} < m={plan.m}: overselection must cover "
+                "every urn at least once"
+            )
+        n = self.population.n_clients
+        urn_of_draw = np.arange(int(n_draws), dtype=np.int64) % plan.m
+        c = np.bincount(urn_of_draw, minlength=plan.m).astype(np.float64)
+        if available is not None:
+            a = np.asarray(available, dtype=bool)
+            if a.shape != (n,):
+                raise ValueError(f"availability mask shape {a.shape} != ({n},)")
+            if a.all():
+                available = None
+        if available is None:
+            cdf = np.cumsum(plan.r, axis=1)
+            total = cdf[:, -1]
+            bad = ~(np.isfinite(total) & (total > 0))
+            if bad.any():
+                k = int(np.argmax(bad))
+                raise ValueError(
+                    f"plan row {k} is not a probability distribution "
+                    f"(total mass {total[k]!r}); cannot draw from it"
+                )
+            cdf /= total[:, None]
+            u = self._rng.random(int(n_draws))
+            clients = (cdf[urn_of_draw] <= u[:, None]).sum(axis=1).astype(np.int64)
+            w = (1.0 / plan.m) / c[urn_of_draw]
+            agg = np.zeros(n)
+            np.add.at(agg, clients, w)
+            return SampleResult(
+                clients=clients, agg_weights=agg, draw_weights=w
+            )
+
+        masked = plan.r * a
+        s = masked.sum(axis=1)
+        total = float(s.sum())
+        if not np.isfinite(total):
+            raise ValueError("plan mass on the available set is not finite")
+        u = self._rng.random(int(n_draws))
+        agg = np.zeros(n)
+        if total <= 0:
+            return SampleResult(
+                clients=np.empty(0, np.int64),
+                agg_weights=agg,
+                draw_weights=np.empty(0, np.float64),
+            )
+        live = s[urn_of_draw] > 0  # draws whose urn has available mass
+        cdf = np.cumsum(masked, axis=1)
+        cdf = np.divide(
+            cdf, s[:, None], out=np.zeros_like(cdf), where=s[:, None] > 0
+        )
+        rows = urn_of_draw[live]
+        clients = (cdf[rows] <= u[live, None]).sum(axis=1).astype(np.int64)
+        w = (s[rows] / total) / c[rows]
+        np.add.at(agg, clients, w)
+        return SampleResult(clients=clients, agg_weights=agg, draw_weights=w)
 
 
 def validate_plan(

@@ -1,5 +1,4 @@
-# Adapted from src/repro/core/samplers/clustered.py, without checkpoint
-# state.
+# Copied from src/repro/core/samplers/clustered.py.
 """Generic clustered sampler: m independent draws from an arbitrary plan.
 
 Any ``r`` matrix satisfying Proposition 1 can be plugged in — Algorithms 1
@@ -48,3 +47,34 @@ class ClusteredSampler(ClientSampler):
     ) -> SampleResult:
         del round_idx
         return self._draw_from_plan(self._plan, available)
+
+    # -- checkpointable state ------------------------------------------------
+    # The plan matrices ride in the checkpoint so a restored sampler draws
+    # from the *exact* plan that was live at kill time (Algorithm 2's plan
+    # is data-dependent; re-deriving it from a restored gradient store would
+    # tie resume correctness to distance-backend determinism).
+    def state_arrays(self) -> dict:
+        arrays = {"plan_r": np.asarray(self._plan.r)}
+        if self._plan.r_tokens is not None:
+            arrays["plan_r_tokens"] = np.asarray(self._plan.r_tokens)
+        if self._plan.cluster_of is not None:
+            arrays["plan_cluster_of"] = np.asarray(self._plan.cluster_of)
+        return arrays
+
+    def load_state(self, meta: dict, arrays: dict) -> None:
+        super().load_state(meta, {})
+        plan = SamplingPlan(
+            r=np.asarray(arrays["plan_r"], np.float64),
+            r_tokens=(
+                np.asarray(arrays["plan_r_tokens"], np.int64)
+                if "plan_r_tokens" in arrays
+                else None
+            ),
+            cluster_of=(
+                np.asarray(arrays["plan_cluster_of"], np.int64)
+                if "plan_cluster_of" in arrays
+                else None
+            ),
+        )
+        # restored state is trusted (it was validated when first set)
+        self.set_plan(plan, validate=False)

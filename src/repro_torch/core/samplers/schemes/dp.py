@@ -1,5 +1,5 @@
 # Adapted from src/repro/core/samplers/schemes/dp.py: the noised release
-# goes back to the store's device; without checkpoint state.
+# goes back to the store's device.
 """Differentially private stratified selection (FedProx-stratified-DP lineage).
 
 The selection statistics a stratified sampler consumes — the per-client
@@ -17,8 +17,8 @@ plan — which becomes a post-processing of the noised release.
 Privacy accounting is zero-concentrated DP: each per-round release costs
 ``ρ_step = 1/(2σ²)``; after ``T`` releases ``ρ = T/(2σ²)`` converts to an
 (ε, δ) guarantee via ``ε = ρ + 2·√(ρ·ln(1/δ))``. The ledger (release
-count, ρ, ε, δ) is :attr:`DPStratifiedSampler.privacy_ledger`; its
-checkpoint state is not ported yet (ROADMAP A10). Accounting is
+count, ρ, ε, δ) is :attr:`DPStratifiedSampler.privacy_ledger` and rides
+every checkpoint with the noise generator's state. Accounting is
 deliberately conservative: every observed round is counted as a release
 even when the rebuild cadence discards it.
 
@@ -50,6 +50,7 @@ def gaussian_epsilon(rho: float, delta: float) -> float:
 class DPStratifiedSampler(StratifiedSampler):
     """Stratified selection over Gaussian-noised statistics + (ε, δ) ledger."""
 
+    scheme_name = "dp_stratified"
 
     def __init__(
         self,
@@ -62,7 +63,7 @@ class DPStratifiedSampler(StratifiedSampler):
         delta: float = 1e-5,
         n_strata: Optional[int] = None,
         measure: str = "arccos",
-        distance_fn: Union[DistanceFn, str] = "auto",
+        distance_fn: Union[DistanceFn, str, None] = "auto",
         clusterer: Union[Callable, str] = "ward",
         seed: int = 0,
         staleness_decay: float = 1.0,
@@ -77,7 +78,7 @@ class DPStratifiedSampler(StratifiedSampler):
         ``clip_norm`` = per-row L2 sensitivity bound C, ``delta`` the ledger's
         conversion target. The DP noise stream draws from its own generator
         (seeded from the sampler seed), so the selection rng and the
-        mechanism rng are independent."""
+        mechanism rng are independent and both checkpoint bit-exactly."""
         if noise_multiplier <= 0.0:
             raise ValueError(f"noise_multiplier must be > 0, got {noise_multiplier}")
         if clip_norm <= 0.0:
@@ -138,3 +139,21 @@ class DPStratifiedSampler(StratifiedSampler):
         self._ledger["observations"] += 1
         self._ledger["rho"] += 1.0 / (2.0 * self.noise_multiplier**2)
         return torch.from_numpy(noised.astype(np.float32)).to(self._store.device)
+
+    # -- checkpointable state ------------------------------------------------
+    def state_meta(self) -> dict:
+        meta = super().state_meta()
+        meta["dp_ledger"] = {
+            "observations": int(self._ledger["observations"]),
+            "rho": float(self._ledger["rho"]),
+        }
+        meta["dp_rng"] = self._dp_rng.bit_generator.state
+        return meta
+
+    def load_state(self, meta: dict, arrays: dict) -> None:
+        super().load_state(meta, arrays)
+        self._ledger = {
+            "observations": int(meta["dp_ledger"]["observations"]),
+            "rho": float(meta["dp_ledger"]["rho"]),
+        }
+        self._dp_rng.bit_generator.state = meta["dp_rng"]

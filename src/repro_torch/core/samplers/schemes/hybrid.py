@@ -39,7 +39,7 @@ def build_plan_hybrid(
     n_strata: Optional[int] = None,
     clusterer: Union[Callable, str] = "ward",
     measure: str = "arccos",
-    distance_fn: Union[DistanceFn, str] = "auto",
+    distance_fn: Union[DistanceFn, str, None] = None,
     seed: int = 0,
 ) -> SamplingPlan:
     """Dedicated urns for the ``floor(m·p_i)`` head, stratified tail."""
@@ -93,6 +93,7 @@ def build_plan_hybrid(
 class HybridSampler(StoreBackedSampler):
     """Deterministic high-mass head + stratified tail over the shared store."""
 
+    scheme_name = "hybrid"
 
     def __init__(
         self,
@@ -102,7 +103,7 @@ class HybridSampler(StoreBackedSampler):
         *,
         n_strata: Optional[int] = None,
         measure: str = "arccos",
-        distance_fn: Union[DistanceFn, str] = "auto",
+        distance_fn: Union[DistanceFn, str, None] = "auto",
         clusterer: Union[Callable, str] = "ward",
         seed: int = 0,
         staleness_decay: float = 1.0,

@@ -1,5 +1,5 @@
 # Adapted from src/repro/core/samplers/schemes/importance.py: norms on the
-# store's device in torch, without overselection.
+# store's device in torch.
 """Importance sampling of clients: norm-proportional selection, unbiased
 re-weighting.
 
@@ -71,6 +71,7 @@ def importance_probabilities(
 class ImportanceSampler(StoreBackedSampler):
     """Norm-proportional client selection with exact unbiased re-weighting."""
 
+    scheme_name = "importance"
     validate_plans = False  # rows are the proposal q, not an eq.(8) plan
     # sample() multiplies its own p/q correction into the weights; layering
     # the scheduler's urn-cyclic overselection re-weighting on top would

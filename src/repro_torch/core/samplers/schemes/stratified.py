@@ -51,7 +51,7 @@ def build_plan_stratified(
     n_strata: Optional[int] = None,
     clusterer: Union[Callable, str] = "ward",
     measure: str = "arccos",
-    distance_fn: Union[DistanceFn, str] = "auto",
+    distance_fn: Union[DistanceFn, str, None] = None,
     seed: int = 0,
 ) -> SamplingPlan:
     """Stratify by the clustering objective, then stream strata into urns.
@@ -61,8 +61,10 @@ def build_plan_stratified(
     into the next), so *any* partition the backend produces is feasible.
     The clusterer may return more than ``n_strata`` groups (capacity-repair
     backends do); each returned group is simply its own stratum.
-    ``distance_fn`` is ``"auto"`` (the similarity kernel on G's device) or a
-    callable ``(G, measure) -> (n, n)``.
+    ``distance_fn`` is a backend name (``None``, the default, and
+    ``"numpy"`` are the f64 host measure; ``"auto"`` and the reference's
+    other device names are the similarity op on G's device) or a callable
+    ``(G, measure) -> (n, n)``.
     """
     n = population.n_clients
     M = population.total_samples
@@ -108,6 +110,7 @@ class StratifiedSampler(StoreBackedSampler):
     capacity-capped similarity clusters.
     """
 
+    scheme_name = "stratified"
 
     def __init__(
         self,
@@ -117,7 +120,7 @@ class StratifiedSampler(StoreBackedSampler):
         *,
         n_strata: Optional[int] = None,
         measure: str = "arccos",
-        distance_fn: Union[DistanceFn, str] = "auto",
+        distance_fn: Union[DistanceFn, str, None] = "auto",
         clusterer: Union[Callable, str] = "ward",
         seed: int = 0,
         staleness_decay: float = 1.0,

@@ -14,6 +14,8 @@ Subclass contract:
 * implement :meth:`_build_plan(G) <StoreBackedSampler._build_plan>` — map a
   (device-resident, possibly sketched) gradient block to a
   :class:`~repro_torch.core.types.SamplingPlan`;
+* set :attr:`scheme_name` — rides every checkpoint so a restore into a
+  *different* scheme fails loudly instead of silently mixing plan semantics;
 * optionally override :meth:`_observe_snapshot` — the value handed to the
   plan service each observed round (``dp_stratified`` clips + noises here);
 * optionally set ``validate_plans = False`` for schemes whose plans
@@ -22,7 +24,7 @@ Subclass contract:
 
 The store's sketch stage (``sketch`` / ``sketch_dim``) is seeded with the
 sampler's ``seed``, as in the reference. Not ported yet: the sharded store
-(ROADMAP A13) and checkpointing of the store (A10).
+(ROADMAP A13).
 """
 from __future__ import annotations
 
@@ -38,6 +40,10 @@ class StoreBackedSampler(ClusteredSampler):
     """Gradient-store + plan-service machinery shared by rebuild schemes."""
 
     consumes_updates = True
+
+    #: checkpoint identity: restoring a bundle written by one scheme into a
+    #: sampler of another raises (see :meth:`load_state`)
+    scheme_name: str = "store_backed"
 
     #: whether plans are held to the exact Proposition-1 conditions on every
     #: swap; ``importance`` opts out (its rows are the proposal ``q``, not an
@@ -140,6 +146,15 @@ class StoreBackedSampler(ClusteredSampler):
         """
         return self._store.snapshot()
 
+    # -- introspection -------------------------------------------------------
+    @property
+    def gradient_store(self):
+        return self._store
+
+    @property
+    def plan_service(self):
+        return self._service
+
     # -- plan lifecycle ------------------------------------------------------
     def _swap_freshest(self) -> None:
         vp = self._service.poll()
@@ -176,9 +191,89 @@ class StoreBackedSampler(ClusteredSampler):
     def close(self) -> None:
         self._service.close()
 
+    # -- checkpointable state ------------------------------------------------
+    def prepare_state(self) -> None:
+        """Quiesce the planner so the checkpoint is the sync fixed point.
+
+        With ``planner="async"`` an in-flight rebuild cannot ride in a
+        checkpoint; flushing first makes the exported (G, plan, counters)
+        bundle self-consistent — a restored server continues exactly as a
+        sync-planned one would from this state.
+        """
+        self.flush_plan()
+
+    def state_arrays(self) -> dict:
+        arrays = super().state_arrays()
+        arrays["store_G"] = self._store.snapshot()
+        return arrays
+
+    def state_meta(self) -> dict:
+        meta = super().state_meta()
+        meta["scheme"] = self.scheme_name
+        version, _ = self._service.telemetry()
+        meta["plan_version"] = version
+        meta["obs_seen"] = self._service.observations_seen()
+        # the sketch identity rides along so a restore into a differently-
+        # sketched store fails loudly instead of mixing sketch spaces
+        sk = self._store.sketch
+        meta["sketch"] = None if sk is None else sk.name
+        meta["sketch_dim"] = None if sk is None else sk.d_out
+        meta["sketch_seed"] = None if sk is None else sk.seed
+        return meta
+
+    def load_state(self, meta: dict, arrays: dict) -> None:
+        scheme = meta.get("scheme", self.scheme_name)
+        if scheme != self.scheme_name:
+            raise ValueError(
+                f"checkpoint was written by scheme {scheme!r}; this sampler "
+                f"is {self.scheme_name!r} — a cross-scheme restore would mix "
+                "incompatible plan/store semantics"
+            )
+        sk = self._store.sketch
+        have = (
+            (None if sk is None else sk.name),
+            (None if sk is None else sk.d_out),
+            (None if sk is None else sk.seed),
+        )
+        want = (
+            meta.get("sketch"),
+            meta.get("sketch_dim"),
+            meta.get("sketch_seed"),
+        )
+        if want != have:
+            raise ValueError(
+                f"checkpointed sketch state {want} != this sampler's sketch "
+                f"{have}: a (name, dim, seed) mismatch would scatter new "
+                "updates into a different sketch space than the restored G"
+            )
+        super().load_state(meta, arrays)  # rng + the exact live plan
+        self._store.load(arrays["store_G"])
+        from repro_torch.fl.planner import VersionedPlan
+
+        self._service.restore(
+            VersionedPlan(self._plan, int(meta["plan_version"])),
+            obs_seen=int(meta["obs_seen"]),
+        )
+
     def sample(
         self, round_idx: int, available: Optional[np.ndarray] = None
     ) -> SampleResult:
         del round_idx
         self._swap_freshest()  # round boundary: adopt the freshest plan
         return self._draw_from_plan(self._plan, available)
+
+    def sample_overselect(
+        self,
+        round_idx: int,
+        n_draws: int,
+        available: Optional[np.ndarray] = None,
+    ) -> SampleResult:
+        del round_idx
+        if not self.supports_overselect:
+            raise NotImplementedError(
+                f"{type(self).__name__} re-weights its draws itself; the "
+                "urn-cyclic overselection re-weighting would not be unbiased "
+                "for it — pick a plan-based scheme for scheduler='overselect'"
+            )
+        self._swap_freshest()  # the same round-boundary swap sample() does
+        return self._draw_from_plan_overselect(self._plan, n_draws, available)

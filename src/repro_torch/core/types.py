@@ -1,5 +1,4 @@
-# Copied from src/repro/core/types.py, without SampleResult.draw_weights
-# (overselection).
+# Copied from src/repro/core/types.py.
 """Core datatypes for the clustered-sampling library.
 
 Everything in ``repro_torch.core`` is host-side (numpy) — client selection is an
@@ -97,11 +96,17 @@ class SampleResult:
         are not updated this round. Zero for unbiased schemes; FedAvg-style
         uniform sampling puts ``n_i/M`` of every non-sampled client here
         (eq. 3).
+      draw_weights: the per-draw aggregation weight of each entry of
+        ``clients``, aligned with it (``agg_weights`` is its client-indexed
+        sum). Only populated by draws whose downstream consumer thins at the
+        draw level (overselection schedulers); ``None`` for the ordinary
+        per-round draw.
     """
 
     clients: np.ndarray
     agg_weights: np.ndarray
     stale_weight: float = 0.0
+    draw_weights: Optional[np.ndarray] = None
 
     @property
     def unique_clients(self) -> np.ndarray:

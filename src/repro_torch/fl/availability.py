@@ -1,5 +1,5 @@
 # Adapted from src/repro/fl/availability.py: the scores as a torch tensor on
-# the sampler's device, without checkpoint state.
+# the sampler's device.
 """Availability history: per-client presence scores driving plan rebuilds.
 
 An :class:`AvailabilityTracker` folds each round's availability mask plus
@@ -32,7 +32,8 @@ one fused multiply-add with ``1 − decay`` taken in f32, so it may differ
 from both in the last bit (the reference's own test holds its two
 backends to atol 1e-7). The tensor is replaced each fold, never mutated,
 so an async plan rebuild reading :meth:`active_mask` sees one consistent
-round. Not ported yet (ROADMAP A10): the checkpoint state.
+round. The scores and the fold's knobs ride every server checkpoint; a
+restored tensor lands on the tracker's device.
 """
 from __future__ import annotations
 
@@ -138,6 +139,46 @@ class AvailabilityTracker:
     def min_score(self) -> float:
         """The fleet's weakest presence score (``RoundRecord.avail_score_min``)."""
         return float(self.scores().min())
+
+    # -- checkpointable state ------------------------------------------------
+    def state_arrays(self) -> dict:
+        return {"avail_scores": self._scores}
+
+    def state_meta(self) -> dict:
+        return {
+            "decay": self.decay,
+            "threshold": self.threshold,
+            "late_credit": self.late_credit,
+            "rounds_seen": self.rounds_seen,
+        }
+
+    def load_state(self, meta: dict, arrays: dict) -> None:
+        """Restore a checkpointed score buffer; bit-exact continuation.
+
+        The decay constants are identity: restoring a history folded under
+        different knobs would silently re-grade the whole fleet, so a
+        mismatch raises instead. ``avail_scores`` may be a tensor or numpy;
+        it lands on the tracker's device as f32.
+        """
+        have = (self.decay, self.threshold, self.late_credit)
+        want = (
+            float(meta["decay"]),
+            float(meta["threshold"]),
+            float(meta["late_credit"]),
+        )
+        if have != want:
+            raise ValueError(
+                f"checkpointed availability knobs (decay, threshold, "
+                f"late_credit)={want} != this tracker's {have}; the decayed "
+                "history is only meaningful under the knobs that produced it"
+            )
+        scores = torch.as_tensor(arrays["avail_scores"])
+        if tuple(scores.shape) != (self.n_clients,):
+            raise ValueError(
+                f"checkpointed scores shape {tuple(scores.shape)} != ({self.n_clients},)"
+            )
+        self._scores = scores.to(self.device, torch.float32, copy=True)
+        self.rounds_seen = int(meta["rounds_seen"])
 
 
 __all__ = ["AvailabilityTracker"]

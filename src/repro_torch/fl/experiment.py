@@ -32,10 +32,9 @@ packages. The device is a runtime argument of the builders, never a spec
 key: a spec that named a device would hash to another cell.
 
 Not ported yet, refused by :func:`build_experiment` with
-``NotImplementedError``: a scheduler other than ``"sync"`` or with options
-and ``train.checkpoint_every > 0`` (ROADMAP A10), and an
-``engine.mesh_spec`` (A13). Every ``population`` section and
-``scheduler.track_availability`` are built.
+``NotImplementedError``: an ``engine.mesh_spec`` (ROADMAP A13). Every
+``population`` and ``scheduler`` section and ``train.checkpoint_every``
+are built.
 
 Everything model-sized stays inferred: ``update_dim`` (the flattened MLP
 size Algorithm 2's gradient store needs) and the class count come from the
@@ -349,10 +348,9 @@ class TrainSpec:
     hidden: tuple = (50,)
     n_classes: Optional[int] = None
     model_seed: int = 1
-    # service cadence: checkpoint the full ServerState every k completed
-    # rounds (0 = batch mode, never checkpoint). Kept so a spec dict
-    # round-trips and hashes as the reference's; only 0 builds here
-    # (checkpointing is ROADMAP A10).
+    # service cadence: checkpoint the full server state every k completed
+    # rounds (0 = batch mode, never checkpoint); the path is a runtime knob
+    # of build_experiment, not part of the spec
     checkpoint_every: int = 0
 
     def __post_init__(self):
@@ -570,18 +568,6 @@ def _infer_n_classes(dataset: FederatedDataset) -> int:
 
 def _refuse_unported(spec: ExperimentSpec) -> None:
     """Raise for the spec sections the port cannot build yet."""
-    sched = spec.scheduler
-    if sched.name != "sync" or sched.options:
-        raise NotImplementedError(
-            f"scheduler {sched.to_dict()}: round schedulers are not ported "
-            "(ROADMAP A10); keep name 'sync' with no options "
-            "(track_availability is ported)"
-        )
-    if spec.train.checkpoint_every > 0:
-        raise NotImplementedError(
-            f"train.checkpoint_every={spec.train.checkpoint_every}: checkpointing "
-            "is not ported (ROADMAP A10); leave it 0"
-        )
     if spec.engine.mesh_spec is not None:
         raise NotImplementedError(
             f"engine.mesh_spec={spec.engine.mesh_spec!r}: mesh sharding is not "
@@ -595,6 +581,7 @@ def build_experiment(
     dataset: Optional[FederatedDataset] = None,
     loss_fn: Optional[Callable] = None,
     acc_fn: Optional[Callable] = None,
+    checkpoint_path: Optional[str] = None,
     device="cuda",
 ) -> FederatedServer:
     """Build the lifecycle-safe server an :class:`ExperimentSpec` describes.
@@ -604,8 +591,11 @@ def build_experiment(
     sampler's background resources — run it under ``with`` (or call
     ``close()``) so async planner workers never leak. ``loss_fn``/``acc_fn``
     override the defaults (FedProx is selected automatically when
-    ``train.fedprox_mu > 0``). ``device`` holds the model, the staged client
-    data and the gradient store; the default ``"cuda"`` raises without a GPU.
+    ``train.fedprox_mu > 0``). ``checkpoint_path`` is where the service
+    cadence (``train.checkpoint_every``) writes server state bundles — a
+    runtime knob, deliberately not part of the spec. ``device`` holds the
+    model, the staged client data, the gradient store and the scheduler's
+    harvest buffer; the default ``"cuda"`` raises without a GPU.
 
     The MLP's initial parameters come from the port's
     :func:`~repro_torch.models.simple.init_mlp`, seeded with
@@ -613,6 +603,8 @@ def build_experiment(
     ``init_mlp`` draws with jax's threefry).
 
     A non-default ``population`` section attaches its population process;
+    a scheduler section other than plain ``"sync"`` attaches its
+    :class:`~repro_torch.fl.scheduler.RoundScheduler`;
     ``scheduler.track_availability`` attaches an
     :class:`~repro_torch.fl.availability.AvailabilityTracker` on ``device``
     to the server and, when the scheme is store-backed, to the sampler.
@@ -654,6 +646,8 @@ def build_experiment(
         seed=tr.seed,
         engine=spec.engine.name,
         max_staged_bytes=spec.engine.max_staged_bytes,
+        checkpoint_every=tr.checkpoint_every,
+        checkpoint_path=checkpoint_path,
     )
     # the default spec attaches no process at all: batch experiments stay on
     # the exact fixed-population code path (n_available=-1 telemetry included)
@@ -662,8 +656,17 @@ def build_experiment(
         if spec.population.is_default
         else build_population(spec.population, ds.population.n_clients)
     )
-    availability = None
+    # same pattern for the round scheduler / availability tracker: the
+    # default sync-untracked spec attaches neither, keeping the exact
+    # legacy round path (and checkpoint layout)
+    scheduler = availability = None
     sched = spec.scheduler
+    if sched.name != "sync" or sched.options:
+        from repro_torch.fl.scheduler import build_scheduler
+
+        scheduler = build_scheduler(
+            sched, n_clients=ds.population.n_clients, m=spec.sampler.m, device=device
+        )
     if sched.track_availability:
         availability = AvailabilityTracker(
             ds.population.n_clients,
@@ -678,7 +681,7 @@ def build_experiment(
     af = acc_fn if acc_fn is not None else accuracy
     return FederatedServer(
         ds, sampler, params, sgd(tr.lr, tr.momentum), cfg, loss_fn=lf, acc_fn=af,
-        population=pop, availability=availability, device=device,
+        population=pop, scheduler=scheduler, availability=availability, device=device,
     )
 
 

@@ -118,12 +118,17 @@ class GradientStore:
     def scatter_scaled(self, client_ids, updates, *, scale: float = 1.0) -> None:
         """Overwrite rows ``client_ids`` with ``scale · updates`` — no decay.
 
-        Sketching, id-dropping and last-write-wins match :meth:`update`; the
-        scale multiplies the sketched rows (the sketches are linear).
+        The harvest-replay path (``DeadlineScheduler``): a straggler's update
+        delivered after the deadline lands in the *next* round's store,
+        discounted by ``scale``, without re-applying the whole-buffer
+        staleness decay that :meth:`update` already charged. Sketching,
+        id-dropping and last-write-wins match :meth:`update`; the scale
+        multiplies the sketched rows (the sketches are linear). The shape is
+        checked before an empty update returns, as in the reference.
         """
-        if len(client_ids) == 0:
-            return
         ids, vals = self._rows(client_ids, updates)
+        if ids.numel() == 0:
+            return
         self._G.index_copy_(0, ids, vals * scale)
 
     def snapshot(self) -> torch.Tensor:

@@ -1,4 +1,4 @@
-# Adapted from src/repro/fl/planner.py, without checkpoint restore.
+# Adapted from src/repro/fl/planner.py.
 """Asynchronous re-clustering planner: plan *building* off the critical path.
 
 The paper's server "overlaps re-clustering with client local work"
@@ -215,6 +215,7 @@ class PlanService:
         self._closed = False
         self._error: Optional[BaseException] = None
         self._obs_seen = 0
+        self._rebuilds = 0
         self._last_drift = -1.0
         self._worker: Optional[threading.Thread] = None
 
@@ -258,6 +259,7 @@ class PlanService:
                 self._monitor.rebaseline(snapshot, plan, active)
             with self._cond:
                 self._completed = VersionedPlan(plan, self._obs_seen)
+                self._rebuilds += 1
             return
         with self._cond:
             if self._closed:
@@ -294,6 +296,7 @@ class PlanService:
                 # one worker + latest-wins pending => versions are monotone
                 self._completed = VersionedPlan(plan, version)
                 self._building = False
+                self._rebuilds += 1
                 self._cond.notify_all()
 
     # -- consumer side ------------------------------------------------------
@@ -320,6 +323,16 @@ class PlanService:
         with self._cond:
             return self._current.version, self._obs_seen - self._current.version
 
+    def observations_seen(self) -> int:
+        """Total observations recorded (the rebuild-cadence counter)."""
+        with self._cond:
+            return self._obs_seen
+
+    def rebuilds_done(self) -> int:
+        """Completed plan rebuilds, excluding the version-0 cold start."""
+        with self._cond:
+            return self._rebuilds
+
     def last_build_ms(self) -> float:
         """Wall-clock ms of the most recent completed ``build_fn`` call."""
         return self._last_build_ms
@@ -332,6 +345,30 @@ class PlanService:
         fraction in [0, 1], or ``inf`` for an unmeasurable plan.
         """
         return self._last_drift
+
+    def restore(self, plan: VersionedPlan, *, obs_seen: int) -> None:
+        """Reinstate a checkpointed (plan, observation-counter) state.
+
+        The sampler was quiesced (flushed) before its state was exported, so
+        restoring requires no rebuild to be pending or in flight — the
+        service refuses otherwise rather than racing a stale worker build
+        against the restored plan. The plan is adopted as it is: no rebuild
+        runs.
+        """
+        with self._cond:
+            if self._pending is not None or self._building:
+                raise RuntimeError(
+                    "cannot restore a PlanService with a rebuild pending or "
+                    "in flight; flush() first"
+                )
+            if obs_seen < plan.version:
+                raise ValueError(
+                    f"obs_seen={obs_seen} < plan version {plan.version}: a plan "
+                    "cannot incorporate observations that never happened"
+                )
+            self._current = plan
+            self._completed = None
+            self._obs_seen = int(obs_seen)
 
     def flush(self, timeout: Optional[float] = None) -> None:
         """Block until no rebuild is pending or in flight.

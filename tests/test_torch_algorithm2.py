@@ -61,3 +61,46 @@ def test_plan_tokens_equal_reference(fixture, measure):
         assert (got.r_tokens[0] == pop.total_samples).sum() == 1  # the dedicated urn
     # the cold-start rows share one cluster
     assert len(set(got.cluster_of[[3, 7, 11]])) == 1
+
+
+# every distance_fn name the reference takes; "pallas" is the compiled TPU
+# kernel there and refuses any other backend, so its port (the same
+# similarity op as every device name) is held to the reference's
+# interpret-mode build of the same kernel
+DISTANCE_NAMES = [None, "numpy", "auto", "streamed", "chunked", "pallas", "pallas-interpret"]
+REF_NAME = {"pallas": "pallas-interpret"}
+
+
+@pytest.mark.parametrize("measure", ["arccos", "l1"])
+@pytest.mark.parametrize("name", DISTANCE_NAMES, ids=str)
+def test_every_distance_name_builds_the_reference_plan(name, measure):
+    from repro.fl.experiment import build_sampler as ref_build_sampler
+    from repro_torch.fl.experiment import build_sampler
+
+    ds = dirichlet_labels(**DIRICHLET)
+    pop = ds.population
+    G = representative_gradients(ds, d=40, zero_rows=(3, 7))
+    spec = {"name": "algorithm2", "m": M, "seed": 2,
+            "options": {"measure": measure, "distance_fn": name}}
+    ref_spec = {**spec, "options": {"measure": measure, "distance_fn": REF_NAME.get(name, name)}}
+    got = build_sampler(spec, pop, update_dim=40, device="cpu")
+    want = ref_build_sampler(ref_spec, pop, update_dim=40)
+    try:
+        ids = np.setdiff1d(np.arange(pop.n_clients), [3, 7])
+        want.observe_updates(ids, G[ids])
+        got.observe_updates(ids, torch.from_numpy(G[ids]))
+        np.testing.assert_array_equal(got.plan.r_tokens, want.plan.r_tokens)
+        np.testing.assert_array_equal(got.plan.cluster_of, want.plan.cluster_of)
+    finally:
+        got.close()
+        want.close()
+
+
+def test_unknown_distance_name_raises_like_the_reference():
+    from repro.core.samplers.algorithm2 import _resolve_distance_fn as ref_resolve
+    from repro_torch.core.samplers.algorithm2 import _resolve_distance_fn
+
+    with pytest.raises(ValueError, match="unknown distance backend 'bogus'"):
+        ref_resolve("bogus")
+    with pytest.raises(ValueError, match="unknown distance backend 'bogus'"):
+        _resolve_distance_fn("bogus")

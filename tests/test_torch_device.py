@@ -108,9 +108,8 @@ def test_unported_options_raise():
         BatchedRoundEngine(ds, 2, 1, 2, device="cpu", mesh="2x1")
     sampler = Algorithm2Sampler(ds.population, 2, update_dim=36, device="cpu")
     params = init_mlp((8, 4), device="cpu")
-    # population and availability are ported; the round schedulers are not
-    with pytest.raises(NotImplementedError, match="ROADMAP A10"):
-        FederatedServer(ds, sampler, params, sgd(0.1), FLConfig(), device="cpu", scheduler=object())
+    # population, availability, schedulers and checkpoints are ported; the
+    # mesh is not
     with pytest.raises(NotImplementedError):
         FederatedServer(ds, sampler, params, sgd(0.1), FLConfig(mesh_spec="2x1"), device="cpu")
 

@@ -121,16 +121,42 @@ def test_device_is_not_a_spec_option():
 
 
 @pytest.mark.parametrize("section,value,item", [
-    ("scheduler", {"name": "deadline"}, "A10"),
-    ("scheduler", {"name": "overselect", "track_availability": True}, "A10"),
-    ("scheduler", {"name": "sync", "options": {"beta": 0.5}}, "A10"),
-    ("train", {**TRAIN, "checkpoint_every": 2}, "A10"),
     ("engine", {"mesh_spec": "auto"}, "A13"),
     ("engine", {"mesh_spec": [1, 1]}, "A13"),
 ])
 def test_unported_sections_raise(section, value, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         exp.build_experiment({**_spec("md"), section: value}, device="cpu")
+
+
+@pytest.mark.parametrize("section,value,want", [
+    ("scheduler", {"name": "deadline"}, "DeadlineScheduler"),
+    ("scheduler", {"name": "overselect", "track_availability": True}, "OverselectScheduler"),
+    ("scheduler", {"name": "deadline", "options": {"harvest_discount": 0.25}}, "DeadlineScheduler"),
+    ("train", {**TRAIN, "checkpoint_every": 2}, None),
+])
+def test_scheduler_and_checkpoint_sections_build(section, value, want):
+    """The sections the port once refused (round schedulers, the checkpoint
+    cadence) build as the reference builds them."""
+    spec = {**_spec("md"), section: value}
+    with exp.build_experiment(spec, device="cpu", checkpoint_path="unused.npz") as srv:
+        ref = ref_exp.build_experiment(spec, checkpoint_path="unused.npz")
+        assert type(srv.scheduler).__name__ == type(ref.scheduler).__name__
+        assert (want is None) == (srv.scheduler is None)
+        assert (srv.availability is None) == (ref.availability is None)
+        assert srv.cfg.checkpoint_every == ref.cfg.checkpoint_every
+        assert srv.cfg.checkpoint_path == "unused.npz"
+        if want == "DeadlineScheduler":
+            assert srv.scheduler.harvest_discount == ref.scheduler.harvest_discount
+
+
+def test_sync_scheduler_options_raise_as_the_reference():
+    spec = {**_spec("md"), "scheduler": {"name": "sync", "options": {"beta": 0.5}}}
+    with pytest.raises(ValueError) as want:
+        ref_exp.build_experiment(spec)
+    with pytest.raises(ValueError) as got:
+        exp.build_experiment(spec, device="cpu")
+    assert str(got.value) == str(want.value)
 
 
 @pytest.mark.parametrize("section,value", [

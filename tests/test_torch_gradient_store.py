@@ -67,3 +67,20 @@ def test_sketch_seed_changes_resident_rows():
     a.update([0], vals)
     b.update([0], vals)
     assert not np.allclose(a.asnumpy()[0], b.asnumpy()[0])
+
+
+@pytest.mark.parametrize("sketch,sketch_dim", [(None, None), ("srp", 4)])
+def test_empty_scatter_checks_its_width_first(sketch, sketch_dim):
+    """An empty update of the wrong width raises, as in the reference; an
+    empty one of the right width is a no-op."""
+    ref = RefStore(6, 12, sketch=sketch, sketch_dim=sketch_dim, backend="numpy")
+    got = GradientStore(6, 12, sketch=sketch, sketch_dim=sketch_dim, device="cpu")
+    bad = np.zeros((0, 5), np.float32)
+    with pytest.raises(ValueError) as want:
+        ref.scatter_scaled(np.empty(0, np.int64), bad, scale=0.5)
+    with pytest.raises(ValueError) as err:
+        got.scatter_scaled(np.empty(0, np.int64), torch.from_numpy(bad), scale=0.5)
+    assert str(err.value) == str(want.value)
+    before = got.asnumpy().copy()
+    got.scatter_scaled(np.empty(0, np.int64), torch.zeros(0, 12), scale=0.5)
+    np.testing.assert_array_equal(got.asnumpy(), before)

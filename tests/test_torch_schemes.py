@@ -47,6 +47,9 @@ SIZES = {
     "balanced": np.full(100, 500),
     "unbalanced": PROFILE,
     "random": np.random.default_rng(3).integers(1, 2000, size=37),
+    # m·p_i >= 1 for the first two clients: hybrid's deterministic head
+    # holds 4 + 2 dedicated urns, the stratified tail the other 4
+    "headed": np.array([5000, 3000] + [100] * 40),
 }
 Q_RTOL = 1e-6  # importance's q: f32 norms whose reduction order differs (about 1 ulp)
 
@@ -105,6 +108,36 @@ def test_stratified_options_equal_reference(n_strata, clusterer):
     got = build_plan_stratified(ClientPopulation(sizes), M, torch.from_numpy(G),
                                 n_strata=n_strata, clusterer=clusterer, seed=4)
     _assert_plans_equal(got, want, "stratified")
+
+
+@pytest.mark.parametrize("measure", ["arccos", "l1"])
+def test_headed_hybrid_draws_equal_reference(measure):
+    """The deterministic head against the reference's hybrid: its clients
+    own whole urns, so every round draws them, masked or not; draws and
+    plans stay equal as the tail re-stratifies."""
+    sizes = SIZES["headed"]
+    ref, port = _pair("hybrid", sizes, measure=measure)
+    rng = np.random.default_rng(1)
+    try:
+        head = np.flatnonzero((port.plan.r_tokens == ClientPopulation(sizes).total_samples).any(axis=0))
+        np.testing.assert_array_equal(head, [0, 1])
+        for t in range(12):
+            a = None if t % 3 == 0 else rng.random(len(sizes)) < 0.6
+            if a is not None:
+                a[:2] = True
+            want, got = ref.sample(t, a), port.sample(t, a)
+            np.testing.assert_array_equal(got.clients, want.clients)
+            np.testing.assert_array_equal(got.agg_weights, want.agg_weights)
+            assert (got.clients == 0).sum() >= 4 and (got.clients == 1).sum() >= 2
+            if t % 4 == 3:
+                ids = np.unique(want.clients)
+                G = _G(ids.size, t)
+                ref.observe_updates(ids, G)
+                port.observe_updates(ids, torch.from_numpy(G))
+                _assert_plans_equal(port.plan, ref.plan, "hybrid")
+    finally:
+        ref.close()
+        port.close()
 
 
 def test_hybrid_without_a_head_is_stratified():
@@ -276,7 +309,7 @@ def test_distance_op_refuses_a_host_array():
     with pytest.raises(TypeError, match="torch tensor"):
         fn(G, "arccos")
     with pytest.raises(TypeError, match="torch tensor"):
-        build_plan_stratified(ClientPopulation(np.full(6, 10)), 3, G)
+        build_plan_stratified(ClientPopulation(np.full(6, 10)), 3, G, distance_fn="auto")
     assert fn(torch.from_numpy(G), "arccos").shape == (6, 6)
 
 
