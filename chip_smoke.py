@@ -145,13 +145,41 @@ Phases, one line (or a few) each; any failure raises and exits non-zero:
    phase's start: one aggregate launch a card round, one Gram launch an
    Algorithm 2 build on the card, one SRP launch a sketched observation
    or harvest scatter with rows. It prints each run's round ms and
-   ``plan_build_ms`` and the checkpoint's write ms, bytes and resume ms.
+   ``plan_build_ms`` and the checkpoint's write ms, bytes and resume ms;
+11. train  — ``launch/train.py``'s path: the flash route's gradients (the
+   kernel's forward, the torch-ops backward) against autograd through the
+   plain version on small inputs (f32 atol 2e-5; bf16 2⁻⁷ of the scale of
+   each gradient's summed terms); 5 AdamW steps of the reduced
+   qwen3-0.6b (f32) on the card against the CPU (losses and gradient
+   norms to atol 1e-4) and the card's train-state bundle restored on the
+   CPU bit for bit; then qwen3-0.6b at full width and depth (28 layers,
+   596,049,920 parameters), bf16 over f32, batch 4 × seq 1,024, 10 steps
+   of AdamW with ``linear_warmup_cosine`` and clip 1.0: every loss and
+   gradient norm finite, flash launched 28 times a forward (twice a step
+   under remat); step ms, peak memory, one more step under
+   ``torch.profiler``, and the flash route at the train shape timed
+   beside SDPA (forward and backward);
+12. fl_lm  — clustered-sampling federated LM: B2 and B3 at (8,
+   596,049,920), qwen3-0.6b's flat rows (B2 against its plain version
+   column block by column block, B3 against the plain product on column
+   windows of an X zero elsewhere, the last window ending at the last
+   column), both timed beside their bounds; ``run_federated_lm`` on a
+   narrow reduced qwen3 (f32) on the card against the CPU (md, algorithm2,
+   algorithm2 with SRP: equal draws and plans, losses to atol 1e-4); then
+   at full width with ``FLLMConfig``'s defaults (32 clients, m = 8, 4
+   local steps of 4 × 64, lr 0.05) for 3 rounds, with md and with
+   algorithm2 on the SRP-sketched store (d′ = 64): launches counted after
+   the sampler's construction (aggregate a round, srp a sketched
+   observation, gram a rebuild, flash 28 a forward), round ms and its
+   parts (local steps, flatten, B2, the observation, B3, plan rebuild);
+   one local step under ``torch.profiler``.
 
 The last lines are the card's name and power limit (nvidia-smi), a JSON
-object with one entry per kernel and shape (with the paper, zoo and
-sched phases' launches as ``paper_launches``, ``zoo_launches`` and
-``sched_launches`` for the Gram, aggregate and SRP rows), and
-``{"ok": true, "device": ...}``.
+object with one entry per kernel and shape (with the paper, zoo, sched
+and fl_lm phases' launches as ``paper_launches``, ``zoo_launches``,
+``sched_launches`` and ``fl_lm_launches`` for the Gram, aggregate and SRP
+rows, and the train and fl_lm phases' as ``train_launches`` and
+``fl_lm_launches`` for the flash row), and ``{"ok": true, "device": ...}``.
 The script imports neither JAX nor the JAX package ``repro``.
 """
 from __future__ import annotations
@@ -1201,13 +1229,13 @@ def _serve_against_plain(torch, cfg, params, prompts):
             return mdl.logits_from_hidden(cfg, params, hidden[:, -1:, :])[:, 0].float()
 
     kernel = last_logits()
-    swapped = attention.flash_attention_padded
-    attention.flash_attention_padded = (
+    swapped = attention.flash_attention
+    attention.flash_attention = (
         lambda q, k, v, causal=True: flash_attention_plain(q, k, v, causal=causal))
     try:
         plain = last_logits()
     finally:
-        attention.flash_attention_padded = swapped
+        attention.flash_attention = swapped
     delta = float((kernel - plain).abs().max())
     top2 = plain.topk(2, dim=-1).values
     margin = top2[:, 0] - top2[:, 1]
@@ -2582,6 +2610,622 @@ def phase_sched(torch) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# train: the LM trainer at qwen3-0.6b's full width and depth
+# ---------------------------------------------------------------------------
+TRAIN = dict(arch="qwen3-0.6b", batch=4, seq=1024, steps=10, lr=3e-3)
+TRAIN_SMALL = dict(steps=5, batch=4, seq=64, lr=3e-3)  # the reduced config, card against CPU
+# card against CPU in f32: losses and gradient norms of 5 AdamW steps (the
+# slice phase's loss tolerance; the GEMMs sum in other orders)
+TRAIN_SMALL_ATOL = 1e-4
+# (B, S, H, KV, hd): small inputs of the flash route's gradient gate, GQA,
+# ragged S, and the train shape's heads
+FLASH_GRAD_SHAPES = [(2, 77, 4, 2, 64), (1, 130, 16, 8, 128)]
+FLASH_TRAIN = (4, 1024, 16, 8, 128)  # qwen3-0.6b's attention at the train phase's batch
+LM_P = 596_049_920  # qwen3-0.6b's parameters: the flat rows of B2 and B3 in fl_lm
+# B3 at (8, LM_P): X is zero outside these column windows (start, width): the
+# first, one off the 64-column tiles, the middle and the last, which ends at
+# column LM_P; rows 4-7 of each start past flat element 2^31
+LM_WINDOWS = [(0, 8192), (123_456_789, 5_000), (LM_P // 2 - 4096, 8192), (LM_P - 8192, 8192)]
+LM_AGG_BLOCK = 1 << 26  # B2 against its plain version, column block by column block
+FL_LM = dict(arch="qwen3-0.6b", rounds=3)  # FLLMConfig's defaults otherwise
+FL_LM_SKETCH = {"mode": "sync", "sketch": "srp", "sketch_dim": D_PRIME}
+# card against CPU on examples/federated_lm.py's narrow reduced qwen3 (f32)
+FL_SMALL_NARROW = dict(d_model=64, vocab_size=256, n_heads=2, n_kv_heads=2, head_dim=32)
+FL_SMALL = dict(n_clients=12, m=4, n_rounds=3, n_local_steps=2, local_batch=2, seq_len=16, lr=0.1)
+FL_SMALL_SIZES = [300, 120, 800, 450, 90, 600, 210, 1000, 75, 330, 520, 260]
+
+
+def flash_grad_terms(torch, q, k, v, do):
+    """The magnitude of the terms each gradient entry of the flash route
+    sums: Pᵀ|dO| for dv; hd^-½·E|K| and hd^-½·Eᵀ|Q| for dq and dk, with
+    E = P ∘ (M + rowsum(P ∘ M)) and M = |dO| |V|ᵀ (the terms of dS). In f32
+    from the upcast inputs, causal."""
+    b, s, h, hd = q.shape
+    t, kv = k.shape[1], k.shape[2]
+    g = h // kv
+    qf = q.float().reshape(b, s, kv, g, hd)
+    kf, vf = k.float(), v.float()
+    dof = do.float().reshape(b, s, kv, g, hd)
+    scores = torch.einsum("bskgh,btkh->bkgst", qf, kf) * hd**-0.5
+    mask = torch.arange(t, device=q.device)[None, :] <= torch.arange(s, device=q.device)[:, None]
+    p = torch.softmax(torch.where(mask, scores, -1.0e30), dim=-1)
+    m = torch.einsum("bskgh,btkh->bkgst", dof.abs(), vf.abs())
+    e = p * (m + (p * m).sum(dim=-1, keepdim=True))
+    a_dq = torch.einsum("bkgst,btkh->bskgh", e, kf.abs()).reshape(b, s, h, hd) * hd**-0.5
+    a_dk = torch.einsum("bkgst,bskgh->btkh", e, qf.abs()) * hd**-0.5
+    a_dv = torch.einsum("bkgst,bskgh->btkh", p, dof.abs())
+    return a_dq, a_dk, a_dv
+
+
+def train_flash_grads(torch, gen) -> float:
+    """The flash route's gradients (the kernel's forward, the port's torch-ops
+    VJP) against autograd through the plain version on the card, on small
+    inputs: f32 to atol FLASH_F32_ATOL, bf16 to FLASH_BF16_REL·(|want| + the
+    magnitude of the summed terms), B4's relative limit with the gradient's
+    own terms in place of Σ p|v|. B4's cap FLASH_BF16_ATOL is left out: it
+    bounds outputs no larger than max |v|, and gradient entries reach 4-8,
+    where one bf16 ulp (2⁻⁵) is above it. Returns the largest excess over
+    the limit."""
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention.ref import flash_attention_plain
+
+    worst = 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        for b, s, h, kv, hd in FLASH_GRAD_SHAPES:
+            ins = [torch.randn(shape, generator=gen).to(DEV, dtype)
+                   for shape in ((b, s, h, hd), (b, s, kv, hd), (b, s, kv, hd))]
+            do = torch.randn((b, s, h, hd), generator=gen).to(DEV, dtype)
+            before = fa_ops.launches["flash_attention"]
+            got_in = [a.clone().requires_grad_(True) for a in ins]
+            got = torch.autograd.grad(fa_ops.flash_attention(*got_in), got_in, do)
+            if fa_ops.launches["flash_attention"] != before + 1:
+                fail("train: the flash route's forward did not launch the kernel once")
+            want_in = [a.clone().requires_grad_(True) for a in ins]
+            want = torch.autograd.grad(flash_attention_plain(*want_in), want_in, do)
+            terms = flash_grad_terms(torch, *ins, do)
+            torch.cuda.synchronize()
+            errs = []
+            for name, g_, w, a in zip(("dq", "dk", "dv"), got, want, terms):
+                if g_.dtype != dtype or g_.shape != w.shape:
+                    fail(f"train: flash {name} is {g_.dtype} {tuple(g_.shape)}")
+                err = (g_.float() - w.float()).abs()
+                if dtype == torch.float32:
+                    excess = float(err.max()) / FLASH_F32_ATOL
+                else:
+                    excess = float((err / (FLASH_BF16_REL * (w.float().abs() + a))).max())
+                if not math.isfinite(excess) or excess > 1.0:
+                    fail(f"train: flash {name} {dtype} at {(b, s, h, kv, hd)}: max abs error "
+                         f"{float(err.max())}, {excess:.3f}× its limit")
+                errs.append(f"{name} {float(err.max()):.3e} ({excess:.3f} of its limit, max |want| "
+                            f"{float(w.float().abs().max()):.3e})")
+                worst = max(worst, excess)
+            print(f"train: flash gradients {dtype} (B, S, H, KV, hd) = {(b, s, h, kv, hd)} against "
+                  f"autograd through the plain version: {', '.join(errs)}")
+    return worst
+
+
+class _CpuMadeParams:
+    """``init_params`` makes the parameters on the CPU and moves them to the
+    device asked for, so card and CPU runs start from the same bits."""
+
+    def __enter__(self):
+        from repro_torch.models import model as mdl
+
+        self.mdl, self.orig = mdl, mdl.init_params
+        mdl.init_params = lambda cfg, seed=0, *, device="cuda": self.orig(
+            cfg, seed, device="cpu").to(device)
+        return self
+
+    def __exit__(self, *exc):
+        self.mdl.init_params = self.orig
+
+
+def train_small(torch) -> None:
+    """5 steps of the reduced qwen3-0.6b (f32) on the card and on the CPU
+    from the same parameters; the card's train-state bundle restored on the
+    CPU equals the card's state bit for bit."""
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch.checkpoint import restore_checkpoint, save_checkpoint
+    from repro_torch.checkpoint.io import _flatten
+    from repro_torch.configs import get_config
+    from repro_torch.launch import steps, train
+
+    cfg = get_config(TRAIN["arch"], reduced=True)
+    out = {}
+    with _CpuMadeParams():
+        for dev in (DEV, "cpu"):
+            out[dev] = train.train(cfg, steps=TRAIN_SMALL["steps"], batch=TRAIN_SMALL["batch"],
+                                   seq=TRAIN_SMALL["seq"], lr=TRAIN_SMALL["lr"], device=dev,
+                                   log=lambda line: None)
+    for key in ("loss", "grad_norm"):
+        card = np.array([r[key] for r in out[DEV][1]])
+        cpu = np.array([r[key] for r in out["cpu"][1]])
+        if not np.allclose(card, cpu, atol=TRAIN_SMALL_ATOL, rtol=0):
+            fail(f"train[small]: card {key} {card.tolist()} against the CPU's {cpu.tolist()}")
+        print(f"train[small]: {cfg.name} {TRAIN_SMALL['steps']} steps, card against CPU: {key} "
+              f"max |Δ| {float(np.abs(card - cpu).max()):.3e} (atol {TRAIN_SMALL_ATOL}); card "
+              f"{[round(x, 5) for x in card.tolist()]}")
+    state = steps.train_state_tree(out[DEV][0])
+    with tempfile.TemporaryDirectory() as tmp:
+        path = str(Path(tmp) / "state.npz")
+        save_checkpoint(path, state, step=TRAIN_SMALL["steps"])
+        restored, step, _ = restore_checkpoint(path, steps.train_state_tree(out["cpu"][0]))
+    want, got = _flatten(state), _flatten(restored)
+    if step != TRAIN_SMALL["steps"] or list(want) != list(got):
+        fail(f"train[small]: the bundle restored at step {step} with other leaves")
+    for k, a in want.items():
+        if a.dtype != got[k].dtype or not np.array_equal(a, got[k]):
+            fail(f"train[small]: bundle leaf {k} restored on the CPU differs from the card's state")
+    print(f"train[small]: the card's train-state bundle ({len(want)} leaves: params, opt_state "
+          f"mu / nu / count, step) restored on the CPU equals the card's state bit for bit")
+
+
+def flash_train_times(torch, gen, name) -> dict:
+    """The flash route at the train phase's attention shape, bf16: the
+    kernel's forward against scaled_dot_product_attention's and the plain
+    version's, beside its bound; the port's torch-ops backward against
+    SDPA's backward."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention.backward import flash_attention_bwd
+    from repro_torch.kernels.flash_attention.ref import flash_attention_plain
+
+    part, bw, _, bf16 = peaks_for(name)
+    b, s, h, kv, hd = FLASH_TRAIN
+    q, k, v, do = (torch.randn(shape, generator=gen).to(DEV, torch.bfloat16)
+                   for shape in ((b, s, h, hd), (b, s, kv, hd), (b, s, kv, hd), (b, s, h, hd)))
+    qt, kt, vt, dot = (a.transpose(1, 2).detach().requires_grad_(True) for a in (q, k, v, do))
+    sdpa_out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
+    fns = {
+        "kernel": lambda: fa_ops.flash_attention_padded(q, k, v),
+        "library": lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                                          enable_gqa=True),
+        "backward": lambda: flash_attention_bwd(q, k, v, do),
+        "library_backward": lambda: torch.autograd.grad(sdpa_out, (qt, kt, vt), dot,
+                                                        retain_graph=True),
+    }
+    times = {w: [] for w in fns}
+    for who in ("kernel", "library", "backward", "library_backward",
+                "library_backward", "backward", "library", "kernel"):
+        times[who].append(time_ms(torch, fns[who], reps=10))
+    ms = {w: sum(t) / 2 for w, t in times.items()}
+    ms["plain"] = time_ms(torch, lambda: flash_attention_plain(q, k, v), reps=3)
+    nbytes = 2 * (2 * b * s * h * hd + 2 * b * s * kv * hd)
+    nops = 2 * b * h * s * s * hd
+    t_bytes, t_ops = nbytes / bw * 1e3, nops / bf16 * 1e3
+    ms["bound"] = max(t_bytes, t_ops)
+    print(f"times: flash_attention train shape {FLASH_TRAIN} bf16: forward kernel {ms['kernel']:.6f} "
+          f"ms, plain {ms['plain']:.6f} ms, library (scaled_dot_product_attention) "
+          f"{ms['library']:.6f} ms, bound {ms['bound']:.6f} ms ({'bytes' if t_bytes >= t_ops else 'operations'}; "
+          f"{part} peaks {bw / 1e12:.2f} TB/s, {bf16 / 1e12:.0f} TFLOP/s bf16); backward (torch ops, "
+          f"f32) {ms['backward']:.6f} ms, library backward {ms['library_backward']:.6f} ms; in turns "
+          f"{json.dumps({w: [round(x, 6) for x in t] for w, t in times.items()})}")
+    return ms
+
+
+def lm_trace(torch, label, fn, what) -> None:
+    """``fn`` once under torch.profiler with host and device activity: device
+    busy and idle share, device time by kernel, the device time under the
+    flash route's backward node, and the host ops that took the most host
+    time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    busy, by_name = _report_trace(torch, prof, wall_ms, label, what)
+    groups: dict[str, float] = {}
+    for kname, ms in by_name.items():
+        low = kname.lower()
+        group = ("flash_fwd (B4)" if "flash_fwd" in low else
+                 "GEMM bf16" if ("gemm" in low or "xmma" in low or "nvjet" in low or "cutlass" in low)
+                 and "bf16" in low else
+                 "GEMM other" if any(k in low for k in ("gemm", "xmma", "nvjet", "cutlass")) else
+                 "softmax" if "softmax" in low else
+                 "reduce" if "reduce" in low else
+                 "embedding / index" if any(k in low for k in ("embedding", "index", "scatter", "gather"))
+                 else "elementwise and other")
+        groups[group] = groups.get(group, 0.0) + ms
+    print(f"trace[{label}]: device ms by kind: "
+          f"{json.dumps({k: round(v, 3) for k, v in sorted(groups.items(), key=lambda kv: -kv[1])})}")
+    avgs = prof.key_averages()
+    dev = lambda e: getattr(e, "device_time_total", None) or getattr(e, "cuda_time_total", 0.0)
+    under = {e.key: dev(e) / 1e3 for e in avgs if "FlashAttentionBackward" in e.key}
+    print(f"trace[{label}]: device ms under the flash route's backward node: {json.dumps(under)}")
+    top = sorted(avgs, key=lambda e: -e.self_cpu_time_total)[:8]
+    print(f"trace[{label}]: host ops by self host ms: " + ", ".join(
+        f"{e.key[:40]} {e.self_cpu_time_total / 1e3:.1f} ({e.count}x)" for e in top))
+
+
+def phase_train(torch, gen, name) -> dict:
+    """``launch/train.py``'s path at qwen3-0.6b's full width and depth, bf16
+    over f32 parameters, AdamW with ``linear_warmup_cosine``, clip 1.0:
+    the flash route's gradients on small inputs, the reduced config card
+    against CPU and its bundle, then TRAIN's steps with the flash launches
+    counted. Returns the launches and times."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.tokens import TokenPipeline
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.launch import steps, train
+    from repro_torch.models import model as mdl
+    from repro_torch.optim import adamw, linear_warmup_cosine
+
+    t0 = time.perf_counter()
+    excess = train_flash_grads(torch, gen)
+    train_small(torch)
+    cfg = get_config(TRAIN["arch"])
+    per_step = cfg.n_layers * (2 if cfg.remat else 1)
+    print(f"train: {cfg.name}, {cfg.n_layers} layers, d_model {cfg.d_model}, {cfg.n_heads} heads "
+          f"({cfg.n_kv_heads} kv), head_dim {cfg.resolved_head_dim}, d_ff {cfg.d_ff}, vocab "
+          f"{cfg.vocab_size}, {cfg.dtype} over {cfg.param_dtype}, remat {cfg.remat}, fused_ce "
+          f"{cfg.fused_ce}; batch {TRAIN['batch']} × seq {TRAIN['seq']}, {TRAIN['steps']} steps, "
+          f"lr {TRAIN['lr']}")
+    lines = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa_ops.launches.update(flash_attention=0)
+    start = time.perf_counter()
+    state, records = train.train(cfg, steps=TRAIN["steps"], batch=TRAIN["batch"], seq=TRAIN["seq"],
+                                 lr=TRAIN["lr"], device=DEV, log_every=1, log=lines.append)
+    torch.cuda.synchronize()
+    launches = fa_ops.launches["flash_attention"]
+    peak = torch.cuda.max_memory_allocated()
+    for line in lines:
+        print(f"train: {line}")
+    n = mdl.param_count(state["params"])
+    marks = [start] + [r["t"] for r in records]
+    step_ms = np.diff(marks) * 1e3
+    print(f"train: {n} parameters; step ms: first {step_ms[0]:.3f}, then median "
+          f"{float(np.median(step_ms[1:])):.3f} (min {step_ms[1:].min():.3f}, max "
+          f"{step_ms[1:].max():.3f}); {TRAIN['batch'] * TRAIN['seq'] / np.median(step_ms[1:]) * 1e3:.1f} "
+          f"tokens/s; peak device memory {peak} B ({peak / 2**30:.2f} GiB)")
+    print(f"train: flash_attention launches {launches} in {TRAIN['steps']} steps, predicted "
+          f"{per_step * TRAIN['steps']} ({cfg.n_layers} a forward, the forward run again in the "
+          f"backward under remat)")
+    if n != LM_P:
+        fail(f"train: {n} parameters, expected {LM_P}")
+    for r in records:
+        if not all(math.isfinite(r[k]) for k in ("loss", "ce", "grad_norm")):
+            fail(f"train: a loss or gradient norm is not finite: {r}")
+    if launches != per_step * TRAIN["steps"]:
+        fail(f"train: {launches} flash launches in {TRAIN['steps']} steps, expected "
+             f"{per_step * TRAIN['steps']}")
+    for p in state["params"].parameters():
+        if not bool(torch.isfinite(p).all()):
+            fail("train: a parameter is not finite after the steps")
+    step_fn = steps.make_train_step(cfg, adamw(linear_warmup_cosine(
+        TRAIN["lr"], TRAIN["steps"] // 10 + 1, TRAIN["steps"])))
+    bt = TokenPipeline(cfg.vocab_size, TRAIN["batch"], TRAIN["seq"], seed=1).next_batch()
+    batch = {k: torch.from_numpy(v).to(DEV, torch.int64)
+             for k, v in (("tokens", bt.tokens), ("targets", bt.targets))}
+    lm_trace(torch, "train", lambda: step_fn(state, batch), "one more train step")
+    del state
+    times = flash_train_times(torch, gen, name)
+    print(f"train: {time.perf_counter() - t0:.3f} s")
+    return {"flash": launches, "step_ms": float(np.median(step_ms[1:])), "first_ms": float(step_ms[0]),
+            "peak": peak, "grad_excess": excess, "times": times}
+
+
+# ---------------------------------------------------------------------------
+# fl_lm: clustered-sampling federated LM at qwen3-0.6b's full width
+# ---------------------------------------------------------------------------
+def lm_kernels(torch, name) -> dict:
+    """B2 and B3 at (8, LM_P), the full-width round's rows: B2 against its
+    plain version column block by column block (and timed, with torch.mv
+    and the plain version whole), B3 against the plain product on the
+    column windows of an X that is zero elsewhere. Returns max abs errors
+    and times."""
+    from repro_torch.kernels.aggregate import ops as agg_ops
+    from repro_torch.kernels.aggregate.ref import aggregate_ref
+    from repro_torch.kernels.sketch import ops as sk_ops
+    from repro_torch.kernels.sketch.ref import srp_sign_block
+
+    part, bw, f32, _ = peaks_for(name)
+    m = 8
+    g = torch.Generator(device=DEV).manual_seed(3)
+    out = {}
+    U = torch.randn((m, LM_P), generator=g, device=DEV)
+    w = torch.rand((m,), generator=g, device=DEV)
+    if LM_P % agg_ops.VEC or U.data_ptr() % (4 * agg_ops.VEC):
+        fail(f"fl_lm: rows of {LM_P} floats at {U.data_ptr():#x} do not take aggregate_vec2")
+    got = agg_ops.aggregate_flat(U, w)
+    worst = 0.0
+    for a in range(0, LM_P, LM_AGG_BLOCK):
+        want = aggregate_ref(U[:, a:a + LM_AGG_BLOCK], w)
+        blk = got[a:a + LM_AGG_BLOCK]
+        if not torch.allclose(blk, want, rtol=AGG_TOL, atol=AGG_TOL):
+            fail(f"fl_lm: aggregate at ({m}, {LM_P}) columns {a}.. beyond rtol=atol {AGG_TOL}")
+        worst = max(worst, float((blk - want).abs().max()))
+    if not torch.equal(got, agg_ops.aggregate_flat(U, w)):
+        fail(f"fl_lm: aggregate at ({m}, {LM_P}) is not bit-reproducible")
+    out["aggregate_err"] = worst
+    print(f"fl_lm: aggregate ({m}, {LM_P}) against the plain version in column blocks of "
+          f"{LM_AGG_BLOCK}: max_abs_err {worst:.3e} (rtol=atol {AGG_TOL}), reproducible")
+    nbytes = 4 * (m * LM_P + m + LM_P)
+    t_b, t_o = nbytes / bw * 1e3, 2 * m * LM_P / f32 * 1e3
+    ms = {w_: [] for w_ in ("kernel", "library")}
+    fns = {"kernel": lambda: agg_ops.aggregate_flat(U, w), "library": lambda: torch.mv(U.T, w)}
+    for who in ("kernel", "library", "library", "kernel"):
+        ms[who].append(time_ms(torch, fns[who], reps=5))
+    plain_ms = time_ms(torch, lambda: aggregate_ref(U, w), reps=2)
+    out["aggregate"] = {"ms": sum(ms["kernel"]) / 2, "library_ms": sum(ms["library"]) / 2,
+                        "plain_ms": plain_ms, "bound_ms": max(t_b, t_o),
+                        "bound_by": "bytes" if t_b >= t_o else "operations"}
+    print(f"times: aggregate ({m}, {LM_P}) {out['aggregate']['ms']:.6f} ms (in turns "
+          f"{[round(x, 6) for x in ms['kernel']]}), plain {plain_ms:.6f} ms, library (torch.mv) "
+          f"{out['aggregate']['library_ms']:.6f} ms ({[round(x, 6) for x in ms['library']]}), bound "
+          f"{out['aggregate']['bound_ms']:.6f} ms ({out['aggregate']['bound_by']}; {part} peaks "
+          f"{bw / 1e12:.2f} TB/s, {f32 / 1e12:.0f} TFLOP/s f32; {nbytes} B)")
+    del U, got
+    X = torch.zeros((m, LM_P), device=DEV)
+    for a, width in LM_WINDOWS:
+        X[:, a:a + width] = SIM_SCALE * torch.randn((m, width), generator=g, device=DEV)
+    got = sk_ops.srp_sketch(X, D_PRIME, SRP_SEED)
+    want = torch.zeros_like(got)
+    for a, width in LM_WINDOWS:
+        want += X[:, a:a + width] @ srp_sign_block(SRP_SEED, a, width, D_PRIME, LM_P, device=DEV)
+    ncols = sum(width for _, width in LM_WINDOWS)
+    scale = X.double().norm(dim=1)[:, None] * math.sqrt(ncols / D_PRIME) + GRAM_FLOOR
+    rel = float(((got.double() - want.double()).abs() / scale).max())
+    e = float((got - want).abs().max())
+    if not math.isfinite(rel) or rel > SRP_RTOL:
+        fail(f"fl_lm: srp at ({m}, {LM_P}, {D_PRIME}): error {rel} of ‖x_i‖·‖S_w,j‖ > {SRP_RTOL}")
+    if not torch.equal(got, sk_ops.srp_sketch(X, D_PRIME, SRP_SEED)):
+        fail(f"fl_lm: srp at ({m}, {LM_P}, {D_PRIME}) is not bit-reproducible")
+    out["srp_err"] = e
+    print(f"fl_lm: srp ({m}, {LM_P}, {D_PRIME}) against the plain product on {len(LM_WINDOWS)} "
+          f"column windows {LM_WINDOWS} (X zero elsewhere; the last ends at column {LM_P}): "
+          f"max_abs_err {e:.3e}, {rel:.3e} of ‖x_i‖·‖S_w,j‖ (limit {SRP_RTOL}), reproducible")
+    nbytes = 4 * (m * LM_P + m * D_PRIME)
+    t_b, t_o = nbytes / bw * 1e3, 2 * m * LM_P * D_PRIME / f32 * 1e3
+    kms = time_ms(torch, lambda: sk_ops.srp_sketch(X, D_PRIME, SRP_SEED), reps=5)
+    out["srp"] = {"ms": kms, "bound_ms": max(t_b, t_o), "bound_by": "bytes" if t_b >= t_o else "operations"}
+    print(f"times: srp_sketch ({m}, {LM_P}, {D_PRIME}) {kms:.6f} ms, bound {out['srp']['bound_ms']:.6f} "
+          f"ms ({out['srp']['bound_by']}; {part} peaks {bw / 1e12:.2f} TB/s, {f32 / 1e12:.0f} "
+          f"TFLOP/s f32); plain and library (matmul with S of {LM_P} × {D_PRIME}) not measured: "
+          f"S would take {4 * LM_P * D_PRIME / 1e9:.0f} GB")
+    del X
+    torch.cuda.empty_cache()
+    return out
+
+
+def _fl_lm_recorded(sampler, rounds: list):
+    """Record each round's draw and the plan it drew from (its tokens)."""
+    real = sampler.sample
+
+    def sample(t, *a, **kw):
+        tokens = getattr(getattr(sampler, "plan", None), "r_tokens", None)
+        res = real(t, *a, **kw)
+        rounds.append((None if tokens is None else tokens.copy(), list(map(int, res.clients))))
+        return res
+
+    sampler.sample = sample
+
+
+def fl_lm_small(torch) -> None:
+    """The narrow reduced qwen3-0.6b (f32) on the card and on the CPU from
+    the same parameters: equal draws and plans every round, losses to
+    PAPER_LOSS_ATOL, for md, Algorithm 2 and Algorithm 2 with the SRP
+    sketch (d′ = 16)."""
+    import contextlib
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import ClientPopulation
+    from repro_torch.launch import fl_train
+    from repro_torch.models import model as mdl
+
+    cfg = dataclasses.replace(get_config(FL_LM["arch"], reduced=True), **FL_SMALL_NARROW)
+    d = mdl.param_count(mdl.init_params(cfg, 0, device="meta"))
+    for label, sampler, planner in (("md", "md", "sync"), ("algorithm2", "algorithm2", "sync"),
+                                    ("algorithm2[srp]", "algorithm2",
+                                     {"mode": "sync", "sketch": "srp", "sketch_dim": 16})):
+        fl = fl_train.FLLMConfig(**FL_SMALL, sampler=sampler, planner=planner)
+        runs = {}
+        with _CpuMadeParams():
+            for dev in (DEV, "cpu"):
+                rounds = []
+                with contextlib.closing(fl_train.make_lm_sampler(
+                        fl, ClientPopulation(np.array(FL_SMALL_SIZES)), update_dim=d, device=dev)) as sm:
+                    _fl_lm_recorded(sm, rounds)
+                    runs[dev] = (fl_train.run_federated_lm(cfg, fl, sm, device=dev), rounds)
+        (card, card_rounds), (cpu, cpu_rounds) = runs[DEV], runs["cpu"]
+        if not np.allclose(card, cpu, atol=PAPER_LOSS_ATOL, rtol=0):
+            fail(f"fl_lm[small {label}]: card losses {card} against the CPU's {cpu}")
+        for t, ((p1, c1), (p2, c2)) in enumerate(zip(card_rounds, cpu_rounds)):
+            if c1 != c2 or (p1 is None) != (p2 is None) or (p1 is not None and not np.array_equal(p1, p2)):
+                fail(f"fl_lm[small {label}]: round {t}: the card drew {c1} from another plan than "
+                     f"the CPU's {c2}")
+        moved = sum(p is not None and not np.array_equal(p, card_rounds[0][0]) for p, _ in card_rounds)
+        print(f"fl_lm[small {label}]: {cfg.name} at d_model {cfg.d_model}, d = {d}, "
+              f"{fl.n_rounds} rounds card against CPU: equal draws {[c for _, c in card_rounds]} and "
+              f"plans ({moved} rounds off the cold start), losses max |Δ| "
+              f"{float(np.abs(np.array(card) - np.array(cpu)).max()):.3e} (atol {PAPER_LOSS_ATOL})")
+
+
+class FLParts:
+    """Each full-width round's wall ms and its parts, host clock around
+    calls that synchronise before and after: the local steps (all clients),
+    the flatten of θ, B2, the sampler's observation, B3 within it, and its
+    ``plan_build_ms``. Patches the fl_train module's names for the ``with``
+    block only."""
+
+    def __init__(self, torch):
+        self.torch = torch
+        self.rounds: list[dict] = []
+
+    def _timed(self, key, fn):
+        def wrapped(*a, **kw):
+            self.torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            self.torch.cuda.synchronize()
+            if self.rounds:
+                self.rounds[-1][key] = self.rounds[-1].get(key, 0.0) + (time.perf_counter() - t0) * 1e3
+            return out
+        return wrapped
+
+    def __enter__(self):
+        from repro_torch.kernels.sketch import ops as sk_ops
+        from repro_torch.launch import fl_train
+
+        make_local = fl_train.make_local_sgd
+        self._saved = [(fl_train, "flatten_params"), (fl_train, "aggregate_flat"),
+                       (fl_train, "make_local_sgd"), (sk_ops, "srp_sketch")]
+        self._saved = [(mod, attr, getattr(mod, attr)) for mod, attr in self._saved]
+        fl_train.flatten_params = self._timed("flatten", fl_train.flatten_params)
+        fl_train.aggregate_flat = self._timed("aggregate", fl_train.aggregate_flat)
+        fl_train.make_local_sgd = lambda *a: self._timed("local", make_local(*a))
+        sk_ops.srp_sketch = self._timed("srp", sk_ops.srp_sketch)
+        return self
+
+    def __exit__(self, *exc):
+        for mod, attr, orig in self._saved:
+            setattr(mod, attr, orig)
+
+    def attach(self, sampler):
+        real_sample, real_observe = sampler.sample, sampler.observe_updates
+
+        def sample(t, *a, **kw):
+            self.torch.cuda.synchronize()
+            self.rounds.append({"start": time.perf_counter()})
+            return real_sample(t, *a, **kw)
+
+        sampler.sample = sample
+        if getattr(sampler, "consumes_updates", False):
+            timed = self._timed("observe", real_observe)
+
+            def observe(ids, updates):
+                timed(ids, updates)
+                self.rounds[-1]["plan_build_ms"] = sampler.plan_cost_telemetry()[0]
+
+            sampler.observe_updates = observe
+
+    def close(self):
+        """End the last round: each round's ms runs to the next one's start."""
+        self.torch.cuda.synchronize()
+        ends = [r["start"] for r in self.rounds[1:]] + [time.perf_counter()]
+        for r, end in zip(self.rounds, ends):
+            r["round"] = (end - r.pop("start")) * 1e3
+
+
+def fl_lm_run(torch, label, sampler_name, planner) -> dict:
+    """run_federated_lm at qwen3-0.6b's full width with FLLMConfig's
+    defaults and FL_LM's rounds; kernel launches counted from after the
+    sampler's construction (its cold-start build) to the run's end."""
+    import contextlib
+
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import ClientPopulation
+    from repro_torch.kernels.aggregate import ops as agg_ops
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.similarity import ops as sim_ops
+    from repro_torch.kernels.sketch import ops as sk_ops
+    from repro_torch.launch import fl_train
+
+    cfg = get_config(FL_LM["arch"])
+    fl = fl_train.FLLMConfig(n_rounds=FL_LM["rounds"], sampler=sampler_name, planner=planner)
+    pop = ClientPopulation(np.full(fl.n_clients, 1000))
+    with FLParts(torch) as parts, contextlib.closing(
+            fl_train.make_lm_sampler(fl, pop, update_dim=LM_P, device=DEV)) as sampler:
+        parts.attach(sampler)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        sim_ops.launches.update(gram=0, l1=0)
+        agg_ops.launches.update(aggregate=0)
+        sk_ops.launches.update(srp=0)
+        fa_ops.launches.update(flash_attention=0)
+        losses = fl_train.run_federated_lm(cfg, fl, sampler, device=DEV)
+        parts.close()
+        launches = {**sim_ops.launches, **agg_ops.launches, **sk_ops.launches, **fa_ops.launches}
+        store = getattr(sampler, "gradient_store", None)
+        plan = getattr(sampler, "plan", None)
+    peak = torch.cuda.max_memory_allocated()
+    steps = fl.n_rounds * fl.m * fl.n_local_steps
+    feedback = sampler_name == "algorithm2"
+    want = {"aggregate": fl.n_rounds, "srp": fl.n_rounds if feedback else 0,
+            "gram": fl.n_rounds if feedback else 0, "l1": 0,
+            "flash_attention": cfg.n_layers * (2 if cfg.remat else 1) * steps}
+    print(f"fl_lm[{label}]: {cfg.name} full width (d = {LM_P}), {fl.n_clients} clients, m = "
+          f"{fl.m}, {fl.n_local_steps} local steps of batch {fl.local_batch} × seq {fl.seq_len}, lr "
+          f"{fl.lr}, {fl.n_rounds} rounds: losses {[round(x, 5) for x in losses]}; peak device "
+          f"memory {peak} B ({peak / 2**30:.2f} GiB)")
+    print(f"fl_lm[{label}]: launches {json.dumps(launches)}; predicted {json.dumps(want)} "
+          f"(aggregate a round, srp a sketched observation, gram an Algorithm 2 rebuild, flash "
+          f"{cfg.n_layers} a forward, twice a local step under remat)")
+    if launches != want:
+        fail(f"fl_lm[{label}]: launches {launches}, predicted {want}")
+    if len(losses) != fl.n_rounds or not all(math.isfinite(x) for x in losses):
+        fail(f"fl_lm[{label}]: losses {losses}")
+    if feedback:
+        if tuple(store.snapshot().shape) != (fl.n_clients, D_PRIME):
+            fail(f"fl_lm[{label}]: the store is {tuple(store.snapshot().shape)}")
+        from repro_torch.core.samplers.base import validate_plan
+
+        validate_plan(plan, pop)
+    for r in parts.rounds:
+        print(f"fl_lm[{label}]: round ms {r['round']:.3f}: local steps {r.get('local', 0.0):.3f}, "
+              f"flatten {r.get('flatten', 0.0):.3f}, aggregate (B2) {r.get('aggregate', 0.0):.3f}, "
+              f"observe {r.get('observe', 0.0):.3f} (srp (B3) {r.get('srp', 0.0):.3f}, "
+              f"plan_build_ms {r.get('plan_build_ms', 0.0):.3f})")
+    med = {k: float(np.median([r.get(k, 0.0) for r in parts.rounds]))
+           for k in ("round", "local", "flatten", "aggregate", "observe", "srp", "plan_build_ms")}
+    print(f"times: fl_lm[{label}] medians of {fl.n_rounds} rounds: {json.dumps(med)}")
+    return launches
+
+
+def local_step_trace(torch) -> None:
+    """One client's local step at full width (FLLMConfig's batch 4 × seq
+    64) under torch.profiler, after one unprofiled."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.tokens import TokenPipeline
+    from repro_torch.launch import fl_train
+    from repro_torch.models import model as mdl
+
+    cfg = get_config(FL_LM["arch"])
+    fl = fl_train.FLLMConfig()
+    client = mdl.init_params(cfg, 0, device=DEV).requires_grad_(True)
+    toks = np.stack([TokenPipeline(cfg.vocab_size, fl.local_batch, fl.seq_len, seed=1000)
+                     .next_batch().tokens])
+    toks = torch.from_numpy(toks).to(DEV, torch.int64)
+    tgts = (toks + 31) % cfg.vocab_size
+    local = fl_train.make_local_sgd(cfg, fl.lr, 1)
+    local(client, toks, tgts)
+    lm_trace(torch, "local_step", lambda: local(client, toks, tgts),
+             f"one local step of a client (batch {fl.local_batch} × seq {fl.seq_len})")
+
+
+def phase_fl_lm(torch, name) -> dict:
+    """B2 and B3 at the full-width rows, the reduced config card against
+    CPU, then run_federated_lm at qwen3-0.6b's full width with md and with
+    sketched Algorithm 2. Returns the launches of the two full-width runs
+    together, and the kernels' errors and times."""
+    t0 = time.perf_counter()
+    kern = lm_kernels(torch, name)
+    fl_lm_small(torch)
+    md = fl_lm_run(torch, "md", "md", "sync")
+    a2 = fl_lm_run(torch, "algorithm2[srp]", "algorithm2", FL_LM_SKETCH)
+    local_step_trace(torch)
+    print(f"fl_lm: {time.perf_counter() - t0:.3f} s")
+    return {"launches": {k: md[k] + a2[k] for k in md}, "kernels": kern}
+
+
 def main() -> int:
     import torch
 
@@ -2610,6 +3254,7 @@ def main() -> int:
     phase_trace(torch, ds, params, round_ms["srp"], "srp", sketch="srp", sketch_dim=D_PRIME)
     cfg, lm, prompts, flash_launches = phase_serve(torch)
     phase_serve_trace(torch, cfg, lm, prompts)
+    del lm, prompts  # 6.2 GB of qwen2-1.5b parameters, not the later phases' memory
     rows = phase_times(torch, gen, name, err, launches)
     srp_turns(torch, gen)
     sim_turns(torch, gen)
@@ -2618,12 +3263,18 @@ def main() -> int:
     paper = phase_paper(torch, gen)
     zoo = phase_zoo(torch)
     sched = phase_sched(torch)
+    trained = phase_train(torch, gen, name)
+    fl_lm = phase_fl_lm(torch, name)
     for row in rows:
         key = {"similarity_gram": "gram", "aggregate": "aggregate", "srp_sketch": "srp"}.get(row["name"])
         if key is not None:
             row["paper_launches"] = paper[key]
             row["zoo_launches"] = zoo[key]
             row["sched_launches"] = sched[key]
+            row["fl_lm_launches"] = fl_lm["launches"][key]
+        if row["name"] == "flash_attention":
+            row["train_launches"] = trained["flash"]
+            row["fl_lm_launches"] = fl_lm["launches"]["flash_attention"]
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,

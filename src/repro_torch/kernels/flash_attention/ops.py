@@ -14,6 +14,11 @@ that are multiples of 8 elements; the wrapper raises on any other view.
 The reference's ``block_q`` / ``block_k`` / ``interpret`` arguments choose
 Pallas tiles and interpret mode; the CUDA tiles are fixed in the source, so
 the port has no such arguments.
+
+:func:`flash_attention` is the differentiable route the model calls: a
+``torch.autograd.Function`` whose forward is :func:`flash_attention_padded`
+(the kernel for CUDA tensors, the plain version for CPU tensors) and whose
+backward is ``backward.flash_attention_bwd`` on either device.
 """
 from __future__ import annotations
 
@@ -23,6 +28,7 @@ import functools
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.flash_attention.backward import flash_attention_bwd
 from repro_torch.kernels.flash_attention.ref import flash_attention_plain
 
 #: Kernel launches since the count was last reset.
@@ -103,3 +109,25 @@ def flash_attention_padded(
     _build.check(lib, err, "flash attention kernel")
     launches["flash_attention"] += 1
     return out
+
+
+class FlashAttention(torch.autograd.Function):
+    """Forward through :func:`flash_attention_padded`, backward through
+    :func:`~repro_torch.kernels.flash_attention.backward.flash_attention_bwd`
+    (P recomputed from the saved q and k)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal):
+        ctx.save_for_backward(q, k, v)
+        ctx.causal = causal
+        return flash_attention_padded(q, k, v, causal=causal)
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v = ctx.saved_tensors
+        return (*flash_attention_bwd(q, k, v, dout, causal=ctx.causal), None)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool = True):
+    """:func:`flash_attention_padded` with a gradient for q, k and v."""
+    return FlashAttention.apply(q, k, v, causal)

@@ -34,7 +34,11 @@ def _check_kind(kind: BlockSpec) -> None:
 
 
 def as_module(params: dict) -> nn.ModuleDict:
-    """A block's nested dict of tensors -> frozen ``ModuleDict`` of ``ParameterDict``s."""
+    """A block's nested dict of tensors -> ``ModuleDict`` of ``ParameterDict``s.
+
+    The parameters are made with ``requires_grad`` off (the serve path); a
+    trainer turns it on for the whole model (``LM.requires_grad_``).
+    """
     return nn.ModuleDict({
         name: nn.ParameterDict({k: nn.Parameter(t, requires_grad=False) for k, t in sub.items()})
         for name, sub in params.items()

@@ -2,8 +2,9 @@
 
 Port of ``src/repro/models/layers/attention.py``. A causal, unwindowed,
 un-softcapped full pass goes through the flash-attention kernel (B4),
-which computes what :func:`attend` computes there; every other case, and
-decode, goes through :func:`attend`. The reference's blockwise path
+which computes what :func:`attend` computes there, with its gradient from
+``kernels/flash_attention/backward.py``; every other case, and decode,
+goes through :func:`attend`. The reference's blockwise path
 (``attn_block_q > 0``) has the numerics of :func:`attend` over the whole
 sequence; the port runs it that way (the memory lever is not ported).
 """
@@ -13,7 +14,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels.flash_attention.ops import flash_attention_padded
+from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers.norms import rms_head_norm
 from repro_torch.models.layers.rotary import apply_rope
@@ -123,7 +124,7 @@ def attention_full(
     b, s, _ = x.shape
     q, k, v = qkv(cfg, params, x, angles)
     if not bidirectional and window == 0 and not cfg.logit_softcap and not cfg.attn_block_q:
-        out = flash_attention_padded(q, k, v, causal=True).reshape(b, s, -1)
+        out = flash_attention(q, k, v, causal=True).reshape(b, s, -1)
     else:
         mask = None if bidirectional else causal_mask(s, s, 0, window, device=x.device)
         out = attend(cfg, q, k, v, mask)

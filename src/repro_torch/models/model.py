@@ -5,15 +5,25 @@ Port of ``src/repro/models/model.py``. The model is an :class:`LM`
 (``first_blocks``, then ``pattern`` × ``n_repeats``, then ``tail_blocks``),
 in place of the reference's ``lax.scan`` over stacked parameters.
 Parameters are stored f32 (``cfg.param_dtype``) and cast to ``cfg.dtype``
-at use, as in the reference; they do not require gradients (the serve
-path; ``loss_fn`` and the training path are not ported yet, ROADMAP A12).
+at use, as in the reference. They are made with ``requires_grad`` off, for
+the serve path; a trainer turns it on (``LM.requires_grad_``). With
+``cfg.remat`` and gradients on, each block runs under
+``torch.utils.checkpoint`` (the reference's ``jax.checkpoint`` of the scan
+body): its activations are recomputed in the backward pass.
 
 Entry points:
-  * ``forward``     — full-sequence prefill; returns hidden states and the
-                      refreshed caches (when given).
+  * ``forward``     — full-sequence train / prefill; returns hidden states
+                      and the refreshed caches (when given).
   * ``decode_step`` — one token against the caches.
+  * ``loss_fn``     — next-token CE; ``cfg.fused_ce`` computes it in
+                      sequence chunks without the (B, S, V) logits.
 
-The reference's MoE aux loss is not returned: no MoE block is ported.
+No MoE block is ported, so the MoE aux loss is a zero tensor.
+
+:func:`params_from_numpy` takes the reference's stacked parameter pytree;
+:func:`params_to_numpy` and :func:`reference_tree` give it back, and
+:func:`reference_leaves` lists the port's tensors in its ``tree_leaves``
+order (the order of ``repro_torch.fl.aggregation.flatten_params``).
 """
 from __future__ import annotations
 
@@ -23,6 +33,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
 from repro_torch.models import blocks as blk
@@ -33,12 +44,28 @@ from repro_torch.models.layers.rotary import rope_angles
 Cache = dict[str, Any]
 
 
+Layout = tuple[int, int, int, int]
+
+
+def stack_layout(cfg: ModelConfig) -> Layout:
+    """(first blocks, pattern period, repeats, tail blocks) of ``cfg``."""
+    return len(cfg.first_blocks), len(cfg.pattern), cfg.n_repeats, len(cfg.tail_blocks)
+
+
 class LM(nn.Module):
-    """Embedding, the blocks in order, the final norm and the (tied or not) head."""
+    """Embedding, the blocks in order, the final norm and the (tied or not) head.
+
+    ``layout`` is :func:`stack_layout` of the config: which blocks are the
+    reference's ``first``, ``stack/pos{i}`` slices and ``tail``.
+    """
 
     def __init__(self, embed: torch.Tensor, final_norm: torch.Tensor,
-                 blocks: list, lm_head: Optional[torch.Tensor] = None):
+                 blocks: list, lm_head: Optional[torch.Tensor] = None, *, layout: Layout):
         super().__init__()
+        nf, period, reps, nt = layout
+        if nf + period * reps + nt != len(blocks):
+            raise ValueError(f"layout {layout} does not cover {len(blocks)} blocks")
+        self.layout = tuple(layout)
         self.embed = nn.Parameter(embed, requires_grad=False)
         self.final_norm = nn.ParameterDict({"scale": nn.Parameter(final_norm, requires_grad=False)})
         self.lm_head = None if lm_head is None else nn.Parameter(lm_head, requires_grad=False)
@@ -80,7 +107,7 @@ def init_params(cfg: ModelConfig, seed: int = 0, *, device="cuda") -> LM:
     if not cfg.tie_embeddings:
         lm_head = torch.randn((d, v), generator=gen, device=dev) * d**-0.5
     blocks = [blk.init_block(cfg, kind, gen, dev) for kind in cfg.all_blocks]
-    return LM(embed, torch.ones((d,), device=dev), blocks, lm_head)
+    return LM(embed, torch.ones((d,), device=dev), blocks, lm_head, layout=stack_layout(cfg))
 
 
 def params_from_numpy(cfg: ModelConfig, params: dict, *, device="cuda") -> LM:
@@ -104,7 +131,56 @@ def params_from_numpy(cfg: ModelConfig, params: dict, *, device="cuda") -> LM:
     layers += [tensors(p) for p in params["tail"]]
     lm_head = tensors(params["lm_head"]) if "lm_head" in params else None
     return LM(tensors(params["embed"]), tensors(params["final_norm"]["scale"]),
-              [blk.as_module(p) for p in layers], lm_head)
+              [blk.as_module(p) for p in layers], lm_head, layout=stack_layout(cfg))
+
+
+def reference_leaves(params: LM) -> list[tuple[tuple[str, ...], list[str]]]:
+    """(reference path, the port's parameter names) for each leaf of the
+    reference's stacked tree, in its ``jax.tree_util`` order: dict keys
+    sorted, ``first`` / ``tail`` by index. A ``stack/pos{i}`` leaf lists
+    its ``n_repeats`` layers in order (its leading axis)."""
+    nf, period, reps, nt = params.layout
+
+    def block(prefix, layers):
+        mod = params.blocks[layers[0]]
+        return [(prefix + (sub, k), [f"blocks.{i}.{sub}.{k}" for i in layers])
+                for sub in sorted(mod) for k in sorted(mod[sub])]
+
+    out = [(("embed",), ["embed"]), (("final_norm", "scale"), ["final_norm.scale"])]
+    for i in range(nf):
+        out += block(("first", str(i)), [i])
+    if params.lm_head is not None:
+        out.append((("lm_head",), ["lm_head"]))
+    for pos in sorted(range(period), key=lambda i: f"pos{i}"):
+        out += block(("stack", f"pos{pos}"), [nf + r * period + pos for r in range(reps)])
+    for i in range(nt):
+        out += block(("tail", str(i)), [nf + reps * period + i])
+    return out
+
+
+def reference_tree(params: LM, tensors: dict) -> dict:
+    """Tensors keyed by ``params``' parameter names (the parameters, their
+    gradients, AdamW's moments) -> the reference's stacked pytree of numpy
+    arrays, as ``init_params`` there lays it out."""
+    nf, _, _, nt = params.layout
+    tree: dict = {}
+    for path, names in reference_leaves(params):
+        arrays = [tensors[n].detach().cpu().numpy() for n in names]
+        node = tree
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = np.stack(arrays) if path[0] == "stack" else arrays[0]
+    for part, n in (("first", nf), ("tail", nt)):
+        tree[part] = tuple(tree.get(part, {})[str(i)] for i in range(n))
+    return tree
+
+
+def params_to_numpy(cfg: ModelConfig, params: LM) -> dict:
+    """An :class:`LM` -> the reference's parameter pytree, as numpy arrays
+    (the inverse of :func:`params_from_numpy`)."""
+    if params.layout != stack_layout(cfg):
+        raise ValueError(f"params laid out {params.layout}, {cfg.name} is {stack_layout(cfg)}")
+    return reference_tree(params, dict(params.named_parameters()))
 
 
 def param_count(params: LM) -> int:
@@ -133,15 +209,24 @@ def forward(
     s = tokens.shape[1]
     x = _embed(cfg, params, tokens)
     angles = make_angles(cfg, torch.arange(s, device=tokens.device))
+    remat = cfg.remat and caches is None and torch.is_grad_enabled()
     new_layers = []
     for i, (kind, block) in enumerate(zip(cfg.all_blocks, params.blocks)):
         c = caches["layers"][i] if caches is not None else None
-        x, nc = blk.block_apply(cfg, kind, block, x, angles=angles, mode="full", cache=c,
-                                decode_window=decode_window)
+        if remat:
+            x = checkpoint(_block_train, cfg, kind, block, x, angles, use_reentrant=False)
+            nc = None
+        else:
+            x, nc = blk.block_apply(cfg, kind, block, x, angles=angles, mode="full", cache=c,
+                                    decode_window=decode_window)
         new_layers.append(nc)
     x = rmsnorm(params.final_norm, x, cfg.norm_eps)
     new_caches = None if caches is None else {"layers": new_layers, "pos": s}
     return x, new_caches
+
+
+def _block_train(cfg: ModelConfig, kind, block, x: torch.Tensor, angles: torch.Tensor):
+    return blk.block_apply(cfg, kind, block, x, angles=angles, mode="full")[0]
 
 
 def logits_from_hidden(cfg: ModelConfig, params: LM, x: torch.Tensor) -> torch.Tensor:
@@ -189,3 +274,56 @@ def init_cache(
                                         decode_window=decode_window) for kind in cfg.all_blocks],
         "pos": 0,
     }
+
+
+# --------------------------------------------------------------------------
+# losses
+# --------------------------------------------------------------------------
+def loss_fn(
+    cfg: ModelConfig,
+    params: LM,
+    tokens: torch.Tensor,  # (B, S) int
+    targets: torch.Tensor,  # (B, S) int
+    *,
+    aux_weight: float = 0.01,
+) -> tuple[torch.Tensor, dict]:
+    """Next-token CE (f32), plus ``aux_weight`` × the MoE aux loss (zero)."""
+    hidden, _ = forward(cfg, params, tokens)
+    aux = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    if cfg.fused_ce:
+        ce = _chunked_ce(cfg, params, hidden, targets)
+    else:
+        logits = logits_from_hidden(cfg, params, hidden).to(torch.float32)
+        logp = torch.log_softmax(logits, dim=-1)
+        ce = -torch.gather(logp, -1, targets[..., None].long()).mean()
+    total = ce + aux_weight * aux
+    return total, {"ce": ce, "aux": aux}
+
+
+def _chunk_ce_sum(head: torch.Tensor, h: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    logits = (h @ head.to(h.dtype)).to(torch.float32)
+    logp = torch.log_softmax(logits, dim=-1)
+    return -torch.gather(logp, -1, t[..., None].long()).sum()
+
+
+def _chunked_ce(cfg: ModelConfig, params: LM, hidden: torch.Tensor, targets) -> torch.Tensor:
+    """CE over sequence chunks, never the (B, S, V) logits at once.
+
+    The reference's chunk count; each chunk's logits are recomputed in the
+    backward pass (``torch.utils.checkpoint``, as ``jax.checkpoint``).
+    """
+    b, s, _ = hidden.shape
+    n_chunks = max(1, min(16, s // 512)) if s >= 512 else 1
+    while s % n_chunks:
+        n_chunks -= 1
+    cs = s // n_chunks
+    head = params.embed.T if cfg.tie_embeddings else params.lm_head
+    remat = torch.is_grad_enabled()
+    tot = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for i in range(n_chunks):
+        h, t = hidden[:, i * cs:(i + 1) * cs], targets[:, i * cs:(i + 1) * cs]
+        if remat:
+            tot = tot + checkpoint(_chunk_ce_sum, head, h, t, use_reentrant=False)
+        else:
+            tot = tot + _chunk_ce_sum(head, h, t)
+    return tot / (b * s)

@@ -412,3 +412,77 @@ def test_flash_launch_count_counts_prefill_layers(cuda):
     tokens, _ = generate(cfg, params, torch.zeros((2, 9), dtype=torch.long, device=cuda), 4, device=cuda)
     assert fa_ops.launches["flash_attention"] == before + 3  # one per layer, none in decode
     assert tokens.shape == (2, 4)
+
+
+# --------------------------------------------------------------------------
+# the flash route's gradient and the LM training path on the card
+# --------------------------------------------------------------------------
+@pytest.mark.parametrize("dtype,b,s,h,kv,hd", [("float32", 2, 77, 4, 2, 64), ("float32", 1, 33, 16, 8, 128),
+                                               ("bfloat16", 2, 77, 4, 2, 64), ("bfloat16", 1, 130, 16, 8, 128)])
+def test_flash_function_gradients_match_autograd_through_plain(cuda, dtype, b, s, h, kv, hd):
+    """The route's forward launches the kernel once and its backward is the
+    torch-ops VJP: f32 to atol 2e-5, bf16 to 2⁻⁷ of the gradient's scale
+    (the entries reach 4–8, where one bf16 ulp is 2⁻⁵)."""
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention.ref import flash_attention_plain
+
+    dt = getattr(torch, dtype)
+    rng = np.random.default_rng(5)
+    ins = [torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(cuda, dt)
+           for shape in ((b, s, h, hd), (b, s, kv, hd), (b, s, kv, hd))]
+    do = torch.from_numpy(rng.normal(size=(b, s, h, hd)).astype(np.float32)).to(cuda, dt)
+    before = fa_ops.launches["flash_attention"]
+    a = [x.clone().requires_grad_(True) for x in ins]
+    got = torch.autograd.grad(fa_ops.flash_attention(*a), a, do)
+    assert fa_ops.launches["flash_attention"] == before + 1
+    p = [x.clone().requires_grad_(True) for x in ins]
+    want = torch.autograd.grad(flash_attention_plain(*p), p, do)
+    for g, w in zip(got, want):
+        assert g.dtype == dt
+        if dt == torch.float32:
+            torch.testing.assert_close(g, w, atol=2e-5, rtol=0)
+        else:
+            scale = float(w.float().abs().max())
+            assert float((g.float() - w.float()).abs().max()) <= 2.0**-7 * scale
+
+
+def test_reduced_train_steps_on_the_card_match_the_cpu(cuda):
+    """5 AdamW steps of the reduced qwen3-0.6b (f32) from the same
+    parameters: losses and gradient norms to atol 1e-4."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.tokens import TokenPipeline
+    from repro_torch.launch import steps
+    from repro_torch.models import model as mdl
+    from repro_torch.optim import adamw, linear_warmup_cosine
+
+    cfg = get_config("qwen3-0.6b", reduced=True)
+    made = mdl.init_params(cfg, 0, device="cpu")
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        opt = adamw(linear_warmup_cosine(3e-3, 1, 5))
+        state = steps.init_train_state(mdl.params_from_numpy(cfg, mdl.params_to_numpy(cfg, made),
+                                                             device=dev), opt)
+        fn = steps.make_train_step(cfg, opt)
+        pipe = TokenPipeline(cfg.vocab_size, 4, 64, seed=0)
+        rows = []
+        for _ in range(5):
+            bt = pipe.next_batch()
+            state, m = fn(state, {k: torch.from_numpy(v).to(dev, torch.int64)
+                                  for k, v in (("tokens", bt.tokens), ("targets", bt.targets))})
+            rows.append((float(m["loss"]), float(m["grad_norm"])))
+        out[dev.type] = np.array(rows)
+    np.testing.assert_allclose(out["cuda"], out["cpu"], atol=1e-4, rtol=0)
+
+
+def test_flatten_and_unflatten_an_lm_on_the_card(cuda):
+    from repro_torch.configs import get_config
+    from repro_torch.fl.aggregation import flatten_params, unflatten_params
+    from repro_torch.models import model as mdl
+
+    cfg = get_config("qwen2-1.5b", reduced=True)
+    lm = mdl.init_params(cfg, 0, device="cpu")
+    flat = flatten_params(lm.to(cuda))
+    assert flat.is_cuda
+    assert torch.equal(flat.cpu(), flatten_params(lm.cpu()))
+    views = unflatten_params(flat, lm.to(cuda))
+    assert torch.equal(flatten_params(views), flat)
