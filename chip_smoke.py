@@ -37,7 +37,8 @@ Phases, one line (or a few) each; any failure raises and exits non-zero:
    the CUDA-core kernel at the reference's test shapes and a ragged
    S = T = 1,000, bf16 on the tensor-core kernel at every padded head dim
    (hd 8 to 128), ragged S = T of 1 to 1,000 around its 64-row tiles, the
-   serve path's (4, 1,000, 12, 2, 128), non-causal with a ragged T, and
+   serve path's (4, 1,000, 12, 2, 128), the fl_lm phase's local step
+   (4, 64, 16, 8, 128), non-causal with a ragged T, and
    views into a fused projection; atol 2e-5 in f32, and in bf16
    min(3e-2, 2⁻⁷·(|want| + Σ_j p_ij·|v_j|)), the error on the scale of the
    softmax-weighted |v|; bit-reproducible; a misaligned bf16 view raises
@@ -157,8 +158,9 @@ Phases, one line (or a few) each; any failure raises and exits non-zero:
    of AdamW with ``linear_warmup_cosine`` and clip 1.0: every loss and
    gradient norm finite, flash launched 28 times a forward (twice a step
    under remat); step ms, peak memory, one more step under
-   ``torch.profiler``, and the flash route at the train shape timed
-   beside SDPA (forward and backward);
+   ``torch.profiler``, and the flash route at the train shape held
+   against the plain version under the bf16 limit, then timed beside SDPA
+   (forward and backward);
 12. fl_lm  — clustered-sampling federated LM: B2 and B3 at (8,
    596,049,920), qwen3-0.6b's flat rows (B2 against its plain version
    column block by column block, B3 against the plain product on column
@@ -170,7 +172,8 @@ Phases, one line (or a few) each; any failure raises and exits non-zero:
    local steps of 4 × 64, lr 0.05) for 3 rounds, with md and with
    algorithm2 on the SRP-sketched store (d′ = 64): launches counted after
    the sampler's construction (aggregate a round, srp a sketched
-   observation, gram a rebuild, flash 28 a forward), round ms and its
+   observation, gram a rebuild, flash 28 a forward), each rebuild's Gram
+   of the (32, 64) store against ``G @ G.T`` in f64, round ms and its
    parts (local steps, flatten, B2, the observation, B3, plan rebuild);
    one local step under ``torch.profiler``.
 
@@ -245,6 +248,8 @@ FLASH_BF16_SHAPES = [
     # ragged S = T around the 64-row q-tiles and 64-key k-tiles
     (2, 1, 4, 2, 128), (1, 63, 4, 2, 128), (1, 65, 8, 2, 128), (2, 77, 12, 2, 128),
     (1, 1000, 4, 2, 128),
+    # qwen3-0.6b's attention in the fl_lm phase's local steps (batch 4 × seq 64)
+    (4, 64, 16, 8, 128),
 ]
 FLASH_NONCAUSAL = [((2, 33, 4, 2, 32), t) for t in (48, 70)]  # ((B, S, H, KV, hd), T)
 FLASH_F32_ATOL = 2e-5  # the reference's
@@ -2766,7 +2771,8 @@ def train_small(torch) -> None:
 
 def flash_train_times(torch, gen, name) -> dict:
     """The flash route at the train phase's attention shape, bf16: the
-    kernel's forward against scaled_dot_product_attention's and the plain
+    kernel's forward held against the plain version on the same inputs,
+    then timed against scaled_dot_product_attention's and the plain
     version's, beside its bound; the port's torch-ops backward against
     SDPA's backward."""
     import torch.nn.functional as F
@@ -2779,6 +2785,9 @@ def flash_train_times(torch, gen, name) -> dict:
     b, s, h, kv, hd = FLASH_TRAIN
     q, k, v, do = (torch.randn(shape, generator=gen).to(DEV, torch.bfloat16)
                    for shape in ((b, s, h, hd), (b, s, kv, hd), (b, s, kv, hd), (b, s, h, hd)))
+    ms = {"max_abs_err": _flash_check(torch, f"bf16 train shape {FLASH_TRAIN}",
+                                      fa_ops.flash_attention_padded(q, k, v), q, k, v,
+                                      again=fa_ops.flash_attention_padded(q, k, v))}
     qt, kt, vt, dot = (a.transpose(1, 2).detach().requires_grad_(True) for a in (q, k, v, do))
     sdpa_out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
     fns = {
@@ -2793,7 +2802,7 @@ def flash_train_times(torch, gen, name) -> dict:
     for who in ("kernel", "library", "backward", "library_backward",
                 "library_backward", "backward", "library", "kernel"):
         times[who].append(time_ms(torch, fns[who], reps=10))
-    ms = {w: sum(t) / 2 for w, t in times.items()}
+    ms.update({w: sum(t) / 2 for w, t in times.items()})
     ms["plain"] = time_ms(torch, lambda: flash_attention_plain(q, k, v), reps=3)
     nbytes = 2 * (2 * b * s * h * hd + 2 * b * s * kv * hd)
     nops = 2 * b * h * s * s * hd
@@ -3080,12 +3089,13 @@ class FLParts:
     def __enter__(self):
         from repro_torch.kernels.sketch import ops as sk_ops
         from repro_torch.launch import fl_train
+        from repro_torch.models import model as mdl
 
         make_local = fl_train.make_local_sgd
-        self._saved = [(fl_train, "flatten_params"), (fl_train, "aggregate_flat"),
+        self._saved = [(mdl, "flatten_lm"), (fl_train, "aggregate_flat"),
                        (fl_train, "make_local_sgd"), (sk_ops, "srp_sketch")]
         self._saved = [(mod, attr, getattr(mod, attr)) for mod, attr in self._saved]
-        fl_train.flatten_params = self._timed("flatten", fl_train.flatten_params)
+        mdl.flatten_lm = self._timed("flatten", mdl.flatten_lm)
         fl_train.aggregate_flat = self._timed("aggregate", fl_train.aggregate_flat)
         fl_train.make_local_sgd = lambda *a: self._timed("local", make_local(*a))
         sk_ops.srp_sketch = self._timed("srp", sk_ops.srp_sketch)
@@ -3121,6 +3131,29 @@ class FLParts:
             r["round"] = (end - r.pop("start")) * 1e3
 
 
+class GramTap:
+    """Record each ``pairwise_sums(G, "gram")`` call's input and output
+    (copies) while the context is open, for a check after the run."""
+
+    def __init__(self, sim_ops, into: list):
+        self.sim_ops, self.into = sim_ops, into
+
+    def __enter__(self):
+        real = self.real = self.sim_ops.pairwise_sums
+
+        def tapped(G, op):
+            out = real(G, op)
+            if op == "gram":
+                self.into.append((G.detach().clone(), out.detach().clone()))
+            return out
+
+        self.sim_ops.pairwise_sums = tapped
+        return self
+
+    def __exit__(self, *exc):
+        self.sim_ops.pairwise_sums = self.real
+
+
 def fl_lm_run(torch, label, sampler_name, planner) -> dict:
     """run_federated_lm at qwen3-0.6b's full width with FLLMConfig's
     defaults and FL_LM's rounds; kernel launches counted from after the
@@ -3140,7 +3173,8 @@ def fl_lm_run(torch, label, sampler_name, planner) -> dict:
     cfg = get_config(FL_LM["arch"])
     fl = fl_train.FLLMConfig(n_rounds=FL_LM["rounds"], sampler=sampler_name, planner=planner)
     pop = ClientPopulation(np.full(fl.n_clients, 1000))
-    with FLParts(torch) as parts, contextlib.closing(
+    grams = []  # (store snapshot, the sampler's Gram of it) of every plan rebuild
+    with FLParts(torch) as parts, GramTap(sim_ops, grams), contextlib.closing(
             fl_train.make_lm_sampler(fl, pop, update_dim=LM_P, device=DEV)) as sampler:
         parts.attach(sampler)
         torch.cuda.synchronize()
@@ -3149,6 +3183,7 @@ def fl_lm_run(torch, label, sampler_name, planner) -> dict:
         agg_ops.launches.update(aggregate=0)
         sk_ops.launches.update(srp=0)
         fa_ops.launches.update(flash_attention=0)
+        grams.clear()
         losses = fl_train.run_federated_lm(cfg, fl, sampler, device=DEV)
         parts.close()
         launches = {**sim_ops.launches, **agg_ops.launches, **sk_ops.launches, **fa_ops.launches}
@@ -3177,6 +3212,21 @@ def fl_lm_run(torch, label, sampler_name, planner) -> dict:
         from repro_torch.core.samplers.base import validate_plan
 
         validate_plan(plan, pop)
+    worst = 0.0
+    for G, got in grams:
+        if tuple(G.shape) != (fl.n_clients, D_PRIME):
+            fail(f"fl_lm[{label}]: a plan rebuild's Gram was of a {tuple(G.shape)} store")
+        rel = gram_rel_err(got, G.double() @ G.double().T, G)
+        if not math.isfinite(rel) or rel > GRAM_RTOL:
+            fail(f"fl_lm[{label}]: the sampler's gram at {tuple(G.shape)}: error {rel} of "
+                 f"‖g_i‖·‖g_j‖ > {GRAM_RTOL}")
+        worst = max(worst, rel)
+    if len(grams) != launches["gram"]:
+        fail(f"fl_lm[{label}]: {len(grams)} Gram calls seen, {launches['gram']} launches")
+    if grams:
+        print(f"fl_lm[{label}]: the sampler's {len(grams)} gram calls at ({fl.n_clients}, "
+              f"{D_PRIME}) against G @ G.T (f64) on the same store: {worst:.3e} of "
+              f"‖g_i‖·‖g_j‖ (limit {GRAM_RTOL})")
     for r in parts.rounds:
         print(f"fl_lm[{label}]: round ms {r['round']:.3f}: local steps {r.get('local', 0.0):.3f}, "
               f"flatten {r.get('flatten', 0.0):.3f}, aggregate (B2) {r.get('aggregate', 0.0):.3f}, "

@@ -7,12 +7,8 @@ models with the realized weights ``ω_i``; FedAvg-style biased sampling
 models, appends θ^t as one more row carrying ``stale_weight``, and sums the
 rows with :func:`repro_torch.kernels.aggregate.ops.aggregate_flat`.
 
-Flat vectors follow the reference's ``jax.tree_util`` order: for a dict,
-leaves sorted by key; for an :class:`~repro_torch.models.model.LM`, the
-leaves of the reference's stacked tree
-(:func:`~repro_torch.models.model.reference_leaves`), each stacked leaf
-raveled layer-major, so that every one of the port's tensors is one
-contiguous run of the vector.
+Flat vectors follow the reference's ``jax.tree_util`` order for a dict:
+leaves sorted by key.
 """
 from __future__ import annotations
 
@@ -22,55 +18,15 @@ import numpy as np
 import torch
 
 from repro_torch.kernels.aggregate.ops import aggregate_flat
-from repro_torch.models import blocks as blk
-from repro_torch.models.model import LM, reference_leaves
 
 
-def _lm_runs(params: LM) -> list[tuple[str, int]]:
-    """(parameter name, offset) of each of an LM's tensors in its flat vector."""
-    named = dict(params.named_parameters())
-    runs, off = [], 0
-    for _, names in reference_leaves(params):
-        for n in names:
-            runs.append((n, off))
-            off += named[n].numel()
-    return runs
+def flatten_params(tree: dict) -> torch.Tensor:
+    """Flatten a parameter dict into one vector (sorted-key order)."""
+    return torch.cat([tree[k].reshape(-1) for k in sorted(tree)])
 
 
-def flatten_params(tree) -> torch.Tensor:
-    """Flatten a parameter dict (sorted-key order) or an LM (the reference's
-    leaf order, copied tensor by tensor on their device) into one vector."""
-    if not isinstance(tree, LM):
-        return torch.cat([tree[k].reshape(-1) for k in sorted(tree)])
-    named = dict(tree.named_parameters())
-    out = tree.embed.new_empty(sum(p.numel() for p in named.values()))
-    with torch.no_grad():
-        for n, off in _lm_runs(tree):
-            p = named[n]
-            out[off:off + p.numel()].view(p.shape).copy_(p)
-    return out
-
-
-def _lm_views(flat: torch.Tensor, like: LM) -> LM:
-    """An LM shaped as ``like`` whose parameters are views into ``flat``."""
-    named = dict(like.named_parameters())
-    views = {n: flat[off:off + named[n].numel()].view(named[n].shape) for n, off in _lm_runs(like)}
-    blocks = []
-    for i, block in enumerate(like.blocks):
-        blocks.append(blk.as_module({sub: {k: views[f"blocks.{i}.{sub}.{k}"] for k in block[sub]}
-                                     for sub in block}))
-    return LM(views["embed"], views["final_norm.scale"], blocks, views.get("lm_head"),
-              layout=like.layout)
-
-
-def unflatten_params(flat: torch.Tensor, like):
-    """Inverse of :func:`flatten_params` for the shapes and dtypes of ``like``.
-
-    For an LM the result's parameters are views into ``flat`` (no copy);
-    writing them writes ``flat``.
-    """
-    if isinstance(like, LM):
-        return _lm_views(flat, like)
+def unflatten_params(flat: torch.Tensor, like: dict) -> dict:
+    """Inverse of :func:`flatten_params` for the shapes and dtypes of ``like``."""
     out, off = {}, 0
     for k in sorted(like):
         n = like[k].numel()

@@ -9,7 +9,7 @@ similarity-based samplers receive the flat updates θ_k − θ.
 The reference runs the m clients under ``vmap`` inside one jit; the port
 runs them one after another, with the same numbers. The m client models
 live in one (m, d) f32 stack: client k's parameters are views into row k
-(:func:`~repro_torch.fl.aggregation.unflatten_params`), so its local steps
+(:func:`~repro_torch.models.model.lm_views`), so its local steps
 write θ_k straight into the stack and no client model is flattened. The
 combine is the aggregate kernel (B2) on that stack, and the updates are
 formed in place after it, so a round holds one stack (19.1 GB at
@@ -27,7 +27,7 @@ import torch
 
 from repro_torch.core.samplers.base import ClientSampler
 from repro_torch.device import resolve_device
-from repro_torch.fl.aggregation import aggregate_flat, flatten_params, unflatten_params
+from repro_torch.kernels.aggregate.ops import aggregate_flat
 from repro_torch.models import model as mdl
 from repro_torch.models.config import ModelConfig
 
@@ -64,16 +64,16 @@ def make_fl_round_step(cfg: ModelConfig, lr: float, n_local_steps: int, *, with_
     def fl_round_step(params: mdl.LM, client_tokens, client_targets, weights):
         """params: the global model; client_tokens / targets: (m, N, B, S);
         weights: (m,) f32 realized aggregation weights, on params' device."""
-        theta = flatten_params(params)
+        theta = mdl.flatten_lm(params)
         stack = theta.new_empty((client_tokens.shape[0], theta.numel()))
         losses = []
         for k in range(stack.shape[0]):
             stack[k].copy_(theta)
-            client = unflatten_params(stack[k], params).requires_grad_(True)
+            client = mdl.lm_views(stack[k], params).requires_grad_(True)
             _, loss = local_sgd(client, client_tokens[k], client_targets[k])
             losses.append(loss)
         # θ^{t+1} = Σ_k ω_k θ_k — eq. (4), the aggregate kernel
-        new_params = unflatten_params(aggregate_flat(stack, weights), params)
+        new_params = mdl.lm_views(aggregate_flat(stack, weights), params)
         loss = torch.stack(losses).mean()
         if not with_updates:
             return new_params, loss

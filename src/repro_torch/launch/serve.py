@@ -20,8 +20,9 @@ import torch
 
 from repro_torch.configs import ARCH_NAMES, get_config
 from repro_torch.device import resolve_device
+from repro_torch.launch.steps import make_prefill_step, make_serve_step
 from repro_torch.models import model as mdl
-from repro_torch.models.config import ModelConfig
+from repro_torch.models.config import InputShape, ModelConfig
 
 
 @torch.inference_mode()
@@ -39,23 +40,23 @@ def generate(
     Returns (token ids (B, gen), logits (gen, B, V)): step 0's logits are
     the prefill's at the last prompt position, step t's the t-th decode
     step's. ``on_step(phase, t)``, if given, is called after each step is
-    enqueued, with ``phase`` ``"prefill"`` or ``"decode"``.
+    enqueued, with ``phase`` ``"prefill"`` or ``"decode"``. The steps are
+    ``launch/steps.py``'s prefill and serve steps over a cache of P + gen.
     """
     if gen < 1:
         raise ValueError(f"gen must be >= 1, got {gen}")
     dev = resolve_device(device)
     prompts = prompts.to(dev)
-    batch = prompts.shape[0]
-    caches = mdl.init_cache(cfg, batch, prompts.shape[1] + gen, device=dev)
-    hidden, caches = mdl.forward(cfg, params, prompts, caches=caches)
-    logits = mdl.logits_from_hidden(cfg, params, hidden[:, -1:, :])[:, 0]
+    shape = InputShape("generate", prompts.shape[1] + gen, prompts.shape[0], "prefill")
+    logits, caches = make_prefill_step(cfg, shape)(params, {"tokens": prompts})
+    serve_step = make_serve_step(cfg, shape)
     steps = [logits]
     tok = logits.argmax(dim=-1, keepdim=True)
     out = [tok]
     if on_step is not None:
         on_step("prefill", 0)
     for t in range(1, gen):
-        logits, caches = mdl.decode_step(cfg, params, tok, caches)
+        logits, caches = serve_step(params, {"token": tok, "caches": caches})
         tok = logits.argmax(dim=-1, keepdim=True)
         steps.append(logits)
         out.append(tok)

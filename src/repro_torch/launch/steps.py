@@ -3,7 +3,8 @@
 Port of ``src/repro/launch/steps.py``. PyTorch runs eagerly, so a step is a
 plain function; nothing is jitted. The train step updates the LM's
 parameters in place (the reference returns new arrays): at qwen3-0.6b that
-saves a second 2.38 GB copy of them. The reference's ``input_specs``,
+saves a second 2.38 GB copy of them. ``launch/serve.py``'s ``generate``
+runs the prefill and serve steps. The reference's ``input_specs``,
 ``abstract_params``, ``abstract_train_state`` and the ``fl_engine_*``
 lowering hooks build ShapeDtypeStructs and mesh shardings for XLA; they are
 mesh tooling and not ported (ROADMAP A13).

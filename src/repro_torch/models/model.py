@@ -23,7 +23,8 @@ No MoE block is ported, so the MoE aux loss is a zero tensor.
 :func:`params_from_numpy` takes the reference's stacked parameter pytree;
 :func:`params_to_numpy` and :func:`reference_tree` give it back, and
 :func:`reference_leaves` lists the port's tensors in its ``tree_leaves``
-order (the order of ``repro_torch.fl.aggregation.flatten_params``).
+order; :func:`flatten_lm` lays an LM out as one flat vector in that order
+and :func:`lm_views` makes an LM of views into such a vector.
 """
 from __future__ import annotations
 
@@ -173,6 +174,43 @@ def reference_tree(params: LM, tensors: dict) -> dict:
     for part, n in (("first", nf), ("tail", nt)):
         tree[part] = tuple(tree.get(part, {})[str(i)] for i in range(n))
     return tree
+
+
+def _flat_runs(params: LM) -> list[tuple[str, int]]:
+    """(parameter name, offset) of each of an LM's tensors in its flat vector."""
+    named = dict(params.named_parameters())
+    runs, off = [], 0
+    for _, names in reference_leaves(params):
+        for n in names:
+            runs.append((n, off))
+            off += named[n].numel()
+    return runs
+
+
+def flatten_lm(params: LM) -> torch.Tensor:
+    """An LM -> one vector in the reference's ``tree_leaves`` order of its
+    stacked tree (its ``flatten_params``), each stacked leaf raveled
+    layer-major, copied tensor by tensor on the parameters' device."""
+    named = dict(params.named_parameters())
+    out = params.embed.new_empty(sum(p.numel() for p in named.values()))
+    with torch.no_grad():
+        for n, off in _flat_runs(params):
+            p = named[n]
+            out[off:off + p.numel()].view(p.shape).copy_(p)
+    return out
+
+
+def lm_views(flat: torch.Tensor, like: LM) -> LM:
+    """The inverse of :func:`flatten_lm`: an LM shaped as ``like`` whose
+    parameters are views into ``flat`` (no copy; writing them writes it)."""
+    named = dict(like.named_parameters())
+    views = {n: flat[off:off + named[n].numel()].view(named[n].shape)
+             for n, off in _flat_runs(like)}
+    blocks = [blk.as_module({sub: {k: views[f"blocks.{i}.{sub}.{k}"] for k in block[sub]}
+                             for sub in block})
+              for i, block in enumerate(like.blocks)]
+    return LM(views["embed"], views["final_norm.scale"], blocks, views.get("lm_head"),
+              layout=like.layout)
 
 
 def params_to_numpy(cfg: ModelConfig, params: LM) -> dict:

@@ -5,6 +5,9 @@ operations (not ``torch.optim.AdamW``'s): moments ``mu`` and ``nu`` in f32
 whatever the parameters' dtype, an int32 ``count``, bias corrections
 ``1 / (1 - b**count)``, ``eps`` added outside the square root, and the
 weight decay added to the step before it is scaled by ``-eta``.
+``update`` writes the new moments into the state's own tensors (the
+reference returns new arrays): at qwen3-0.6b that saves two 2.38 GB
+copies a step. The operations are the reference's, rounded in its order.
 """
 from __future__ import annotations
 
@@ -34,9 +37,11 @@ def adamw(
     def update(grads, state, params, step):
         del step
         count = state["count"] + 1
-        mu = {k: b1 * m + (1 - b1) * grads[k].to(torch.float32) for k, m in state["mu"].items()}
-        nu = {k: b2 * v + (1 - b2) * torch.square(grads[k].to(torch.float32))
-              for k, v in state["nu"].items()}
+        mu, nu = state["mu"], state["nu"]
+        for k in mu:
+            g = grads[k].to(torch.float32)
+            mu[k].mul_(b1).add_(g * (1 - b1))  # b1·m + (1 − b1)·g
+            nu[k].mul_(b2).add_(torch.square(g).mul_(1 - b2))  # b2·v + (1 − b2)·g²
         c = count.to(torch.float32)
         mu_hat_scale = 1.0 / (1 - b1**c)
         nu_hat_scale = 1.0 / (1 - b2**c)

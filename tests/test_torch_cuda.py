@@ -476,13 +476,12 @@ def test_reduced_train_steps_on_the_card_match_the_cpu(cuda):
 
 def test_flatten_and_unflatten_an_lm_on_the_card(cuda):
     from repro_torch.configs import get_config
-    from repro_torch.fl.aggregation import flatten_params, unflatten_params
     from repro_torch.models import model as mdl
 
     cfg = get_config("qwen2-1.5b", reduced=True)
     lm = mdl.init_params(cfg, 0, device="cpu")
-    flat = flatten_params(lm.to(cuda))
+    flat = mdl.flatten_lm(lm.to(cuda))
     assert flat.is_cuda
-    assert torch.equal(flat.cpu(), flatten_params(lm.cpu()))
-    views = unflatten_params(flat, lm.to(cuda))
-    assert torch.equal(flatten_params(views), flat)
+    assert torch.equal(flat.cpu(), mdl.flatten_lm(lm.cpu()))
+    views = mdl.lm_views(flat, lm.to(cuda))
+    assert torch.equal(mdl.flatten_lm(views), flat)

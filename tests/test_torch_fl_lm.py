@@ -1,7 +1,7 @@
 """The port's federated LM driver against the JAX package's.
 
-``flatten_params`` of an LM against the reference's flatten of its stacked
-tree, one ``fl_round_step`` on the same parameters and tokens, and whole
+``flatten_lm`` of an LM against the reference's ``flatten_params`` of its
+stacked tree, one ``fl_round_step`` on the same parameters and tokens, and whole
 ``run_federated_lm`` runs: the reference's random parameters carry across
 (the port's ``init_params`` monkeypatched to ``params_from_numpy`` of
 them, as ``test_torch_experiment.py`` does for ``init_mlp``), and both
@@ -33,7 +33,6 @@ from repro.launch import fl_train as ref_fl
 from repro.models import model as ref_model
 from repro_torch.configs import get_config
 from repro_torch.core import ClientPopulation
-from repro_torch.fl.aggregation import flatten_params, unflatten_params
 from repro_torch.launch import fl_train
 from repro_torch.models import model as mdl
 
@@ -70,7 +69,7 @@ def test_flatten_params_of_an_lm_is_bit_equal_to_the_reference(arch, n_layers):
     tree = _ref_params(arch, n_layers)
     lm = mdl.params_from_numpy(cfg, tree, device="cpu")
     want = np.asarray(ref_flatten(tree))
-    got = flatten_params(lm)
+    got = mdl.flatten_lm(lm)
     assert got.dtype == torch.float32 and got.numel() == want.size == mdl.param_count(lm)
     np.testing.assert_array_equal(got.numpy(), want)
 
@@ -78,16 +77,16 @@ def test_flatten_params_of_an_lm_is_bit_equal_to_the_reference(arch, n_layers):
 def test_unflatten_params_gives_views_that_flatten_back():
     _, cfg = _configs(n_layers=3)
     lm = mdl.params_from_numpy(cfg, _ref_params(n_layers=3), device="cpu")
-    flat = flatten_params(lm).clone()
-    views = unflatten_params(flat, lm)
+    flat = mdl.flatten_lm(lm).clone()
+    views = mdl.lm_views(flat, lm)
     assert views.layout == lm.layout
-    assert torch.equal(flatten_params(views), flat)
+    assert torch.equal(mdl.flatten_lm(views), flat)
     for (n, a), (m, b) in zip(views.named_parameters(), lm.named_parameters()):
         assert n == m and torch.equal(a, b)
         assert a.untyped_storage().data_ptr() == flat.untyped_storage().data_ptr()
     with torch.no_grad():
         views.blocks[1]["attn"]["wq"].add_(1.0)
-    assert not torch.equal(flat, flatten_params(lm))
+    assert not torch.equal(flat, mdl.flatten_lm(lm))
 
 
 # --------------------------------------------------------------------------
@@ -114,7 +113,7 @@ def test_fl_round_step_matches_the_reference():
     for a, b_ in zip(jax.tree_util.tree_leaves(got), jax.tree_util.tree_leaves(want_params)):
         np.testing.assert_allclose(a, np.asarray(b_), atol=STEP_ATOL)
     # the input model is untouched, as the reference's arrays are
-    assert torch.equal(flatten_params(lm), torch.from_numpy(np.array(ref_flatten(tree))))
+    assert torch.equal(mdl.flatten_lm(lm), torch.from_numpy(np.array(ref_flatten(tree))))
 
 
 # --------------------------------------------------------------------------
@@ -167,7 +166,7 @@ def test_run_federated_lm_matches_the_reference(name, monkeypatch):
 
     monkeypatch.setattr(mdl, "init_params", init_params)
     fl = fl_train.FLLMConfig(**FL, sampler=sampler_name, planner=planner)
-    d = int(flatten_params(init_params(cfg, device="cpu")).numel())
+    d = int(mdl.flatten_lm(init_params(cfg, device="cpu")).numel())
     with contextlib.closing(fl_train.make_lm_sampler(fl, ClientPopulation(SIZES), update_dim=d,
                                                      device="cpu")) as sm:
         plans = _record_plans(sm)
