@@ -37,7 +37,8 @@ Phases, one line (or a few) each; any failure raises and exits non-zero:
    the CUDA-core kernel at the reference's test shapes and a ragged
    S = T = 1,000, bf16 on the tensor-core kernel at every padded head dim
    (hd 8 to 128), ragged S = T of 1 to 1,000 around its 64-row tiles, the
-   serve path's (4, 1,000, 12, 2, 128), the fl_lm phase's local step
+   serve paths' (4, 1,000, 12, 2, 128) and qwen2-moe-a2.7b's
+   (4, 1,000, 16, 16, 128), the fl_lm phase's local step
    (4, 64, 16, 8, 128), non-causal with a ragged T, and
    views into a fused projection; atol 2e-5 in f32, and in bf16
    min(3e-2, 2⁻⁷·(|want| + Σ_j p_ij·|v_j|)), the error on the scale of the
@@ -45,10 +46,10 @@ Phases, one line (or a few) each; any failure raises and exits non-zero:
    without a launch) and check the port on the card against the port on
    the CPU on a small input (equal plans, losses and params to atol 1e-4),
    unsketched and with the SRP sketch under Ward and k-means, and the LM's
-   greedy generations (reduced qwen2-1.5b at 2 layers: in f32 equal token
-   ids and logits to atol 1e-4; in bf16, through the tensor-core kernel,
-   logits to atol 0.1 and equal tokens wherever the CPU's top-2 margin
-   exceeds 0.2);
+   greedy generations (reduced qwen2-1.5b and reduced qwen2-moe-a2.7b at 2
+   layers: in f32 equal token ids and logits to atol 1e-4; in bf16,
+   through the tensor-core kernel, logits to atol 0.1 and equal tokens
+   wherever the CPU's top-2 margin exceeds 0.2);
 3. slice   — the Algorithm 2 FL round loop at the paper's MNIST width
    (784 → 50 → 10, d = 39,760; 100 clients, m = 10, N = B = 50, lr 0.01):
    5 rounds with the arccos measure, 2 with L1, and 5 arccos rounds with
@@ -77,7 +78,8 @@ Phases, one line (or a few) each; any failure raises and exits non-zero:
    ``scaled_dot_product_attention`` in turns (kernel, library, library,
    kernel), also with the queue filled ahead of the events, and the
    TFLOP/s each reaches; the SRP kernel and ``torch.matmul(X, S)`` in
-   turns at c = 10 and 64, the similarity kernel and ``G @ G.T`` /
+   turns at c = 10 and 64 (the flash kernel also at qwen2-moe-a2.7b's
+   (4, 1,000, 16, 16, 128)), the similarity kernel and ``G @ G.T`` /
    ``torch.cdist(G, G, p=1)`` in turns at (100, 39,760) and (100, 64), and
    the aggregate kernel and ``torch.mv(U.T, w)`` in turns at (11, 39,760)
    and (41, 39,760), with the device time of each kernel they launch; an
@@ -103,6 +105,21 @@ Phases, one line (or a few) each; any failure raises and exits non-zero:
    launch an Algorithm 2 plan build, one SRP launch a sketched round. It
    prints each scheme's round ms (host clock ending in
    ``torch.cuda.synchronize()``) and ``plan_build_ms``;
+8b. ablations — the Appendix D ablations (D.2 arccos / l2 / l1, D.4 N and
+   m, D.5 FedProx μ = 0.1) and the beyond-paper sweeps (staleness decay
+   under l2, churn) through the port's ``ablations`` and ``beyond_paper``
+   runners at dim 784 (d = 39,760), 4 rounds a cell (cut from 12), with
+   every grid row; D.5's FedProx cell and D.2's l2 cell at dim 32 on the
+   card against the CPU (equal draws and plans, losses to atol 1e-4).
+   Counts reset at the phase's start: one aggregate launch a card round,
+   one Gram launch an Algorithm 2 build under arccos or l2, one L1 launch a
+   build under l1, no SRP launch. Then ``beyond_paper``'s plan check on the
+   card at d = 128 and 39,760 (the f64 host measure and the similarity
+   kernel give one plan, bit for bit), ``python -m
+   repro_torch.benchmarks.run`` with ``--list``, ``--spec`` and ``--sweep``
+   (re-invoked on its store: the cells skipped, the collated CSVs
+   identical) as subprocesses on the card, and ``examples/torch_quickstart.py``
+   on the card with its table;
 9. zoo     — the scheme zoo and client churn at the same width: the port's
    ``scheme_race`` grid (md, uniform, algorithm2, stratified, importance,
    dp_stratified, hybrid; ``by_class_shards``, 100 clients × 500 / 100,
@@ -175,14 +192,29 @@ Phases, one line (or a few) each; any failure raises and exits non-zero:
    observation, gram a rebuild, flash 28 a forward), each rebuild's Gram
    of the (32, 64) store against ``G @ G.T`` in f64, round ms and its
    parts (local steps, flatten, B2, the observation, B3, plan rebuild);
-   one local step under ``torch.profiler``.
+   one local step under ``torch.profiler``;
+13. serve_moe — ``generate`` at qwen2-moe-a2.7b's full width and depth (24
+   layers, d_model 2,048, 16 heads with 16 kv, 60 routed experts top-4 and
+   4 shared, 14,315,735,040 parameters), bf16 over f32 random parameters,
+   batch 4, prompt 1,000, 16 greedy tokens, after emptying the allocator's
+   cache: prefill ms, decode ms a step, tokens/s, peak memory, 24 flash
+   launches in the prefill and 0 in decode, finite logits and tokens equal
+   to the per-step argmax; layer 0's MoE FFN at full width in f32 on the
+   card against the CPU (the same experts and kept set, outputs within
+   1e-4 of their scale); the prefill again through the plain attention,
+   its tokens equal wherever the plain margin exceeds twice the largest
+   logit difference, with the routing choices that differ between the two
+   prefills counted; one prefill and one decode step under
+   ``torch.profiler``.
 
 The last lines are the card's name and power limit (nvidia-smi), a JSON
 object with one entry per kernel and shape (with the paper, zoo, sched
 and fl_lm phases' launches as ``paper_launches``, ``zoo_launches``,
 ``sched_launches`` and ``fl_lm_launches`` for the Gram, aggregate and SRP
-rows, and the train and fl_lm phases' as ``train_launches`` and
-``fl_lm_launches`` for the flash row), and ``{"ok": true, "device": ...}``.
+rows, the ablations phase's as ``ablations_launches`` for the Gram, L1
+and aggregate rows, the train and fl_lm phases' as ``train_launches`` and
+``fl_lm_launches`` for the flash row, and serve_moe's as the launches of
+the ``flash_attention_moe`` row), and ``{"ok": true, "device": ...}``.
 The script imports neither JAX nor the JAX package ``repro``.
 """
 from __future__ import annotations
@@ -240,8 +272,9 @@ DEV = "cuda"  # the LM phases' device
 FLASH_F32_SHAPES = [(1, 32, 4, 4, 16), (2, 64, 8, 2, 32), (1, 48, 6, 1, 64), (2, 40, 4, 2, 8),
                     (1, 1000, 4, 2, 128)]
 FLASH_PATH = (4, 1000, 12, 2, 128)
+FLASH_MOE = (4, 1000, 16, 16, 128)  # qwen2-moe-a2.7b's prefill attention: no GQA sharing
 FLASH_BF16_SHAPES = [
-    (1, 32, 4, 2, 16), FLASH_PATH,
+    (1, 32, 4, 2, 16), FLASH_PATH, FLASH_MOE,
     # every padded head dim of the bf16 kernel (32, 64, 128); hd 8 and 72
     # leave pad columns inside a 16-column k-step
     (2, 70, 4, 2, 8), (1, 96, 4, 1, 32), (1, 130, 6, 2, 64), (1, 77, 4, 2, 72),
@@ -716,11 +749,11 @@ def _flash_check(torch, label, got, q, k, v, causal=True, again=None) -> float:
     return e
 
 
-def phase_kernels_flash(torch, gen) -> float:
+def phase_kernels_flash(torch, gen) -> dict:
     """Both flash kernels against the plain version: causal at every listed
     shape, non-causal with a ragged T, bf16 views into a fused projection,
     and misaligned bf16 views that must raise; returns the max abs error at
-    the serve path's shape."""
+    the serve paths' shapes, by shape."""
     from repro_torch.kernels.flash_attention import ops as fa_ops
 
     def inputs(b, s, h, kv, hd, dtype, t=None):
@@ -728,7 +761,7 @@ def phase_kernels_flash(torch, gen) -> float:
         return (torch.randn(shape, generator=gen).to(DEV, dtype)
                 for shape in ((b, s, h, hd), (b, t, kv, hd), (b, t, kv, hd)))
 
-    path_err = None
+    path_err = {}
     for dtype, shapes in ((torch.float32, FLASH_F32_SHAPES), (torch.bfloat16, FLASH_BF16_SHAPES)):
         for shape in shapes:
             q, k, v = inputs(*shape, dtype)
@@ -736,8 +769,8 @@ def phase_kernels_flash(torch, gen) -> float:
             again = fa_ops.flash_attention_padded(q, k, v)
             e = _flash_check(torch, f"{dtype} (B, S, H, KV, hd) = {shape}", got, q, k, v,
                              again=again)
-            if dtype == torch.bfloat16 and shape == FLASH_PATH:
-                path_err = e
+            if dtype == torch.bfloat16 and shape in (FLASH_PATH, FLASH_MOE):
+                path_err[shape] = e
     for dtype in (torch.float32, torch.bfloat16):
         for shape, t in FLASH_NONCAUSAL:
             q, k, v = inputs(*shape, dtype, t=t)
@@ -773,8 +806,8 @@ def phase_kernels_flash(torch, gen) -> float:
     return path_err
 
 
-def _serve_small(torch, device, dtype="float32"):
-    """Greedy generations of reduced qwen2-1.5b at 2 layers with activations
+def _serve_small(torch, device, dtype="float32", arch=SERVE_SMALL["arch"]):
+    """Greedy generations of reduced ``arch`` at 2 layers with activations
     in ``dtype``, from parameters made on the CPU; returns (token ids,
     per-step logits)."""
     import dataclasses
@@ -783,7 +816,7 @@ def _serve_small(torch, device, dtype="float32"):
     from repro_torch.launch.serve import generate
     from repro_torch.models import model as mdl
 
-    cfg = dataclasses.replace(get_config(SERVE_SMALL["arch"], reduced=True),
+    cfg = dataclasses.replace(get_config(arch, reduced=True),
                               n_layers=SERVE_SMALL["n_layers"], dtype=dtype)
     params = mdl.init_params(cfg, 0, device="cpu").to(device)
     g = torch.Generator().manual_seed(1)
@@ -793,14 +826,14 @@ def _serve_small(torch, device, dtype="float32"):
     return tokens.cpu(), logits.float().cpu()
 
 
-def _serve_small_pair(torch, dtype):
+def _serve_small_pair(torch, dtype, arch):
     """The small serve on the CPU and on the card; the card's run must
     launch the flash kernel once per layer."""
     from repro_torch.kernels.flash_attention import ops as fa_ops
 
-    cpu = _serve_small(torch, "cpu", dtype)
+    cpu = _serve_small(torch, "cpu", dtype, arch)
     fa_ops.launches.update(flash_attention=0)
-    gpu = _serve_small(torch, DEV, dtype)
+    gpu = _serve_small(torch, DEV, dtype, arch)
     torch.cuda.synchronize()
     n = fa_ops.launches["flash_attention"]
     if n != SERVE_SMALL["n_layers"]:
@@ -808,10 +841,10 @@ def _serve_small_pair(torch, dtype):
     return cpu, gpu, n
 
 
-def phase_small_serve(torch):
-    label = (f"reduced qwen2-1.5b, 2 layers, batch {SERVE_SMALL['batch']}, prompt "
+def phase_small_serve(torch, arch=SERVE_SMALL["arch"]):
+    label = (f"reduced {arch}, 2 layers, batch {SERVE_SMALL['batch']}, prompt "
              f"{SERVE_SMALL['prompt_len']}, gen {SERVE_SMALL['gen']}")
-    cpu, gpu, n = _serve_small_pair(torch, "float32")
+    cpu, gpu, n = _serve_small_pair(torch, "float32", arch)
     if not torch.equal(cpu[0], gpu[0]):
         fail(f"small input [serve]: the card's tokens {gpu[0].tolist()} differ from the CPU's "
              f"{cpu[0].tolist()}")
@@ -820,7 +853,7 @@ def phase_small_serve(torch):
         fail(f"small input [serve]: logits differ by {e} > {SERVE_SMALL_ATOL}")
     print(f"kernels: small input [serve] ({label}, f32), card vs CPU: token ids equal, max logit "
           f"diff {e:.2e} (atol {SERVE_SMALL_ATOL}), {n} flash launches")
-    cpu, gpu, n = _serve_small_pair(torch, "bfloat16")
+    cpu, gpu, n = _serve_small_pair(torch, "bfloat16", arch)
     e, steps, held = _compare_bf16_generations(cpu, gpu)
     print(f"kernels: small input [serve] ({label}, bf16 through the tensor-core kernel), card vs "
           f"CPU: max logit diff {e:.2e} (atol {SERVE_SMALL_BF16_ATOL}) over {steps} row-steps, "
@@ -1218,45 +1251,69 @@ def phase_serve(torch):
     return cfg, params, prompts, in_prefill + in_decode
 
 
-def _serve_against_plain(torch, cfg, params, prompts):
+def _serve_against_plain(torch, cfg, params, prompts, label="serve"):
     """One prefill through the kernel and one with the model's attention
     swapped for the plain version on the card: the last-position tokens must
     agree in every row whose plain top-2 margin exceeds twice the largest
-    logit difference."""
+    logit difference. In an MoE model it counts the routing choices that
+    differ between the two prefills (a flipped expert inflates the logit
+    difference, and so loosens the rule)."""
     from repro_torch.kernels.flash_attention.ref import flash_attention_plain
     from repro_torch.models import model as mdl
     from repro_torch.models.layers import attention
+    from repro_torch.models.layers import moe as moe_lib
 
     def last_logits():
-        with torch.inference_mode():
-            caches = mdl.init_cache(cfg, prompts.shape[0], prompts.shape[1] + 1, device=DEV)
-            hidden, _ = mdl.forward(cfg, params, prompts, caches=caches)
-            return mdl.logits_from_hidden(cfg, params, hidden[:, -1:, :])[:, 0].float()
+        routes = []
+        route = moe_lib.route
+        moe_lib.route = lambda *a: routes.append(route(*a)) or routes[-1]
+        try:
+            with torch.inference_mode():
+                caches = mdl.init_cache(cfg, prompts.shape[0], prompts.shape[1] + 1, device=DEV)
+                hidden, _, _ = mdl.forward(cfg, params, prompts, caches=caches)
+                logits = mdl.logits_from_hidden(cfg, params, hidden[:, -1:, :])[:, 0].float()
+        finally:
+            moe_lib.route = route
+        return logits, [(r.expert, r.kept) for r in routes]
 
-    kernel = last_logits()
+    kernel, kernel_routes = last_logits()
+    again, again_routes = last_logits()
+    if not torch.equal(kernel, again) or not all(
+            torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+            for a, b in zip(kernel_routes, again_routes)):
+        fail(f"{label}: two prefills through the kernel differ (logits or routing)")
     swapped = attention.flash_attention
     attention.flash_attention = (
         lambda q, k, v, causal=True: flash_attention_plain(q, k, v, causal=causal))
     try:
-        plain = last_logits()
+        plain, plain_routes = last_logits()
     finally:
         attention.flash_attention = swapped
+    if kernel_routes:
+        choices = sum(e.numel() for e, _ in kernel_routes)
+        flipped = [int((a[0] != b[0]).sum()) for a, b in zip(kernel_routes, plain_routes)]
+        kept = sum(int((a[1] != b[1]).sum()) for a, b in zip(kernel_routes, plain_routes))
+        print(f"{label}: two prefills through the kernel: logits and routing bit-identical; kernel "
+              f"vs plain prefill routing: {sum(flipped)} of {choices} expert choices differ over "
+              f"{len(kernel_routes)} MoE layers (by layer {flipped}), {kept} kept/dropped states "
+              "differ")
     delta = float((kernel - plain).abs().max())
     top2 = plain.topk(2, dim=-1).values
     margin = top2[:, 0] - top2[:, 1]
     decided = margin > 2 * delta
     same = kernel.argmax(dim=-1) == plain.argmax(dim=-1)
     if not math.isfinite(delta) or bool((decided & ~same).any()):
-        fail(f"serve: the kernel's prefill picks other tokens than the plain version's where the "
+        fail(f"{label}: the kernel's prefill picks other tokens than the plain version's where the "
              f"margin exceeds 2·{delta:.4f}: margins {margin.tolist()}, equal {same.tolist()}")
-    print(f"serve: prefill through the kernel vs the plain version on the card: max |Δ| of the "
+    print(f"{label}: prefill through the kernel vs the plain version on the card: max |Δ| of the "
           f"last-position logits {delta:.4e}; tokens equal in {int(same.sum())} of "
           f"{same.numel()} rows, {int(decided.sum())} rows with a margin above 2·max|Δ| "
           f"(margins {[round(x, 4) for x in margin.tolist()]})")
 
 
-def phase_serve_trace(torch, cfg, params, prompts):
-    """One prefill and one decode step under torch.profiler."""
+def phase_serve_trace(torch, cfg, params, prompts, tag=""):
+    """One prefill and one decode step under torch.profiler; ``tag``
+    prefixes the trace labels."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.models import model as mdl
@@ -1267,13 +1324,15 @@ def phase_serve_trace(torch, cfg, params, prompts):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            hidden, caches = mdl.forward(cfg, params, prompts, caches=caches)
+            hidden, caches, _ = mdl.forward(cfg, params, prompts, caches=caches)
             logits = mdl.logits_from_hidden(cfg, params, hidden[:, -1:, :])[:, 0]
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
-        busy, by_name = _report_trace(torch, prof, wall_ms, "prefill", f"one prefill of ({b}, {p})")
+        busy, by_name = _report_trace(torch, prof, wall_ms, f"{tag}prefill",
+                                      f"one prefill of ({b}, {p})")
         flash = sum(ms for name, ms in by_name.items() if "flash_fwd" in name)
-        print(f"trace[prefill]: flash kernel {flash:.3f} ms, {flash / busy:.4f} of the device-busy time")
+        print(f"trace[{tag}prefill]: flash kernel {flash:.3f} ms, {flash / busy:.4f} of the "
+              "device-busy time")
         tok = logits.argmax(dim=-1, keepdim=True)
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -1281,11 +1340,11 @@ def phase_serve_trace(torch, cfg, params, prompts):
             mdl.decode_step(cfg, params, tok, caches)
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
-        _report_trace(torch, prof, wall_ms, "decode", "one decode step")
+        _report_trace(torch, prof, wall_ms, f"{tag}decode", "one decode step")
 
 
-def flash_time_row(torch, gen, name, err, launches):
-    """The bf16 flash kernel at the serve path's shape: its time, the plain
+def flash_time_row(torch, gen, name, err, launches, shape=FLASH_PATH, row_name="flash_attention"):
+    """The bf16 flash kernel at a serve path's shape: its time, the plain
     version's and scaled_dot_product_attention's, beside its bound. The
     kernel and the library are timed in turns (kernel, library, library,
     kernel), by events as called and with the queue filled ahead."""
@@ -1295,9 +1354,9 @@ def flash_time_row(torch, gen, name, err, launches):
     from repro_torch.kernels.flash_attention.ref import flash_attention_plain
 
     part, bw, _, bf16 = peaks_for(name)
-    b, s, h, kv, hd = FLASH_PATH
-    q, k, v = (torch.randn(shape, generator=gen).to(DEV, torch.bfloat16)
-               for shape in ((b, s, h, hd), (b, s, kv, hd), (b, s, kv, hd)))
+    b, s, h, kv, hd = shape
+    q, k, v = (torch.randn(dims, generator=gen).to(DEV, torch.bfloat16)
+               for dims in ((b, s, h, hd), (b, s, kv, hd), (b, s, kv, hd)))
     # the yardstick takes (B, H, S, hd) views; the port never calls it
     qt, kt, vt = (a.transpose(1, 2) for a in (q, k, v))
     fns = {"kernel": lambda: fa_ops.flash_attention_padded(q, k, v),
@@ -1323,7 +1382,7 @@ def flash_time_row(torch, gen, name, err, launches):
     nops = 2 * b * h * s * s * hd  # causal: QKᵀ and PV over the lower triangle
     t_bytes, t_ops = nbytes / bw * 1e3, nops / bf16 * 1e3
     row = {
-        "name": "flash_attention", "route": "cuda", "source": "src/repro_torch/csrc/flash_attention.cu",
+        "name": row_name, "route": "cuda", "source": "src/repro_torch/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention/kernel.py:70", "launches": launches,
         "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
         "bound_by": "bytes" if t_bytes >= t_ops else "operations", "library_ms": lib_ms,
@@ -1332,19 +1391,19 @@ def flash_time_row(torch, gen, name, err, launches):
     def tflops(t_ms):
         return nops / (t_ms * 1e-3) / 1e12
 
-    print(f"times: flash_attention {FLASH_PATH} bf16 {ms:.6f} ms, plain {plain_ms:.6f} ms, library "
+    print(f"times: {row_name} {shape} bf16 {ms:.6f} ms, plain {plain_ms:.6f} ms, library "
           f"(scaled_dot_product_attention) {lib_ms:.6f} ms, bound {row['bound_ms']:.6f} ms "
           f"({row['bound_by']}; {part} peaks {bw / 1e12:.2f} TB/s, {bf16 / 1e12:.0f} TFLOP/s bf16; "
           f"{nbytes} B, {nops} FLOP)")
-    print(f"times: flash_attention in turns (kernel, library, library, kernel), ms per call by "
+    print(f"times: {row_name} in turns (kernel, library, library, kernel), ms per call by "
           f"events as called: {called['kernel'][0]:.6f}, {called['library'][0]:.6f}, "
           f"{called['library'][1]:.6f}, {called['kernel'][1]:.6f}; with the queue filled ahead: "
           f"{queued['kernel'][0]:.6f}, {queued['library'][0]:.6f}, {queued['library'][1]:.6f}, "
           f"{queued['kernel'][1]:.6f}")
-    print(f"times: flash_attention kernel {tflops(ms):.1f} TFLOP/s as called, {tflops(q_ms):.1f} "
+    print(f"times: {row_name} kernel {tflops(ms):.1f} TFLOP/s as called, {tflops(q_ms):.1f} "
           f"queued; library {tflops(lib_ms):.1f} as called, {tflops(q_lib):.1f} queued; kernel / "
           f"library {ms / lib_ms:.3f} as called, {q_ms / q_lib:.3f} queued")
-    print(f"times: flash_attention device-busy per call (profiler): kernel {dev[0]:.6f} ms (mean of "
+    print(f"times: {row_name} device-busy per call (profiler): kernel {dev[0]:.6f} ms (mean of "
           f"the {len(kept)} of 20 launches it kept), plain {dev[1]:.6f} ms, library {dev[2]:.6f} ms; "
           f"kernel at {tflops(dev[0]):.1f} TFLOP/s")
     print(f"times: scaled_dot_product_attention ran {sorted({e.name[:80] for e in lib_events})}")
@@ -1907,13 +1966,239 @@ def phase_paper(torch, gen) -> dict:
     if launches["srp"] != srp_sketched or srp_sketched != PAPER_SKETCH_ROUNDS:
         fail(f"paper: {launches['srp']} srp launches, {srp_sketched} in the sketched cell's "
              f"{PAPER_SKETCH_ROUNDS} rounds")
+    _round_times("paper", probe)
+    print(f"paper: {time.perf_counter() - t0:.3f} s")
+    return launches
+
+
+def _round_times(phase: str, probe) -> None:
+    """A ``times:`` line of round ms and plan_build_ms by sweep and scheme."""
+    import numpy as np
+
     for (label, scheme), rows in probe.rounds.items():
         ms = np.array([r[0] for r in rows])
         build = np.array([r[1] for r in rows])
-        print(f"times: paper[{label}] {scheme}: {len(rows)} rounds, round ms median "
+        print(f"times: {phase}[{label}] {scheme}: {len(rows)} rounds, round ms median "
               f"{np.median(ms):.3f} (min {ms.min():.3f}, max {ms.max():.3f}), plan_build_ms median "
               f"{np.median(build):.3f}")
-    print(f"paper: {time.perf_counter() - t0:.3f} s")
+
+
+# the ablations phase: Appendix D and the beyond-paper sweeps at the MNIST width
+ABL_ROUNDS = 4  # the runners' ROUNDS = 12, cut
+ABL_SMALL_ROUNDS = 2
+ABL_PLAN_DIMS = (128, WIDTH[0] * WIDTH[1] + WIDTH[1] + WIDTH[1] * WIDTH[2] + WIDTH[2])
+# (sweep, axis choices) of the cells run on the card against the CPU at the runners' dim 32
+ABL_SMALL = {"D5[fedprox]": ("SWEEP_D5", {"sampler.name": "algorithm2"}),
+             "D2[l2]": ("SWEEP_D2", {"sampler.options.measure": "l2"})}
+ABL_SPEC = {
+    "data": {"name": "by_class_shards",
+             "options": {"n_classes": 4, "clients_per_class": 3, "dim": 8,
+                         "train_per_client": 30, "test_per_client": 8, "seed": 0}},
+    "sampler": {"name": "algorithm2", "m": 4},
+    "train": {"n_rounds": 3, "n_local_steps": 2, "batch_size": 10, "hidden": [8], "lr": 0.05},
+}
+
+
+class AblationProbe(PaperProbe):
+    """The paper phase's probe, also recording the measure of each
+    Algorithm 2 plan build on the card."""
+
+    def __init__(self, torch):
+        super().__init__(torch)
+        self.measures: list[str] = []
+
+    def _build_plan(self, orig):
+        def build_plan(sampler, G):
+            plan = orig(sampler, G)
+            device = sampler._store.device.type
+            self.builds[device].append(plan.r_tokens.copy())
+            if device == "cuda":
+                self.measures.append(sampler.measure)
+            return plan
+        return build_plan
+
+
+def ablation_sweeps(probe, store_root: str) -> None:
+    """The ablations and beyond_paper runners' sweeps at dim 784 through
+    run_sweep_emit on the card, ABL_ROUNDS rounds a cell."""
+    from repro_torch.benchmarks import ablations, beyond_paper
+    from repro_torch.benchmarks.common import run_sweep_emit
+
+    print(f"ablations: cuts: data.options.dim {ablations.DIM} -> {WIDTH[0]} (d = "
+          f"{ABL_PLAN_DIMS[1]}), train.n_rounds {ablations.ROUNDS} -> {ABL_ROUNDS}; seeds and "
+          "every other option as the runners set them")
+    for sweep, label, stats in ablations.SWEEPS + beyond_paper.SWEEPS:
+        d = _paper_sweep(sweep, ABL_ROUNDS, 1, {"dim": WIDTH[0]})
+        probe.label = label
+        run_sweep_emit(d, label, stats=stats, device="cuda")
+        for cell, hist in _paper_histories(store_root, label.replace("/", "_"), d):
+            if len(hist.records) != ABL_ROUNDS or not all(
+                    math.isfinite(r.train_loss) for r in hist.records):
+                fail(f"ablations[{label}]: cell {cell.overrides} did not run {ABL_ROUNDS} finite rounds")
+
+
+def ablations_card_vs_cpu(probe) -> None:
+    """ABL_SMALL's cells at the runners' dim 32, ABL_SMALL_ROUNDS rounds, on
+    the card and on the CPU: equal draws and Algorithm 2 plans, losses to
+    atol PAPER_LOSS_ATOL."""
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch.benchmarks import ablations
+    from repro_torch.fl.sweep import RunStore, SweepSpec, run_sweep, set_by_path
+
+    for label, (attr, choice) in ABL_SMALL.items():
+        sweep = _paper_sweep(getattr(ablations, attr), ABL_SMALL_ROUNDS, 1, {})
+        sweep["axes"] = {}
+        for path, value in choice.items():
+            set_by_path(sweep, f"base.{path}", value)
+        (cell,) = SweepSpec.from_dict(sweep).cells()
+        first = {dev: len(probe.builds[dev]) for dev in probe.builds}
+        hists = {}
+        for dev in ("cuda", "cpu"):
+            probe.label = f"card-vs-cpu[{label}][{dev}]"
+            with tempfile.TemporaryDirectory(prefix=f"ablation-{dev}-") as root:
+                run_sweep(sweep, root, device=dev)
+                hists[dev] = RunStore(root).read_history(cell.cell_id)
+        worst = 0.0
+        for a, b in zip(hists["cuda"].records, hists["cpu"].records):
+            if not np.array_equal(a.agg_weights, b.agg_weights):
+                fail(f"ablations[card vs CPU, {label}]: round {a.round}: draws differ")
+            worst = max(worst, abs(a.train_loss - b.train_loss))
+        plans = {dev: probe.builds[dev][first[dev]:] for dev in probe.builds}
+        if not plans["cuda"] or len(plans["cuda"]) != len(plans["cpu"]) or not all(
+                np.array_equal(a, b) for a, b in zip(plans["cuda"], plans["cpu"])):
+            fail(f"ablations[card vs CPU, {label}]: Algorithm 2's plans differ")
+        if worst > PAPER_LOSS_ATOL:
+            fail(f"ablations[card vs CPU, {label}]: losses differ by {worst:.3e} > {PAPER_LOSS_ATOL}")
+        print(f"ablations[card vs CPU]: {label} at dim 32, {ABL_SMALL_ROUNDS} rounds "
+              f"(fedprox_mu {cell.spec.train.fedprox_mu}, measure "
+              f"{cell.spec.sampler.options.get('measure', 'arccos')}): equal draws, "
+              f"{len(plans['cuda'])} equal plans, max loss diff {worst:.2e}")
+
+
+def ablations_plan_check() -> None:
+    """beyond_paper's host-vs-device plan check on the card at ABL_PLAN_DIMS:
+    the f64 numpy measure and the similarity kernel give one plan, bit for bit."""
+    import numpy as np
+
+    from repro_torch.benchmarks import beyond_paper
+    from repro_torch.benchmarks.common import emit
+
+    for d in ABL_PLAN_DIMS:
+        same, host, dev = beyond_paper.plan_check(d=d, device="cuda")
+        if not same:
+            fail(f"ablations[plan check]: at d = {d} the card's plan differs from the host's: "
+                 f"max |Δr| {float(np.abs(host.r - dev.r).max()):.3e}")
+        emit(f"beyond/pallas_similarity_plan_identical[d={d}]", 0.0, f"identical={same}")
+
+
+def _door(*args) -> str:
+    """``python -m repro_torch.benchmarks.run`` with ``args`` as a subprocess
+    on the card (its default device); its stdout, or a failure."""
+    import os
+
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        p for p in (str(SRC), os.environ.get("PYTHONPATH")) if p))
+    out = subprocess.run([sys.executable, "-m", "repro_torch.benchmarks.run", *args], cwd=ROOT,
+                         env=env, capture_output=True, text=True, timeout=600)
+    if out.returncode != 0:
+        fail(f"ablations[doors]: run {' '.join(a[:40] for a in args)} exited "
+             f"{out.returncode}: {out.stderr[-2000:]}")
+    return out.stdout
+
+
+def ablations_doors() -> None:
+    """run.py's --list, --spec and --sweep (re-invoked to resume) on the card."""
+    import tempfile
+
+    listed = _door("--list")
+    keys = [line.split(":")[0] for line in listed.splitlines()]
+    if keys != ["samplers", "engines", "datasets", "populations", "clusterers", "sketchers",
+                "schedulers", "benchmarks"]:
+        fail(f"ablations[doors]: --list printed {keys}")
+    print("\n".join(f"ablations[--list]: {line}" for line in listed.splitlines()))
+    rows = [r for r in _door("--spec", json.dumps(ABL_SPEC)).splitlines() if r.startswith("spec/")]
+    if len(rows) != ABL_SPEC["train"]["n_rounds"] + 1:
+        fail(f"ablations[doors]: --spec printed {len(rows)} rows")
+    print(f"ablations[--spec]: {rows[-1]}")
+    sweep = json.dumps({"base": ABL_SPEC, "axes": {"sampler.name": ["md", "algorithm2"]},
+                        "root_seed": 5})
+    with tempfile.TemporaryDirectory(prefix="door-sweep-") as store:
+        first = _door("--sweep", sweep, "--store", store)
+        csvs = {p.name: p.read_text() for p in Path(store).glob("*.csv")}
+        again = _door("--sweep", sweep, "--store", store)
+        if {p.name: p.read_text() for p in Path(store).glob("*.csv")} != csvs or len(csvs) != 2:
+            fail("ablations[doors]: --sweep resumed to other collated CSVs")
+    ran = [r for r in first.splitlines() if r.startswith("sweep/")]
+    resumed = [r for r in again.splitlines() if r.startswith("sweep/")]
+    if len(ran) != 2 or not all("status=ran" in r for r in ran) or not all(
+            "status=skipped" in r for r in resumed) or len(resumed) != 2:
+        fail(f"ablations[doors]: --sweep rows {ran}, resumed {resumed}")
+    print(f"ablations[--sweep]: 2 cells ran, resumed as skipped with identical cells.csv and "
+          f"summary.csv: {ran}")
+
+
+def ablations_quickstart() -> None:
+    """examples/torch_quickstart.py on the card, its table printed."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location("torch_quickstart",
+                                                  ROOT / "examples" / "torch_quickstart.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    t0 = time.perf_counter()
+    mod.main([])
+    print(f"ablations[quickstart]: {time.perf_counter() - t0:.3f} s on the card")
+
+
+def phase_ablations(torch) -> dict:
+    """The Appendix D ablations and the beyond-paper sweeps through the
+    port's runners on the card, two cells card against CPU, the plan check,
+    run.py's doors and the quickstart. Returns the sweeps' launches."""
+    import os
+    import tempfile
+
+    from repro_torch.kernels.aggregate import ops as agg_ops
+    from repro_torch.kernels.similarity import ops as sim_ops
+    from repro_torch.kernels.sketch import ops as sk_ops
+
+    t0 = time.perf_counter()
+    saved_store = os.environ.get("BENCH_SWEEP_STORE")
+    with tempfile.TemporaryDirectory(prefix="ablations-") as root, AblationProbe(torch) as probe:
+        os.environ["BENCH_SWEEP_STORE"] = root  # keep the runners' stores to read the rounds
+        try:
+            torch.cuda.synchronize()
+            sim_ops.launches.update(gram=0, l1=0)
+            agg_ops.launches.update(aggregate=0)
+            sk_ops.launches.update(srp=0)
+            ablation_sweeps(probe, root)
+            ablations_card_vs_cpu(probe)
+            torch.cuda.synchronize()
+            launches = {**sim_ops.launches, **agg_ops.launches, **sk_ops.launches}
+        finally:
+            if saved_store is None:
+                os.environ.pop("BENCH_SWEEP_STORE", None)
+            else:
+                os.environ["BENCH_SWEEP_STORE"] = saved_store
+    by_measure = {m: probe.measures.count(m) for m in sorted(set(probe.measures))}
+    print(f"ablations: launches {json.dumps(launches)}; {probe.card_rounds} rounds and "
+          f"{len(probe.measures)} Algorithm 2 plan builds on the card, by measure "
+          f"{json.dumps(by_measure)}")
+    if launches["aggregate"] != probe.card_rounds:
+        fail(f"ablations: {launches['aggregate']} aggregate launches in {probe.card_rounds} rounds")
+    gram_builds = by_measure.get("arccos", 0) + by_measure.get("l2", 0)
+    if launches["gram"] != gram_builds or launches["l1"] != by_measure.get("l1", 0):
+        fail(f"ablations: {launches['gram']} gram and {launches['l1']} l1 launches for plan builds "
+             f"by measure {by_measure}")
+    if launches["srp"] != 0:
+        fail(f"ablations: {launches['srp']} srp launches in unsketched sweeps")
+    _round_times("ablations", probe)
+    ablations_plan_check()
+    ablations_doors()
+    ablations_quickstart()
+    print(f"ablations: {time.perf_counter() - t0:.3f} s")
     return launches
 
 
@@ -3276,6 +3561,128 @@ def phase_fl_lm(torch, name) -> dict:
     return {"launches": {k: md[k] + a2[k] for k in md}, "kernels": kern}
 
 
+# ---------------------------------------------------------------------------
+# serve_moe: qwen2-moe-a2.7b's serve path at full width and depth
+# ---------------------------------------------------------------------------
+SERVE_MOE = dict(arch="qwen2-moe-a2.7b", batch=4, prompt_len=1000, gen=16)
+MOE_P = 14_315_735_040  # qwen2-moe-a2.7b's parameters
+MOE_LAYER_RTOL = 1e-4  # card vs CPU, f32: of the output's scale max |out|
+MOE_AUX_ATOL = 1e-6
+
+
+def moe_layer_card_vs_cpu(torch, cfg, params) -> None:
+    """Layer 0's MoE FFN at full width in f32 (TF32 off) on the card and on
+    the CPU, on the same (batch, prompt, d_model) input: the same expert
+    choices and kept set, outputs within MOE_LAYER_RTOL of their scale."""
+    import dataclasses
+
+    from repro_torch.models.layers import moe as moe_lib
+
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    card = params.blocks[0]["moe"]
+
+    def to_cpu(tree):
+        return {k: to_cpu(v) if isinstance(v, torch.nn.Module) else v.detach().cpu()
+                for k, v in tree.items()}
+
+    host = to_cpu(card)
+    g = torch.Generator().manual_seed(5)
+    x = torch.randn((SERVE_MOE["batch"], SERVE_MOE["prompt_len"], cfg.d_model), generator=g)
+    out = {}
+    for where, dev, p in (("card", DEV, card), ("cpu", "cpu", host)):
+        xd = x.to(dev)
+        with torch.inference_mode():
+            r = moe_lib.route(cfg32, p, moe_lib.token_groups(cfg32, xd))
+            y, aux = moe_lib.moe_ffn(cfg32, p, xd)
+        out[where] = (r.expert.cpu(), r.kept.cpu(), y.cpu(), float(aux))
+    (e_g, k_g, y_g, a_g), (e_c, k_c, y_c, a_c) = out["card"], out["cpu"]
+    flipped = int((e_g != e_c).sum())
+    scale = float(y_c.abs().max())
+    rel = float((y_g - y_c).abs().max()) / scale
+    print(f"serve_moe: layer 0's MoE FFN at full width ({tuple(x.shape)}, {e_g.shape[0]} groups of "
+          f"{e_g.shape[1]}, capacity {moe_lib.expert_capacity(cfg.moe)}), f32 card vs CPU: "
+          f"{flipped} of {e_g.numel()} expert choices differ, {int((k_g != k_c).sum())} kept states "
+          f"differ ({int((~k_c).sum())} choices dropped on the CPU), max |Δout| {rel:.3e} of "
+          f"max |out| {scale:.3e} (limit {MOE_LAYER_RTOL}), aux {a_g:.7f} vs {a_c:.7f}")
+    if flipped or not torch.equal(k_g, k_c):
+        fail("serve_moe: the card routes the full-width MoE layer otherwise than the CPU")
+    if not math.isfinite(rel) or rel > MOE_LAYER_RTOL or abs(a_g - a_c) > MOE_AUX_ATOL:
+        fail(f"serve_moe: the full-width MoE layer's output differs by {rel:.3e} of its scale, "
+             f"aux by {abs(a_g - a_c):.3e}")
+
+
+def phase_serve_moe(torch) -> dict:
+    """``generate`` at qwen2-moe-a2.7b's full width and depth (24 layers,
+    d_model 2,048, 60 routed experts top-4 + 4 shared), bf16 over f32
+    random parameters: prefill and decode times, peak memory, 24 flash
+    launches in the prefill and 0 in decode; layer 0's MoE FFN on the card
+    against the CPU; the prefill against the plain attention."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import model as mdl
+
+    torch.cuda.empty_cache()
+    cfg = get_config(SERVE_MOE["arch"])
+    b, p, n_gen = SERVE_MOE["batch"], SERVE_MOE["prompt_len"], SERVE_MOE["gen"]
+    t0 = time.perf_counter()
+    params = mdl.init_params(cfg, 0, device=DEV)
+    g = torch.Generator(device=DEV).manual_seed(1)
+    prompts = torch.randint(0, cfg.vocab_size, (b, p), generator=g, device=DEV)
+    torch.cuda.synchronize()
+    n = mdl.param_count(params)
+    moe = cfg.moe
+    print(f"serve_moe: {cfg.name} ({cfg.source}), {cfg.n_layers} layers, d_model {cfg.d_model}, "
+          f"{cfg.n_heads} heads ({cfg.n_kv_heads} kv), head_dim {cfg.resolved_head_dim}, "
+          f"{moe.n_routed} routed experts top-{moe.top_k} + {moe.n_shared} shared, d_ff_expert "
+          f"{moe.d_ff_expert}, group {moe.group_size}, capacity factor {moe.capacity_factor}, vocab "
+          f"{cfg.vocab_size}, {cfg.dtype} over {cfg.param_dtype}: {n} parameters made on the card "
+          f"in {time.perf_counter() - t0:.3f} s, {torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    if n != MOE_P:
+        fail(f"serve_moe: {n} parameters, expected {MOE_P}")
+    generate(cfg, params, prompts, 2, device=DEV)  # warm-up
+    marks, counts = [], []
+
+    def on_step(phase, t):
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+        counts.append(fa_ops.launches["flash_attention"])
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa_ops.launches.update(flash_attention=0)
+    t0 = time.perf_counter()
+    tokens, logits = generate(cfg, params, prompts, n_gen, device=DEV, on_step=on_step)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    prefill_ms = (marks[0] - t0) * 1e3
+    decode_ms = (marks[-1] - marks[0]) * 1e3 / (n_gen - 1)
+    in_prefill, in_decode = counts[0], counts[-1] - counts[0]
+    print(f"serve_moe: batch {b}, prompt {p}, {n_gen} tokens: prefill {prefill_ms:.3f} ms, decode "
+          f"{decode_ms:.3f} ms per step ({b * (n_gen - 1) / (marks[-1] - marks[0]):.1f} tokens/s "
+          f"decoding, {b * n_gen / (marks[-1] - t0):.1f} tokens/s end to end); peak device memory "
+          f"{peak} B ({peak / 2**30:.2f} GiB)")
+    print(f"serve_moe: flash_attention launches: {in_prefill} in the prefill, {in_decode} in the "
+          f"{n_gen - 1} decode steps")
+    print(f"serve_moe: first generated row {tokens[0].tolist()}")
+    if (in_prefill, in_decode) != (cfg.n_layers, 0):
+        fail(f"serve_moe: flash launches {in_prefill} in the prefill and {in_decode} in the decode, "
+             f"expected {cfg.n_layers} and 0")
+    if tuple(tokens.shape) != (b, n_gen) or tuple(logits.shape) != (n_gen, b, cfg.vocab_size):
+        fail(f"serve_moe: tokens {tuple(tokens.shape)}, logits {tuple(logits.shape)}")
+    if not bool(torch.isfinite(logits).all()):
+        fail("serve_moe: logits are not finite")
+    if not torch.equal(tokens, logits.argmax(dim=-1).T):
+        fail("serve_moe: the tokens are not the per-step argmax of the logits")
+    moe_layer_card_vs_cpu(torch, cfg, params)
+    _serve_against_plain(torch, cfg, params, prompts, label="serve_moe")
+    phase_serve_trace(torch, cfg, params, prompts, tag="moe ")
+    del params, prompts, logits
+    torch.cuda.empty_cache()
+    return {"flash": in_prefill + in_decode, "prefill_ms": prefill_ms, "decode_ms": decode_ms,
+            "peak": peak}
+
+
 def main() -> int:
     import torch
 
@@ -3298,6 +3705,7 @@ def main() -> int:
     err = phase_kernels(torch, gen)
     phase_small_input()
     phase_small_serve(torch)
+    phase_small_serve(torch, SERVE_MOE["arch"])
     launches, ds, params, round_ms = phase_slice(torch)
     launches["srp_fleet"] = phase_fleet(torch)
     phase_trace(torch, ds, params, round_ms["arccos"])
@@ -3309,12 +3717,18 @@ def main() -> int:
     srp_turns(torch, gen)
     sim_turns(torch, gen)
     agg_turns(torch, gen)
-    rows.append(flash_time_row(torch, gen, name, err["flash"], flash_launches))
+    rows.append(flash_time_row(torch, gen, name, err["flash"][FLASH_PATH], flash_launches))
+    # its launches are serve_moe's, set below
+    moe_row = flash_time_row(torch, gen, name, err["flash"][FLASH_MOE], None, FLASH_MOE,
+                             "flash_attention_moe")
+    rows.append(moe_row)
     paper = phase_paper(torch, gen)
+    ablations = phase_ablations(torch)
     zoo = phase_zoo(torch)
     sched = phase_sched(torch)
     trained = phase_train(torch, gen, name)
     fl_lm = phase_fl_lm(torch, name)
+    moe_row["launches"] = phase_serve_moe(torch)["flash"]
     for row in rows:
         key = {"similarity_gram": "gram", "aggregate": "aggregate", "srp_sketch": "srp"}.get(row["name"])
         if key is not None:
@@ -3322,6 +3736,9 @@ def main() -> int:
             row["zoo_launches"] = zoo[key]
             row["sched_launches"] = sched[key]
             row["fl_lm_launches"] = fl_lm["launches"][key]
+        key = {"similarity_gram": "gram", "similarity_l1": "l1", "aggregate": "aggregate"}.get(row["name"])
+        if key is not None:
+            row["ablations_launches"] = ablations[key]
         if row["name"] == "flash_attention":
             row["train_launches"] = trained["flash"]
             row["fl_lm_launches"] = fl_lm["launches"]["flash_attention"]

@@ -1,6 +1,6 @@
-# Adapted from benchmarks/common.py: emit, timed, PAPER_TRAIN and
+# Adapted from benchmarks/common.py: emit, timed, PAPER_TRAIN, run_spec and
 # run_sweep_emit, with a device argument.
-"""Shared benchmark helpers: timed CSV rows + sweep-driven FL runs."""
+"""Shared benchmark helpers: timed CSV rows + spec/sweep-driven FL runs."""
 from __future__ import annotations
 
 import argparse
@@ -39,6 +39,30 @@ def timed(fn, *args, repeats: int = 3, warmup: int = 1, **kw) -> tuple[float, ob
         out = fn(*args, **kw)
     dt = (time.perf_counter() - t0) / repeats
     return dt * 1e6, out
+
+
+def summarize(hist, rounds: int) -> dict:
+    """The figure-level summary statistics of one run's History."""
+    from repro_torch.fl.sweep import summarize_history
+
+    return summarize_history(hist, rounds)
+
+
+def run_spec(spec, *, dataset=None, on_round=None, device="cuda") -> dict:
+    """Run one declarative experiment on ``device``; return its summary statistics.
+
+    ``spec`` is an ``ExperimentSpec`` or its dict form; ``dataset``
+    short-circuits the data section so a scenario matrix sharing one
+    partition builds it once. The context manager guarantees async planner
+    workers are released, and ``on_round`` streams each ``RoundRecord`` as
+    it lands (the server's telemetry hook) — no hand-rolled collection.
+    """
+    from repro_torch.fl.experiment import ExperimentSpec, build_experiment
+
+    spec = ExperimentSpec.from_dict(spec) if isinstance(spec, dict) else spec
+    with build_experiment(spec, dataset=dataset, device=device) as srv:
+        hist = srv.run(on_round=on_round)
+    return summarize(hist, spec.train.n_rounds)
 
 
 def device_from_argv(description: str, argv: "list[str] | None" = None) -> str:

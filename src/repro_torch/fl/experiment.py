@@ -416,28 +416,7 @@ def load_spec_dict(arg: str) -> dict:
     """Read a CLI spec argument — a path to a JSON file, else inline JSON.
 
     The one place the path-vs-inline disambiguation lives; both
-    ``benchmarks.run --spec`` and ``dryrun_fl --spec`` parse through it.
-    """
-    import os
-
-    raw = open(arg).read() if os.path.exists(arg) else arg
-    try:
-        d = json.loads(raw)
-    except json.JSONDecodeError as e:
-        raise ValueError(
-            f"--spec argument is neither an existing file nor valid JSON "
-            f"({e}); got: {arg[:120]!r}"
-        ) from None
-    if not isinstance(d, dict):
-        raise ValueError(f"--spec JSON must be an object, got {type(d).__name__}")
-    return d
-
-
-def load_spec_dict(arg: str) -> dict:
-    """Read a CLI spec argument — a path to a JSON file, else inline JSON.
-
-    The one place the path-vs-inline disambiguation lives; the
-    sweep CLI's argument parses through it.
+    ``repro_torch.benchmarks.run --spec`` and the sweep CLI parse through it.
     """
     import os
 

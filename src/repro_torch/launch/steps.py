@@ -97,7 +97,7 @@ def make_prefill_step(cfg: ModelConfig, shape: InputShape):
     def prefill_step(params, batch):
         tokens = batch["tokens"]
         caches = mdl.init_cache(cfg, b, cl, device=tokens.device)
-        hidden, caches = mdl.forward(cfg, params, tokens, caches=caches)
+        hidden, caches, _ = mdl.forward(cfg, params, tokens, caches=caches)
         logits = mdl.logits_from_hidden(cfg, params, hidden[:, -1:, :])[:, 0]
         return logits, caches
 

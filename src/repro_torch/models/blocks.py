@@ -1,16 +1,19 @@
-"""Block init/apply for the dense ``("attn", "mlp")`` pair, pre-norm residuals.
+"""Block init/apply for the ``("attn", "mlp")`` and ``("attn", "moe")``
+pairs, pre-norm residuals.
 
 Port of ``src/repro/models/blocks.py``. One block =
     x = x + attn(rmsnorm(x))
-    x = x + mlp(rmsnorm(x))
+    x = x + ffn(rmsnorm(x))          (ffn: the gated MLP, or the MoE FFN)
 
 A block's parameters are an ``nn.ModuleDict`` of ``nn.ParameterDict``s
 keyed as the reference's parameter dict (``norm1``, ``attn``, ``ffn_norm``,
-``mlp``), so the layer functions index both alike. ``block_apply`` runs in
-two modes: ``full`` (prefill — whole sequence, seeds the cache) and
-``decode`` (one token against the block's cache). The other mixers (mla,
-moe, rglru, mlstm, slstm, local, bidir) and cross-attention are not ported
-(ROADMAP A12).
+``mlp`` or ``moe``; the MoE's ``shared`` experts a nested
+``ParameterDict``), so the layer functions index both alike.
+``block_apply`` runs in two modes: ``full`` (prefill — whole sequence,
+seeds the cache) and ``decode`` (one token against the block's cache), and
+returns the MoE's auxiliary load-balance loss (None for an MLP block). The
+other mixers (mla, rglru, mlstm, slstm, local, bidir) and cross-attention
+are not ported (ROADMAP A12).
 """
 from __future__ import annotations
 
@@ -21,38 +24,50 @@ from torch import nn
 
 from repro_torch.models.config import BlockSpec, ModelConfig
 from repro_torch.models.layers import attention as attn_lib
+from repro_torch.models.layers import moe as moe_lib
 from repro_torch.models.layers.mlp import init_mlp, mlp
 from repro_torch.models.layers.norms import rmsnorm
 
 DENSE: BlockSpec = ("attn", "mlp")
+MOE: BlockSpec = ("attn", "moe")
+PORTED = (DENSE, MOE)
 
 
 def _check_kind(kind: BlockSpec) -> None:
-    if tuple(kind) != DENSE:
+    if tuple(kind) not in PORTED:
         raise NotImplementedError(
-            f"block {kind} is not ported; only {DENSE} is (ROADMAP A12)")
+            f"block {kind} is not ported; only {' and '.join(map(str, PORTED))} are (ROADMAP A12)")
+
+
+def _parameter_dict(tree: dict) -> nn.ParameterDict:
+    return nn.ParameterDict({
+        k: _parameter_dict(t) if isinstance(t, dict) else nn.Parameter(t, requires_grad=False)
+        for k, t in tree.items()
+    })
 
 
 def as_module(params: dict) -> nn.ModuleDict:
-    """A block's nested dict of tensors -> ``ModuleDict`` of ``ParameterDict``s.
+    """A block's nested dict of tensors -> ``ModuleDict`` of ``ParameterDict``s
+    (a dict inside a sub-dict, the MoE's ``shared``, a nested ``ParameterDict``).
 
     The parameters are made with ``requires_grad`` off (the serve path); a
     trainer turns it on for the whole model (``LM.requires_grad_``).
     """
-    return nn.ModuleDict({
-        name: nn.ParameterDict({k: nn.Parameter(t, requires_grad=False) for k, t in sub.items()})
-        for name, sub in params.items()
-    })
+    return nn.ModuleDict({name: _parameter_dict(sub) for name, sub in params.items()})
 
 
 def init_block(cfg: ModelConfig, kind: BlockSpec, gen: Optional[torch.Generator], device) -> nn.ModuleDict:
     _check_kind(kind)
-    return as_module({
+    p = {
         "norm1": {"scale": torch.ones((cfg.d_model,), device=device)},
         "attn": attn_lib.init_attention(cfg, gen, device),
         "ffn_norm": {"scale": torch.ones((cfg.d_model,), device=device)},
-        "mlp": init_mlp(cfg.d_model, cfg.d_ff, gen, device),
-    })
+    }
+    if kind[1] == "moe":
+        p["moe"] = moe_lib.init_moe(cfg, gen, device)
+    else:
+        p["mlp"] = init_mlp(cfg.d_model, cfg.d_ff, gen, device)
+    return as_module(p)
 
 
 def init_block_cache(
@@ -81,8 +96,8 @@ def block_apply(
     mode: str,  # 'full' | 'decode'
     cache: Optional[dict] = None,
     decode_window: int = 0,
-) -> tuple[torch.Tensor, Optional[dict]]:
-    """Returns (x, new_cache)."""
+) -> tuple[torch.Tensor, Optional[dict], Optional[torch.Tensor]]:
+    """Returns (x, new_cache, aux_loss); the aux loss is None for an MLP block."""
     _check_kind(kind)
     h = rmsnorm(params["norm1"], x, cfg.norm_eps)
     window = _mixer_window(kind[0], decode_window)
@@ -95,7 +110,10 @@ def block_apply(
         y, new_cache = attn_lib.attention_decode(cfg, params["attn"], h, angles, cache, window=window)
     x = x + y
     hf = rmsnorm(params["ffn_norm"], x, cfg.norm_eps)
-    return x + mlp(cfg, params["mlp"], hf), new_cache
+    if kind[1] == "moe":
+        y, aux = moe_lib.moe_ffn(cfg, params["moe"], hf)
+        return x + y, new_cache, aux
+    return x + mlp(cfg, params["mlp"], hf), new_cache, None
 
 
 def pack_kv_cache(kv: dict, cache_len: int, window: int, dtype) -> dict:

@@ -1,4 +1,4 @@
-"""Decoder-LM assembly over dense ``("attn", "mlp")`` blocks.
+"""Decoder-LM assembly over ``("attn", "mlp")`` and ``("attn", "moe")`` blocks.
 
 Port of ``src/repro/models/model.py``. The model is an :class:`LM`
 ``nn.Module`` whose ``blocks`` ``nn.ModuleList`` holds every layer in order
@@ -12,13 +12,13 @@ the serve path; a trainer turns it on (``LM.requires_grad_``). With
 body): its activations are recomputed in the backward pass.
 
 Entry points:
-  * ``forward``     — full-sequence train / prefill; returns hidden states
-                      and the refreshed caches (when given).
+  * ``forward``     — full-sequence train / prefill; returns hidden states,
+                      the refreshed caches (when given) and the MoE aux
+                      loss (the sum over MoE blocks; zero without one).
   * ``decode_step`` — one token against the caches.
-  * ``loss_fn``     — next-token CE; ``cfg.fused_ce`` computes it in
-                      sequence chunks without the (B, S, V) logits.
-
-No MoE block is ported, so the MoE aux loss is a zero tensor.
+  * ``loss_fn``     — next-token CE plus ``aux_weight`` × the aux loss;
+                      ``cfg.fused_ce`` computes the CE in sequence chunks
+                      without the (B, S, V) logits.
 
 :func:`params_from_numpy` takes the reference's stacked parameter pytree;
 :func:`params_to_numpy` and :func:`reference_tree` give it back, and
@@ -78,13 +78,14 @@ def check_ported(cfg: ModelConfig) -> None:
     cfg.validate()
     missing = [name for name, on in (
         ("the encoder", cfg.encoder is not None), (f"the {cfg.frontend} front end", cfg.frontend),
-        ("M-RoPE", cfg.mrope), ("MLA", cfg.mla is not None), ("MoE", cfg.moe is not None),
+        ("M-RoPE", cfg.mrope), ("MLA", cfg.mla is not None),
     ) if on]
-    missing += sorted({f"block {kind}" for kind in cfg.all_blocks if tuple(kind) != blk.DENSE})
+    missing += sorted({f"block {kind}" for kind in cfg.all_blocks if tuple(kind) not in blk.PORTED})
     if missing:
         raise NotImplementedError(
-            f"{cfg.name}: {', '.join(missing)} not ported; the port runs dense "
-            f"{blk.DENSE} configs (ROADMAP A12)")
+            f"{cfg.name}: {', '.join(missing)} not ported; the port runs "
+            f"{' and '.join(map(str, blk.PORTED))} blocks without MLA, M-RoPE, an encoder or "
+            "a front end (ROADMAP A12)")
 
 
 def _device(device) -> torch.device:
@@ -143,9 +144,8 @@ def reference_leaves(params: LM) -> list[tuple[tuple[str, ...], list[str]]]:
     nf, period, reps, nt = params.layout
 
     def block(prefix, layers):
-        mod = params.blocks[layers[0]]
-        return [(prefix + (sub, k), [f"blocks.{i}.{sub}.{k}" for i in layers])
-                for sub in sorted(mod) for k in sorted(mod[sub])]
+        return [(prefix + path, [f"blocks.{i}.{'.'.join(path)}" for i in layers])
+                for path in _leaf_paths(params.blocks[layers[0]])]
 
     out = [(("embed",), ["embed"]), (("final_norm", "scale"), ["final_norm.scale"])]
     for i in range(nf):
@@ -157,6 +157,16 @@ def reference_leaves(params: LM) -> list[tuple[tuple[str, ...], list[str]]]:
     for i in range(nt):
         out += block(("tail", str(i)), [nf + reps * period + i])
     return out
+
+
+def _leaf_paths(tree) -> list[tuple[str, ...]]:
+    """The key paths of a block's nested dicts of tensors, keys sorted at
+    every level (``jax.tree_util``'s dict order)."""
+    paths = []
+    for k in sorted(tree):
+        v = tree[k]
+        paths += [(k,) + p for p in _leaf_paths(v)] if isinstance(v, nn.Module) else [(k,)]
+    return paths
 
 
 def reference_tree(params: LM, tensors: dict) -> dict:
@@ -206,9 +216,12 @@ def lm_views(flat: torch.Tensor, like: LM) -> LM:
     named = dict(like.named_parameters())
     views = {n: flat[off:off + named[n].numel()].view(named[n].shape)
              for n, off in _flat_runs(like)}
-    blocks = [blk.as_module({sub: {k: views[f"blocks.{i}.{sub}.{k}"] for k in block[sub]}
-                             for sub in block})
-              for i, block in enumerate(like.blocks)]
+
+    def tree(mod, prefix):
+        return {k: tree(v, f"{prefix}.{k}") if isinstance(v, nn.Module) else views[f"{prefix}.{k}"]
+                for k, v in mod.items()}
+
+    blocks = [blk.as_module(tree(block, f"blocks.{i}")) for i, block in enumerate(like.blocks)]
     return LM(views["embed"], views["final_norm.scale"], blocks, views.get("lm_head"),
               layout=like.layout)
 
@@ -242,29 +255,33 @@ def forward(
     *,
     caches: Optional[Cache] = None,
     decode_window: int = 0,
-) -> tuple[torch.Tensor, Optional[Cache]]:
-    """Returns (hidden (B,S,D), caches')."""
+) -> tuple[torch.Tensor, Optional[Cache], torch.Tensor]:
+    """Returns (hidden (B,S,D), caches', aux_loss)."""
     s = tokens.shape[1]
     x = _embed(cfg, params, tokens)
     angles = make_angles(cfg, torch.arange(s, device=tokens.device))
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     remat = cfg.remat and caches is None and torch.is_grad_enabled()
     new_layers = []
     for i, (kind, block) in enumerate(zip(cfg.all_blocks, params.blocks)):
         c = caches["layers"][i] if caches is not None else None
         if remat:
-            x = checkpoint(_block_train, cfg, kind, block, x, angles, use_reentrant=False)
+            x, a = checkpoint(_block_train, cfg, kind, block, x, angles, use_reentrant=False)
             nc = None
         else:
-            x, nc = blk.block_apply(cfg, kind, block, x, angles=angles, mode="full", cache=c,
-                                    decode_window=decode_window)
+            x, nc, a = blk.block_apply(cfg, kind, block, x, angles=angles, mode="full", cache=c,
+                                       decode_window=decode_window)
+        if a is not None:
+            aux = aux + a
         new_layers.append(nc)
     x = rmsnorm(params.final_norm, x, cfg.norm_eps)
     new_caches = None if caches is None else {"layers": new_layers, "pos": s}
-    return x, new_caches
+    return x, new_caches, aux
 
 
 def _block_train(cfg: ModelConfig, kind, block, x: torch.Tensor, angles: torch.Tensor):
-    return blk.block_apply(cfg, kind, block, x, angles=angles, mode="full")[0]
+    x, _, aux = blk.block_apply(cfg, kind, block, x, angles=angles, mode="full")
+    return x, aux
 
 
 def logits_from_hidden(cfg: ModelConfig, params: LM, x: torch.Tensor) -> torch.Tensor:
@@ -286,8 +303,8 @@ def decode_step(
     angles = make_angles(cfg, torch.tensor([pos], device=token.device))
     new_layers = []
     for kind, block, c in zip(cfg.all_blocks, params.blocks, caches["layers"]):
-        x, nc = blk.block_apply(cfg, kind, block, x, angles=angles, mode="decode", cache=c,
-                                decode_window=decode_window)
+        x, nc, _ = blk.block_apply(cfg, kind, block, x, angles=angles, mode="decode", cache=c,
+                                   decode_window=decode_window)
         new_layers.append(nc)
     x = rmsnorm(params.final_norm, x, cfg.norm_eps)
     logits = logits_from_hidden(cfg, params, x)[:, 0, :]
@@ -325,9 +342,9 @@ def loss_fn(
     *,
     aux_weight: float = 0.01,
 ) -> tuple[torch.Tensor, dict]:
-    """Next-token CE (f32), plus ``aux_weight`` × the MoE aux loss (zero)."""
-    hidden, _ = forward(cfg, params, tokens)
-    aux = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    """Next-token CE (f32), plus ``aux_weight`` × the MoE aux loss (zero
+    without an MoE block)."""
+    hidden, _, aux = forward(cfg, params, tokens)
     if cfg.fused_ce:
         ce = _chunked_ce(cfg, params, hidden, targets)
     else:

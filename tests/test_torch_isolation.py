@@ -1,4 +1,5 @@
-"""repro_torch and chip_smoke.py import neither JAX nor the JAX package."""
+"""repro_torch, chip_smoke.py and the port's examples (``examples/torch_*.py``)
+import neither JAX nor the JAX package."""
 import os
 import subprocess
 import sys
@@ -22,8 +23,9 @@ sys.meta_path.insert(0, Block())
 import repro_torch
 for mod in pkgutil.walk_packages(repro_torch.__path__, "repro_torch."):
     importlib.import_module(mod.name)
-spec = importlib.util.spec_from_file_location("chip_smoke", sys.argv[1])
-spec.loader.exec_module(importlib.util.module_from_spec(spec))
+for path in sys.argv[1:]:  # chip_smoke.py and the port's examples
+    spec = importlib.util.spec_from_file_location(path.rsplit("/", 1)[-1][:-3], path)
+    spec.loader.exec_module(importlib.util.module_from_spec(spec))
 
 from repro_torch.core.samplers.algorithm2 import Algorithm2Sampler
 from repro_torch.fl.aggregation import flatten_params
@@ -50,7 +52,8 @@ print("ISOLATED")
 def test_port_imports_no_jax_and_no_reference():
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     out = subprocess.run(
-        [sys.executable, "-c", SCRIPT, str(ROOT / "chip_smoke.py")],
+        [sys.executable, "-c", SCRIPT, str(ROOT / "chip_smoke.py"),
+         *sorted(str(p) for p in (ROOT / "examples").glob("torch_*.py"))],
         env=env,
         capture_output=True,
         text=True,

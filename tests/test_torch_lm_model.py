@@ -95,7 +95,7 @@ def _port(name, overrides):
 def test_forward_matches_reference(case):
     ref, cfg, params = _port(*CASES[case])
     with torch.inference_mode():
-        hidden, caches = mdl.forward(cfg, params, torch.from_numpy(ref["prompts"]).long())
+        hidden, caches, _ = mdl.forward(cfg, params, torch.from_numpy(ref["prompts"]).long())
         logits = mdl.logits_from_hidden(cfg, params, hidden)
     assert caches is None
     np.testing.assert_allclose(hidden.numpy(), ref["hidden"], atol=F32_ATOL)
@@ -122,7 +122,7 @@ def test_bf16_prefill_and_decode_match_reference():
     assert steps.dtype == torch.bfloat16
     np.testing.assert_allclose(steps.float().numpy(), ref["steps"], atol=BF16_ATOL)
     with torch.inference_mode():
-        hidden, _ = mdl.forward(cfg, params, torch.from_numpy(ref["prompts"]).long())
+        hidden, _, _ = mdl.forward(cfg, params, torch.from_numpy(ref["prompts"]).long())
     np.testing.assert_allclose(hidden.float().numpy(), ref["hidden"], atol=BF16_ATOL)
 
 
@@ -163,7 +163,7 @@ def test_prefill_seeds_the_cache_like_the_reference():
     _, ref_caches, _ = ref_model.forward(ref_cfg, ref["params"], ref["prompts"], caches=ref_caches)
     caches = mdl.init_cache(cfg, B, P + GEN, device="cpu")
     with torch.inference_mode():
-        _, caches = mdl.forward(cfg, params, torch.from_numpy(ref["prompts"]).long(), caches=caches)
+        _, caches, _ = mdl.forward(cfg, params, torch.from_numpy(ref["prompts"]).long(), caches=caches)
     assert caches["pos"] == P
     for layer in range(cfg.n_layers):
         for kv in ("k", "v"):
@@ -172,7 +172,7 @@ def test_prefill_seeds_the_cache_like_the_reference():
         assert caches["layers"][layer]["pos"] == P
 
 
-@pytest.mark.parametrize("name", ["deepseek-v2-lite-16b", "qwen2-moe-a2.7b", "xlstm-125m",
+@pytest.mark.parametrize("name", ["deepseek-v2-lite-16b", "xlstm-125m",
                                   "recurrentgemma-9b", "whisper-small", "qwen2-vl-2b"])
 def test_unported_configs_raise(name):
     cfg = get_config(name, reduced=True)

@@ -349,7 +349,7 @@ def test_prefill_and_serve_steps_match_the_model():
     assert kind == "prefill"
     logits, caches = prefill(params, {"tokens": toks})
     with torch.inference_mode():
-        hidden, _ = mdl.forward(cfg, params, toks)
+        hidden, _, _ = mdl.forward(cfg, params, toks)
         want = mdl.logits_from_hidden(cfg, params, hidden)[:, -1]
     # the last position alone through the head: a GEMM of another shape, the
     # f32 logit tolerance of test_torch_lm_model.py
@@ -360,7 +360,7 @@ def test_prefill_and_serve_steps_match_the_model():
     assert kind == "decode"
     with torch.inference_mode():
         c = mdl.init_cache(cfg, 2, 13, device="cpu")
-        _, c = mdl.forward(cfg, params, toks, caches=c)
+        _, c, _ = mdl.forward(cfg, params, toks, caches=c)
     step_logits, c = serve(params, {"token": logits.argmax(-1, keepdim=True), "caches": c})
     assert tuple(step_logits.shape) == (2, cfg.vocab_size) and c["pos"] == 13
     assert steps.make_step(cfg, INPUT_SHAPES["train_4k"])[1] == "train"
