@@ -47,9 +47,11 @@ Phases, one line (or a few) each; any failure raises and exits non-zero:
    the CPU on a small input (equal plans, losses and params to atol 1e-4),
    unsketched and with the SRP sketch under Ward and k-means, and the LM's
    greedy generations (reduced qwen2-1.5b and reduced qwen2-moe-a2.7b at 2
-   layers: in f32 equal token ids and logits to atol 1e-4; in bf16,
-   through the tensor-core kernel, logits to atol 0.1 and equal tokens
-   wherever the CPU's top-2 margin exceeds 0.2);
+   layers, and reduced deepseek-v2-lite-16b at 2 layers, MLA with no
+   flash launch: in f32 equal token ids and logits to atol 1e-4; in bf16,
+   through the tensor-core kernel where the model has GQA attention,
+   logits to atol 0.1 and equal tokens wherever the CPU's top-2 margin
+   exceeds 0.2);
 3. slice   — the Algorithm 2 FL round loop at the paper's MNIST width
    (784 → 50 → 10, d = 39,760; 100 clients, m = 10, N = B = 50, lr 0.01):
    5 rounds with the arccos measure, 2 with L1, and 5 arccos rounds with
@@ -182,7 +184,9 @@ Phases, one line (or a few) each; any failure raises and exits non-zero:
    596,049,920), qwen3-0.6b's flat rows (B2 against its plain version
    column block by column block, B3 against the plain product on column
    windows of an X zero elsewhere, the last window ending at the last
-   column), both timed beside their bounds; ``run_federated_lm`` on a
+   column), both timed beside their bounds and their library calls (B3's:
+   ``torch.matmul(X[:, w], S_w)`` summed over 2²²-column windows covering
+   every column, each S_w made untimed); ``run_federated_lm`` on a
    narrow reduced qwen3 (f32) on the card against the CPU (md, algorithm2,
    algorithm2 with SRP: equal draws and plans, losses to atol 1e-4); then
    at full width with ``FLLMConfig``'s defaults (32 clients, m = 8, 4
@@ -205,7 +209,39 @@ Phases, one line (or a few) each; any failure raises and exits non-zero:
    its tokens equal wherever the plain margin exceeds twice the largest
    logit difference, with the routing choices that differ between the two
    prefills counted; one prefill and one decode step under
-   ``torch.profiler``.
+   ``torch.profiler``;
+14. serve_mla — ``generate`` at deepseek-v2-lite-16b's full width and
+   depth (27 layers: a dense ``("mla", "mlp")`` block of d_ff 10,944, then
+   26 ``("mla", "moe")``; d_model 2,048, 16 heads, MLA latent 512 with
+   rope / nope / v head dims 64 / 128 / 128; 64 routed experts top-6 and 2
+   shared of d_ff 1,408, capacity 240; 15,706,484,224 parameters), bf16
+   over f32 random parameters, naive decode, batch 4, prompt 1,000, 16
+   greedy tokens, after serve_moe freed its parameters: prefill ms, decode
+   ms a step, tokens/s, peak memory, no flash launch (MLA's qk and v head
+   dims differ; its attention is torch ops, as the reference's is outside
+   Pallas); layer 0's MLA in f32 card vs CPU (output and cache seed within
+   1e-4 of their scale); layer 1's MoE FFN card vs CPU (the same experts
+   and kept set); one prefill's cache decoded 4 steps in ``"absorbed"``
+   mode against ``"naive"``, in bf16 and in f32, tokens equal wherever
+   naive's top-2 margin exceeds twice the largest logit difference; one
+   prefill and one decode step under ``torch.profiler``;
+15. train_moe — reduced deepseek-v2-lite and reduced qwen2-moe (f32) 3
+   AdamW steps on the card against the CPU (losses, aux, gradient norms to
+   atol 1e-4); ``launch/train.py``'s step on deepseek-v2-lite at full width
+   cut to 2 layers (the dense block and one MoE block, 1,085,287,424
+   parameters), bf16 over f32, batch 4 × 1,024, AdamW, clip 1.0, remat on,
+   10 steps: finite losses, aux > 0, no flash launch, step ms, tokens/s,
+   peak memory, one step profiled; one loss and gradient with remat off and
+   on (the recompute's expert choices, kept set and gates equal the
+   forward's, the loss the same bits, each gradient leaf within 2⁻⁶ of its
+   scale);
+16. fl_moe — B2 and B3 at (8, 1,085,287,424) as in fl_lm (B3's library
+   time too); the narrow reduced deepseek-v2-lite card against CPU (md,
+   algorithm2, algorithm2 with SRP); ``run_federated_lm`` on train_moe's
+   2-layer cut with ``FLLMConfig``'s defaults, 2 rounds each of md and
+   algorithm2 on the SRP-sketched store (d′ = 64): launches exactly
+   aggregate a round, srp a sketched round, gram a rebuild, flash none;
+   round ms and its parts; one local step under ``torch.profiler``.
 
 The last lines are the card's name and power limit (nvidia-smi), a JSON
 object with one entry per kernel and shape (with the paper, zoo, sched
@@ -213,8 +249,11 @@ and fl_lm phases' launches as ``paper_launches``, ``zoo_launches``,
 ``sched_launches`` and ``fl_lm_launches`` for the Gram, aggregate and SRP
 rows, the ablations phase's as ``ablations_launches`` for the Gram, L1
 and aggregate rows, the train and fl_lm phases' as ``train_launches`` and
-``fl_lm_launches`` for the flash row, and serve_moe's as the launches of
-the ``flash_attention_moe`` row), and ``{"ok": true, "device": ...}``.
+``fl_lm_launches`` for the flash row, serve_moe's as the launches of
+the ``flash_attention_moe`` row, fl_moe's as ``fl_moe_launches`` for the
+Gram, aggregate, SRP and flash rows, and serve_mla's and train_moe's as
+``serve_mla_launches`` and ``train_moe_launches`` for the flash row), and
+``{"ok": true, "device": ...}``.
 The script imports neither JAX nor the JAX package ``repro``.
 """
 from __future__ import annotations
@@ -806,18 +845,24 @@ def phase_kernels_flash(torch, gen) -> dict:
     return path_err
 
 
+def _small_serve_cfg(arch, dtype):
+    """Reduced ``arch`` at SERVE_SMALL's 2 layers with activations in ``dtype``."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    return dataclasses.replace(get_config(arch, reduced=True), n_layers=SERVE_SMALL["n_layers"],
+                               dtype=dtype)
+
+
 def _serve_small(torch, device, dtype="float32", arch=SERVE_SMALL["arch"]):
     """Greedy generations of reduced ``arch`` at 2 layers with activations
     in ``dtype``, from parameters made on the CPU; returns (token ids,
     per-step logits)."""
-    import dataclasses
-
-    from repro_torch.configs import get_config
     from repro_torch.launch.serve import generate
     from repro_torch.models import model as mdl
 
-    cfg = dataclasses.replace(get_config(arch, reduced=True),
-                              n_layers=SERVE_SMALL["n_layers"], dtype=dtype)
+    cfg = _small_serve_cfg(arch, dtype)
     params = mdl.init_params(cfg, 0, device="cpu").to(device)
     g = torch.Generator().manual_seed(1)
     prompts = torch.randint(0, cfg.vocab_size, (SERVE_SMALL["batch"], SERVE_SMALL["prompt_len"]),
@@ -828,7 +873,7 @@ def _serve_small(torch, device, dtype="float32", arch=SERVE_SMALL["arch"]):
 
 def _serve_small_pair(torch, dtype, arch):
     """The small serve on the CPU and on the card; the card's run must
-    launch the flash kernel once per layer."""
+    launch the flash kernel once per attention layer (an MLA layer none)."""
     from repro_torch.kernels.flash_attention import ops as fa_ops
 
     cpu = _serve_small(torch, "cpu", dtype, arch)
@@ -836,8 +881,10 @@ def _serve_small_pair(torch, dtype, arch):
     gpu = _serve_small(torch, DEV, dtype, arch)
     torch.cuda.synchronize()
     n = fa_ops.launches["flash_attention"]
-    if n != SERVE_SMALL["n_layers"]:
-        fail(f"small input [serve, {dtype}]: {n} flash launches, expected one per layer")
+    want = sum(m == "attn" for m, _ in _small_serve_cfg(arch, dtype).all_blocks)
+    if n != want:
+        fail(f"small input [serve, {arch}, {dtype}]: {n} flash launches, expected {want}, one per "
+             "attention layer")
     return cpu, gpu, n
 
 
@@ -846,16 +893,17 @@ def phase_small_serve(torch, arch=SERVE_SMALL["arch"]):
              f"{SERVE_SMALL['prompt_len']}, gen {SERVE_SMALL['gen']}")
     cpu, gpu, n = _serve_small_pair(torch, "float32", arch)
     if not torch.equal(cpu[0], gpu[0]):
-        fail(f"small input [serve]: the card's tokens {gpu[0].tolist()} differ from the CPU's "
-             f"{cpu[0].tolist()}")
+        fail(f"small input [serve, {arch}]: the card's tokens {gpu[0].tolist()} differ from the "
+             f"CPU's {cpu[0].tolist()}")
     e = float((cpu[1] - gpu[1]).abs().max())
     if not math.isfinite(e) or e > SERVE_SMALL_ATOL:
-        fail(f"small input [serve]: logits differ by {e} > {SERVE_SMALL_ATOL}")
+        fail(f"small input [serve, {arch}]: logits differ by {e} > {SERVE_SMALL_ATOL}")
     print(f"kernels: small input [serve] ({label}, f32), card vs CPU: token ids equal, max logit "
           f"diff {e:.2e} (atol {SERVE_SMALL_ATOL}), {n} flash launches")
     cpu, gpu, n = _serve_small_pair(torch, "bfloat16", arch)
     e, steps, held = _compare_bf16_generations(cpu, gpu)
-    print(f"kernels: small input [serve] ({label}, bf16 through the tensor-core kernel), card vs "
+    route = "through the tensor-core kernel" if n else "MLA's torch ops, no flash"
+    print(f"kernels: small input [serve] ({label}, bf16 {route}), card vs "
           f"CPU: max logit diff {e:.2e} (atol {SERVE_SMALL_BF16_ATOL}) over {steps} row-steps, "
           f"tokens equal at all {held} with a CPU top-2 margin above {SERVE_SMALL_BF16_MARGIN}, "
           f"{n} flash launches")
@@ -2918,6 +2966,9 @@ LM_P = 596_049_920  # qwen3-0.6b's parameters: the flat rows of B2 and B3 in fl_
 # column LM_P; rows 4-7 of each start past flat element 2^31
 LM_WINDOWS = [(0, 8192), (123_456_789, 5_000), (LM_P // 2 - 4096, 8192), (LM_P - 8192, 8192)]
 LM_AGG_BLOCK = 1 << 26  # B2 against its plain version, column block by column block
+# B3's library time at (8, P): torch.matmul(X[:, w], S_w) over windows of
+# this many columns covering all P, each S_w (1 GiB f32) made untimed
+LM_LIB_WINDOW = 1 << 22
 FL_LM = dict(arch="qwen3-0.6b", rounds=3)  # FLLMConfig's defaults otherwise
 FL_LM_SKETCH = {"mode": "sync", "sketch": "srp", "sketch_dim": D_PRIME}
 # card against CPU on examples/federated_lm.py's narrow reduced qwen3 (f32)
@@ -3213,12 +3264,13 @@ def phase_train(torch, gen, name) -> dict:
 # ---------------------------------------------------------------------------
 # fl_lm: clustered-sampling federated LM at qwen3-0.6b's full width
 # ---------------------------------------------------------------------------
-def lm_kernels(torch, name) -> dict:
-    """B2 and B3 at (8, LM_P), the full-width round's rows: B2 against its
-    plain version column block by column block (and timed, with torch.mv
-    and the plain version whole), B3 against the plain product on the
-    column windows of an X that is zero elsewhere. Returns max abs errors
-    and times."""
+def lm_kernels(torch, name, p=LM_P, windows=LM_WINDOWS, label="fl_lm") -> dict:
+    """B2 and B3 at (8, p), a full-width federated round's rows: B2 against
+    its plain version column block by column block (and timed, with
+    torch.mv and the plain version whole), B3 against the plain product on
+    the column windows of an X that is zero elsewhere, and timed beside the
+    library's ``torch.matmul(X[:, w], S_w)`` summed over LM_LIB_WINDOW
+    windows that cover all p columns. Returns max abs errors and times."""
     from repro_torch.kernels.aggregate import ops as agg_ops
     from repro_torch.kernels.aggregate.ref import aggregate_ref
     from repro_torch.kernels.sketch import ops as sk_ops
@@ -3228,25 +3280,25 @@ def lm_kernels(torch, name) -> dict:
     m = 8
     g = torch.Generator(device=DEV).manual_seed(3)
     out = {}
-    U = torch.randn((m, LM_P), generator=g, device=DEV)
+    U = torch.randn((m, p), generator=g, device=DEV)
     w = torch.rand((m,), generator=g, device=DEV)
-    if LM_P % agg_ops.VEC or U.data_ptr() % (4 * agg_ops.VEC):
-        fail(f"fl_lm: rows of {LM_P} floats at {U.data_ptr():#x} do not take aggregate_vec2")
+    if p % agg_ops.VEC or U.data_ptr() % (4 * agg_ops.VEC):
+        fail(f"{label}: rows of {p} floats at {U.data_ptr():#x} do not take aggregate_vec2")
     got = agg_ops.aggregate_flat(U, w)
     worst = 0.0
-    for a in range(0, LM_P, LM_AGG_BLOCK):
+    for a in range(0, p, LM_AGG_BLOCK):
         want = aggregate_ref(U[:, a:a + LM_AGG_BLOCK], w)
         blk = got[a:a + LM_AGG_BLOCK]
         if not torch.allclose(blk, want, rtol=AGG_TOL, atol=AGG_TOL):
-            fail(f"fl_lm: aggregate at ({m}, {LM_P}) columns {a}.. beyond rtol=atol {AGG_TOL}")
+            fail(f"{label}: aggregate at ({m}, {p}) columns {a}.. beyond rtol=atol {AGG_TOL}")
         worst = max(worst, float((blk - want).abs().max()))
     if not torch.equal(got, agg_ops.aggregate_flat(U, w)):
-        fail(f"fl_lm: aggregate at ({m}, {LM_P}) is not bit-reproducible")
+        fail(f"{label}: aggregate at ({m}, {p}) is not bit-reproducible")
     out["aggregate_err"] = worst
-    print(f"fl_lm: aggregate ({m}, {LM_P}) against the plain version in column blocks of "
+    print(f"{label}: aggregate ({m}, {p}) against the plain version in column blocks of "
           f"{LM_AGG_BLOCK}: max_abs_err {worst:.3e} (rtol=atol {AGG_TOL}), reproducible")
-    nbytes = 4 * (m * LM_P + m + LM_P)
-    t_b, t_o = nbytes / bw * 1e3, 2 * m * LM_P / f32 * 1e3
+    nbytes = 4 * (m * p + m + p)
+    t_b, t_o = nbytes / bw * 1e3, 2 * m * p / f32 * 1e3
     ms = {w_: [] for w_ in ("kernel", "library")}
     fns = {"kernel": lambda: agg_ops.aggregate_flat(U, w), "library": lambda: torch.mv(U.T, w)}
     for who in ("kernel", "library", "library", "kernel"):
@@ -3255,39 +3307,50 @@ def lm_kernels(torch, name) -> dict:
     out["aggregate"] = {"ms": sum(ms["kernel"]) / 2, "library_ms": sum(ms["library"]) / 2,
                         "plain_ms": plain_ms, "bound_ms": max(t_b, t_o),
                         "bound_by": "bytes" if t_b >= t_o else "operations"}
-    print(f"times: aggregate ({m}, {LM_P}) {out['aggregate']['ms']:.6f} ms (in turns "
+    print(f"times: aggregate ({m}, {p}) {out['aggregate']['ms']:.6f} ms (in turns "
           f"{[round(x, 6) for x in ms['kernel']]}), plain {plain_ms:.6f} ms, library (torch.mv) "
           f"{out['aggregate']['library_ms']:.6f} ms ({[round(x, 6) for x in ms['library']]}), bound "
           f"{out['aggregate']['bound_ms']:.6f} ms ({out['aggregate']['bound_by']}; {part} peaks "
           f"{bw / 1e12:.2f} TB/s, {f32 / 1e12:.0f} TFLOP/s f32; {nbytes} B)")
     del U, got
-    X = torch.zeros((m, LM_P), device=DEV)
-    for a, width in LM_WINDOWS:
+    X = torch.zeros((m, p), device=DEV)
+    for a, width in windows:
         X[:, a:a + width] = SIM_SCALE * torch.randn((m, width), generator=g, device=DEV)
     got = sk_ops.srp_sketch(X, D_PRIME, SRP_SEED)
     want = torch.zeros_like(got)
-    for a, width in LM_WINDOWS:
-        want += X[:, a:a + width] @ srp_sign_block(SRP_SEED, a, width, D_PRIME, LM_P, device=DEV)
-    ncols = sum(width for _, width in LM_WINDOWS)
-    scale = X.double().norm(dim=1)[:, None] * math.sqrt(ncols / D_PRIME) + GRAM_FLOOR
+    for a, width in windows:
+        want += X[:, a:a + width] @ srp_sign_block(SRP_SEED, a, width, D_PRIME, p, device=DEV)
+    ncols = sum(width for _, width in windows)
+    sq = sum(X[:, a:a + width].double().square().sum(dim=1) for a, width in windows)  # ‖x_i‖²
+    scale = sq.sqrt()[:, None] * math.sqrt(ncols / D_PRIME) + GRAM_FLOOR
     rel = float(((got.double() - want.double()).abs() / scale).max())
     e = float((got - want).abs().max())
     if not math.isfinite(rel) or rel > SRP_RTOL:
-        fail(f"fl_lm: srp at ({m}, {LM_P}, {D_PRIME}): error {rel} of ‖x_i‖·‖S_w,j‖ > {SRP_RTOL}")
+        fail(f"{label}: srp at ({m}, {p}, {D_PRIME}): error {rel} of ‖x_i‖·‖S_w,j‖ > {SRP_RTOL}")
     if not torch.equal(got, sk_ops.srp_sketch(X, D_PRIME, SRP_SEED)):
-        fail(f"fl_lm: srp at ({m}, {LM_P}, {D_PRIME}) is not bit-reproducible")
+        fail(f"{label}: srp at ({m}, {p}, {D_PRIME}) is not bit-reproducible")
     out["srp_err"] = e
-    print(f"fl_lm: srp ({m}, {LM_P}, {D_PRIME}) against the plain product on {len(LM_WINDOWS)} "
-          f"column windows {LM_WINDOWS} (X zero elsewhere; the last ends at column {LM_P}): "
+    print(f"{label}: srp ({m}, {p}, {D_PRIME}) against the plain product on {len(windows)} "
+          f"column windows {windows} (X zero elsewhere; the last ends at column {p}): "
           f"max_abs_err {e:.3e}, {rel:.3e} of ‖x_i‖·‖S_w,j‖ (limit {SRP_RTOL}), reproducible")
-    nbytes = 4 * (m * LM_P + m * D_PRIME)
-    t_b, t_o = nbytes / bw * 1e3, 2 * m * LM_P * D_PRIME / f32 * 1e3
+    nbytes = 4 * (m * p + m * D_PRIME)
+    t_b, t_o = nbytes / bw * 1e3, 2 * m * p * D_PRIME / f32 * 1e3
     kms = time_ms(torch, lambda: sk_ops.srp_sketch(X, D_PRIME, SRP_SEED), reps=5)
-    out["srp"] = {"ms": kms, "bound_ms": max(t_b, t_o), "bound_by": "bytes" if t_b >= t_o else "operations"}
-    print(f"times: srp_sketch ({m}, {LM_P}, {D_PRIME}) {kms:.6f} ms, bound {out['srp']['bound_ms']:.6f} "
-          f"ms ({out['srp']['bound_by']}; {part} peaks {bw / 1e12:.2f} TB/s, {f32 / 1e12:.0f} "
-          f"TFLOP/s f32); plain and library (matmul with S of {LM_P} × {D_PRIME}) not measured: "
-          f"S would take {4 * LM_P * D_PRIME / 1e9:.0f} GB")
+    lib_ms, n_win = 0.0, 0
+    for a in range(0, p, LM_LIB_WINDOW):
+        Xw = X[:, a:a + LM_LIB_WINDOW]
+        S_w = srp_sign_block(SRP_SEED, a, Xw.shape[1], D_PRIME, p, device=DEV)
+        lib_ms += time_ms(torch, lambda: torch.matmul(Xw, S_w), reps=3)
+        n_win += 1
+        del S_w
+    out["srp"] = {"ms": kms, "library_ms": lib_ms, "bound_ms": max(t_b, t_o),
+                  "bound_by": "bytes" if t_b >= t_o else "operations"}
+    print(f"times: srp_sketch ({m}, {p}, {D_PRIME}) {kms:.6f} ms, library {lib_ms:.6f} ms "
+          f"(torch.matmul(X[:, w], S_w) summed over {n_win} windows of {LM_LIB_WINDOW} columns, "
+          f"each S_w made outside its timed window; S whole would take "
+          f"{4 * p * D_PRIME / 1e9:.0f} GB), bound {out['srp']['bound_ms']:.6f} ms "
+          f"({out['srp']['bound_by']}; {part} peaks {bw / 1e12:.2f} TB/s, {f32 / 1e12:.0f} "
+          "TFLOP/s f32); plain not measured (its S blocks are made inside the call)")
     del X
     torch.cuda.empty_cache()
     return out
@@ -3306,8 +3369,8 @@ def _fl_lm_recorded(sampler, rounds: list):
     sampler.sample = sample
 
 
-def fl_lm_small(torch) -> None:
-    """The narrow reduced qwen3-0.6b (f32) on the card and on the CPU from
+def fl_lm_small(torch, arch=FL_LM["arch"], narrow=FL_SMALL_NARROW, label="fl_lm") -> None:
+    """The narrow reduced ``arch`` (f32) on the card and on the CPU from
     the same parameters: equal draws and plans every round, losses to
     PAPER_LOSS_ATOL, for md, Algorithm 2 and Algorithm 2 with the SRP
     sketch (d′ = 16)."""
@@ -3321,11 +3384,11 @@ def fl_lm_small(torch) -> None:
     from repro_torch.launch import fl_train
     from repro_torch.models import model as mdl
 
-    cfg = dataclasses.replace(get_config(FL_LM["arch"], reduced=True), **FL_SMALL_NARROW)
+    cfg = dataclasses.replace(get_config(arch, reduced=True), **narrow)
     d = mdl.param_count(mdl.init_params(cfg, 0, device="meta"))
-    for label, sampler, planner in (("md", "md", "sync"), ("algorithm2", "algorithm2", "sync"),
-                                    ("algorithm2[srp]", "algorithm2",
-                                     {"mode": "sync", "sketch": "srp", "sketch_dim": 16})):
+    for run, sampler, planner in (("md", "md", "sync"), ("algorithm2", "algorithm2", "sync"),
+                                  ("algorithm2[srp]", "algorithm2",
+                                   {"mode": "sync", "sketch": "srp", "sketch_dim": 16})):
         fl = fl_train.FLLMConfig(**FL_SMALL, sampler=sampler, planner=planner)
         runs = {}
         with _CpuMadeParams():
@@ -3337,13 +3400,13 @@ def fl_lm_small(torch) -> None:
                     runs[dev] = (fl_train.run_federated_lm(cfg, fl, sm, device=dev), rounds)
         (card, card_rounds), (cpu, cpu_rounds) = runs[DEV], runs["cpu"]
         if not np.allclose(card, cpu, atol=PAPER_LOSS_ATOL, rtol=0):
-            fail(f"fl_lm[small {label}]: card losses {card} against the CPU's {cpu}")
+            fail(f"{label}[small {run}]: card losses {card} against the CPU's {cpu}")
         for t, ((p1, c1), (p2, c2)) in enumerate(zip(card_rounds, cpu_rounds)):
             if c1 != c2 or (p1 is None) != (p2 is None) or (p1 is not None and not np.array_equal(p1, p2)):
-                fail(f"fl_lm[small {label}]: round {t}: the card drew {c1} from another plan than "
+                fail(f"{label}[small {run}]: round {t}: the card drew {c1} from another plan than "
                      f"the CPU's {c2}")
         moved = sum(p is not None and not np.array_equal(p, card_rounds[0][0]) for p, _ in card_rounds)
-        print(f"fl_lm[small {label}]: {cfg.name} at d_model {cfg.d_model}, d = {d}, "
+        print(f"{label}[small {run}]: {cfg.name} at d_model {cfg.d_model}, d = {d}, "
               f"{fl.n_rounds} rounds card against CPU: equal draws {[c for _, c in card_rounds]} and "
               f"plans ({moved} rounds off the cold start), losses max |Δ| "
               f"{float(np.abs(np.array(card) - np.array(cpu)).max()):.3e} (atol {PAPER_LOSS_ATOL})")
@@ -3439,10 +3502,11 @@ class GramTap:
         self.sim_ops.pairwise_sums = self.real
 
 
-def fl_lm_run(torch, label, sampler_name, planner) -> dict:
-    """run_federated_lm at qwen3-0.6b's full width with FLLMConfig's
-    defaults and FL_LM's rounds; kernel launches counted from after the
-    sampler's construction (its cold-start build) to the run's end."""
+def fl_lm_run(torch, label, sampler_name, planner, cfg=None, p=LM_P, rounds=FL_LM["rounds"]) -> dict:
+    """run_federated_lm on ``cfg`` (qwen3-0.6b at full width unless given;
+    ``p`` its parameters) with FLLMConfig's defaults and ``rounds`` rounds;
+    kernel launches counted from after the sampler's construction (its
+    cold-start build) to the run's end."""
     import contextlib
 
     import numpy as np
@@ -3455,12 +3519,12 @@ def fl_lm_run(torch, label, sampler_name, planner) -> dict:
     from repro_torch.kernels.sketch import ops as sk_ops
     from repro_torch.launch import fl_train
 
-    cfg = get_config(FL_LM["arch"])
-    fl = fl_train.FLLMConfig(n_rounds=FL_LM["rounds"], sampler=sampler_name, planner=planner)
+    cfg = cfg or get_config(FL_LM["arch"])
+    fl = fl_train.FLLMConfig(n_rounds=rounds, sampler=sampler_name, planner=planner)
     pop = ClientPopulation(np.full(fl.n_clients, 1000))
     grams = []  # (store snapshot, the sampler's Gram of it) of every plan rebuild
     with FLParts(torch) as parts, GramTap(sim_ops, grams), contextlib.closing(
-            fl_train.make_lm_sampler(fl, pop, update_dim=LM_P, device=DEV)) as sampler:
+            fl_train.make_lm_sampler(fl, pop, update_dim=p, device=DEV)) as sampler:
         parts.attach(sampler)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -3477,16 +3541,17 @@ def fl_lm_run(torch, label, sampler_name, planner) -> dict:
     peak = torch.cuda.max_memory_allocated()
     steps = fl.n_rounds * fl.m * fl.n_local_steps
     feedback = sampler_name == "algorithm2"
+    n_attn = sum(m == "attn" for m, _ in cfg.all_blocks)
     want = {"aggregate": fl.n_rounds, "srp": fl.n_rounds if feedback else 0,
             "gram": fl.n_rounds if feedback else 0, "l1": 0,
-            "flash_attention": cfg.n_layers * (2 if cfg.remat else 1) * steps}
-    print(f"fl_lm[{label}]: {cfg.name} full width (d = {LM_P}), {fl.n_clients} clients, m = "
+            "flash_attention": n_attn * (2 if cfg.remat else 1) * steps}
+    print(f"fl_lm[{label}]: {cfg.name} full width, {cfg.n_layers} layers (d = {p}), {fl.n_clients} clients, m = "
           f"{fl.m}, {fl.n_local_steps} local steps of batch {fl.local_batch} × seq {fl.seq_len}, lr "
           f"{fl.lr}, {fl.n_rounds} rounds: losses {[round(x, 5) for x in losses]}; peak device "
           f"memory {peak} B ({peak / 2**30:.2f} GiB)")
     print(f"fl_lm[{label}]: launches {json.dumps(launches)}; predicted {json.dumps(want)} "
           f"(aggregate a round, srp a sketched observation, gram an Algorithm 2 rebuild, flash "
-          f"{cfg.n_layers} a forward, twice a local step under remat)")
+          f"{n_attn} a forward, one an attention layer, twice a local step under remat)")
     if launches != want:
         fail(f"fl_lm[{label}]: launches {launches}, predicted {want}")
     if len(losses) != fl.n_rounds or not all(math.isfinite(x) for x in losses):
@@ -3523,9 +3588,10 @@ def fl_lm_run(torch, label, sampler_name, planner) -> dict:
     return launches
 
 
-def local_step_trace(torch) -> None:
-    """One client's local step at full width (FLLMConfig's batch 4 × seq
-    64) under torch.profiler, after one unprofiled."""
+def local_step_trace(torch, cfg=None, label="local_step") -> None:
+    """One client's local step of ``cfg`` (qwen3-0.6b at full width unless
+    given; FLLMConfig's batch 4 × seq 64) under torch.profiler, after one
+    unprofiled."""
     import numpy as np
 
     from repro_torch.configs import get_config
@@ -3533,7 +3599,7 @@ def local_step_trace(torch) -> None:
     from repro_torch.launch import fl_train
     from repro_torch.models import model as mdl
 
-    cfg = get_config(FL_LM["arch"])
+    cfg = cfg or get_config(FL_LM["arch"])
     fl = fl_train.FLLMConfig()
     client = mdl.init_params(cfg, 0, device=DEV).requires_grad_(True)
     toks = np.stack([TokenPipeline(cfg.vocab_size, fl.local_batch, fl.seq_len, seed=1000)
@@ -3542,7 +3608,7 @@ def local_step_trace(torch) -> None:
     tgts = (toks + 31) % cfg.vocab_size
     local = fl_train.make_local_sgd(cfg, fl.lr, 1)
     local(client, toks, tgts)
-    lm_trace(torch, "local_step", lambda: local(client, toks, tgts),
+    lm_trace(torch, label, lambda: local(client, toks, tgts),
              f"one local step of a client (batch {fl.local_batch} × seq {fl.seq_len})")
 
 
@@ -3570,22 +3636,25 @@ MOE_LAYER_RTOL = 1e-4  # card vs CPU, f32: of the output's scale max |out|
 MOE_AUX_ATOL = 1e-6
 
 
-def moe_layer_card_vs_cpu(torch, cfg, params) -> None:
-    """Layer 0's MoE FFN at full width in f32 (TF32 off) on the card and on
-    the CPU, on the same (batch, prompt, d_model) input: the same expert
-    choices and kept set, outputs within MOE_LAYER_RTOL of their scale."""
+def _to_cpu(torch, tree) -> dict:
+    """A block's sub-dict of parameters as a dict of CPU tensors."""
+    return {k: _to_cpu(torch, v) if isinstance(v, torch.nn.Module) else v.detach().cpu()
+            for k, v in tree.items()}
+
+
+def moe_layer_card_vs_cpu(torch, cfg, params, layer=0, label="serve_moe") -> None:
+    """Layer ``layer``'s MoE FFN at full width in f32 (TF32 off) on the card
+    and on the CPU, on the same (batch, prompt, d_model) input: the same
+    expert choices and kept set, outputs within MOE_LAYER_RTOL of their
+    scale."""
     import dataclasses
 
     from repro_torch.models.layers import moe as moe_lib
 
     cfg32 = dataclasses.replace(cfg, dtype="float32")
-    card = params.blocks[0]["moe"]
+    card = params.blocks[layer]["moe"]
 
-    def to_cpu(tree):
-        return {k: to_cpu(v) if isinstance(v, torch.nn.Module) else v.detach().cpu()
-                for k, v in tree.items()}
-
-    host = to_cpu(card)
+    host = _to_cpu(torch, card)
     g = torch.Generator().manual_seed(5)
     x = torch.randn((SERVE_MOE["batch"], SERVE_MOE["prompt_len"], cfg.d_model), generator=g)
     out = {}
@@ -3599,15 +3668,15 @@ def moe_layer_card_vs_cpu(torch, cfg, params) -> None:
     flipped = int((e_g != e_c).sum())
     scale = float(y_c.abs().max())
     rel = float((y_g - y_c).abs().max()) / scale
-    print(f"serve_moe: layer 0's MoE FFN at full width ({tuple(x.shape)}, {e_g.shape[0]} groups of "
+    print(f"{label}: layer {layer}'s MoE FFN at full width ({tuple(x.shape)}, {e_g.shape[0]} groups of "
           f"{e_g.shape[1]}, capacity {moe_lib.expert_capacity(cfg.moe)}), f32 card vs CPU: "
           f"{flipped} of {e_g.numel()} expert choices differ, {int((k_g != k_c).sum())} kept states "
           f"differ ({int((~k_c).sum())} choices dropped on the CPU), max |Δout| {rel:.3e} of "
           f"max |out| {scale:.3e} (limit {MOE_LAYER_RTOL}), aux {a_g:.7f} vs {a_c:.7f}")
     if flipped or not torch.equal(k_g, k_c):
-        fail("serve_moe: the card routes the full-width MoE layer otherwise than the CPU")
+        fail(f"{label}: the card routes the full-width MoE layer otherwise than the CPU")
     if not math.isfinite(rel) or rel > MOE_LAYER_RTOL or abs(a_g - a_c) > MOE_AUX_ATOL:
-        fail(f"serve_moe: the full-width MoE layer's output differs by {rel:.3e} of its scale, "
+        fail(f"{label}: the full-width MoE layer's output differs by {rel:.3e} of its scale, "
              f"aux by {abs(a_g - a_c):.3e}")
 
 
@@ -3683,6 +3752,368 @@ def phase_serve_moe(torch) -> dict:
             "peak": peak}
 
 
+# ---------------------------------------------------------------------------
+# serve_mla: deepseek-v2-lite-16b's serve path (MLA + MoE) at full width and depth
+# ---------------------------------------------------------------------------
+SERVE_MLA = dict(arch="deepseek-v2-lite-16b", batch=4, prompt_len=1000, gen=16)
+MLA_P = 15_706_484_224  # deepseek-v2-lite-16b's parameters
+MLA_LAYER_RTOL = MOE_LAYER_RTOL  # card vs CPU, f32: of the output's scale max |out|
+ABSORBED_STEPS = 4  # decode steps of the absorbed-vs-naive gate
+
+
+def mla_layer_card_vs_cpu(torch, cfg, params) -> None:
+    """Layer 0's MLA at full width in f32 (TF32 off) on the card and on the
+    CPU, on the same (batch, prompt, d_model) input: its output and its
+    cache seed (latent c, rotary key) within MLA_LAYER_RTOL of their scale."""
+    import dataclasses
+
+    from repro_torch.models import model as mdl
+    from repro_torch.models.layers import mla as mla_lib
+
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    card = params.blocks[0]["attn"]
+    host = _to_cpu(torch, card)
+    g = torch.Generator().manual_seed(6)
+    b, p = SERVE_MLA["batch"], SERVE_MLA["prompt_len"]
+    x = torch.randn((b, p, cfg.d_model), generator=g)
+    out = {}
+    for where, dev, prm in (("card", DEV, card), ("cpu", "cpu", host)):
+        angles = mdl.make_angles(cfg32, torch.arange(p, device=dev))
+        with torch.inference_mode():
+            y, seed = mla_lib.mla_full(cfg32, prm, x.to(dev), angles)
+        out[where] = {"y": y.cpu(), "c": seed["c"].cpu(), "k_rope": seed["k_rope"].cpu()}
+    rels = {}
+    for key in ("y", "c", "k_rope"):
+        want = out["cpu"][key]
+        rels[key] = float((out["card"][key] - want).abs().max()) / float(want.abs().max())
+    print(f"serve_mla: layer 0's MLA at full width ({tuple(x.shape)}, {cfg.n_heads} heads, qk head dim "
+          f"{cfg.mla.nope_head_dim + cfg.mla.rope_head_dim}, v {cfg.mla.v_head_dim}, latent "
+          f"{cfg.mla.kv_lora_rank}), f32 card vs CPU: max |Δ| of its scale "
+          f"{json.dumps({k: float(f'{v:.3e}') for k, v in rels.items()})} (limit {MLA_LAYER_RTOL})")
+    if not all(math.isfinite(v) and v <= MLA_LAYER_RTOL for v in rels.values()):
+        fail(f"serve_mla: the full-width MLA layer differs card vs CPU by {rels} of its scale")
+
+
+def _clone_caches(caches: dict) -> dict:
+    return {"layers": [{k: v.clone() if hasattr(v, "clone") else v for k, v in layer.items()}
+                       for layer in caches["layers"]], "pos": caches["pos"]}
+
+
+def absorbed_against_naive(torch, cfg, params, prompts) -> None:
+    """One prefill, then ABSORBED_STEPS decode steps from copies of its cache
+    in ``"naive"`` mode (the config's) and in ``"absorbed"`` mode, both fed
+    naive's greedy tokens: max |Δlogit| over the steps, and equal tokens
+    wherever naive's top-2 margin exceeds twice it. In the config's bf16 and
+    in f32 (TF32 off), where the margin rule decides most row-steps."""
+    import dataclasses
+
+    from repro_torch.models import model as mdl
+
+    for dtype in (cfg.dtype, "float32"):
+        naive_cfg = dataclasses.replace(cfg, dtype=dtype)
+        absorbed = dataclasses.replace(naive_cfg, mla=dataclasses.replace(cfg.mla, decode_mode="absorbed"))
+        b, p = prompts.shape
+        with torch.inference_mode():
+            caches = mdl.init_cache(naive_cfg, b, p + ABSORBED_STEPS + 1, device=DEV)
+            hidden, caches, _ = mdl.forward(naive_cfg, params, prompts, caches=caches)
+            tok = mdl.logits_from_hidden(naive_cfg, params, hidden[:, -1:, :])[:, 0].argmax(-1, keepdim=True)
+            del hidden
+            runs = {"naive": (naive_cfg, caches), "absorbed": (absorbed, _clone_caches(caches))}
+            logits = {mode: [] for mode in runs}
+            for _ in range(ABSORBED_STEPS):
+                for mode, (c, cache) in runs.items():
+                    step, cache = mdl.decode_step(c, params, tok, cache)
+                    runs[mode] = (c, cache)
+                    logits[mode].append(step.float())
+                tok = logits["naive"][-1].argmax(-1, keepdim=True)
+            del runs, caches
+        naive, absorb = torch.stack(logits["naive"]), torch.stack(logits["absorbed"])
+        delta = float((naive - absorb).abs().max())
+        top2 = naive.topk(2, dim=-1).values
+        margin = top2[..., 0] - top2[..., 1]
+        decided = margin > 2 * delta
+        same = naive.argmax(-1) == absorb.argmax(-1)
+        print(f"serve_mla: {ABSORBED_STEPS} decode steps from one prefill's cache, absorbed vs naive "
+              f"({dtype}, both fed naive's tokens): max |Δlogit| {delta:.4e} (logits up to "
+              f"{float(naive.abs().max()):.3f}); tokens equal in {int(same.sum())} of {same.numel()} "
+              f"row-steps, {int(decided.sum())} with a naive top-2 margin above 2·max|Δ|")
+        if not math.isfinite(delta) or bool((decided & ~same).any()):
+            fail(f"serve_mla: absorbed decode ({dtype}) picks other tokens than naive where the margin "
+                 f"exceeds 2·{delta:.4f}")
+        torch.cuda.empty_cache()
+
+
+def phase_serve_mla(torch) -> dict:
+    """``generate`` at deepseek-v2-lite-16b's full width and depth (27
+    layers: a dense ``("mla", "mlp")`` block, then 26 ``("mla", "moe")``;
+    64 routed experts top-6 + 2 shared), bf16 over f32 random parameters,
+    naive MLA decode: prefill and decode times, peak memory, no flash launch;
+    layer 0's MLA and layer 1's MoE FFN on the card against the CPU;
+    absorbed decode against naive; a profiled prefill and decode step."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import model as mdl
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    cfg = get_config(SERVE_MLA["arch"])
+    b, p, n_gen = SERVE_MLA["batch"], SERVE_MLA["prompt_len"], SERVE_MLA["gen"]
+    t0 = time.perf_counter()
+    params = mdl.init_params(cfg, 0, device=DEV)
+    g = torch.Generator(device=DEV).manual_seed(1)
+    prompts = torch.randint(0, cfg.vocab_size, (b, p), generator=g, device=DEV)
+    torch.cuda.synchronize()
+    n = mdl.param_count(params)
+    moe, mla = cfg.moe, cfg.mla
+    print(f"serve_mla: {cfg.name} ({cfg.source}), {cfg.n_layers} layers ({len(cfg.first_blocks)} "
+          f"{cfg.first_blocks[0]}, then {cfg.pattern[0]}), d_model {cfg.d_model}, {cfg.n_heads} heads, "
+          f"MLA latent {mla.kv_lora_rank}, rope / nope / v head dims {mla.rope_head_dim} / "
+          f"{mla.nope_head_dim} / {mla.v_head_dim}, {mla.decode_mode} decode; dense d_ff {cfg.d_ff}; "
+          f"{moe.n_routed} routed experts top-{moe.top_k} + {moe.n_shared} shared, d_ff_expert "
+          f"{moe.d_ff_expert}, group {moe.group_size}, capacity factor {moe.capacity_factor}; vocab "
+          f"{cfg.vocab_size}, {cfg.dtype} over {cfg.param_dtype}: {n} parameters made on the card in "
+          f"{time.perf_counter() - t0:.3f} s, {torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    if n != MLA_P:
+        fail(f"serve_mla: {n} parameters, expected {MLA_P}")
+    generate(cfg, params, prompts, 2, device=DEV)  # warm-up
+    marks, counts = [], []
+
+    def on_step(phase, t):
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+        counts.append(fa_ops.launches["flash_attention"])
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa_ops.launches.update(flash_attention=0)
+    t0 = time.perf_counter()
+    tokens, logits = generate(cfg, params, prompts, n_gen, device=DEV, on_step=on_step)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    prefill_ms = (marks[0] - t0) * 1e3
+    decode_ms = (marks[-1] - marks[0]) * 1e3 / (n_gen - 1)
+    in_prefill, in_decode = counts[0], counts[-1] - counts[0]
+    print(f"serve_mla: batch {b}, prompt {p}, {n_gen} tokens: prefill {prefill_ms:.3f} ms, decode "
+          f"{decode_ms:.3f} ms per step ({b * (n_gen - 1) / (marks[-1] - marks[0]):.1f} tokens/s "
+          f"decoding, {b * n_gen / (marks[-1] - t0):.1f} tokens/s end to end); peak device memory "
+          f"{peak} B ({peak / 2**30:.2f} GiB)")
+    print(f"serve_mla: flash_attention launches: {in_prefill} in the prefill, {in_decode} in the "
+          f"{n_gen - 1} decode steps (MLA is torch ops)")
+    print(f"serve_mla: first generated row {tokens[0].tolist()}")
+    if (in_prefill, in_decode) != (0, 0):
+        fail(f"serve_mla: flash launches {in_prefill} in the prefill and {in_decode} in the decode, "
+             "expected none")
+    if tuple(tokens.shape) != (b, n_gen) or tuple(logits.shape) != (n_gen, b, cfg.vocab_size):
+        fail(f"serve_mla: tokens {tuple(tokens.shape)}, logits {tuple(logits.shape)}")
+    if not bool(torch.isfinite(logits).all()):
+        fail("serve_mla: logits are not finite")
+    if not torch.equal(tokens, logits.argmax(dim=-1).T):
+        fail("serve_mla: the tokens are not the per-step argmax of the logits")
+    del logits
+    mla_layer_card_vs_cpu(torch, cfg, params)
+    moe_layer_card_vs_cpu(torch, cfg, params, layer=1, label="serve_mla")
+    absorbed_against_naive(torch, cfg, params, prompts)
+    phase_serve_trace(torch, cfg, params, prompts, tag="mla ")
+    del params, prompts
+    torch.cuda.empty_cache()
+    print(f"serve_mla: {time.perf_counter() - t_phase:.3f} s")
+    return {"flash": in_prefill + in_decode, "prefill_ms": prefill_ms, "decode_ms": decode_ms,
+            "peak": peak}
+
+
+# ---------------------------------------------------------------------------
+# train_moe: MoE training at deepseek-v2-lite's full width, cut to 2 layers
+# ---------------------------------------------------------------------------
+TRAIN_MOE = dict(arch="deepseek-v2-lite-16b", n_layers=2, batch=4, seq=1024, steps=10, lr=3e-3)
+MOE_TRAIN_P = 1_085_287_424  # the 2-layer cut: the dense block and one ("mla", "moe")
+TRAIN_MOE_SMALL = dict(steps=3, batch=4, seq=64, lr=3e-3)  # card against CPU, f32
+TRAIN_MOE_SMALL_ARCHS = ("deepseek-v2-lite-16b", "qwen2-moe-a2.7b")
+# remat on against off on the card, bf16: each gradient leaf's max |Δ| of its
+# max |g|, two bf16 ulps (should the gather's or the combine's backward sum a
+# token's up to top-k = 6 contributions in another order)
+REMAT_GRAD_RTOL = 2.0**-6
+MOE_WINDOWS = [(0, 8192), (123_456_789, 5_000), (MOE_TRAIN_P // 2 - 4096, 8192),
+               (MOE_TRAIN_P - 8192, 8192)]
+FL_MOE = dict(rounds=2, narrow=dict(d_model=64, vocab_size=256))
+
+
+def moe_train_cfg():
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    return dataclasses.replace(get_config(TRAIN_MOE["arch"]), n_layers=TRAIN_MOE["n_layers"])
+
+
+def train_moe_small(torch) -> None:
+    """TRAIN_MOE_SMALL's steps of reduced deepseek-v2-lite and reduced
+    qwen2-moe (f32) on the card and on the CPU from the same parameters:
+    losses, aux and gradient norms to TRAIN_SMALL_ATOL."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train
+
+    for arch in TRAIN_MOE_SMALL_ARCHS:
+        cfg = get_config(arch, reduced=True)
+        out = {}
+        with _CpuMadeParams():
+            for dev in (DEV, "cpu"):
+                out[dev] = train.train(cfg, steps=TRAIN_MOE_SMALL["steps"], batch=TRAIN_MOE_SMALL["batch"],
+                                       seq=TRAIN_MOE_SMALL["seq"], lr=TRAIN_MOE_SMALL["lr"], device=dev,
+                                       log=lambda line: None)[1]
+        diffs = {}
+        for key in ("loss", "aux", "grad_norm"):
+            card = np.array([r[key] for r in out[DEV]])
+            cpu = np.array([r[key] for r in out["cpu"]])
+            diffs[key] = float(np.abs(card - cpu).max())
+            if not np.allclose(card, cpu, atol=TRAIN_SMALL_ATOL, rtol=0) or not (card > 0).all():
+                fail(f"train_moe[small {arch}]: card {key} {card.tolist()} against the CPU's {cpu.tolist()}")
+        print(f"train_moe[small]: {cfg.name} (f32) {TRAIN_MOE_SMALL['steps']} steps of "
+              f"{TRAIN_MOE_SMALL['batch']} × {TRAIN_MOE_SMALL['seq']}, card against CPU: max |Δ| "
+              f"{json.dumps({k: float(f'{v:.3e}') for k, v in diffs.items()})} (atol "
+              f"{TRAIN_SMALL_ATOL}); card losses {[round(r['loss'], 5) for r in out[DEV]]}, aux "
+              f"{[round(r['aux'], 5) for r in out[DEV]]}")
+
+
+def remat_against_plain(torch, cfg, params, batch) -> dict:
+    """One loss and gradient at the full-width cut with remat off and on,
+    the same parameters and tokens: the recompute routes as the forward
+    did, the loss is the same bits, each gradient leaf within
+    REMAT_GRAD_RTOL of its scale."""
+    import dataclasses
+
+    from repro_torch.models import model as mdl
+    from repro_torch.models.layers import moe as moe_lib
+
+    n_moe = sum(f == "moe" for _, f in cfg.all_blocks)
+    names, leaves = zip(*params.named_parameters())
+    runs = {}
+    route = moe_lib.route
+    for remat in (False, True):
+        routes = []
+        moe_lib.route = lambda *a: routes.append(route(*a)) or routes[-1]
+        try:
+            loss, metrics = mdl.loss_fn(dataclasses.replace(cfg, remat=remat), params,
+                                        batch["tokens"], batch["targets"])
+            grads = torch.autograd.grad(loss, leaves)
+        finally:
+            moe_lib.route = route
+        runs[remat] = (loss.detach(), float(metrics["aux"].detach()), grads,
+                       [(r.expert, r.kept, r.gate.detach()) for r in routes])
+        del loss, metrics, grads
+    (l0, a0, g0, r0), (l1, a1, g1, r1) = runs[False], runs[True]
+    if (len(r0), len(r1)) != (n_moe, 2 * n_moe):
+        fail(f"train_moe[remat]: {len(r0)} and {len(r1)} routings, expected {n_moe} and {2 * n_moe}")
+    same_route = all(all(torch.equal(x, y) for x, y in zip(a, b))
+                     for a, b in zip(r1[:n_moe] + r0, r1[n_moe:] + r1[:n_moe]))
+    worst, worst_leaf, equal = -1.0, "", 0
+    for n, a, b in zip(names, g0, g1):
+        rel = float((a - b).abs().max()) / max(float(a.abs().max()), 1e-30)
+        equal += bool(torch.equal(a, b))
+        if not rel <= worst:
+            worst, worst_leaf = rel, n
+    kept = sum(int(r[1].sum()) for r in r1[:n_moe])
+    choices = sum(r[1].numel() for r in r1[:n_moe])
+    print(f"train_moe[remat]: one loss and gradient at the full-width cut, remat off vs on: loss "
+          f"{float(l0):.6f} vs {float(l1):.6f} (bit-equal {bool(torch.equal(l0, l1))}), aux {a0:.7f} "
+          f"vs {a1:.7f}; the recompute's expert choices, kept set ({kept} of {choices} kept) and gates "
+          f"equal the forward's: {same_route}; gradients: {equal} of {len(names)} leaves bit-equal, "
+          f"the largest max |Δ| of its leaf's max |g| {worst:.3e} ({worst_leaf}; limit {REMAT_GRAD_RTOL})")
+    if not same_route:
+        fail("train_moe[remat]: the recompute routed otherwise than the forward")
+    if not torch.equal(l0, l1):
+        fail(f"train_moe[remat]: the loss differs with remat on ({float(l1)}) and off ({float(l0)})")
+    if not math.isfinite(worst) or worst > REMAT_GRAD_RTOL:
+        fail(f"train_moe[remat]: gradient leaf {worst_leaf} differs by {worst:.3e} of its scale")
+    return {"grad_rel": worst, "equal_leaves": equal}
+
+
+def phase_train_moe(torch, name) -> dict:
+    """``launch/train.py``'s step on deepseek-v2-lite at full width cut to
+    2 layers (MLA, the dense block, one MoE block), bf16 over f32, AdamW,
+    clip 1.0, remat on: the reduced MoE configs card against CPU, TRAIN_MOE's
+    steps with step ms, tokens/s and peak memory, one step profiled, remat
+    on against off."""
+    import numpy as np
+
+    from repro_torch.data.tokens import TokenPipeline
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.launch import steps, train
+    from repro_torch.models import model as mdl
+    from repro_torch.optim import adamw, linear_warmup_cosine
+
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    train_moe_small(torch)
+    cfg = moe_train_cfg()
+    print(f"train_moe: {cfg.name} at full width cut to {cfg.n_layers} layers ({cfg.all_blocks}), "
+          f"{cfg.dtype} over {cfg.param_dtype}, remat {cfg.remat}, fused_ce {cfg.fused_ce}; batch "
+          f"{TRAIN_MOE['batch']} × seq {TRAIN_MOE['seq']}, {TRAIN_MOE['steps']} steps, lr {TRAIN_MOE['lr']}")
+    lines = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa_ops.launches.update(flash_attention=0)
+    start = time.perf_counter()
+    state, records = train.train(cfg, steps=TRAIN_MOE["steps"], batch=TRAIN_MOE["batch"],
+                                 seq=TRAIN_MOE["seq"], lr=TRAIN_MOE["lr"], device=DEV, log_every=1,
+                                 log=lines.append)
+    torch.cuda.synchronize()
+    launches = fa_ops.launches["flash_attention"]
+    peak = torch.cuda.max_memory_allocated()
+    for line, r in zip(lines, records):
+        print(f"train_moe: {line} aux {r['aux']:.6f}")
+    n = mdl.param_count(state["params"])
+    step_ms = np.diff([start] + [r["t"] for r in records]) * 1e3
+    print(f"train_moe: {n} parameters; step ms: first {step_ms[0]:.3f}, then median "
+          f"{float(np.median(step_ms[1:])):.3f} (min {step_ms[1:].min():.3f}, max "
+          f"{step_ms[1:].max():.3f}); {TRAIN_MOE['batch'] * TRAIN_MOE['seq'] / np.median(step_ms[1:]) * 1e3:.1f} "
+          f"tokens/s; peak device memory {peak} B ({peak / 2**30:.2f} GiB); flash launches {launches}")
+    if n != MOE_TRAIN_P:
+        fail(f"train_moe: {n} parameters, expected {MOE_TRAIN_P}")
+    for r in records:
+        if not all(math.isfinite(r[k]) for k in ("loss", "ce", "aux", "grad_norm")) or not r["aux"] > 0:
+            fail(f"train_moe: a loss, aux or gradient norm is not finite, or aux is not positive: {r}")
+    if launches:
+        fail(f"train_moe: {launches} flash launches, expected none (MLA is torch ops)")
+    step_fn = steps.make_train_step(cfg, adamw(linear_warmup_cosine(
+        TRAIN_MOE["lr"], TRAIN_MOE["steps"] // 10 + 1, TRAIN_MOE["steps"])))
+    bt = TokenPipeline(cfg.vocab_size, TRAIN_MOE["batch"], TRAIN_MOE["seq"], seed=1).next_batch()
+    batch = {k: torch.from_numpy(v).to(DEV, torch.int64)
+             for k, v in (("tokens", bt.tokens), ("targets", bt.targets))}
+    lm_trace(torch, "train_moe", lambda: step_fn(state, batch), "one more train step")
+    params = state["params"]
+    del state, step_fn
+    torch.cuda.empty_cache()
+    remat = remat_against_plain(torch, cfg, params, batch)
+    del params
+    torch.cuda.empty_cache()
+    print(f"train_moe: {time.perf_counter() - t0:.3f} s")
+    return {"flash": launches, "step_ms": float(np.median(step_ms[1:])), "peak": peak, **remat}
+
+
+def phase_fl_moe(torch, name) -> dict:
+    """The federated LM on a MoE: B2 and B3 at (8, MOE_TRAIN_P), the narrow
+    reduced deepseek-v2-lite card against CPU, then run_federated_lm on
+    train_moe's 2-layer cut with FLLMConfig's defaults for FL_MOE's rounds,
+    md and sketched Algorithm 2. Returns the launches of the two full-width
+    runs together, and the kernels' errors and times."""
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    kern = lm_kernels(torch, name, MOE_TRAIN_P, MOE_WINDOWS, label="fl_moe")
+    fl_lm_small(torch, TRAIN_MOE["arch"], FL_MOE["narrow"], label="fl_moe")
+    cfg = moe_train_cfg()
+    md = fl_lm_run(torch, "moe md", "md", "sync", cfg, MOE_TRAIN_P, FL_MOE["rounds"])
+    a2 = fl_lm_run(torch, "moe algorithm2[srp]", "algorithm2", FL_LM_SKETCH, cfg, MOE_TRAIN_P,
+                   FL_MOE["rounds"])
+    torch.cuda.empty_cache()
+    local_step_trace(torch, cfg, "moe local_step")
+    torch.cuda.empty_cache()
+    print(f"fl_moe: {time.perf_counter() - t0:.3f} s")
+    return {"launches": {k: md[k] + a2[k] for k in md}, "kernels": kern}
+
+
 def main() -> int:
     import torch
 
@@ -3706,6 +4137,7 @@ def main() -> int:
     phase_small_input()
     phase_small_serve(torch)
     phase_small_serve(torch, SERVE_MOE["arch"])
+    phase_small_serve(torch, SERVE_MLA["arch"])
     launches, ds, params, round_ms = phase_slice(torch)
     launches["srp_fleet"] = phase_fleet(torch)
     phase_trace(torch, ds, params, round_ms["arccos"])
@@ -3729,6 +4161,9 @@ def main() -> int:
     trained = phase_train(torch, gen, name)
     fl_lm = phase_fl_lm(torch, name)
     moe_row["launches"] = phase_serve_moe(torch)["flash"]
+    serve_mla = phase_serve_mla(torch)
+    train_moe = phase_train_moe(torch, name)
+    fl_moe = phase_fl_moe(torch, name)
     for row in rows:
         key = {"similarity_gram": "gram", "aggregate": "aggregate", "srp_sketch": "srp"}.get(row["name"])
         if key is not None:
@@ -3736,12 +4171,16 @@ def main() -> int:
             row["zoo_launches"] = zoo[key]
             row["sched_launches"] = sched[key]
             row["fl_lm_launches"] = fl_lm["launches"][key]
+            row["fl_moe_launches"] = fl_moe["launches"][key]
         key = {"similarity_gram": "gram", "similarity_l1": "l1", "aggregate": "aggregate"}.get(row["name"])
         if key is not None:
             row["ablations_launches"] = ablations[key]
         if row["name"] == "flash_attention":
             row["train_launches"] = trained["flash"]
             row["fl_lm_launches"] = fl_lm["launches"]["flash_attention"]
+            row["serve_mla_launches"] = serve_mla["flash"]
+            row["train_moe_launches"] = train_moe["flash"]
+            row["fl_moe_launches"] = fl_moe["launches"]["flash_attention"]
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,

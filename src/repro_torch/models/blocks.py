@@ -1,19 +1,20 @@
-"""Block init/apply for the ``("attn", "mlp")`` and ``("attn", "moe")``
-pairs, pre-norm residuals.
+"""Block init/apply for the ``("attn" | "mla", "mlp" | "moe")`` pairs,
+pre-norm residuals.
 
 Port of ``src/repro/models/blocks.py``. One block =
-    x = x + attn(rmsnorm(x))
+    x = x + mixer(rmsnorm(x))        (mixer: GQA attention, or MLA)
     x = x + ffn(rmsnorm(x))          (ffn: the gated MLP, or the MoE FFN)
 
 A block's parameters are an ``nn.ModuleDict`` of ``nn.ParameterDict``s
-keyed as the reference's parameter dict (``norm1``, ``attn``, ``ffn_norm``,
-``mlp`` or ``moe``; the MoE's ``shared`` experts a nested
-``ParameterDict``), so the layer functions index both alike.
-``block_apply`` runs in two modes: ``full`` (prefill — whole sequence,
-seeds the cache) and ``decode`` (one token against the block's cache), and
-returns the MoE's auxiliary load-balance loss (None for an MLP block). The
-other mixers (mla, rglru, mlstm, slstm, local, bidir) and cross-attention
-are not ported (ROADMAP A12).
+keyed as the reference's parameter dict (``norm1``, ``attn`` — MLA's
+weights too, as there —, ``ffn_norm``, ``mlp`` or ``moe``; the MoE's
+``shared`` experts and MLA's ``kv_norm`` nested ``ParameterDict``s), so the
+layer functions index both alike. ``block_apply`` runs in two modes:
+``full`` (prefill — whole sequence, seeds the cache) and ``decode`` (one
+token against the block's cache), and returns the MoE's auxiliary
+load-balance loss (None for an MLP block). The rglru, mlstm, slstm, local
+and bidir mixers, the ``none`` FFN and cross-attention are not ported
+(ROADMAP A12).
 """
 from __future__ import annotations
 
@@ -24,19 +25,20 @@ from torch import nn
 
 from repro_torch.models.config import BlockSpec, ModelConfig
 from repro_torch.models.layers import attention as attn_lib
+from repro_torch.models.layers import mla as mla_lib
 from repro_torch.models.layers import moe as moe_lib
 from repro_torch.models.layers.mlp import init_mlp, mlp
 from repro_torch.models.layers.norms import rmsnorm
 
 DENSE: BlockSpec = ("attn", "mlp")
 MOE: BlockSpec = ("attn", "moe")
-PORTED = (DENSE, MOE)
+PORTED = (DENSE, MOE, ("mla", "mlp"), ("mla", "moe"))
 
 
 def _check_kind(kind: BlockSpec) -> None:
     if tuple(kind) not in PORTED:
         raise NotImplementedError(
-            f"block {kind} is not ported; only {' and '.join(map(str, PORTED))} are (ROADMAP A12)")
+            f"block {kind} is not ported; only {', '.join(map(str, PORTED))} are (ROADMAP A12)")
 
 
 def _parameter_dict(tree: dict) -> nn.ParameterDict:
@@ -58,9 +60,10 @@ def as_module(params: dict) -> nn.ModuleDict:
 
 def init_block(cfg: ModelConfig, kind: BlockSpec, gen: Optional[torch.Generator], device) -> nn.ModuleDict:
     _check_kind(kind)
+    init_mixer = mla_lib.init_mla if kind[0] == "mla" else attn_lib.init_attention
     p = {
         "norm1": {"scale": torch.ones((cfg.d_model,), device=device)},
-        "attn": attn_lib.init_attention(cfg, gen, device),
+        "attn": init_mixer(cfg, gen, device),
         "ffn_norm": {"scale": torch.ones((cfg.d_model,), device=device)},
     }
     if kind[1] == "moe":
@@ -74,15 +77,19 @@ def init_block_cache(
     cfg: ModelConfig, kind: BlockSpec, batch: int, cache_len: int, dtype, device,
     *, decode_window: int = 0,
 ) -> dict:
-    """Decode-state for one block. ``decode_window`` ring-buffers 'attn' blocks."""
+    """Decode-state for one block. ``decode_window`` ring-buffers 'attn'
+    blocks; an MLA cache takes the whole ``cache_len``, as the reference's."""
     _check_kind(kind)
+    if kind[0] == "mla":
+        return mla_lib.init_mla_cache(cfg, batch, cache_len, dtype, device)
     length = min(cache_len, decode_window) if decode_window else cache_len
     return attn_lib.init_kv_cache(cfg, batch, length, dtype, device)
 
 
 def _mixer_window(mixer: str, decode_window: int) -> int:
-    """The decode window of a mixer (the reference's "local" mixers use
-    ``cfg.sliding_window``; they are not ported)."""
+    """The decode window of a mixer: ``decode_window`` for "attn", 0 for
+    "mla" (its cache is never a ring). The reference's "local" mixers use
+    ``cfg.sliding_window``; they are not ported."""
     return decode_window if mixer == "attn" else 0
 
 
@@ -102,7 +109,9 @@ def block_apply(
     h = rmsnorm(params["norm1"], x, cfg.norm_eps)
     window = _mixer_window(kind[0], decode_window)
     new_cache = cache
-    if mode == "full":
+    if kind[0] == "mla":
+        y, new_cache = _mla(cfg, params["attn"], h, angles, mode, cache)
+    elif mode == "full":
         y, kv = attn_lib.attention_full(cfg, params["attn"], h, angles, window=window)
         if cache is not None:
             new_cache = pack_kv_cache(kv, cache["k"].shape[1], window, cache["k"].dtype)
@@ -114,6 +123,20 @@ def block_apply(
         y, aux = moe_lib.moe_ffn(cfg, params["moe"], hf)
         return x + y, new_cache, aux
     return x + mlp(cfg, params["mlp"], hf), new_cache, None
+
+
+def _mla(cfg: ModelConfig, params, h: torch.Tensor, angles, mode: str, cache: Optional[dict]):
+    """MLA in either mode. A prefill writes its latent and rotary key into
+    the cache at [0, S) and sets ``pos`` to S (in place, as decode does)."""
+    if mode != "full":
+        return mla_lib.mla_decode(cfg, params, h, angles, cache)
+    y, seed = mla_lib.mla_full(cfg, params, h, angles)
+    if cache is None:
+        return y, None
+    s = seed["c"].shape[1]
+    cache["c"][:, :s] = seed["c"].to(cache["c"].dtype)
+    cache["k_rope"][:, :s] = seed["k_rope"].to(cache["k_rope"].dtype)
+    return y, {"c": cache["c"], "k_rope": cache["k_rope"], "pos": s}
 
 
 def pack_kv_cache(kv: dict, cache_len: int, window: int, dtype) -> dict:

@@ -19,6 +19,13 @@ sort keeps it); gates renormalised by their sum + 1e-9; queue places from
 the cumulative count over the group's tokens in order; gates cast to the
 compute dtype before the combine. The auxiliary load-balance loss follows
 Switch/GShard: ``n_e · Σ_e f_e · P_e``, the mean over groups.
+
+Under a gradient the gather's backward sums each token's slots back into
+its row and the combine's carries each choice's gate, so autograd gives
+the reference's gradient: through the kept gates and the experts, and
+through the router's softmax both to the gates and to the aux loss's
+P_e (f_e, the choices and the places carry none). A recompute under
+``torch.utils.checkpoint`` routes the same tokens the same way.
 """
 from __future__ import annotations
 

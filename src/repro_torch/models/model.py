@@ -1,4 +1,4 @@
-"""Decoder-LM assembly over ``("attn", "mlp")`` and ``("attn", "moe")`` blocks.
+"""Decoder-LM assembly over ``("attn" | "mla", "mlp" | "moe")`` blocks.
 
 Port of ``src/repro/models/model.py``. The model is an :class:`LM`
 ``nn.Module`` whose ``blocks`` ``nn.ModuleList`` holds every layer in order
@@ -78,14 +78,15 @@ def check_ported(cfg: ModelConfig) -> None:
     cfg.validate()
     missing = [name for name, on in (
         ("the encoder", cfg.encoder is not None), (f"the {cfg.frontend} front end", cfg.frontend),
-        ("M-RoPE", cfg.mrope), ("MLA", cfg.mla is not None),
+        ("M-RoPE", cfg.mrope),
     ) if on]
     missing += sorted({f"block {kind}" for kind in cfg.all_blocks if tuple(kind) not in blk.PORTED})
     if missing:
         raise NotImplementedError(
             f"{cfg.name}: {', '.join(missing)} not ported; the port runs "
-            f"{' and '.join(map(str, blk.PORTED))} blocks without MLA, M-RoPE, an encoder or "
-            "a front end (ROADMAP A12)")
+            f"{', '.join(map(str, blk.PORTED))} blocks; the rglru, mlstm, slstm, local and bidir "
+            "mixers, cross-attention, the encoder, M-RoPE and the front ends are not ported "
+            "(ROADMAP A12)")
 
 
 def _device(device) -> torch.device:
@@ -239,8 +240,10 @@ def param_count(params: LM) -> int:
 
 
 def make_angles(cfg: ModelConfig, positions: torch.Tensor) -> torch.Tensor:
-    """positions (S,) -> rope angles (S, head_dim // 2)."""
-    return rope_angles(positions, cfg.resolved_head_dim, cfg.rope_theta)
+    """positions (S,) -> rope angles (S, rotated dims // 2): the head dim,
+    or MLA's ``rope_head_dim`` (MLA rotates only its rope part)."""
+    hd = cfg.mla.rope_head_dim if cfg.mla is not None else cfg.resolved_head_dim
+    return rope_angles(positions, hd, cfg.rope_theta)
 
 
 def _embed(cfg: ModelConfig, params: LM, tokens: torch.Tensor) -> torch.Tensor:

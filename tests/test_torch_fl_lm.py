@@ -8,6 +8,10 @@ them, as ``test_torch_experiment.py`` does for ``init_mlp``), and both
 draw the same per-client ``TokenPipeline`` batches. The model is the f32
 reduced qwen3-0.6b at ``examples/federated_lm.py``'s widths.
 
+The reduced deepseek-v2-lite at d_model 64 and vocab 256 (MLA, a dense
+first block and a MoE under the local steps' gradients) runs md and
+Algorithm 2 whole under the same limits.
+
 Tolerances: flat vectors bit for bit; a round step's parameters and
 updates to atol 2e-6 on entries up to 0.05 (measured ≤ 1.2e-7: the GEMMs
 sum in other orders) and its loss to 2e-6 (measured 1.4e-6, three ulps at
@@ -37,6 +41,9 @@ from repro_torch.launch import fl_train
 from repro_torch.models import model as mdl
 
 NARROW = dict(d_model=64, vocab_size=256, n_heads=2, n_kv_heads=2, head_dim=32)
+# the reduced deepseek-v2-lite at the same d_model and vocab (its MLA and
+# MoE widths as reduced)
+NARROWED = {"qwen3-0.6b": NARROW, "deepseek-v2-lite-16b": dict(d_model=64, vocab_size=256)}
 STEP_ATOL = 2e-6
 LOSS_ATOL = 1e-5
 FL = dict(n_clients=12, m=4, n_rounds=4, n_local_steps=2, local_batch=2, seq_len=16, lr=0.1)
@@ -44,7 +51,7 @@ SIZES = np.array([300, 120, 800, 450, 90, 600, 210, 1000, 75, 330, 520, 260])
 
 
 def _configs(arch="qwen3-0.6b", **overrides):
-    kw = {**NARROW, **overrides} if arch == "qwen3-0.6b" else overrides
+    kw = {**NARROWED.get(arch, {}), **overrides}
     return (dataclasses.replace(ref_get_config(arch, reduced=True), **kw),
             dataclasses.replace(get_config(arch, reduced=True), **kw))
 
@@ -60,10 +67,13 @@ def _ref_params(arch="qwen3-0.6b", n_layers=None, seed=0):
 # flat vectors
 # --------------------------------------------------------------------------
 @pytest.mark.parametrize("arch,n_layers", [("qwen3-0.6b", None), ("qwen3-0.6b", 3),
-                                           ("qwen2-1.5b", 2), ("llama3.2-3b", 2)])
+                                           ("qwen2-1.5b", 2), ("llama3.2-3b", 2),
+                                           ("qwen2-moe-a2.7b", 2), ("deepseek-v2-lite-16b", None)])
 def test_flatten_params_of_an_lm_is_bit_equal_to_the_reference(arch, n_layers):
     """qk-norm; a stack of 3 layers; QKV biases; llama's head (tied or not
-    as its config says)."""
+    as its config says); the MoE's stacked experts and nested shared MLP;
+    MLA's nested kv_norm beside a dense first block (the narrow reduced
+    deepseek of the federated runs below)."""
     overrides = {} if n_layers is None else {"n_layers": n_layers}
     _, cfg = _configs(arch, **overrides)
     tree = _ref_params(arch, n_layers)
@@ -142,27 +152,36 @@ def _record_plans(sampler):
 
 
 @functools.cache
-def _ref_run(name):
+def _ref_run(name, arch="qwen3-0.6b"):
     sampler_name, planner = SAMPLERS[name]
-    cfg, _ = _configs()
+    cfg, _ = _configs(arch)
     fl = ref_fl.FLLMConfig(**FL, sampler=sampler_name, planner=planner)
-    d = int(ref_flatten(_ref_params()).shape[0])
+    d = int(ref_flatten(_ref_params(arch)).shape[0])
     with contextlib.closing(ref_fl.make_lm_sampler(fl, RefPopulation(SIZES), update_dim=d)) as sm:
         plans = _record_plans(sm)
         losses = ref_fl.run_federated_lm(cfg, fl, sm)
     return losses, plans
 
 
-@pytest.mark.parametrize("name", SAMPLERS)
-def test_run_federated_lm_matches_the_reference(name, monkeypatch):
-    want_losses, want_plans = _ref_run(name)
+RUNS = {name: ("qwen3-0.6b", name) for name in SAMPLERS}
+RUNS.update({f"deepseek-v2-lite-16b[{name}]": ("deepseek-v2-lite-16b", name)
+             for name in ("md", "algorithm2")})
+
+
+@pytest.mark.parametrize("run", RUNS)
+def test_run_federated_lm_matches_the_reference(run, monkeypatch):
+    """qwen3's narrow reduced config under each sampler; the reduced
+    deepseek-v2-lite (MLA and a MoE under the local steps' gradients) under
+    md and Algorithm 2."""
+    arch, name = RUNS[run]
+    want_losses, want_plans = _ref_run(name, arch)
     sampler_name, planner = SAMPLERS[name]
-    _, cfg = _configs()
+    _, cfg = _configs(arch)
     seen = []
 
     def init_params(c, seed=0, *, device="cuda"):
         seen.append(seed)
-        return mdl.params_from_numpy(c, _ref_params(), device=device)
+        return mdl.params_from_numpy(c, _ref_params(arch), device=device)
 
     monkeypatch.setattr(mdl, "init_params", init_params)
     fl = fl_train.FLLMConfig(**FL, sampler=sampler_name, planner=planner)
