@@ -10,7 +10,8 @@ reduced qwen3-0.6b at ``examples/federated_lm.py``'s widths.
 
 The reduced deepseek-v2-lite at d_model 64 and vocab 256 (MLA, a dense
 first block and a MoE under the local steps' gradients) runs md and
-Algorithm 2 whole under the same limits.
+Algorithm 2 whole under the same limits, and the reduced qwen2-moe at the
+same widths runs md.
 
 Tolerances: flat vectors bit for bit; a round step's parameters and
 updates to atol 2e-6 on entries up to 0.05 (measured ≤ 1.2e-7: the GEMMs
@@ -43,7 +44,8 @@ from repro_torch.models import model as mdl
 NARROW = dict(d_model=64, vocab_size=256, n_heads=2, n_kv_heads=2, head_dim=32)
 # the reduced deepseek-v2-lite at the same d_model and vocab (its MLA and
 # MoE widths as reduced)
-NARROWED = {"qwen3-0.6b": NARROW, "deepseek-v2-lite-16b": dict(d_model=64, vocab_size=256)}
+NARROWED = {"qwen3-0.6b": NARROW, "deepseek-v2-lite-16b": dict(d_model=64, vocab_size=256),
+            "qwen2-moe-a2.7b": dict(d_model=64, vocab_size=256)}
 STEP_ATOL = 2e-6
 LOSS_ATOL = 1e-5
 FL = dict(n_clients=12, m=4, n_rounds=4, n_local_steps=2, local_batch=2, seq_len=16, lr=0.1)
@@ -73,7 +75,7 @@ def test_flatten_params_of_an_lm_is_bit_equal_to_the_reference(arch, n_layers):
     """qk-norm; a stack of 3 layers; QKV biases; llama's head (tied or not
     as its config says); the MoE's stacked experts and nested shared MLP;
     MLA's nested kv_norm beside a dense first block (the narrow reduced
-    deepseek of the federated runs below)."""
+    MoE configs of the federated runs below)."""
     overrides = {} if n_layers is None else {"n_layers": n_layers}
     _, cfg = _configs(arch, **overrides)
     tree = _ref_params(arch, n_layers)
@@ -166,13 +168,14 @@ def _ref_run(name, arch="qwen3-0.6b"):
 RUNS = {name: ("qwen3-0.6b", name) for name in SAMPLERS}
 RUNS.update({f"deepseek-v2-lite-16b[{name}]": ("deepseek-v2-lite-16b", name)
              for name in ("md", "algorithm2")})
+RUNS["qwen2-moe-a2.7b[md]"] = ("qwen2-moe-a2.7b", "md")
 
 
 @pytest.mark.parametrize("run", RUNS)
 def test_run_federated_lm_matches_the_reference(run, monkeypatch):
     """qwen3's narrow reduced config under each sampler; the reduced
     deepseek-v2-lite (MLA and a MoE under the local steps' gradients) under
-    md and Algorithm 2."""
+    md and Algorithm 2; the reduced qwen2-moe under md."""
     arch, name = RUNS[run]
     want_losses, want_plans = _ref_run(name, arch)
     sampler_name, planner = SAMPLERS[name]
