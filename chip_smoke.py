@@ -241,7 +241,41 @@ Phases, one line (or a few) each; any failure raises and exits non-zero:
    2-layer cut with ``FLLMConfig``'s defaults, 2 rounds each of md and
    algorithm2 on the SRP-sketched store (d′ = 64): launches exactly
    aggregate a round, srp a sketched round, gram a rebuild, flash none;
-   round ms and its parts; one local step under ``torch.profiler``.
+   round ms and its parts; one local step under ``torch.profiler``;
+17. serve_rglru — ``generate`` at recurrentgemma-9b's full width and
+   depth (38 layers: 12 × (rglru, rglru, local) and 2 rglru; d_model and
+   lru width 4,096, 16 heads with one kv head of 256, window 2,048, d_ff
+   12,288, vocab 256,000; 9,396,408,320 parameters), bf16 over f32 random
+   parameters, batch 4, prompt 1,000, 16 greedy tokens, after serve_mla
+   freed its parameters: prefill ms, decode ms a step, tokens/s, peak
+   memory, no flash launch (the RG-LRU is torch ops, the local attention
+   ``attend``, as the reference's); layer 0's RG-LRU block (output, h,
+   conv tail) and layer 2's local attention (output, k, v) in f32 card vs
+   CPU within 1e-4 of their scale; in f32, batch 1, a 2,060-token prompt
+   (past the 2,048 window: the ring rolled by 12) and 4 decode steps
+   against one forward over the 2,064 tokens, within 1e-4 of the logits'
+   scale; one prefill and one decode step under ``torch.profiler``;
+18. serve_xlstm — the same at xlstm-125m's full width and depth (12 layers
+   alternating mLSTM and sLSTM, d_model 768, 4 heads, vocab 50,304;
+   143,345,712 parameters), the decode-against-forward check at batch 4 ×
+   prompt 1,000; ``small_input`` also runs reduced recurrentgemma (5
+   layers, past its window of 16) and reduced xLSTM card vs CPU, and
+   reduced xLSTM with ``mlstm_chunk`` 8 on a 24-token prompt
+   (``mlstm_chunkwise`` in each prefill);
+19. train_recurrent — reduced recurrentgemma and reduced xLSTM (f32) 3
+   AdamW steps card vs CPU (losses and gradient norms to atol 1e-4); then
+   ``launch/train.py``'s step (AdamW lr 3e-3, clip 1.0, remat on, bf16
+   over f32) on xlstm-125m at full width and depth and on recurrentgemma-9b
+   at full width cut to its first period (1,705,078,784 parameters), 3
+   steps of 4 × 1,024 each: finite losses that fall, no flash launch, step
+   ms, tokens/s, peak memory, one more step profiled (xLSTM's at 4 × 128);
+20. fl_xlstm — B2 and B3 at (8, 143,345,712) as in fl_lm; the narrow
+   reduced xLSTM card vs CPU (md, algorithm2, algorithm2 with SRP);
+   ``run_federated_lm`` on xlstm-125m at full width with ``FLLMConfig``'s
+   defaults but lr 0.01, 1 round each of md and sketched algorithm2:
+   launches exactly aggregate a round, srp a sketched round, gram a
+   rebuild, flash none; each Gram against ``G @ G.T`` in f64; round ms and
+   its parts; one local step under ``torch.profiler``.
 
 The last lines are the card's name and power limit (nvidia-smi), a JSON
 object with one entry per kernel and shape (with the paper, zoo, sched
@@ -251,8 +285,11 @@ rows, the ablations phase's as ``ablations_launches`` for the Gram, L1
 and aggregate rows, the train and fl_lm phases' as ``train_launches`` and
 ``fl_lm_launches`` for the flash row, serve_moe's as the launches of
 the ``flash_attention_moe`` row, fl_moe's as ``fl_moe_launches`` for the
-Gram, aggregate, SRP and flash rows, and serve_mla's and train_moe's as
-``serve_mla_launches`` and ``train_moe_launches`` for the flash row), and
+Gram, aggregate, SRP and flash rows, fl_xlstm's as ``fl_xlstm_launches``
+for the same rows, and serve_mla's, train_moe's, serve_rglru's,
+serve_xlstm's and train_recurrent's as ``serve_mla_launches``,
+``train_moe_launches``, ``serve_rglru_launches``, ``serve_xlstm_launches``
+and ``train_recurrent_launches`` for the flash row), and
 ``{"ok": true, "device": ...}``.
 The script imports neither JAX nor the JAX package ``repro``.
 """
@@ -845,28 +882,31 @@ def phase_kernels_flash(torch, gen) -> dict:
     return path_err
 
 
-def _small_serve_cfg(arch, dtype):
-    """Reduced ``arch`` at SERVE_SMALL's 2 layers with activations in ``dtype``."""
+def _small_serve_cfg(arch, dtype, **overrides):
+    """Reduced ``arch`` at SERVE_SMALL's 2 layers, or the reduced config's
+    own depth where one period and its tail take more (recurrentgemma's 5),
+    with activations in ``dtype``."""
     import dataclasses
 
     from repro_torch.configs import get_config
 
-    return dataclasses.replace(get_config(arch, reduced=True), n_layers=SERVE_SMALL["n_layers"],
-                               dtype=dtype)
+    reduced = get_config(arch, reduced=True)
+    return dataclasses.replace(reduced, n_layers=max(SERVE_SMALL["n_layers"], reduced.n_layers),
+                               dtype=dtype, **overrides)
 
 
-def _serve_small(torch, device, dtype="float32", arch=SERVE_SMALL["arch"]):
-    """Greedy generations of reduced ``arch`` at 2 layers with activations
-    in ``dtype``, from parameters made on the CPU; returns (token ids,
-    per-step logits)."""
+def _serve_small(torch, device, dtype="float32", arch=SERVE_SMALL["arch"],
+                 prompt_len=SERVE_SMALL["prompt_len"], **overrides):
+    """Greedy generations of reduced ``arch`` (``_small_serve_cfg``) with
+    activations in ``dtype``, from parameters made on the CPU; returns
+    (token ids, per-step logits)."""
     from repro_torch.launch.serve import generate
     from repro_torch.models import model as mdl
 
-    cfg = _small_serve_cfg(arch, dtype)
+    cfg = _small_serve_cfg(arch, dtype, **overrides)
     params = mdl.init_params(cfg, 0, device="cpu").to(device)
     g = torch.Generator().manual_seed(1)
-    prompts = torch.randint(0, cfg.vocab_size, (SERVE_SMALL["batch"], SERVE_SMALL["prompt_len"]),
-                            generator=g)
+    prompts = torch.randint(0, cfg.vocab_size, (SERVE_SMALL["batch"], prompt_len), generator=g)
     tokens, logits = generate(cfg, params, prompts, SERVE_SMALL["gen"], device=device)
     return tokens.cpu(), logits.float().cpu()
 
@@ -889,8 +929,8 @@ def _serve_small_pair(torch, dtype, arch):
 
 
 def phase_small_serve(torch, arch=SERVE_SMALL["arch"]):
-    label = (f"reduced {arch}, 2 layers, batch {SERVE_SMALL['batch']}, prompt "
-             f"{SERVE_SMALL['prompt_len']}, gen {SERVE_SMALL['gen']}")
+    label = (f"reduced {arch}, {_small_serve_cfg(arch, 'float32').n_layers} layers, batch "
+             f"{SERVE_SMALL['batch']}, prompt {SERVE_SMALL['prompt_len']}, gen {SERVE_SMALL['gen']}")
     cpu, gpu, n = _serve_small_pair(torch, "float32", arch)
     if not torch.equal(cpu[0], gpu[0]):
         fail(f"small input [serve, {arch}]: the card's tokens {gpu[0].tolist()} differ from the "
@@ -902,7 +942,7 @@ def phase_small_serve(torch, arch=SERVE_SMALL["arch"]):
           f"diff {e:.2e} (atol {SERVE_SMALL_ATOL}), {n} flash launches")
     cpu, gpu, n = _serve_small_pair(torch, "bfloat16", arch)
     e, steps, held = _compare_bf16_generations(cpu, gpu)
-    route = "through the tensor-core kernel" if n else "MLA's torch ops, no flash"
+    route = "through the tensor-core kernel" if n else "torch ops, no flash"
     print(f"kernels: small input [serve] ({label}, bf16 {route}), card vs "
           f"CPU: max logit diff {e:.2e} (atol {SERVE_SMALL_BF16_ATOL}) over {steps} row-steps, "
           f"tokens equal at all {held} with a CPU top-2 margin above {SERVE_SMALL_BF16_MARGIN}, "
@@ -3502,11 +3542,12 @@ class GramTap:
         self.sim_ops.pairwise_sums = self.real
 
 
-def fl_lm_run(torch, label, sampler_name, planner, cfg=None, p=LM_P, rounds=FL_LM["rounds"]) -> dict:
+def fl_lm_run(torch, label, sampler_name, planner, cfg=None, p=LM_P, rounds=FL_LM["rounds"],
+              **fl_kw) -> dict:
     """run_federated_lm on ``cfg`` (qwen3-0.6b at full width unless given;
-    ``p`` its parameters) with FLLMConfig's defaults and ``rounds`` rounds;
-    kernel launches counted from after the sampler's construction (its
-    cold-start build) to the run's end."""
+    ``p`` its parameters) with FLLMConfig's defaults but for ``fl_kw`` and
+    ``rounds`` rounds; kernel launches counted from after the sampler's
+    construction (its cold-start build) to the run's end."""
     import contextlib
 
     import numpy as np
@@ -3520,7 +3561,7 @@ def fl_lm_run(torch, label, sampler_name, planner, cfg=None, p=LM_P, rounds=FL_L
     from repro_torch.launch import fl_train
 
     cfg = cfg or get_config(FL_LM["arch"])
-    fl = fl_train.FLLMConfig(n_rounds=rounds, sampler=sampler_name, planner=planner)
+    fl = fl_train.FLLMConfig(n_rounds=rounds, sampler=sampler_name, planner=planner, **fl_kw)
     pop = ClientPopulation(np.full(fl.n_clients, 1000))
     grams = []  # (store snapshot, the sampler's Gram of it) of every plan rebuild
     with FLParts(torch) as parts, GramTap(sim_ops, grams), contextlib.closing(
@@ -3680,35 +3721,42 @@ def moe_layer_card_vs_cpu(torch, cfg, params, layer=0, label="serve_moe") -> Non
              f"aux by {abs(a_g - a_c):.3e}")
 
 
-def phase_serve_moe(torch) -> dict:
-    """``generate`` at qwen2-moe-a2.7b's full width and depth (24 layers,
-    d_model 2,048, 60 routed experts top-4 + 4 shared), bf16 over f32
-    random parameters: prefill and decode times, peak memory, 24 flash
-    launches in the prefill and 0 in decode; layer 0's MoE FFN on the card
-    against the CPU; the prefill against the plain attention."""
+def _blocks_summary(cfg) -> str:
+    counts: dict = {}
+    for kind in cfg.all_blocks:
+        counts[kind] = counts.get(kind, 0) + 1
+    return ", ".join(f"{n} {kind}" for kind, n in counts.items())
+
+
+def serve_full_width(torch, label, spec, want_p, describe):
+    """``spec["arch"]`` at full width and depth: parameters made on the card
+    (bf16 over f32; ``describe(cfg)`` names its own widths), a warm-up,
+    then ``generate`` with the prefill and each decode step timed and the
+    flash launches counted in each: one a prefill for each "attn" layer and
+    none in decode (MLA, the recurrent mixers and windowed attention are
+    torch ops), finite logits, tokens the per-step argmax. Returns (cfg,
+    params, prompts, numbers)."""
     from repro_torch.configs import get_config
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.launch.serve import generate
     from repro_torch.models import model as mdl
 
     torch.cuda.empty_cache()
-    cfg = get_config(SERVE_MOE["arch"])
-    b, p, n_gen = SERVE_MOE["batch"], SERVE_MOE["prompt_len"], SERVE_MOE["gen"]
+    cfg = get_config(spec["arch"])
+    b, p, n_gen = spec["batch"], spec["prompt_len"], spec["gen"]
     t0 = time.perf_counter()
     params = mdl.init_params(cfg, 0, device=DEV)
     g = torch.Generator(device=DEV).manual_seed(1)
     prompts = torch.randint(0, cfg.vocab_size, (b, p), generator=g, device=DEV)
     torch.cuda.synchronize()
     n = mdl.param_count(params)
-    moe = cfg.moe
-    print(f"serve_moe: {cfg.name} ({cfg.source}), {cfg.n_layers} layers, d_model {cfg.d_model}, "
-          f"{cfg.n_heads} heads ({cfg.n_kv_heads} kv), head_dim {cfg.resolved_head_dim}, "
-          f"{moe.n_routed} routed experts top-{moe.top_k} + {moe.n_shared} shared, d_ff_expert "
-          f"{moe.d_ff_expert}, group {moe.group_size}, capacity factor {moe.capacity_factor}, vocab "
-          f"{cfg.vocab_size}, {cfg.dtype} over {cfg.param_dtype}: {n} parameters made on the card "
-          f"in {time.perf_counter() - t0:.3f} s, {torch.cuda.memory_allocated() / 2**30:.2f} GiB")
-    if n != MOE_P:
-        fail(f"serve_moe: {n} parameters, expected {MOE_P}")
+    print(f"{label}: {cfg.name} ({cfg.source}), {cfg.n_layers} layers ({_blocks_summary(cfg)}), d_model "
+          f"{cfg.d_model}, {cfg.n_heads} heads ({cfg.n_kv_heads} kv), head_dim {cfg.resolved_head_dim}, "
+          f"{describe(cfg)}, vocab {cfg.vocab_size}, {cfg.dtype} over {cfg.param_dtype}: {n} parameters "
+          f"made on the card in {time.perf_counter() - t0:.3f} s, "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    if n != want_p:
+        fail(f"{label}: {n} parameters, expected {want_p}")
     generate(cfg, params, prompts, 2, device=DEV)  # warm-up
     marks, counts = [], []
 
@@ -3727,29 +3775,46 @@ def phase_serve_moe(torch) -> dict:
     prefill_ms = (marks[0] - t0) * 1e3
     decode_ms = (marks[-1] - marks[0]) * 1e3 / (n_gen - 1)
     in_prefill, in_decode = counts[0], counts[-1] - counts[0]
-    print(f"serve_moe: batch {b}, prompt {p}, {n_gen} tokens: prefill {prefill_ms:.3f} ms, decode "
+    print(f"{label}: batch {b}, prompt {p}, {n_gen} tokens: prefill {prefill_ms:.3f} ms, decode "
           f"{decode_ms:.3f} ms per step ({b * (n_gen - 1) / (marks[-1] - marks[0]):.1f} tokens/s "
           f"decoding, {b * n_gen / (marks[-1] - t0):.1f} tokens/s end to end); peak device memory "
           f"{peak} B ({peak / 2**30:.2f} GiB)")
-    print(f"serve_moe: flash_attention launches: {in_prefill} in the prefill, {in_decode} in the "
+    print(f"{label}: flash_attention launches: {in_prefill} in the prefill, {in_decode} in the "
           f"{n_gen - 1} decode steps")
-    print(f"serve_moe: first generated row {tokens[0].tolist()}")
-    if (in_prefill, in_decode) != (cfg.n_layers, 0):
-        fail(f"serve_moe: flash launches {in_prefill} in the prefill and {in_decode} in the decode, "
-             f"expected {cfg.n_layers} and 0")
+    print(f"{label}: first generated row {tokens[0].tolist()}")
+    want_flash = sum(m == "attn" for m, _ in cfg.all_blocks)
+    if (in_prefill, in_decode) != (want_flash, 0):
+        fail(f"{label}: flash launches {in_prefill} in the prefill and {in_decode} in the decode, "
+             f"expected {want_flash} and 0")
     if tuple(tokens.shape) != (b, n_gen) or tuple(logits.shape) != (n_gen, b, cfg.vocab_size):
-        fail(f"serve_moe: tokens {tuple(tokens.shape)}, logits {tuple(logits.shape)}")
+        fail(f"{label}: tokens {tuple(tokens.shape)}, logits {tuple(logits.shape)}")
     if not bool(torch.isfinite(logits).all()):
-        fail("serve_moe: logits are not finite")
+        fail(f"{label}: logits are not finite")
     if not torch.equal(tokens, logits.argmax(dim=-1).T):
-        fail("serve_moe: the tokens are not the per-step argmax of the logits")
+        fail(f"{label}: the tokens are not the per-step argmax of the logits")
+    return cfg, params, prompts, {"flash": in_prefill + in_decode, "prefill_ms": prefill_ms,
+                                  "decode_ms": decode_ms, "peak": peak}
+
+
+def phase_serve_moe(torch) -> dict:
+    """``generate`` at qwen2-moe-a2.7b's full width and depth (24 layers,
+    d_model 2,048, 60 routed experts top-4 + 4 shared), bf16 over f32
+    random parameters: prefill and decode times, peak memory, 24 flash
+    launches in the prefill and 0 in decode; layer 0's MoE FFN on the card
+    against the CPU; the prefill against the plain attention."""
+    cfg, params, prompts, out = serve_full_width(torch, "serve_moe", SERVE_MOE, MOE_P, _describe_moe)
     moe_layer_card_vs_cpu(torch, cfg, params)
     _serve_against_plain(torch, cfg, params, prompts, label="serve_moe")
     phase_serve_trace(torch, cfg, params, prompts, tag="moe ")
-    del params, prompts, logits
+    del params, prompts
     torch.cuda.empty_cache()
-    return {"flash": in_prefill + in_decode, "prefill_ms": prefill_ms, "decode_ms": decode_ms,
-            "peak": peak}
+    return out
+
+
+def _describe_moe(cfg) -> str:
+    moe = cfg.moe
+    return (f"{moe.n_routed} routed experts top-{moe.top_k} + {moe.n_shared} shared, d_ff_expert "
+            f"{moe.d_ff_expert}, group {moe.group_size}, capacity factor {moe.capacity_factor}")
 
 
 # ---------------------------------------------------------------------------
@@ -3850,67 +3915,8 @@ def phase_serve_mla(torch) -> dict:
     naive MLA decode: prefill and decode times, peak memory, no flash launch;
     layer 0's MLA and layer 1's MoE FFN on the card against the CPU;
     absorbed decode against naive; a profiled prefill and decode step."""
-    from repro_torch.configs import get_config
-    from repro_torch.kernels.flash_attention import ops as fa_ops
-    from repro_torch.launch.serve import generate
-    from repro_torch.models import model as mdl
-
     t_phase = time.perf_counter()
-    torch.cuda.empty_cache()
-    cfg = get_config(SERVE_MLA["arch"])
-    b, p, n_gen = SERVE_MLA["batch"], SERVE_MLA["prompt_len"], SERVE_MLA["gen"]
-    t0 = time.perf_counter()
-    params = mdl.init_params(cfg, 0, device=DEV)
-    g = torch.Generator(device=DEV).manual_seed(1)
-    prompts = torch.randint(0, cfg.vocab_size, (b, p), generator=g, device=DEV)
-    torch.cuda.synchronize()
-    n = mdl.param_count(params)
-    moe, mla = cfg.moe, cfg.mla
-    print(f"serve_mla: {cfg.name} ({cfg.source}), {cfg.n_layers} layers ({len(cfg.first_blocks)} "
-          f"{cfg.first_blocks[0]}, then {cfg.pattern[0]}), d_model {cfg.d_model}, {cfg.n_heads} heads, "
-          f"MLA latent {mla.kv_lora_rank}, rope / nope / v head dims {mla.rope_head_dim} / "
-          f"{mla.nope_head_dim} / {mla.v_head_dim}, {mla.decode_mode} decode; dense d_ff {cfg.d_ff}; "
-          f"{moe.n_routed} routed experts top-{moe.top_k} + {moe.n_shared} shared, d_ff_expert "
-          f"{moe.d_ff_expert}, group {moe.group_size}, capacity factor {moe.capacity_factor}; vocab "
-          f"{cfg.vocab_size}, {cfg.dtype} over {cfg.param_dtype}: {n} parameters made on the card in "
-          f"{time.perf_counter() - t0:.3f} s, {torch.cuda.memory_allocated() / 2**30:.2f} GiB")
-    if n != MLA_P:
-        fail(f"serve_mla: {n} parameters, expected {MLA_P}")
-    generate(cfg, params, prompts, 2, device=DEV)  # warm-up
-    marks, counts = [], []
-
-    def on_step(phase, t):
-        torch.cuda.synchronize()
-        marks.append(time.perf_counter())
-        counts.append(fa_ops.launches["flash_attention"])
-
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    fa_ops.launches.update(flash_attention=0)
-    t0 = time.perf_counter()
-    tokens, logits = generate(cfg, params, prompts, n_gen, device=DEV, on_step=on_step)
-    torch.cuda.synchronize()
-    peak = torch.cuda.max_memory_allocated()
-    prefill_ms = (marks[0] - t0) * 1e3
-    decode_ms = (marks[-1] - marks[0]) * 1e3 / (n_gen - 1)
-    in_prefill, in_decode = counts[0], counts[-1] - counts[0]
-    print(f"serve_mla: batch {b}, prompt {p}, {n_gen} tokens: prefill {prefill_ms:.3f} ms, decode "
-          f"{decode_ms:.3f} ms per step ({b * (n_gen - 1) / (marks[-1] - marks[0]):.1f} tokens/s "
-          f"decoding, {b * n_gen / (marks[-1] - t0):.1f} tokens/s end to end); peak device memory "
-          f"{peak} B ({peak / 2**30:.2f} GiB)")
-    print(f"serve_mla: flash_attention launches: {in_prefill} in the prefill, {in_decode} in the "
-          f"{n_gen - 1} decode steps (MLA is torch ops)")
-    print(f"serve_mla: first generated row {tokens[0].tolist()}")
-    if (in_prefill, in_decode) != (0, 0):
-        fail(f"serve_mla: flash launches {in_prefill} in the prefill and {in_decode} in the decode, "
-             "expected none")
-    if tuple(tokens.shape) != (b, n_gen) or tuple(logits.shape) != (n_gen, b, cfg.vocab_size):
-        fail(f"serve_mla: tokens {tuple(tokens.shape)}, logits {tuple(logits.shape)}")
-    if not bool(torch.isfinite(logits).all()):
-        fail("serve_mla: logits are not finite")
-    if not torch.equal(tokens, logits.argmax(dim=-1).T):
-        fail("serve_mla: the tokens are not the per-step argmax of the logits")
-    del logits
+    cfg, params, prompts, out = serve_full_width(torch, "serve_mla", SERVE_MLA, MLA_P, _describe_mla)
     mla_layer_card_vs_cpu(torch, cfg, params)
     moe_layer_card_vs_cpu(torch, cfg, params, layer=1, label="serve_mla")
     absorbed_against_naive(torch, cfg, params, prompts)
@@ -3918,8 +3924,14 @@ def phase_serve_mla(torch) -> dict:
     del params, prompts
     torch.cuda.empty_cache()
     print(f"serve_mla: {time.perf_counter() - t_phase:.3f} s")
-    return {"flash": in_prefill + in_decode, "prefill_ms": prefill_ms, "decode_ms": decode_ms,
-            "peak": peak}
+    return out
+
+
+def _describe_mla(cfg) -> str:
+    mla = cfg.mla
+    return (f"MLA latent {mla.kv_lora_rank}, rope / nope / v head dims {mla.rope_head_dim} / "
+            f"{mla.nope_head_dim} / {mla.v_head_dim}, {mla.decode_mode} decode; dense d_ff {cfg.d_ff}; "
+            f"{_describe_moe(cfg)}")
 
 
 # ---------------------------------------------------------------------------
@@ -3946,17 +3958,19 @@ def moe_train_cfg():
     return dataclasses.replace(get_config(TRAIN_MOE["arch"]), n_layers=TRAIN_MOE["n_layers"])
 
 
-def train_moe_small(torch) -> None:
-    """TRAIN_MOE_SMALL's steps of reduced deepseek-v2-lite and reduced
-    qwen2-moe (f32) on the card and on the CPU from the same parameters:
-    losses, aux and gradient norms to TRAIN_SMALL_ATOL."""
+def train_small_card_vs_cpu(torch, archs=TRAIN_MOE_SMALL_ARCHS, label="train_moe") -> None:
+    """TRAIN_MOE_SMALL's steps of each reduced config of ``archs`` (f32) on
+    the card and on the CPU from the same parameters: losses and gradient
+    norms (and the aux loss of a MoE config) to TRAIN_SMALL_ATOL, each
+    positive."""
     import numpy as np
 
     from repro_torch.configs import get_config
     from repro_torch.launch import train
 
-    for arch in TRAIN_MOE_SMALL_ARCHS:
+    for arch in archs:
         cfg = get_config(arch, reduced=True)
+        keys = ("loss", "aux", "grad_norm") if cfg.moe is not None else ("loss", "grad_norm")
         out = {}
         with _CpuMadeParams():
             for dev in (DEV, "cpu"):
@@ -3964,13 +3978,13 @@ def train_moe_small(torch) -> None:
                                        seq=TRAIN_MOE_SMALL["seq"], lr=TRAIN_MOE_SMALL["lr"], device=dev,
                                        log=lambda line: None)[1]
         diffs = {}
-        for key in ("loss", "aux", "grad_norm"):
+        for key in keys:
             card = np.array([r[key] for r in out[DEV]])
             cpu = np.array([r[key] for r in out["cpu"]])
             diffs[key] = float(np.abs(card - cpu).max())
             if not np.allclose(card, cpu, atol=TRAIN_SMALL_ATOL, rtol=0) or not (card > 0).all():
-                fail(f"train_moe[small {arch}]: card {key} {card.tolist()} against the CPU's {cpu.tolist()}")
-        print(f"train_moe[small]: {cfg.name} (f32) {TRAIN_MOE_SMALL['steps']} steps of "
+                fail(f"{label}[small {arch}]: card {key} {card.tolist()} against the CPU's {cpu.tolist()}")
+        print(f"{label}[small]: {cfg.name} (f32) {TRAIN_MOE_SMALL['steps']} steps of "
               f"{TRAIN_MOE_SMALL['batch']} × {TRAIN_MOE_SMALL['seq']}, card against CPU: max |Δ| "
               f"{json.dumps({k: float(f'{v:.3e}') for k, v in diffs.items()})} (atol "
               f"{TRAIN_SMALL_ATOL}); card losses {[round(r['loss'], 5) for r in out[DEV]]}, aux "
@@ -4046,7 +4060,7 @@ def phase_train_moe(torch, name) -> dict:
 
     t0 = time.perf_counter()
     torch.cuda.empty_cache()
-    train_moe_small(torch)
+    train_small_card_vs_cpu(torch)
     cfg = moe_train_cfg()
     print(f"train_moe: {cfg.name} at full width cut to {cfg.n_layers} layers ({cfg.all_blocks}), "
           f"{cfg.dtype} over {cfg.param_dtype}, remat {cfg.remat}, fused_ce {cfg.fused_ce}; batch "
@@ -4114,6 +4128,290 @@ def phase_fl_moe(torch, name) -> dict:
     return {"launches": {k: md[k] + a2[k] for k in md}, "kernels": kern}
 
 
+# ---------------------------------------------------------------------------
+# the recurrent mixers: recurrentgemma-9b (RG-LRU + local attention) and
+# xlstm-125m (mLSTM + sLSTM) served, trained and federated at full width
+# ---------------------------------------------------------------------------
+SERVE_RGLRU = dict(arch="recurrentgemma-9b", batch=4, prompt_len=1000, gen=16)
+RGLRU_P = 9_396_408_320  # recurrentgemma-9b's parameters
+SERVE_XLSTM = dict(arch="xlstm-125m", batch=4, prompt_len=1000, gen=16)
+XLSTM_P = 143_345_712  # xlstm-125m's parameters
+RECURRENT_RTOL = MOE_LAYER_RTOL  # f32 card vs CPU, decode vs forward: of the scale max |·|
+# decode past the window at full width, f32: 2,060 mod 2,048 = 12 rolls the ring
+RGLRU_PAST_WINDOW = dict(batch=1, prompt_len=2060, steps=4)
+XLSTM_DECODE = dict(batch=4, prompt_len=1000, steps=4)
+SMALL_CHUNK = dict(arch="xlstm-125m", mlstm_chunk=8, prompt_len=24)  # mlstm_chunkwise on the card
+TRAIN_RECURRENT = dict(batch=4, seq=1024, steps=3, lr=3e-3)  # steps cut from 10: the sLSTM loop
+# the profiled step's sequence: xLSTM's at 1,024 (657,270 device events and
+# more host ones) took the profiler ~400 s to report
+TRAIN_RECURRENT_TRACE_SEQ = {"xlstm": 128, "rglru": 1024}
+RGLRU_TRAIN_P = 1_705_078_784  # recurrentgemma-9b cut to its first period (rglru, rglru, local)
+XLSTM_WINDOWS = [(0, 8192), (123_456_789, 5_000), (XLSTM_P // 2 - 4096, 8192), (XLSTM_P - 8192, 8192)]
+# rounds cut from 2 (a round is ~45 s of host launches); lr cut from
+# FLLMConfig's 0.05, under which the full-width xLSTM diverged on the card
+# (md's second round's loss 14.5 from 11.3, algorithm2's NaN)
+FL_XLSTM = dict(rounds=1, lr=0.01, narrow=dict(d_model=64, vocab_size=256))
+
+
+def small_serve_chunked(torch) -> None:
+    """Reduced xlstm-125m (f32) with ``mlstm_chunk`` 8 and a 24-token prompt
+    on the card against the CPU: the prefill runs ``mlstm_chunkwise`` on
+    each device; equal tokens, logits to SERVE_SMALL_ATOL."""
+    from repro_torch.models.layers import xlstm as xlstm_lib
+
+    arch, chunk, p = SMALL_CHUNK["arch"], SMALL_CHUNK["mlstm_chunk"], SMALL_CHUNK["prompt_len"]
+    seen, real = [], xlstm_lib.mlstm_chunkwise
+    xlstm_lib.mlstm_chunkwise = lambda cfg, params, z, c: seen.append(z.device.type) or real(cfg, params, z, c)
+    try:
+        cpu, gpu = (_serve_small(torch, dev, "float32", arch, p, mlstm_chunk=chunk) for dev in ("cpu", DEV))
+    finally:
+        xlstm_lib.mlstm_chunkwise = real
+    if seen != ["cpu", torch.device(DEV).type]:
+        fail(f"small input [serve, {arch}, mlstm_chunk {chunk}]: mlstm_chunkwise ran on {seen}")
+    e = float((cpu[1] - gpu[1]).abs().max())
+    if not torch.equal(cpu[0], gpu[0]) or not math.isfinite(e) or e > SERVE_SMALL_ATOL:
+        fail(f"small input [serve, {arch}, mlstm_chunk {chunk}]: tokens {gpu[0].tolist()} vs the "
+             f"CPU's {cpu[0].tolist()}, logits differ by {e}")
+    print(f"kernels: small input [serve] (reduced {arch}, mlstm_chunk {chunk}, prompt {p}, f32), card "
+          f"vs CPU: mlstm_chunkwise in each prefill, token ids equal, max logit diff {e:.2e} (atol "
+          f"{SERVE_SMALL_ATOL})")
+
+
+def _rel(got, want) -> float:
+    return float((got - want).abs().max()) / float(want.abs().max())
+
+
+def rglru_layers_card_vs_cpu(torch, cfg, params) -> None:
+    """Layer 0's RG-LRU block and layer 2's local attention at full width in
+    f32 (TF32 off) on the card and on the CPU, on the same (batch, prompt,
+    d_model) input: the block's output and final state (h, conv tail), the
+    attention's output and its k and v, each within RECURRENT_RTOL of its
+    scale."""
+    import dataclasses
+
+    from repro_torch.models import model as mdl
+    from repro_torch.models.layers import attention as attn_lib
+    from repro_torch.models.layers import rglru as rglru_lib
+
+    if (cfg.all_blocks[0][0], cfg.all_blocks[2][0]) != ("rglru", "local"):
+        fail(f"serve_rglru: layers 0 and 2 are {cfg.all_blocks[0]} and {cfg.all_blocks[2]}")
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    b, p = SERVE_RGLRU["batch"], SERVE_RGLRU["prompt_len"]
+    x = torch.randn((b, p, cfg.d_model), generator=torch.Generator().manual_seed(7))
+    out = {}
+    for where, dev in (("card", DEV), ("cpu", "cpu")):
+        rec, attn = params.blocks[0]["rec"], params.blocks[2]["attn"]
+        if dev == "cpu":
+            rec, attn = _to_cpu(torch, rec), _to_cpu(torch, attn)
+        xd = x.to(dev)
+        with torch.inference_mode():
+            y, st = rglru_lib.rglru_block(cfg32, rec, xd, None)
+            angles = mdl.make_angles(cfg32, torch.arange(p, device=dev))
+            ya, kv = attn_lib.attention_full(cfg32, attn, xd, angles, window=cfg.sliding_window)
+        out[where] = {"rglru y": y.cpu(), "h": st["h"].cpu(), "conv": st["conv"].cpu(),
+                      "local y": ya.cpu(), "k": kv["k"].cpu(), "v": kv["v"].cpu()}
+        del y, st, ya, kv
+    rels = {k: _rel(out["card"][k], out["cpu"][k]) for k in out["cpu"]}
+    print(f"serve_rglru: layer 0's RG-LRU block (lru width {cfg.lru_width or cfg.d_model}, conv "
+          f"{cfg.rglru_conv_width}) and layer 2's local attention (window {cfg.sliding_window}, "
+          f"{cfg.n_heads} heads, 1 kv head of {cfg.resolved_head_dim}) at full width on {tuple(x.shape)}, "
+          f"f32 card vs CPU: max |Δ| of its scale "
+          f"{json.dumps({k: float(f'{v:.3e}') for k, v in rels.items()})} (limit {RECURRENT_RTOL})")
+    if not all(math.isfinite(v) and v <= RECURRENT_RTOL for v in rels.values()):
+        fail(f"serve_rglru: the full-width layers differ card vs CPU by {rels} of their scale")
+    torch.cuda.empty_cache()
+
+
+def decode_against_forward(torch, label, cfg, params, spec) -> float:
+    """In f32 (TF32 off): a prefill of ``prompt_len`` tokens of one random
+    sequence, then ``steps`` decode steps each fed the sequence's next
+    token; the prefill's last logits and each step's against one full
+    forward over prompt_len + steps tokens at the same positions, within
+    RECURRENT_RTOL of the logits' scale. Checks the final states a prefill
+    hands to decode (and, for recurrentgemma past its window, the ring's
+    roll and slot)."""
+    import dataclasses
+
+    from repro_torch.models import model as mdl
+
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    n, p, k = spec["batch"], spec["prompt_len"], spec["steps"]
+    g = torch.Generator(device=DEV).manual_seed(8)
+    seq = torch.randint(0, cfg.vocab_size, (n, p + k), generator=g, device=DEV)
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        caches = mdl.init_cache(cfg32, n, p + k, device=DEV)
+        hidden, caches, _ = mdl.forward(cfg32, params, seq[:, :p], caches=caches)
+        steps = [mdl.logits_from_hidden(cfg32, params, hidden[:, -1:])[:, 0]]
+        del hidden
+        rings = sorted({c["k"].shape[1] for c in caches["layers"] if "k" in c})
+        for t in range(k):
+            step, caches = mdl.decode_step(cfg32, params, seq[:, p + t:p + t + 1], caches)
+            steps.append(step)
+        del caches
+        full, _, _ = mdl.forward(cfg32, params, seq)
+        want = mdl.logits_from_hidden(cfg32, params, full[:, p - 1:])
+        del full
+    torch.cuda.synchronize()
+    got = torch.stack(steps, dim=1)
+    rel = _rel(got, want)
+    ring = (f"; local KV ring of {rings} slots, the prefill rolled by {p % cfg.sliding_window}"
+            if rings else "")
+    print(f"{label}: f32 decode against the forward: batch {n}, prompt {p}, {k} decode steps{ring}: "
+          f"logits at positions {p - 1}..{p + k - 1} max |Δ| {rel:.3e} of max |logit| "
+          f"{float(want.abs().max()):.3f} (limit {RECURRENT_RTOL}); argmax equal at "
+          f"{int((got.argmax(-1) == want.argmax(-1)).sum())} of {n * (k + 1)}; {time.perf_counter() - t0:.3f} s")
+    if not math.isfinite(rel) or rel > RECURRENT_RTOL:
+        fail(f"{label}: decode's logits differ from the forward's by {rel:.3e} of their scale")
+    torch.cuda.empty_cache()
+    return rel
+
+
+def phase_serve_rglru(torch) -> dict:
+    """``generate`` at recurrentgemma-9b's full width and depth (38 layers:
+    12 × (rglru, rglru, local) + 2 rglru; d_model 4,096, 16 heads with one
+    kv head of 256, window 2,048, d_ff 12,288), bf16 over f32 random
+    parameters: times, peak memory, no flash launch; layer 0's RG-LRU block
+    and layer 2's local attention card vs CPU in f32; decode past the
+    2,048-token window against a full forward in f32; a profiled prefill
+    and decode step."""
+    t0 = time.perf_counter()
+    cfg, params, prompts, out = serve_full_width(
+        torch, "serve_rglru", SERVE_RGLRU, RGLRU_P,
+        lambda c: f"window {c.sliding_window}, lru width {c.lru_width or c.d_model}, conv "
+                  f"{c.rglru_conv_width}, d_ff {c.d_ff} ({c.act})")
+    rglru_layers_card_vs_cpu(torch, cfg, params)
+    out["past_window_rel"] = decode_against_forward(torch, "serve_rglru", cfg, params, RGLRU_PAST_WINDOW)
+    phase_serve_trace(torch, cfg, params, prompts, tag="rglru ")
+    del params, prompts
+    torch.cuda.empty_cache()
+    print(f"serve_rglru: {time.perf_counter() - t0:.3f} s")
+    return out
+
+
+def phase_serve_xlstm(torch) -> dict:
+    """``generate`` at xlstm-125m's full width and depth (12 layers
+    alternating mLSTM and sLSTM, d_model 768, 4 heads), bf16 over f32
+    random parameters: times, peak memory, no flash launch; decode against
+    a full forward in f32; a profiled prefill and decode step."""
+    t0 = time.perf_counter()
+    cfg, params, prompts, out = serve_full_width(
+        torch, "serve_xlstm", SERVE_XLSTM, XLSTM_P,
+        lambda c: f"mLSTM / sLSTM projection factors {c.mlstm_proj_factor} / {c.slstm_proj_factor}, "
+                  "no FFN")
+    out["decode_rel"] = decode_against_forward(torch, "serve_xlstm", cfg, params, XLSTM_DECODE)
+    phase_serve_trace(torch, cfg, params, prompts, tag="xlstm ")
+    del params, prompts
+    torch.cuda.empty_cache()
+    print(f"serve_xlstm: {time.perf_counter() - t0:.3f} s")
+    return out
+
+
+def rglru_train_cfg():
+    """recurrentgemma-9b at full width cut to its first period: (rglru, rglru, local)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    cfg = get_config(SERVE_RGLRU["arch"])
+    return dataclasses.replace(cfg, n_layers=len(cfg.pattern), tail_blocks=())
+
+
+def phase_train_recurrent(torch, name) -> dict:
+    """``launch/train.py``'s step (AdamW, clip 1.0, remat as each config
+    sets it, bf16 over f32) on xlstm-125m at full width and depth and on
+    recurrentgemma-9b at full width cut to its first period, TRAIN_RECURRENT's
+    steps of 4 × 1,024: the reduced configs card against CPU first; then
+    finite losses that fall, no flash launch, step ms, tokens/s, peak
+    memory and one more step profiled, for each."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.tokens import TokenPipeline
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.launch import steps, train
+    from repro_torch.models import model as mdl
+    from repro_torch.optim import adamw, linear_warmup_cosine
+
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    train_small_card_vs_cpu(torch, (SERVE_RGLRU["arch"], SERVE_XLSTM["arch"]), "train_recurrent")
+    spec = TRAIN_RECURRENT
+    out = {"flash": 0}
+    for label, cfg, want_p in (("xlstm", get_config(SERVE_XLSTM["arch"]), XLSTM_P),
+                               ("rglru", rglru_train_cfg(), RGLRU_TRAIN_P)):
+        print(f"train_recurrent[{label}]: {cfg.name} at full width, {cfg.n_layers} layers "
+              f"({_blocks_summary(cfg)}), {cfg.dtype} over {cfg.param_dtype}, remat {cfg.remat}, "
+              f"fused_ce {cfg.fused_ce}; batch {spec['batch']} × seq {spec['seq']}, {spec['steps']} "
+              f"steps, lr {spec['lr']}")
+        lines = []
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fa_ops.launches.update(flash_attention=0)
+        start = time.perf_counter()
+        state, records = train.train(cfg, steps=spec["steps"], batch=spec["batch"], seq=spec["seq"],
+                                     lr=spec["lr"], device=DEV, log_every=1, log=lines.append)
+        torch.cuda.synchronize()
+        launches = fa_ops.launches["flash_attention"]
+        peak = torch.cuda.max_memory_allocated()
+        for line in lines:
+            print(f"train_recurrent[{label}]: {line}")
+        n = mdl.param_count(state["params"])
+        step_ms = np.diff([start] + [r["t"] for r in records]) * 1e3
+        med = float(np.median(step_ms[1:]))
+        print(f"train_recurrent[{label}]: {n} parameters; step ms: first {step_ms[0]:.3f}, then "
+              f"{[round(float(x), 3) for x in step_ms[1:]]} (median {med:.3f}); "
+              f"{spec['batch'] * spec['seq'] / med * 1e3:.1f} tokens/s; peak device memory {peak} B "
+              f"({peak / 2**30:.2f} GiB); flash launches {launches}")
+        if n != want_p:
+            fail(f"train_recurrent[{label}]: {n} parameters, expected {want_p}")
+        losses = [r["loss"] for r in records]
+        if not all(math.isfinite(r[k]) for r in records for k in ("loss", "ce", "grad_norm")):
+            fail(f"train_recurrent[{label}]: a loss or gradient norm is not finite: {records}")
+        if not losses[-1] < losses[0]:
+            fail(f"train_recurrent[{label}]: the loss did not fall: {losses}")
+        if launches:
+            fail(f"train_recurrent[{label}]: {launches} flash launches, expected none")
+        step_fn = steps.make_train_step(cfg, adamw(linear_warmup_cosine(
+            spec["lr"], spec["steps"] // 10 + 1, spec["steps"])))
+        seq = TRAIN_RECURRENT_TRACE_SEQ[label]
+        bt = TokenPipeline(cfg.vocab_size, spec["batch"], seq, seed=1).next_batch()
+        batch = {k: torch.from_numpy(v).to(DEV, torch.int64)
+                 for k, v in (("tokens", bt.tokens), ("targets", bt.targets))}
+        lm_trace(torch, f"train_recurrent[{label}]", lambda: step_fn(state, batch),
+                 f"one more train step of {spec['batch']} × {seq}")
+        del state, step_fn, batch
+        torch.cuda.empty_cache()
+        out["flash"] += launches
+        out[label] = {"step_ms": med, "peak": peak, "losses": losses}
+    print(f"train_recurrent: {time.perf_counter() - t0:.3f} s")
+    return out
+
+
+def phase_fl_xlstm(torch, name) -> dict:
+    """The federated LM on xlstm-125m at full width and depth: B2 and B3 at
+    (8, XLSTM_P) as in fl_lm, the narrow reduced xLSTM card against CPU,
+    then run_federated_lm with FLLMConfig's defaults but FL_XLSTM's rounds
+    and lr, md and sketched Algorithm 2, and one local step profiled. Returns the
+    launches of the two full-width runs together, and the kernels' errors
+    and times."""
+    from repro_torch.configs import get_config
+
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    kern = lm_kernels(torch, name, XLSTM_P, XLSTM_WINDOWS, label="fl_xlstm")
+    fl_lm_small(torch, SERVE_XLSTM["arch"], FL_XLSTM["narrow"], label="fl_xlstm")
+    cfg = get_config(SERVE_XLSTM["arch"])
+    md = fl_lm_run(torch, "xlstm md", "md", "sync", cfg, XLSTM_P, FL_XLSTM["rounds"], lr=FL_XLSTM["lr"])
+    a2 = fl_lm_run(torch, "xlstm algorithm2[srp]", "algorithm2", FL_LM_SKETCH, cfg, XLSTM_P,
+                   FL_XLSTM["rounds"], lr=FL_XLSTM["lr"])
+    torch.cuda.empty_cache()
+    local_step_trace(torch, cfg, "xlstm local_step")
+    torch.cuda.empty_cache()
+    print(f"fl_xlstm: {time.perf_counter() - t0:.3f} s")
+    return {"launches": {k: md[k] + a2[k] for k in md}, "kernels": kern}
+
+
 def main() -> int:
     import torch
 
@@ -4138,6 +4436,9 @@ def main() -> int:
     phase_small_serve(torch)
     phase_small_serve(torch, SERVE_MOE["arch"])
     phase_small_serve(torch, SERVE_MLA["arch"])
+    phase_small_serve(torch, SERVE_RGLRU["arch"])
+    phase_small_serve(torch, SERVE_XLSTM["arch"])
+    small_serve_chunked(torch)
     launches, ds, params, round_ms = phase_slice(torch)
     launches["srp_fleet"] = phase_fleet(torch)
     phase_trace(torch, ds, params, round_ms["arccos"])
@@ -4164,6 +4465,10 @@ def main() -> int:
     serve_mla = phase_serve_mla(torch)
     train_moe = phase_train_moe(torch, name)
     fl_moe = phase_fl_moe(torch, name)
+    serve_rglru = phase_serve_rglru(torch)
+    serve_xlstm = phase_serve_xlstm(torch)
+    train_rec = phase_train_recurrent(torch, name)
+    fl_xlstm = phase_fl_xlstm(torch, name)
     for row in rows:
         key = {"similarity_gram": "gram", "aggregate": "aggregate", "srp_sketch": "srp"}.get(row["name"])
         if key is not None:
@@ -4172,6 +4477,7 @@ def main() -> int:
             row["sched_launches"] = sched[key]
             row["fl_lm_launches"] = fl_lm["launches"][key]
             row["fl_moe_launches"] = fl_moe["launches"][key]
+            row["fl_xlstm_launches"] = fl_xlstm["launches"][key]
         key = {"similarity_gram": "gram", "similarity_l1": "l1", "aggregate": "aggregate"}.get(row["name"])
         if key is not None:
             row["ablations_launches"] = ablations[key]
@@ -4181,6 +4487,10 @@ def main() -> int:
             row["serve_mla_launches"] = serve_mla["flash"]
             row["train_moe_launches"] = train_moe["flash"]
             row["fl_moe_launches"] = fl_moe["launches"]["flash_attention"]
+            row["serve_rglru_launches"] = serve_rglru["flash"]
+            row["serve_xlstm_launches"] = serve_xlstm["flash"]
+            row["train_recurrent_launches"] = train_rec["flash"]
+            row["fl_xlstm_launches"] = fl_xlstm["launches"]["flash_attention"]
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,

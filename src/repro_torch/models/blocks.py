@@ -1,20 +1,23 @@
-"""Block init/apply for the ``("attn" | "mla", "mlp" | "moe")`` pairs,
-pre-norm residuals.
+"""Block init/apply for the ported ``(mixer, ffn)`` pairs, pre-norm residuals.
 
 Port of ``src/repro/models/blocks.py``. One block =
-    x = x + mixer(rmsnorm(x))        (mixer: GQA attention, or MLA)
-    x = x + ffn(rmsnorm(x))          (ffn: the gated MLP, or the MoE FFN)
+    x = x + mixer(rmsnorm(x))        (mixer: GQA attention, sliding-window
+                                      "local" attention, MLA, the RG-LRU
+                                      recurrent block, mLSTM or sLSTM)
+    x = x + ffn(rmsnorm(x))          (ffn: the gated MLP, the MoE FFN, or
+                                      "none" — no norm and no parameters)
 
 A block's parameters are an ``nn.ModuleDict`` of ``nn.ParameterDict``s
 keyed as the reference's parameter dict (``norm1``, ``attn`` — MLA's
-weights too, as there —, ``ffn_norm``, ``mlp`` or ``moe``; the MoE's
-``shared`` experts and MLA's ``kv_norm`` nested ``ParameterDict``s), so the
-layer functions index both alike. ``block_apply`` runs in two modes:
-``full`` (prefill — whole sequence, seeds the cache) and ``decode`` (one
-token against the block's cache), and returns the MoE's auxiliary
-load-balance loss (None for an MLP block). The rglru, mlstm, slstm, local
-and bidir mixers, the ``none`` FFN and cross-attention are not ported
-(ROADMAP A12).
+weights too, as there —, ``rec`` for the recurrent mixers, ``ffn_norm``,
+``mlp`` or ``moe``; the MoE's ``shared`` experts and MLA's ``kv_norm``
+nested ``ParameterDict``s), so the layer functions index both alike.
+``block_apply`` runs in two modes: ``full`` (train / prefill — whole
+sequence, seeds the cache; a recurrent block's cache is its final state)
+and ``decode`` (one token against the block's cache), and returns the
+MoE's auxiliary load-balance loss (None for a block without a MoE). The
+bidir mixer, cross-attention, the encoder, M-RoPE and the front ends are
+not ported (ROADMAP A12).
 """
 from __future__ import annotations
 
@@ -27,12 +30,20 @@ from repro_torch.models.config import BlockSpec, ModelConfig
 from repro_torch.models.layers import attention as attn_lib
 from repro_torch.models.layers import mla as mla_lib
 from repro_torch.models.layers import moe as moe_lib
+from repro_torch.models.layers import rglru as rglru_lib
+from repro_torch.models.layers import xlstm as xlstm_lib
 from repro_torch.models.layers.mlp import init_mlp, mlp
 from repro_torch.models.layers.norms import rmsnorm
 
 DENSE: BlockSpec = ("attn", "mlp")
 MOE: BlockSpec = ("attn", "moe")
-PORTED = (DENSE, MOE, ("mla", "mlp"), ("mla", "moe"))
+PORTED = (DENSE, MOE, ("mla", "mlp"), ("mla", "moe"), ("rglru", "mlp"), ("local", "mlp"),
+          ("mlstm", "none"), ("slstm", "none"))
+RECURRENT = {
+    "rglru": (rglru_lib.init_rglru_block, rglru_lib.rglru_block),
+    "mlstm": (xlstm_lib.init_mlstm_block, xlstm_lib.mlstm_block),
+    "slstm": (xlstm_lib.init_slstm_block, xlstm_lib.slstm_block),
+}
 
 
 def _check_kind(kind: BlockSpec) -> None:
@@ -60,15 +71,18 @@ def as_module(params: dict) -> nn.ModuleDict:
 
 def init_block(cfg: ModelConfig, kind: BlockSpec, gen: Optional[torch.Generator], device) -> nn.ModuleDict:
     _check_kind(kind)
-    init_mixer = mla_lib.init_mla if kind[0] == "mla" else attn_lib.init_attention
-    p = {
-        "norm1": {"scale": torch.ones((cfg.d_model,), device=device)},
-        "attn": init_mixer(cfg, gen, device),
-        "ffn_norm": {"scale": torch.ones((cfg.d_model,), device=device)},
-    }
-    if kind[1] == "moe":
-        p["moe"] = moe_lib.init_moe(cfg, gen, device)
+    mixer, ffn = kind
+    p = {"norm1": {"scale": torch.ones((cfg.d_model,), device=device)}}
+    if mixer in RECURRENT:
+        p["rec"] = RECURRENT[mixer][0](cfg, gen, device)
     else:
+        init_mixer = mla_lib.init_mla if mixer == "mla" else attn_lib.init_attention
+        p["attn"] = init_mixer(cfg, gen, device)
+    if ffn != "none":
+        p["ffn_norm"] = {"scale": torch.ones((cfg.d_model,), device=device)}
+    if ffn == "moe":
+        p["moe"] = moe_lib.init_moe(cfg, gen, device)
+    elif ffn == "mlp":
         p["mlp"] = init_mlp(cfg.d_model, cfg.d_ff, gen, device)
     return as_module(p)
 
@@ -78,18 +92,32 @@ def init_block_cache(
     *, decode_window: int = 0,
 ) -> dict:
     """Decode-state for one block. ``decode_window`` ring-buffers 'attn'
-    blocks; an MLA cache takes the whole ``cache_len``, as the reference's."""
+    blocks; a 'local' block's ring holds ``cfg.sliding_window`` entries at
+    most; an MLA cache takes the whole ``cache_len``, as the reference's; a
+    recurrent block's cache is its zero state."""
     _check_kind(kind)
-    if kind[0] == "mla":
+    mixer = kind[0]
+    if mixer == "mla":
         return mla_lib.init_mla_cache(cfg, batch, cache_len, dtype, device)
-    length = min(cache_len, decode_window) if decode_window else cache_len
+    if mixer == "rglru":
+        return rglru_lib.init_rglru_state(cfg, batch, dtype, device)
+    if mixer == "mlstm":
+        return xlstm_lib.init_mlstm_state(cfg, batch, device)
+    if mixer == "slstm":
+        return xlstm_lib.init_slstm_state(cfg, batch, device)
+    if mixer == "local":
+        length = min(cache_len, cfg.sliding_window)
+    else:
+        length = min(cache_len, decode_window) if decode_window else cache_len
     return attn_lib.init_kv_cache(cfg, batch, length, dtype, device)
 
 
-def _mixer_window(mixer: str, decode_window: int) -> int:
-    """The decode window of a mixer: ``decode_window`` for "attn", 0 for
-    "mla" (its cache is never a ring). The reference's "local" mixers use
-    ``cfg.sliding_window``; they are not ported."""
+def _mixer_window(cfg: ModelConfig, mixer: str, decode_window: int) -> int:
+    """The window of a mixer: ``cfg.sliding_window`` for "local" (its
+    prefill mask and its decode ring), ``decode_window`` for "attn", 0
+    otherwise. The bidir mixer is not ported."""
+    if mixer == "local":
+        return cfg.sliding_window
     return decode_window if mixer == "attn" else 0
 
 
@@ -104,12 +132,17 @@ def block_apply(
     cache: Optional[dict] = None,
     decode_window: int = 0,
 ) -> tuple[torch.Tensor, Optional[dict], Optional[torch.Tensor]]:
-    """Returns (x, new_cache, aux_loss); the aux loss is None for an MLP block."""
+    """Returns (x, new_cache, aux_loss); the aux loss is None for a block
+    without a MoE."""
     _check_kind(kind)
+    mixer, ffn = kind
     h = rmsnorm(params["norm1"], x, cfg.norm_eps)
-    window = _mixer_window(kind[0], decode_window)
+    window = _mixer_window(cfg, mixer, decode_window)
     new_cache = cache
-    if kind[0] == "mla":
+    if mixer in RECURRENT:
+        y, st = RECURRENT[mixer][1](cfg, params["rec"], h, None if mode == "full" else cache)
+        new_cache = None if cache is None else st
+    elif mixer == "mla":
         y, new_cache = _mla(cfg, params["attn"], h, angles, mode, cache)
     elif mode == "full":
         y, kv = attn_lib.attention_full(cfg, params["attn"], h, angles, window=window)
@@ -118,8 +151,10 @@ def block_apply(
     else:
         y, new_cache = attn_lib.attention_decode(cfg, params["attn"], h, angles, cache, window=window)
     x = x + y
+    if ffn == "none":
+        return x, new_cache, None
     hf = rmsnorm(params["ffn_norm"], x, cfg.norm_eps)
-    if kind[1] == "moe":
+    if ffn == "moe":
         y, aux = moe_lib.moe_ffn(cfg, params["moe"], hf)
         return x + y, new_cache, aux
     return x + mlp(cfg, params["mlp"], hf), new_cache, None

@@ -4,7 +4,9 @@ Port of ``src/repro/models/layers/attention.py``. A causal, unwindowed,
 un-softcapped full pass goes through the flash-attention kernel (B4),
 which computes what :func:`attend` computes there, with its gradient from
 ``kernels/flash_attention/backward.py``; every other case, and decode,
-goes through :func:`attend`. The reference's blockwise path
+goes through :func:`attend` — the sliding-window "local" mixer among them
+(recurrentgemma's, head dim 256), whose window ``blocks._mixer_window``
+sets, as the reference's model sends it there too. The reference's blockwise path
 (``attn_block_q > 0``) has the numerics of :func:`attend` over the whole
 sequence; the port runs it that way (the memory lever is not ported).
 """

@@ -1,4 +1,4 @@
-"""Decoder-LM assembly over ``("attn" | "mla", "mlp" | "moe")`` blocks.
+"""Decoder-LM assembly over the ported blocks (``blocks.PORTED``).
 
 Port of ``src/repro/models/model.py``. The model is an :class:`LM`
 ``nn.Module`` whose ``blocks`` ``nn.ModuleList`` holds every layer in order
@@ -84,9 +84,8 @@ def check_ported(cfg: ModelConfig) -> None:
     if missing:
         raise NotImplementedError(
             f"{cfg.name}: {', '.join(missing)} not ported; the port runs "
-            f"{', '.join(map(str, blk.PORTED))} blocks; the rglru, mlstm, slstm, local and bidir "
-            "mixers, cross-attention, the encoder, M-RoPE and the front ends are not ported "
-            "(ROADMAP A12)")
+            f"{', '.join(map(str, blk.PORTED))} blocks; the bidir mixer, cross-attention, the "
+            "encoder, M-RoPE and the front ends are not ported (ROADMAP A12)")
 
 
 def _device(device) -> torch.device:
@@ -217,14 +216,20 @@ def lm_views(flat: torch.Tensor, like: LM) -> LM:
     named = dict(like.named_parameters())
     views = {n: flat[off:off + named[n].numel()].view(named[n].shape)
              for n, off in _flat_runs(like)}
-
-    def tree(mod, prefix):
-        return {k: tree(v, f"{prefix}.{k}") if isinstance(v, nn.Module) else views[f"{prefix}.{k}"]
-                for k, v in mod.items()}
-
-    blocks = [blk.as_module(tree(block, f"blocks.{i}")) for i, block in enumerate(like.blocks)]
+    blocks = [blk.as_module(_view_tree(block, f"blocks.{i}", views))
+              for i, block in enumerate(like.blocks)]
     return LM(views["embed"], views["final_norm.scale"], blocks, views.get("lm_head"),
               layout=like.layout)
+
+
+def _view_tree(mod, prefix: str, views: dict) -> dict:
+    """A block's nested dict of the views named ``prefix.key...``. A module
+    function, not a recursive closure: a closure that calls itself is a
+    reference cycle, which would keep ``views``, and so the whole flat
+    vector (a federated round's (m, d) client stack), alive until the
+    garbage collector runs."""
+    return {k: _view_tree(v, f"{prefix}.{k}", views) if isinstance(v, nn.Module)
+            else views[f"{prefix}.{k}"] for k, v in mod.items()}
 
 
 def params_to_numpy(cfg: ModelConfig, params: LM) -> dict:
@@ -239,9 +244,12 @@ def param_count(params: LM) -> int:
     return sum(p.numel() for p in params.parameters())
 
 
-def make_angles(cfg: ModelConfig, positions: torch.Tensor) -> torch.Tensor:
+def make_angles(cfg: ModelConfig, positions: torch.Tensor) -> Optional[torch.Tensor]:
     """positions (S,) -> rope angles (S, rotated dims // 2): the head dim,
-    or MLA's ``rope_head_dim`` (MLA rotates only its rope part)."""
+    or MLA's ``rope_head_dim`` (MLA rotates only its rope part); None for a
+    model with no attn, local or mla mixer (xLSTM), as the reference's."""
+    if not any(m in ("attn", "local", "mla") for m, _ in cfg.all_blocks):
+        return None
     hd = cfg.mla.rope_head_dim if cfg.mla is not None else cfg.resolved_head_dim
     return rope_angles(positions, hd, cfg.rope_theta)
 
@@ -282,7 +290,7 @@ def forward(
     return x, new_caches, aux
 
 
-def _block_train(cfg: ModelConfig, kind, block, x: torch.Tensor, angles: torch.Tensor):
+def _block_train(cfg: ModelConfig, kind, block, x: torch.Tensor, angles: Optional[torch.Tensor]):
     x, _, aux = blk.block_apply(cfg, kind, block, x, angles=angles, mode="full")
     return x, aux
 

@@ -10,8 +10,9 @@ reduced qwen3-0.6b at ``examples/federated_lm.py``'s widths.
 
 The reduced deepseek-v2-lite at d_model 64 and vocab 256 (MLA, a dense
 first block and a MoE under the local steps' gradients) runs md and
-Algorithm 2 whole under the same limits, and the reduced qwen2-moe at the
-same widths runs md.
+Algorithm 2 whole under the same limits, the reduced qwen2-moe at the same
+widths runs md, and the reduced xlstm-125m at the same widths (an mLSTM
+and an sLSTM block, no FFN, no rotary angles) runs md and Algorithm 2.
 
 Tolerances: flat vectors bit for bit; a round step's parameters and
 updates to atol 2e-6 on entries up to 0.05 (measured ≤ 1.2e-7: the GEMMs
@@ -23,7 +24,9 @@ equal every round, unsketched and with the SRP sketch.
 import contextlib
 import dataclasses
 import functools
+import gc
 import types
+import weakref
 
 import jax
 import jax.numpy as jnp
@@ -45,7 +48,8 @@ NARROW = dict(d_model=64, vocab_size=256, n_heads=2, n_kv_heads=2, head_dim=32)
 # the reduced deepseek-v2-lite at the same d_model and vocab (its MLA and
 # MoE widths as reduced)
 NARROWED = {"qwen3-0.6b": NARROW, "deepseek-v2-lite-16b": dict(d_model=64, vocab_size=256),
-            "qwen2-moe-a2.7b": dict(d_model=64, vocab_size=256)}
+            "qwen2-moe-a2.7b": dict(d_model=64, vocab_size=256),
+            "xlstm-125m": dict(d_model=64, vocab_size=256)}
 STEP_ATOL = 2e-6
 LOSS_ATOL = 1e-5
 FL = dict(n_clients=12, m=4, n_rounds=4, n_local_steps=2, local_batch=2, seq_len=16, lr=0.1)
@@ -70,12 +74,16 @@ def _ref_params(arch="qwen3-0.6b", n_layers=None, seed=0):
 # --------------------------------------------------------------------------
 @pytest.mark.parametrize("arch,n_layers", [("qwen3-0.6b", None), ("qwen3-0.6b", 3),
                                            ("qwen2-1.5b", 2), ("llama3.2-3b", 2),
-                                           ("qwen2-moe-a2.7b", 2), ("deepseek-v2-lite-16b", None)])
+                                           ("qwen2-moe-a2.7b", 2), ("deepseek-v2-lite-16b", None),
+                                           ("xlstm-125m", None), ("xlstm-125m", 4),
+                                           ("recurrentgemma-9b", None)])
 def test_flatten_params_of_an_lm_is_bit_equal_to_the_reference(arch, n_layers):
     """qk-norm; a stack of 3 layers; QKV biases; llama's head (tied or not
     as its config says); the MoE's stacked experts and nested shared MLP;
     MLA's nested kv_norm beside a dense first block (the narrow reduced
-    MoE configs of the federated runs below)."""
+    MoE configs of the federated runs below); xLSTM's ``rec`` leaves with
+    no FFN, in one period and in two; recurrentgemma's RG-LRU and local
+    blocks with its two tail blocks."""
     overrides = {} if n_layers is None else {"n_layers": n_layers}
     _, cfg = _configs(arch, **overrides)
     tree = _ref_params(arch, n_layers)
@@ -99,6 +107,42 @@ def test_unflatten_params_gives_views_that_flatten_back():
     with torch.no_grad():
         views.blocks[1]["attn"]["wq"].add_(1.0)
     assert not torch.equal(flat, mdl.flatten_lm(lm))
+
+
+def test_lm_views_and_a_round_step_leave_no_reference_cycle(monkeypatch):
+    """With the garbage collector off, dropping an LM of views frees its
+    flat vector at once, and dropping a round step's outputs frees its
+    (m, d) client stack: a reference cycle in ``lm_views`` (a recursive
+    closure over the views) had kept each round's stack alive until the
+    collector ran, so a full-width round could find the last round's 32 GiB
+    stack still allocated."""
+    _, cfg = _configs()
+    lm = mdl.params_from_numpy(cfg, _ref_params(), device="cpu")
+    rng = np.random.default_rng(7)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (3, 2, 2, 16))).long()
+    stacks, real = [], torch.Tensor.new_empty
+
+    def new_empty(self, *a, **kw):
+        out = real(self, *a, **kw)
+        stacks.append(weakref.ref(out))
+        return out
+
+    gc.collect()
+    gc.disable()
+    try:
+        flat = mdl.flatten_lm(lm)
+        alive = weakref.ref(flat)
+        views = mdl.lm_views(flat, lm)
+        del flat, views
+        assert alive() is None
+        monkeypatch.setattr(torch.Tensor, "new_empty", new_empty)
+        step = fl_train.make_fl_round_step(cfg, 0.1, 2, with_updates=True)
+        out = step(lm, toks, (toks + 31) % cfg.vocab_size, torch.full((3,), 1 / 3))
+        assert any(r() is not None and tuple(r().shape) == (3, mdl.param_count(lm)) for r in stacks)
+        del out
+        assert all(r() is None for r in stacks)
+    finally:
+        gc.enable()
 
 
 # --------------------------------------------------------------------------
@@ -169,13 +213,16 @@ RUNS = {name: ("qwen3-0.6b", name) for name in SAMPLERS}
 RUNS.update({f"deepseek-v2-lite-16b[{name}]": ("deepseek-v2-lite-16b", name)
              for name in ("md", "algorithm2")})
 RUNS["qwen2-moe-a2.7b[md]"] = ("qwen2-moe-a2.7b", "md")
+RUNS.update({f"xlstm-125m[{name}]": ("xlstm-125m", name) for name in ("md", "algorithm2")})
 
 
 @pytest.mark.parametrize("run", RUNS)
 def test_run_federated_lm_matches_the_reference(run, monkeypatch):
     """qwen3's narrow reduced config under each sampler; the reduced
     deepseek-v2-lite (MLA and a MoE under the local steps' gradients) under
-    md and Algorithm 2; the reduced qwen2-moe under md."""
+    md and Algorithm 2; the reduced qwen2-moe under md; the narrow reduced
+    xLSTM (mLSTM and sLSTM under the local steps' gradients) under md and
+    Algorithm 2."""
     arch, name = RUNS[run]
     want_losses, want_plans = _ref_run(name, arch)
     sampler_name, planner = SAMPLERS[name]

@@ -2,7 +2,8 @@
 
 ``get_config(name, reduced=r)`` is compared field by field through
 ``dataclasses.asdict`` for every architecture and both ``r``; the port's
-parameter count at qwen2-1.5b's full width, built on the ``meta`` device,
+parameter count at full width (qwen2-1.5b, qwen3-0.6b, llama3.2-3b and the
+recurrent recurrentgemma-9b and xlstm-125m), built on the ``meta`` device,
 equals the reference's from ``jax.eval_shape`` (neither allocates).
 """
 import dataclasses
@@ -40,7 +41,8 @@ def test_unknown_arch_raises():
         get_config("gpt-2")
 
 
-@pytest.mark.parametrize("name", ["qwen2-1.5b", "qwen3-0.6b", "llama3.2-3b"])
+@pytest.mark.parametrize("name", ["qwen2-1.5b", "qwen3-0.6b", "llama3.2-3b", "recurrentgemma-9b",
+                                  "xlstm-125m"])
 def test_full_width_param_count_equals_the_reference(name):
     cfg = ref_get_config(name)
     shapes = jax.eval_shape(lambda key: ref_model.init_params(cfg, key), jax.random.PRNGKey(0))
@@ -50,3 +52,7 @@ def test_full_width_param_count_equals_the_reference(name):
     assert mdl.param_count(params) == want
     if name == "qwen2-1.5b":
         assert want == 1_543_714_304  # ≈1.54 B: 6.2 GB in f32, one card
+    if name == "recurrentgemma-9b":
+        assert want == 9_396_408_320  # 35.00 GiB in f32: serves on one card
+    if name == "xlstm-125m":
+        assert want == 143_345_712
