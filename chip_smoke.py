@@ -37,8 +37,9 @@ Phases, one line (or a few) each; any failure raises and exits non-zero:
    the CUDA-core kernel at the reference's test shapes and a ragged
    S = T = 1,000, bf16 on the tensor-core kernel at every padded head dim
    (hd 8 to 128), ragged S = T of 1 to 1,000 around its 64-row tiles, the
-   serve paths' (4, 1,000, 12, 2, 128) and qwen2-moe-a2.7b's
-   (4, 1,000, 16, 16, 128), the fl_lm phase's local step
+   serve paths' (4, 1,000, 12, 2, 128), qwen2-moe-a2.7b's
+   (4, 1,000, 16, 16, 128) and whisper-small's (4, 1,000, 12, 12, 64),
+   the fl_lm phase's local step
    (4, 64, 16, 8, 128), non-causal with a ragged T, and
    views into a fused projection; atol 2e-5 in f32, and in bf16
    min(3e-2, 2⁻⁷·(|want| + Σ_j p_ij·|v_j|)), the error on the scale of the
@@ -48,7 +49,9 @@ Phases, one line (or a few) each; any failure raises and exits non-zero:
    unsketched and with the SRP sketch under Ward and k-means, and the LM's
    greedy generations (reduced qwen2-1.5b and reduced qwen2-moe-a2.7b at 2
    layers, and reduced deepseek-v2-lite-16b at 2 layers, MLA with no
-   flash launch: in f32 equal token ids and logits to atol 1e-4; in bf16,
+   flash launch; later phases add their own reduced models, whisper-small
+   and qwen2-vl-2b with their zero front-end stubs among them: in f32
+   equal token ids and logits to atol 1e-4; in bf16,
    through the tensor-core kernel where the model has GQA attention,
    logits to atol 0.1 and equal tokens wherever the CPU's top-2 margin
    exceeds 0.2);
@@ -275,7 +278,47 @@ Phases, one line (or a few) each; any failure raises and exits non-zero:
    defaults but lr 0.01, 1 round each of md and sketched algorithm2:
    launches exactly aggregate a round, srp a sketched round, gram a
    rebuild, flash none; each Gram against ``G @ G.T`` in f64; round ms and
-   its parts; one local step under ``torch.profiler``.
+   its parts; one local step under ``torch.profiler``;
+21. serve_whisper — ``generate`` at whisper-small's full width and depth
+   (12 ``bidir`` encoder blocks over 1,500 zero stub frames, 12 decoder
+   blocks with cross-attention, sinusoidal positions; d_model 768, 12 heads
+   with 12 kv heads of 64, vocab 51,865; 294,766,848 parameters), bf16 over
+   f32 random parameters, batch 4, prompt 1,000, 16 greedy tokens: prefill
+   ms, decode ms a step, tokens/s, peak memory, 12 flash launches in the
+   prefill (the decoder's causal self-attention, head dim 64) and 0 in
+   decode (the encoder and cross-attention are ``attend``, as the
+   reference's); encoder block 0 and decoder block 0 (output, ck, cv) in
+   f32 card vs CPU within 1e-4 of their scale; in f32, 4 decode steps after
+   a prefill of 1,000 against one forward over the 1,004 tokens, within
+   1e-4 of the logits' scale; one prefill and one decode step under
+   ``torch.profiler``;
+22. serve_vl — the same at qwen2-vl-2b's full width and depth (qwen2-1.5b's
+   backbone with M-RoPE sections (16, 24, 24) and 256 zero vision slots;
+   1,543,714,304 parameters): 28 flash launches in the prefill and 0 in
+   decode; M-RoPE's angles and layer 0's attention in f32 card vs CPU;
+   decode against the forward in f32; a profiled prefill and decode step;
+23. train_extras — reduced whisper-small and reduced qwen2-vl (f32) 3 AdamW
+   steps card vs CPU (losses and gradient norms to atol 1e-4); then
+   ``launch/train.py``'s step (AdamW lr 3e-3, clip 1.0, remat on, bf16 over
+   f32) on both at full width and depth, whisper with its zero stub frames,
+   qwen2-vl with seeded random vision embeddings at the token embeddings'
+   scale (under the zero stubs the gradient overflows in both packages at
+   its depth), 3 steps of 4 × 1,024 each: finite losses, flash launched 24
+   times a step for whisper
+   and 56 for qwen2-vl (once an attention layer a forward, again in the
+   backward's recompute), step ms, tokens/s, peak memory, one more step
+   profiled; then B4 at whisper's train shape (4, 1,024, 12, 12, 64): the
+   forward and the torch-ops backward against autograd through the plain
+   version (the train phase's limits), timed beside SDPA's forward and
+   backward;
+24. fl_vl — B2 and B3 at (8, 1,543,714,304) as in fl_lm; the narrow reduced
+   qwen2-vl card vs CPU (md, algorithm2, algorithm2 with SRP);
+   ``run_federated_lm`` on qwen2-vl-2b at full width and depth with
+   ``FLLMConfig``'s defaults (the local step trains on tokens, M-RoPE with
+   t = h = w, as the reference's), 1 round each of md and sketched
+   algorithm2: launches exactly aggregate a round, srp a sketched round,
+   gram a rebuild, flash 56 a local step; each Gram against ``G @ G.T`` in
+   f64; round ms and its parts; one local step under ``torch.profiler``.
 
 The last lines are the card's name and power limit (nvidia-smi), a JSON
 object with one entry per kernel and shape (with the paper, zoo, sched
@@ -286,11 +329,15 @@ and aggregate rows, the train and fl_lm phases' as ``train_launches`` and
 ``fl_lm_launches`` for the flash row, serve_moe's as the launches of
 the ``flash_attention_moe`` row, fl_moe's as ``fl_moe_launches`` for the
 Gram, aggregate, SRP and flash rows, fl_xlstm's as ``fl_xlstm_launches``
-for the same rows, and serve_mla's, train_moe's, serve_rglru's,
-serve_xlstm's and train_recurrent's as ``serve_mla_launches``,
-``train_moe_launches``, ``serve_rglru_launches``, ``serve_xlstm_launches``
-and ``train_recurrent_launches`` for the flash row), and
-``{"ok": true, "device": ...}``.
+for the same rows, fl_vl's as ``fl_vl_launches`` for the same rows, and
+serve_mla's, train_moe's, serve_rglru's, serve_xlstm's,
+train_recurrent's, serve_vl's and train_extras' (qwen2-vl's) as
+``serve_mla_launches``, ``train_moe_launches``, ``serve_rglru_launches``,
+``serve_xlstm_launches``, ``train_recurrent_launches``,
+``serve_vl_launches`` and ``train_extras_launches`` for the flash row;
+serve_whisper's as the launches of the ``flash_attention_whisper`` row,
+with whisper's train_extras launches as its ``train_extras_launches``),
+and ``{"ok": true, "device": ...}``.
 The script imports neither JAX nor the JAX package ``repro``.
 """
 from __future__ import annotations
@@ -349,6 +396,8 @@ FLASH_F32_SHAPES = [(1, 32, 4, 4, 16), (2, 64, 8, 2, 32), (1, 48, 6, 1, 64), (2,
                     (1, 1000, 4, 2, 128)]
 FLASH_PATH = (4, 1000, 12, 2, 128)
 FLASH_MOE = (4, 1000, 16, 16, 128)  # qwen2-moe-a2.7b's prefill attention: no GQA sharing
+# whisper-small's decoder prefill attention: head dim 64, no GQA sharing
+FLASH_WHISPER = (4, 1000, 12, 12, 64)
 FLASH_BF16_SHAPES = [
     (1, 32, 4, 2, 16), FLASH_PATH, FLASH_MOE,
     # every padded head dim of the bf16 kernel (32, 64, 128); hd 8 and 72
@@ -359,6 +408,7 @@ FLASH_BF16_SHAPES = [
     (1, 1000, 4, 2, 128),
     # qwen3-0.6b's attention in the fl_lm phase's local steps (batch 4 × seq 64)
     (4, 64, 16, 8, 128),
+    FLASH_WHISPER,
 ]
 FLASH_NONCAUSAL = [((2, 33, 4, 2, 32), t) for t in (48, 70)]  # ((B, S, H, KV, hd), T)
 FLASH_F32_ATOL = 2e-5  # the reference's
@@ -845,7 +895,7 @@ def phase_kernels_flash(torch, gen) -> dict:
             again = fa_ops.flash_attention_padded(q, k, v)
             e = _flash_check(torch, f"{dtype} (B, S, H, KV, hd) = {shape}", got, q, k, v,
                              again=again)
-            if dtype == torch.bfloat16 and shape in (FLASH_PATH, FLASH_MOE):
+            if dtype == torch.bfloat16 and shape in (FLASH_PATH, FLASH_MOE, FLASH_WHISPER):
                 path_err[shape] = e
     for dtype in (torch.float32, torch.bfloat16):
         for shape, t in FLASH_NONCAUSAL:
@@ -901,13 +951,15 @@ def _serve_small(torch, device, dtype="float32", arch=SERVE_SMALL["arch"],
     activations in ``dtype``, from parameters made on the CPU; returns
     (token ids, per-step logits)."""
     from repro_torch.launch.serve import generate
+    from repro_torch.launch.steps import frontend_stubs
     from repro_torch.models import model as mdl
 
     cfg = _small_serve_cfg(arch, dtype, **overrides)
     params = mdl.init_params(cfg, 0, device="cpu").to(device)
     g = torch.Generator().manual_seed(1)
     prompts = torch.randint(0, cfg.vocab_size, (SERVE_SMALL["batch"], prompt_len), generator=g)
-    tokens, logits = generate(cfg, params, prompts, SERVE_SMALL["gen"], device=device)
+    tokens, logits = generate(cfg, params, prompts, SERVE_SMALL["gen"], device=device,
+                              **frontend_stubs(cfg, SERVE_SMALL["batch"], device))
     return tokens.cpu(), logits.float().cpu()
 
 
@@ -1400,19 +1452,21 @@ def _serve_against_plain(torch, cfg, params, prompts, label="serve"):
 
 
 def phase_serve_trace(torch, cfg, params, prompts, tag=""):
-    """One prefill and one decode step under torch.profiler; ``tag``
-    prefixes the trace labels."""
+    """One prefill (with the front end's zero stubs, if any) and one decode
+    step under torch.profiler; ``tag`` prefixes the trace labels."""
     from torch.profiler import ProfilerActivity, profile
 
+    from repro_torch.launch.steps import frontend_stubs
     from repro_torch.models import model as mdl
 
     b, p = prompts.shape
+    extras = frontend_stubs(cfg, b, DEV)
     with torch.inference_mode():
         caches = mdl.init_cache(cfg, b, p + 2, device=DEV)
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            hidden, caches, _ = mdl.forward(cfg, params, prompts, caches=caches)
+            hidden, caches, _ = mdl.forward(cfg, params, prompts, caches=caches, **extras)
             logits = mdl.logits_from_hidden(cfg, params, hidden[:, -1:, :])[:, 0]
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
@@ -3048,41 +3102,49 @@ def train_flash_grads(torch, gen) -> float:
     bounds outputs no larger than max |v|, and gradient entries reach 4-8,
     where one bf16 ulp (2⁻⁵) is above it. Returns the largest excess over
     the limit."""
+    worst = 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        for shape in FLASH_GRAD_SHAPES:
+            worst = max(worst, flash_grads_at(torch, gen, shape, dtype))
+    return worst
+
+
+def flash_grads_at(torch, gen, shape, dtype, label="train") -> float:
+    """``train_flash_grads``' check at one (B, S, H, KV, hd) and dtype;
+    returns the largest excess over the limit."""
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.flash_attention.ref import flash_attention_plain
 
-    worst = 0.0
-    for dtype in (torch.float32, torch.bfloat16):
-        for b, s, h, kv, hd in FLASH_GRAD_SHAPES:
-            ins = [torch.randn(shape, generator=gen).to(DEV, dtype)
-                   for shape in ((b, s, h, hd), (b, s, kv, hd), (b, s, kv, hd))]
-            do = torch.randn((b, s, h, hd), generator=gen).to(DEV, dtype)
-            before = fa_ops.launches["flash_attention"]
-            got_in = [a.clone().requires_grad_(True) for a in ins]
-            got = torch.autograd.grad(fa_ops.flash_attention(*got_in), got_in, do)
-            if fa_ops.launches["flash_attention"] != before + 1:
-                fail("train: the flash route's forward did not launch the kernel once")
-            want_in = [a.clone().requires_grad_(True) for a in ins]
-            want = torch.autograd.grad(flash_attention_plain(*want_in), want_in, do)
-            terms = flash_grad_terms(torch, *ins, do)
-            torch.cuda.synchronize()
-            errs = []
-            for name, g_, w, a in zip(("dq", "dk", "dv"), got, want, terms):
-                if g_.dtype != dtype or g_.shape != w.shape:
-                    fail(f"train: flash {name} is {g_.dtype} {tuple(g_.shape)}")
-                err = (g_.float() - w.float()).abs()
-                if dtype == torch.float32:
-                    excess = float(err.max()) / FLASH_F32_ATOL
-                else:
-                    excess = float((err / (FLASH_BF16_REL * (w.float().abs() + a))).max())
-                if not math.isfinite(excess) or excess > 1.0:
-                    fail(f"train: flash {name} {dtype} at {(b, s, h, kv, hd)}: max abs error "
-                         f"{float(err.max())}, {excess:.3f}× its limit")
-                errs.append(f"{name} {float(err.max()):.3e} ({excess:.3f} of its limit, max |want| "
-                            f"{float(w.float().abs().max()):.3e})")
-                worst = max(worst, excess)
-            print(f"train: flash gradients {dtype} (B, S, H, KV, hd) = {(b, s, h, kv, hd)} against "
-                  f"autograd through the plain version: {', '.join(errs)}")
+    b, s, h, kv, hd = shape
+    ins = [torch.randn(dims, generator=gen).to(DEV, dtype)
+           for dims in ((b, s, h, hd), (b, s, kv, hd), (b, s, kv, hd))]
+    do = torch.randn((b, s, h, hd), generator=gen).to(DEV, dtype)
+    before = fa_ops.launches["flash_attention"]
+    got_in = [a.clone().requires_grad_(True) for a in ins]
+    got = torch.autograd.grad(fa_ops.flash_attention(*got_in), got_in, do)
+    if fa_ops.launches["flash_attention"] != before + 1:
+        fail(f"{label}: the flash route's forward did not launch the kernel once")
+    want_in = [a.clone().requires_grad_(True) for a in ins]
+    want = torch.autograd.grad(flash_attention_plain(*want_in), want_in, do)
+    terms = flash_grad_terms(torch, *ins, do)
+    torch.cuda.synchronize()
+    errs, worst = [], 0.0
+    for name, g_, w, a in zip(("dq", "dk", "dv"), got, want, terms):
+        if g_.dtype != dtype or g_.shape != w.shape:
+            fail(f"{label}: flash {name} is {g_.dtype} {tuple(g_.shape)}")
+        err = (g_.float() - w.float()).abs()
+        if dtype == torch.float32:
+            excess = float(err.max()) / FLASH_F32_ATOL
+        else:
+            excess = float((err / (FLASH_BF16_REL * (w.float().abs() + a))).max())
+        if not math.isfinite(excess) or excess > 1.0:
+            fail(f"{label}: flash {name} {dtype} at {shape}: max abs error "
+                 f"{float(err.max())}, {excess:.3f}× its limit")
+        errs.append(f"{name} {float(err.max()):.3e} ({excess:.3f} of its limit, max |want| "
+                    f"{float(w.float().abs().max()):.3e})")
+        worst = max(worst, excess)
+    print(f"{label}: flash gradients {dtype} (B, S, H, KV, hd) = {shape} against "
+          f"autograd through the plain version: {', '.join(errs)}")
     return worst
 
 
@@ -3145,12 +3207,12 @@ def train_small(torch) -> None:
           f"mu / nu / count, step) restored on the CPU equals the card's state bit for bit")
 
 
-def flash_train_times(torch, gen, name) -> dict:
-    """The flash route at the train phase's attention shape, bf16: the
-    kernel's forward held against the plain version on the same inputs,
-    then timed against scaled_dot_product_attention's and the plain
-    version's, beside its bound; the port's torch-ops backward against
-    SDPA's backward."""
+def flash_train_times(torch, gen, name, shape=FLASH_TRAIN) -> dict:
+    """The flash route at a train phase's attention shape (qwen3-0.6b's
+    unless given), bf16: the kernel's forward held against the plain
+    version on the same inputs, then timed against
+    scaled_dot_product_attention's and the plain version's, beside its
+    bound; the port's torch-ops backward against SDPA's backward."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention import ops as fa_ops
@@ -3158,10 +3220,10 @@ def flash_train_times(torch, gen, name) -> dict:
     from repro_torch.kernels.flash_attention.ref import flash_attention_plain
 
     part, bw, _, bf16 = peaks_for(name)
-    b, s, h, kv, hd = FLASH_TRAIN
-    q, k, v, do = (torch.randn(shape, generator=gen).to(DEV, torch.bfloat16)
-                   for shape in ((b, s, h, hd), (b, s, kv, hd), (b, s, kv, hd), (b, s, h, hd)))
-    ms = {"max_abs_err": _flash_check(torch, f"bf16 train shape {FLASH_TRAIN}",
+    b, s, h, kv, hd = shape
+    q, k, v, do = (torch.randn(dims, generator=gen).to(DEV, torch.bfloat16)
+                   for dims in ((b, s, h, hd), (b, s, kv, hd), (b, s, kv, hd), (b, s, h, hd)))
+    ms = {"max_abs_err": _flash_check(torch, f"bf16 train shape {shape}",
                                       fa_ops.flash_attention_padded(q, k, v), q, k, v,
                                       again=fa_ops.flash_attention_padded(q, k, v))}
     qt, kt, vt, dot = (a.transpose(1, 2).detach().requires_grad_(True) for a in (q, k, v, do))
@@ -3184,7 +3246,7 @@ def flash_train_times(torch, gen, name) -> dict:
     nops = 2 * b * h * s * s * hd
     t_bytes, t_ops = nbytes / bw * 1e3, nops / bf16 * 1e3
     ms["bound"] = max(t_bytes, t_ops)
-    print(f"times: flash_attention train shape {FLASH_TRAIN} bf16: forward kernel {ms['kernel']:.6f} "
+    print(f"times: flash_attention train shape {shape} bf16: forward kernel {ms['kernel']:.6f} "
           f"ms, plain {ms['plain']:.6f} ms, library (scaled_dot_product_attention) "
           f"{ms['library']:.6f} ms, bound {ms['bound']:.6f} ms ({'bytes' if t_bytes >= t_ops else 'operations'}; "
           f"{part} peaks {bw / 1e12:.2f} TB/s, {bf16 / 1e12:.0f} TFLOP/s bf16); backward (torch ops, "
@@ -3352,7 +3414,7 @@ def lm_kernels(torch, name, p=LM_P, windows=LM_WINDOWS, label="fl_lm") -> dict:
           f"{out['aggregate']['library_ms']:.6f} ms ({[round(x, 6) for x in ms['library']]}), bound "
           f"{out['aggregate']['bound_ms']:.6f} ms ({out['aggregate']['bound_by']}; {part} peaks "
           f"{bw / 1e12:.2f} TB/s, {f32 / 1e12:.0f} TFLOP/s f32; {nbytes} B)")
-    del U, got
+    del U, got, blk  # blk, a view, would keep got's storage
     X = torch.zeros((m, p), device=DEV)
     for a, width in windows:
         X[:, a:a + width] = SIM_SCALE * torch.randn((m, width), generator=g, device=DEV)
@@ -3391,7 +3453,10 @@ def lm_kernels(torch, name, p=LM_P, windows=LM_WINDOWS, label="fl_lm") -> dict:
           f"{4 * p * D_PRIME / 1e9:.0f} GB), bound {out['srp']['bound_ms']:.6f} ms "
           f"({out['srp']['bound_by']}; {part} peaks {bw / 1e12:.2f} TB/s, {f32 / 1e12:.0f} "
           "TFLOP/s f32); plain not measured (its S blocks are made inside the call)")
-    del X
+    # Xw, a view, would keep X's storage past the empty_cache: its (8, p)
+    # block, cached, would then be split by the next allocations and leave
+    # no room for a federated round's own (8, p) stack
+    del X, Xw
     torch.cuda.empty_cache()
     return out
 
@@ -3733,12 +3798,15 @@ def serve_full_width(torch, label, spec, want_p, describe):
     (bf16 over f32; ``describe(cfg)`` names its own widths), a warm-up,
     then ``generate`` with the prefill and each decode step timed and the
     flash launches counted in each: one a prefill for each "attn" layer and
-    none in decode (MLA, the recurrent mixers and windowed attention are
-    torch ops), finite logits, tokens the per-step argmax. Returns (cfg,
-    params, prompts, numbers)."""
+    none in decode (MLA, the recurrent mixers, windowed attention, the
+    encoder's bidirectional attention and cross-attention are torch ops),
+    finite logits, tokens the per-step argmax. A model with a front end gets
+    its zero stubs, as the serve CLI feeds them. Returns (cfg, params,
+    prompts, numbers)."""
     from repro_torch.configs import get_config
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.launch.serve import generate
+    from repro_torch.launch.steps import frontend_stubs
     from repro_torch.models import model as mdl
 
     torch.cuda.empty_cache()
@@ -3757,7 +3825,11 @@ def serve_full_width(torch, label, spec, want_p, describe):
           f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
     if n != want_p:
         fail(f"{label}: {n} parameters, expected {want_p}")
-    generate(cfg, params, prompts, 2, device=DEV)  # warm-up
+    extras = frontend_stubs(cfg, b, DEV)
+    if extras:
+        print(f"{label}: zero front-end stubs " + ", ".join(
+            f"{k} {tuple(v.shape)} {v.dtype}" for k, v in extras.items()))
+    generate(cfg, params, prompts, 2, device=DEV, **extras)  # warm-up
     marks, counts = [], []
 
     def on_step(phase, t):
@@ -3769,7 +3841,7 @@ def serve_full_width(torch, label, spec, want_p, describe):
     torch.cuda.reset_peak_memory_stats()
     fa_ops.launches.update(flash_attention=0)
     t0 = time.perf_counter()
-    tokens, logits = generate(cfg, params, prompts, n_gen, device=DEV, on_step=on_step)
+    tokens, logits = generate(cfg, params, prompts, n_gen, device=DEV, on_step=on_step, **extras)
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated()
     prefill_ms = (marks[0] - t0) * 1e3
@@ -4229,27 +4301,31 @@ def decode_against_forward(torch, label, cfg, params, spec) -> float:
     forward over prompt_len + steps tokens at the same positions, within
     RECURRENT_RTOL of the logits' scale. Checks the final states a prefill
     hands to decode (and, for recurrentgemma past its window, the ring's
-    roll and slot)."""
+    roll and slot; for whisper the cross-attention's ck / cv). A model with
+    a front end gets its zero stubs in both the prefill and the forward."""
     import dataclasses
 
+    from repro_torch.launch.steps import frontend_stubs
     from repro_torch.models import model as mdl
 
     cfg32 = dataclasses.replace(cfg, dtype="float32")
     n, p, k = spec["batch"], spec["prompt_len"], spec["steps"]
     g = torch.Generator(device=DEV).manual_seed(8)
     seq = torch.randint(0, cfg.vocab_size, (n, p + k), generator=g, device=DEV)
+    extras = frontend_stubs(cfg32, n, DEV)
     t0 = time.perf_counter()
     with torch.inference_mode():
         caches = mdl.init_cache(cfg32, n, p + k, device=DEV)
-        hidden, caches, _ = mdl.forward(cfg32, params, seq[:, :p], caches=caches)
+        hidden, caches, _ = mdl.forward(cfg32, params, seq[:, :p], caches=caches, **extras)
         steps = [mdl.logits_from_hidden(cfg32, params, hidden[:, -1:])[:, 0]]
         del hidden
-        rings = sorted({c["k"].shape[1] for c in caches["layers"] if "k" in c})
+        rings = sorted({c["k"].shape[1] for kind, c in zip(cfg.all_blocks, caches["layers"])
+                        if kind[0] == "local"})
         for t in range(k):
             step, caches = mdl.decode_step(cfg32, params, seq[:, p + t:p + t + 1], caches)
             steps.append(step)
         del caches
-        full, _, _ = mdl.forward(cfg32, params, seq)
+        full, _, _ = mdl.forward(cfg32, params, seq, **extras)
         want = mdl.logits_from_hidden(cfg32, params, full[:, p - 1:])
         del full
     torch.cuda.synchronize()
@@ -4412,6 +4488,276 @@ def phase_fl_xlstm(torch, name) -> dict:
     return {"launches": {k: md[k] + a2[k] for k in md}, "kernels": kern}
 
 
+# ---------------------------------------------------------------------------
+# the front ends' models: whisper-small (the encoder, cross-attention,
+# sinusoidal positions) and qwen2-vl-2b (M-RoPE, vision embeddings) served,
+# trained and, qwen2-vl, federated at full width
+# ---------------------------------------------------------------------------
+SERVE_WHISPER = dict(arch="whisper-small", batch=4, prompt_len=1000, gen=16)
+WHISPER_P = 294_766_848  # whisper-small's parameters, its 12 encoder blocks included
+SERVE_VL = dict(arch="qwen2-vl-2b", batch=4, prompt_len=1000, gen=16)
+VL_P = 1_543_714_304  # qwen2-vl-2b's parameters (qwen2-1.5b's backbone)
+EXTRAS_DECODE = dict(batch=4, prompt_len=1000, steps=4)  # f32 decode against the forward
+TRAIN_EXTRAS = dict(batch=4, seq=1024, steps=3, lr=3e-3)
+FLASH_WHISPER_TRAIN = (4, 1024, 12, 12, 64)  # whisper's decoder attention at the train batch
+VL_WINDOWS = [(0, 8192), (123_456_789, 5_000), (VL_P // 2 - 4096, 8192), (VL_P - 8192, 8192)]
+# the narrow reduced qwen2-vl's 4 heads of 16 take M-RoPE sections of 8 pairs
+FL_VL = dict(rounds=1, narrow=dict(d_model=64, vocab_size=256, mrope_sections=(4, 2, 2)))
+DECODER = ("attn", "mlp")
+VISION_SEED = 11
+
+
+class _DrawnVisionEmbeds:
+    """``launch/train.py``'s batches get seeded random vision embeddings
+    (normal at the token embeddings' scale d^-½, in ``cfg.dtype``) in place
+    of the zero stubs, for a VLM only. Under the zero stubs the leading rows
+    stay exactly zero through every layer, rmsnorm's Jacobian there is
+    1/√ε = 1,000, and the gradient grows ~10³ a layer: at qwen2-vl's depth
+    it overflows in the reference as in the port (ROADMAP, "Known state")."""
+
+    def __init__(self, torch):
+        self.torch = torch
+
+    def __enter__(self):
+        from repro_torch.launch import train
+
+        self.train, self.orig = train, train.frontend_stubs
+
+        def drawn(cfg, batch, device):
+            if cfg.frontend != "vision":
+                return self.orig(cfg, batch, device)
+            g = self.torch.Generator(device=device).manual_seed(VISION_SEED)
+            shape = (batch, cfg.n_vision_tokens, cfg.d_model)
+            return {"vision_embeds": (self.torch.randn(shape, generator=g, device=device)
+                                      * cfg.d_model**-0.5).to(getattr(self.torch, cfg.dtype))}
+
+        train.frontend_stubs = drawn
+        return drawn
+
+    def __exit__(self, *exc):
+        self.train.frontend_stubs = self.orig
+
+
+def whisper_layers_card_vs_cpu(torch, cfg, params) -> None:
+    """Encoder block 0 and decoder block 0 (self-attention through the f32
+    flash kernel, cross-attention to random encoder states) at full width
+    in f32 (TF32 off), on the card and on the CPU, on the same inputs: the
+    encoder block's output and the decoder block's output and its cache's
+    ck and cv, each within RECURRENT_RTOL of its scale."""
+    import dataclasses
+
+    from repro_torch.models import blocks as blk
+
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    b, p, f = SERVE_WHISPER["batch"], SERVE_WHISPER["prompt_len"], cfg.encoder.n_frames
+    g = torch.Generator().manual_seed(7)
+    x = torch.randn((b, p, cfg.d_model), generator=g)
+    enc = torch.randn((b, f, cfg.d_model), generator=g)
+    out = {}
+    for where, dev in (("card", DEV), ("cpu", "cpu")):
+        enc_block, dec_block = params.encoder.blocks[0], params.blocks[0]
+        if dev == "cpu":
+            enc_block, dec_block = _to_cpu(torch, enc_block), _to_cpu(torch, dec_block)
+        with torch.inference_mode():
+            ye = blk.block_apply(cfg32, blk.ENCODER, enc_block, enc.to(dev), angles=None,
+                                 mode="full")[0]
+            cache = blk.init_block_cache(cfg32, DECODER, b, p, torch.float32, dev, cross_len=f)
+            yd, cache, _ = blk.block_apply(cfg32, DECODER, dec_block, x.to(dev), angles=None,
+                                           mode="full", cache=cache, enc_out=enc.to(dev))
+        out[where] = {"encoder y": ye.cpu(), "decoder y": yd.cpu(), "ck": cache["ck"].cpu(),
+                      "cv": cache["cv"].cpu()}
+        del ye, yd, cache
+    rels = {k: _rel(out["card"][k], out["cpu"][k]) for k in out["cpu"]}
+    print(f"serve_whisper: encoder block 0 (bidirectional, {f} frames) and decoder block 0 (causal "
+          f"self-attention, cross-attention to {f} encoder states) at full width, f32 card vs CPU on "
+          f"{(b, p, cfg.d_model)} / {(b, f, cfg.d_model)}: max |Δ| of its scale "
+          f"{json.dumps({k: float(f'{v:.3e}') for k, v in rels.items()})} (limit {RECURRENT_RTOL})")
+    if not all(math.isfinite(v) and v <= RECURRENT_RTOL for v in rels.values()):
+        fail(f"serve_whisper: the full-width layers differ card vs CPU by {rels} of their scale")
+    torch.cuda.empty_cache()
+
+
+def vl_layer_card_vs_cpu(torch, cfg, params) -> None:
+    """qwen2-vl's M-RoPE angles at the serve cut's positions, card vs CPU,
+    and layer 0's attention rotated by them at full width in f32 (TF32 off):
+    its output, k and v within RECURRENT_RTOL of their scale."""
+    import dataclasses
+
+    from repro_torch.models import model as mdl
+    from repro_torch.models.layers import attention as attn_lib
+
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    b, p = SERVE_VL["batch"], SERVE_VL["prompt_len"]
+    x = torch.randn((b, p, cfg.d_model), generator=torch.Generator().manual_seed(7))
+    out = {}
+    for where, dev in (("card", DEV), ("cpu", "cpu")):
+        attn = params.blocks[0]["attn"]
+        if dev == "cpu":
+            attn = _to_cpu(torch, attn)
+        with torch.inference_mode():
+            angles = mdl.make_angles(cfg32, torch.arange(p, device=dev))
+            y, kv = attn_lib.attention_full(cfg32, attn, x.to(dev), angles)
+        out[where] = {"angles": angles.cpu(), "y": y.cpu(), "k": kv["k"].cpu(), "v": kv["v"].cpu()}
+        del y, kv
+    rels = {k: _rel(out["card"][k], out["cpu"][k]) for k in out["cpu"]}
+    print(f"serve_vl: M-RoPE angles (sections {cfg.mrope_sections}, theta {cfg.rope_theta:g}) at "
+          f"positions 0..{p - 1} and layer 0's attention at full width, f32 card vs CPU on "
+          f"{tuple(x.shape)}: max |Δ| of its scale "
+          f"{json.dumps({k: float(f'{v:.3e}') for k, v in rels.items()})} (limit {RECURRENT_RTOL})")
+    if not all(math.isfinite(v) and v <= RECURRENT_RTOL for v in rels.values()):
+        fail(f"serve_vl: M-RoPE or the full-width attention differ card vs CPU by {rels}")
+    torch.cuda.empty_cache()
+
+
+def phase_serve_whisper(torch) -> dict:
+    """``generate`` at whisper-small's full width and depth (12 encoder
+    blocks over 1,500 zero stub frames, 12 decoder blocks with
+    cross-attention; d_model 768, 12 heads with 12 kv heads of 64), bf16
+    over f32 random parameters: times, peak memory, 12 flash launches in
+    the prefill and none in decode; the new layer kinds card vs CPU in f32;
+    decode against a full forward in f32; a profiled prefill and decode
+    step."""
+    t0 = time.perf_counter()
+    cfg, params, prompts, out = serve_full_width(
+        torch, "serve_whisper", SERVE_WHISPER, WHISPER_P,
+        lambda c: f"encoder {c.encoder.n_layers} bidir blocks over {c.encoder.n_frames} frames, "
+                  f"cross-attention, sinusoidal positions, d_ff {c.d_ff} ({c.act})")
+    whisper_layers_card_vs_cpu(torch, cfg, params)
+    out["decode_rel"] = decode_against_forward(torch, "serve_whisper", cfg, params, EXTRAS_DECODE)
+    phase_serve_trace(torch, cfg, params, prompts, tag="whisper ")
+    del params, prompts
+    torch.cuda.empty_cache()
+    print(f"serve_whisper: {time.perf_counter() - t0:.3f} s")
+    return out
+
+
+def phase_serve_vl(torch) -> dict:
+    """``generate`` at qwen2-vl-2b's full width and depth (28 layers, d_model
+    1,536, 12 heads with 2 kv heads of 128, M-RoPE sections (16, 24, 24),
+    256 zero vision slots), bf16 over f32 random parameters: times, peak
+    memory, 28 flash launches in the prefill and none in decode; M-RoPE and
+    layer 0's attention card vs CPU in f32; decode against a full forward in
+    f32; a profiled prefill and decode step."""
+    t0 = time.perf_counter()
+    cfg, params, prompts, out = serve_full_width(
+        torch, "serve_vl", SERVE_VL, VL_P,
+        lambda c: f"M-RoPE sections {c.mrope_sections}, {c.n_vision_tokens} vision slots, d_ff {c.d_ff}")
+    vl_layer_card_vs_cpu(torch, cfg, params)
+    out["decode_rel"] = decode_against_forward(torch, "serve_vl", cfg, params, EXTRAS_DECODE)
+    phase_serve_trace(torch, cfg, params, prompts, tag="vl ")
+    del params, prompts
+    torch.cuda.empty_cache()
+    print(f"serve_vl: {time.perf_counter() - t0:.3f} s")
+    return out
+
+
+def phase_train_extras(torch, gen, name) -> dict:
+    """``launch/train.py``'s step (AdamW, clip 1.0, remat on, bf16 over f32)
+    on whisper-small (the zero stub frames) and qwen2-vl-2b (seeded random
+    vision embeddings, ``_DrawnVisionEmbeds``) at full width and depth,
+    TRAIN_EXTRAS' steps of 4 × 1,024: the reduced configs card against CPU
+    first (the zero stubs); then finite losses, flash launched once an attention
+    layer a forward and again in the backward under remat, step ms,
+    tokens/s, peak memory and one more step profiled, for each; then B4 at
+    whisper's train shape, forward and backward held against the plain
+    version, and timed."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.tokens import TokenPipeline
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.launch import steps, train
+    from repro_torch.models import model as mdl
+    from repro_torch.optim import adamw, linear_warmup_cosine
+
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    train_small_card_vs_cpu(torch, (SERVE_WHISPER["arch"], SERVE_VL["arch"]), "train_extras")
+    spec = TRAIN_EXTRAS
+    out = {}
+    for label, arch, want_p in (("whisper", SERVE_WHISPER["arch"], WHISPER_P),
+                                ("vl", SERVE_VL["arch"], VL_P)):
+        cfg = get_config(arch)
+        per_step = sum(m == "attn" for m, _ in cfg.all_blocks) * (2 if cfg.remat else 1)
+        print(f"train_extras[{label}]: {cfg.name} at full width, {cfg.n_layers} layers "
+              f"({_blocks_summary(cfg)}), {cfg.dtype} over {cfg.param_dtype}, remat {cfg.remat}, "
+              f"fused_ce {cfg.fused_ce}, {cfg.frontend} front end; batch {spec['batch']} × seq "
+              f"{spec['seq']}, {spec['steps']} steps, lr {spec['lr']}")
+        lines = []
+        with _DrawnVisionEmbeds(torch) as stubs:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            fa_ops.launches.update(flash_attention=0)
+            start = time.perf_counter()
+            state, records = train.train(cfg, steps=spec["steps"], batch=spec["batch"],
+                                         seq=spec["seq"], lr=spec["lr"], device=DEV, log_every=1,
+                                         log=lines.append)
+            torch.cuda.synchronize()
+        launches = fa_ops.launches["flash_attention"]
+        peak = torch.cuda.max_memory_allocated()
+        for line in lines:
+            print(f"train_extras[{label}]: {line}")
+        n = mdl.param_count(state["params"])
+        step_ms = np.diff([start] + [r["t"] for r in records]) * 1e3
+        med = float(np.median(step_ms[1:]))
+        print(f"train_extras[{label}]: {n} parameters; step ms: first {step_ms[0]:.3f}, then "
+              f"{[round(float(x), 3) for x in step_ms[1:]]} (median {med:.3f}); "
+              f"{spec['batch'] * spec['seq'] / med * 1e3:.1f} tokens/s; peak device memory {peak} B "
+              f"({peak / 2**30:.2f} GiB); flash launches {launches}, predicted "
+              f"{per_step * spec['steps']} ({per_step} a step)")
+        if n != want_p:
+            fail(f"train_extras[{label}]: {n} parameters, expected {want_p}")
+        if not all(math.isfinite(r[k]) for r in records for k in ("loss", "ce", "grad_norm")):
+            fail(f"train_extras[{label}]: a loss or gradient norm is not finite: {records}")
+        if launches != per_step * spec["steps"]:
+            fail(f"train_extras[{label}]: {launches} flash launches, expected "
+                 f"{per_step * spec['steps']}")
+        step_fn = steps.make_train_step(cfg, adamw(linear_warmup_cosine(
+            spec["lr"], spec["steps"] // 10 + 1, spec["steps"])))
+        bt = TokenPipeline(cfg.vocab_size, spec["batch"], spec["seq"], seed=1).next_batch()
+        batch = {k: torch.from_numpy(v).to(DEV, torch.int64)
+                 for k, v in (("tokens", bt.tokens), ("targets", bt.targets))}
+        batch.update(stubs(cfg, spec["batch"], DEV))
+        lm_trace(torch, f"train_extras[{label}]", lambda: step_fn(state, batch),
+                 f"one more train step of {spec['batch']} × {spec['seq']}")
+        del state, step_fn, batch
+        torch.cuda.empty_cache()
+        out[label] = {"flash": launches, "step_ms": med, "peak": peak,
+                      "losses": [r["loss"] for r in records]}
+    out["grad_excess"] = flash_grads_at(torch, gen, FLASH_WHISPER_TRAIN, torch.bfloat16,
+                                        "train_extras")
+    out["times"] = flash_train_times(torch, gen, name, FLASH_WHISPER_TRAIN)
+    print(f"train_extras: {time.perf_counter() - t0:.3f} s")
+    return out
+
+
+def phase_fl_vl(torch, name) -> dict:
+    """The federated LM on qwen2-vl-2b at full width and depth (the local
+    step trains on tokens alone, M-RoPE with t = h = w, as in the
+    reference): B2 and B3 at (8, VL_P) as in fl_lm, the narrow reduced
+    qwen2-vl card against CPU, then run_federated_lm with FLLMConfig's
+    defaults for FL_VL's rounds, md and sketched Algorithm 2, and one local
+    step profiled. Returns the launches of the two full-width runs together,
+    and the kernels' errors and times."""
+    from repro_torch.configs import get_config
+
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    kern = lm_kernels(torch, name, VL_P, VL_WINDOWS, label="fl_vl")
+    fl_lm_small(torch, SERVE_VL["arch"], FL_VL["narrow"], label="fl_vl")
+    cfg = get_config(SERVE_VL["arch"])
+    torch.cuda.empty_cache()  # a round needs its (8, VL_P) stack, 46 GiB, in one block
+    md = fl_lm_run(torch, "vl md", "md", "sync", cfg, VL_P, FL_VL["rounds"])
+    torch.cuda.empty_cache()
+    a2 = fl_lm_run(torch, "vl algorithm2[srp]", "algorithm2", FL_LM_SKETCH, cfg, VL_P,
+                   FL_VL["rounds"])
+    torch.cuda.empty_cache()
+    local_step_trace(torch, cfg, "vl local_step")
+    torch.cuda.empty_cache()
+    print(f"fl_vl: {time.perf_counter() - t0:.3f} s")
+    return {"launches": {k: md[k] + a2[k] for k in md}, "kernels": kern}
+
+
 def main() -> int:
     import torch
 
@@ -4439,6 +4785,8 @@ def main() -> int:
     phase_small_serve(torch, SERVE_RGLRU["arch"])
     phase_small_serve(torch, SERVE_XLSTM["arch"])
     small_serve_chunked(torch)
+    phase_small_serve(torch, SERVE_WHISPER["arch"])
+    phase_small_serve(torch, SERVE_VL["arch"])
     launches, ds, params, round_ms = phase_slice(torch)
     launches["srp_fleet"] = phase_fleet(torch)
     phase_trace(torch, ds, params, round_ms["arccos"])
@@ -4455,6 +4803,10 @@ def main() -> int:
     moe_row = flash_time_row(torch, gen, name, err["flash"][FLASH_MOE], None, FLASH_MOE,
                              "flash_attention_moe")
     rows.append(moe_row)
+    # its launches are serve_whisper's, set below
+    whisper_row = flash_time_row(torch, gen, name, err["flash"][FLASH_WHISPER], None, FLASH_WHISPER,
+                                 "flash_attention_whisper")
+    rows.append(whisper_row)
     paper = phase_paper(torch, gen)
     ablations = phase_ablations(torch)
     zoo = phase_zoo(torch)
@@ -4469,6 +4821,11 @@ def main() -> int:
     serve_xlstm = phase_serve_xlstm(torch)
     train_rec = phase_train_recurrent(torch, name)
     fl_xlstm = phase_fl_xlstm(torch, name)
+    whisper_row["launches"] = phase_serve_whisper(torch)["flash"]
+    serve_vl = phase_serve_vl(torch)
+    train_extras = phase_train_extras(torch, gen, name)
+    whisper_row["train_extras_launches"] = train_extras["whisper"]["flash"]
+    fl_vl = phase_fl_vl(torch, name)
     for row in rows:
         key = {"similarity_gram": "gram", "aggregate": "aggregate", "srp_sketch": "srp"}.get(row["name"])
         if key is not None:
@@ -4478,6 +4835,7 @@ def main() -> int:
             row["fl_lm_launches"] = fl_lm["launches"][key]
             row["fl_moe_launches"] = fl_moe["launches"][key]
             row["fl_xlstm_launches"] = fl_xlstm["launches"][key]
+            row["fl_vl_launches"] = fl_vl["launches"][key]
         key = {"similarity_gram": "gram", "similarity_l1": "l1", "aggregate": "aggregate"}.get(row["name"])
         if key is not None:
             row["ablations_launches"] = ablations[key]
@@ -4491,6 +4849,9 @@ def main() -> int:
             row["serve_xlstm_launches"] = serve_xlstm["flash"]
             row["train_recurrent_launches"] = train_rec["flash"]
             row["fl_xlstm_launches"] = fl_xlstm["launches"]["flash_attention"]
+            row["serve_vl_launches"] = serve_vl["flash"]
+            row["train_extras_launches"] = train_extras["vl"]["flash"]
+            row["fl_vl_launches"] = fl_vl["launches"]["flash_attention"]
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,

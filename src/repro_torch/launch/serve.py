@@ -5,10 +5,14 @@ Port of ``src/repro/launch/serve.py``. Usage:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-1.5b \
       --batch 4 --prompt-len 1000 --gen 16
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --reduced
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-small \
+      --batch 4 --prompt-len 1000 --gen 16
 
 Parameters are random, from seed 0; prompts are drawn from a
 ``torch.Generator`` seeded with ``--seed`` (not the reference's
-``jax.random`` prompts).
+``jax.random`` prompts). A model with a front end (whisper's audio,
+qwen2-vl's vision) gets the reference's zero stubs
+(``steps.frontend_stubs``).
 """
 from __future__ import annotations
 
@@ -20,7 +24,7 @@ import torch
 
 from repro_torch.configs import ARCH_NAMES, get_config
 from repro_torch.device import resolve_device
-from repro_torch.launch.steps import make_prefill_step, make_serve_step
+from repro_torch.launch.steps import frontend_stubs, make_prefill_step, make_serve_step
 from repro_torch.models import model as mdl
 from repro_torch.models.config import InputShape, ModelConfig
 
@@ -32,6 +36,8 @@ def generate(
     prompts: torch.Tensor,  # (B, P) int
     gen: int,
     *,
+    vision_embeds: Optional[torch.Tensor] = None,
+    frames: Optional[torch.Tensor] = None,
     device="cuda",
     on_step: Optional[Callable[[str, int], None]] = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
@@ -41,14 +47,21 @@ def generate(
     the prefill's at the last prompt position, step t's the t-th decode
     step's. ``on_step(phase, t)``, if given, is called after each step is
     enqueued, with ``phase`` ``"prefill"`` or ``"decode"``. The steps are
-    ``launch/steps.py``'s prefill and serve steps over a cache of P + gen.
+    ``launch/steps.py``'s prefill and serve steps over a cache of P + gen;
+    ``vision_embeds`` and ``frames`` (the front ends' outputs) go to the
+    prefill.
     """
     if gen < 1:
         raise ValueError(f"gen must be >= 1, got {gen}")
     dev = resolve_device(device)
     prompts = prompts.to(dev)
     shape = InputShape("generate", prompts.shape[1] + gen, prompts.shape[0], "prefill")
-    logits, caches = make_prefill_step(cfg, shape)(params, {"tokens": prompts})
+    batch = {"tokens": prompts}
+    if vision_embeds is not None:
+        batch["vision_embeds"] = vision_embeds.to(dev)
+    if frames is not None:
+        batch["frames"] = frames.to(dev)
+    logits, caches = make_prefill_step(cfg, shape)(params, batch)
     serve_step = make_serve_step(cfg, shape)
     steps = [logits]
     tok = logits.argmax(dim=-1, keepdim=True)
@@ -94,7 +107,8 @@ def main(argv=None) -> None:
 
     sync()
     t0 = time.perf_counter()
-    tokens, _ = generate(cfg, params, prompts, args.gen, device=dev, on_step=on_step)
+    tokens, _ = generate(cfg, params, prompts, args.gen, device=dev, on_step=on_step,
+                         **frontend_stubs(cfg, args.batch, dev))
     print(f"prefill ({args.batch}x{args.prompt_len}) in {marks[0] - t0:.2f}s")
     dt = marks[-1] - marks[0]
     n = args.gen - 1

@@ -4,7 +4,10 @@ Port of ``src/repro/launch/steps.py``. PyTorch runs eagerly, so a step is a
 plain function; nothing is jitted. The train step updates the LM's
 parameters in place (the reference returns new arrays): at qwen3-0.6b that
 saves a second 2.38 GB copy of them. ``launch/serve.py``'s ``generate``
-runs the prefill and serve steps. The reference's ``input_specs``,
+runs the prefill and serve steps. A batch may carry the front ends'
+stubbed outputs, ``vision_embeds`` and ``frames``, beside its tokens
+(:func:`frontend_stubs` makes the zero stubs the reference's CLIs feed).
+The reference's ``input_specs``,
 ``abstract_params``, ``abstract_train_state`` and the ``fl_engine_*``
 lowering hooks build ShapeDtypeStructs and mesh shardings for XLA; they are
 mesh tooling and not ported (ROADMAP A13).
@@ -35,6 +38,21 @@ def decode_window_for(cfg: ModelConfig, shape: InputShape) -> int:
 def cache_len_for(cfg: ModelConfig, shape: InputShape) -> int:
     window = decode_window_for(cfg, shape)
     return min(shape.seq_len, window) if window else shape.seq_len
+
+
+def frontend_stubs(cfg: ModelConfig, batch: int, device) -> dict:
+    """The zero front-end stubs of ``cfg``, as the reference's serve and
+    train CLIs make them: ``vision_embeds`` (B, n_vision_tokens, d_model)
+    for a VLM, ``frames`` (B, n_frames, d_model) for an audio model, in
+    ``cfg.dtype``; empty for a text model."""
+    dt = getattr(torch, cfg.dtype)
+    if cfg.frontend == "vision":
+        return {"vision_embeds": torch.zeros((batch, cfg.n_vision_tokens, cfg.d_model), dtype=dt,
+                                             device=device)}
+    if cfg.frontend == "audio":
+        return {"frames": torch.zeros((batch, cfg.encoder.n_frames, cfg.d_model), dtype=dt,
+                                      device=device)}
+    return {}
 
 
 def default_optimizer() -> Optimizer:
@@ -74,7 +92,9 @@ def make_train_step(cfg: ModelConfig, opt: Optimizer, *, clip_norm: float = 1.0)
     def train_step(state, batch):
         params = state["params"]
         names, leaves = zip(*params.named_parameters())
-        loss, metrics = mdl.loss_fn(cfg, params, batch["tokens"], batch["targets"])
+        loss, metrics = mdl.loss_fn(cfg, params, batch["tokens"], batch["targets"],
+                                    vision_embeds=batch.get("vision_embeds"),
+                                    frames=batch.get("frames"))
         grads = dict(zip(names, torch.autograd.grad(loss, leaves)))
         grads, gnorm = clip_by_global_norm(grads, clip_norm)
         named = dict(zip(names, leaves))
@@ -95,13 +115,17 @@ def make_prefill_step(cfg: ModelConfig, shape: InputShape):
 
     @torch.inference_mode()
     def prefill_step(params, batch):
-        tokens = batch["tokens"]
-        caches = mdl.init_cache(cfg, b, cl, device=tokens.device)
-        hidden, caches, _ = mdl.forward(cfg, params, tokens, caches=caches)
+        caches = mdl.init_cache(cfg, b, cl, device=batch["tokens"].device)
+        hidden, caches, _ = forward_with_extras(cfg, params, batch, caches)
         logits = mdl.logits_from_hidden(cfg, params, hidden[:, -1:, :])[:, 0]
         return logits, caches
 
     return prefill_step
+
+
+def forward_with_extras(cfg: ModelConfig, params: mdl.LM, batch: dict, caches):
+    return mdl.forward(cfg, params, batch["tokens"], vision_embeds=batch.get("vision_embeds"),
+                       frames=batch.get("frames"), caches=caches)
 
 
 def make_serve_step(cfg: ModelConfig, shape: InputShape):

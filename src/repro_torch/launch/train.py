@@ -9,9 +9,11 @@ Port of ``src/repro/launch/train.py``. Usage:
 
 Parameters are random, from seed 0 (a ``torch.Generator``, not the
 reference's ``jax.random``); batches come from the reference's synthetic
-``TokenPipeline`` (seed 0), bit for bit. ``--checkpoint`` writes the train
-state under the reference's leaf keys (:func:`~repro_torch.launch.steps.
-train_state_tree`), so ``repro.checkpoint.restore_checkpoint`` reads it.
+``TokenPipeline`` (seed 0), bit for bit, with the reference's zero
+front-end stubs for whisper and qwen2-vl (``steps.frontend_stubs``).
+``--checkpoint`` writes the train state under the reference's leaf keys
+(:func:`~repro_torch.launch.steps.train_state_tree`), so
+``repro.checkpoint.restore_checkpoint`` reads it.
 """
 from __future__ import annotations
 
@@ -25,7 +27,8 @@ from repro_torch.checkpoint import save_checkpoint
 from repro_torch.configs import ARCH_NAMES, get_config
 from repro_torch.data.tokens import TokenPipeline
 from repro_torch.device import resolve_device
-from repro_torch.launch.steps import init_train_state, make_train_step, train_state_tree
+from repro_torch.launch.steps import (frontend_stubs, init_train_state, make_train_step,
+                                      train_state_tree)
 from repro_torch.models import model as mdl
 from repro_torch.optim import adamw, linear_warmup_cosine
 
@@ -40,12 +43,13 @@ def train(cfg, *, steps: int, batch: int, seq: int, lr: float, device="cuda",
     step_fn = make_train_step(cfg, opt)
     state = init_train_state(mdl.init_params(cfg, 0, device=dev), opt)
     pipe = TokenPipeline(cfg.vocab_size, batch, seq, seed=0)
+    extras = frontend_stubs(cfg, batch, dev)
     t0 = time.perf_counter()
     records = []
     for i in range(steps):
         b = pipe.next_batch()
         data = {"tokens": torch.from_numpy(b.tokens).to(dev, torch.int64),
-                "targets": torch.from_numpy(b.targets).to(dev, torch.int64)}
+                "targets": torch.from_numpy(b.targets).to(dev, torch.int64), **extras}
         state, metrics = step_fn(state, data)
         rec = {k: float(v) for k, v in metrics.items()}
         rec["t"] = time.perf_counter()

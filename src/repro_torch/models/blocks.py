@@ -3,21 +3,26 @@
 Port of ``src/repro/models/blocks.py``. One block =
     x = x + mixer(rmsnorm(x))        (mixer: GQA attention, sliding-window
                                       "local" attention, MLA, the RG-LRU
-                                      recurrent block, mLSTM or sLSTM)
+                                      recurrent block, mLSTM or sLSTM; in
+                                      an encoder, bidirectional attention)
+    x = x + cross(rmsnorm(x))        (an encoder-decoder's decoder only:
+                                      attention to the encoder's states)
     x = x + ffn(rmsnorm(x))          (ffn: the gated MLP, the MoE FFN, or
                                       "none" — no norm and no parameters)
 
 A block's parameters are an ``nn.ModuleDict`` of ``nn.ParameterDict``s
 keyed as the reference's parameter dict (``norm1``, ``attn`` — MLA's
-weights too, as there —, ``rec`` for the recurrent mixers, ``ffn_norm``,
-``mlp`` or ``moe``; the MoE's ``shared`` experts and MLA's ``kv_norm``
-nested ``ParameterDict``s), so the layer functions index both alike.
-``block_apply`` runs in two modes: ``full`` (train / prefill — whole
-sequence, seeds the cache; a recurrent block's cache is its final state)
-and ``decode`` (one token against the block's cache), and returns the
-MoE's auxiliary load-balance loss (None for a block without a MoE). The
-bidir mixer, cross-attention, the encoder, M-RoPE and the front ends are
-not ported (ROADMAP A12).
+weights too, as there —, ``rec`` for the recurrent mixers, ``cross_norm``
+and ``cross`` for cross-attention, ``ffn_norm``, ``mlp`` or ``moe``; the
+MoE's ``shared`` experts and MLA's ``kv_norm`` nested ``ParameterDict``s),
+so the layer functions index both alike. ``block_apply`` runs in two
+modes: ``full`` (train / prefill — whole sequence, seeds the cache; a
+recurrent block's cache is its final state; cross-attention projects the
+encoder's states into the cache's ``ck`` / ``cv``) and ``decode`` (one
+token against the block's cache, cross-attention reading ``ck`` / ``cv``),
+and returns the MoE's auxiliary load-balance loss (None for a block
+without a MoE). ``PORTED`` lists the decoder's kinds; ``ENCODER`` the
+encoder's ``("bidir", "mlp")``, which no decoder layer may be.
 """
 from __future__ import annotations
 
@@ -39,6 +44,7 @@ DENSE: BlockSpec = ("attn", "mlp")
 MOE: BlockSpec = ("attn", "moe")
 PORTED = (DENSE, MOE, ("mla", "mlp"), ("mla", "moe"), ("rglru", "mlp"), ("local", "mlp"),
           ("mlstm", "none"), ("slstm", "none"))
+ENCODER: BlockSpec = ("bidir", "mlp")
 RECURRENT = {
     "rglru": (rglru_lib.init_rglru_block, rglru_lib.rglru_block),
     "mlstm": (xlstm_lib.init_mlstm_block, xlstm_lib.mlstm_block),
@@ -47,9 +53,9 @@ RECURRENT = {
 
 
 def _check_kind(kind: BlockSpec) -> None:
-    if tuple(kind) not in PORTED:
+    if tuple(kind) not in PORTED + (ENCODER,):
         raise NotImplementedError(
-            f"block {kind} is not ported; only {', '.join(map(str, PORTED))} are (ROADMAP A12)")
+            f"block {kind} is not ported; only {', '.join(map(str, PORTED + (ENCODER,)))} are")
 
 
 def _parameter_dict(tree: dict) -> nn.ParameterDict:
@@ -69,7 +75,10 @@ def as_module(params: dict) -> nn.ModuleDict:
     return nn.ModuleDict({name: _parameter_dict(sub) for name, sub in params.items()})
 
 
-def init_block(cfg: ModelConfig, kind: BlockSpec, gen: Optional[torch.Generator], device) -> nn.ModuleDict:
+def init_block(cfg: ModelConfig, kind: BlockSpec, gen: Optional[torch.Generator], device, *,
+               cross: bool = False) -> nn.ModuleDict:
+    """A block's parameters; ``cross`` adds cross-attention (``cross_norm``,
+    ``cross``: an attention's weights), as an encoder-decoder's decoder has."""
     _check_kind(kind)
     mixer, ffn = kind
     p = {"norm1": {"scale": torch.ones((cfg.d_model,), device=device)}}
@@ -78,6 +87,9 @@ def init_block(cfg: ModelConfig, kind: BlockSpec, gen: Optional[torch.Generator]
     else:
         init_mixer = mla_lib.init_mla if mixer == "mla" else attn_lib.init_attention
         p["attn"] = init_mixer(cfg, gen, device)
+    if cross:
+        p["cross_norm"] = {"scale": torch.ones((cfg.d_model,), device=device)}
+        p["cross"] = attn_lib.init_attention(cfg, gen, device)
     if ffn != "none":
         p["ffn_norm"] = {"scale": torch.ones((cfg.d_model,), device=device)}
     if ffn == "moe":
@@ -89,33 +101,40 @@ def init_block(cfg: ModelConfig, kind: BlockSpec, gen: Optional[torch.Generator]
 
 def init_block_cache(
     cfg: ModelConfig, kind: BlockSpec, batch: int, cache_len: int, dtype, device,
-    *, decode_window: int = 0,
+    *, decode_window: int = 0, cross_len: int = 0,
 ) -> dict:
     """Decode-state for one block. ``decode_window`` ring-buffers 'attn'
     blocks; a 'local' block's ring holds ``cfg.sliding_window`` entries at
     most; an MLA cache takes the whole ``cache_len``, as the reference's; a
-    recurrent block's cache is its zero state."""
+    recurrent block's cache is its zero state. ``cross_len`` adds
+    cross-attention's ``ck`` / ``cv`` of (B, cross_len, KV, hd)."""
     _check_kind(kind)
     mixer = kind[0]
     if mixer == "mla":
-        return mla_lib.init_mla_cache(cfg, batch, cache_len, dtype, device)
-    if mixer == "rglru":
-        return rglru_lib.init_rglru_state(cfg, batch, dtype, device)
-    if mixer == "mlstm":
-        return xlstm_lib.init_mlstm_state(cfg, batch, device)
-    if mixer == "slstm":
-        return xlstm_lib.init_slstm_state(cfg, batch, device)
-    if mixer == "local":
-        length = min(cache_len, cfg.sliding_window)
+        cache = mla_lib.init_mla_cache(cfg, batch, cache_len, dtype, device)
+    elif mixer == "rglru":
+        cache = rglru_lib.init_rglru_state(cfg, batch, dtype, device)
+    elif mixer == "mlstm":
+        cache = xlstm_lib.init_mlstm_state(cfg, batch, device)
+    elif mixer == "slstm":
+        cache = xlstm_lib.init_slstm_state(cfg, batch, device)
     else:
-        length = min(cache_len, decode_window) if decode_window else cache_len
-    return attn_lib.init_kv_cache(cfg, batch, length, dtype, device)
+        if mixer == "local":
+            length = min(cache_len, cfg.sliding_window)
+        else:
+            length = min(cache_len, decode_window) if decode_window else cache_len
+        cache = attn_lib.init_kv_cache(cfg, batch, length, dtype, device)
+    if cross_len:
+        shape = (batch, cross_len, cfg.n_kv_heads, cfg.resolved_head_dim)
+        cache["ck"] = torch.zeros(shape, dtype=dtype, device=device)
+        cache["cv"] = torch.zeros(shape, dtype=dtype, device=device)
+    return cache
 
 
 def _mixer_window(cfg: ModelConfig, mixer: str, decode_window: int) -> int:
     """The window of a mixer: ``cfg.sliding_window`` for "local" (its
     prefill mask and its decode ring), ``decode_window`` for "attn", 0
-    otherwise. The bidir mixer is not ported."""
+    otherwise (the encoder's "bidir" sees every frame)."""
     if mixer == "local":
         return cfg.sliding_window
     return decode_window if mixer == "attn" else 0
@@ -130,10 +149,13 @@ def block_apply(
     angles: Optional[torch.Tensor],
     mode: str,  # 'full' | 'decode'
     cache: Optional[dict] = None,
+    enc_out: Optional[torch.Tensor] = None,
     decode_window: int = 0,
 ) -> tuple[torch.Tensor, Optional[dict], Optional[torch.Tensor]]:
     """Returns (x, new_cache, aux_loss); the aux loss is None for a block
-    without a MoE."""
+    without a MoE. A block with cross-attention needs ``enc_out`` (the
+    encoder's states) in full mode; in decode it reads the cache's
+    ``ck`` / ``cv``."""
     _check_kind(kind)
     mixer, ffn = kind
     h = rmsnorm(params["norm1"], x, cfg.norm_eps)
@@ -145,12 +167,16 @@ def block_apply(
     elif mixer == "mla":
         y, new_cache = _mla(cfg, params["attn"], h, angles, mode, cache)
     elif mode == "full":
-        y, kv = attn_lib.attention_full(cfg, params["attn"], h, angles, window=window)
-        if cache is not None:
-            new_cache = pack_kv_cache(kv, cache["k"].shape[1], window, cache["k"].dtype)
+        y, kv = attn_lib.attention_full(cfg, params["attn"], h, angles, window=window,
+                                        bidirectional=mixer == "bidir")
+        if cache is not None:  # a cross-attention block's ck / cv stay in the dict
+            new_cache = {**cache, **pack_kv_cache(kv, cache["k"].shape[1], window, cache["k"].dtype)}
     else:
-        y, new_cache = attn_lib.attention_decode(cfg, params["attn"], h, angles, cache, window=window)
+        y, upd = attn_lib.attention_decode(cfg, params["attn"], h, angles, cache, window=window)
+        new_cache = {**cache, **upd}
     x = x + y
+    if "cross" in params:
+        x, new_cache = _cross(cfg, params, x, mode, new_cache, enc_out)
     if ffn == "none":
         return x, new_cache, None
     hf = rmsnorm(params["ffn_norm"], x, cfg.norm_eps)
@@ -158,6 +184,39 @@ def block_apply(
         y, aux = moe_lib.moe_ffn(cfg, params["moe"], hf)
         return x + y, new_cache, aux
     return x + mlp(cfg, params["mlp"], hf), new_cache, None
+
+
+def _cross(cfg: ModelConfig, params, x: torch.Tensor, mode: str, cache: Optional[dict],
+           enc_out: Optional[torch.Tensor]):
+    """Cross-attention to the encoder's states, no mask: in full mode their
+    k / v come from ``enc_out`` (and are written into the cache, if one is
+    given), in decode from the cache, cast to the activation dtype. As in
+    the reference, the query comes out of ``qkv`` with no angles."""
+    hc = rmsnorm(params["cross_norm"], x, cfg.norm_eps)
+    q, _, _ = attn_lib.qkv(cfg, params["cross"], hc, None)
+    if mode == "full":
+        if enc_out is None:
+            raise ValueError("encoder output required for full-mode cross-attention")
+        ck, cv = cross_kv(cfg, params["cross"], enc_out)
+        if cache is not None:
+            cache = {**cache, "ck": ck.to(cache["ck"].dtype), "cv": cv.to(cache["cv"].dtype)}
+    else:
+        ck, cv = cache["ck"].to(x.dtype), cache["cv"].to(x.dtype)
+    y = attn_lib.attend(cfg, q, ck, cv, None) @ params["cross"]["wo"].to(x.dtype)
+    return x + y, cache
+
+
+def cross_kv(cfg: ModelConfig, params, enc_out: torch.Tensor):
+    """Project encoder output to cross-attention k/v (no rope, no qk-norm)."""
+    b, f, _ = enc_out.shape
+    kvh, hd = cfg.n_kv_heads, cfg.resolved_head_dim
+    dt = enc_out.dtype
+    k = (enc_out @ params["wk"].to(dt)).reshape(b, f, kvh, hd)
+    v = (enc_out @ params["wv"].to(dt)).reshape(b, f, kvh, hd)
+    if cfg.qkv_bias:
+        k = k + params["bk"].to(dt).reshape(kvh, hd)
+        v = v + params["bv"].to(dt).reshape(kvh, hd)
+    return k, v
 
 
 def _mla(cfg: ModelConfig, params, h: torch.Tensor, angles, mode: str, cache: Optional[dict]):

@@ -6,7 +6,9 @@ which computes what :func:`attend` computes there, with its gradient from
 ``kernels/flash_attention/backward.py``; every other case, and decode,
 goes through :func:`attend` — the sliding-window "local" mixer among them
 (recurrentgemma's, head dim 256), whose window ``blocks._mixer_window``
-sets, as the reference's model sends it there too. The reference's blockwise path
+sets, and whisper's bidirectional encoder and its decoder's
+cross-attention (``blocks._cross``), as the reference's model sends them
+there too. The reference's blockwise path
 (``attn_block_q > 0``) has the numerics of :func:`attend` over the whole
 sequence; the port runs it that way (the memory lever is not ported).
 """

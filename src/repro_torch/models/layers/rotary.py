@@ -1,8 +1,11 @@
-"""Rotary position embeddings.
+"""Rotary position embeddings: standard RoPE and Qwen2-VL's M-RoPE.
 
 Port of ``src/repro/models/layers/rotary.py``. The pairs rotated are the
 interleaved (x[2i], x[2i+1]), as in the reference, not the half-split
-(x[i], x[i + hd/2]) convention.
+(x[i], x[i + hd/2]) convention. M-RoPE gives each rotation pair one of
+three position streams (temporal, height, width) by ``sections``; on text
+the three coincide, and its angles are ``rope_angles``' product for
+product.
 """
 from __future__ import annotations
 
@@ -19,6 +22,23 @@ def rope_angles(positions: torch.Tensor, head_dim: int, theta: float) -> torch.T
     """positions (...,) -> angles (..., head_dim//2) in float32."""
     inv = rope_freqs(head_dim, theta, positions.device)
     return positions.to(torch.float32)[..., None] * inv
+
+
+def mrope_angles(positions: torch.Tensor, head_dim: int, theta: float,
+                 sections: tuple[int, int, int]) -> torch.Tensor:
+    """M-RoPE: positions (3, ...) t/h/w streams -> angles (..., head_dim//2).
+
+    ``sections`` counts rotation *pairs* per stream and must sum to
+    head_dim // 2.
+    """
+    if sum(sections) != head_dim // 2:
+        raise ValueError(f"mrope sections {sections} must sum to head_dim//2 = {head_dim // 2}")
+    inv = rope_freqs(head_dim, theta, positions.device)
+    stream_of = torch.repeat_interleave(torch.arange(3, device=positions.device),
+                                        torch.tensor(sections, device=positions.device),
+                                        output_size=head_dim // 2)  # no sync for the length
+    pos_per_band = positions.to(torch.float32)[stream_of]  # (hd//2, ...): each band's stream
+    return pos_per_band.movedim(0, -1) * inv
 
 
 def apply_rope(x: torch.Tensor, angles: torch.Tensor) -> torch.Tensor:

@@ -1,9 +1,15 @@
-"""Decoder-LM assembly over the ported blocks (``blocks.PORTED``).
+"""Decoder-LM / encoder-decoder assembly over the ported blocks.
 
 Port of ``src/repro/models/model.py``. The model is an :class:`LM`
 ``nn.Module`` whose ``blocks`` ``nn.ModuleList`` holds every layer in order
 (``first_blocks``, then ``pattern`` × ``n_repeats``, then ``tail_blocks``),
-in place of the reference's ``lax.scan`` over stacked parameters.
+in place of the reference's ``lax.scan`` over stacked parameters. An
+encoder-decoder (whisper) has an :class:`Encoder` too: its ``("bidir",
+"mlp")`` blocks and final norm, run over the stubbed front end's frames
+with sinusoidal positions (:func:`encode`); its decoder's blocks carry
+cross-attention, and its decoder adds sinusoidal positions in place of
+rotary angles. A VLM (qwen2-vl) takes precomputed vision embeddings in the
+leading token slots and rotates with M-RoPE (t = h = w on text).
 Parameters are stored f32 (``cfg.param_dtype``) and cast to ``cfg.dtype``
 at use, as in the reference. They are made with ``requires_grad`` off, for
 the serve path; a trainer turns it on (``LM.requires_grad_``). With
@@ -15,10 +21,16 @@ Entry points:
   * ``forward``     — full-sequence train / prefill; returns hidden states,
                       the refreshed caches (when given) and the MoE aux
                       loss (the sum over MoE blocks; zero without one).
-  * ``decode_step`` — one token against the caches.
+                      ``vision_embeds`` / ``frames`` are the front ends'
+                      stubbed outputs.
+  * ``decode_step`` — one token (or ``input_embed``) against the caches.
   * ``loss_fn``     — next-token CE plus ``aux_weight`` × the aux loss;
                       ``cfg.fused_ce`` computes the CE in sequence chunks
                       without the (B, S, V) logits.
+
+As in the reference, ``loss_fn`` without ``frames`` fails on whisper at
+``encode`` with an ``AttributeError``; the federated LM's local step calls
+it so, and so raises on whisper in both packages (ROADMAP, "Known state").
 
 :func:`params_from_numpy` takes the reference's stacked parameter pytree;
 :func:`params_to_numpy` and :func:`reference_tree` give it back, and
@@ -28,6 +40,7 @@ and :func:`lm_views` makes an LM of views into such a vector.
 """
 from __future__ import annotations
 
+import math
 from typing import Any, Optional
 
 import numpy as np
@@ -40,7 +53,7 @@ from repro_torch.device import resolve_device
 from repro_torch.models import blocks as blk
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers.norms import rmsnorm
-from repro_torch.models.layers.rotary import rope_angles
+from repro_torch.models.layers.rotary import mrope_angles, rope_angles
 
 Cache = dict[str, Any]
 
@@ -53,39 +66,53 @@ def stack_layout(cfg: ModelConfig) -> Layout:
     return len(cfg.first_blocks), len(cfg.pattern), cfg.n_repeats, len(cfg.tail_blocks)
 
 
+def _norm(scale: torch.Tensor) -> nn.ParameterDict:
+    return nn.ParameterDict({"scale": nn.Parameter(scale, requires_grad=False)})
+
+
+class Encoder(nn.Module):
+    """A whisper-style encoder: its ``blocks.ENCODER`` blocks in order and
+    its final norm (the reference's ``params["encoder"]``, whose
+    ``stack/pos0`` leaves stack the blocks)."""
+
+    def __init__(self, final_norm: torch.Tensor, blocks: list):
+        super().__init__()
+        self.final_norm = _norm(final_norm)
+        self.blocks = nn.ModuleList(blocks)
+
+
 class LM(nn.Module):
-    """Embedding, the blocks in order, the final norm and the (tied or not) head.
+    """Embedding, the blocks in order, the final norm and the (tied or not)
+    head, and an encoder-decoder's :class:`Encoder` (None otherwise).
 
     ``layout`` is :func:`stack_layout` of the config: which blocks are the
     reference's ``first``, ``stack/pos{i}`` slices and ``tail``.
     """
 
     def __init__(self, embed: torch.Tensor, final_norm: torch.Tensor,
-                 blocks: list, lm_head: Optional[torch.Tensor] = None, *, layout: Layout):
+                 blocks: list, lm_head: Optional[torch.Tensor] = None, *, layout: Layout,
+                 encoder: Optional[Encoder] = None):
         super().__init__()
         nf, period, reps, nt = layout
         if nf + period * reps + nt != len(blocks):
             raise ValueError(f"layout {layout} does not cover {len(blocks)} blocks")
         self.layout = tuple(layout)
         self.embed = nn.Parameter(embed, requires_grad=False)
-        self.final_norm = nn.ParameterDict({"scale": nn.Parameter(final_norm, requires_grad=False)})
+        self.final_norm = _norm(final_norm)
         self.lm_head = None if lm_head is None else nn.Parameter(lm_head, requires_grad=False)
         self.blocks = nn.ModuleList(blocks)
+        self.encoder = encoder
 
 
 def check_ported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` for a config the port cannot run yet."""
+    """Raise ``NotImplementedError`` for a config with a decoder block kind
+    the port does not run (every one of the reference's configs runs)."""
     cfg.validate()
-    missing = [name for name, on in (
-        ("the encoder", cfg.encoder is not None), (f"the {cfg.frontend} front end", cfg.frontend),
-        ("M-RoPE", cfg.mrope),
-    ) if on]
-    missing += sorted({f"block {kind}" for kind in cfg.all_blocks if tuple(kind) not in blk.PORTED})
+    missing = sorted({str(kind) for kind in cfg.all_blocks if tuple(kind) not in blk.PORTED})
     if missing:
         raise NotImplementedError(
-            f"{cfg.name}: {', '.join(missing)} not ported; the port runs "
-            f"{', '.join(map(str, blk.PORTED))} blocks; the bidir mixer, cross-attention, the "
-            "encoder, M-RoPE and the front ends are not ported (ROADMAP A12)")
+            f"{cfg.name}: decoder block {', '.join(missing)} not ported; the port's decoder runs "
+            f"{', '.join(map(str, blk.PORTED))} blocks")
 
 
 def _device(device) -> torch.device:
@@ -108,15 +135,22 @@ def init_params(cfg: ModelConfig, seed: int = 0, *, device="cuda") -> LM:
     lm_head = None
     if not cfg.tie_embeddings:
         lm_head = torch.randn((d, v), generator=gen, device=dev) * d**-0.5
-    blocks = [blk.init_block(cfg, kind, gen, dev) for kind in cfg.all_blocks]
-    return LM(embed, torch.ones((d,), device=dev), blocks, lm_head, layout=stack_layout(cfg))
+    cross = cfg.encoder is not None
+    blocks = [blk.init_block(cfg, kind, gen, dev, cross=cross) for kind in cfg.all_blocks]
+    encoder = None
+    if cross:
+        encoder = Encoder(torch.ones((d,), device=dev),
+                          [blk.init_block(cfg, blk.ENCODER, gen, dev) for _ in range(cfg.encoder.n_layers)])
+    return LM(embed, torch.ones((d,), device=dev), blocks, lm_head, layout=stack_layout(cfg),
+              encoder=encoder)
 
 
 def params_from_numpy(cfg: ModelConfig, params: dict, *, device="cuda") -> LM:
     """The reference's parameter pytree, as numpy arrays, -> an :class:`LM`.
 
     ``params["stack"]["pos{i}"]`` carries a leading ``n_repeats`` axis; layer
-    ``r · period + i`` of the stack is its slice ``[r]``.
+    ``r · period + i`` of the stack is its slice ``[r]``; encoder block ``i``
+    is ``params["encoder"]["stack"]["pos0"]``'s slice ``[i]``.
     """
     check_ported(cfg)
     dev = resolve_device(device)
@@ -132,22 +166,36 @@ def params_from_numpy(cfg: ModelConfig, params: dict, *, device="cuda") -> LM:
         layers += [tensors(params["stack"][f"pos{i}"], r) for i in range(len(cfg.pattern))]
     layers += [tensors(p) for p in params["tail"]]
     lm_head = tensors(params["lm_head"]) if "lm_head" in params else None
+    encoder = None
+    if "encoder" in params:
+        enc = params["encoder"]
+        encoder = Encoder(tensors(enc["final_norm"]["scale"]),
+                          [blk.as_module(tensors(enc["stack"]["pos0"], i))
+                           for i in range(cfg.encoder.n_layers)])
     return LM(tensors(params["embed"]), tensors(params["final_norm"]["scale"]),
-              [blk.as_module(p) for p in layers], lm_head, layout=stack_layout(cfg))
+              [blk.as_module(p) for p in layers], lm_head, layout=stack_layout(cfg),
+              encoder=encoder)
 
 
 def reference_leaves(params: LM) -> list[tuple[tuple[str, ...], list[str]]]:
     """(reference path, the port's parameter names) for each leaf of the
     reference's stacked tree, in its ``jax.tree_util`` order: dict keys
     sorted, ``first`` / ``tail`` by index. A ``stack/pos{i}`` leaf lists
-    its ``n_repeats`` layers in order (its leading axis)."""
+    its ``n_repeats`` layers in order (its leading axis), an
+    ``encoder/stack/pos0`` leaf the encoder's blocks."""
     nf, period, reps, nt = params.layout
 
-    def block(prefix, layers):
-        return [(prefix + path, [f"blocks.{i}.{'.'.join(path)}" for i in layers])
-                for path in _leaf_paths(params.blocks[layers[0]])]
+    def block(prefix, layers, blocks=params.blocks, name="blocks"):
+        return [(prefix + path, [f"{name}.{i}.{'.'.join(path)}" for i in layers])
+                for path in _leaf_paths(blocks[layers[0]])]
 
-    out = [(("embed",), ["embed"]), (("final_norm", "scale"), ["final_norm.scale"])]
+    out = [(("embed",), ["embed"])]
+    enc = params.encoder
+    if enc is not None:  # "encoder" sorts between "embed" and "final_norm"
+        out.append((("encoder", "final_norm", "scale"), ["encoder.final_norm.scale"]))
+        out += block(("encoder", "stack", "pos0"), list(range(len(enc.blocks))), enc.blocks,
+                     "encoder.blocks")
+    out.append((("final_norm", "scale"), ["final_norm.scale"]))
     for i in range(nf):
         out += block(("first", str(i)), [i])
     if params.lm_head is not None:
@@ -180,7 +228,7 @@ def reference_tree(params: LM, tensors: dict) -> dict:
         node = tree
         for key in path[:-1]:
             node = node.setdefault(key, {})
-        node[path[-1]] = np.stack(arrays) if path[0] == "stack" else arrays[0]
+        node[path[-1]] = np.stack(arrays) if "stack" in path[:2] else arrays[0]
     for part, n in (("first", nf), ("tail", nt)):
         tree[part] = tuple(tree.get(part, {})[str(i)] for i in range(n))
     return tree
@@ -218,8 +266,13 @@ def lm_views(flat: torch.Tensor, like: LM) -> LM:
              for n, off in _flat_runs(like)}
     blocks = [blk.as_module(_view_tree(block, f"blocks.{i}", views))
               for i, block in enumerate(like.blocks)]
+    encoder = None
+    if like.encoder is not None:
+        encoder = Encoder(views["encoder.final_norm.scale"],
+                          [blk.as_module(_view_tree(block, f"encoder.blocks.{i}", views))
+                           for i, block in enumerate(like.encoder.blocks)])
     return LM(views["embed"], views["final_norm.scale"], blocks, views.get("lm_head"),
-              layout=like.layout)
+              layout=like.layout, encoder=encoder)
 
 
 def _view_tree(mod, prefix: str, views: dict) -> dict:
@@ -246,12 +299,45 @@ def param_count(params: LM) -> int:
 
 def make_angles(cfg: ModelConfig, positions: torch.Tensor) -> Optional[torch.Tensor]:
     """positions (S,) -> rope angles (S, rotated dims // 2): the head dim,
-    or MLA's ``rope_head_dim`` (MLA rotates only its rope part); None for a
-    model with no attn, local or mla mixer (xLSTM), as the reference's."""
+    or MLA's ``rope_head_dim`` (MLA rotates only its rope part); None for an
+    encoder-decoder (whisper adds sinusoidal positions instead) and for a
+    model with no attn, local or mla mixer (xLSTM), as the reference's.
+    With ``cfg.mrope`` the text stream t = h = w goes through M-RoPE."""
+    if cfg.encoder is not None:
+        return None
     if not any(m in ("attn", "local", "mla") for m, _ in cfg.all_blocks):
         return None
     hd = cfg.mla.rope_head_dim if cfg.mla is not None else cfg.resolved_head_dim
+    if cfg.mrope:
+        return mrope_angles(torch.stack([positions] * 3), hd, cfg.rope_theta, cfg.mrope_sections)
     return rope_angles(positions, hd, cfg.rope_theta)
+
+
+def sinusoidal(positions: torch.Tensor, d: int) -> torch.Tensor:
+    """Whisper-style sinusoidal position encodings, f32: positions (...,) ->
+    (..., d), the sines of the ``d // 2`` frequencies, then their cosines."""
+    half = d // 2
+    freqs = torch.exp(-math.log(10000.0) * torch.arange(half, dtype=torch.float32,
+                                                         device=positions.device) / (half - 1))
+    ang = positions.to(torch.float32)[..., None] * freqs
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+
+
+def encode(cfg: ModelConfig, params: LM, frames: torch.Tensor) -> torch.Tensor:
+    """frames: the stubbed conv front end's output (B, F, D) -> encoder
+    states, in ``cfg.dtype``. Each block runs under ``torch.utils.checkpoint``
+    with ``cfg.remat`` and gradients on, as the reference's scan body under
+    ``jax.checkpoint``."""
+    x = frames.to(getattr(torch, cfg.dtype))
+    x = x + sinusoidal(torch.arange(x.shape[1], device=x.device), cfg.d_model).to(x.dtype)
+    remat = cfg.remat and torch.is_grad_enabled()
+    for block in params.encoder.blocks:
+        if remat:
+            x, _ = checkpoint(_block_train, cfg, blk.ENCODER, block, x, None, None,
+                              use_reentrant=False)
+        else:
+            x = blk.block_apply(cfg, blk.ENCODER, block, x, angles=None, mode="full")[0]
+    return rmsnorm(params.encoder.final_norm, x, cfg.norm_eps)
 
 
 def _embed(cfg: ModelConfig, params: LM, tokens: torch.Tensor) -> torch.Tensor:
@@ -264,12 +350,23 @@ def forward(
     params: LM,
     tokens: torch.Tensor,  # (B, S) int
     *,
+    vision_embeds: Optional[torch.Tensor] = None,  # (B, P, D) VLM stub
+    frames: Optional[torch.Tensor] = None,  # (B, F, D) audio stub
     caches: Optional[Cache] = None,
     decode_window: int = 0,
 ) -> tuple[torch.Tensor, Optional[Cache], torch.Tensor]:
-    """Returns (hidden (B,S,D), caches', aux_loss)."""
+    """Returns (hidden (B,S,D), caches', aux_loss). ``vision_embeds``
+    replace the first P token slots; with an encoder, ``frames`` go through
+    :func:`encode` and the decoder adds sinusoidal positions."""
     s = tokens.shape[1]
     x = _embed(cfg, params, tokens)
+    if vision_embeds is not None:
+        p = vision_embeds.shape[1]
+        x = torch.cat([vision_embeds.to(x.dtype), x[:, p:]], dim=1)
+    enc_out = None
+    if cfg.encoder is not None:
+        enc_out = encode(cfg, params, frames)
+        x = x + sinusoidal(torch.arange(s, device=x.device), cfg.d_model).to(x.dtype)
     angles = make_angles(cfg, torch.arange(s, device=tokens.device))
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     remat = cfg.remat and caches is None and torch.is_grad_enabled()
@@ -277,11 +374,12 @@ def forward(
     for i, (kind, block) in enumerate(zip(cfg.all_blocks, params.blocks)):
         c = caches["layers"][i] if caches is not None else None
         if remat:
-            x, a = checkpoint(_block_train, cfg, kind, block, x, angles, use_reentrant=False)
+            x, a = checkpoint(_block_train, cfg, kind, block, x, angles, enc_out,
+                              use_reentrant=False)
             nc = None
         else:
             x, nc, a = blk.block_apply(cfg, kind, block, x, angles=angles, mode="full", cache=c,
-                                       decode_window=decode_window)
+                                       enc_out=enc_out, decode_window=decode_window)
         if a is not None:
             aux = aux + a
         new_layers.append(nc)
@@ -290,8 +388,9 @@ def forward(
     return x, new_caches, aux
 
 
-def _block_train(cfg: ModelConfig, kind, block, x: torch.Tensor, angles: Optional[torch.Tensor]):
-    x, _, aux = blk.block_apply(cfg, kind, block, x, angles=angles, mode="full")
+def _block_train(cfg: ModelConfig, kind, block, x: torch.Tensor, angles: Optional[torch.Tensor],
+                 enc_out: Optional[torch.Tensor]):
+    x, _, aux = blk.block_apply(cfg, kind, block, x, angles=angles, mode="full", enc_out=enc_out)
     return x, aux
 
 
@@ -307,11 +406,16 @@ def decode_step(
     caches: Cache,
     *,
     decode_window: int = 0,
+    input_embed: Optional[torch.Tensor] = None,  # (B, 1, D) overrides the token
 ) -> tuple[torch.Tensor, Cache]:
     """One-token serve step. Returns (logits (B, V), caches')."""
     pos = caches["pos"]
-    x = _embed(cfg, params, token)
-    angles = make_angles(cfg, torch.tensor([pos], device=token.device))
+    dt = getattr(torch, cfg.dtype)
+    x = _embed(cfg, params, token) if input_embed is None else input_embed.to(dt)
+    position = torch.tensor([pos], device=x.device)
+    if cfg.encoder is not None:
+        x = x + sinusoidal(position, cfg.d_model).to(dt)
+    angles = make_angles(cfg, position)
     new_layers = []
     for kind, block, c in zip(cfg.all_blocks, params.blocks, caches["layers"]):
         x, nc, _ = blk.block_apply(cfg, kind, block, x, angles=angles, mode="decode", cache=c,
@@ -331,13 +435,17 @@ def init_cache(
     decode_window: int = 0,
     device="cuda",
 ) -> Cache:
-    """Zero decode-state for every block: ``{"layers": [...], "pos": 0}``."""
+    """Zero decode-state for every block: ``{"layers": [...], "pos": 0}``;
+    an encoder-decoder's blocks hold cross-attention's ``ck`` / ``cv`` over
+    the encoder's ``n_frames``."""
     check_ported(cfg)
     dev = resolve_device(device)
     dtype = dtype or getattr(torch, cfg.dtype)
+    cross_len = cfg.encoder.n_frames if cfg.encoder is not None else 0
     return {
         "layers": [blk.init_block_cache(cfg, kind, batch, cache_len, dtype, dev,
-                                        decode_window=decode_window) for kind in cfg.all_blocks],
+                                        decode_window=decode_window, cross_len=cross_len)
+                   for kind in cfg.all_blocks],
         "pos": 0,
     }
 
@@ -351,11 +459,13 @@ def loss_fn(
     tokens: torch.Tensor,  # (B, S) int
     targets: torch.Tensor,  # (B, S) int
     *,
+    vision_embeds: Optional[torch.Tensor] = None,
+    frames: Optional[torch.Tensor] = None,
     aux_weight: float = 0.01,
 ) -> tuple[torch.Tensor, dict]:
     """Next-token CE (f32), plus ``aux_weight`` × the MoE aux loss (zero
     without an MoE block)."""
-    hidden, _, aux = forward(cfg, params, tokens)
+    hidden, _, aux = forward(cfg, params, tokens, vision_embeds=vision_embeds, frames=frames)
     if cfg.fused_ce:
         ce = _chunked_ce(cfg, params, hidden, targets)
     else:

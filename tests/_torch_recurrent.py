@@ -1,10 +1,14 @@
-"""Shared reference runs for the recurrent models' parity tests
-(``test_torch_rglru.py``, ``test_torch_xlstm.py``).
+"""Shared reference runs for the parity tests of the recurrent models
+(``test_torch_rglru.py``, ``test_torch_xlstm.py``) and of the models with
+a front end (``test_torch_whisper.py``, ``test_torch_qwen2_vl.py``).
 
 The reference's random parameters of a reduced config, every bias and
 norm scale moved off its init value by numpy noise, the same numpy
-prompts and tokens for both packages; one jitted JAX prefill, decode and
-``value_and_grad`` per config, cached for the test process.
+prompts and tokens for both packages, and for a model with a front end the
+same random numpy front-end outputs (:func:`extras`: whisper's frames,
+qwen2-vl's vision embeddings) in every prefill and loss; one jitted JAX
+prefill, decode and ``value_and_grad`` per config, cached for the test
+process.
 """
 import dataclasses
 import functools
@@ -49,6 +53,22 @@ def torch_tree(tree, dtype=torch.float32):
             for k, v in tree.items()}
 
 
+def extras(cfg, b, seed=3) -> dict:
+    """Random front-end outputs of ``cfg`` for a batch of ``b`` (numpy f32):
+    ``frames`` (b, n_frames, d_model) for an audio model, ``vision_embeds``
+    (b, n_vision_tokens, d_model) for a VLM; empty for a text model."""
+    rng = np.random.default_rng(seed)
+    if cfg.frontend == "audio":
+        return {"frames": rng.normal(size=(b, cfg.encoder.n_frames, cfg.d_model)).astype(np.float32)}
+    if cfg.frontend == "vision":
+        return {"vision_embeds": rng.normal(size=(b, cfg.n_vision_tokens, cfg.d_model)).astype(np.float32)}
+    return {}
+
+
+def torch_extras(cfg, b, dtype=torch.float32) -> dict:
+    return {k: torch.from_numpy(v).to(dtype) for k, v in extras(cfg, b).items()}
+
+
 @functools.cache
 def ref_params(arch, items=()):
     cfg, _ = configs(arch, **dict(items))
@@ -58,21 +78,22 @@ def ref_params(arch, items=()):
 
 @functools.cache
 def reference_run(arch, items=(), b=2, p=19, gen=6):
-    """Prefill of ``p`` random tokens into a cache of ``p + gen``, then
-    ``gen - 1`` greedy decode steps: params, prompts, hidden, logits, tokens,
-    per-step logits and the prefill's caches, as numpy."""
+    """Prefill of ``p`` random tokens (and :func:`extras`) into a cache of
+    ``p + gen``, then ``gen - 1`` greedy decode steps: params, prompts,
+    hidden, logits, tokens, per-step logits and the prefill's caches, as
+    numpy."""
     cfg, _ = configs(arch, **dict(items))
     params = ref_params(arch, items)
     prompts = np.random.default_rng(2).integers(0, cfg.vocab_size, (b, p)).astype(np.int32)
 
     @jax.jit
-    def prefill(params, tokens):
+    def prefill(params, tokens, ex):
         caches = ref_model.init_cache(cfg, b, p + gen)
-        hidden, caches, _ = ref_model.forward(cfg, params, tokens, caches=caches)
+        hidden, caches, _ = ref_model.forward(cfg, params, tokens, caches=caches, **ex)
         return hidden, ref_model.logits_from_hidden(cfg, params, hidden), caches
 
     decode = jax.jit(lambda params, tok, caches: ref_model.decode_step(cfg, params, tok, caches))
-    hidden, logits, caches = prefill(params, prompts)
+    hidden, logits, caches = prefill(params, prompts, extras(cfg, b))
     prefill_caches = jax.tree_util.tree_map(np.asarray, caches)
     step = logits[:, -1]
     toks, steps = [], []
@@ -130,8 +151,9 @@ def tokens(vocab, b=2, s=24, seed=2):
 def ref_value_and_grad(arch, items=()):
     cfg, _ = configs(arch, **dict(items))
     toks, tgts = tokens(cfg.vocab_size)
-    fn = jax.jit(jax.value_and_grad(lambda p, t, g: ref_model.loss_fn(cfg, p, t, g), has_aux=True))
-    (loss, metrics), grads = fn(ref_params(arch, items), toks, tgts)
+    fn = jax.jit(jax.value_and_grad(lambda p, t, g, ex: ref_model.loss_fn(cfg, p, t, g, **ex),
+                                    has_aux=True))
+    (loss, metrics), grads = fn(ref_params(arch, items), toks, tgts, extras(cfg, toks.shape[0]))
     return float(loss), float(metrics["ce"]), jax.tree_util.tree_map(np.asarray, grads)
 
 
@@ -139,13 +161,14 @@ def assert_loss_and_grads_match(arch, items=(), *, remat=False):
     """Loss and every gradient leaf of the port's ``loss_fn`` (with
     ``cfg.remat`` as given) against the reference's ``jax.value_and_grad``
     of the same function (its remat recomputes the same values), from the
-    same parameters."""
+    same parameters and front-end outputs."""
     want_loss, want_ce, want = ref_value_and_grad(arch, items)
     cfg, params = port_params(arch, items)
     cfg = dataclasses.replace(cfg, remat=remat)
     params.requires_grad_(True)
     toks, tgts = tokens(cfg.vocab_size)
-    loss, metrics = mdl.loss_fn(cfg, params, torch.from_numpy(toks), torch.from_numpy(tgts))
+    loss, metrics = mdl.loss_fn(cfg, params, torch.from_numpy(toks), torch.from_numpy(tgts),
+                                **torch_extras(cfg, toks.shape[0]))
     names, leaves = zip(*params.named_parameters())
     grads = dict(zip(names, torch.autograd.grad(loss, leaves)))
     np.testing.assert_allclose(float(loss.detach()), want_loss, atol=LOSS_ATOL, rtol=0)

@@ -1,29 +1,22 @@
 """The port's federated LM driver against the JAX package's.
 
 ``flatten_lm`` of an LM against the reference's ``flatten_params`` of its
-stacked tree, one ``fl_round_step`` on the same parameters and tokens, and whole
-``run_federated_lm`` runs: the reference's random parameters carry across
-(the port's ``init_params`` monkeypatched to ``params_from_numpy`` of
-them, as ``test_torch_experiment.py`` does for ``init_mlp``), and both
-draw the same per-client ``TokenPipeline`` batches. The model is the f32
-reduced qwen3-0.6b at ``examples/federated_lm.py``'s widths.
-
-The reduced deepseek-v2-lite at d_model 64 and vocab 256 (MLA, a dense
-first block and a MoE under the local steps' gradients) runs md and
-Algorithm 2 whole under the same limits, the reduced qwen2-moe at the same
-widths runs md, and the reduced xlstm-125m at the same widths (an mLSTM
-and an sLSTM block, no FFN, no rotary angles) runs md and Algorithm 2.
+stacked tree, one ``fl_round_step`` on the same parameters and tokens, a
+client drawn twice, the mesh tooling's refusal, the sampler specs and the
+example. The whole ``run_federated_lm`` runs, one file per family, are in
+``test_torch_fl_lm_dense.py`` (the f32 reduced qwen3-0.6b at
+``examples/federated_lm.py``'s widths under each sampler),
+``test_torch_fl_lm_moe.py`` (reduced deepseek-v2-lite and qwen2-moe),
+``test_torch_fl_lm_recurrent.py`` (reduced xlstm-125m) and
+``test_torch_fl_lm_vl.py`` (reduced qwen2-vl-2b), sharing
+``tests/_torch_fl_lm.py``.
 
 Tolerances: flat vectors bit for bit; a round step's parameters and
 updates to atol 2e-6 on entries up to 0.05 (measured ≤ 1.2e-7: the GEMMs
 sum in other orders) and its loss to 2e-6 (measured 1.4e-6, three ulps at
-6); per-round losses to atol 1e-5 (measured 4.8e-7 for every sampler), and
-the sampler's draws and Algorithm 2's plans (``r_tokens``, the urn tokens)
-equal every round, unsketched and with the SRP sketch.
+6).
 """
 import contextlib
-import dataclasses
-import functools
 import gc
 import types
 import weakref
@@ -34,39 +27,13 @@ import numpy as np
 import pytest
 import torch
 
-from repro.configs import get_config as ref_get_config
+from _torch_fl_lm import FL, SIZES, STEP_ATOL, configs, ref_params
 from repro.core import ClientPopulation as RefPopulation
 from repro.fl.aggregation import flatten_params as ref_flatten
 from repro.launch import fl_train as ref_fl
-from repro.models import model as ref_model
-from repro_torch.configs import get_config
 from repro_torch.core import ClientPopulation
 from repro_torch.launch import fl_train
 from repro_torch.models import model as mdl
-
-NARROW = dict(d_model=64, vocab_size=256, n_heads=2, n_kv_heads=2, head_dim=32)
-# the reduced deepseek-v2-lite at the same d_model and vocab (its MLA and
-# MoE widths as reduced)
-NARROWED = {"qwen3-0.6b": NARROW, "deepseek-v2-lite-16b": dict(d_model=64, vocab_size=256),
-            "qwen2-moe-a2.7b": dict(d_model=64, vocab_size=256),
-            "xlstm-125m": dict(d_model=64, vocab_size=256)}
-STEP_ATOL = 2e-6
-LOSS_ATOL = 1e-5
-FL = dict(n_clients=12, m=4, n_rounds=4, n_local_steps=2, local_batch=2, seq_len=16, lr=0.1)
-SIZES = np.array([300, 120, 800, 450, 90, 600, 210, 1000, 75, 330, 520, 260])
-
-
-def _configs(arch="qwen3-0.6b", **overrides):
-    kw = {**NARROWED.get(arch, {}), **overrides}
-    return (dataclasses.replace(ref_get_config(arch, reduced=True), **kw),
-            dataclasses.replace(get_config(arch, reduced=True), **kw))
-
-
-@functools.cache
-def _ref_params(arch="qwen3-0.6b", n_layers=None, seed=0):
-    overrides = {} if n_layers is None else {"n_layers": n_layers}
-    cfg, _ = _configs(arch, **overrides)
-    return jax.tree_util.tree_map(np.asarray, ref_model.init_params(cfg, jax.random.PRNGKey(seed)))
 
 
 # --------------------------------------------------------------------------
@@ -85,8 +52,8 @@ def test_flatten_params_of_an_lm_is_bit_equal_to_the_reference(arch, n_layers):
     no FFN, in one period and in two; recurrentgemma's RG-LRU and local
     blocks with its two tail blocks."""
     overrides = {} if n_layers is None else {"n_layers": n_layers}
-    _, cfg = _configs(arch, **overrides)
-    tree = _ref_params(arch, n_layers)
+    _, cfg = configs(arch, **overrides)
+    tree = ref_params(arch, n_layers)
     lm = mdl.params_from_numpy(cfg, tree, device="cpu")
     want = np.asarray(ref_flatten(tree))
     got = mdl.flatten_lm(lm)
@@ -95,8 +62,8 @@ def test_flatten_params_of_an_lm_is_bit_equal_to_the_reference(arch, n_layers):
 
 
 def test_unflatten_params_gives_views_that_flatten_back():
-    _, cfg = _configs(n_layers=3)
-    lm = mdl.params_from_numpy(cfg, _ref_params(n_layers=3), device="cpu")
+    _, cfg = configs(n_layers=3)
+    lm = mdl.params_from_numpy(cfg, ref_params(n_layers=3), device="cpu")
     flat = mdl.flatten_lm(lm).clone()
     views = mdl.lm_views(flat, lm)
     assert views.layout == lm.layout
@@ -116,8 +83,8 @@ def test_lm_views_and_a_round_step_leave_no_reference_cycle(monkeypatch):
     closure over the views) had kept each round's stack alive until the
     collector ran, so a full-width round could find the last round's 32 GiB
     stack still allocated."""
-    _, cfg = _configs()
-    lm = mdl.params_from_numpy(cfg, _ref_params(), device="cpu")
+    _, cfg = configs()
+    lm = mdl.params_from_numpy(cfg, ref_params(), device="cpu")
     rng = np.random.default_rng(7)
     toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (3, 2, 2, 16))).long()
     stacks, real = [], torch.Tensor.new_empty
@@ -149,8 +116,8 @@ def test_lm_views_and_a_round_step_leave_no_reference_cycle(monkeypatch):
 # one round step
 # --------------------------------------------------------------------------
 def test_fl_round_step_matches_the_reference():
-    ref_cfg, cfg = _configs()
-    tree = _ref_params()
+    ref_cfg, cfg = configs()
+    tree = ref_params()
     rng = np.random.default_rng(6)
     m, n, b, s = 3, 2, 2, 16
     toks = rng.integers(0, cfg.vocab_size, (m, n, b, s)).astype(np.int32)
@@ -172,91 +139,10 @@ def test_fl_round_step_matches_the_reference():
     assert torch.equal(mdl.flatten_lm(lm), torch.from_numpy(np.array(ref_flatten(tree))))
 
 
-# --------------------------------------------------------------------------
-# whole runs
-# --------------------------------------------------------------------------
-SAMPLERS = {
-    "md": ("md", "sync"),
-    "algorithm1": ("algorithm1", "sync"),
-    "algorithm2": ("algorithm2", "sync"),
-    "algorithm2[srp]": ("algorithm2", {"mode": "sync", "sketch": "srp", "sketch_dim": 16}),
-}
-
-
-def _record_plans(sampler):
-    plans, real = [], sampler.sample
-
-    def sample(t, *a, **kw):
-        plan = getattr(sampler, "plan", None)
-        plans.append(None if plan is None else np.array(plan.r_tokens))
-        res = real(t, *a, **kw)
-        plans[-1] = (plans[-1], np.asarray(res.clients).copy())
-        return res
-
-    sampler.sample = sample
-    return plans
-
-
-@functools.cache
-def _ref_run(name, arch="qwen3-0.6b"):
-    sampler_name, planner = SAMPLERS[name]
-    cfg, _ = _configs(arch)
-    fl = ref_fl.FLLMConfig(**FL, sampler=sampler_name, planner=planner)
-    d = int(ref_flatten(_ref_params(arch)).shape[0])
-    with contextlib.closing(ref_fl.make_lm_sampler(fl, RefPopulation(SIZES), update_dim=d)) as sm:
-        plans = _record_plans(sm)
-        losses = ref_fl.run_federated_lm(cfg, fl, sm)
-    return losses, plans
-
-
-RUNS = {name: ("qwen3-0.6b", name) for name in SAMPLERS}
-RUNS.update({f"deepseek-v2-lite-16b[{name}]": ("deepseek-v2-lite-16b", name)
-             for name in ("md", "algorithm2")})
-RUNS["qwen2-moe-a2.7b[md]"] = ("qwen2-moe-a2.7b", "md")
-RUNS.update({f"xlstm-125m[{name}]": ("xlstm-125m", name) for name in ("md", "algorithm2")})
-
-
-@pytest.mark.parametrize("run", RUNS)
-def test_run_federated_lm_matches_the_reference(run, monkeypatch):
-    """qwen3's narrow reduced config under each sampler; the reduced
-    deepseek-v2-lite (MLA and a MoE under the local steps' gradients) under
-    md and Algorithm 2; the reduced qwen2-moe under md; the narrow reduced
-    xLSTM (mLSTM and sLSTM under the local steps' gradients) under md and
-    Algorithm 2."""
-    arch, name = RUNS[run]
-    want_losses, want_plans = _ref_run(name, arch)
-    sampler_name, planner = SAMPLERS[name]
-    _, cfg = _configs(arch)
-    seen = []
-
-    def init_params(c, seed=0, *, device="cuda"):
-        seen.append(seed)
-        return mdl.params_from_numpy(c, _ref_params(arch), device=device)
-
-    monkeypatch.setattr(mdl, "init_params", init_params)
-    fl = fl_train.FLLMConfig(**FL, sampler=sampler_name, planner=planner)
-    d = int(mdl.flatten_lm(init_params(cfg, device="cpu")).numel())
-    with contextlib.closing(fl_train.make_lm_sampler(fl, ClientPopulation(SIZES), update_dim=d,
-                                                     device="cpu")) as sm:
-        plans = _record_plans(sm)
-        losses = fl_train.run_federated_lm(cfg, fl, sm, device="cpu")
-    assert seen[-1] == fl.seed
-    np.testing.assert_allclose(losses, want_losses, atol=LOSS_ATOL, rtol=0)
-    assert len(plans) == len(want_plans) == FL["n_rounds"]
-    for t, ((plan, clients), (want_plan, want_clients)) in enumerate(zip(plans, want_plans)):
-        np.testing.assert_array_equal(clients, want_clients, err_msg=f"round {t}")
-        if want_plan is None:
-            assert plan is None
-        else:
-            np.testing.assert_array_equal(plan, want_plan, err_msg=f"round {t}")
-    if sampler_name == "algorithm2":  # the plan moved off its cold start
-        assert any(not np.array_equal(p, plans[0][0]) for p, _ in plans[1:])
-
-
 def test_a_client_drawn_twice_keeps_its_first_draws_update(monkeypatch):
     """Both drivers observe np.unique's first slot of a repeated client."""
-    cfg_ref, cfg = _configs()
-    tree = _ref_params()
+    cfg_ref, cfg = configs()
+    tree = ref_params()
     monkeypatch.setattr(mdl, "init_params", lambda c, seed=0, *, device="cuda":
                         mdl.params_from_numpy(c, tree, device=device))
     fixed = np.array([5, 2, 5, 9])
@@ -279,7 +165,7 @@ def test_a_client_drawn_twice_keeps_its_first_draws_update(monkeypatch):
 
 
 def test_mesh_tooling_raises_naming_a13():
-    _, cfg = _configs()
+    _, cfg = configs()
     fl = fl_train.FLLMConfig(**FL, sampler="md")
     sm = fl_train.make_lm_sampler(fl, ClientPopulation(SIZES), update_dim=0, device="cpu")
     with pytest.raises(NotImplementedError, match="A13"):

@@ -2,8 +2,9 @@
 
 ``get_config(name, reduced=r)`` is compared field by field through
 ``dataclasses.asdict`` for every architecture and both ``r``; the port's
-parameter count at full width (qwen2-1.5b, qwen3-0.6b, llama3.2-3b and the
-recurrent recurrentgemma-9b and xlstm-125m), built on the ``meta`` device,
+parameter count at full width (qwen2-1.5b, qwen3-0.6b, llama3.2-3b, the
+recurrent recurrentgemma-9b and xlstm-125m, whisper-small with its encoder
+and qwen2-vl-2b), built on the ``meta`` device,
 equals the reference's from ``jax.eval_shape`` (neither allocates).
 """
 import dataclasses
@@ -42,7 +43,7 @@ def test_unknown_arch_raises():
 
 
 @pytest.mark.parametrize("name", ["qwen2-1.5b", "qwen3-0.6b", "llama3.2-3b", "recurrentgemma-9b",
-                                  "xlstm-125m"])
+                                  "xlstm-125m", "whisper-small", "qwen2-vl-2b"])
 def test_full_width_param_count_equals_the_reference(name):
     cfg = ref_get_config(name)
     shapes = jax.eval_shape(lambda key: ref_model.init_params(cfg, key), jax.random.PRNGKey(0))
@@ -56,3 +57,7 @@ def test_full_width_param_count_equals_the_reference(name):
         assert want == 9_396_408_320  # 35.00 GiB in f32: serves on one card
     if name == "xlstm-125m":
         assert want == 143_345_712
+    if name == "whisper-small":
+        assert want == 294_766_848  # its 12 encoder blocks and cross-attention included
+    if name == "qwen2-vl-2b":
+        assert want == 1_543_714_304  # qwen2-1.5b's backbone: M-RoPE adds no parameter

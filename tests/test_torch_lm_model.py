@@ -23,7 +23,7 @@ import torch
 
 from repro.configs import get_config as ref_get_config
 from repro.models import model as ref_model
-from repro_torch.configs import get_config
+from repro_torch.configs import ARCH_NAMES, get_config
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.launch import serve
 from repro_torch.models import model as mdl
@@ -172,13 +172,26 @@ def test_prefill_seeds_the_cache_like_the_reference():
         assert caches["layers"][layer]["pos"] == P
 
 
-@pytest.mark.parametrize("name", ["whisper-small", "qwen2-vl-2b"])
-def test_unported_configs_raise(name):
+@pytest.mark.parametrize("name", ARCH_NAMES)
+def test_every_config_is_ported(name):
+    """``check_ported`` accepts each of the reference's 10 configs: the
+    reduced config's parameters and cache build on the CPU, one cache per
+    layer (an encoder-decoder's with cross-attention's ``ck`` / ``cv``)."""
     cfg = get_config(name, reduced=True)
-    with pytest.raises(NotImplementedError, match="A12"):
+    mdl.check_ported(cfg)
+    params = mdl.init_params(cfg, device="cpu")
+    caches = mdl.init_cache(cfg, 1, 4, device="cpu")
+    assert len(params.blocks) == len(caches["layers"]) == cfg.n_layers
+    assert (params.encoder is not None) == (cfg.encoder is not None)
+    if cfg.encoder is not None:
+        assert all(tuple(c["ck"].shape) == (1, cfg.encoder.n_frames, cfg.n_kv_heads,
+                                            cfg.resolved_head_dim) for c in caches["layers"])
+
+
+def test_check_ported_names_a_decoder_block_it_does_not_run():
+    cfg = dataclasses.replace(get_config("qwen2-1.5b", reduced=True), pattern=(("bidir", "mlp"),))
+    with pytest.raises(NotImplementedError, match=r"decoder block \('bidir', 'mlp'\) not ported"):
         mdl.init_params(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="A12"):
-        mdl.init_cache(cfg, 1, 4, device="cpu")
 
 
 def test_serve_cli_runs_on_the_cpu(capsys):
