@@ -318,7 +318,29 @@ Phases, one line (or a few) each; any failure raises and exits non-zero:
    t = h = w, as the reference's), 1 round each of md and sketched
    algorithm2: launches exactly aggregate a round, srp a sketched round,
    gram a rebuild, flash 56 a local step; each Gram against ``G @ G.T`` in
-   f64; round ms and its parts; one local step under ``torch.profiler``.
+   f64; round ms and its parts; one local step under ``torch.profiler``;
+25. bench — the port's eight ``bench_*`` modules
+   (``repro_torch/benchmarks/``) through their ``main`` in full mode on the
+   card (``bench_async_planner`` with ``--drift``), their ``common.ROWS``
+   gated: each module's row names exactly the reference's in full mode
+   (``BENCH_ROWS``; ``bench_kernels``' mapped), a finite positive time on
+   every timed row, ``parity=bit-identical`` on the churn sweep's static row
+   and the scheduler sweep's sync row, ``bench_kernels``' wrapper rows
+   within the kernels' limits above (the Gram's 1e-5·‖g_i‖·‖g_j‖, the
+   aggregate's 2e-5, f32 flash 2e-5) and timed at or above the H100 bound
+   both by the host clock ending in ``synchronize`` and by events, the
+   launches of every kernel a module reaches rising, the aggregate kernel
+   once a round of either engine in ``bench_round_engine`` and the SRP
+   kernel once a sketched scatter in ``bench_store_scale``; one ``bench``
+   JSON line with every row, each module's seconds and launches;
+26. block_q — ``cfg.attn_block_q``'s query-row blocks at full width in f32:
+   qwen3-0.6b's layer-0 ``attention_full`` and xlstm-125m's
+   ``mlstm_parallel`` over 4 × 1,024, blocks of 256 rows against the whole
+   form (bq 1,024), output (and k, or the mLSTM's final state) and input
+   gradient within 1e-5 of their scale, ms and peak memory of each; then
+   two qwen3-0.6b train steps (bf16 over f32, remat on) at bq 512 against
+   1,024: the first step's loss within 1e-3 relative, the loss, gradient
+   norm, the second step's ms and peak memory printed.
 
 The last lines are the card's name and power limit (nvidia-smi), a JSON
 object with one entry per kernel and shape (with the paper, zoo, sched
@@ -336,7 +358,9 @@ train_recurrent's, serve_vl's and train_extras' (qwen2-vl's) as
 ``serve_xlstm_launches``, ``train_recurrent_launches``,
 ``serve_vl_launches`` and ``train_extras_launches`` for the flash row;
 serve_whisper's as the launches of the ``flash_attention_whisper`` row,
-with whisper's train_extras launches as its ``train_extras_launches``),
+with whisper's train_extras launches as its ``train_extras_launches``, and
+the bench phase's as ``bench_launches`` for the Gram, L1, aggregate, SRP
+and flash rows),
 and ``{"ok": true, "device": ...}``.
 The script imports neither JAX nor the JAX package ``repro``.
 """
@@ -4758,6 +4782,288 @@ def phase_fl_vl(torch, name) -> dict:
     return {"launches": {k: md[k] + a2[k] for k in md}, "kernels": kern}
 
 
+# ---------------------------------------------------------------------------
+# bench: the port's bench_* modules in full mode on the card
+# ---------------------------------------------------------------------------
+#: each module's arguments, beside --device cuda (the reference's full mode)
+BENCH_ARGS = {
+    "bench_fl_collectives": [],
+    "bench_sampler_cost": [],
+    "bench_round_engine": [],
+    "bench_kernels": [],
+    "bench_store_scale": [],
+    "bench_async_planner": ["--drift"],
+    "bench_service_churn": [],
+    "bench_scheduler": [],
+}
+#: each module's rows in full mode, in order: the reference's names
+#: (bench_kernels' mapped by its ROW_MAP, and its two wrapper rows with no
+#: reference counterpart); tests/test_torch_bench_fl.py holds this list
+#: against the reference's modules
+BENCH_ROWS = {
+    "bench_fl_collectives": [
+        "fl_comm/per_client_round_bytes", "fl_comm/sync_dp_equivalent_bytes",
+        "fl_comm/clustered_extra_wire_bytes", "fl_comm/server_round_bytes"],
+    "bench_sampler_cost": (
+        [f"sampler_cost/algorithm1/n={n}" for n in (50, 100, 200, 400)]
+        + [f"sampler_cost/algorithm2/n={n}" for n in (50, 100, 200)]
+        + [f"sampler_cost/draw/{s}" for s in ("algorithm1", "algorithm2", "dp_stratified", "hybrid",
+                                               "importance", "md", "stratified", "target",
+                                               "uniform")]),
+    "bench_round_engine": [f"round_engine/m={m}/{e}" for m in (5, 10, 40)
+                           for e in ("compat", "batched")],
+    "bench_kernels": [
+        "kernels/similarity_gram_plain", "kernels/similarity_cuda", "kernels/aggregate_plain",
+        "kernels/aggregate_cuda", "kernels/flash_attention_plain", "kernels/flash_attention_cuda"],
+    "bench_store_scale": (
+        [f"store/n={n}/d={d}/{k}" for n, d in ((1_000, 10_000), (1_000, 100_000), (10_000, 10_000),
+                                                (10_000, 100_000), (100_000, 10_000))
+         for k in ("exact", "srp64")]
+        + [f"rebuild/n={n}/d=10000/{k}" for n in (10_000, 100_000) for k in ("exact", "srp64")]),
+    "bench_async_planner": (
+        [f"async_planner/n={n}/{p}" for n in (200, 400) for p in ("sync", "async")]
+        + [f"similarity_streamed/n=128/d={d}/{k}" for d in (512, 2048, 8192)
+           for k in ("one_shot", "streamed")]
+        + [f"plan_rebuild/n=512/{c}" for c in ("ward_host", "ward_jit", "kmeans")]
+        + [f"plan_rebuild/n=10000/{c}" for c in ("kmeans_cold", "kmeans_warm",
+                                                  "host_distances_only", "fused_distances")]
+        + ["drift_planner/n=200/fixed", "drift_planner/n=200/threshold=0.2"]),
+    "bench_service_churn": [f"service_churn/{s}" for s in ("static", "dropout10", "dropout30",
+                                                          "poisson", "diurnal+drop")],
+    "bench_scheduler": [f"scheduler/{s}" for s in ("sync", "deadline", "overselect")],
+}
+#: the modules whose rounds or builds reach each kernel (launches must rise)
+BENCH_REACHES = {
+    "bench_sampler_cost": ("gram",),
+    "bench_round_engine": ("aggregate",),
+    "bench_kernels": ("gram", "aggregate", "flash_attention"),
+    "bench_store_scale": ("srp",),
+    "bench_async_planner": ("gram", "aggregate"),
+    "bench_service_churn": ("gram", "aggregate"),
+    "bench_scheduler": ("gram", "aggregate"),
+}
+BENCH_ROUNDS = 12  # bench_round_engine's timed rounds a row in full mode
+BENCH_BUDGET_S = 150.0
+
+
+def _bench_fields(derived: str) -> dict:
+    return dict(part.split("=", 1) for part in derived.split(";") if "=" in part)
+
+
+def _bench_check(mod: str, rows: list, launches: dict) -> None:
+    """The gates of one module's rows: names, times, parity, the kernels'
+    errors and bounds, and launches."""
+    names = [r[0] for r in rows]
+    if names != BENCH_ROWS[mod]:
+        fail(f"bench: {mod} printed rows {names}, expected {BENCH_ROWS[mod]}")
+    for name, us, derived in rows:
+        untimed = mod == "bench_fl_collectives" or derived.startswith("infeasible")
+        if not untimed and not (math.isfinite(us) and us > 0):
+            fail(f"bench: {name} has time {us} µs")
+    for kernel in BENCH_REACHES.get(mod, ()):
+        if launches[kernel] <= 0:
+            fail(f"bench: {mod} launched {kernel} {launches[kernel]} times")
+    f = {name: _bench_fields(derived) for name, _, derived in rows}
+    # the static / sync row carries the gate the module asserted
+    if mod in ("bench_service_churn", "bench_scheduler") and f[names[0]].get("parity") != "bit-identical":
+        fail(f"bench: {names[0]} lacks parity=bit-identical")
+    if mod == "bench_round_engine":  # both engines close a round with one B2 launch
+        for name in names:
+            if int(f[name]["launches"]) != BENCH_ROUNDS:
+                fail(f"bench: {name} launched aggregate {f[name]['launches']} times in "
+                     f"{BENCH_ROUNDS} rounds")
+    if mod == "bench_store_scale":
+        scatters = 0
+        for name in names:
+            if name.startswith("store/") and name.endswith("srp64"):
+                if f[name]["srp_launches"] != f[name]["scatters"]:
+                    fail(f"bench: {name}: {f[name]['srp_launches']} srp launches in "
+                         f"{f[name]['scatters']} sketched scatters")
+                scatters += int(f[name]["scatters"])
+        scatters += sum(n.startswith("rebuild/") and n.endswith("srp64") for n in names)
+        if launches["srp"] != scatters:
+            fail(f"bench: bench_store_scale launched srp {launches['srp']} times in {scatters} "
+                 "sketched scatters")
+    if mod == "bench_kernels":
+        limits = {"kernels/similarity_cuda": ("gram_err", GRAM_RTOL),
+                  "kernels/aggregate_cuda": ("max_abs_err", AGG_TOL),
+                  "kernels/flash_attention_cuda": ("max_abs_err", FLASH_F32_ATOL)}
+        for (name, us, _), (key, limit) in ((r, limits[r[0]]) for r in rows if r[0] in limits):
+            err = float(f[name][key].split()[0])
+            bound = float(f[name]["h100_bound_ms"])
+            ev = float(f[name]["event_ms"])
+            if not math.isfinite(err) or err > limit:
+                fail(f"bench: {name} {key} {err} > {limit}")
+            if us / 1e3 < bound or ev < bound:
+                fail(f"bench: {name} timed {us / 1e3} ms (host, synchronised) and {ev} ms "
+                     f"(events), below its bound {bound} ms: the timing did not wait for the card")
+
+
+def phase_bench(torch) -> dict:
+    """The port's eight ``bench_*`` modules through their ``main`` in full
+    mode on the card, their rows gated (``_bench_check``). Returns each
+    kernel's launches over the phase."""
+    import importlib
+
+    from repro_torch.benchmarks import common as bc
+    from repro_torch.kernels.aggregate import ops as agg_ops
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.similarity import ops as sim_ops
+    from repro_torch.kernels.sketch import ops as sk_ops
+
+    t0 = time.perf_counter()
+    counts = (sim_ops.launches, agg_ops.launches, sk_ops.launches, fa_ops.launches)
+    total = {k: 0 for c in counts for k in c}
+    out = {"rows": [], "seconds": {}, "launches": {}}
+    for mod, argv in BENCH_ARGS.items():
+        main = importlib.import_module(f"repro_torch.benchmarks.{mod}").main
+        torch.cuda.synchronize()
+        for c in counts:
+            c.update({k: 0 for k in c})
+        start, n_rows = time.perf_counter(), len(bc.ROWS)
+        main(argv + ["--device", DEV])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - start
+        launches = {k: v for c in counts for k, v in c.items()}
+        rows = bc.ROWS[n_rows:]
+        _bench_check(mod, rows, launches)
+        for k, v in launches.items():
+            total[k] += v
+        out["rows"] += [list(r) for r in rows]
+        out["seconds"][mod] = round(seconds, 3)
+        out["launches"][mod] = launches
+        print(f"bench: {mod} {' '.join(argv)}: {len(rows)} rows in {seconds:.3f} s, launches "
+              f"{json.dumps(launches)}")
+        torch.cuda.empty_cache()
+    elapsed = time.perf_counter() - t0
+    print("bench: " + json.dumps(out))
+    print(f"bench: {elapsed:.3f} s (budget {BENCH_BUDGET_S:.0f} s)")
+    return total
+
+
+# ---------------------------------------------------------------------------
+# block_q: attention's and the mLSTM's query-row blocks at full width
+# ---------------------------------------------------------------------------
+BLOCK_Q = dict(batch=4, seq=1024, bq=256, whole=1024)  # bq = seq: s > bq fails, the whole form
+BLOCK_Q_STEP = dict(arch="qwen3-0.6b", bq=512, whole=1024, steps=2, lr=3e-3)
+BLOCK_Q_RTOL = 1e-5  # f32 blocked vs whole: of the output's (or gradient's) scale
+BLOCK_Q_LOSS_RTOL = 1e-3  # the bf16 step's loss, blocked vs whole
+
+
+def _blocked_pair(torch, label, fn, x, dy) -> dict:
+    """``fn(bq, x)`` for BLOCK_Q's bq and whole: the output, the input's
+    gradient of ⟨out, dy⟩, ms and peak memory above the inputs of a second
+    run of each (the first warms the libraries up); gated."""
+    res = {}
+    for key in ("whole", "bq") * 2:
+        xi = x.detach().clone().requires_grad_(True)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        start = time.perf_counter()
+        out, extra = fn(BLOCK_Q[key], xi)
+        out.backward(dy)
+        torch.cuda.synchronize()
+        res[key] = {"out": out.detach(), "grad": xi.grad, "extra": extra,
+                    "ms": (time.perf_counter() - start) * 1e3,
+                    "peak": torch.cuda.max_memory_allocated() - base}
+        del out, xi
+    rels = {"out": _rel(res["bq"]["out"], res["whole"]["out"]),
+            "grad": _rel(res["bq"]["grad"], res["whole"]["grad"])}
+    for k, v in res["whole"]["extra"].items():
+        rels[k] = _rel(res["bq"]["extra"][k], v)
+    w, b = res["whole"], res["bq"]
+    print(f"block_q: {label} bq {BLOCK_Q['bq']} against the whole form, f32 forward and input "
+          f"gradient (second runs): max |Δ| of the scale {json.dumps({k: float(f'{v:.3e}') for k, v in rels.items()})} "
+          f"(limit {BLOCK_Q_RTOL}); ms {b['ms']:.3f} / {w['ms']:.3f}; peak memory above the "
+          f"inputs {b['peak']} B ({b['peak'] / 2**20:.1f} MiB) / {w['peak']} B "
+          f"({w['peak'] / 2**20:.1f} MiB), ratio {b['peak'] / w['peak']:.3f}")
+    if not all(math.isfinite(v) and v <= BLOCK_Q_RTOL for v in rels.values()):
+        fail(f"block_q: {label} blocked differs from the whole form by {rels}")
+    return {"rel": rels, "peak": [b["peak"], w["peak"]], "ms": [b["ms"], w["ms"]]}
+
+
+def phase_block_q(torch) -> dict:
+    """``cfg.attn_block_q``'s query-row blocks at full width on the card:
+    qwen3-0.6b's layer-0 attention and xlstm-125m's mLSTM parallel form over
+    4 × 1,024 in f32, blocks of 256 rows against the whole form (bq 1,024:
+    ``s > bq`` fails), forward and input gradient; then a qwen3-0.6b train
+    step (bf16 over f32, remat on) at bq 512 against 1,024."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train
+    from repro_torch.models import model as mdl
+    from repro_torch.models.layers import attention as attn_lib
+    from repro_torch.models.layers import xlstm
+
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=DEV).manual_seed(0)
+    b, s = BLOCK_Q["batch"], BLOCK_Q["seq"]
+    out = {}
+
+    cfg = dataclasses.replace(get_config(TRAIN["arch"]), dtype="float32")
+    params = attn_lib.init_attention(cfg, gen, DEV)
+    angles = mdl.make_angles(cfg, torch.arange(s, device=DEV))
+    x = torch.randn((b, s, cfg.d_model), generator=gen, device=DEV)
+    dy = torch.randn((b, s, cfg.d_model), generator=gen, device=DEV)
+
+    def attn(bq, xi):
+        y, kv = attn_lib.attention_full(dataclasses.replace(cfg, attn_block_q=bq), params, xi,
+                                        angles)
+        return y, {"k": kv["k"].detach()}
+
+    out["attention"] = _blocked_pair(torch, f"{cfg.name} layer 0 attention {tuple(x.shape)}",
+                                     attn, x, dy)
+    del params, x, dy
+    torch.cuda.empty_cache()
+
+    xcfg = get_config(SERVE_XLSTM["arch"])
+    d_in, _ = xlstm._mlstm_dims(xcfg)
+    params = xlstm.init_mlstm_block(xcfg, gen, DEV)
+    z = torch.randn((b, s, d_in), generator=gen, device=DEV)
+    dy = torch.randn((b, s, d_in), generator=gen, device=DEV)
+
+    def mlstm(bq, zi):
+        y, state = xlstm.mlstm_parallel(dataclasses.replace(xcfg, attn_block_q=bq), params, zi)
+        return y, {k: v.detach() for k, v in state.items()}
+
+    out["mlstm"] = _blocked_pair(torch, f"{xcfg.name} mLSTM parallel form {tuple(z.shape)}",
+                                 mlstm, z, dy)
+    del params, z, dy
+    torch.cuda.empty_cache()
+
+    scfg = get_config(BLOCK_Q_STEP["arch"])
+    steps = {}
+    for key in ("whole", "bq"):
+        c = dataclasses.replace(scfg, attn_block_q=BLOCK_Q_STEP[key])
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        start = time.perf_counter()
+        state, records = train.train(c, steps=BLOCK_Q_STEP["steps"], batch=TRAIN["batch"],
+                                     seq=TRAIN["seq"], lr=BLOCK_Q_STEP["lr"], device=DEV,
+                                     log_every=10**9, log=lambda line: None)
+        torch.cuda.synchronize()
+        ms = np.diff([start] + [r["t"] for r in records]) * 1e3
+        steps[key] = {"loss": records[0]["loss"], "grad_norm": records[0]["grad_norm"],
+                      "ms": float(ms[-1]), "peak": torch.cuda.max_memory_allocated()}
+        del state
+        torch.cuda.empty_cache()
+        print(f"block_q: {scfg.name} train step, attn_block_q {c.attn_block_q}: loss "
+              f"{steps[key]['loss']:.6f}, grad norm {steps[key]['grad_norm']:.6f}, step ms (the "
+              f"second) {steps[key]['ms']:.3f}, peak memory {steps[key]['peak']} B "
+              f"({steps[key]['peak'] / 2**30:.2f} GiB)")
+    lw, lb = steps["whole"]["loss"], steps["bq"]["loss"]
+    if not (math.isfinite(lb) and abs(lb - lw) <= BLOCK_Q_LOSS_RTOL * abs(lw)):
+        fail(f"block_q: the blocked step's loss {lb} is not within {BLOCK_Q_LOSS_RTOL} of the "
+             f"whole route's {lw}")
+    out["step"] = steps
+    print(f"block_q: {time.perf_counter() - t0:.3f} s")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -4826,7 +5132,13 @@ def main() -> int:
     train_extras = phase_train_extras(torch, gen, name)
     whisper_row["train_extras_launches"] = train_extras["whisper"]["flash"]
     fl_vl = phase_fl_vl(torch, name)
+    bench = phase_bench(torch)
+    phase_block_q(torch)
     for row in rows:
+        key = {"similarity_gram": "gram", "similarity_l1": "l1", "aggregate": "aggregate",
+               "srp_sketch": "srp", "flash_attention": "flash_attention"}.get(row["name"])
+        if key is not None:
+            row["bench_launches"] = bench[key]
         key = {"similarity_gram": "gram", "aggregate": "aggregate", "srp_sketch": "srp"}.get(row["name"])
         if key is not None:
             row["paper_launches"] = paper[key]

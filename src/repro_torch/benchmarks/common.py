@@ -1,5 +1,5 @@
 # Adapted from benchmarks/common.py: emit, timed, PAPER_TRAIN, run_spec and
-# run_sweep_emit, with a device argument.
+# run_sweep_emit, with a device argument; timed waits for the device.
 """Shared benchmark helpers: timed CSV rows + spec/sweep-driven FL runs."""
 from __future__ import annotations
 
@@ -8,6 +8,8 @@ import contextlib
 import os
 import tempfile
 import time
+
+import torch
 
 from repro_torch.device import resolve_device
 
@@ -30,13 +32,28 @@ def emit(name: str, us_per_call: float, derived: str = "") -> None:
     print(f"{name},{us_per_call:.2f},{derived}", flush=True)
 
 
-def timed(fn, *args, repeats: int = 3, warmup: int = 1, **kw) -> tuple[float, object]:
+def sync(device) -> None:
+    """Wait for the work queued on ``device`` (a no-op for the CPU): a CUDA
+    call returns before the device has run it."""
+    if device is not None and torch.device(device).type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def timed(fn, *args, repeats: int = 3, warmup: int = 1, device=None, **kw) -> tuple[float, object]:
+    """(µs per call, last result) of ``fn(*args, **kw)`` by the host clock.
+
+    With ``device`` a CUDA device the clock starts after the warm-up's work
+    has run and every timed call ends in ``torch.cuda.synchronize``, so a
+    call's time is its device work's and not only its launches'.
+    """
     out = None
     for _ in range(warmup):
         out = fn(*args, **kw)
+    sync(device)
     t0 = time.perf_counter()
     for _ in range(repeats):
         out = fn(*args, **kw)
+        sync(device)
     dt = (time.perf_counter() - t0) / repeats
     return dt * 1e6, out
 
@@ -65,17 +82,31 @@ def run_spec(spec, *, dataset=None, on_round=None, device="cuda") -> dict:
     return summarize(hist, spec.train.n_rounds)
 
 
+def _add_device(ap: argparse.ArgumentParser) -> None:
+    ap.add_argument("--device", default="cuda",
+                    help="device the runs use (cuda, or cpu for the plain PyTorch versions)")
+
+
 def device_from_argv(description: str, argv: "list[str] | None" = None) -> str:
     """Parse a runner's ``--device`` (default ``cuda``) and check it exists.
 
     Raises here, before any work, when CUDA is asked for and absent.
     """
     ap = argparse.ArgumentParser(description=description)
-    ap.add_argument("--device", default="cuda",
-                    help="device the runs use (cuda, or cpu for the plain PyTorch versions)")
+    _add_device(ap)
     device = ap.parse_args(argv).device
     resolve_device(device)
     return device
+
+
+def parse_with_device(ap: argparse.ArgumentParser, argv: "list[str] | None") -> argparse.Namespace:
+    """``ap``'s arguments plus ``--device`` (default ``cuda``), checked as
+    :func:`device_from_argv` checks it. As the reference's ``bench_*``
+    modules, ``argv=None`` (a programmatic caller) parses no arguments."""
+    _add_device(ap)
+    args = ap.parse_args([] if argv is None else argv)
+    resolve_device(args.device)
+    return args
 
 
 def run_sweep_emit(

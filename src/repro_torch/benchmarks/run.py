@@ -17,17 +17,22 @@ and sweep layers. ``--device`` (default ``cuda``) is where every run goes;
 
 Prints ``name,us_per_call,derived`` CSV rows:
   table_variance       — Section 3.2 / Appendix B statistics (theory vs MC)
+  bench_sampler_cost   — Theorems 3/4 complexity scaling
+  bench_round_engine   — batched round engine vs compat loop
+  bench_async_planner  — async re-clustering planner + similarity over d
+  bench_store_scale    — sketched GradientStore: bytes/scatter/rebuild at scale
+  bench_scheduler      — round schedulers (sync/deadline/overselect) under churn
+  bench_fl_collectives — communication accounting (paper's motivation)
+  bench_kernels        — the CUDA kernels beside their plain versions
   fig1_controlled      — Figure 1 (controlled MNIST-style setting)
   fig2_dirichlet       — Figure 2 (Dirichlet-α heterogeneity sweep)
   scheme_race          — every registered selection scheme raced on one sweep
   ablations            — Appendix D.2/D.4/D.5
   beyond_paper         — staleness decay, client churn, device-vs-host plans
 
-The reference's ``bench_*`` modules are not ported here: ``bench_sampler_cost``,
-``bench_kernels``, ``bench_round_engine``, ``bench_async_planner``,
-``bench_store_scale`` and ``bench_scheduler`` belong to the H100 benchmark
-work (ROADMAP A11); ``bench_engine_sharded``, ``bench_fl_collectives`` and
-``bench_dryrun_roofline`` are mesh tooling (ROADMAP A13).
+``bench_service_churn`` runs on its own, as in the reference. Not ported:
+``bench_engine_sharded`` and ``bench_dryrun_roofline``, the reference's
+TPU-mesh tooling (ROADMAP A13).
 
 Run: ``python -m repro_torch.benchmarks.run [--list | --spec JSON | --sweep JSON] [--device cpu]``.
 """
@@ -42,6 +47,13 @@ import traceback
 
 from repro_torch.benchmarks import (
     ablations,
+    bench_async_planner,
+    bench_fl_collectives,
+    bench_kernels,
+    bench_round_engine,
+    bench_sampler_cost,
+    bench_scheduler,
+    bench_store_scale,
     beyond_paper,
     fig1_controlled,
     fig2_dirichlet,
@@ -52,6 +64,13 @@ from repro_torch.device import resolve_device
 
 MODULES = [
     ("table_variance", table_variance),
+    ("bench_sampler_cost", bench_sampler_cost),
+    ("bench_round_engine", bench_round_engine),
+    ("bench_async_planner", bench_async_planner),
+    ("bench_store_scale", bench_store_scale),
+    ("bench_scheduler", bench_scheduler),
+    ("bench_fl_collectives", bench_fl_collectives),
+    ("bench_kernels", bench_kernels),
     ("fig1_controlled", fig1_controlled),
     ("fig2_dirichlet", fig2_dirichlet),
     ("scheme_race", scheme_race),

@@ -8,15 +8,19 @@ goes through :func:`attend` — the sliding-window "local" mixer among them
 (recurrentgemma's, head dim 256), whose window ``blocks._mixer_window``
 sets, and whisper's bidirectional encoder and its decoder's
 cross-attention (``blocks._cross``), as the reference's model sends them
-there too. The reference's blockwise path
-(``attn_block_q > 0``) has the numerics of :func:`attend` over the whole
-sequence; the port runs it that way (the memory lever is not ported).
+there too. With ``cfg.attn_block_q > 0`` the full pass takes the
+reference's blockwise path instead: each block of that many query rows is
+:func:`attend` against every key under its own mask, inside
+``torch.utils.checkpoint`` (the reference's ``jax.checkpoint``), so a
+block's (bq, S) scores are all the pass keeps, the backward recomputing
+them; the numerics are :func:`attend`'s over the whole sequence.
 """
 from __future__ import annotations
 
 from typing import Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.models.config import ModelConfig
@@ -127,8 +131,18 @@ def attention_full(
     """
     b, s, _ = x.shape
     q, k, v = qkv(cfg, params, x, angles)
-    if not bidirectional and window == 0 and not cfg.logit_softcap and not cfg.attn_block_q:
+    bq = cfg.attn_block_q
+    if not bidirectional and window == 0 and not cfg.logit_softcap and not bq:
         out = flash_attention(q, k, v, causal=True).reshape(b, s, -1)
+    elif bq and s % bq == 0 and s > bq:
+        # a Python loop over the query blocks, as the reference's static loop
+
+        def one_block(qi, off):
+            mi = None if bidirectional else causal_mask(bq, s, off, window, device=x.device)
+            return attend(cfg, qi, k, v, mi)
+
+        out = torch.cat([checkpoint(one_block, q[:, i : i + bq], i, use_reentrant=False)
+                         for i in range(0, s, bq)], dim=1)
     else:
         mask = None if bidirectional else causal_mask(s, s, 0, window, device=x.device)
         out = attend(cfg, q, k, v, mask)

@@ -6,9 +6,11 @@ Port of ``src/repro/models/layers/xlstm.py`` (arXiv:2405.04517).
   sequence for training and prefill, or the chunkwise-recurrent form when
   ``cfg.mlstm_chunk`` divides the sequence, and its O(1) recurrent form
   for decode (state C ∈ R^{h×d×d}), with the running-max stabilizer of the
-  paper. The reference's ``attn_block_q`` row blocks have the numerics of
-  the whole-sequence form, so the port runs the whole form (the memory
-  lever is not ported). The per-head RMS norm of the cell output is
+  paper. With ``cfg.attn_block_q > 0`` dividing the sequence, the parallel
+  form runs in blocks of that many query rows, each under
+  ``torch.utils.checkpoint`` (the reference's ``jax.checkpoint``), so its
+  (B, S, S, H) decay and score tensors shrink to (B, bq, S, H); the numerics
+  are the whole form's. The per-head RMS norm of the cell output is
   ``norms.rms_head_norm`` (the reference's ``_head_rmsnorm``).
 * sLSTM has recurrent connections (block-diagonal R per head), so it runs
   a Python loop over the time steps (a decode step is the loop's one
@@ -24,6 +26,7 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers.norms import rms_head_norm
@@ -85,7 +88,8 @@ def mlstm_parallel(cfg: ModelConfig, params, z: torch.Tensor):
 
     Returns (output (B, S, d_in), final recurrent state): the state equals
     what the step recurrence gives after S steps (same stabilizer), so
-    prefill seeds decode.
+    prefill seeds decode. ``cfg.attn_block_q`` row blocks: see the module
+    docstring.
     """
     q, k, v, i_pre, f_pre = _mlstm_qkv_gates(cfg, params, z)
     b, s, h, hd = q.shape
@@ -93,17 +97,28 @@ def mlstm_parallel(cfg: ModelConfig, params, z: torch.Tensor):
     Fc = torch.cumsum(log_f, dim=1)  # cumulative log forget
     kf = k.to(torch.float32)
     vf = v.to(torch.float32)
-    # D̃[t, τ] = F_t - F_τ + ĩ_τ for τ <= t
-    Dt = Fc[:, :, None, :] - Fc[:, None, :, :] + i_pre[:, None, :, :]  # (B, S, S, H)
-    pos = torch.arange(s, device=z.device)
-    causal = pos[None, :] <= pos[:, None]
-    Dt = torch.where(causal[None, :, :, None], Dt, float("-inf"))
-    m = Dt.amax(dim=2)  # (B, S, H)
-    D = torch.exp(Dt - m[:, :, None, :])
-    scores = torch.einsum("bshd,bthd->bsth", q.to(torch.float32), kf)
-    scores = scores * (hd**-0.5) * D
-    norm = torch.maximum(scores.sum(dim=2).abs(), torch.exp(-m))
-    out = torch.einsum("bsth,bthd->bshd", scores / norm[:, :, None, :], vf)
+
+    def rows(q_blk, F_blk, off: int):
+        """Rows off … off + bq of the stabilized decay-weighted attention."""
+        bq = q_blk.shape[1]
+        # D̃[t, τ] = F_t - F_τ + ĩ_τ for τ <= t
+        Dt = F_blk[:, :, None, :] - Fc[:, None, :, :] + i_pre[:, None, :, :]  # (B, bq, S, H)
+        pos = torch.arange(s, device=z.device)
+        causal = pos[None, :] <= off + pos[:bq, None]
+        Dt = torch.where(causal[None, :, :, None], Dt, float("-inf"))
+        m = Dt.amax(dim=2)  # (B, bq, H)
+        D = torch.exp(Dt - m[:, :, None, :])
+        scores = torch.einsum("bshd,bthd->bsth", q_blk.to(torch.float32), kf)
+        scores = scores * (hd**-0.5) * D
+        norm = torch.maximum(scores.sum(dim=2).abs(), torch.exp(-m))
+        return torch.einsum("bsth,bthd->bshd", scores / norm[:, :, None, :], vf)
+
+    bq = cfg.attn_block_q
+    if bq and s > bq and s % bq == 0:
+        out = torch.cat([checkpoint(rows, q[:, i : i + bq], Fc[:, i : i + bq], i,
+                                    use_reentrant=False) for i in range(0, s, bq)], dim=1)
+    else:
+        out = rows(q, Fc, 0)
     out = rms_head_norm(params["out_norm"], out.to(z.dtype), cfg.norm_eps)
 
     # final state: w_τ = F_S - F_τ + ĩ_τ, m_S = max_τ w_τ (the step

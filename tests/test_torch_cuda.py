@@ -485,3 +485,41 @@ def test_flatten_and_unflatten_an_lm_on_the_card(cuda):
     assert torch.equal(flat.cpu(), mdl.flatten_lm(lm.cpu()))
     views = mdl.lm_views(flat, lm.to(cuda))
     assert torch.equal(mdl.flatten_lm(views), flat)
+
+
+def test_bench_kernels_rows_on_the_card(cuda, capsys):
+    """``bench_kernels`` on the card: each wrapper row within its kernel's
+    limit of the plain version (the Gram's 1e-5·‖g_i‖·‖g_j‖, 2e-5 for the
+    aggregate and the f32 flash kernel), each kernel launched, and each
+    wrapper row timed at or above its H100 bound by the host clock and by
+    events: a timing that did not wait for the card would time the launch."""
+    from repro_torch.benchmarks import bench_kernels
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+
+    before = (ops.launches["gram"], agg_ops.launches["aggregate"],
+              fa_ops.launches["flash_attention"])
+    bench_kernels.main(["--device", "cuda"])
+    after = (ops.launches["gram"], agg_ops.launches["aggregate"], fa_ops.launches["flash_attention"])
+    assert all(a > b for a, b in zip(after, before))
+    rows = {}
+    for line in capsys.readouterr().out.splitlines():
+        name, us, derived = line.split(",", 2)
+        rows[name] = (float(us), dict(p.split("=", 1) for p in derived.split(";") if "=" in p))
+    limits = {"kernels/similarity_cuda": ("gram_err", 1e-5),
+              "kernels/aggregate_cuda": ("max_abs_err", 2e-5),
+              "kernels/flash_attention_cuda": ("max_abs_err", 2e-5)}
+    for name, (key, limit) in limits.items():
+        us, f = rows[name]
+        assert float(f[key].split()[0]) <= limit, name
+        bound = float(f["h100_bound_ms"])
+        assert us / 1e3 >= bound and float(f["event_ms"]) >= bound, name
+
+
+def test_bench_timed_synchronises_the_card(cuda):
+    """``common.timed`` on the card times a kernel's device work: a device
+    sleep of 100,000 cycles lasts at least 50 µs at an SM clock of at most
+    2 GHz (an H100's is at most 1.98), so a call times at least that."""
+    from repro_torch.benchmarks.common import timed
+
+    us, _ = timed(lambda: torch.cuda._sleep(100_000), repeats=20, device="cuda")
+    assert us >= 100_000 / 2e3
