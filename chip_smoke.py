@@ -275,7 +275,8 @@ Phases, one line (or a few) each; any failure raises and exits non-zero:
 20. fl_xlstm — B2 and B3 at (8, 143,345,712) as in fl_lm; the narrow
    reduced xLSTM card vs CPU (md, algorithm2, algorithm2 with SRP);
    ``run_federated_lm`` on xlstm-125m at full width with ``FLLMConfig``'s
-   defaults but lr 0.01, 1 round each of md and sketched algorithm2:
+   defaults but lr 0.01 and 2 local steps, 1 round each of md and sketched
+   algorithm2:
    launches exactly aggregate a round, srp a sketched round, gram a
    rebuild, flash none; each Gram against ``G @ G.T`` in f64; round ms and
    its parts; one local step under ``torch.profiler``;
@@ -1103,7 +1104,13 @@ def phase_small_input():
               f"max loss diff {float(np.abs(cpu[1] - gpu[1]).max()):.2e}, max param diff {perr:.2e}")
 
 
-def _slice_run(torch, ds, params, measure, n_rounds, label, **sampler_kw):
+def _slice_run(torch, ds, params, measure, n_rounds, label, *, mesh=None, record=None,
+               **sampler_kw):
+    """``mesh`` splits the round and the store over a mesh; ``record``, a
+    dict, gets the run's start params, each round's observed (ids, update
+    rows: references during the run, host copies after it), its plan
+    tokens, its final params (host) and its engine's staged bytes by mesh
+    position."""
     import numpy as np
 
     from repro_torch.core.samplers.algorithm2 import Algorithm2Sampler
@@ -1115,10 +1122,22 @@ def _slice_run(torch, ds, params, measure, n_rounds, label, **sampler_kw):
     from repro_torch.optim.sgd import sgd
 
     d = sum(v.numel() for v in params.values())
-    sampler = Algorithm2Sampler(ds.population, 10, update_dim=d, seed=0, measure=measure, **sampler_kw)
-    cfg = FLConfig(n_rounds=n_rounds, n_local_steps=50, batch_size=50, seed=0)
+    sampler = Algorithm2Sampler(ds.population, 10, update_dim=d, seed=0, measure=measure,
+                                store_mesh_spec=mesh, **sampler_kw)
+    cfg = FLConfig(n_rounds=n_rounds, n_local_steps=50, batch_size=50, seed=0, mesh_spec=mesh)
     recs, times = [], []
     srv = FederatedServer(ds, sampler, params, sgd(0.01), cfg)
+    if record is not None:
+        record.update(start=params, observed=[], plans=[],
+                      staged=srv._engine.staged_bytes_by_position(),
+                      store=sampler.gradient_store.bytes_by_position())
+        real_observe = sampler.observe_updates
+
+        def observe(ids, updates):
+            record["observed"].append((np.array(ids), updates))
+            real_observe(ids, updates)
+
+        sampler.observe_updates = observe
     torch.cuda.synchronize()
     sim_ops.launches.update(gram=0, l1=0)
     agg_ops.launches.update(aggregate=0)
@@ -1130,13 +1149,21 @@ def _slice_run(torch, ds, params, measure, n_rounds, label, **sampler_kw):
         torch.cuda.synchronize()
         now = time.perf_counter()
         times.append((now - last) * 1e3)
-        last = now
+        if record is not None:
+            record["plans"].append(sampler.plan.r_tokens.copy())
+        last = time.perf_counter() if record is not None else now
         recs.append(rec)
 
     with srv:
         srv.run(on_round=on_round)
     torch.cuda.synchronize()
     counts = {**sim_ops.launches, **agg_ops.launches, **sk_ops.launches}
+    if record is not None:
+        from repro_torch.launch.mesh import ShardedRows
+
+        record["observed"] = [(ids, (rows.gather("cpu") if isinstance(rows, ShardedRows)
+                                     else rows.cpu()).numpy()) for ids, rows in record["observed"]]
+        record["final"] = {k: v.cpu() for k, v in srv.params.items()}
     for rec, ms in zip(recs, times):
         print(f"slice[{label}]: round {rec.round} {ms:.3f} ms, plan_build_ms "
               f"{rec.plan_build_ms:.3f}, distinct {rec.n_distinct_clients}, "
@@ -1162,6 +1189,10 @@ def _slice_run(torch, ds, params, measure, n_rounds, label, **sampler_kw):
     return srv.params, counts, float(np.median(times)), sampler
 
 
+#: the slice phase's arccos and srp runs, recorded for the sharded phase
+SLICE_RUNS: dict = {}
+
+
 def phase_slice(torch):
     from repro_torch.fl.partition import by_class_shards
     from repro_torch.models.simple import init_mlp
@@ -1175,10 +1206,12 @@ def phase_slice(torch):
         fail(f"model width d = {d}, expected 39760")
     print(f"slice: dataset and init {time.perf_counter() - t0:.3f} s, d = {d}, "
           f"{ds.n_clients} clients")
-    params, counts_a, round_ms, _ = _slice_run(torch, ds, params, "arccos", 5, "arccos")
+    params, counts_a, round_ms, _ = _slice_run(torch, ds, params, "arccos", 5, "arccos",
+                                               record=SLICE_RUNS.setdefault("arccos", {}))
     params, counts_l, _, _ = _slice_run(torch, ds, params, "l1", 2, "l1")
     params, counts_s, srp_round_ms, sampler = _slice_run(
-        torch, ds, params, "arccos", 5, "srp", sketch="srp", sketch_dim=D_PRIME)
+        torch, ds, params, "arccos", 5, "srp", sketch="srp", sketch_dim=D_PRIME,
+        record=SLICE_RUNS.setdefault("srp", {}))
     store = sampler._store
     if (store.dim, tuple(store.snapshot().shape)) != (D_PRIME, (ds.n_clients, D_PRIME)):
         fail(f"slice[srp]: the store is {tuple(store.snapshot().shape)}, not ({ds.n_clients}, {D_PRIME})")
@@ -1776,7 +1809,8 @@ def agg_wrapper_steps(torch, U, w, calls: int = 2000):
     """Host µs a call of the aggregate wrapper, step by step: perf_counter
     over ``calls`` calls of each cumulative prefix of its work (a Python
     call, the checks, the plan, the output's allocation, the stream, the
-    ctypes call and launch), beside the whole wrapper and torch.mv(U.T, w);
+    device guard, the ctypes call and launch), beside the whole wrapper and
+    torch.mv(U.T, w);
     then some of the steps alone and the calls they replaced."""
     from repro_torch.kernels.aggregate import ops as agg_ops
 
@@ -1810,21 +1844,31 @@ def agg_wrapper_steps(torch, U, w, calls: int = 2000):
         alloc()
         return raw_stream(dev)
 
+    def guard():
+        with torch.cuda.device(dev):
+            return stream()
+
+    def guard_alone():
+        with torch.cuda.device(dev):
+            pass
+
     def launch():
         blocks, threads = plan()
         out = U.new_empty(p)
-        lib.aggregate_rows(U.data_ptr(), w.data_ptr(), out.data_ptr(), k, p, blocks, threads,
-                           raw_stream(dev))
+        with torch.cuda.device(dev):
+            lib.aggregate_rows(U.data_ptr(), w.data_ptr(), out.data_ptr(), k, p, blocks, threads,
+                               raw_stream(dev))
 
     blocks, threads = agg_ops.launch_plan(k, p)
     steps = {"a Python call": lambda: None, "+ checks": checks, "+ the plan": plan,
-             "+ new_empty": alloc, "+ the raw stream": stream,
+             "+ new_empty": alloc, "+ the raw stream": stream, "+ the device guard": guard,
              "+ data_ptr, ctypes and the launch": launch,
              "the wrapper": lambda: agg_ops.aggregate_flat(U, w), "torch.mv": lambda: torch.mv(U.T, w)}
     alone = {"torch.empty(p, dtype, device)": lambda: torch.empty(p, dtype=torch.float32, device=U.device),
              "new_empty": lambda: U.new_empty(p),
              "torch.cuda.current_stream(dev).cuda_stream": lambda: torch.cuda.current_stream(dev).cuda_stream,
              "_cuda_getCurrentRawStream": lambda: raw_stream(dev),
+             "torch.cuda.device(dev) entered and left": guard_alone,
              "a ctypes call (cuda_error_string)": lambda: lib.cuda_error_string(0),
              "ctypes and an empty launch": lambda: lib.aggregate_empty_launch(blocks, threads, raw_stream(dev))}
 
@@ -3631,6 +3675,10 @@ class GramTap:
         self.sim_ops.pairwise_sums = self.real
 
 
+#: each fl_lm_run's per-round losses by label, for the sharded phase
+FL_LM_LOSSES: dict = {}
+
+
 def fl_lm_run(torch, label, sampler_name, planner, cfg=None, p=LM_P, rounds=FL_LM["rounds"],
               **fl_kw) -> dict:
     """run_federated_lm on ``cfg`` (qwen3-0.6b at full width unless given;
@@ -3664,6 +3712,7 @@ def fl_lm_run(torch, label, sampler_name, planner, cfg=None, p=LM_P, rounds=FL_L
         fa_ops.launches.update(flash_attention=0)
         grams.clear()
         losses = fl_train.run_federated_lm(cfg, fl, sampler, device=DEV)
+        FL_LM_LOSSES[label] = losses
         parts.close()
         launches = {**sim_ops.launches, **agg_ops.launches, **sk_ops.launches, **fa_ops.launches}
         store = getattr(sampler, "gradient_store", None)
@@ -4243,10 +4292,11 @@ TRAIN_RECURRENT = dict(batch=4, seq=1024, steps=3, lr=3e-3)  # steps cut from 10
 TRAIN_RECURRENT_TRACE_SEQ = {"xlstm": 128, "rglru": 1024}
 RGLRU_TRAIN_P = 1_705_078_784  # recurrentgemma-9b cut to its first period (rglru, rglru, local)
 XLSTM_WINDOWS = [(0, 8192), (123_456_789, 5_000), (XLSTM_P // 2 - 4096, 8192), (XLSTM_P - 8192, 8192)]
-# rounds cut from 2 (a round is ~45 s of host launches); lr cut from
-# FLLMConfig's 0.05, under which the full-width xLSTM diverged on the card
-# (md's second round's loss 14.5 from 11.3, algorithm2's NaN)
-FL_XLSTM = dict(rounds=1, lr=0.01, narrow=dict(d_model=64, vocab_size=256))
+# rounds cut from 2 (a round is ~45 s of host launches) and local steps from
+# FLLMConfig's 4 (the smoke's time, as the sharded phase joined); lr cut
+# from FLLMConfig's 0.05, under which the full-width xLSTM diverged on the
+# card (md's second round's loss 14.5 from 11.3, algorithm2's NaN)
+FL_XLSTM = dict(rounds=1, lr=0.01, local_steps=2, narrow=dict(d_model=64, vocab_size=256))
 
 
 def small_serve_chunked(torch) -> None:
@@ -4491,8 +4541,8 @@ def phase_train_recurrent(torch, name) -> dict:
 def phase_fl_xlstm(torch, name) -> dict:
     """The federated LM on xlstm-125m at full width and depth: B2 and B3 at
     (8, XLSTM_P) as in fl_lm, the narrow reduced xLSTM card against CPU,
-    then run_federated_lm with FLLMConfig's defaults but FL_XLSTM's rounds
-    and lr, md and sketched Algorithm 2, and one local step profiled. Returns the
+    then run_federated_lm with FLLMConfig's defaults but FL_XLSTM's rounds,
+    local steps and lr, md and sketched Algorithm 2, and one local step profiled. Returns the
     launches of the two full-width runs together, and the kernels' errors
     and times."""
     from repro_torch.configs import get_config
@@ -4502,9 +4552,10 @@ def phase_fl_xlstm(torch, name) -> dict:
     kern = lm_kernels(torch, name, XLSTM_P, XLSTM_WINDOWS, label="fl_xlstm")
     fl_lm_small(torch, SERVE_XLSTM["arch"], FL_XLSTM["narrow"], label="fl_xlstm")
     cfg = get_config(SERVE_XLSTM["arch"])
-    md = fl_lm_run(torch, "xlstm md", "md", "sync", cfg, XLSTM_P, FL_XLSTM["rounds"], lr=FL_XLSTM["lr"])
+    kw = dict(lr=FL_XLSTM["lr"], n_local_steps=FL_XLSTM["local_steps"])
+    md = fl_lm_run(torch, "xlstm md", "md", "sync", cfg, XLSTM_P, FL_XLSTM["rounds"], **kw)
     a2 = fl_lm_run(torch, "xlstm algorithm2[srp]", "algorithm2", FL_LM_SKETCH, cfg, XLSTM_P,
-                   FL_XLSTM["rounds"], lr=FL_XLSTM["lr"])
+                   FL_XLSTM["rounds"], **kw)
     torch.cuda.empty_cache()
     local_step_trace(torch, cfg, "xlstm local_step")
     torch.cuda.empty_cache()
@@ -5064,9 +5115,339 @@ def phase_block_q(torch) -> dict:
     return out
 
 
-def main() -> int:
+# ---------------------------------------------------------------------------
+# sharded: the FL round, the gradient store and the federated LM over a mesh
+# ---------------------------------------------------------------------------
+SHARDS = 4  # the data groups of the sharded runs, over the visible cards in turn
+SHARDED_LM_ROUNDS = 2  # of fl_lm's 3: round 0 reads no aggregate, round 1 the sharded one
+SHARDED_LOSS0_RTOL = 1e-6  # round 0's loss: the same clients' steps from the same θ
+SHARDED_LOSS1_RTOL = 1e-3  # round 1's: from the sharded aggregate and its plan
+
+
+def shard_mesh(torch):
+    """A SHARDS × 1 data mesh of the visible cards in turn (cuda:{i % count})."""
+    import numpy as np
+
+    from repro_torch.launch.mesh import AXES, Mesh
+
+    count = torch.cuda.device_count()
+    devs = np.empty((SHARDS, 1), dtype=object)
+    devs[:, 0] = [torch.device("cuda", i % count) for i in range(SHARDS)]
+    return Mesh(devs, AXES)
+
+
+def _sync_all(torch) -> None:
+    for i in range(torch.cuda.device_count()):
+        torch.cuda.synchronize(i)
+
+
+def _by_shard(kernel: str, shards: int = SHARDS) -> list:
+    from repro_torch.kernels import _build
+
+    return [_build.shard_launches[(kernel, s)] for s in range(shards)]
+
+
+def _nonempty_blocks(n_rows: int, slots: int, shards: int = SHARDS) -> int:
+    """Data groups that hold some of a round's first ``n_rows`` slots."""
+    from repro_torch.launch.mesh import blocks
+
+    return sum(a < n_rows for a, b in blocks(slots, shards) if b > a)
+
+
+def _store_against_replay(torch, label, store, observed, sketch_kw) -> str:
+    """The sharded run's store against an unsharded store fed the same
+    updates: bit-equal, or (SRP, where B3's tiling might see the row count)
+    within B3's limit of each row's last update. Returns which held."""
+    import numpy as np
+
+    from repro_torch.fl.gradient_store import GradientStore
+
+    replay = GradientStore(store.n_clients, store.update_dim, sketch_seed=0, device=DEV, **sketch_kw)
+    last = {}
+    for ids, rows in observed:
+        replay.update(ids, torch.from_numpy(rows).to(DEV))
+        last.update(zip(ids.tolist(), rows))
+    got, want = store.snapshot(), replay.snapshot()
+    if torch.equal(got, want):
+        return "bit-equal"
+    if not sketch_kw:
+        fail(f"{label}: the exact sharded store differs from the unsharded replay")
+    X = np.zeros((store.n_clients, store.update_dim), np.float32)
+    for i, row in last.items():
+        X[i] = row
+    rel = srp_rel_err(got, want, torch.from_numpy(X).to(DEV), store.dim)
+    if not math.isfinite(rel) or rel > SRP_RTOL:
+        fail(f"{label}: the sharded SRP store differs from the replay by {rel} of ‖x_i‖·√(d/d′)")
+    return f"within B3's limit ({rel:.3e} of ‖x_i‖·√(d/d′), limit {SRP_RTOL})"
+
+
+def sharded_slice(torch, ds, mesh) -> dict:
+    """The slice phase's arccos and srp runs again from the same params,
+    under mesh_spec "auto" (one shard on one card: bit-equal to slice) and
+    over ``mesh`` (plans equal, θ within 1e-5 + 1e-4·max|θ|, 1/shards of
+    the staged bytes a shard, the store equal to an unsharded replay; so
+    is "auto" over several cards)."""
+    import numpy as np
+
+    from repro_torch.kernels import _build
+
+    launches = {"gram": 0, "aggregate": 0, "srp": 0}
+    for run, kw in (("arccos", {}), ("srp", {"sketch": "srp", "sketch_dim": D_PRIME})):
+        want = SLICE_RUNS[run]
+        medians = {}
+        # in turns with unsharded runs of the same rounds: round ms compare
+        # only within one call, and the host's speed drifts along the smoke
+        for spec_label, spec in (("unsharded", None), ("auto", "auto"), (f"{SHARDS} shards", mesh),
+                                 ("unsharded again", None)):
+            label = f"sharded[{spec_label}, {run}]"
+            rec = {}
+            _build.shard_launches.clear()
+            _, counts, ms, sampler = _slice_run(torch, ds, want["start"], "arccos", 5, label,
+                                                mesh=spec, record=rec, **kw)
+            medians[spec_label] = ms
+            n_sh = len(rec["staged"])
+            for k in launches:
+                launches[k] += counts[k]
+            plans_equal = all(np.array_equal(a, b) for a, b in zip(rec["plans"], want["plans"]))
+            if not plans_equal or len(rec["plans"]) != len(want["plans"]):
+                fail(f"{label}: the plans differ from slice[{run}]'s")
+            if n_sh == 1:  # "auto" on one card
+                same = all(torch.equal(rec["final"][k], want["final"][k]) for k in want["final"])
+                upd = all(np.array_equal(i1, i2) and np.array_equal(r1, r2)
+                          for (i1, r1), (i2, r2) in zip(rec["observed"], want["observed"]))
+                if not (same and upd):
+                    fail(f"{label}: not bit-equal to slice[{run}] (θ {same}, updates {upd})")
+                print(f"{label}: on {mesh_devices(sampler)}: θ, updates and plans bit-equal to "
+                      f"slice[{run}]'s over 5 rounds")
+                continue
+            theta = np.concatenate([rec["final"][k].numpy().ravel() for k in sorted(rec["final"])])
+            ref = np.concatenate([want["final"][k].numpy().ravel() for k in sorted(want["final"])])
+            dtheta, lim = float(np.abs(theta - ref).max()), 1e-5 + 1e-4 * float(np.abs(ref).max())
+            if not dtheta <= lim:
+                fail(f"{label}: θ differs from slice[{run}]'s by {dtheta} > {lim}")
+            whole = want["staged"][0]
+            if rec["staged"] != [whole // n_sh] * n_sh or whole % n_sh:
+                fail(f"{label}: staged bytes by shard {rec['staged']}, not 1/{n_sh} of {whole}")
+            held = _store_against_replay(torch, label, sampler.gradient_store, rec["observed"], kw)
+            agg, srp = _by_shard("aggregate", n_sh), _by_shard("srp", n_sh)
+            if agg != [5] * n_sh:
+                fail(f"{label}: aggregate launches by shard {agg}, not once a shard a round")
+            want_srp = (sum(_nonempty_blocks(len(ids), 10, n_sh) for ids, _ in rec["observed"])
+                        if kw else 0)
+            if sum(srp) != want_srp or counts["srp"] != want_srp:
+                fail(f"{label}: srp launches by shard {srp}, expected {want_srp} (once a shard "
+                     "holding observed rows, a round)")
+            print(f"{label}: shards on {mesh_devices(sampler)}; staged bytes by shard {rec['staged']} "
+                  f"(unsharded {whole}), store bytes by shard {rec['store']}; launches by shard: "
+                  f"aggregate (B2) {agg}, srp (B3) {srp}, gram (B1, on the lead card) "
+                  f"{counts['gram']}; plans equal to slice[{run}]'s, θ max |Δ| {dtheta:.3e} (limit "
+                  f"{lim:.3e}); the store {held} against an unsharded store fed the same updates")
+        print(f"times: sharded[{run}] median round ms of 5, in turns: "
+              + ", ".join(f"{k} {v:.3f}" for k, v in medians.items()))
+    return launches
+
+
+def mesh_devices(sampler) -> list:
+    store = sampler.gradient_store
+    return [str(d) for d in store.mesh.devices.flat] if store.mesh is not None else [str(store.device)]
+
+
+def sharded_lm(torch, mesh, label, sampler_name, planner) -> dict:
+    """run_federated_lm at qwen3-0.6b's full width over ``mesh``, 2 rounds
+    with fl_lm's seeds, against fl_lm's own first two rounds."""
+    import contextlib
+
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import ClientPopulation
+    from repro_torch.core.samplers.base import validate_plan
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.aggregate import ops as agg_ops
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.similarity import ops as sim_ops
+    from repro_torch.kernels.sketch import ops as sk_ops
+    from repro_torch.launch import fl_train
+
+    cfg = get_config(FL_LM["arch"])
+    fl = fl_train.FLLMConfig(n_rounds=SHARDED_LM_ROUNDS, sampler=sampler_name, planner=planner)
+    pop = ClientPopulation(np.full(fl.n_clients, 1000))
+    cards = sorted({d.index for d in mesh.devices.flat})
+    grams, rounds, starts = [], [], []
+    with GramTap(sim_ops, grams), contextlib.closing(
+            fl_train.make_lm_sampler(fl, pop, update_dim=LM_P, device=DEV)) as sampler:
+        _fl_lm_recorded(sampler, rounds)
+        recorded = sampler.sample
+
+        def sample(t, *a, **kw):
+            _sync_all(torch)
+            starts.append(time.perf_counter())
+            return recorded(t, *a, **kw)
+
+        sampler.sample = sample
+        _sync_all(torch)
+        for c in cards:
+            torch.cuda.reset_peak_memory_stats(c)
+        sim_ops.launches.update(gram=0, l1=0)
+        agg_ops.launches.update(aggregate=0)
+        sk_ops.launches.update(srp=0)
+        fa_ops.launches.update(flash_attention=0)
+        _build.shard_launches.clear()
+        grams.clear()
+        losses = fl_train.run_federated_lm(cfg, fl, sampler, mesh=mesh, device=DEV)
+        _sync_all(torch)
+        ends = starts[1:] + [time.perf_counter()]
+        launches = {**sim_ops.launches, **agg_ops.launches, **sk_ops.launches, **fa_ops.launches}
+        store = getattr(sampler, "gradient_store", None)
+        plan = getattr(sampler, "plan", None)
+    peaks = {c: torch.cuda.max_memory_allocated(c) for c in cards}
+    feedback = sampler_name == "algorithm2"
+    steps = fl.n_rounds * fl.m * fl.n_local_steps
+    n_attn = sum(m == "attn" for m, _ in cfg.all_blocks)
+    per = fl.m // SHARDS
+    want_srp = sum(_nonempty_blocks(len(np.unique(c)), fl.m) for _, c in rounds) if feedback else 0
+    want = {"aggregate": fl.n_rounds * SHARDS, "srp": want_srp,
+            "gram": fl.n_rounds if feedback else 0, "l1": 0,
+            "flash_attention": n_attn * (2 if cfg.remat else 1) * steps}
+    by_shard = {k: _by_shard(k) for k in ("aggregate", "srp", "flash_attention")}
+    ref = FL_LM_LOSSES[label]
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses, ref)]
+    print(f"sharded_lm[{label}]: {cfg.name} full width (d = {LM_P}) over {SHARDS} shards on "
+          f"{[str(d) for d in mesh.devices.flat]}, m = {fl.m} ({per} clients a shard), "
+          f"{fl.n_rounds} rounds: losses {losses} against fl_lm[{label}]'s {ref[:fl.n_rounds]} "
+          f"(relative {rel}; limits {SHARDED_LOSS0_RTOL}, {SHARDED_LOSS1_RTOL})")
+    for r, (a, b) in enumerate(zip(starts, ends)):
+        print(f"sharded_lm[{label}]: round {r} {(b - a) * 1e3:.3f} ms")
+    print(f"sharded_lm[{label}]: peak memory by card "
+          + ", ".join(f"cuda:{c} {peaks[c]} B ({peaks[c] / 2**30:.2f} GiB)" for c in cards))
+    print(f"sharded_lm[{label}]: launches {json.dumps(launches)}; predicted {json.dumps(want)}; by "
+          f"shard {json.dumps(by_shard)} (aggregate once a shard a round, srp once a shard holding "
+          "observed rows, gram on the lead card)")
+    if len(losses) != fl.n_rounds or not all(math.isfinite(x) for x in losses):
+        fail(f"sharded_lm[{label}]: losses {losses}")
+    if not (rel[0] <= SHARDED_LOSS0_RTOL and rel[1] <= SHARDED_LOSS1_RTOL):
+        fail(f"sharded_lm[{label}]: losses {losses} against fl_lm's {ref}: relative {rel}")
+    if launches != want or by_shard["aggregate"] != [fl.n_rounds] * SHARDS:
+        fail(f"sharded_lm[{label}]: launches {launches} (by shard {by_shard}), predicted {want}")
+    if by_shard["flash_attention"] != [want["flash_attention"] // SHARDS] * SHARDS:
+        fail(f"sharded_lm[{label}]: flash launches by shard {by_shard['flash_attention']}")
+    if feedback:
+        if tuple(store.snapshot().shape) != (fl.n_clients, D_PRIME):
+            fail(f"sharded_lm[{label}]: the store is {tuple(store.snapshot().shape)}")
+        validate_plan(plan, pop)
+    for G, got in grams:
+        g_rel = gram_rel_err(got, G.double() @ G.double().T, G)
+        if not math.isfinite(g_rel) or g_rel > GRAM_RTOL:
+            fail(f"sharded_lm[{label}]: the sampler's gram: error {g_rel} of ‖g_i‖·‖g_j‖")
+    if len(grams) != launches["gram"]:
+        fail(f"sharded_lm[{label}]: {len(grams)} Gram calls seen, {launches['gram']} launches")
+    return launches
+
+
+def kernels_last_card(torch) -> None:
+    """Each kernel launched on the last visible card (card 0 current) and
+    held to its plain version at the smoke's limits."""
+    from repro_torch.kernels.aggregate import ops as agg_ops
+    from repro_torch.kernels.aggregate.ref import aggregate_ref
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.similarity import ops as sim_ops
+    from repro_torch.kernels.similarity.ref import l1_ref
+    from repro_torch.kernels.sketch import ops as sk_ops
+    from repro_torch.kernels.sketch.ref import sketch_srp_plain
+
+    count = torch.cuda.device_count()
+    if count < 2:
+        print("sharded: the kernels on a card other than card 0 need a second card "
+              f"({count} visible); checked by the two-card cases of tests/test_torch_cuda.py")
+        return
+    dev = torch.device("cuda", count - 1)
+    torch.cuda.set_device(0)
+    g = torch.Generator(device=dev).manual_seed(5)
+    out = {}
+    U = torch.randn(AGG_SHAPE, generator=g, device=dev)
+    w = torch.rand(AGG_SHAPE[:1], generator=g, device=dev)
+    got = agg_ops.aggregate_flat(U, w)
+    if not torch.allclose(got, aggregate_ref(U, w), rtol=AGG_TOL, atol=AGG_TOL):
+        fail(f"sharded: aggregate on {dev} beyond rtol=atol {AGG_TOL}")
+    out["aggregate"] = float((got - aggregate_ref(U, w)).abs().max())
+    G = SIM_SCALE * torch.randn(SIM_SHAPES[0], generator=g, device=dev)
+    got = sim_ops.pairwise_sums(G, "gram")
+    out["gram"] = gram_rel_err(got, G.double() @ G.double().T, G)
+    if not out["gram"] <= GRAM_RTOL:
+        fail(f"sharded: gram on {dev}: {out['gram']} of ‖g_i‖·‖g_j‖")
+    got = sim_ops.pairwise_sums(G, "l1")
+    out["l1"] = float((got - l1_ref(G)).abs().max())
+    if not out["l1"] <= SIM_ATOL:
+        fail(f"sharded: l1 on {dev}: {out['l1']} > {SIM_ATOL}")
+    c, d, dp = SRP_SHAPES[0]
+    X = SIM_SCALE * torch.randn((c, d), generator=g, device=dev)
+    got = sk_ops.srp_sketch(X, dp, SRP_SEED)
+    out["srp"] = srp_rel_err(got, sketch_srp_plain(X, dp, SRP_SEED), X, dp)
+    if not out["srp"] <= SRP_RTOL:
+        fail(f"sharded: srp on {dev}: {out['srp']} of ‖x_i‖·√(d/d′)")
+    b, s, h, kv, hd = FLASH_PATH
+    q, k, v = (torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
+               for shape in ((b, s, h, hd), (b, s, kv, hd), (b, s, kv, hd)))
+    out["flash"] = _flash_check(torch, f"bf16 {FLASH_PATH} on {dev}", fa_ops.flash_attention_padded(q, k, v),
+                                q, k, v)
+    if torch.cuda.current_device() != 0:
+        fail(f"sharded: a launch on {dev} left the current device at {torch.cuda.current_device()}")
+    print(f"sharded: each kernel launched on {dev} with cuda:0 current, against its plain version: "
+          f"aggregate {AGG_SHAPE} max_abs_err {out['aggregate']:.3e} (rtol=atol {AGG_TOL}); gram "
+          f"{SIM_SHAPES[0]} {out['gram']:.3e} of ‖g_i‖·‖g_j‖ (limit {GRAM_RTOL}); l1 {out['l1']:.3e} "
+          f"(atol {SIM_ATOL}); srp {SRP_SHAPES[0]} {out['srp']:.3e} of ‖x_i‖·√(d/d′) (limit "
+          f"{SRP_RTOL}); flash bf16 {FLASH_PATH} {out['flash']:.3e}")
+
+
+def phase_sharded(torch, ds) -> dict:
+    """The slice's MNIST runs under mesh_spec "auto" and over a 4-shard
+    mesh, the federated LM at qwen3-0.6b's full width over the same mesh,
+    and the kernels on the last card. Returns the phase's launches."""
+    t0 = time.perf_counter()
+    mesh = shard_mesh(torch)
+    print(f"sharded: {SHARDS} data shards on {[str(d) for d in mesh.devices.flat]} "
+          f"({torch.cuda.device_count()} cards visible)")
+    launches = sharded_slice(torch, ds, mesh)
+    torch.cuda.empty_cache()
+    for label, sampler_name, planner in (("md", "md", "sync"),
+                                         ("algorithm2[srp]", "algorithm2", FL_LM_SKETCH)):
+        got = sharded_lm(torch, mesh, label, sampler_name, planner)
+        for k in ("gram", "aggregate", "srp"):
+            launches[k] += got[k]
+        launches["flash_attention"] = launches.get("flash_attention", 0) + got["flash_attention"]
+        torch.cuda.empty_cache()
+    kernels_last_card(torch)
+    print(f"sharded: {time.perf_counter() - t0:.3f} s")
+    return launches
+
+
+def sharded_only(torch) -> int:
+    """``python3 chip_smoke.py sharded``: the sharded phase and what it is
+    held to (the slice runs, fl_lm's first rounds at full width) alone,
+    on every visible card; the kernels' build first."""
+    t0 = time.perf_counter()
+    phase_build()
+    _, ds, _, _ = phase_slice(torch)
+    fl_lm_run(torch, "md", "md", "sync", rounds=SHARDED_LM_ROUNDS)
+    fl_lm_run(torch, "algorithm2[srp]", "algorithm2", FL_LM_SKETCH, rounds=SHARDED_LM_ROUNDS)
+    torch.cuda.empty_cache()
+    print(f"sharded: launches {json.dumps(phase_sharded(torch, ds))}")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=index,name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip()
+    print(f"total: {time.perf_counter() - t0:.3f} s")
+    print(smi)
+    return 0
+
+
+def main(argv=()) -> int:
     import torch
 
+    if list(argv) not in ([], ["sharded"]):
+        print(f"chip_smoke: unknown arguments {list(argv)}; run with none, or 'sharded'",
+              file=sys.stderr)
+        return 2
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this needs an NVIDIA GPU",
               file=sys.stderr)
@@ -5079,6 +5460,8 @@ def main() -> int:
     # full f32 in every product: TF32 error can flip a Ward merge
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if list(argv) == ["sharded"]:
+        return sharded_only(torch)
     name = torch.cuda.get_device_name(0)
     gen = torch.Generator().manual_seed(0)
     t0 = time.perf_counter()
@@ -5119,6 +5502,7 @@ def main() -> int:
     sched = phase_sched(torch)
     trained = phase_train(torch, gen, name)
     fl_lm = phase_fl_lm(torch, name)
+    sharded = phase_sharded(torch, ds)
     moe_row["launches"] = phase_serve_moe(torch)["flash"]
     serve_mla = phase_serve_mla(torch)
     train_moe = phase_train_moe(torch, name)
@@ -5148,6 +5532,7 @@ def main() -> int:
             row["fl_moe_launches"] = fl_moe["launches"][key]
             row["fl_xlstm_launches"] = fl_xlstm["launches"][key]
             row["fl_vl_launches"] = fl_vl["launches"][key]
+            row["sharded_launches"] = sharded[key]
         key = {"similarity_gram": "gram", "similarity_l1": "l1", "aggregate": "aggregate"}.get(row["name"])
         if key is not None:
             row["ablations_launches"] = ablations[key]
@@ -5164,6 +5549,7 @@ def main() -> int:
             row["serve_vl_launches"] = serve_vl["flash"]
             row["train_extras_launches"] = train_extras["vl"]["flash"]
             row["fl_vl_launches"] = fl_vl["launches"]["flash_attention"]
+            row["sharded_launches"] = sharded["flash_attention"]
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
@@ -5177,4 +5563,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

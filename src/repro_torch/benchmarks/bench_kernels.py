@@ -22,7 +22,9 @@ read once, each output written once; the Gram over its i ≤ j triangle, the
 causal attention over its lower triangle), the max abs error against the
 plain version on the same inputs, and on the card ``event_ms``: the mean of
 50 back-to-back calls by CUDA events, the device's time without the host's
-wait.
+wait, and ``library_event_ms``: the same for one PyTorch call that computes
+the kernel's function on the same inputs (``G @ G.T``, ``torch.mv(U.T, w)``,
+``scaled_dot_product_attention``), timed here and used nowhere in the port.
 
 Run: ``python -m repro_torch.benchmarks.bench_kernels [--device cpu]``.
 """
@@ -76,11 +78,11 @@ def event_ms(fn, reps: int = EVENT_REPS) -> float:
     return start.elapsed_time(end) / reps
 
 
-def _kernel_fields(device, fn, nbytes: float, flops: float, err: float) -> str:
+def _kernel_fields(device, fn, nbytes: float, flops: float, err: float, library) -> str:
     ms, by = bound_ms(nbytes, flops)
     fields = f"h100_bound_ms={ms:.6f};bound_by={by};max_abs_err={err:.3e}"
     if torch.device(device).type == "cuda":
-        fields += f";event_ms={event_ms(fn):.6f}"
+        fields += f";event_ms={event_ms(fn):.6f};library_event_ms={event_ms(library):.6f}"
     return fields
 
 
@@ -100,7 +102,8 @@ def main(argv: "list[str] | None" = None) -> None:
     gram_err = float(((pairwise_sums(G, "gram").double() - want.double()).abs()
                       / (norms[:, None] * norms[None, :])).max())
     err = float((got - distances_from_gram(want, "arccos")).abs().max())
-    fields = _kernel_fields(dev, dist, 4 * (n * d + n * n), n * (n + 1) * d, err)
+    fields = _kernel_fields(dev, dist, 4 * (n * d + n * n), n * (n + 1) * d, err,
+                            library=lambda: G @ G.T)
     emit("kernels/similarity_cuda", us,
          f"mode=arccos;{fields};gram_err={gram_err:.3e} of |g_i||g_j|")
 
@@ -114,7 +117,8 @@ def main(argv: "list[str] | None" = None) -> None:
     us, got = timed(agg, device=dev)
     err = float((got - want).abs().max())
     emit("kernels/aggregate_cuda", us,
-         f"k={k};p={p};{_kernel_fields(dev, agg, 4 * (k * p + k + p), 2 * k * p, err)}")
+         f"k={k};p={p};"
+         f"{_kernel_fields(dev, agg, 4 * (k * p + k + p), 2 * k * p, err, lambda: torch.mv(U.T, w))}")
 
     # flash attention: causal GQA in f32 (the CUDA-core kernel)
     b, s, h, kv, hd = 1, 256, 8, 2, 64
@@ -128,8 +132,11 @@ def main(argv: "list[str] | None" = None) -> None:
     err = float((got - want).abs().max())
     nbytes = 4 * (2 * b * s * h * hd + 2 * b * s * kv * hd)  # q, out, k, v once each
     flops = 2 * b * h * s * s * hd  # QKᵀ and PV over the causal lower triangle
+    qt, kt, vt = (a.transpose(1, 2) for a in (q, kk, v))  # SDPA's (B, H, S, hd)
+    sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa: E731
+        qt, kt, vt, is_causal=True, enable_gqa=True)
     emit("kernels/flash_attention_cuda", us,
-         f"b={b};s={s};h={h};kv={kv};hd={hd};{_kernel_fields(dev, fa, nbytes, flops, err)}")
+         f"b={b};s={s};h={h};kv={kv};hd={hd};{_kernel_fields(dev, fa, nbytes, flops, err, sdpa)}")
 
 
 if __name__ == "__main__":

@@ -33,18 +33,23 @@ def emit(name: str, us_per_call: float, derived: str = "") -> None:
 
 
 def sync(device) -> None:
-    """Wait for the work queued on ``device`` (a no-op for the CPU): a CUDA
-    call returns before the device has run it."""
-    if device is not None and torch.device(device).type == "cuda":
+    """Wait for the work queued on ``device``, or on every card of a mesh
+    (a no-op for the CPU): a CUDA call returns before the device has run it."""
+    from repro_torch.launch.mesh import Mesh, sync_mesh
+
+    if isinstance(device, Mesh):
+        sync_mesh(device)
+    elif device is not None and torch.device(device).type == "cuda":
         torch.cuda.synchronize(device)
 
 
 def timed(fn, *args, repeats: int = 3, warmup: int = 1, device=None, **kw) -> tuple[float, object]:
     """(µs per call, last result) of ``fn(*args, **kw)`` by the host clock.
 
-    With ``device`` a CUDA device the clock starts after the warm-up's work
-    has run and every timed call ends in ``torch.cuda.synchronize``, so a
-    call's time is its device work's and not only its launches'.
+    With ``device`` a CUDA device (or a mesh, each of whose cards is
+    waited for) the clock starts after the warm-up's work has run and every
+    timed call ends in ``torch.cuda.synchronize``, so a call's time is its
+    device work's and not only its launches'.
     """
     out = None
     for _ in range(warmup):

@@ -19,6 +19,7 @@ Prints ``name,us_per_call,derived`` CSV rows:
   table_variance       — Section 3.2 / Appendix B statistics (theory vs MC)
   bench_sampler_cost   — Theorems 3/4 complexity scaling
   bench_round_engine   — batched round engine vs compat loop
+  bench_engine_sharded — mesh-sharded engine: per-device staged bytes sweep
   bench_async_planner  — async re-clustering planner + similarity over d
   bench_store_scale    — sketched GradientStore: bytes/scatter/rebuild at scale
   bench_scheduler      — round schedulers (sync/deadline/overselect) under churn
@@ -31,8 +32,7 @@ Prints ``name,us_per_call,derived`` CSV rows:
   beyond_paper         — staleness decay, client churn, device-vs-host plans
 
 ``bench_service_churn`` runs on its own, as in the reference. Not ported:
-``bench_engine_sharded`` and ``bench_dryrun_roofline``, the reference's
-TPU-mesh tooling (ROADMAP A13).
+``bench_dryrun_roofline``, the reference's TPU-pod tooling (ROADMAP A13.3).
 
 Run: ``python -m repro_torch.benchmarks.run [--list | --spec JSON | --sweep JSON] [--device cpu]``.
 """
@@ -48,6 +48,7 @@ import traceback
 from repro_torch.benchmarks import (
     ablations,
     bench_async_planner,
+    bench_engine_sharded,
     bench_fl_collectives,
     bench_kernels,
     bench_round_engine,
@@ -66,6 +67,7 @@ MODULES = [
     ("table_variance", table_variance),
     ("bench_sampler_cost", bench_sampler_cost),
     ("bench_round_engine", bench_round_engine),
+    ("bench_engine_sharded", bench_engine_sharded),
     ("bench_async_planner", bench_async_planner),
     ("bench_store_scale", bench_store_scale),
     ("bench_scheduler", bench_scheduler),

@@ -219,6 +219,7 @@ class Algorithm2Sampler(StoreBackedSampler):
         drift_threshold: Optional[float] = None,
         sketch: Optional[str] = None,
         sketch_dim: Optional[int] = None,
+        store_mesh_spec=None,
         device="cuda",
     ):
         """``distance_fn`` selects the O(n²d) pairwise-distance backend:
@@ -234,7 +235,9 @@ class Algorithm2Sampler(StoreBackedSampler):
         or ``"identity"``, bit for bit the unsketched store), seeded with
         ``seed``: the engine's (c, d) updates are compressed to (c, d')
         before the scatter, so the store, the similarity stage and the
-        clusterers work in sketch space. ``device`` holds the gradient
+        clusterers work in sketch space. ``store_mesh_spec`` splits the
+        store's client axis over a device mesh (any ``FLConfig.mesh_spec``
+        form; its lead device is ``device``). ``device`` holds the gradient
         store; the default ``"cuda"`` raises without a GPU."""
         self.measure = measure
         self._distance_fn = _resolve_distance_fn(distance_fn)
@@ -251,6 +254,7 @@ class Algorithm2Sampler(StoreBackedSampler):
             drift_threshold=drift_threshold,
             sketch=sketch,
             sketch_dim=sketch_dim,
+            store_mesh_spec=store_mesh_spec,
             device=device,
         )
 

@@ -72,6 +72,7 @@ class DPStratifiedSampler(StratifiedSampler):
         drift_threshold: Optional[float] = None,
         sketch: Optional[str] = None,
         sketch_dim: Optional[int] = None,
+        store_mesh_spec=None,
         device="cuda",
     ):
         """``noise_multiplier`` = σ (noise std is σ·clip_norm per coordinate),
@@ -105,6 +106,7 @@ class DPStratifiedSampler(StratifiedSampler):
             drift_threshold=drift_threshold,
             sketch=sketch,
             sketch_dim=sketch_dim,
+            store_mesh_spec=store_mesh_spec,
             device=device,
         )
 

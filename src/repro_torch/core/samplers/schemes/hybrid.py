@@ -112,6 +112,7 @@ class HybridSampler(StoreBackedSampler):
         drift_threshold: Optional[float] = None,
         sketch: Optional[str] = None,
         sketch_dim: Optional[int] = None,
+        store_mesh_spec=None,
         device="cuda",
     ):
         """Knob semantics follow :class:`StratifiedSampler` (``n_strata``
@@ -132,6 +133,7 @@ class HybridSampler(StoreBackedSampler):
             drift_threshold=drift_threshold,
             sketch=sketch,
             sketch_dim=sketch_dim,
+            store_mesh_spec=store_mesh_spec,
             device=device,
         )
 

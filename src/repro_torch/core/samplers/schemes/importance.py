@@ -91,6 +91,7 @@ class ImportanceSampler(StoreBackedSampler):
         rebuild_every: int = 1,
         sketch: Optional[str] = None,
         sketch_dim: Optional[int] = None,
+        store_mesh_spec=None,
         device="cuda",
     ):
         """``mix`` ∈ (0, 1]: proposal floor (weight-ratio bound 1/mix);
@@ -115,6 +116,7 @@ class ImportanceSampler(StoreBackedSampler):
             rebuild_every=rebuild_every,
             sketch=sketch,
             sketch_dim=sketch_dim,
+            store_mesh_spec=store_mesh_spec,
             device=device,
         )
 

@@ -129,6 +129,7 @@ class StratifiedSampler(StoreBackedSampler):
         drift_threshold: Optional[float] = None,
         sketch: Optional[str] = None,
         sketch_dim: Optional[int] = None,
+        store_mesh_spec=None,
         device="cuda",
     ):
         """``n_strata`` defaults to the √n heuristic. All other knobs have
@@ -152,6 +153,7 @@ class StratifiedSampler(StoreBackedSampler):
             drift_threshold=drift_threshold,
             sketch=sketch,
             sketch_dim=sketch_dim,
+            store_mesh_spec=store_mesh_spec,
             device=device,
         )
 

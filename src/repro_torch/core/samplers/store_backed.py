@@ -23,8 +23,8 @@ Subclass contract:
   re-weighting at draw time instead).
 
 The store's sketch stage (``sketch`` / ``sketch_dim``) is seeded with the
-sampler's ``seed``, as in the reference. Not ported yet: the sharded store
-(ROADMAP A13).
+sampler's ``seed``, as in the reference; ``store_mesh_spec`` splits the
+store's client axis over a device mesh.
 """
 from __future__ import annotations
 
@@ -63,6 +63,7 @@ class StoreBackedSampler(ClusteredSampler):
         drift_threshold: Optional[float] = None,
         sketch: Optional[str] = None,
         sketch_dim: Optional[int] = None,
+        store_mesh_spec=None,
         device="cuda",
     ):
         """See :class:`~repro_torch.core.samplers.algorithm2.Algorithm2Sampler`
@@ -85,6 +86,7 @@ class StoreBackedSampler(ClusteredSampler):
             sketch=sketch,
             sketch_dim=sketch_dim,
             sketch_seed=seed,
+            mesh_spec=store_mesh_spec,
             device=device,
         )
         self._service = PlanService(

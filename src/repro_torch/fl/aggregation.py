@@ -9,15 +9,23 @@ rows with :func:`repro_torch.kernels.aggregate.ops.aggregate_flat`.
 
 Flat vectors follow the reference's ``jax.tree_util`` order for a dict:
 leaves sorted by key.
+
+Over a device mesh (:func:`aggregate_sharded`) the kernel runs once on each
+data group's card over the group's rows; θ^t's row and ``stale_weight``
+ride with the lead group. The partials are copied to the lead card one at
+a time and added in group order, and the sum is copied back to every
+group's card (:func:`replicate`). With one group this is the unsharded
+call, bit for bit.
 """
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Iterable, Sequence
 
 import numpy as np
 import torch
 
 from repro_torch.kernels.aggregate.ops import aggregate_flat
+from repro_torch.launch.mesh import on_shard
 
 
 def flatten_params(tree: dict) -> torch.Tensor:
@@ -74,3 +82,32 @@ def aggregate_round(
         raise ValueError(f"{len(client_params)} models vs {len(client_weights)} weights")
     stacked = {k: torch.stack([c[k] for c in client_params]) for k in global_params}
     return aggregate_stacked(global_params, stacked, client_weights, stale_weight)
+
+
+def aggregate_sharded(shards: Iterable, lead: torch.device) -> torch.Tensor:
+    """Σ over the mesh's data groups of each group's Σ_c w_c · rows[c].
+
+    ``shards`` yields ``(group, rows, weights)`` with ``rows`` (k, p) f32
+    and ``weights`` (k,) on the group's card, the lead group first (its
+    last row θ^t, its last weight ``stale_weight``). One kernel launch a
+    group; each partial is copied to ``lead`` and added in group order
+    before the next group's launch, so at most one foreign (p,) partial is
+    resident on ``lead``.
+    """
+    total = None
+    for group, rows, w in shards:
+        with on_shard(group, rows.device):
+            part = aggregate_flat(rows, w)
+        part = part.to(lead)
+        total = part if total is None else total.add_(part)
+        del part
+    return total
+
+
+def replicate(flat: torch.Tensor, devices: Sequence) -> dict:
+    """``flat`` on each distinct device of ``devices`` (itself on its own)."""
+    out = {flat.device: flat}
+    for d in devices:
+        if d not in out:
+            out[d] = flat.to(d)
+    return out

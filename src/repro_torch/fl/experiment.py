@@ -1,5 +1,5 @@
 # Adapted from src/repro/fl/experiment.py: the same spec sections, key for
-# key; the builders take a device and refuse what the port lacks.
+# key; the build_* functions take a device.
 """Declarative experiment API: one spec dict → a runnable FL experiment.
 
 An :class:`ExperimentSpec` names everything a run needs — the dataset
@@ -31,10 +31,10 @@ spec dict names one sweep cell (``repro_torch.fl.sweep.cell_hash``) in both
 packages. The device is a runtime argument of the builders, never a spec
 key: a spec that named a device would hash to another cell.
 
-Not ported yet, refused by :func:`build_experiment` with
-``NotImplementedError``: an ``engine.mesh_spec`` (ROADMAP A13). Every
-``population`` and ``scheduler`` section and ``train.checkpoint_every``
-are built.
+Every section builds: an ``engine.mesh_spec`` splits the batched engine's
+client axis and the scheme's gradient store over a device mesh
+(:mod:`repro_torch.launch.mesh`) whose lead device is ``device``; every
+``population`` and ``scheduler`` section and ``train.checkpoint_every``.
 
 Everything model-sized stays inferred: ``update_dim`` (the flattened MLP
 size Algorithm 2's gradient store needs) and the class count come from the
@@ -224,8 +224,7 @@ class EngineSpec:
     """Which round executor runs the local work (an ``ENGINES`` name)."""
 
     name: str = "batched"
-    # None | "auto" | "DxM" | (D, M) in the reference; only None builds
-    # here (mesh sharding is ROADMAP A13)
+    # None | "auto" | "DxM" | (D, M) — see repro_torch.launch.mesh.resolve_fl_mesh
     mesh_spec: Union[str, tuple, None] = None
     max_staged_bytes: int = 2 << 30
 
@@ -471,6 +470,7 @@ def build_sampler(
     *,
     planner: Optional[PlannerSpec] = None,
     update_dim: Optional[int] = None,
+    store_mesh_spec=None,
     device="cuda",
 ):
     """Resolve a :class:`SamplerSpec` through ``SAMPLERS`` and construct it.
@@ -478,9 +478,12 @@ def build_sampler(
     ``planner`` feeds the scheme's plan service (only schemes that take a
     ``planner`` kwarg accept a non-default one); ``update_dim`` is the
     flattened model size handed to similarity-based schemes unless the spec
-    pins its own in ``options``. ``device`` holds the gradient store of the
-    schemes that have one (Algorithm 2 and the scheme zoo); the host-only
-    schemes ignore it.
+    pins its own in ``options``. ``store_mesh_spec`` (the engine's mesh, in
+    practice) shards the scheme's gradient store over its client axis when
+    the scheme has one — silently skipped otherwise, since the mesh is an
+    engine knob rather than a sampling-scheme choice. ``device`` holds the
+    gradient store of the schemes that have one (Algorithm 2 and the scheme
+    zoo); the host-only schemes ignore it.
     """
     spec = SamplerSpec.from_dict(spec) if isinstance(spec, dict) else spec
     cls = SAMPLERS.get(spec.name)
@@ -536,6 +539,8 @@ def build_sampler(
                 "build_sampler or set it in SamplerSpec.options"
             )
         kwargs["update_dim"] = int(update_dim)
+    if store_mesh_spec is not None and "store_mesh_spec" in params:
+        kwargs.setdefault("store_mesh_spec", store_mesh_spec)
     if "device" in params:
         kwargs["device"] = device
     return cls(population, spec.m, **kwargs)
@@ -543,15 +548,6 @@ def build_sampler(
 
 def _infer_n_classes(dataset: FederatedDataset) -> int:
     return int(max(int(c.y_train.max()) for c in dataset.clients)) + 1
-
-
-def _refuse_unported(spec: ExperimentSpec) -> None:
-    """Raise for the spec sections the port cannot build yet."""
-    if spec.engine.mesh_spec is not None:
-        raise NotImplementedError(
-            f"engine.mesh_spec={spec.engine.mesh_spec!r}: mesh sharding is not "
-            "ported (ROADMAP A13); leave it None"
-        )
 
 
 def build_experiment(
@@ -595,7 +591,6 @@ def build_experiment(
     from repro_torch.optim.sgd import sgd
 
     spec = ExperimentSpec.from_dict(spec) if isinstance(spec, dict) else spec
-    _refuse_unported(spec)
     ds = dataset if dataset is not None else build_dataset(spec.data)
     tr = spec.train
     feat_shape = ds.clients[0].x_train.shape[1:]
@@ -614,6 +609,7 @@ def build_experiment(
         ds.population,
         planner=spec.planner,
         update_dim=update_dim,
+        store_mesh_spec=spec.engine.mesh_spec,
         device=device,
     )
     cfg = FLConfig(
@@ -625,6 +621,7 @@ def build_experiment(
         seed=tr.seed,
         engine=spec.engine.name,
         max_staged_bytes=spec.engine.max_staged_bytes,
+        mesh_spec=spec.engine.mesh_spec,
         checkpoint_every=tr.checkpoint_every,
         checkpoint_path=checkpoint_path,
     )

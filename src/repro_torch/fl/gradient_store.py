@@ -20,9 +20,22 @@ engine's device output) are folded in with ``index_copy_``:
 
 The store is updated in place, so :meth:`snapshot` returns a copy: an
 async planner worker may read it while the next round scatters.
+
+With ``mesh_spec`` (any ``FLConfig.mesh_spec`` form, resolved on
+``device``, whose card must be the mesh's lead) the rows are split over the
+mesh's data groups by client block when the data-parallel degree divides
+``n_clients``, and replicated otherwise; a group's block sits on each of
+its devices. :meth:`update` sketches the incoming rows where they live (a
+:class:`~repro_torch.launch.mesh.ShardedRows` block by block, each on its
+own card, so the SRP kernel runs once a block there) and then sends each
+(c, d′) row to the cards that own it. :meth:`snapshot` returns the whole
+(n, dim) on the lead card (the reference's plan build all-gathers too),
+:meth:`gather_rows` only the asked rows, and :meth:`load` re-places a
+checkpoint onto the blocks, whichever way it was written.
 """
 from __future__ import annotations
 
+from contextlib import nullcontext
 from typing import Optional, Union
 
 import numpy as np
@@ -30,6 +43,15 @@ import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.kernels.sketch.ops import Sketcher, resolve_sketcher
+from repro_torch.launch.mesh import (
+    ShardedRows,
+    blocks,
+    check_lead,
+    data_groups,
+    data_parallel_degree,
+    on_shard,
+    resolve_fl_mesh,
+)
 
 
 def _dedupe_last(ids: np.ndarray) -> np.ndarray:
@@ -63,6 +85,7 @@ class GradientStore:
         sketch: Union[str, Sketcher, None] = None,
         sketch_dim: Optional[int] = None,
         sketch_seed: int = 0,
+        mesh_spec=None,
         device="cuda",
     ):
         self.device = resolve_device(device)
@@ -72,16 +95,44 @@ class GradientStore:
         #: resident row width — d' under a compressing sketch, d otherwise
         self.dim = self.update_dim if self.sketch is None else self.sketch.d_out
         self.staleness_decay = float(staleness_decay)
-        self._G = torch.zeros((self.n_clients, self.dim), dtype=torch.float32, device=self.device)
+        self.mesh = resolve_fl_mesh(mesh_spec, device=self.device.type)
+        if self.mesh is None:
+            # one block of every row, on the store's device
+            self._parts = [(0, self.n_clients, [self.device])]
+        else:
+            check_lead(self.mesh, self.device, "the gradient store")
+            n_dp = data_parallel_degree(self.mesh)
+            split = self.n_clients % n_dp == 0
+            spans = blocks(self.n_clients, n_dp) if split else [(0, self.n_clients)] * n_dp
+            self._parts = [(lo, hi, devs) for (lo, hi), devs in zip(spans, data_groups(self.mesh))]
+            if not split:  # replicated: one part of every row on every device
+                self._parts = [(0, self.n_clients, [d for _, _, ds in self._parts for d in ds])]
+        self._blocks = [
+            [torch.zeros((hi - lo, self.dim), dtype=torch.float32, device=d) for d in devs]
+            for lo, hi, devs in self._parts
+        ]
+
+    @property
+    def _G(self) -> torch.Tensor:
+        """The lead block (the whole buffer without a mesh)."""
+        return self._blocks[0][0]
 
     @property
     def nbytes(self) -> int:
         """Resident bytes of the (n_clients, dim) f32 buffer."""
         return self.n_clients * self.dim * 4
 
-    def _rows(self, client_ids, updates) -> tuple[torch.Tensor, torch.Tensor]:
-        """(ids, rows) to write: shape-checked, deduplicated last-write-wins,
-        out-of-range ids dropped, then sketched."""
+    def bytes_by_position(self) -> list:
+        """Resident bytes of each mesh position, in the mesh's device order
+        (one entry without a mesh)."""
+        return [b.nbytes for group in self._blocks for b in group]
+
+    def _rows(self, client_ids, updates) -> list:
+        """The rows to write as ``(ids, vals)`` pairs, one a block of
+        ``updates`` (a tensor on another device than the store's is one
+        block, moved to the store's device first): shape-checked,
+        deduplicated last-write-wins, out-of-range ids dropped, then
+        sketched on the block's device."""
         if tuple(updates.shape)[1:] != (self.update_dim,):
             raise ValueError(
                 f"updates shape {tuple(updates.shape)} != (len(ids), {self.update_dim})"
@@ -91,29 +142,59 @@ class GradientStore:
         ids = np.asarray(client_ids, np.int64)
         if (ids < 0).any():
             raise ValueError(f"negative client id in {ids.tolist()}")
+        if isinstance(updates, ShardedRows):
+            parts = list(zip(updates.groups, updates.blocks))
+        else:
+            parts = [(None, torch.as_tensor(updates).to(device=self.device, dtype=torch.float32))]
         take = _dedupe_last(ids)
-        vals = torch.as_tensor(updates).to(device=self.device, dtype=torch.float32)
-        if not isinstance(take, slice):
-            ids, vals = ids[take], vals[torch.as_tensor(take, device=self.device)]
-        keep = ids < self.n_clients
-        if not keep.all():
-            ids, vals = ids[keep], vals[torch.as_tensor(keep, device=self.device)]
-        if self.sketch is not None:
-            vals = self.sketch(vals.contiguous()) if ids.size else vals.new_zeros((0, self.dim))
-        return torch.as_tensor(ids, device=self.device), vals
+        if isinstance(take, slice):
+            take = np.arange(ids.size)
+        take = take[ids[take] < self.n_clients]  # kept row positions, in order
+        out, off = [], 0
+        for g, vals in parts:
+            rows = take[(take >= off) & (take < off + vals.shape[0])]
+            off += vals.shape[0]
+            if rows.size == 0:
+                continue
+            local = rows - (off - vals.shape[0])
+            if local.size != vals.shape[0] or (local != np.arange(local.size)).any():
+                vals = vals[torch.as_tensor(local, device=vals.device)]
+            if self.sketch is not None:
+                with nullcontext() if g is None else on_shard(g, vals.device):
+                    vals = self.sketch(vals.to(torch.float32).contiguous())
+            out.append((ids[rows], vals))
+        return out
+
+    def _write(self, rows: list, scale: Optional[float] = None) -> None:
+        """Overwrite each block's rows with ``rows``' values (times
+        ``scale``), on each device that holds the block."""
+        for (lo, hi, _), copies in zip(self._parts, self._blocks):
+            for ids, vals in rows:
+                mine = (ids >= lo) & (ids < hi)
+                if not mine.any():
+                    continue
+                sel = vals if mine.all() else vals[torch.as_tensor(mine, device=vals.device)]
+                if scale is not None:
+                    sel = sel * scale
+                for G in copies:
+                    G.index_copy_(0, torch.as_tensor(ids[mine] - lo, device=G.device),
+                                  sel.to(G.device))
 
     def update(self, client_ids, updates) -> None:
         """Scatter ``updates`` (c, update_dim) into rows ``client_ids`` (c,).
 
-        ``updates`` may be a device tensor (the engine's round output) or a
-        numpy array; the sketch stage (if any) runs on it on the store's
-        device before the scatter. Ids at or beyond ``n_clients`` are
-        dropped; duplicate ids resolve last-write-wins.
+        ``updates`` may be a device tensor (the engine's round output), a
+        :class:`~repro_torch.launch.mesh.ShardedRows` (a sharded round's) or
+        a numpy array; the sketch stage (if any) runs where the rows live
+        before the scatter. Ids at or beyond ``n_clients`` are dropped;
+        duplicate ids resolve last-write-wins.
         """
-        ids, vals = self._rows(client_ids, updates)
+        rows = self._rows(client_ids, updates)
         if self.staleness_decay < 1.0:
-            self._G.mul_(self.staleness_decay)
-        self._G.index_copy_(0, ids, vals)
+            for copies in self._blocks:
+                for G in copies:
+                    G.mul_(self.staleness_decay)
+        self._write(rows)
 
     def scatter_scaled(self, client_ids, updates, *, scale: float = 1.0) -> None:
         """Overwrite rows ``client_ids`` with ``scale · updates`` — no decay.
@@ -126,21 +207,31 @@ class GradientStore:
         multiplies the sketched rows (the sketches are linear). The shape is
         checked before an empty update returns, as in the reference.
         """
-        ids, vals = self._rows(client_ids, updates)
-        if ids.numel() == 0:
-            return
-        self._G.index_copy_(0, ids, vals * scale)
+        self._write(self._rows(client_ids, updates), scale=scale)
 
     def snapshot(self) -> torch.Tensor:
-        """A copy of the current G on the device."""
-        return self._G.clone()
+        """A copy of the current G on the store's (the lead) device."""
+        if len(self._blocks) == 1:
+            return self._G.clone()
+        return torch.cat([copies[0].to(self.device) for copies in self._blocks])
 
     def gather_rows(self, client_ids) -> torch.Tensor:
-        """Only the requested rows."""
-        return self._G[torch.as_tensor(np.asarray(client_ids, np.int64), device=self.device)]
+        """Only the requested rows, on the store's (the lead) device."""
+        ids = np.asarray(client_ids, np.int64)
+        if len(self._blocks) == 1:
+            return self._G[torch.as_tensor(ids, device=self.device)]
+        out = torch.empty((ids.size, self.dim), dtype=torch.float32, device=self.device)
+        for (lo, hi, _), copies in zip(self._parts, self._blocks):
+            mine = (ids >= lo) & (ids < hi)
+            if mine.any():
+                G = copies[0]
+                got = G[torch.as_tensor(ids[mine] - lo, device=G.device)]
+                out[torch.as_tensor(np.flatnonzero(mine), device=self.device)] = got.to(self.device)
+        return out
 
     def load(self, G) -> None:
-        """Replace the buffer with a (n_clients, dim) state (tensor or numpy)."""
+        """Replace the buffer with a (n_clients, dim) state (tensor on any
+        device, or numpy), re-placed onto the store's blocks."""
         if tuple(G.shape) != (self.n_clients, self.dim):
             raise ValueError(
                 f"checkpointed G shape {tuple(G.shape)} != ({self.n_clients}, {self.dim})"
@@ -150,8 +241,11 @@ class GradientStore:
                 raise ValueError(f"G must be float32, got {G.dtype}")
         else:
             G = torch.from_numpy(np.asarray(G, np.float32))
-        self._G = G.to(self.device, copy=True)
+        self._blocks = [
+            [G[lo:hi].to(copy.device, copy=True) for copy in copies]
+            for (lo, hi, _), copies in zip(self._parts, self._blocks)
+        ]
 
     def asnumpy(self) -> np.ndarray:
         """Host f32 copy, for inspection and host-side reference builds."""
-        return self._G.cpu().numpy()
+        return (self._G if len(self._blocks) == 1 else self.snapshot()).cpu().numpy()

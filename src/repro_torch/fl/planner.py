@@ -38,12 +38,15 @@ rebuild are exposed (:meth:`PlanService.last_drift` /
 :meth:`PlanService.last_build_ms`) and land in
 ``RoundRecord.plan_drift`` / ``plan_build_ms``.
 
-The module is dependency-light (stdlib + numpy + ``repro_torch.core``): the
+The module is dependency-light (stdlib, numpy, torch, ``repro_torch.core``): the
 snapshot is opaque to the service — device arrays pass straight through to
 ``build_fn`` without a host round-trip (the drift monitor, when enabled,
 consumes them on device too). The gradient store hands out a copy of its
 tensor as the snapshot, so a snapshot read by the worker while the engine
-scatters new updates into the store stays consistent.
+scatters new updates into the store stays consistent. The worker thread
+makes a CUDA snapshot's card its current device before it builds: a
+thread starts on card 0, and a sharded store's snapshot lives on the
+mesh's lead card.
 """
 from __future__ import annotations
 
@@ -53,6 +56,7 @@ import time
 from typing import Any, Callable, Optional
 
 import numpy as np
+import torch
 
 from repro_torch.core.types import SamplingPlan
 
@@ -283,6 +287,9 @@ class PlanService:
                 self._pending = None
                 self._building = True
             try:
+                dev = getattr(snapshot, "device", None)
+                if isinstance(dev, torch.device) and dev.type == "cuda":
+                    torch.cuda.set_device(dev)
                 plan = self._timed_build(snapshot)
                 if self._monitor is not None:
                     self._monitor.rebaseline(snapshot, plan, active)

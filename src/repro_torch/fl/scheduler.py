@@ -47,6 +47,7 @@ from repro_torch.core.registry import Registry
 from repro_torch.core.types import SampleResult
 from repro_torch.device import resolve_device
 from repro_torch.fl.population import _round_rng
+from repro_torch.launch.mesh import ShardedRows
 
 #: SeedSequence stream tag for latency draws — disjoint from the population
 #: module's availability (0x41) / dropout (0x44) / phase (0x50) streams, so
@@ -242,6 +243,8 @@ class DeadlineScheduler(RoundScheduler):
         # a clone on the buffer's device: it must survive the next engine
         # dispatch independent of the engine's output buffers
         self._harvest_ids = np.asarray(client_ids, np.int64).copy()
+        if isinstance(updates, ShardedRows):  # a sharded round's rows, gathered
+            updates = updates.gather(self.device)
         self._harvest_vals = torch.as_tensor(updates).to(
             self.device, torch.float32, copy=True
         )

@@ -42,8 +42,11 @@ continues bit-identically to an uninterrupted run. The bundle layout is
 the reference's, so a bundle written by either package resumes in the
 other. A restored plan is loaded, not rebuilt.
 
-Not ported yet: mesh sharding (ROADMAP A13). The spec layer refuses the
-same at the spec's level (``repro_torch.fl.experiment.build_experiment``).
+Mesh sharding (``FLConfig.mesh_spec``): the batched engine splits the
+round's client axis, and its staged data, over the mesh's data groups, one
+process driving every card (:mod:`repro_torch.launch.mesh`,
+:mod:`repro_torch.fl.engine`). The mesh's lead device must be the server's
+``device``: it holds the global model.
 """
 from __future__ import annotations
 
@@ -63,6 +66,7 @@ from repro_torch.fl.client import draw_batch_indices, local_update
 from repro_torch.fl.engine import ENGINES, staged_bytes
 from repro_torch.fl.history import History, RoundRecord
 from repro_torch.fl.population import PopulationProcess
+from repro_torch.launch.mesh import check_lead, resolve_fl_mesh
 from repro_torch.models.simple import accuracy, classification_loss
 from repro_torch.optim.base import Optimizer
 
@@ -80,7 +84,10 @@ class FLConfig:
     # that exceeds this budget the server falls back to the compat loop with
     # a warning — both paths are numerically equivalent.
     max_staged_bytes: int = 2 << 30
-    # Must stay None: mesh sharding is not ported.
+    # Mesh for the batched engine's client axis: None (single-device,
+    # default), "auto" (every visible card on "data"), "DxM" / (D, M) host
+    # mesh shapes, or a repro_torch.launch.mesh.Mesh. See
+    # repro_torch.launch.mesh.resolve_fl_mesh. Ignored by "compat".
     mesh_spec: "str | tuple[int, int] | None" = None
     # Crash tolerance: every `checkpoint_every` completed rounds (and on a
     # service stop request) the full server state is written to
@@ -124,8 +131,6 @@ class FederatedServer:
         (``StoreBackedSampler.attach_availability``) to restrict plan
         rebuilds to the recently-seen fleet. Both checkpoint with the
         server state when present."""
-        if config.mesh_spec is not None:
-            raise NotImplementedError("FLConfig.mesh_spec is not ported; leave it None")
         engine_factory = ENGINES.get(config.engine)  # precise unknown-name error
         self.device = resolve_device(device)
         self.dataset = dataset
@@ -147,21 +152,35 @@ class FederatedServer:
         self._client_classes = [np.unique(c.y_train) for c in dataset.clients]
         # the scheduler owns the engine's padded slot count (the built-ins
         # keep it at m — overselection thins at draw time)
+        mesh = (
+            resolve_fl_mesh(config.mesh_spec, device=self.device.type)
+            if config.engine != "compat"
+            else None
+        )
+        if mesh is not None:
+            check_lead(mesh, self.device, "the server")
         slots = (
             sampler.m if scheduler is None else int(scheduler.required_slots(sampler.m))
         )
         if config.engine == "batched":
-            need = staged_bytes(dataset, slots, config.n_local_steps, config.batch_size)
+            # budget check against the *per-device* footprint: a mesh that
+            # shards the client axis is how large datasets stay stageable
+            need = staged_bytes(
+                dataset, slots, config.n_local_steps, config.batch_size, mesh=mesh
+            )
             if need > config.max_staged_bytes:
+                fmt = lambda b: f"{b / 2**30:.2f} GiB" if b >= 2**30 else f"{b / 2**20:.2f} MiB"
                 warnings.warn(
-                    f"batched engine would stage {need / 2**20:.2f} MiB of padded "
-                    f"client data (budget {config.max_staged_bytes / 2**20:.2f} MiB); "
-                    "falling back to the compat loop — raise "
-                    "FLConfig.max_staged_bytes to override",
+                    f"batched engine would stage {fmt(need)} of padded "
+                    f"client data per device (budget {fmt(config.max_staged_bytes)}); "
+                    "falling back to the compat loop — raise FLConfig.max_staged_bytes "
+                    "or shard further via FLConfig.mesh_spec to override",
                     stacklevel=2,
                 )
                 engine_factory = ENGINES.get("compat")
-        self._engine = engine_factory(dataset, slots, config, self.device)
+                mesh = None  # the compat loop never shards
+        self.mesh = mesh
+        self._engine = engine_factory(dataset, slots, config, self.device, mesh)
         # service cursor: the next round to run. run()/resume() maintain it so
         # a restored server continues exactly where the checkpoint left off.
         self._start_round = 0

@@ -8,6 +8,7 @@ module imports on a machine without ``nvcc`` or a GPU.
 """
 from __future__ import annotations
 
+import collections
 import ctypes
 import hashlib
 import os
@@ -27,6 +28,27 @@ SOURCES = ("similarity", "aggregate", "sketch", "flash_attention")
 
 _lock = threading.Lock()
 _loaded: dict[str, ctypes.CDLL] = {}  # name -> library, one load per process
+
+#: Launches by (kernel, mesh position) of the work run as a mesh position
+#: (``repro_torch.launch.mesh.on_shard``); a wrapper adds to it where it
+#: adds to its own count. The position is the process's, not a thread's:
+#: a backward pass runs on autograd's device threads while the thread that
+#: asked for it waits.
+shard_launches: collections.Counter = collections.Counter()
+_shard = [None]  # the mesh position whose work is running, if any
+
+
+def set_shard(shard):
+    """Make ``shard`` (an int, or None) the running mesh position; returns
+    the previous one."""
+    prev, _shard[0] = _shard[0], shard
+    return prev
+
+
+def tally(kernel: str) -> None:
+    """Count one launch of ``kernel`` under the running mesh position."""
+    if _shard[0] is not None:
+        shard_launches[(kernel, _shard[0])] += 1
 
 
 def _nvcc() -> str:

@@ -3,7 +3,8 @@
 Port of ``src/repro/kernels/aggregate/ops.py``. :func:`aggregate_flat` is
 the kernel's wrapper: for CUDA tensors it launches ``csrc/aggregate.cu``
 on the grid of :func:`launch_plan`, for CPU tensors it runs the plain
-version in ``ref.py``.
+version in ``ref.py``. It launches on the card that holds the tensors,
+whichever device is current.
 """
 from __future__ import annotations
 
@@ -73,9 +74,12 @@ def aggregate_flat(updates: torch.Tensor, weights: torch.Tensor) -> torch.Tensor
     blocks, threads = launch_plan(k, p)
     out = updates.new_empty(p)
     lib = _lib()
-    err = lib.aggregate_rows(updates.data_ptr(), weights.data_ptr(), out.data_ptr(), k, p, blocks,
-                             threads, torch._C._cuda_getCurrentRawStream(dev))
+    # the C entry point launches on the current device: make it the tensors'
+    with torch.cuda.device(dev):
+        err = lib.aggregate_rows(updates.data_ptr(), weights.data_ptr(), out.data_ptr(), k, p,
+                                 blocks, threads, torch._C._cuda_getCurrentRawStream(dev))
     if err:
         _build.check(lib, err, "aggregate kernel")
     launches["aggregate"] += 1
+    _build.tally("aggregate")
     return out

@@ -99,15 +99,19 @@ def flash_attention_padded(
                     f"and strides {tuple(a.stride()[:3])}")
     out = torch.empty((b, s, h, hd), dtype=q.dtype, device=q.device)
     lib = _lib()
-    err = lib.flash_attention_fwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        DTYPES[q.dtype], b, s, t, h, kv, hd,
-        *strides[0], *strides[1], *strides[2], *_strides(out),
-        hd**-0.5, int(causal),
-        torch.cuda.current_stream(q.device).cuda_stream,
-    )
+    # the C entry point launches (and opts in to its shared memory) on the
+    # current device: make it the tensors'
+    with torch.cuda.device(q.device):
+        err = lib.flash_attention_fwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            DTYPES[q.dtype], b, s, t, h, kv, hd,
+            *strides[0], *strides[1], *strides[2], *_strides(out),
+            hd**-0.5, int(causal),
+            torch.cuda.current_stream(q.device).cuda_stream,
+        )
     _build.check(lib, err, "flash attention kernel")
     launches["flash_attention"] += 1
+    _build.tally("flash_attention")
     return out
 
 

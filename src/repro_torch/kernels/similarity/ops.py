@@ -115,20 +115,24 @@ def pairwise_sums(G: torch.Tensor, op: str) -> torch.Tensor:
     # each split's sums, lane by lane; one split writes `out` itself
     partial = (torch.empty((splits, lib.pairwise_scratch_floats(n, ts)), dtype=torch.float32,
                            device=G.device) if splits > 1 else None)
-    err = lib.pairwise_sums(
-        G.data_ptr(),
-        None if partial is None else partial.data_ptr(),
-        out.data_ptr(),
-        n,
-        d,
-        _OPS[op],
-        splits,
-        per,
-        ts,
-        torch.cuda.current_stream(G.device).cuda_stream,
-    )
+    # the C entry point launches (and opts in to its shared memory) on the
+    # current device: make it G's
+    with torch.cuda.device(G.device):
+        err = lib.pairwise_sums(
+            G.data_ptr(),
+            None if partial is None else partial.data_ptr(),
+            out.data_ptr(),
+            n,
+            d,
+            _OPS[op],
+            splits,
+            per,
+            ts,
+            torch.cuda.current_stream(G.device).cuda_stream,
+        )
     _build.check(lib, err, f"similarity kernel ({op})")
     launches[op] += 1
+    _build.tally(op)
     return out
 
 

@@ -121,21 +121,25 @@ def srp_sketch(X: torch.Tensor, d_prime: int, seed: int, *, block_d: int = SKETC
     partial = torch.empty((splits, c, d_prime), dtype=torch.float32, device=X.device)
     out = torch.empty((c, d_prime), dtype=torch.float32, device=X.device)
     lib = _lib()
-    err = lib.srp_sketch(
-        X.data_ptr(),
-        partial.data_ptr(),
-        out.data_ptr(),
-        c,
-        d,
-        d_prime,
-        term,
-        scale,
-        splits,
-        per,
-        torch.cuda.current_stream(X.device).cuda_stream,
-    )
+    # the C entry point launches (and opts in to its shared memory) on the
+    # current device: make it X's
+    with torch.cuda.device(X.device):
+        err = lib.srp_sketch(
+            X.data_ptr(),
+            partial.data_ptr(),
+            out.data_ptr(),
+            c,
+            d,
+            d_prime,
+            term,
+            scale,
+            splits,
+            per,
+            torch.cuda.current_stream(X.device).cuda_stream,
+        )
     _build.check(lib, err, "srp sketch kernel")
     launches["srp"] += 1
+    _build.tally("srp")
     return out
 
 

@@ -13,9 +13,16 @@ live in one (m, d) f32 stack: client k's parameters are views into row k
 write θ_k straight into the stack and no client model is flattened. The
 combine is the aggregate kernel (B2) on that stack, and the updates are
 formed in place after it, so a round holds one stack (19.1 GB at
-qwen3-0.6b with m = 8), not a second. The reference's ``fl_input_specs``,
-``fl_round_shardings`` and ``mesh=`` place the round on a TPU mesh; they are
-not ported (ROADMAP A13).
+qwen3-0.6b with m = 8), not a second.
+
+With ``mesh=`` (:mod:`repro_torch.launch.mesh`) one process drives every
+card: θ has a replica on each data group's card, each client trains on its
+group's card (the client axis in ceil blocks, :func:`fl_round_shardings`),
+in the same order as without a mesh, as views into that card's block of
+the (m, d) stack. B2 runs once a card over its block; the partials are
+added on the lead card in group order (one foreign partial resident there
+at a time), and the updates stay on their cards, where the store's sketch
+(B3) runs on them.
 """
 from __future__ import annotations
 
@@ -27,12 +34,21 @@ import torch
 
 from repro_torch.core.samplers.base import ClientSampler
 from repro_torch.device import resolve_device
+from repro_torch.fl.aggregation import aggregate_sharded, replicate
 from repro_torch.kernels.aggregate.ops import aggregate_flat
+from repro_torch.launch.mesh import (
+    Placement,
+    ShardedRows,
+    blocks,
+    check_lead,
+    data_parallel_degree,
+    group_devices,
+    lead_device,
+    leading_batch_spec,
+    on_shard,
+)
 from repro_torch.models import model as mdl
 from repro_torch.models.config import ModelConfig
-
-A13 = ("{} is TPU-mesh tooling, not ported: the port runs on one GPU "
-       "(ROADMAP A13)")
 
 
 def make_local_sgd(cfg: ModelConfig, lr: float, n_local_steps: int):
@@ -55,11 +71,15 @@ def make_local_sgd(cfg: ModelConfig, lr: float, n_local_steps: int):
     return local_sgd
 
 
-def make_fl_round_step(cfg: ModelConfig, lr: float, n_local_steps: int, *, with_updates: bool = False):
+def make_fl_round_step(cfg: ModelConfig, lr: float, n_local_steps: int, *, with_updates: bool = False,
+                       mesh=None):
     """``with_updates=True`` also returns the (m, d) flat per-client updates
     θ_k^{t+1} − θ^t (Algorithm 2 line 1's input): the client stack itself,
-    rewritten in place once the combine has read it."""
+    rewritten in place once the combine has read it — over ``mesh`` a
+    :class:`~repro_torch.launch.mesh.ShardedRows` of each card's block."""
     local_sgd = make_local_sgd(cfg, lr, n_local_steps)
+    if mesh is not None:
+        return _sharded_round_step(local_sgd, mesh, with_updates)
 
     def fl_round_step(params: mdl.LM, client_tokens, client_targets, weights):
         """params: the global model; client_tokens / targets: (m, N, B, S);
@@ -82,12 +102,64 @@ def make_fl_round_step(cfg: ModelConfig, lr: float, n_local_steps: int, *, with_
     return fl_round_step
 
 
-def fl_input_specs(*args, **kwargs):
-    raise NotImplementedError(A13.format("fl_input_specs"))
+def _sharded_round_step(local_sgd, mesh, with_updates: bool):
+    """:func:`make_fl_round_step`'s round over ``mesh``'s data groups."""
+    lead = lead_device(mesh)
+    devs = group_devices(mesh)
+
+    def fl_round_step(params: mdl.LM, client_tokens, client_targets, weights):
+        theta = mdl.flatten_lm(params)
+        d = theta.numel()
+        replicas = replicate(theta, devs)  # θ^t on every group's card
+        spans = blocks(client_tokens.shape[0], len(devs))
+        stacks, losses = [], []
+        for g, ((a, b), dev) in enumerate(zip(spans, devs)):
+            stack = replicas[dev].new_empty((b - a, d))
+            with on_shard(g, dev):
+                for k in range(a, b):
+                    stack[k - a].copy_(replicas[dev])
+                    client = mdl.lm_views(stack[k - a], params).requires_grad_(True)
+                    _, loss = local_sgd(client, client_tokens[k].to(dev), client_targets[k].to(dev))
+                    losses.append(loss.to(lead))
+            stacks.append(stack)
+        shards = ((g, st, weights[a:b].to(st.device))
+                  for g, (st, (a, b)) in enumerate(zip(stacks, spans)) if b > a)
+        # θ^{t+1} = Σ_k ω_k θ_k — eq. (4), the aggregate kernel once a card
+        new_params = mdl.lm_views(aggregate_sharded(shards, lead), params)
+        loss = torch.stack(losses).mean()
+        if not with_updates:
+            return new_params, loss
+        updates = [st.sub_(replicas[st.device]) for st in stacks]
+        return new_params, loss, ShardedRows(updates, d)
+
+    return fl_round_step
 
 
-def fl_round_shardings(*args, **kwargs):
-    raise NotImplementedError(A13.format("fl_round_shardings"))
+def fl_input_specs(cfg: ModelConfig, m: int, n_local: int, batch: int, seq: int):
+    """The round step's batch as meta tensors: the reference's shapes, in
+    the dtypes the port's round step takes."""
+    del cfg
+
+    def meta(shape, dtype):
+        return torch.empty(shape, dtype=dtype, device="meta")
+
+    return {
+        "client_tokens": meta((m, n_local, batch, seq), torch.int64),
+        "client_targets": meta((m, n_local, batch, seq), torch.int64),
+        "weights": meta((m,), torch.float32),
+    }
+
+
+def fl_round_shardings(mesh):
+    """The round step's batch placements
+    (:class:`~repro_torch.launch.mesh.Placement`): the client axis on the
+    mesh's batch axes (each data group plays its block of the sampled
+    clients), the weights replicated."""
+    return {
+        "client_tokens": Placement(mesh, leading_batch_spec(mesh, 4)),
+        "client_targets": Placement(mesh, leading_batch_spec(mesh, 4)),
+        "weights": Placement(mesh, (None,)),
+    }
 
 
 # --------------------------------------------------------------------------
@@ -171,12 +243,23 @@ def run_federated_lm(
     first, by id, and a client drawn twice after them; its first draw's
     update is the one observed, as in the reference. Their batches are drawn
     in the sampler's order, as in the reference.
+
+    With ``mesh`` (lead device ``device``) each data group trains its block
+    of the round's clients on its own card (see the module docstring); the
+    data-parallel degree must divide ``fl.m``.
     """
-    if mesh is not None:
-        raise NotImplementedError(A13.format("run_federated_lm(mesh=...)"))
     from repro_torch.data.tokens import TokenPipeline
 
     dev = resolve_device(device)
+    if mesh is not None:
+        check_lead(mesh, dev, "run_federated_lm")
+        n_dp = data_parallel_degree(mesh)
+        if fl.m % n_dp != 0:
+            raise ValueError(
+                f"fl.m={fl.m} must be a multiple of the mesh's data-parallel "
+                f"degree {n_dp} — the jit shards the client axis over it, so "
+                "each data group must play a whole number of clients"
+            )
     pipes = [
         TokenPipeline(cfg.vocab_size, fl.local_batch, fl.seq_len, seed=1000 + 17 * c)
         for c in range(fl.n_clients)
@@ -185,7 +268,7 @@ def run_federated_lm(
     # similarity-based samplers need the per-client representative gradients
     # back: the round step then also returns the (m, d) flat updates
     feedback = getattr(sampler, "consumes_updates", False)
-    round_step = make_fl_round_step(cfg, fl.lr, fl.n_local_steps, with_updates=feedback)
+    round_step = make_fl_round_step(cfg, fl.lr, fl.n_local_steps, with_updates=feedback, mesh=mesh)
     losses = []
     for t in range(fl.n_rounds):
         res = sampler.sample(t)

@@ -7,10 +7,10 @@ saves a second 2.38 GB copy of them. ``launch/serve.py``'s ``generate``
 runs the prefill and serve steps. A batch may carry the front ends'
 stubbed outputs, ``vision_embeds`` and ``frames``, beside its tokens
 (:func:`frontend_stubs` makes the zero stubs the reference's CLIs feed).
-The reference's ``input_specs``,
-``abstract_params``, ``abstract_train_state`` and the ``fl_engine_*``
-lowering hooks build ShapeDtypeStructs and mesh shardings for XLA; they are
-mesh tooling and not ported (ROADMAP A13).
+The reference's ``input_specs``, ``abstract_params``,
+``abstract_train_state`` and the ``fl_engine_*`` lowering hooks place a
+train step over a mesh (FSDP / tensor parallel) for XLA; here they raise,
+naming ROADMAP A13.2.
 """
 from __future__ import annotations
 
@@ -145,3 +145,26 @@ def make_step(cfg: ModelConfig, shape: InputShape, opt: Optional[Optimizer] = No
     if shape.kind == "prefill":
         return make_prefill_step(cfg, shape), "prefill"
     return make_serve_step(cfg, shape), "decode"
+
+
+# --------------------------------------------------------------------------
+# placements over a mesh: not ported (ROADMAP A13.2)
+# --------------------------------------------------------------------------
+def _a13_2(name: str):
+    def raises(*args, **kwargs):
+        del args, kwargs
+        raise NotImplementedError(
+            f"{name} places a train step over a mesh (FSDP / tensor parallel), "
+            "not ported (ROADMAP A13.2)"
+        )
+
+    raises.__name__ = name
+    return raises
+
+
+input_specs = _a13_2("input_specs")
+abstract_params = _a13_2("abstract_params")
+abstract_train_state = _a13_2("abstract_train_state")
+fl_engine_input_specs = _a13_2("fl_engine_input_specs")
+fl_engine_shardings = _a13_2("fl_engine_shardings")
+make_fl_engine_step = _a13_2("make_fl_engine_step")

@@ -523,3 +523,90 @@ def test_bench_timed_synchronises_the_card(cuda):
 
     us, _ = timed(lambda: torch.cuda._sleep(100_000), repeats=20, device="cuda")
     assert us >= 100_000 / 2e3
+
+
+# --------------------------------------------------------------------------
+# the last card: each kernel launched on cuda:{count - 1} while card 0 is the
+# current device (a sharded round's groups run on every card of the mesh)
+# --------------------------------------------------------------------------
+@pytest.fixture
+def last_card():
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards: each kernel is launched on the last one while "
+                    "card 0 is the current device")
+    torch.cuda.set_device(0)
+    return torch.device("cuda", torch.cuda.device_count() - 1)
+
+
+@pytest.mark.parametrize("k,p", [(11, 39760), (9, 39759)])
+def test_aggregate_kernel_on_the_last_card(last_card, k, p):
+    U, w = (t.to(last_card) for t in _agg_inputs(k, p))
+    got = aggregate_flat(U, w)
+    assert got.device == last_card and torch.cuda.current_device() == 0
+    want = aggregate_ref(U, w)
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), rtol=2e-5, atol=2e-5)
+    # the same launch plan on card 0: the same bits
+    np.testing.assert_array_equal(got.cpu().numpy(), aggregate_flat(U.cuda(0), w.cuda(0)).cpu().numpy())
+
+
+@pytest.mark.parametrize("op", ["gram", "l1"])
+@pytest.mark.parametrize("n,d", [(100, 39760), (100, 64), (257, 8193)])
+def test_similarity_kernel_on_the_last_card(last_card, op, n, d):
+    G = _x(n, d).to(last_card)
+    got = ops.pairwise_sums(G, op)
+    assert got.device == last_card and torch.cuda.current_device() == 0
+    want = gram_ref(G) if op == "gram" else l1_ref(G)
+    if op == "gram":
+        norms = G.double().norm(dim=1)
+        err = (got.double() - want.double()).abs() / (norms[:, None] * norms[None, :])
+        assert float(err.max()) <= 1e-5
+    else:
+        np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), atol=1e-4)
+    np.testing.assert_array_equal(got.cpu().numpy(), ops.pairwise_sums(G.cuda(0), op).cpu().numpy())
+
+
+@pytest.mark.parametrize("c,d,d_prime", [(10, 39760, 64), (64, 39760, 64), (13, 1037, 64)])
+def test_srp_kernel_on_the_last_card(last_card, c, d, d_prime):
+    X = _x(c, d).to(last_card)
+    got = sk_ops.srp_sketch(X, d_prime, 7)
+    assert got.device == last_card and torch.cuda.current_device() == 0
+    want = sketch_srp_plain(X, d_prime, 7)
+    scale = X.double().norm(dim=1)[:, None] * (d / d_prime) ** 0.5
+    assert float(((got.double() - want.double()).abs() / scale).max()) <= 1e-5
+    np.testing.assert_array_equal(got.cpu().numpy(), sk_ops.srp_sketch(X.cuda(0), d_prime, 7).cpu().numpy())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,h,kv,hd", [(4, 1000, 12, 2, 128), (2, 77, 12, 2, 64)])
+def test_flash_kernel_on_the_last_card(last_card, b, s, h, kv, hd, dtype):
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention.ref import flash_attention_plain
+
+    q, k, v = (t.to(last_card) for t in _flash_inputs(b, s, h, kv, hd, dtype))
+    got = fa_ops.flash_attention_padded(q, k, v)
+    assert got.device == last_card and torch.cuda.current_device() == 0
+    want = flash_attention_plain(q, k, v)
+    assert bool(((got.float() - want.float()).abs() <= _flash_limit(want, q, k, v)).all())
+    assert torch.equal(got.cuda(0), fa_ops.flash_attention_padded(q.cuda(0), k.cuda(0), v.cuda(0)))
+
+
+def test_async_planner_builds_on_the_stores_card(last_card):
+    """The planner's worker thread starts on card 0; it adopts the
+    snapshot's card before it builds, so the Gram launches there."""
+    import contextlib
+
+    from repro_torch.core.samplers.algorithm2 import Algorithm2Sampler
+    from repro_torch.core.types import ClientPopulation
+
+    pop = ClientPopulation(np.full(20, 50))
+    rows = _x(6, 300).numpy()
+    plans = {}
+    for dev in (last_card, torch.device("cuda", 0)):
+        sampler = Algorithm2Sampler(pop, 5, update_dim=300, seed=0, planner="async", device=dev)
+        with contextlib.closing(sampler) as s:
+            s.sample(0)
+            s.observe_updates(np.arange(6), rows)
+            s.prepare_state()  # flush the worker's build
+            s.sample(1)
+            plans[dev.index] = np.array(s.plan.r_tokens)
+    np.testing.assert_array_equal(plans[last_card.index], plans[0])

@@ -12,6 +12,7 @@ from repro_torch.fl.gradient_store import GradientStore
 from repro_torch.fl.partition import by_class_shards
 from repro_torch.fl.server import FederatedServer, FLConfig
 from repro_torch.kernels import _build
+from repro_torch.launch.mesh import Mesh, make_production_mesh
 from repro_torch.configs import get_config
 from repro_torch.kernels.sketch.ref import countsketch_params, srp_sign_block
 from repro_torch.launch.serve import generate
@@ -103,15 +104,21 @@ def test_build_module_imports_without_nvcc():
 
 
 def test_unported_options_raise():
+    """The mesh is ported (CPU shards here); what raises is a mesh whose
+    lead device is not the caller's, and the TPU pod's production mesh."""
     ds = by_class_shards(**DATA)
-    with pytest.raises(NotImplementedError):
-        BatchedRoundEngine(ds, 2, 1, 2, device="cpu", mesh="2x1")
+    assert BatchedRoundEngine(ds, 2, 1, 2, device="cpu", mesh="2x1").mesh.shape == {"data": 2, "model": 1}
+    on_card = Mesh(np.array([[torch.device("cuda", 0)]], dtype=object), ("data", "model"))
+    with pytest.raises(ValueError, match="lead device"):
+        BatchedRoundEngine(ds, 2, 1, 2, device="cpu", mesh=on_card)
     sampler = Algorithm2Sampler(ds.population, 2, update_dim=36, device="cpu")
     params = init_mlp((8, 4), device="cpu")
-    # population, availability, schedulers and checkpoints are ported; the
-    # mesh is not
-    with pytest.raises(NotImplementedError):
-        FederatedServer(ds, sampler, params, sgd(0.1), FLConfig(mesh_spec="2x1"), device="cpu")
+    with pytest.raises(ValueError, match="lead device"):
+        FederatedServer(ds, sampler, params, sgd(0.1), FLConfig(mesh_spec=on_card), device="cpu")
+    with pytest.raises(ValueError, match="lead device"):
+        GradientStore(4, 3, mesh_spec=on_card, device="cpu")
+    with pytest.raises(NotImplementedError, match="A13.3"):
+        make_production_mesh()
 
 
 def test_staging_budget_falls_back_to_compat():

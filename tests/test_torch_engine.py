@@ -8,6 +8,7 @@ from repro.fl.engine import batched_round_step as ref_step
 from repro.models import simple as ref_simple
 from repro.optim import sgd as ref_sgd
 from repro_torch.fl.engine import batched_round_step
+from repro_torch.launch.mesh import Mesh
 from repro_torch.models import simple
 from repro_torch.optim.sgd import sgd
 
@@ -83,6 +84,9 @@ def test_mlp_module_matches_apply_mlp():
 
 
 def test_mesh_is_refused():
-    with pytest.raises(NotImplementedError):
-        batched_round_step({}, None, None, torch.zeros(1), None, None, 0.0,
-                           loss_fn=None, opt=None, mesh="2x1")
+    """A round over a mesh whose lead device does not hold the global
+    model is refused (the mesh itself is ported)."""
+    on_card = Mesh(np.array([[torch.device("cuda", 0)]], dtype=object), ("data", "model"))
+    with pytest.raises(ValueError, match="lead device"):
+        batched_round_step({"w": torch.zeros(2)}, None, None, torch.zeros(1), None, None, 0.0,
+                           loss_fn=None, opt=None, mesh=on_card)

@@ -120,13 +120,20 @@ def test_device_is_not_a_spec_option():
                           update_dim=4, device="cpu")
 
 
-@pytest.mark.parametrize("section,value,item", [
-    ("engine", {"mesh_spec": "auto"}, "A13"),
-    ("engine", {"mesh_spec": [1, 1]}, "A13"),
-])
-def test_unported_sections_raise(section, value, item):
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        exp.build_experiment({**_spec("md"), section: value}, device="cpu")
+@pytest.mark.parametrize("mesh_spec", ["auto", [1, 1]])
+def test_engine_mesh_spec_builds_and_round_trips(mesh_spec):
+    """The engine's mesh (once refused, naming ROADMAP A13) builds: the
+    server and the scheme's store get it, and the spec round-trips to the
+    reference's dict."""
+    spec = {**_spec("algorithm2"), "engine": {"mesh_spec": mesh_spec}}
+    parsed = exp.ExperimentSpec.from_dict(spec)
+    assert exp.ExperimentSpec.from_dict(parsed.to_dict()) == parsed
+    assert parsed.to_dict() == ref_exp.ExperimentSpec.from_dict(spec).to_dict()
+    with exp.build_experiment(spec, device="cpu") as srv:
+        assert srv.mesh is not None and srv.mesh.shape == {"data": 1, "model": 1}
+        assert srv._engine.mesh is srv.mesh
+        assert srv.sampler.gradient_store.mesh is not None
+        assert len(srv.run().records) == TRAIN["n_rounds"]
 
 
 @pytest.mark.parametrize("section,value,want", [

@@ -2,7 +2,7 @@
 
 ``flatten_lm`` of an LM against the reference's ``flatten_params`` of its
 stacked tree, one ``fl_round_step`` on the same parameters and tokens, a
-client drawn twice, the mesh tooling's refusal, the sampler specs and the
+client drawn twice, what the mesh tooling still refuses, the sampler specs and the
 example. The whole ``run_federated_lm`` runs, one file per family, are in
 ``test_torch_fl_lm_dense.py`` (the f32 reduced qwen3-0.6b at
 ``examples/federated_lm.py``'s widths under each sampler),
@@ -165,14 +165,19 @@ def test_a_client_drawn_twice_keeps_its_first_draws_update(monkeypatch):
 
 
 def test_mesh_tooling_raises_naming_a13():
+    """What is left of the mesh tooling raises naming A13: the TPU pod's
+    production mesh (A13.3) and the train step's placements (A13.2). The
+    round's own (``fl_input_specs``, ``fl_round_shardings``, ``mesh=``)
+    are ported (tests/test_torch_fl_sharded.py)."""
+    from repro_torch.launch import mesh, steps
+
     _, cfg = configs()
-    fl = fl_train.FLLMConfig(**FL, sampler="md")
-    sm = fl_train.make_lm_sampler(fl, ClientPopulation(SIZES), update_dim=0, device="cpu")
-    with pytest.raises(NotImplementedError, match="A13"):
-        fl_train.run_federated_lm(cfg, fl, sm, mesh=object(), device="cpu")
-    for fn in (fl_train.fl_input_specs, fl_train.fl_round_shardings):
-        with pytest.raises(NotImplementedError, match="A13"):
-            fn(cfg, 4, 2, 2, 16)
+    with pytest.raises(NotImplementedError, match="A13.3"):
+        mesh.make_production_mesh()
+    for fn in (steps.input_specs, steps.abstract_params, steps.abstract_train_state,
+               steps.fl_engine_input_specs, steps.fl_engine_shardings, steps.make_fl_engine_step):
+        with pytest.raises(NotImplementedError, match="A13.2"):
+            fn(cfg)
 
 
 def test_sampler_spec_and_planner_spec_resolve_as_the_reference():

@@ -43,6 +43,12 @@ cfg = FLConfig(n_rounds=2, n_local_steps=3, batch_size=4)
 with FederatedServer(ds, sampler, params, sgd(0.05), cfg, device="cpu") as srv:
     hist = srv.run()
 assert len(hist.records) == 2
+# the round and the store sharded over two CPU shards (repro_torch.launch.mesh)
+sampler = Algorithm2Sampler(ds.population, 3, update_dim=d, device="cpu", store_mesh_spec="2x1")
+cfg = FLConfig(n_rounds=2, n_local_steps=3, batch_size=4, mesh_spec="2x1")
+with FederatedServer(ds, sampler, params, sgd(0.05), cfg, device="cpu") as srv:
+    hist = srv.run()
+assert len(hist.records) == 2 and srv.mesh.shape == {"data": 2, "model": 1}
 loaded = sorted(m for m in sys.modules if any(m == b or m.startswith(b + ".") for b in BLOCKED))
 assert not loaded, loaded
 print("ISOLATED")
