@@ -5399,10 +5399,231 @@ def kernels_last_card(torch) -> None:
           f"{SRP_RTOL}); flash bf16 {FLASH_PATH} {out['flash']:.3e}")
 
 
+# ---------------------------------------------------------------------------
+# train_sharded: the train step over a 2 × 2 mesh under build_shardings' placements
+# ---------------------------------------------------------------------------
+TRAIN_SHARDED = dict(steps=3, mesh=(2, 2))  # TRAIN's arch, batch, seq and lr
+TRAIN_SHARDED_GATE_LAYERS = 2  # the f32 gate: qwen3-0.6b cut to 2 layers, TF32 off
+TRAIN_SHARDED_ATOL = 3e-5  # the trainers' limit on parameters and moments ...
+TRAIN_SHARDED_TINY = 10 * 1e-8  # ... the lr where a step's gradient entry is below 10·ε ...
+# ... and, on the card at full width, where an entry's gradient is within a few dozen times
+# the reduction-order noise of the 4,096-token sums (~5e-8 absolute): every entry within lr,
+# those beyond the atol (tiny gradients aside) under this share of all entries (6.6e-6 on an
+# H100: 3,703 of 561,136,128 entries, each under lr)
+TRAIN_SHARDED_SHARE = 1e-4
+TRAIN_SHARDED_RTOL = 1e-5  # the f32 gate's losses and gradient norms, relative
+TRAIN_SHARDED_BF16_RTOL = 2.0**-7  # full width in bf16: reported against it, decides nothing
+TRAIN_SHARDED_P = 193_101_824  # qwen3-0.6b's parameter elements a position holds on a 2 × 2 mesh
+
+
+def train_sharded_mesh(torch):
+    """A 2 × 2 (data, model) mesh of the visible cards in turn (cuda:{i % count})."""
+    import numpy as np
+
+    from repro_torch.launch.mesh import AXES, Mesh
+
+    d, m = TRAIN_SHARDED["mesh"]
+    count = torch.cuda.device_count()
+    devs = np.empty((d, m), dtype=object)
+    devs.flat[:] = [torch.device("cuda", i % count) for i in range(d * m)]
+    return Mesh(devs, AXES)
+
+
+def _train_sharded_pair(torch, cfg, mesh, label, track_tiny):
+    """TRAIN_SHARDED's steps of ``cfg`` from one random state, one card and
+    over ``mesh`` in turns, on the same batches. Returns both final states,
+    the metrics, step ms and launches of each, the peaks by card and, with
+    ``track_tiny``, each entry's smallest nonzero one-card gradient."""
+    import numpy as np
+
+    from repro_torch.data.tokens import TokenPipeline
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.launch import dryrun, sharding, steps
+    from repro_torch.launch.mesh import sync_mesh
+    from repro_torch.models import model as mdl
+    from repro_torch.models.config import InputShape
+    from repro_torch.optim import adamw, linear_warmup_cosine
+
+    n = TRAIN_SHARDED["steps"]
+    opt = adamw(linear_warmup_cosine(TRAIN["lr"], 1, n))
+    shape = InputShape(label, TRAIN["seq"], TRAIN["batch"], "train")
+    (state_sh, _), _, _ = dryrun.build_shardings(cfg, shape, mesh, "train", opt)
+    state = steps.init_train_state(mdl.init_params(cfg, 0, device=DEV), opt)
+    placed = sharding.place(state, state_sh)
+    one, sharded = steps.make_train_step(cfg, opt), steps.make_train_step(cfg, opt, mesh=mesh)
+    pipe = TokenPipeline(cfg.vocab_size, TRAIN["batch"], TRAIN["seq"], seed=3)
+    cards = sorted({d.index for d in mesh.devices.flat})
+    _sync_all(torch)
+    for c in cards:
+        torch.cuda.reset_peak_memory_stats(c)
+    _build.shard_launches.clear()
+    fa_ops.launches.update(flash_attention=0)
+    out = {"one": [], "sharded": [], "one_ms": [], "sharded_ms": [], "one_flash": 0}
+    tiny = None
+    for _ in range(n):
+        bt = pipe.next_batch()
+        batch = {k: torch.from_numpy(v).to(DEV, torch.int64)
+                 for k, v in (("tokens", bt.tokens), ("targets", bt.targets))}
+        mu_prev = {k: v.clone() for k, v in state["opt_state"]["mu"].items()} if track_tiny else None
+        before = fa_ops.launches["flash_attention"]
+        t0 = time.perf_counter()
+        state, m = one(state, batch)
+        torch.cuda.synchronize()
+        out["one_ms"].append((time.perf_counter() - t0) * 1e3)
+        out["one_flash"] += fa_ops.launches["flash_attention"] - before
+        out["one"].append({k: float(v) for k, v in m.items()})
+        if track_tiny:
+            tiny = tiny or {k: torch.full_like(v, math.inf) for k, v in mu_prev.items()}
+            for k, t in tiny.items():
+                g = (state["opt_state"]["mu"][k] - 0.9 * mu_prev[k]).abs() / 0.1
+                tiny[k] = torch.where(g > 0, torch.minimum(t, g), t)
+            del mu_prev
+        pb = sharding.place(batch, sharding.batch_shardings(mesh, batch))
+        t0 = time.perf_counter()
+        placed, m = sharded(placed, pb)
+        sync_mesh(mesh)
+        out["sharded_ms"].append((time.perf_counter() - t0) * 1e3)
+        out["sharded"].append({k: float(v) for k, v in m.items()})
+    out["peaks"] = {c: torch.cuda.max_memory_allocated(c) for c in cards}
+    out["flash_by_position"] = [_build.shard_launches[("flash_attention", p)]
+                                for p in range(mesh.devices.size)]
+    return state, placed, tiny, out
+
+
+def _replicas_equal(torch, placed_state) -> bool:
+    """Whether every two positions holding the same slices of a leaf hold the same bits."""
+    from repro_torch.launch import sharding
+
+    for leaf in sharding.leaves(placed_state):
+        first = {}
+        for pos, block in enumerate(leaf.blocks):
+            key = tuple((s.start, s.stop) for s in leaf.index(pos))
+            if key in first and not torch.equal(first[key], block.to(first[key].device)):
+                return False
+            first.setdefault(key, block)
+    return True
+
+
+def train_sharded_gate(torch, mesh) -> None:
+    """The gate that decides: qwen3-0.6b cut to TRAIN_SHARDED_GATE_LAYERS
+    layers in f32, sharded against one card over TRAIN_SHARDED's steps:
+    every parameter and moment within the lr, and within TRAIN_SHARDED_ATOL
+    but for entries whose one-card gradient was nonzero and below 10·ε and
+    under TRAIN_SHARDED_SHARE of the others (an entry whose gradient is at
+    the noise of the batch's reduction order takes an AdamW step of another
+    size); every loss and the first step's gradient norm (the same
+    parameters, the batch split alone) within TRAIN_SHARDED_RTOL;
+    replicated blocks bit-equal."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    cfg = dataclasses.replace(get_config(TRAIN["arch"]), n_layers=TRAIN_SHARDED_GATE_LAYERS,
+                              dtype="float32")
+    state, placed, tiny, out = _train_sharded_pair(torch, cfg, mesh, "train_sharded[gate]", True)
+    worst, n_tiny, n_over, total, biggest = 0.0, 0, 0, 0, 0.0
+    for part, want_tree, got_tree in (("params", dict(state["params"].named_parameters()), placed["params"]),
+                                      ("mu", state["opt_state"]["mu"], placed["opt_state"]["mu"]),
+                                      ("nu", state["opt_state"]["nu"], placed["opt_state"]["nu"])):
+        for k, want in want_tree.items():
+            small = tiny[k] < TRAIN_SHARDED_TINY
+            diff = (got_tree[k].gather(want.device) - want.detach()).abs()
+            if not bool((diff <= TRAIN["lr"]).all()):
+                fail(f"train_sharded[gate]: {part} {k} differs from the one-card step's by "
+                     f"{float(diff.max())}, beyond the lr")
+            over = (diff > TRAIN_SHARDED_ATOL) & ~small
+            worst = max(worst, float(torch.where(small | over, 0.0, diff).max()))
+            biggest = max(biggest, float(diff.max()))
+            n_tiny, n_over = n_tiny + int(small.sum()), n_over + int(over.sum())
+            total += small.numel()
+    rel = {k: [abs(a[k] - b[k]) / abs(b[k]) for a, b in zip(out["sharded"], out["one"])]
+           for k in ("loss", "grad_norm")}
+    print(f"train_sharded[gate]: {cfg.name} cut to {cfg.n_layers} layers, f32, TF32 off, "
+          f"{TRAIN_SHARDED['steps']} steps of {TRAIN['batch']} × {TRAIN['seq']}: losses "
+          f"{[r['loss'] for r in out['sharded']]} (one card {[r['loss'] for r in out['one']]}); "
+          f"relative Δ by step: loss {['%.3e' % x for x in rel['loss']]}, grad norm "
+          f"{['%.3e' % x for x in rel['grad_norm']]} (limit {TRAIN_SHARDED_RTOL} on every loss and "
+          f"the first grad norm); of the {total} entries of params, mu and nu, {n_tiny} had a "
+          f"gradient below 10·ε and {n_over} others ({n_over / total:.3e}, limit "
+          f"{TRAIN_SHARDED_SHARE}) differ by more than {TRAIN_SHARDED_ATOL}; max |Δ| "
+          f"{biggest:.3e} (limit lr {TRAIN['lr']}), {worst:.3e} over the rest")
+    if not all(v <= TRAIN_SHARDED_RTOL for v in rel["loss"] + rel["grad_norm"][:1]):
+        fail(f"train_sharded[gate]: losses or the first gradient norm beyond {TRAIN_SHARDED_RTOL}: {rel}")
+    if n_over > TRAIN_SHARDED_SHARE * total:
+        fail(f"train_sharded[gate]: {n_over} of {total} entries beyond {TRAIN_SHARDED_ATOL}")
+    if not _replicas_equal(torch, placed):
+        fail("train_sharded[gate]: replicated blocks differ between positions")
+
+
+def train_sharded(torch, mesh) -> dict:
+    """The f32 gate, then qwen3-0.6b at full width (TRAIN's batch and lr,
+    bf16 over f32 parameters, remat on) over ``mesh`` against one card:
+    losses and gradient norms side by side, bytes by position against
+    param_shardings' counts, peak memory by card, step ms in turns, B4's
+    launches. Returns the sharded run's B4 launches."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import sharding, steps
+
+    t0 = time.perf_counter()
+    train_sharded_gate(torch, mesh)
+    torch.cuda.empty_cache()
+    cfg = get_config(TRAIN["arch"])
+    state, placed, _, out = _train_sharded_pair(torch, cfg, mesh, "train_sharded", False)
+    like = steps.abstract_params(cfg)
+    shards = sharding.param_shardings(mesh, like)
+    per = sum(int(np.prod(sharding.shard_shape(shards[k], p.shape)))
+              for k, p in like.named_parameters())
+    counts = {part: sharding.bytes_by_position(tree) for part, tree in
+              (("params", placed["params"]), ("mu", placed["opt_state"]["mu"]),
+               ("nu", placed["opt_state"]["nu"]))}
+    groups = len({p for p, n in enumerate(out["flash_by_position"]) if n})
+    per_step = cfg.n_layers * (2 if cfg.remat else 1)
+    want_flash = per_step * groups * TRAIN_SHARDED["steps"]
+    for key in ("loss", "grad_norm"):
+        one = [r[key] for r in out["one"]]
+        got = [r[key] for r in out["sharded"]]
+        rel = max(abs(a - b) / abs(b) for a, b in zip(got, one))
+        print(f"train_sharded: {key} over {mesh.devices.shape} {got}, one card {one}: relative "
+              f"{rel:.3e} ({'within' if rel <= TRAIN_SHARDED_BF16_RTOL else 'beyond'} the bf16 "
+              f"limit {TRAIN_SHARDED_BF16_RTOL}, which decides nothing)")
+    print(f"train_sharded: {cfg.name} full width, {cfg.dtype} over {cfg.param_dtype}, remat "
+          f"{cfg.remat}, on {[str(d) for d in mesh.devices.flat]}; bytes by position: "
+          + "; ".join(f"{k} {v}" for k, v in counts.items())
+          + f" (param_shardings: {per} elements, {4 * per} B a position)")
+    print("train_sharded: peak memory by card "
+          + ", ".join(f"cuda:{c} {b} B ({b / 2**30:.2f} GiB)" for c, b in out["peaks"].items()))
+    print("train_sharded: step ms in turns (one card, sharded): "
+          + ", ".join(f"({a:.3f}, {b:.3f})" for a, b in zip(out["one_ms"], out["sharded_ms"])))
+    print(f"train_sharded: flash_attention launches by position {out['flash_by_position']} "
+          f"({sum(out['flash_by_position'])}, predicted {want_flash}: {per_step} a step on each of "
+          f"{groups} data groups); one card {out['one_flash']} ({per_step} a step)")
+    if per != TRAIN_SHARDED_P or any(b != [4 * per] * mesh.devices.size for b in counts.values()):
+        fail(f"train_sharded: bytes by position {counts}, expected {4 * TRAIN_SHARDED_P} each")
+    if groups != TRAIN_SHARDED["mesh"][0] or sum(out["flash_by_position"]) != want_flash:
+        fail(f"train_sharded: flash launches by position {out['flash_by_position']}")
+    if out["one_flash"] != per_step * TRAIN_SHARDED["steps"]:
+        fail(f"train_sharded: {out['one_flash']} one-card flash launches")
+    if not all(math.isfinite(r[k]) for r in out["one"] + out["sharded"] for k in ("loss", "grad_norm")):
+        fail("train_sharded: a loss or gradient norm is not finite")
+    if not all(bool(torch.isfinite(b).all()) for leaf in sharding.leaves(placed["params"])
+               for b in leaf.blocks):
+        fail("train_sharded: a parameter is not finite after the steps")
+    if not _replicas_equal(torch, placed):
+        fail("train_sharded: replicated blocks differ between positions")
+    del state, placed
+    print(f"train_sharded: {time.perf_counter() - t0:.3f} s")
+    return {"flash_attention": sum(out["flash_by_position"]), "step_ms": out["sharded_ms"],
+            "one_ms": out["one_ms"], "peaks": out["peaks"]}
+
+
 def phase_sharded(torch, ds) -> dict:
     """The slice's MNIST runs under mesh_spec "auto" and over a 4-shard
     mesh, the federated LM at qwen3-0.6b's full width over the same mesh,
-    and the kernels on the last card. Returns the phase's launches."""
+    the train step over a 2 × 2 mesh (train_sharded) and the kernels on
+    the last card. Returns the phase's launches."""
     t0 = time.perf_counter()
     mesh = shard_mesh(torch)
     print(f"sharded: {SHARDS} data shards on {[str(d) for d in mesh.devices.flat]} "
@@ -5416,6 +5637,8 @@ def phase_sharded(torch, ds) -> dict:
             launches[k] += got[k]
         launches["flash_attention"] = launches.get("flash_attention", 0) + got["flash_attention"]
         torch.cuda.empty_cache()
+    launches["train_sharded"] = train_sharded(torch, train_sharded_mesh(torch))["flash_attention"]
+    torch.cuda.empty_cache()
     kernels_last_card(torch)
     print(f"sharded: {time.perf_counter() - t0:.3f} s")
     return launches
@@ -5550,6 +5773,7 @@ def main(argv=()) -> int:
             row["train_extras_launches"] = train_extras["vl"]["flash"]
             row["fl_vl_launches"] = fl_vl["launches"]["flash_attention"]
             row["sharded_launches"] = sharded["flash_attention"]
+            row["train_sharded_launches"] = sharded["train_sharded"]
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,

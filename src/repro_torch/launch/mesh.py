@@ -145,12 +145,18 @@ def mesh_chips(mesh: Mesh) -> int:
     return mesh.devices.size
 
 
-def data_groups(mesh: Mesh) -> list:
-    """The devices of each data group, groups in batch-axis order."""
+def data_group_positions(mesh: Mesh) -> list:
+    """The mesh positions (indices into ``mesh.devices.flat``) of each data
+    group, groups in batch-axis order."""
     batch = [mesh.axis_names.index(a) for a in batch_axes(mesh)]
     rest = [i for i in range(len(mesh.axis_names)) if i not in batch]
-    devs = mesh.devices.transpose(batch + rest).reshape(data_parallel_degree(mesh), -1)
-    return [list(row) for row in devs]
+    pos = np.arange(mesh.devices.size).reshape(mesh.devices.shape)
+    return [row.tolist() for row in pos.transpose(batch + rest).reshape(data_parallel_degree(mesh), -1)]
+
+
+def data_groups(mesh: Mesh) -> list:
+    """The devices of each data group, groups in batch-axis order."""
+    return [[mesh.devices.flat[p] for p in row] for row in data_group_positions(mesh)]
 
 
 def group_devices(mesh: Mesh) -> list:

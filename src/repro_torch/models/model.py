@@ -234,7 +234,7 @@ def reference_tree(params: LM, tensors: dict) -> dict:
     return tree
 
 
-def _flat_runs(params: LM) -> list[tuple[str, int]]:
+def flat_runs(params: LM) -> list[tuple[str, int]]:
     """(parameter name, offset) of each of an LM's tensors in its flat vector."""
     named = dict(params.named_parameters())
     runs, off = [], 0
@@ -252,7 +252,7 @@ def flatten_lm(params: LM) -> torch.Tensor:
     named = dict(params.named_parameters())
     out = params.embed.new_empty(sum(p.numel() for p in named.values()))
     with torch.no_grad():
-        for n, off in _flat_runs(params):
+        for n, off in flat_runs(params):
             p = named[n]
             out[off:off + p.numel()].view(p.shape).copy_(p)
     return out
@@ -263,7 +263,7 @@ def lm_views(flat: torch.Tensor, like: LM) -> LM:
     parameters are views into ``flat`` (no copy; writing them writes it)."""
     named = dict(like.named_parameters())
     views = {n: flat[off:off + named[n].numel()].view(named[n].shape)
-             for n, off in _flat_runs(like)}
+             for n, off in flat_runs(like)}
     blocks = [blk.as_module(_view_tree(block, f"blocks.{i}", views))
               for i, block in enumerate(like.blocks)]
     encoder = None
@@ -437,9 +437,9 @@ def init_cache(
 ) -> Cache:
     """Zero decode-state for every block: ``{"layers": [...], "pos": 0}``;
     an encoder-decoder's blocks hold cross-attention's ``ck`` / ``cv`` over
-    the encoder's ``n_frames``."""
+    the encoder's ``n_frames``. ``device="meta"`` builds the shapes only."""
     check_ported(cfg)
-    dev = resolve_device(device)
+    dev = _device(device)
     dtype = dtype or getattr(torch, cfg.dtype)
     cross_len = cfg.encoder.n_frames if cfg.encoder is not None else 0
     return {

@@ -610,3 +610,40 @@ def test_async_planner_builds_on_the_stores_card(last_card):
             s.sample(1)
             plans[dev.index] = np.array(s.plan.r_tokens)
     np.testing.assert_array_equal(plans[last_card.index], plans[0])
+
+
+def test_sharded_train_step_tallies_b4_at_each_data_groups_position(cuda):
+    """One train step of the reduced qwen3-0.6b (f32) over a 2 × 2 mesh of
+    the visible cards in turn (four positions on card 0 with one card): B4
+    launches once a layer at positions 0 and 2, the first of each data
+    group, and nowhere else; on two cards or more each position's blocks
+    sit on that position's card."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import _build
+    from repro_torch.launch import dryrun, sharding, steps
+    from repro_torch.launch.mesh import AXES, Mesh
+    from repro_torch.models import model as mdl
+    from repro_torch.models.config import InputShape
+
+    count = torch.cuda.device_count()
+    devs = np.empty((2, 2), dtype=object)
+    devs.flat[:] = [torch.device("cuda", i % count) for i in range(4)]
+    mesh = Mesh(devs, AXES)
+    cfg = get_config("qwen3-0.6b", reduced=True)
+    opt = steps.default_optimizer()
+    (state_sh, _), _, _ = dryrun.build_shardings(cfg, InputShape("t", 64, 4, "train"), mesh, "train", opt)
+    state = sharding.place(steps.init_train_state(mdl.init_params(cfg, 0, device="cpu"), opt), state_sh)
+    g = torch.Generator().manual_seed(0)
+    batch = {k: torch.randint(0, cfg.vocab_size, (4, 64), generator=g) for k in ("tokens", "targets")}
+    step = steps.make_train_step(cfg, opt, mesh=mesh)
+    _build.shard_launches.clear()
+    state, m = step(state, sharding.place(batch, sharding.batch_shardings(mesh, batch)))
+    for d in range(count):
+        torch.cuda.synchronize(d)
+    got = [_build.shard_launches[("flash_attention", pos)] for pos in range(4)]
+    assert got == [cfg.n_layers, 0, cfg.n_layers, 0]
+    assert np.isfinite(float(m["loss"])) and m["loss"].device == mesh.devices.flat[0]
+    if count >= 2:
+        for placed in sharding.leaves(state):
+            for pos, block in enumerate(placed.blocks):
+                assert block.device == mesh.devices.flat[pos]

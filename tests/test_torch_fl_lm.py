@@ -165,19 +165,15 @@ def test_a_client_drawn_twice_keeps_its_first_draws_update(monkeypatch):
 
 
 def test_mesh_tooling_raises_naming_a13():
-    """What is left of the mesh tooling raises naming A13: the TPU pod's
-    production mesh (A13.3) and the train step's placements (A13.2). The
-    round's own (``fl_input_specs``, ``fl_round_shardings``, ``mesh=``)
-    are ported (tests/test_torch_fl_sharded.py)."""
-    from repro_torch.launch import mesh, steps
+    """What is left of the mesh tooling raises naming A13.3: the TPU pod's
+    production mesh. The round's placements (``fl_input_specs``,
+    ``fl_round_shardings``, ``mesh=``) and the train step's (A13.2) are
+    ported (tests/test_torch_fl_sharded.py, tests/test_torch_sharding.py)."""
+    from repro_torch.launch import mesh
 
-    _, cfg = configs()
-    with pytest.raises(NotImplementedError, match="A13.3"):
-        mesh.make_production_mesh()
-    for fn in (steps.input_specs, steps.abstract_params, steps.abstract_train_state,
-               steps.fl_engine_input_specs, steps.fl_engine_shardings, steps.make_fl_engine_step):
-        with pytest.raises(NotImplementedError, match="A13.2"):
-            fn(cfg)
+    for kw in ({}, {"multi_pod": True}):
+        with pytest.raises(NotImplementedError, match="A13.3"):
+            mesh.make_production_mesh(**kw)
 
 
 def test_sampler_spec_and_planner_spec_resolve_as_the_reference():
