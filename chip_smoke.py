@@ -341,7 +341,31 @@ Phases, one line (or a few) each; any failure raises and exits non-zero:
    gradient within 1e-5 of their scale, ms and peak memory of each; then
    two qwen3-0.6b train steps (bf16 over f32, remat on) at bq 512 against
    1,024: the first step's loss within 1e-3 relative, the loss, gradient
-   norm, the second step's ms and peak memory printed.
+   norm, the second step's ms and peak memory printed;
+27. dryrun — (after sharded; alone as ``python3 chip_smoke.py dryrun``)
+   the dry-run's counting (``launch/roofline.py``) held to the card:
+   qwen3-0.6b's train step at TRAIN's 4 × 1,024 on one position and over
+   train_sharded's 2 × 2 mesh (3 steps), qwen2-1.5b's prefill at the serve
+   shape and one federated round at fl_lm's shapes (one local step) over
+   the sharded phase's mesh, each counted on the card and on meta tensors over the same mesh
+   (a process a step, started with the phase, done before any step is timed):
+   FLOPs, bytes accessed, B4's and B2's calls and work and the bytes moved,
+   by position, equal; each kernel's calls in each step equal to its
+   wrapper's launches (zeroed before the step), by position on the meshes;
+   the 2 × 2 mesh's parameter bytes by position against the placements;
+   the one-position train step's and the prefill's counted peaks within
+   10 % of ``max_memory_allocated``; each step's median ms in turns, with
+   nothing else running, beside its MFU (model FLOPs at the H100 SXM data
+   sheet's bf16 peak), its least-work bound (the counted FLOPs at the peak,
+   each argument read and each output written once) and its per-op bound
+   (every op's bytes, a diagnostic). Alone, then the host's records:
+   ``launch.dryrun`` on the 16 × 16 meta mesh for qwen3-0.6b ``train_4k``,
+   qwen2-1.5b ``prefill_32k`` and deepseek-v2-lite-16b ``decode_32k`` and
+   ``launch.dryrun_fl`` for qwen3-0.6b (N = 8, sync planner), each
+   record's per-chip FLOPs, bytes, moved bytes by kind, HBM, terms,
+   dominant term and seconds (in the whole run they are left to this mode
+   and to ``python -m repro_torch.launch.dryrun``: counting them takes
+   ~6 minutes of the host, beside which no step time would hold).
 
 The last lines are the card's name and power limit (nvidia-smi), a JSON
 object with one entry per kernel and shape (with the paper, zoo, sched
@@ -359,14 +383,16 @@ train_recurrent's, serve_vl's and train_extras' (qwen2-vl's) as
 ``serve_xlstm_launches``, ``train_recurrent_launches``,
 ``serve_vl_launches`` and ``train_extras_launches`` for the flash row;
 serve_whisper's as the launches of the ``flash_attention_whisper`` row,
-with whisper's train_extras launches as its ``train_extras_launches``, and
-the bench phase's as ``bench_launches`` for the Gram, L1, aggregate, SRP
-and flash rows),
+with whisper's train_extras launches as its ``train_extras_launches``, the
+bench phase's as ``bench_launches`` for the Gram, L1, aggregate, SRP and
+flash rows, and the dryrun phase's wrapper launches as ``dryrun_launches``
+for the aggregate and flash rows),
 and ``{"ok": true, "device": ...}``.
 The script imports neither JAX nor the JAX package ``repro``.
 """
 from __future__ import annotations
 
+import collections
 import ctypes
 import json
 import math
@@ -5644,6 +5670,531 @@ def phase_sharded(torch, ds) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# dryrun: the dry-run's counts on the production mesh, and the counting held
+# to the card
+# ---------------------------------------------------------------------------
+DRYRUN_HOST = [("qwen3-0.6b", "train_4k"), ("qwen2-1.5b", "prefill_32k"),
+               ("deepseek-v2-lite-16b", "decode_32k")]
+DRYRUN_FL = dict(arch="qwen3-0.6b", local_steps=8, planner="sync")
+DRYRUN_DIR = ROOT / "build" / "dryrun"
+DRYRUN_META = ROOT / "build" / "dryrun_meta.json"
+DRYRUN_HOST_S = 1000  # the host processes' limit
+DRYRUN_META_S = 600  # the meta counts' limit
+DRYRUN_PEAK_RTOL = 0.10  # counted peak against max_memory_allocated
+DRYRUN_REPS = 3  # timed steps of each kind, in turns
+DRYRUN_FL_REPS = 2
+DRYRUN_ROUND_STEPS = 1  # the counted round's local steps: fl_lm's shapes, cut from 4 for time
+
+
+def _start_host(cmds: dict) -> dict:
+    """Start ``python3 <args>`` for each label -> args of ``cmds``, at the
+    lowest priority, with the port on the path; returns label -> process.
+    A run that fails before it waits for them stops them all the same."""
+    import atexit
+    import os
+
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    procs = {label: subprocess.Popen([sys.executable, *cmd], cwd=ROOT, env=env,
+                                     stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                                     preexec_fn=lambda: os.nice(19))
+             for label, cmd in cmds.items()}
+    atexit.register(lambda: [p.kill() for p in procs.values() if p.poll() is None])
+    return procs
+
+
+def _meta_path(label: str) -> Path:
+    return DRYRUN_META.with_name(f"{DRYRUN_META.stem}_{label}.json")
+
+
+def start_dryrun_meta(cards: int) -> dict:
+    """:func:`dryrun_meta_counts` of each of :func:`dryrun_steps`' labels
+    for ``cards`` cards, a process each (into :func:`_meta_path`)."""
+    DRYRUN_META.parent.mkdir(parents=True, exist_ok=True)
+    cmds = {}
+    for label in DRYRUN_STEPS:
+        _meta_path(label).unlink(missing_ok=True)
+        cmds[f"meta counts[{label}]"] = [
+            "-c", f"import chip_smoke; chip_smoke.dryrun_meta_counts("
+                  f"{str(_meta_path(label))!r}, {int(cards)}, {label!r})"]
+    return _start_host(cmds)
+
+
+def start_dryrun_host() -> dict:
+    """The host's records, one process each: ``launch.dryrun`` on the
+    16 × 16 meta mesh for DRYRUN_HOST and ``launch.dryrun_fl`` for
+    DRYRUN_FL, into DRYRUN_DIR."""
+    import shutil
+
+    shutil.rmtree(DRYRUN_DIR, ignore_errors=True)
+    DRYRUN_DIR.mkdir(parents=True)
+    out = ["--out", str(DRYRUN_DIR)]
+    cmds = {f"{a} {s}": ["-m", "repro_torch.launch.dryrun", "--arch", a, "--shape", s, *out]
+            for a, s in DRYRUN_HOST}
+    cmds[f"{DRYRUN_FL['arch']} fl_round"] = [
+        "-m", "repro_torch.launch.dryrun_fl", "--arch", DRYRUN_FL["arch"], "--local-steps",
+        str(DRYRUN_FL["local_steps"]), "--planner", DRYRUN_FL["planner"], *out]
+    return _start_host(cmds)
+
+
+def dryrun_wait(procs: dict, limit: float) -> None:
+    """Wait for every process of ``procs``; fail on one that failed or ran
+    past ``limit`` seconds."""
+    for label, proc in procs.items():
+        try:
+            out, _ = proc.communicate(timeout=limit)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.communicate()
+            fail(f"dryrun: {label} ran past {limit} s")
+        for line in out.strip().splitlines()[-2:]:
+            print(f"dryrun[host]: {line}")
+        if proc.returncode:
+            fail(f"dryrun: {label} exited {proc.returncode}:\n{out[-3000:]}")
+
+
+def dryrun_host() -> None:
+    """Print each host record: per-chip FLOPs, bytes, moved bytes by kind,
+    HBM, the three terms, the dominant one and the seconds it took."""
+    paths = sorted(DRYRUN_DIR.glob("*.json"))
+    for path in paths:
+        r = json.loads(path.read_text())
+        moved = {k: v["bytes"] for k, v in r["coll_detail"].items() if v["bytes"]}
+        if r["kind"] == "fl_round":
+            print(f"dryrun[host]: {r['arch']} {r['shape']} mesh {r['mesh']}: m {r['m_clients']}, "
+                  f"FLOPs a chip a local step {r['flops_per_chip_per_local_step']:.4e}, moved a "
+                  f"round {r['coll_bytes_per_chip_per_round']:.4e} B by kind {moved}, "
+                  f"t_collective a step {r['t_collective_per_step'] * 1e3:.3f} ms, hbm "
+                  f"{r['hbm_per_chip_gb']} GiB, planner feed {r['planner_feed_bytes']} B "
+                  f"({r['compile_s']} s)")
+            continue
+        print(f"dryrun[host]: {r['arch']} {r['shape']} mesh {r['mesh']} ({r['kind']}): FLOPs a "
+              f"chip {r['flops_per_chip']:.4e}, bytes {r['bytes_per_chip']:.4e}, moved "
+              f"{r['coll_bytes_per_chip']:.4e} B by kind {moved}, hbm {r['hbm_per_chip_gb']} GiB "
+              f"(args {r['arg_bytes_per_chip']:.4e}, temp {r['temp_bytes_per_chip']:.4e}, out "
+              f"{r['out_bytes_per_chip']:.4e}); t_compute {r['t_compute'] * 1e3:.3f} ms, "
+              f"t_memory {r['t_memory'] * 1e3:.3f} ms, t_collective {r['t_collective'] * 1e3:.3f} "
+              f"ms, dominant {r['dominant']}, MODEL/counted {r['utility_ratio']:.4f} "
+              f"({r['compile_s']} s)")
+    if len(paths) != len(DRYRUN_HOST) + 1:
+        fail(f"dryrun: {len(DRYRUN_HOST) + 1} host counts, records {paths}")
+
+
+def _counted(torch, step, args, positions=1, cuda=True):
+    """``step(*args)`` under the dry-run's counter: (summary, bytes by op,
+    ms, with ``cuda`` the step's peak over what was allocated before it)."""
+    from repro_torch.launch import roofline as rl
+
+    if cuda:
+        _sync_all(torch)
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    with rl.CostCounter(positions, placed=args) as counter:
+        out = step(*args)
+        if cuda:
+            _sync_all(torch)
+    ms = (time.perf_counter() - t0) * 1e3
+    del out
+    peak = torch.cuda.max_memory_allocated() - before if cuda else None
+    return counter.summary(), {str(k): v for k, v in counter.by_op.items()}, ms, peak
+
+
+def _card_against_meta(label, card, meta, card_ops, meta_ops) -> None:
+    """Fail unless the card's counts equal the meta run's: FLOPs, the hand
+    kernels' calls and work and the moved bytes by position, and the bytes
+    accessed, whose differences are printed by op first."""
+    for key in ("flops", "kernels", "moved", "colls", "pairs"):
+        if card[key] != meta[key]:
+            fail(f"{label}: {key} on the card {card[key]} against meta {meta[key]}")
+    diff = {op: (card_ops.get(op, 0), meta_ops.get(op, 0)) for op in set(card_ops) | set(meta_ops)
+            if card_ops.get(op, 0) != meta_ops.get(op, 0)}
+    print(f"{label}: card = meta: FLOPs {card['flops']}, bytes {card['bytes']}, moved "
+          f"{card['moved']}, kernels " + ", ".join(
+              f"{k} calls {v['calls']} FLOPs {v['flops']} bytes {v['bytes']}"
+              for k, v in card["kernels"].items())
+          + (f"; bytes by op that differ (card, meta): {diff}" if diff else ""))
+    if card["bytes"] != meta["bytes"]:
+        fail(f"{label}: bytes accessed differ by op: {diff}")
+
+
+def _card_of(mesh, position: int) -> int:
+    """The card index of a mesh position (0 without a mesh)."""
+    return 0 if mesh is None else (mesh.devices.flat[position].index or 0)
+
+
+def _by_card(counts, mesh) -> tuple:
+    """A step's counts by card: (FLOPs, bytes accessed where counted, a
+    copy between two positions of one card read and written in its HBM
+    (twice its bytes), the larger of what a card sends to and receives
+    from the others)."""
+    flops, nbytes = collections.Counter(), collections.Counter()
+    for p, f in enumerate(counts["flops"]):
+        flops[_card_of(mesh, p)] += f
+        nbytes[_card_of(mesh, p)] += counts["bytes"][p] if "bytes" in counts else 0
+    sent, received = collections.Counter(), collections.Counter()
+    for src, dst, moved in counts["pairs"]:
+        a, b = _card_of(mesh, src), _card_of(mesh, dst)
+        if a == b:
+            nbytes[a] += 2 * moved
+        else:
+            sent[a] += moved
+            received[b] += moved
+    return flops, nbytes, {c: max(sent[c], received[c]) for c in flops}
+
+
+def _largest_term(flops, nbytes, link) -> tuple[float, str]:
+    """(ms, term): the busiest card's largest term at the H100 SXM data
+    sheet's peaks (launch.roofline)."""
+    from repro_torch.launch import roofline as rl
+
+    terms = {"compute": max(flops.values()) / rl.PEAK_FLOPS * 1e3,
+             "memory": max(nbytes.values()) / rl.HBM_BW * 1e3,
+             "collective": max(link.values(), default=0) / rl.LINK_BW * 1e3}
+    dom = max(terms, key=terms.get)
+    return terms[dom], dom
+
+
+def _card_bound(counts, mesh=None) -> tuple[float, str]:
+    """(ms, term) of a step's per-op counts (every op's bytes) by card."""
+    return _largest_term(*_by_card(counts, mesh))
+
+
+def _storage_bytes(tree, seen: dict) -> dict:
+    """Card index -> bytes of the distinct storages of ``tree``'s tensors
+    (a Placed tensor's blocks, an LM's parameters and buffers), each once;
+    ``seen`` holds the storages already counted."""
+    import torch
+
+    from repro_torch.launch.sharding import Placed
+
+    out = collections.Counter()
+
+    def walk(x):
+        if isinstance(x, torch.Tensor):
+            st = x.untyped_storage()
+            key = (st.device, st.data_ptr())
+            if key not in seen:
+                seen[key] = st.nbytes()
+                out[st.device.index or 0] += st.nbytes()
+        elif isinstance(x, Placed):
+            for blk in x.blocks:
+                walk(blk)
+        elif isinstance(x, torch.nn.Module):
+            for t in (*x.parameters(), *x.buffers()):
+                walk(t)
+        elif isinstance(x, dict):
+            for v in x.values():
+                walk(v)
+        elif isinstance(x, (list, tuple)):
+            for v in x:
+                walk(v)
+
+    walk(tree)
+    return out
+
+
+def _least_bound(counts, mesh, args, out) -> tuple[float, str]:
+    """(ms, term) of a step's least work by card: its counted FLOPs, each
+    argument's storage read once and each output's written once, and the
+    bytes moved between cards."""
+    flops, _, link = _by_card({"flops": counts["flops"], "pairs": counts["pairs"]}, mesh)
+    io = _storage_bytes(args, {})
+    io.update(_storage_bytes(out, {}))
+    return _largest_term(flops, io, link)
+
+
+def _peak_check(label, args_bytes: int, counted: int, real: int) -> None:
+    want, got = args_bytes + real, args_bytes + counted
+    print(f"{label}: peak counted {got} B ({got / 2**30:.3f} GiB: arguments {args_bytes} B and the "
+          f"step's live bytes {counted} B) against the card's {want} B ({want / 2**30:.3f} GiB: "
+          f"the arguments and max_memory_allocated over what was allocated before the step, "
+          f"{real} B); relative {abs(got - want) / want:.4f} (limit {DRYRUN_PEAK_RTOL})")
+    if abs(got - want) > DRYRUN_PEAK_RTOL * want:
+        fail(f"{label}: counted peak {got} B against {want} B")
+
+
+def _nbytes(tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def _dryrun_mesh(shape, cards: int, meta: bool):
+    """A (data, model) mesh of ``shape`` over ``cards`` cards in turn
+    (cuda:{i % cards}), or its meta mirror: positions that share a card
+    share a meta device, as they share the card's storage and work."""
+    import numpy as np
+    import torch
+
+    from repro_torch.launch.mesh import AXES, Mesh, make_meta_mesh
+
+    cards = max(cards, 1)
+    if meta:
+        return make_meta_mesh(shape, AXES, cards=cards)
+    devs = np.empty(int(np.prod(shape)), dtype=object)
+    devs[:] = [torch.device(DEV, i % cards) for i in range(devs.size)]
+    return Mesh(devs.reshape(shape), AXES)
+
+
+DRYRUN_STEPS = ("train", "train_sharded", "prefill", "fl_round")
+
+
+def _dryrun_fl():
+    """fl_lm's round (FLLMConfig's defaults), DRYRUN_ROUND_STEPS local steps."""
+    import dataclasses
+
+    from repro_torch.launch import fl_train
+
+    return dataclasses.replace(fl_train.FLLMConfig(), n_local_steps=DRYRUN_ROUND_STEPS)
+
+
+def dryrun_steps(torch, meta: bool, cards: int) -> dict:
+    """The dryrun phase's four steps, label -> (step, args, mesh or None,
+    warm up first, steps counted), on the card with random parameters and
+    tokens, or with ``meta`` on meta tensors over the same meshes:
+    qwen3-0.6b's train step at TRAIN's batch on one position and over
+    train_sharded's 2 × 2 mesh (TRAIN_SHARDED's steps counted),
+    qwen2-1.5b's prefill at the serve shape, one federated round at
+    fl_lm's shapes (:func:`_dryrun_fl`) over the sharded phase's
+    SHARDS × 1 mesh."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun, fl_train, sharding, steps
+    from repro_torch.models import model as mdl
+    from repro_torch.models.config import InputShape
+
+    dev = "meta" if meta else DEV
+    gen = torch.Generator().manual_seed(5)
+
+    def params(cfg, seed):
+        return steps.abstract_params(cfg) if meta else mdl.init_params(cfg, seed, device=dev)
+
+    def tokens(shape, vocab):
+        if meta:
+            return torch.empty(shape, dtype=torch.int64, device="meta")
+        return torch.randint(0, vocab, shape, generator=gen).to(dev)
+
+    out = {}
+    opt = steps.default_optimizer()
+    cfg = get_config(TRAIN["arch"])
+    b, s = TRAIN["batch"], TRAIN["seq"]
+    batch = {"tokens": tokens((b, s), cfg.vocab_size), "targets": tokens((b, s), cfg.vocab_size)}
+    state = steps.init_train_state(params(cfg, 0), opt)
+    out["train"] = (steps.make_train_step(cfg, opt), (state, batch), None, True, 1)
+
+    mesh = _dryrun_mesh(TRAIN_SHARDED["mesh"], cards, meta)
+    (state_sh, batch_sh), _, _ = dryrun.build_shardings(
+        cfg, InputShape("dryrun", s, b, "train"), mesh, "train", opt)
+    out["train_sharded"] = (steps.make_train_step(cfg, opt, mesh=mesh),
+                            (sharding.place(state, state_sh), sharding.place(batch, batch_sh)),
+                            mesh, False, TRAIN_SHARDED["steps"])
+
+    pcfg = get_config(SERVE["arch"])
+    pshape = InputShape("serve", SERVE["prompt_len"], SERVE["batch"], "prefill")
+    prompts = {"tokens": tokens((SERVE["batch"], SERVE["prompt_len"]), pcfg.vocab_size)}
+    out["prefill"] = (steps.make_prefill_step(pcfg, pshape), (params(pcfg, 0), prompts), None, True,
+                      1)
+
+    fl = _dryrun_fl()
+    fmesh = _dryrun_mesh((SHARDS, 1), cards, meta)
+    toks = tokens((fl.m, fl.n_local_steps, fl.local_batch, fl.seq_len), cfg.vocab_size)
+    weights = torch.full((fl.m,), 1.0 / fl.m, device=dev)
+    out["fl_round"] = (fl_train.make_fl_round_step(cfg, fl.lr, fl.n_local_steps, mesh=fmesh),
+                       (params(cfg, 1), toks, toks, weights), fmesh, False, 1)
+    return out
+
+
+def _count_steps(torch, step, args, mesh, reps, cuda=True):
+    """:func:`_counted` of ``reps`` calls of ``step``."""
+    return _counted(torch, lambda *a: [step(*a) for _ in range(reps)], args,
+                    1 if mesh is None else mesh.devices.size, cuda=cuda)
+
+
+def dryrun_meta_counts(path: str, cards: int, label: str) -> None:
+    """The meta count of :func:`dryrun_steps`' ``label`` step, written to
+    ``path`` as JSON: run in a process of its own while the card counts
+    the same steps."""
+    import torch
+
+    step, args, mesh, _, reps = dryrun_steps(torch, True, cards)[label]
+    summary, ops, ms, _ = _count_steps(torch, step, args, mesh, reps, cuda=False)
+    Path(path).write_text(json.dumps({"counts": summary, "ops": ops, "ms": ms}))
+
+
+def _wrapper_launches() -> dict:
+    """The wrappers' own launch counts, by the name each reports its work
+    under."""
+    from repro_torch.kernels.aggregate import ops as agg_ops
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.similarity import ops as sim_ops
+    from repro_torch.kernels.sketch import ops as sk_ops
+
+    return {"flash_attention": fa_ops.launches, "aggregate": agg_ops.launches,
+            "gram": sim_ops.launches, "l1": sim_ops.launches, "srp": sk_ops.launches}
+
+
+def _launches_against_calls(label, card, mesh, launched: dict) -> None:
+    """Fail unless each kernel's calls in the counted step equal its
+    wrapper's launches in it (``launched``), and, over a mesh, the launches
+    tallied by position: every call launched the kernel on the card."""
+    from repro_torch.kernels import _build
+
+    n = len(card["flops"])
+    for k in sorted(set(card["kernels"]) | {k for k, v in launched.items() if v}):
+        calls = card["kernels"].get(k, {"calls": [0] * n})["calls"]
+        by_pos = [_build.shard_launches[(k, p)] for p in range(n)] if mesh is not None else None
+        print(f"dryrun[{label}]: {k} calls {calls}, launches {launched[k]}"
+              + (f", by position {by_pos}" if by_pos is not None else ""))
+        if sum(calls) != launched[k] or (by_pos is not None and calls != by_pos):
+            fail(f"dryrun[{label}]: {k} calls {calls} against launches {launched[k]}, "
+                 f"by position {by_pos}")
+
+
+def phase_dryrun(torch, name, host: bool) -> dict:
+    """The counting of launch/roofline.py held to the card: each of
+    :func:`dryrun_steps` counted on the card (each kernel's calls against
+    its wrapper's launches, zeroed before the step) and held equal to its
+    meta count (processes started with the phase, waited for before any
+    step is timed); the 2 × 2 mesh's B4 calls by position and its
+    parameter bytes by position against the placements; the one-position
+    train step's and the prefill's counted peaks against
+    max_memory_allocated; each step's median ms in turns, nothing else
+    running, beside its MFU, its least-work bound and its per-op bound at
+    the data sheet's peaks. With ``host``, then the host's records.
+    Returns the phase's B4 and B2 launches."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import _build
+    from repro_torch.launch import roofline as rl
+    from repro_torch.launch import sharding
+    from repro_torch.launch.mesh import sync_mesh
+
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    meta_proc = start_dryrun_meta(torch.cuda.device_count())
+    built = dryrun_steps(torch, False, torch.cuda.device_count())
+    wrappers = _wrapper_launches()
+    counted = {}
+    launches = {"flash_attention": 0, "aggregate": 0}
+    for label, (step, args, mesh, warm, reps) in built.items():
+        if warm:  # the kernels' libraries, cuBLAS's workspace
+            step(*args)
+        for d in wrappers.values():
+            d.update(dict.fromkeys(d, 0))
+        _build.shard_launches.clear()
+        card, ops, ms, real = _count_steps(torch, step, args, mesh, reps)
+        launched = {k: d[k] for k, d in wrappers.items()}
+        _launches_against_calls(label, card, mesh, launched)
+        for k in launches:
+            launches[k] += launched[k]
+        counted[label] = (card, ops, real)
+        print(f"dryrun[{label}]: {reps} step(s) counted on the card in {ms:.1f} ms")
+    dryrun_wait(meta_proc, DRYRUN_META_S)
+    meta = {label: json.loads(_meta_path(label).read_text()) for label in counted}
+    for label, (card, ops, real) in counted.items():
+        _card_against_meta(f"dryrun[{label}]", card, meta[label]["counts"], ops, meta[label]["ops"])
+        print(f"dryrun[{label}]: counted on meta in {meta[label]['ms']:.1f} ms")
+    for label, tensors in (("train", _train_state_tensors(built["train"][1])),
+                           ("prefill", list(built["prefill"][1][0].parameters())
+                            + list(built["prefill"][1][1].values()))):
+        card, _, real = counted[label]
+        _peak_check(f"dryrun[{label}]", _nbytes(tensors), card["peak"][0], real)
+    cfg = get_config(TRAIN["arch"])
+    per = cfg.n_layers * (2 if cfg.remat else 1) * TRAIN_SHARDED["steps"]
+    calls = counted["train_sharded"][0]["kernels"]["flash_attention"]["calls"]
+    if calls != [per, 0, per, 0]:
+        fail(f"dryrun[train_sharded]: B4 by position {calls}, want {[per, 0, per, 0]}")
+    placed = built["train_sharded"][1][0]["params"]
+    by_pos = sharding.bytes_by_position(placed)
+    want = sharding.placement_bytes({k: v.placement for k, v in placed.items()},
+                                    {k: torch.empty(v.shape, dtype=v.dtype, device="meta")
+                                     for k, v in placed.items()})
+    print(f"dryrun[train_sharded]: parameter bytes by position {by_pos}, placements {want}")
+    if by_pos != want or by_pos != [4 * TRAIN_SHARDED_P] * len(by_pos):
+        fail(f"dryrun[train_sharded]: parameter bytes {by_pos} against {want}")
+    agg = counted["fl_round"][0]["kernels"]["aggregate"]["calls"]
+    if agg != [1] * SHARDS:
+        fail(f"dryrun[fl_round]: B2 calls by position {agg}")
+
+    # model FLOPs (6·N·D a train token, 2·N·D a prefill token; N active)
+    fl = _dryrun_fl()
+    n_train = rl.active_params(built["train"][1][0]["params"], cfg)[1]
+    n_serve = rl.active_params(built["prefill"][1][0], get_config(SERVE["arch"]))[1]
+    model = {"train": rl.model_flops(n_train, TRAIN["batch"] * TRAIN["seq"], "train"),
+             "train_sharded": rl.model_flops(n_train, TRAIN["batch"] * TRAIN["seq"], "train"),
+             "prefill": rl.model_flops(n_serve, SERVE["batch"] * SERVE["prompt_len"], "prefill"),
+             "fl_round": rl.model_flops(n_train, fl.m * fl.n_local_steps * fl.local_batch
+                                        * fl.seq_len, "train")}
+
+    # times in turns, beside the bounds of a step's counts
+    times, least = {k: [] for k in built}, {}
+    for r in range(DRYRUN_REPS):
+        for k in (list(built) if r % 2 == 0 else list(built)[::-1]):
+            if k == "fl_round" and len(times[k]) >= DRYRUN_FL_REPS:
+                continue
+            step, args, mesh, _, reps = built[k]
+            _sync_all(torch)
+            t1 = time.perf_counter()
+            out = step(*args)
+            sync_mesh(mesh) if mesh is not None else torch.cuda.synchronize()
+            times[k].append((time.perf_counter() - t1) * 1e3)
+            if k not in least:
+                one = {"flops": [f // reps for f in counted[k][0]["flops"]],
+                       "pairs": [[a, b, n / reps] for a, b, n in counted[k][0]["pairs"]]}
+                least[k] = _least_bound(one, mesh, args, out)
+            del out
+    for k, (counts, _, _) in counted.items():
+        reps, mesh = built[k][4], built[k][2]
+        one = {key: [v / reps for v in counts[key]] for key in ("flops", "bytes")}
+        one["pairs"] = [[a, b, n / reps] for a, b, n in counts["pairs"]]
+        bound, term = _card_bound(one, mesh)
+        lbound, lterm = least[k]
+        cards = 1 if mesh is None else len({_card_of(mesh, p) for p in range(mesh.devices.size)})
+        med = float(np.median(times[k]))
+        peak_ms = med * 1e-3 * rl.PEAK_FLOPS * cards
+        print(f"dryrun[times]: {k} {med:.3f} ms median of {[round(x, 3) for x in times[k]]} (in "
+              f"turns, nothing else running); mfu {model[k] / peak_ms:.4f} (model FLOPs "
+              f"{model[k]:.4e}), counted FLOPs {sum(one['flops']) / peak_ms:.4f} of the peak; "
+              f"least-work bound {lbound:.3f} ms ({lterm}), share {lbound / med:.4f}; per-op bound "
+              f"{bound:.3f} ms ({term}; every op's bytes, a diagnostic), share {bound / med:.4f}; "
+              f"at the H100 SXM data sheet's 989 TFLOP/s bf16, 3.35 TB/s, 450 GB/s; {name}")
+    del built, counted
+    torch.cuda.empty_cache()
+    if host:
+        t1 = time.perf_counter()
+        dryrun_wait(start_dryrun_host(), DRYRUN_HOST_S)
+        dryrun_host()
+        print(f"dryrun[host]: the four records in {time.perf_counter() - t1:.3f} s")
+    else:
+        print("dryrun[host]: the 16 × 16 records are left to `chip_smoke.py dryrun` and "
+              "`python -m repro_torch.launch.dryrun` (minutes of host counting)")
+    print(f"dryrun: {time.perf_counter() - t0:.3f} s")
+    return launches
+
+
+def _train_state_tensors(args) -> list:
+    """The tensors of a one-card train step's state and batch."""
+    state, batch = args
+    opt = state["opt_state"]
+    return (list(state["params"].parameters()) + list(opt["mu"].values())
+            + list(opt["nu"].values()) + [opt["count"], state["step"]] + list(batch.values()))
+
+
+def dryrun_only(torch) -> int:
+    """``python3 chip_smoke.py dryrun``: the dryrun phase alone, the
+    kernels' build first."""
+    t0 = time.perf_counter()
+    phase_build()
+    name = torch.cuda.get_device_name(0)
+    print(f"dryrun: launches {json.dumps(phase_dryrun(torch, name, host=True))}")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=index,name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip()
+    print(f"total: {time.perf_counter() - t0:.3f} s")
+    print(smi)
+    return 0
+
+
 def sharded_only(torch) -> int:
     """``python3 chip_smoke.py sharded``: the sharded phase and what it is
     held to (the slice runs, fl_lm's first rounds at full width) alone,
@@ -5667,8 +6218,8 @@ def sharded_only(torch) -> int:
 def main(argv=()) -> int:
     import torch
 
-    if list(argv) not in ([], ["sharded"]):
-        print(f"chip_smoke: unknown arguments {list(argv)}; run with none, or 'sharded'",
+    if list(argv) not in ([], ["sharded"], ["dryrun"]):
+        print(f"chip_smoke: unknown arguments {list(argv)}; run with none, 'sharded' or 'dryrun'",
               file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
@@ -5685,6 +6236,8 @@ def main(argv=()) -> int:
     torch.backends.cudnn.allow_tf32 = False
     if list(argv) == ["sharded"]:
         return sharded_only(torch)
+    if list(argv) == ["dryrun"]:
+        return dryrun_only(torch)
     name = torch.cuda.get_device_name(0)
     gen = torch.Generator().manual_seed(0)
     t0 = time.perf_counter()
@@ -5726,6 +6279,7 @@ def main(argv=()) -> int:
     trained = phase_train(torch, gen, name)
     fl_lm = phase_fl_lm(torch, name)
     sharded = phase_sharded(torch, ds)
+    dryrun_launches = phase_dryrun(torch, name, host=False)
     moe_row["launches"] = phase_serve_moe(torch)["flash"]
     serve_mla = phase_serve_mla(torch)
     train_moe = phase_train_moe(torch, name)
@@ -5756,6 +6310,8 @@ def main(argv=()) -> int:
             row["fl_xlstm_launches"] = fl_xlstm["launches"][key]
             row["fl_vl_launches"] = fl_vl["launches"][key]
             row["sharded_launches"] = sharded[key]
+        if row["name"] == "aggregate":
+            row["dryrun_launches"] = dryrun_launches["aggregate"]
         key = {"similarity_gram": "gram", "similarity_l1": "l1", "aggregate": "aggregate"}.get(row["name"])
         if key is not None:
             row["ablations_launches"] = ablations[key]
@@ -5774,6 +6330,7 @@ def main(argv=()) -> int:
             row["fl_vl_launches"] = fl_vl["launches"]["flash_attention"]
             row["sharded_launches"] = sharded["flash_attention"]
             row["train_sharded_launches"] = sharded["train_sharded"]
+            row["dryrun_launches"] = dryrun_launches["flash_attention"]
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,

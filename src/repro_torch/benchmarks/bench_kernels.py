@@ -36,10 +36,13 @@ import numpy as np
 import torch
 
 from repro_torch.benchmarks.common import emit, parse_with_device, timed
+from repro_torch.kernels.aggregate import ops as agg_ops
 from repro_torch.kernels.aggregate.ops import aggregate_flat
 from repro_torch.kernels.aggregate.ref import aggregate_ref
+from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.flash_attention.ops import flash_attention_padded
 from repro_torch.kernels.flash_attention.ref import flash_attention_plain
+from repro_torch.kernels.similarity import ops as sim_ops
 from repro_torch.kernels.similarity.ops import pairwise_distances_device, pairwise_sums
 from repro_torch.kernels.similarity.ref import distances_from_gram, gram_ref
 
@@ -102,8 +105,8 @@ def main(argv: "list[str] | None" = None) -> None:
     gram_err = float(((pairwise_sums(G, "gram").double() - want.double()).abs()
                       / (norms[:, None] * norms[None, :])).max())
     err = float((got - distances_from_gram(want, "arccos")).abs().max())
-    fields = _kernel_fields(dev, dist, 4 * (n * d + n * n), n * (n + 1) * d, err,
-                            library=lambda: G @ G.T)
+    flops, nbytes = sim_ops.work(n, d, "gram")
+    fields = _kernel_fields(dev, dist, nbytes, flops, err, library=lambda: G @ G.T)
     emit("kernels/similarity_cuda", us,
          f"mode=arccos;{fields};gram_err={gram_err:.3e} of |g_i||g_j|")
 
@@ -116,9 +119,9 @@ def main(argv: "list[str] | None" = None) -> None:
     agg = lambda: aggregate_flat(U, w)  # noqa: E731
     us, got = timed(agg, device=dev)
     err = float((got - want).abs().max())
+    flops, nbytes = agg_ops.work(k, p)
     emit("kernels/aggregate_cuda", us,
-         f"k={k};p={p};"
-         f"{_kernel_fields(dev, agg, 4 * (k * p + k + p), 2 * k * p, err, lambda: torch.mv(U.T, w))}")
+         f"k={k};p={p};{_kernel_fields(dev, agg, nbytes, flops, err, lambda: torch.mv(U.T, w))}")
 
     # flash attention: causal GQA in f32 (the CUDA-core kernel)
     b, s, h, kv, hd = 1, 256, 8, 2, 64
@@ -130,8 +133,7 @@ def main(argv: "list[str] | None" = None) -> None:
     fa = lambda: flash_attention_padded(q, kk, v)  # noqa: E731
     us, got = timed(fa, device=dev)
     err = float((got - want).abs().max())
-    nbytes = 4 * (2 * b * s * h * hd + 2 * b * s * kv * hd)  # q, out, k, v once each
-    flops = 2 * b * h * s * s * hd  # QKᵀ and PV over the causal lower triangle
+    flops, nbytes = fa_ops.work(b, s, s, h, kv, hd)  # the causal half; q, out, k, v once each
     qt, kt, vt = (a.transpose(1, 2) for a in (q, kk, v))  # SDPA's (B, H, S, hd)
     sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa: E731
         qt, kt, vt, is_causal=True, enable_gqa=True)

@@ -25,14 +25,14 @@ Prints ``name,us_per_call,derived`` CSV rows:
   bench_scheduler      — round schedulers (sync/deadline/overselect) under churn
   bench_fl_collectives — communication accounting (paper's motivation)
   bench_kernels        — the CUDA kernels beside their plain versions
+  bench_dryrun_roofline — the dry-run's roofline terms per (arch × shape × mesh)
   fig1_controlled      — Figure 1 (controlled MNIST-style setting)
   fig2_dirichlet       — Figure 2 (Dirichlet-α heterogeneity sweep)
   scheme_race          — every registered selection scheme raced on one sweep
   ablations            — Appendix D.2/D.4/D.5
   beyond_paper         — staleness decay, client churn, device-vs-host plans
 
-``bench_service_churn`` runs on its own, as in the reference. Not ported:
-``bench_dryrun_roofline``, the reference's TPU-pod tooling (ROADMAP A13.3).
+``bench_service_churn`` runs on its own, as in the reference.
 
 Run: ``python -m repro_torch.benchmarks.run [--list | --spec JSON | --sweep JSON] [--device cpu]``.
 """
@@ -48,6 +48,7 @@ import traceback
 from repro_torch.benchmarks import (
     ablations,
     bench_async_planner,
+    bench_dryrun_roofline,
     bench_engine_sharded,
     bench_fl_collectives,
     bench_kernels,
@@ -73,6 +74,7 @@ MODULES = [
     ("bench_scheduler", bench_scheduler),
     ("bench_fl_collectives", bench_fl_collectives),
     ("bench_kernels", bench_kernels),
+    ("bench_dryrun_roofline", bench_dryrun_roofline),
     ("fig1_controlled", fig1_controlled),
     ("fig2_dirichlet", fig2_dirichlet),
     ("scheme_race", scheme_race),

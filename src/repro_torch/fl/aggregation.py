@@ -15,7 +15,8 @@ data group's card over the group's rows; θ^t's row and ``stale_weight``
 ride with the lead group. The partials are copied to the lead card one at
 a time and added in group order, and the sum is copied back to every
 group's card (:func:`replicate`). With one group this is the unsharded
-call, bit for bit.
+call, bit for bit. Each partial's copy to the lead reports its bytes to
+the dry-run's counter as an all-reduce (``_build.count_moved``).
 """
 from __future__ import annotations
 
@@ -24,8 +25,9 @@ from typing import Iterable, Sequence
 import numpy as np
 import torch
 
+from repro_torch.kernels import _build
 from repro_torch.kernels.aggregate.ops import aggregate_flat
-from repro_torch.launch.mesh import on_shard
+from repro_torch.launch.mesh import data_group_positions, on_shard
 
 
 def flatten_params(tree: dict) -> torch.Tensor:
@@ -89,7 +91,8 @@ def aggregate_sharded(shards: Iterable, lead: torch.device) -> torch.Tensor:
 
     ``shards`` yields ``(group, rows, weights)`` with ``rows`` (k, p) f32
     and ``weights`` (k,) on the group's card, the lead group first (its
-    last row θ^t, its last weight ``stale_weight``). One kernel launch a
+    last row θ^t, its last weight ``stale_weight``); ``group`` is the mesh
+    position the group's work runs as, the lead's 0. One kernel launch a
     group; each partial is copied to ``lead`` and added in group order
     before the next group's launch, so at most one foreign (p,) partial is
     resident on ``lead``.
@@ -98,16 +101,26 @@ def aggregate_sharded(shards: Iterable, lead: torch.device) -> torch.Tensor:
     for group, rows, w in shards:
         with on_shard(group, rows.device):
             part = aggregate_flat(rows, w)
+        _build.count_moved("all-reduce", group, 0, part.numel() * part.element_size())
         part = part.to(lead)
         total = part if total is None else total.add_(part)
         del part
     return total
 
 
-def replicate(flat: torch.Tensor, devices: Sequence) -> dict:
-    """``flat`` on each distinct device of ``devices`` (itself on its own)."""
-    out = {flat.device: flat}
-    for d in devices:
-        if d not in out:
-            out[d] = flat.to(d)
+def replicate(flat: torch.Tensor, mesh) -> list:
+    """``flat``, held at ``mesh``'s lead position, on each data group's
+    first position's device, in group order: one copy a distinct device
+    (``Mesh.device_key``; the lead's keeps ``flat``), made as that
+    position; each group's copy reports its bytes to the dry-run's counter
+    as a collective-permute."""
+    by_key, out = {mesh.device_key(0): flat}, []
+    for row in data_group_positions(mesh):
+        pos = row[0]
+        _build.count_moved("collective-permute", 0, pos, flat.numel() * flat.element_size())
+        key = mesh.device_key(pos)
+        if key not in by_key:
+            with on_shard(pos, mesh.devices.flat[pos]):
+                by_key[key] = torch.empty_like(flat, device=mesh.devices.flat[pos]).copy_(flat)
+        out.append(by_key[key])
     return out

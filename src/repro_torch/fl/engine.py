@@ -200,8 +200,10 @@ def _sharded_round_step(global_params, x_all, y_all, slot_ids, batch_idx, weight
             wg = w[a:b] if g else np.append(w[a:b], np.float32(stale_weight))
             work.append((g, a, b, dev, _gather_plan(x_all, g, ids[a:b], dev),
                          torch.as_tensor(idx[a:b], device=dev), torch.as_tensor(wg, device=dev)))
-    params_on = {d: global_params if d == theta_lead.device else unflatten_params(t, global_params)
-                 for d, t in replicate(theta_lead, devs).items()}
+    params_on = {}
+    for dev, t in zip(devs, replicate(theta_lead, mesh)):
+        if dev not in params_on:
+            params_on[dev] = global_params if t is theta_lead else unflatten_params(t, global_params)
     parts, losses, updates, groups = [], [], [], []
     for g, a, b, dev, plan, idx_g, w_g in work:
         with on_shard(g, dev):

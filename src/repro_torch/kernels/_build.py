@@ -5,6 +5,10 @@ with ``nvcc`` for ``sm_90a`` into ``<repo>/build/kernels/lib<name>-<hash>.so``
 (the hash is of the source and the flags, so an edited source is rebuilt)
 and loaded with :mod:`ctypes`. Nothing here runs at import time, so the
 module imports on a machine without ``nvcc`` or a GPU.
+
+It also keeps the launches by mesh position (:func:`tally`) and the hooks
+through which the wrappers and the mesh's copies report to the dry-run's
+cost counter (:func:`count_kernel`, :func:`count_moved`, :class:`uncounted`).
 """
 from __future__ import annotations
 
@@ -49,6 +53,60 @@ def tally(kernel: str) -> None:
     """Count one launch of ``kernel`` under the running mesh position."""
     if _shard[0] is not None:
         shard_launches[(kernel, _shard[0])] += 1
+
+
+def current_shard():
+    """The running mesh position, or None."""
+    return _shard[0]
+
+
+#: The cost counter that is counting, if any
+#: (``repro_torch.launch.roofline.CostCounter``): the wrappers report each
+#: call's work to it and the mesh's copies the bytes they move.
+_counter = [None]
+
+
+def set_counter(counter):
+    """Make ``counter`` (or None) the one counting; returns the previous one."""
+    prev, _counter[0] = _counter[0], counter
+    return prev
+
+
+def counting() -> bool:
+    """Whether a cost counter is counting."""
+    return _counter[0] is not None
+
+
+def count_kernel(kernel: str, flops: float, nbytes: float, like) -> None:
+    """Add one call of ``kernel`` doing ``flops`` operations over
+    ``nbytes`` bytes, at the position of the tensor ``like``, to the
+    running count (a wrapper calls it once a call, whichever route runs)."""
+    if _counter[0] is not None:
+        _counter[0].kernel(kernel, flops, nbytes, like)
+
+
+def count_moved(kind: str, src, dst: int, nbytes: int) -> None:
+    """Add ``nbytes`` copied from mesh position ``src`` (an int, or a
+    tensor standing for the position that holds it) to ``dst`` under the
+    collective ``kind`` to the running count; a copy within a position
+    moves nothing."""
+    if _counter[0] is not None:
+        _counter[0].moved(kind, src, int(dst), int(nbytes))
+
+
+class uncounted:
+    """Leave the enclosed torch ops out of the running count: a wrapper's
+    plain version, whose work the wrapper has counted by its formula."""
+
+    def __enter__(self):
+        self._counter = _counter[0]
+        if self._counter is not None:
+            self._counter.paused += 1
+        return self
+
+    def __exit__(self, *exc):
+        if self._counter is not None:
+            self._counter.paused -= 1
 
 
 def _nvcc() -> str:

@@ -4,7 +4,9 @@ Port of ``src/repro/kernels/aggregate/ops.py``. :func:`aggregate_flat` is
 the kernel's wrapper: for CUDA tensors it launches ``csrc/aggregate.cu``
 on the grid of :func:`launch_plan`, for CPU tensors it runs the plain
 version in ``ref.py``. It launches on the card that holds the tensors,
-whichever device is current.
+whichever device is current. :func:`work` is a call's operations and
+bytes; a meta input returns an empty meta output, and every route adds
+the call's work to the dry-run's running count (``_build.count_kernel``).
 """
 from __future__ import annotations
 
@@ -52,6 +54,12 @@ def launch_plan(k: int, p: int) -> tuple[int, int]:
     return -(-groups // threads), threads
 
 
+def work(k: int, p: int) -> tuple[int, int]:
+    """(operations, bytes) of a (k, p) call: a multiply-add an element;
+    the rows and weights read once, the (p,) sum written once."""
+    return 2 * k * p, 4 * (k * p + k + p)
+
+
 def aggregate_flat(updates: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
     """(k, p) f32 stacked flat rows × (k,) f32 weights -> (p,) Σ_k w_k U_k."""
     shape = updates.shape
@@ -61,10 +69,15 @@ def aggregate_flat(updates: torch.Tensor, weights: torch.Tensor) -> torch.Tensor
         raise ValueError(f"weights shape {tuple(weights.shape)} != ({shape[0]},)")
     if updates.dtype != torch.float32 or weights.dtype != torch.float32:
         raise TypeError(f"need float32, got {updates.dtype} and {weights.dtype}")
-    if not updates.is_cuda:
-        if updates.device.type != "cpu" or weights.device.type != "cpu":
-            raise ValueError(f"unsupported devices {updates.device} and {weights.device}")
-        return aggregate_ref(updates, weights)
+    if not updates.is_cuda and (updates.device.type not in ("cpu", "meta")
+                                or weights.device.type != updates.device.type):
+        raise ValueError(f"unsupported devices {updates.device} and {weights.device}")
+    _build.count_kernel("aggregate", *work(*shape), updates)
+    if updates.device.type == "meta":
+        return updates.new_empty(shape[1])
+    if updates.device.type == "cpu":
+        with _build.uncounted():
+            return aggregate_ref(updates, weights)
     dev = updates.get_device()
     if weights.get_device() != dev:
         raise ValueError(f"updates on {updates.device}, weights on {weights.device}")

@@ -19,6 +19,11 @@ the port has no such arguments.
 ``torch.autograd.Function`` whose forward is :func:`flash_attention_padded`
 (the kernel for CUDA tensors, the plain version for CPU tensors) and whose
 backward is ``backward.flash_attention_bwd`` on either device.
+
+:func:`work` is a call's operations and bytes, which the bounds and the
+dry-run's counts use; a meta input returns an empty meta output and adds
+that work to the running count (``_build.count_kernel``), as every route
+does once a call.
 """
 from __future__ import annotations
 
@@ -54,6 +59,15 @@ def _lib():
     return lib
 
 
+def work(b: int, s: int, t: int, h: int, kv: int, hd: int, *, causal: bool = True,
+         itemsize: int = 4) -> tuple[int, int]:
+    """(operations, bytes) of a call: QKᵀ and PV, 2 FLOP a multiply-add,
+    over the S × T scores, half of them when causal; q and the output, k
+    and v each read or written once."""
+    flops = 4 * b * h * hd * s * t
+    return flops // 2 if causal else flops, itemsize * (2 * b * s * h * hd + 2 * b * t * kv * hd)
+
+
 def _strides(a: torch.Tensor) -> list[int]:
     """The batch, sequence and head strides, 0 where the axis has size 1
     (its index is always 0, so its stride is never used)."""
@@ -83,10 +97,15 @@ def flash_attention_padded(
         raise TypeError(f"need one dtype of float32 or bfloat16, got {q.dtype}, {k.dtype}, {v.dtype}")
     if not (q.device == k.device == v.device):
         raise ValueError(f"q on {q.device}, k on {k.device}, v on {v.device}")
-    if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, causal=causal)
-    if q.device.type != "cuda":
+    if q.device.type not in ("cuda", "cpu", "meta"):
         raise ValueError(f"unsupported device {q.device}")
+    _build.count_kernel("flash_attention", *work(b, s, t, h, kv, hd, causal=causal,
+                                                 itemsize=q.element_size()), q)
+    if q.device.type == "meta":
+        return torch.empty((b, s, h, hd), dtype=q.dtype, device=q.device)
+    if q.device.type == "cpu":
+        with _build.uncounted():  # laid out (B, S, H, hd) as the kernel writes it
+            return flash_attention_plain(q, k, v, causal=causal).contiguous()
     if q.stride(3) != 1 or k.stride(3) != 1 or v.stride(3) != 1:
         raise ValueError("q, k and v must have unit stride along head_dim")
     strides = [_strides(a) for a in (q, k, v)]

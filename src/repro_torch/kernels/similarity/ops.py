@@ -12,7 +12,10 @@ one-shot ``pairwise_kernel`` and the masked ``pairwise_kernel_fused``)
 compute the same function, so both entry points below,
 :func:`pairwise_distances_device` and :func:`pairwise_distances_streamed`,
 launch the one CUDA kernel; :func:`make_distance_fn` keeps the
-reference's ``STREAM_D_THRESHOLD`` switch between them.
+reference's ``STREAM_D_THRESHOLD`` switch between them. :func:`work` is a
+call's operations and bytes; a meta input returns an empty meta output,
+and every route adds the call's work to the dry-run's running count
+(``_build.count_kernel``).
 """
 from __future__ import annotations
 
@@ -82,6 +85,14 @@ def lane_tile(splits: int) -> int:
     return 4 if splits == 1 else 8
 
 
+def work(n: int, d: int, op: str) -> tuple[int, int]:
+    """(operations, bytes) of an (n, d) call over the i <= j half: the
+    Gram's FFMA 2 FLOP a product, L1's two FP32-pipe instructions (a − b,
+    acc + |·|) 4 FLOP an element at the f32 peak; G read once, the (n, n)
+    output written once."""
+    return (2 if op == "l1" else 1) * n * (n + 1) * d, 4 * (n * d + n * n)
+
+
 @functools.cache
 def _lib():
     """The similarity library, with its C signature bound once."""
@@ -101,10 +112,14 @@ def pairwise_sums(G: torch.Tensor, op: str) -> torch.Tensor:
         raise ValueError(f"G must be (n, d) with n, d >= 1, got {tuple(G.shape)}")
     if G.dtype != torch.float32:
         raise TypeError(f"G must be float32, got {G.dtype}")
-    if G.device.type == "cpu":
-        return gram_ref(G) if op == "gram" else l1_ref(G)
-    if G.device.type != "cuda":
+    if G.device.type not in ("cuda", "cpu", "meta"):
         raise ValueError(f"unsupported device {G.device}")
+    _build.count_kernel(op, *work(*G.shape, op), G)
+    if G.device.type == "meta":
+        return torch.empty((G.shape[0], G.shape[0]), dtype=torch.float32, device=G.device)
+    if G.device.type == "cpu":
+        with _build.uncounted():
+            return gram_ref(G) if op == "gram" else l1_ref(G)
     if not G.is_contiguous():
         raise ValueError("G must be contiguous")
     n, d = G.shape

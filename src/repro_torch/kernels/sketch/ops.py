@@ -69,6 +69,13 @@ def split_plan(d: int) -> tuple[int, int]:
     return splits, -(-n_tiles // splits)
 
 
+def work(c: int, d: int, d_prime: int) -> tuple[int, int]:
+    """(operations, bytes) of a (c, d) -> (c, d') call: X · S at 2 FLOP a
+    multiply-add; X read once, Y written once (S is regenerated from the
+    hash, never read)."""
+    return 2 * c * d * d_prime, 4 * (c * d + c * d_prime)
+
+
 @functools.lru_cache(maxsize=64)
 def _launch_args(d: int, d_prime: int, seed: int) -> tuple[int, float, int, int]:
     """(seed_term, scale, splits, per) of a call: fixed per (d, d', seed)."""
@@ -110,10 +117,14 @@ def srp_sketch(X: torch.Tensor, d_prime: int, seed: int, *, block_d: int = SKETC
         raise ValueError(f"d_prime must be >= 1, got {d_prime}")
     if X.dtype != torch.float32:
         raise TypeError(f"X must be float32, got {X.dtype}")
-    if X.device.type == "cpu":
-        return sketch_srp_plain(X, d_prime, seed, block_d=block_d)
-    if X.device.type != "cuda":
+    if X.device.type not in ("cuda", "cpu", "meta"):
         raise ValueError(f"unsupported device {X.device}")
+    _build.count_kernel("srp", *work(*X.shape, d_prime), X)
+    if X.device.type == "meta":
+        return torch.empty((X.shape[0], d_prime), dtype=torch.float32, device=X.device)
+    if X.device.type == "cpu":
+        with _build.uncounted():
+            return sketch_srp_plain(X, d_prime, seed, block_d=block_d)
     if not X.is_contiguous():
         raise ValueError("X must be contiguous")
     c, d = X.shape

@@ -22,7 +22,11 @@ in the same order as without a mesh, as views into that card's block of
 the (m, d) stack. B2 runs once a card over its block; the partials are
 added on the lead card in group order (one foreign partial resident there
 at a time), and the updates stay on their cards, where the store's sketch
-(B3) runs on them.
+(B3) runs on them. A group's work runs as its first mesh position
+(``on_shard``); the copies between positions report their bytes to the
+dry-run's counter (``_build.count_moved``): θ^t, the clients' batches and
+weights sent from the lead as collective-permutes, the losses and the
+partial sums to the lead as all-reduces.
 """
 from __future__ import annotations
 
@@ -35,12 +39,14 @@ import torch
 from repro_torch.core.samplers.base import ClientSampler
 from repro_torch.device import resolve_device
 from repro_torch.fl.aggregation import aggregate_sharded, replicate
+from repro_torch.kernels import _build
 from repro_torch.kernels.aggregate.ops import aggregate_flat
 from repro_torch.launch.mesh import (
     Placement,
     ShardedRows,
     blocks,
     check_lead,
+    data_group_positions,
     data_parallel_degree,
     group_devices,
     lead_device,
@@ -106,30 +112,36 @@ def _sharded_round_step(local_sgd, mesh, with_updates: bool):
     """:func:`make_fl_round_step`'s round over ``mesh``'s data groups."""
     lead = lead_device(mesh)
     devs = group_devices(mesh)
+    firsts = [row[0] for row in data_group_positions(mesh)]
 
     def fl_round_step(params: mdl.LM, client_tokens, client_targets, weights):
         theta = mdl.flatten_lm(params)
         d = theta.numel()
-        replicas = replicate(theta, devs)  # θ^t on every group's card
+        thetas = replicate(theta, mesh)  # θ^t on every group's device
         spans = blocks(client_tokens.shape[0], len(devs))
         stacks, losses = [], []
-        for g, ((a, b), dev) in enumerate(zip(spans, devs)):
-            stack = replicas[dev].new_empty((b - a, d))
-            with on_shard(g, dev):
+        for (a, b), dev, pos, th in zip(spans, devs, firsts, thetas):
+            with on_shard(pos, dev):
+                stack = th.new_empty((b - a, d))
                 for k in range(a, b):
-                    stack[k - a].copy_(replicas[dev])
+                    stack[k - a].copy_(th)
                     client = mdl.lm_views(stack[k - a], params).requires_grad_(True)
+                    for t in (client_tokens[k], client_targets[k]):
+                        _build.count_moved("collective-permute", 0, pos, t.numel() * t.element_size())
                     _, loss = local_sgd(client, client_tokens[k].to(dev), client_targets[k].to(dev))
+                    _build.count_moved("all-reduce", pos, 0, loss.element_size())
                     losses.append(loss.to(lead))
             stacks.append(stack)
-        shards = ((g, st, weights[a:b].to(st.device))
-                  for g, (st, (a, b)) in enumerate(zip(stacks, spans)) if b > a)
+        for (a, b), pos in zip(spans, firsts):
+            _build.count_moved("collective-permute", 0, pos, 4 * (b - a))
+        shards = ((pos, st, weights[a:b].to(st.device))
+                  for pos, st, (a, b) in zip(firsts, stacks, spans) if b > a)
         # θ^{t+1} = Σ_k ω_k θ_k — eq. (4), the aggregate kernel once a card
         new_params = mdl.lm_views(aggregate_sharded(shards, lead), params)
         loss = torch.stack(losses).mean()
         if not with_updates:
             return new_params, loss
-        updates = [st.sub_(replicas[st.device]) for st in stacks]
+        updates = [st.sub_(th) for st, th in zip(stacks, thetas)]
         return new_params, loss, ShardedRows(updates, d)
 
     return fl_round_step

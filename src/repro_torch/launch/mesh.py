@@ -17,7 +17,12 @@ them in group order (:func:`repro_torch.fl.aggregation.aggregate_sharded`).
 shards. Byte counts are kept by mesh position, so four CPU shards count as
 four devices.
 
-``make_production_mesh`` (256 / 512 TPU chips) is ROADMAP A13.3.
+:func:`make_production_mesh` is the reference's 256 / 512-position mesh on
+meta positions, each a device of its own (``Mesh.keys``), as the
+reference's are 512 placeholder host devices: the dry-run
+(``launch/dryrun.py``) counts the port's steps on it. The copies between
+positions report their bytes to the dry-run's counter
+(``_build.count_moved``): ``ShardedRows.gather`` as an all-gather.
 """
 from __future__ import annotations
 
@@ -36,10 +41,15 @@ AXES = ("data", "model")
 @dataclasses.dataclass(frozen=True, eq=False)
 class Mesh:
     """``devices`` (an object ndarray of ``torch.device``) with one axis
-    name per dimension, as ``jax.sharding.Mesh(devices, axis_names)``."""
+    name per dimension, as ``jax.sharding.Mesh(devices, axis_names)``.
+    ``keys`` names, position by position, the device each position stands
+    for where ``devices`` cannot tell them apart (meta positions):
+    positions with one key share their device's storage and work
+    (:meth:`device_key`)."""
 
     devices: np.ndarray
     axis_names: tuple
+    keys: tuple = ()
 
     def __post_init__(self):
         devs = np.asarray(self.devices, dtype=object)
@@ -53,16 +63,34 @@ class Mesh:
         """Axis name -> size, as ``jax.sharding.Mesh.shape``."""
         return dict(zip(self.axis_names, self.devices.shape))
 
+    def device_key(self, position: int) -> str:
+        """The device of ``position`` as a key."""
+        return self.keys[position] if self.keys else str(self.devices.flat[position])
+
     def __repr__(self):
         return f"Mesh({self.shape}, {[str(d) for d in self.devices.flat]})"
 
 
-def make_production_mesh(*, multi_pod: bool = False):
-    del multi_pod
-    raise NotImplementedError(
-        "make_production_mesh is the 256 / 512-chip TPU pod's mesh, not ported "
-        "(ROADMAP A13.3); make_host_mesh builds a mesh of the visible cards"
-    )
+def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
+    """The reference's production mesh: 16 × 16 over ("data", "model"), or
+    2 × 16 × 16 over ("pod", "data", "model"), of meta positions
+    (:func:`make_meta_mesh`). No host has 256 cards; the dry-run runs the
+    port's steps on it."""
+    if multi_pod:
+        return make_meta_mesh((2, 16, 16), ("pod", "data", "model"))
+    return make_meta_mesh((16, 16))
+
+
+def make_meta_mesh(shape, axes=AXES, cards=None) -> Mesh:
+    """A mesh of ``shape`` over ``axes`` of meta positions (tensors with no
+    data), each a device of its own, or with ``cards`` the positions of a
+    mesh over that many cards in turn (position p on card p % cards), as
+    many devices as cards."""
+    n = int(np.prod(shape))
+    devs = np.empty(n, dtype=object)
+    devs[:] = [torch.device("meta")] * n
+    keys = tuple(f"meta:{p if cards is None else p % cards}" for p in range(n))
+    return Mesh(devs.reshape(tuple(shape)), axes, keys)
 
 
 def make_host_mesh(data: int = 1, model: int = 1, *, device="cuda") -> Mesh:
@@ -299,7 +327,11 @@ class ShardedRows:
         return self._select(keep)
 
     def gather(self, device) -> torch.Tensor:
-        """All the rows, in order, on ``device``."""
+        """All the rows, in order, on ``device`` (each block moved from its
+        data group's position to the running one)."""
         if not self.blocks:
             return torch.empty((0, self.width), device=device)
+        here = _build.current_shard() or 0
+        for g, b in zip(self.groups, self.blocks):
+            _build.count_moved("all-gather", g, here, b.numel() * b.element_size())
         return torch.cat([b.to(device) for b in self.blocks])

@@ -23,8 +23,15 @@ is left unsplit, as in the reference.
 :func:`place` is ``jax.device_put(tree, shardings)``: it returns a
 :class:`Placed` tensor for each leaf, one block per mesh position (a
 ``jax.Array``'s ``addressable_shards``), each block of
-``NamedSharding.shard_shape``. Positions on one device that hold the same
-block share one tensor; bytes are still counted by position.
+``NamedSharding.shard_shape``. Positions on one device
+(``Mesh.device_key``) that hold the same block share one tensor; bytes are
+still counted by position (:func:`bytes_by_position`, and
+:func:`placement_bytes` from the placements alone).
+
+The copies between positions report their bytes to the dry-run's counter
+(``_build.count_moved``), by (from, to) position whatever the devices:
+:meth:`Placed.gather` as an all-gather, :meth:`Placed.add_` as a
+reduce-scatter, :func:`place_tensor` under the kind its caller names.
 """
 from __future__ import annotations
 
@@ -35,11 +42,13 @@ import numpy as np
 import torch
 from torch import nn
 
+from repro_torch.kernels import _build
 from repro_torch.launch.mesh import (
     Mesh,
     Placement,
     batch_axes,
     data_parallel_degree,
+    on_shard,
     same_device,
 )
 from repro_torch.models import model as mdl
@@ -243,6 +252,10 @@ def shard_shape(placement: Placement, shape) -> tuple:
     return tuple(s.stop - s.start for s in block_index(placement, tuple(shape), 0))
 
 
+def _numel(index: tuple) -> int:
+    return math.prod(s.stop - s.start for s in index)
+
+
 def _slot(index: tuple) -> tuple:
     return tuple((s.start, s.stop) for s in index)
 
@@ -289,25 +302,36 @@ class Placed:
         return out
 
     def gather(self, device, out: torch.Tensor = None) -> torch.Tensor:
-        """The whole tensor on ``device`` (into ``out`` when given), each
-        block taken from ``device`` where a position there holds it."""
+        """The whole tensor on ``device`` (into ``out`` when given) at the
+        running mesh position (``on_shard``; the first when none runs),
+        each block taken from that position where it holds it, else from
+        ``device`` where a position there holds it."""
         device = torch.device(device)
         if out is None:
             out = torch.empty(self.shape, dtype=self.dtype, device=device)
         devs = self.mesh.devices.flat
+        here = _build.current_shard() or 0
         done = set()
-        for pos in sorted(range(len(self.blocks)), key=lambda p: not same_device(devs[p], device)):
+        for pos in sorted(range(len(self.blocks)),
+                          key=lambda p: (p != here, not same_device(devs[p], device))):
             idx = self.index(pos)
             if _slot(idx) not in done:
                 done.add(_slot(idx))
-                out[idx].copy_(self.blocks[pos])
+                dst = out[idx]
+                dst.copy_(self.blocks[pos])
+                _build.count_moved("all-gather", pos, here, dst.numel() * dst.element_size())
         return out
 
     def add_(self, whole: torch.Tensor) -> None:
-        """Add the matching slices of ``whole`` into each stored block."""
+        """Add the matching slices of ``whole`` into each stored block; each
+        position receives its slice from ``whole``'s position."""
         for pos in self.stored():
             b = self.blocks[pos]
             b.add_(whole[self.index(pos)].to(b.device))
+        if _build.counting():
+            for pos in range(len(self.blocks)):
+                _build.count_moved("reduce-scatter", whole, pos,
+                                   _numel(self.index(pos)) * whole.element_size())
 
     def bytes_by_position(self) -> list:
         return [b.numel() * b.element_size() for b in self.blocks]
@@ -316,18 +340,23 @@ class Placed:
         return f"Placed({self.shape}, {self.dtype}, spec={self.placement.spec})"
 
 
-def place_tensor(t: torch.Tensor, placement: Placement) -> Placed:
+def place_tensor(t: torch.Tensor, placement: Placement, *,
+                 kind: str = "collective-permute") -> Placed:
     """``t`` under ``placement``: each block a new tensor on its position's
-    device (a copy, whatever ``t``'s device)."""
+    device (a copy, whatever ``t``'s device), made as that position; each
+    position receives its block from ``t``'s position, counted as ``kind``."""
     shape, made, blocks = tuple(t.shape), {}, []
+    mesh = placement.mesh
     with torch.no_grad():
-        for pos, dev in enumerate(placement.mesh.devices.flat):
+        for pos, dev in enumerate(mesh.devices.flat):
             idx = block_index(placement, shape, pos)
-            key = (str(dev), _slot(idx))
+            key = (mesh.device_key(pos), _slot(idx))
             if key not in made:
                 part = t[idx]
-                made[key] = torch.empty(part.shape, dtype=t.dtype, device=dev).copy_(part)
+                with on_shard(pos, dev):
+                    made[key] = torch.empty(part.shape, dtype=t.dtype, device=dev).copy_(part)
             blocks.append(made[key])
+            _build.count_moved(kind, t, pos, _numel(idx) * t.element_size())
     return Placed(placement, shape, t.dtype, blocks)
 
 
@@ -342,6 +371,27 @@ def place(tree: Any, placements: Any) -> Any:
     if isinstance(tree, (list, tuple)):
         return type(tree)(out[i] for i in range(len(tree)))
     return out
+
+
+def placement_bytes(placements: Any, like: Any) -> list:
+    """The bytes each mesh position would hold of ``like``'s tensors (meta
+    stand-ins will do) under ``placements`` (the same structure): the
+    blocks' sizes, no tensor made. Every position holds a block of the
+    same shape."""
+    sizes: list = []  # (positions, bytes a position) of each tensor
+
+    def walk(pl, t):
+        kids = _children(t)
+        if kids is None:
+            if isinstance(t, torch.Tensor):
+                sizes.append((pl.mesh.devices.size,
+                              math.prod(shard_shape(pl, t.shape)) * t.element_size()))
+            return
+        for k, v in kids:
+            walk(pl[k], v)
+
+    walk(placements, like)
+    return [sum(n for _, n in sizes)] * sizes[0][0] if sizes else []
 
 
 def bytes_by_position(tree: Any) -> list:

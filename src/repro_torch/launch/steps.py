@@ -28,6 +28,7 @@ from typing import Optional
 import torch
 
 from repro_torch.fl.engine import FEATURE_DTYPE, INDEX_DTYPE, batched_round_step
+from repro_torch.kernels import _build
 from repro_torch.launch.mesh import (
     Mesh,
     Placement,
@@ -308,8 +309,8 @@ def _sharded_train_step(cfg: ModelConfig, opt: Optimizer, clip_norm: float, mesh
     total = sum(p.numel() for p in named.values())
     firsts = [g[0] for g in data_group_positions(mesh)]
     by_device: dict = {}
-    for pos, dev in enumerate(mesh.devices.flat):
-        by_device.setdefault(str(dev), []).append(pos)
+    for pos in range(mesh.devices.size):
+        by_device.setdefault(mesh.device_key(pos), []).append(pos)
     lead = lead_device(mesh)
     told: set = set()
 
@@ -344,10 +345,11 @@ def _sharded_train_step(cfg: ModelConfig, opt: Optimizer, clip_norm: float, mesh
             # each block's gradients added in group order where the block lives
             for key, g in zip(keys, gs):
                 if k == 0:
-                    grads[key] = place_tensor(g, params[key].placement)
+                    grads[key] = place_tensor(g, params[key].placement, kind="reduce-scatter")
                 else:
                     grads[key].add_(g)
             for key, v in (("loss", loss), ("ce", metrics["ce"]), ("aux", metrics["aux"])):
+                _build.count_moved("all-reduce", pos, 0, v.element_size())
                 v = v.detach().to(lead) * w
                 sums[key] = v if k == 0 else sums[key] + v
             del flat, lm, tensors, gs, loss, metrics
@@ -356,10 +358,14 @@ def _sharded_train_step(cfg: ModelConfig, opt: Optimizer, clip_norm: float, mesh
         for key in sorted(grads):
             g = grads[key]
             for pos in g.distinct():
-                part = g.blocks[pos].to(torch.float32).square().sum().to(lead)
+                part = g.blocks[pos].to(torch.float32).square().sum()
+                _build.count_moved("all-reduce", pos, 0, part.element_size())
+                part = part.to(lead)
                 sq = part if sq is None else sq + part
         gnorm = torch.sqrt(sq)
         scale = torch.clamp(clip_norm / (gnorm + 1e-12), max=1.0)
+        for pos in range(mesh.devices.size):
+            _build.count_moved("all-reduce", 0, pos, scale.element_size())
         for g in grads.values():
             for pos in g.stored():
                 g.blocks[pos].mul_(scale.to(g.blocks[pos].device, g.dtype))
@@ -383,7 +389,7 @@ def _sharded_train_step(cfg: ModelConfig, opt: Optimizer, clip_norm: float, mesh
             shares.append((positions, keys, new))
             steps_by_device[dev_key] = step + 1
         new_step = Placed(state["step"].placement, (), state["step"].dtype,
-                          [steps_by_device[str(dev)] for dev in mesh.devices.flat])
+                          [steps_by_device[mesh.device_key(p)] for p in range(mesh.devices.size)])
         new_state = {"params": params, "opt_state": _merge(opt_state, names, shares),
                      "step": new_step}
         return new_state, {"loss": sums["loss"], "grad_norm": gnorm, "ce": sums["ce"],

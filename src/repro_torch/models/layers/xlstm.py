@@ -16,7 +16,9 @@ Port of ``src/repro/models/layers/xlstm.py`` (arXiv:2405.04517).
   a Python loop over the time steps (a decode step is the loop's one
   step from the given state); the four gates' input projections are one
   product for all steps before the loop, and their recurrent products one
-  batched product a step.
+  batched product a step. On meta tensors :func:`counted_loop_steps` lets
+  the dry-run run only the loop's first steps (a step's work does not
+  depend on t; ``launch/dryrun.py`` extrapolates).
 * The causal-conv front of the official blocks is omitted, as in the
   reference.
 """
@@ -32,6 +34,8 @@ from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers.norms import rms_head_norm
 
 _GATES = ("z", "i", "f", "o")
+#: sLSTM time steps a loop over meta tensors runs (None: all of them)
+_meta_loop_steps = [None]
 
 
 def _normal(gen, device):
@@ -286,6 +290,23 @@ def _slstm_step(pre_x: torch.Tensor, st: tuple, r_all: torch.Tensor):
     return c, n, m_new, o * c / torch.clamp(n, min=1e-6)
 
 
+class counted_loop_steps:
+    """Within it an sLSTM loop over meta tensors runs its first ``n``
+    steps; the later steps' outputs are detached copies of the last that
+    ran, with no work and no gradient. Only the dry-run's counts use it:
+    a loop's work is linear in the steps it runs."""
+
+    def __init__(self, n: int):
+        self.n = int(n)
+
+    def __enter__(self):
+        self._prev, _meta_loop_steps[0] = _meta_loop_steps[0], self.n
+        return self
+
+    def __exit__(self, *exc):
+        _meta_loop_steps[0] = self._prev
+
+
 def _slstm_cell(params, x_proj: dict, state: dict, h_heads: int):
     """One time step, as the reference's: ``x_proj`` holds the input
     projections ``x_t @ W_* + b_*`` of z, i, f, o; ``state`` {c, n, m, h},
@@ -320,9 +341,11 @@ def slstm_block(cfg: ModelConfig, params, x: torch.Tensor, state: Optional[dict]
         state = init_slstm_state(cfg, b, x.device)
     st = tuple(state[k].reshape(b, h, hd).transpose(0, 1) for k in "cnmh")
     hs = []
-    for t in range(s):
+    n = s if _meta_loop_steps[0] is None or x.device.type != "meta" else min(s, _meta_loop_steps[0])
+    for t in range(n):
         st = _slstm_step(pre_x[t], st, r_all)
         hs.append(st[3])
+    hs += [hs[-1].detach() for _ in range(s - n)]
     out = torch.stack(hs).permute(2, 0, 1, 3).reshape(b, s, d_in)  # (S, H, B, hd) -> (B, S, d_in)
     new_state = {k: u.transpose(0, 1).reshape(b, d_in) for k, u in zip("cnmh", st)}
     out = _head_rmsnorm_flat(params["out_norm"], out, hd, cfg.norm_eps)

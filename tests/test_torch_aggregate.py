@@ -68,8 +68,11 @@ def test_wrapper_rejects_bad_input():
         aggregate_flat(U, torch.zeros(2))
     with pytest.raises(TypeError):
         aggregate_flat(U.double(), torch.zeros(3, dtype=torch.float64))
-    with pytest.raises(ValueError):
-        aggregate_flat(U.to("meta"), torch.zeros(3, device="meta"))
+    with pytest.raises(ValueError, match="unsupported devices"):
+        aggregate_flat(U.to("meta"), torch.zeros(3))
+    # meta inputs (the dry-run's) give the output's shape and no data
+    out = aggregate_flat(U.to("meta"), torch.zeros(3, device="meta"))
+    assert out.device.type == "meta" and out.shape == (8,) and out.dtype == torch.float32
 
 
 def _columns_of_grid(p, blocks, threads, aligned):

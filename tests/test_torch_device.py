@@ -105,7 +105,8 @@ def test_build_module_imports_without_nvcc():
 
 def test_unported_options_raise():
     """The mesh is ported (CPU shards here); what raises is a mesh whose
-    lead device is not the caller's, and the TPU pod's production mesh."""
+    lead device is not the caller's. The production mesh is meta positions,
+    each a device of its own, whatever the host holds."""
     ds = by_class_shards(**DATA)
     assert BatchedRoundEngine(ds, 2, 1, 2, device="cpu", mesh="2x1").mesh.shape == {"data": 2, "model": 1}
     on_card = Mesh(np.array([[torch.device("cuda", 0)]], dtype=object), ("data", "model"))
@@ -117,8 +118,10 @@ def test_unported_options_raise():
         FederatedServer(ds, sampler, params, sgd(0.1), FLConfig(mesh_spec=on_card), device="cpu")
     with pytest.raises(ValueError, match="lead device"):
         GradientStore(4, 3, mesh_spec=on_card, device="cpu")
-    with pytest.raises(NotImplementedError, match="A13.3"):
-        make_production_mesh()
+    pod = make_production_mesh()
+    assert pod.shape == {"data": 16, "model": 16}
+    assert {d.type for d in pod.devices.flat} == {"meta"}
+    assert len({pod.device_key(p) for p in range(256)}) == 256
 
 
 def test_staging_budget_falls_back_to_compat():

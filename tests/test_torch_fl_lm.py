@@ -165,15 +165,18 @@ def test_a_client_drawn_twice_keeps_its_first_draws_update(monkeypatch):
 
 
 def test_mesh_tooling_raises_naming_a13():
-    """What is left of the mesh tooling raises naming A13.3: the TPU pod's
-    production mesh. The round's placements (``fl_input_specs``,
+    """Nothing of the mesh tooling raises any more: the production mesh
+    (A13.3) is meta positions, on which the dry-run counts the port's steps
+    (tests/test_torch_dryrun.py). The round's placements (``fl_input_specs``,
     ``fl_round_shardings``, ``mesh=``) and the train step's (A13.2) are
     ported (tests/test_torch_fl_sharded.py, tests/test_torch_sharding.py)."""
     from repro_torch.launch import mesh
 
-    for kw in ({}, {"multi_pod": True}):
-        with pytest.raises(NotImplementedError, match="A13.3"):
-            mesh.make_production_mesh(**kw)
+    for kw, shape in (({}, (16, 16)), ({"multi_pod": True}, (2, 16, 16))):
+        pod = mesh.make_production_mesh(**kw)
+        assert pod.devices.shape == shape
+        assert all(d.type == "meta" for d in pod.devices.flat)
+        assert len({pod.device_key(p) for p in range(pod.devices.size)}) == pod.devices.size
 
 
 def test_sampler_spec_and_planner_spec_resolve_as_the_reference():

@@ -53,8 +53,9 @@ def test_a_mesh_passes_through_and_cpu_shards_are_built():
     with pytest.raises(RuntimeError, match="device='cpu'") if not torch.cuda.is_available() \
             else pytest.raises(ValueError, match="must be >="):
         mesh.make_host_mesh(64, 1)
-    with pytest.raises(NotImplementedError, match="A13.3"):
-        mesh.make_production_mesh(multi_pod=True)
+    pod = mesh.make_production_mesh(multi_pod=True)
+    assert pod.shape == {"pod": 2, "data": 16, "model": 16}
+    assert mesh.data_parallel_degree(pod) == 32 and mesh.mesh_chips(pod) == 512
 
 
 def _pod_mesh():
