@@ -41,10 +41,16 @@ Phases, one line (or a few) each; any failure raises and exits non-zero:
    (4, 1,000, 16, 16, 128) and whisper-small's (4, 1,000, 12, 12, 64),
    the fl_lm phase's local step
    (4, 64, 16, 8, 128), non-causal with a ragged T, and
-   views into a fused projection; atol 2e-5 in f32, and in bf16
+   views into a fused projection; the widened domain: head dims 12, 20,
+   200, 256 and 320 in f32 and bf16 (the tensor-core kernel's HDP 256 and
+   its 128-column chunks above it, the f32 kernel's chunks above 128), f16
+   at hd 96 and 128, B·H = 132,000 with H = 66,000, and bf16 views with a
+   misaligned base, a sequence stride of 68 and a head-dim stride of 2,
+   each launching the kernel once a call and the views bit-equal to their
+   contiguous copies; the rows of FLASH_WIDE_ROWS at the serve batch and
+   prompt; atol 2e-5 in f32, and in bf16
    min(3e-2, 2⁻⁷·(|want| + Σ_j p_ij·|v_j|)), the error on the scale of the
-   softmax-weighted |v|; bit-reproducible; a misaligned bf16 view raises
-   without a launch) and check the port on the card against the port on
+   softmax-weighted |v|, in f16 the same with 2⁻¹⁰; bit-reproducible) and check the port on the card against the port on
    the CPU on a small input (equal plans, losses and params to atol 1e-4),
    unsketched and with the SRP sketch under Ward and k-means, and the LM's
    greedy generations (reduced qwen2-1.5b and reduced qwen2-moe-a2.7b at 2
@@ -386,7 +392,9 @@ serve_whisper's as the launches of the ``flash_attention_whisper`` row,
 with whisper's train_extras launches as its ``train_extras_launches``, the
 bench phase's as ``bench_launches`` for the Gram, L1, aggregate, SRP and
 flash rows, and the dryrun phase's wrapper launches as ``dryrun_launches``
-for the aggregate and flash rows),
+for the aggregate and flash rows; the widened domain's rows, which no
+model path reaches, with the kernels phase's launches at their shapes and
+``launches_from`` saying so),
 and ``{"ok": true, "device": ...}``.
 The script imports neither JAX nor the JAX package ``repro``.
 """
@@ -462,12 +470,33 @@ FLASH_BF16_SHAPES = [
     FLASH_WHISPER,
 ]
 FLASH_NONCAUSAL = [((2, 33, 4, 2, 32), t) for t in (48, 70)]  # ((B, S, H, KV, hd), T)
+# head dims the reference takes beyond those, at (B, S, H, KV) with S = T
+# ragged around the 64-row and 32-row q-tiles: not multiples of 8 (12, 20:
+# copied 8 bytes at a time in bf16), the f32 kernel's 128-column chunks
+# (200, 256, 320), the tensor-core kernel's HDP 256 and its 128-column
+# chunks above 256 (320); in f32 and bf16
+FLASH_WIDE = (2, 130, 4, 2)
+FLASH_WIDE_HDS = (12, 20, 200, 256, 320)
+# f16 on the tensor-core kernel: hd 96 (HDP 128, pad columns) and 128
+FLASH_F16_SHAPES = [(2, 130, 4, 2, 96), (2, 130, 4, 2, 128)]
+FLASH_FOLD = (2, 3, 66_000, 6, 16)  # B·H = 132,000 with H past a grid axis's 65,535
+# the rows of the widened domain, checked and timed at the serve batch and
+# prompt: recurrentgemma-9b's heads (16 query heads, 1 kv head, hd 256) in
+# bf16 (HDP 256) and f16, the serve path's in f16, hd 320 in bf16 (the
+# 128-column chunks) and hd 200 in f32 (the f32 kernel's chunks)
+FLASH_HD256 = (4, 1000, 16, 1, 256)
+FLASH_WIDE_ROWS = [("flash_attention_hd256", "bfloat16", FLASH_HD256),
+                   ("flash_attention_f16_hd256", "float16", FLASH_HD256),
+                   ("flash_attention_f16", "float16", FLASH_PATH),
+                   ("flash_attention_hd320", "bfloat16", (4, 1000, 12, 2, 320)),
+                   ("flash_attention_f32_hd200", "float32", (4, 1000, 12, 2, 200))]
 FLASH_F32_ATOL = 2e-5  # the reference's
 FLASH_BF16_ATOL = 3e-2  # the reference's, the loosest the bf16 limit may be
 # bf16: two ulps (2⁻⁸ each) of the output's scale, which is bounded by the
 # softmax-weighted |v|: p rounded against another running max, and the
 # output rounded once
 FLASH_BF16_REL = 2.0**-7
+FLASH_F16_REL = 2.0**-10  # the same two units of roundoff in f16 (2⁻¹¹ each)
 SERVE = dict(arch="qwen2-1.5b", batch=4, prompt_len=1000, gen=16)
 SERVE_SMALL = dict(arch="qwen2-1.5b", n_layers=2, batch=2, prompt_len=19, gen=6)
 SERVE_SMALL_ATOL = 1e-4
@@ -507,9 +536,10 @@ def srp_rel_err(got, want, X, d_prime: int) -> float:
 
 def flash_excess(got, want, q, k, v, causal=True) -> float:
     """max |got − want| / limit over the outputs of a call: the limit is
-    FLASH_F32_ATOL for f32, and for bf16 min(FLASH_BF16_ATOL,
+    FLASH_F32_ATOL for f32, for bf16 min(FLASH_BF16_ATOL,
     FLASH_BF16_REL·(|want| + A)) with A = Σ_j p_ij·|v_j|, the plain
-    version's f32 attention over |v|."""
+    version's f32 attention over |v|, and for f16 the same with
+    FLASH_F16_REL."""
     import torch
 
     from repro_torch.kernels.flash_attention.ref import flash_attention_plain
@@ -519,7 +549,8 @@ def flash_excess(got, want, q, k, v, causal=True) -> float:
         return float(err.max()) / FLASH_F32_ATOL
     scale = want.float().abs() + flash_attention_plain(q.float(), k.float(), v.float().abs(),
                                                        causal=causal)
-    return float((err / (FLASH_BF16_REL * scale).clamp(max=FLASH_BF16_ATOL)).max())
+    rel = FLASH_BF16_REL if q.dtype == torch.bfloat16 else FLASH_F16_REL
+    return float((err / (rel * scale).clamp(max=FLASH_BF16_ATOL)).max())
 
 
 def time_ms(torch, fn, reps: int = 50, queued: bool = False) -> float:
@@ -544,9 +575,10 @@ def time_ms(torch, fn, reps: int = 50, queued: bool = False) -> float:
 
 
 def _kernel_name(name: str) -> str:
-    """``flash_fwd_mma<128>`` from an Itanium-mangled kernel name
-    (``_ZN12_GLOBAL__N_113flash_fwd_mmaILi128EEEv...``: the innermost
-    length-prefixed identifier and its integer template arguments), or from
+    """``flash_fwd_mma<__half,128>`` from an Itanium-mangled kernel name
+    (``_ZN12_GLOBAL__N_113flash_fwd_mmaI6__halfLi128EEEv...``: the innermost
+    length-prefixed identifier and its integer and named-type template
+    arguments), or from
     a demangled one (``void (anonymous namespace)::pairwise_partial<0, 8>(float
     const*, ...)``: the last name before the arguments)."""
     import re
@@ -567,8 +599,17 @@ def _kernel_name(name: str) -> str:
         ident, i = name[i:i + n], i + n
     if ident is None:
         return name[:60]
-    args = re.match(r"I((?:Li\d+E)+)E", name[i:])
-    return ident + (f"<{','.join(re.findall(r'Li(\d+)E', args.group(1)))}>" if args else "")
+    if not name.startswith("I", i):
+        return ident
+    args, i = [], i + 1  # template arguments: integers (Li128E) and named types (6__half)
+    while found := re.match(r"Li(-?\d+)E|(\d+)", name[i:]):
+        i += len(found.group())
+        if found.group(1) is not None:
+            args.append(found.group(1))
+        else:
+            args.append(name[i:i + int(found.group(2))])
+            i += int(found.group(2))
+    return ident + (f"<{','.join(args)}>" if name.startswith("E", i) else "")
 
 
 def ptxas_report(log: str) -> list[tuple[str, str]]:
@@ -920,17 +961,21 @@ def _flash_check(torch, label, got, q, k, v, causal=True, again=None) -> float:
     if again is not None and not torch.equal(got, again):
         fail(f"flash kernel {label} is not bit-reproducible")
     limit = (f"atol {FLASH_F32_ATOL}" if q.dtype == torch.float32 else
-             f"limit min({FLASH_BF16_ATOL}, 2^-7·(|want| + Σ p|v|))")
+             f"limit min({FLASH_BF16_ATOL}, 2^-{7 if q.dtype == torch.bfloat16 else 10}·(|want| + Σ p|v|))")
     print(f"kernels: flash {label} max_abs_err {e:.3e}, {excess:.3f} of its {limit}, max |want| "
           f"{float(want.float().abs().max()):.3e}" + (", reproducible" if again is not None else ""))
     return e
 
 
 def phase_kernels_flash(torch, gen) -> dict:
-    """Both flash kernels against the plain version: causal at every listed
+    """Every flash kernel against the plain version: causal at every listed
     shape, non-causal with a ragged T, bf16 views into a fused projection,
-    and misaligned bf16 views that must raise; returns the max abs error at
-    the serve paths' shapes, by shape."""
+    head dims that are not multiples of 8 and above 128 and 256, f16, B·H
+    past a grid axis, and bf16 views with a misaligned base, a sequence
+    stride of 68 and a head-dim stride of 2 (also bit-equal to their
+    contiguous copies); returns the max abs error at the serve paths' bf16
+    shapes, by shape, and at FLASH_WIDE_ROWS, by row name, with the
+    launches of those rows' calls as ``"launches"``."""
     from repro_torch.kernels.flash_attention import ops as fa_ops
 
     def inputs(b, s, h, kv, hd, dtype, t=None):
@@ -938,14 +983,16 @@ def phase_kernels_flash(torch, gen) -> dict:
         return (torch.randn(shape, generator=gen).to(DEV, dtype)
                 for shape in ((b, s, h, hd), (b, t, kv, hd), (b, t, kv, hd)))
 
+    def check(label, dtype, shape) -> float:
+        q, k, v = inputs(*shape, dtype)
+        got = fa_ops.flash_attention_padded(q, k, v)
+        again = fa_ops.flash_attention_padded(q, k, v)
+        return _flash_check(torch, f"{label} (B, S, H, KV, hd) = {shape}", got, q, k, v, again=again)
+
     path_err = {}
     for dtype, shapes in ((torch.float32, FLASH_F32_SHAPES), (torch.bfloat16, FLASH_BF16_SHAPES)):
         for shape in shapes:
-            q, k, v = inputs(*shape, dtype)
-            got = fa_ops.flash_attention_padded(q, k, v)
-            again = fa_ops.flash_attention_padded(q, k, v)
-            e = _flash_check(torch, f"{dtype} (B, S, H, KV, hd) = {shape}", got, q, k, v,
-                             again=again)
+            e = check(dtype, dtype, shape)
             if dtype == torch.bfloat16 and shape in (FLASH_PATH, FLASH_MOE, FLASH_WHISPER):
                 path_err[shape] = e
     for dtype in (torch.float32, torch.bfloat16):
@@ -965,21 +1012,41 @@ def phase_kernels_flash(torch, gen) -> dict:
         fail("flash kernel: bf16 views into the fused projection differ from their copies")
     _flash_check(torch, f"bf16 views into a fused ({b}, {s}, {(h + 2 * kv) * hd}) projection",
                  got, q, k, v, again=fa_ops.flash_attention_padded(q, k, v))
-    flat = torch.zeros(2048, dtype=torch.bfloat16, device=DEV)
-    bad = {"a base 2 bytes past 16-byte alignment": flat[1:1 + 512].view(1, 8, 4, 16),
-           "a sequence stride of 68": flat[:8 * 68].view(1, 8, 68)[..., :64].unflatten(-1, (4, 16)),
-           "a head-dim stride of 2": flat[:1024].view(1, 8, 4, 32)[..., ::2]}
-    for what, q in bad.items():
+    # the widened domain: each call launches the kernel once
+    before = fa_ops.launches["flash_attention"]
+    calls = 0
+    for dtype in (torch.float32, torch.bfloat16):
+        for hd in FLASH_WIDE_HDS:
+            check(dtype, dtype, (*FLASH_WIDE, hd))
+            calls += 2
+    for shape in FLASH_F16_SHAPES:
+        check(torch.float16, torch.float16, shape)
+        calls += 2
+    for dtype in (torch.float32, torch.bfloat16):
+        check(f"{dtype} B·H = {FLASH_FOLD[0] * FLASH_FOLD[2]:,}", dtype, FLASH_FOLD)
+        calls += 2
+    flat = torch.randn(2048, generator=gen).to(DEV, torch.bfloat16)
+    views = {"a base 2 bytes past 16-byte alignment": flat[1:1 + 512].view(1, 8, 4, 16),
+             "a sequence stride of 68": flat[:8 * 68].view(1, 8, 68)[..., :64].unflatten(-1, (4, 16)),
+             "a head-dim stride of 2": flat[:1024].view(1, 8, 4, 32)[..., ::2]}
+    for what, q in views.items():
+        k, v = q[:, :, :2], q[:, :, 2:]
+        got = fa_ops.flash_attention_padded(q, k, v)
+        if not torch.equal(got, fa_ops.flash_attention_padded(q.contiguous(), k.contiguous(),
+                                                              v.contiguous())):
+            fail(f"flash kernel: a bf16 view with {what} differs from its contiguous copy")
+        _flash_check(torch, f"bf16 view with {what}", got, q, k, v,
+                     again=fa_ops.flash_attention_padded(q, k, v))
+        calls += 3
+    launched = fa_ops.launches["flash_attention"] - before
+    if launched != calls:
+        fail(f"flash wrapper: {launched} launches for the widened domain's {calls} calls")
+    print(f"kernels: flash's widened domain launched the kernel at each of its {calls} calls")
+    path_err["launches"] = {}
+    for row, dtype, shape in FLASH_WIDE_ROWS:
         before = fa_ops.launches["flash_attention"]
-        try:
-            fa_ops.flash_attention_padded(q, q[:, :, :2], q[:, :, :2])
-        except ValueError:
-            pass
-        else:
-            fail(f"flash wrapper: a bf16 view with {what} did not raise")
-        if fa_ops.launches["flash_attention"] != before:
-            fail(f"flash wrapper: a bf16 view with {what} moved the launch count")
-    print(f"kernels: flash bf16 views with {', '.join(bad)} raise ValueError, no launch")
+        path_err[row] = check(f"{row} {dtype}", getattr(torch, dtype), shape)
+        path_err["launches"][row] = fa_ops.launches["flash_attention"] - before
     return path_err
 
 
@@ -1568,19 +1635,24 @@ def phase_serve_trace(torch, cfg, params, prompts, tag=""):
         _report_trace(torch, prof, wall_ms, f"{tag}decode", "one decode step")
 
 
-def flash_time_row(torch, gen, name, err, launches, shape=FLASH_PATH, row_name="flash_attention"):
-    """The bf16 flash kernel at a serve path's shape: its time, the plain
-    version's and scaled_dot_product_attention's, beside its bound. The
-    kernel and the library are timed in turns (kernel, library, library,
-    kernel), by events as called and with the queue filled ahead."""
+def flash_time_row(torch, gen, name, err, launches, shape=FLASH_PATH, row_name="flash_attention",
+                   dtype="bfloat16", lean=False):
+    """The flash kernel at a serve path's shape (bf16 unless ``dtype`` says
+    otherwise): its time, the plain version's and
+    scaled_dot_product_attention's, beside its bound. The kernel and the
+    library are timed in turns (kernel, library, library, kernel), by events
+    as called and with the queue filled ahead; ``lean`` keeps the turns as
+    called and the plain version's time, and leaves out the queued turns and
+    the profiler's device times."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.flash_attention.ref import flash_attention_plain
 
-    part, bw, _, bf16 = peaks_for(name)
+    part, bw, f32, bf16 = peaks_for(name)
     b, s, h, kv, hd = shape
-    q, k, v = (torch.randn(dims, generator=gen).to(DEV, torch.bfloat16)
+    dt = getattr(torch, dtype)
+    q, k, v = (torch.randn(dims, generator=gen).to(DEV, dt)
                for dims in ((b, s, h, hd), (b, s, kv, hd), (b, s, kv, hd)))
     # the yardstick takes (B, H, S, hd) views; the port never calls it
     qt, kt, vt = (a.transpose(1, 2) for a in (q, k, v))
@@ -1592,20 +1664,14 @@ def flash_time_row(torch, gen, name, err, launches, shape=FLASH_PATH, row_name="
     queued = {"kernel": [], "library": []}
     for who in ("kernel", "library", "library", "kernel"):
         called[who].append(time_ms(torch, fns[who], reps=20))
-        queued[who].append(time_ms(torch, fns[who], reps=20, queued=True))
+        if not lean:
+            queued[who].append(time_ms(torch, fns[who], reps=20, queued=True))
     ms, lib_ms = (sum(called[w]) / 2 for w in ("kernel", "library"))
-    q_ms, q_lib = (sum(queued[w]) / 2 for w in ("kernel", "library"))
     plain_ms = time_ms(torch, plain, reps=5)
-    lib_events = kept_device_events(torch, fns["library"], reps=5)
-    dev = [device_ms(torch, plain, reps=5), _busy_us(lib_events) / 1e3 / 5]
-    # the kernel's own device time: the mean of the launches the profiler kept
-    kept = [e for e in kept_device_events(torch, fns["kernel"], reps=20) if "flash_fwd" in e.name]
-    if not kept:
-        fail("times: the profiler kept no flash kernel of 20 launches")
-    dev.insert(0, sum(e.time_range.end - e.time_range.start for e in kept) / 1e3 / len(kept))
-    nbytes = 2 * (2 * b * s * h * hd + 2 * b * s * kv * hd)  # q, out, k, v read or written once
+    nbytes = q.element_size() * (2 * b * s * h * hd + 2 * b * s * kv * hd)  # q, out, k, v once
     nops = 2 * b * h * s * s * hd  # causal: QKᵀ and PV over the lower triangle
-    t_bytes, t_ops = nbytes / bw * 1e3, nops / bf16 * 1e3
+    peak = f32 if dt == torch.float32 else bf16  # f32 on the CUDA cores, 16-bit on the tensor cores
+    t_bytes, t_ops = nbytes / bw * 1e3, nops / peak * 1e3
     row = {
         "name": row_name, "route": "cuda", "source": "src/repro_torch/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention/kernel.py:70", "launches": launches,
@@ -1616,13 +1682,25 @@ def flash_time_row(torch, gen, name, err, launches, shape=FLASH_PATH, row_name="
     def tflops(t_ms):
         return nops / (t_ms * 1e-3) / 1e12
 
-    print(f"times: {row_name} {shape} bf16 {ms:.6f} ms, plain {plain_ms:.6f} ms, library "
+    print(f"times: {row_name} {shape} {dtype} {ms:.6f} ms, plain {plain_ms:.6f} ms, library "
           f"(scaled_dot_product_attention) {lib_ms:.6f} ms, bound {row['bound_ms']:.6f} ms "
-          f"({row['bound_by']}; {part} peaks {bw / 1e12:.2f} TB/s, {bf16 / 1e12:.0f} TFLOP/s bf16; "
-          f"{nbytes} B, {nops} FLOP)")
+          f"({row['bound_by']}; {part} peaks {bw / 1e12:.2f} TB/s, {peak / 1e12:.0f} TFLOP/s "
+          f"{'f32' if dt == torch.float32 else 'bf16 and f16'}; {nbytes} B, {nops} FLOP)")
     print(f"times: {row_name} in turns (kernel, library, library, kernel), ms per call by "
           f"events as called: {called['kernel'][0]:.6f}, {called['library'][0]:.6f}, "
-          f"{called['library'][1]:.6f}, {called['kernel'][1]:.6f}; with the queue filled ahead: "
+          f"{called['library'][1]:.6f}, {called['kernel'][1]:.6f}; kernel "
+          f"{tflops(ms):.1f} TFLOP/s, library {tflops(lib_ms):.1f}")
+    if lean:
+        return row
+    q_ms, q_lib = (sum(queued[w]) / 2 for w in ("kernel", "library"))
+    lib_events = kept_device_events(torch, fns["library"], reps=5)
+    dev = [device_ms(torch, plain, reps=5), _busy_us(lib_events) / 1e3 / 5]
+    # the kernel's own device time: the mean of the launches the profiler kept
+    kept = [e for e in kept_device_events(torch, fns["kernel"], reps=20) if "flash_fwd" in e.name]
+    if not kept:
+        fail("times: the profiler kept no flash kernel of 20 launches")
+    dev.insert(0, sum(e.time_range.end - e.time_range.start for e in kept) / 1e3 / len(kept))
+    print(f"times: {row_name} with the queue filled ahead, in the same turns: "
           f"{queued['kernel'][0]:.6f}, {queued['library'][0]:.6f}, {queued['library'][1]:.6f}, "
           f"{queued['kernel'][1]:.6f}")
     print(f"times: {row_name} kernel {tflops(ms):.1f} TFLOP/s as called, {tflops(q_ms):.1f} "
@@ -6272,6 +6350,14 @@ def main(argv=()) -> int:
     whisper_row = flash_time_row(torch, gen, name, err["flash"][FLASH_WHISPER], None, FLASH_WHISPER,
                                  "flash_attention_whisper")
     rows.append(whisper_row)
+    # the widened domain's instantiations, which no model path reaches: their
+    # launches are the kernels phase's calls at the row's shape
+    for row_name, dtype, shape in FLASH_WIDE_ROWS:
+        rows.append(flash_time_row(torch, gen, name, err["flash"][row_name],
+                                   err["flash"]["launches"][row_name], shape, row_name, dtype,
+                                   lean=True))
+        rows[-1]["launches_from"] = ("the kernels phase's calls of flash_attention_padded at this "
+                                     "shape; no model path reaches this head dim or dtype")
     paper = phase_paper(torch, gen)
     ablations = phase_ablations(torch)
     zoo = phase_zoo(torch)

@@ -3,15 +3,19 @@
 Port of ``src/repro/kernels/flash_attention/ops.py``.
 :func:`flash_attention_padded` is the kernels' wrapper: for CUDA tensors it
 launches ``csrc/flash_attention.cu``, for CPU tensors it runs the plain
-version in ``ref.py``. The source holds two kernels, chosen by dtype: bf16
-goes to ``flash_fwd_mma`` on the tensor cores, f32 to ``flash_fwd_f32`` on
-the CUDA cores (TF32 would break the f32 parity at atol 2e-5). Both take
-the true S and T and mask the ragged tails themselves, so nothing is padded
-or copied: q, k and v are read in their (B, S, H, hd) and (B, T, KV, hd)
-layouts by strides, and the output is written (B, S, H, hd). The bf16
-kernel copies 16-byte rows, so it needs 16-byte aligned bases and strides
-that are multiples of 8 elements; the wrapper raises on any other view.
-The reference's ``block_q`` / ``block_k`` / ``interpret`` arguments choose
+version in ``ref.py``. The source holds three kernels, chosen by dtype and
+head dim: bf16 and f16 go to ``flash_fwd_mma`` on the tensor cores (head
+dims up to 256) or to ``flash_fwd_mma_wide`` (above 256, the output's head
+dim cut into 128-column chunks), f32 to ``flash_fwd_f32`` on the CUDA cores
+(TF32 would break the f32 parity at atol 2e-5). They take the true S and T
+and mask the ragged tails themselves, so nothing is padded: q, k and v are
+read in their (B, S, H, hd) and (B, T, KV, hd) layouts by strides, and the
+output is written (B, S, H, hd). As the reference does, they take any head
+dim, any B and H, and any view: the bf16 and f16 kernels copy each operand's
+rows 16 bytes at a time where its base, strides and head dim allow it and
+8, 4 or 2 bytes where they do not. The one copy the wrapper makes is of an
+operand whose head-dim stride is not 1, which it makes contiguous. The
+reference's ``block_q`` / ``block_k`` / ``interpret`` arguments choose
 Pallas tiles and interpret mode; the CUDA tiles are fixed in the source, so
 the port has no such arguments.
 
@@ -39,16 +43,17 @@ from repro_torch.kernels.flash_attention.ref import flash_attention_plain
 #: Kernel launches since the count was last reset.
 launches = {"flash_attention": 0}
 
-# both routes stop at 128: the f32 kernel keeps a row's accumulator of up to
-# 128 dims in registers, and 128 is the bf16 kernel's widest padded head dim
-HD_MAX = 128
-DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 
 @functools.cache
 def _lib():
     """The flash-attention library, with its C signature bound once."""
-    lib = _build.load("flash_attention")
+    return bind(_build.load("flash_attention"))
+
+
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """``lib`` with the C signature of ``flash_attention_fwd`` bound."""
     lib.flash_attention_fwd.restype = ctypes.c_int
     lib.flash_attention_fwd.argtypes = (
         [ctypes.c_void_p] * 4
@@ -77,10 +82,12 @@ def _strides(a: torch.Tensor) -> list[int]:
 def flash_attention_padded(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool = True
 ) -> torch.Tensor:
-    """q (B,S,H,hd), k/v (B,T,KV,hd), f32 or bf16 -> (B,S,H,hd) in q's dtype.
+    """q (B,S,H,hd), k/v (B,T,KV,hd), f32, bf16 or f16 -> (B,S,H,hd) in q's dtype.
 
     Query head h reads kv head h // (H / KV). With ``causal`` query i sees
-    keys j <= i; without it, every key j < T.
+    keys j <= i; without it, every key j < T. Any hd >= 1 and any strides;
+    on the card an operand whose head-dim stride is not 1 is read through a
+    contiguous copy.
     """
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError(f"need 4-d q, k, v, got {q.dim()}, {k.dim()}, {v.dim()} dims")
@@ -89,12 +96,12 @@ def flash_attention_padded(
     if tuple(v.shape) != tuple(k.shape) or k.shape[0] != b or k.shape[3] != hd:
         raise ValueError(f"shapes q {tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)} "
                          "are not (B,S,H,hd), (B,T,KV,hd), (B,T,KV,hd)")
-    if min(b, s, t, h, kv) < 1 or h % kv:
-        raise ValueError(f"need B, S, T, H, KV >= 1 and H % KV == 0, got H={h}, KV={kv}")
-    if hd % 8 or not 8 <= hd <= HD_MAX:
-        raise ValueError(f"head_dim {hd} must be a multiple of 8 in [8, {HD_MAX}]")
+    if min(b, s, t, h, kv, hd) < 1 or h % kv:
+        raise ValueError(f"need B, S, T, H, KV, hd >= 1 and H % KV == 0, got {tuple(q.shape)}, "
+                         f"KV={kv}")
     if q.dtype not in DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise TypeError(f"need one dtype of float32 or bfloat16, got {q.dtype}, {k.dtype}, {v.dtype}")
+        raise TypeError(f"need one dtype of float32, bfloat16 or float16, got {q.dtype}, "
+                        f"{k.dtype}, {v.dtype}")
     if not (q.device == k.device == v.device):
         raise ValueError(f"q on {q.device}, k on {k.device}, v on {v.device}")
     if q.device.type not in ("cuda", "cpu", "meta"):
@@ -106,18 +113,23 @@ def flash_attention_padded(
     if q.device.type == "cpu":
         with _build.uncounted():  # laid out (B, S, H, hd) as the kernel writes it
             return flash_attention_plain(q, k, v, causal=causal).contiguous()
-    if q.stride(3) != 1 or k.stride(3) != 1 or v.stride(3) != 1:
-        raise ValueError("q, k and v must have unit stride along head_dim")
+    out = launch(_lib(), q, k, v, causal)
+    launches["flash_attention"] += 1
+    _build.tally("flash_attention")
+    return out
+
+
+def launch(lib: ctypes.CDLL, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+           causal: bool) -> torch.Tensor:
+    """One launch of ``lib``'s kernel (a library :func:`bind` has bound) on
+    CUDA tensors that :func:`flash_attention_padded` has checked; counts
+    nothing."""
+    b, s, h, hd = q.shape
+    t, kv = k.shape[1], k.shape[2]
+    with _build.uncounted():  # the wrapper's copy, not the function's work
+        q, k, v = (a if a.stride(3) == 1 or hd == 1 else a.contiguous() for a in (q, k, v))
     strides = [_strides(a) for a in (q, k, v)]
-    if q.dtype == torch.bfloat16:
-        for name, a, st in zip("qkv", (q, k, v), strides):
-            if a.data_ptr() % 16 or any(x % 8 for x in st):
-                raise ValueError(
-                    f"bf16 {name} needs a 16-byte aligned base and batch, sequence and head "
-                    f"strides that are multiples of 8 elements, got address {a.data_ptr():#x} "
-                    f"and strides {tuple(a.stride()[:3])}")
     out = torch.empty((b, s, h, hd), dtype=q.dtype, device=q.device)
-    lib = _lib()
     # the C entry point launches (and opts in to its shared memory) on the
     # current device: make it the tensors'
     with torch.cuda.device(q.device):
@@ -129,8 +141,6 @@ def flash_attention_padded(
             torch.cuda.current_stream(q.device).cuda_stream,
         )
     _build.check(lib, err, "flash attention kernel")
-    launches["flash_attention"] += 1
-    _build.tally("flash_attention")
     return out
 
 

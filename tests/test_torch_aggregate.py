@@ -9,6 +9,9 @@ from repro.kernels.aggregate.kernel import aggregate_kernel
 from repro_torch.fl.aggregation import aggregate_stacked
 from repro_torch.kernels.aggregate import ops
 from repro_torch.kernels.aggregate.ops import aggregate_flat, launch_plan
+from repro_torch.testing import pin_cpu_threads
+
+pin_cpu_threads()
 
 RNG = np.random.default_rng(0)
 

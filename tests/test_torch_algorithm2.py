@@ -9,6 +9,9 @@ from repro.fl.partition import dirichlet_labels as ref_dirichlet_labels
 from repro.kernels.similarity.ops import resolve_distance_backend as ref_backend
 from repro_torch.core.samplers.algorithm2 import build_plan_algorithm2
 from repro_torch.fl.partition import by_class_shards, dirichlet_labels
+from repro_torch.testing import pin_cpu_threads
+
+pin_cpu_threads()
 
 M = 5
 SHARDS = dict(n_classes=10, clients_per_class=2, train_per_client=30, test_per_client=5, dim=16, seed=0)

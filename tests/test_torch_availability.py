@@ -17,6 +17,9 @@ from repro_torch.fl import experiment as exp
 from repro_torch.fl.availability import AvailabilityTracker
 from repro_torch.fl.planner import AssignmentDriftMonitor
 from repro_torch.models.simple import params_from_numpy
+from repro_torch.testing import pin_cpu_threads
+
+pin_cpu_threads()
 
 N = 60
 

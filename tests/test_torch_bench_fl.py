@@ -38,6 +38,9 @@ from benchmarks import bench_scheduler as ref_scheduler  # noqa: E402
 from benchmarks import bench_service_churn as ref_churn  # noqa: E402
 from benchmarks import bench_store_scale as ref_store  # noqa: E402
 from benchmarks import common as ref_common  # noqa: E402
+from repro_torch.testing import pin_cpu_threads  # noqa: E402
+
+pin_cpu_threads()
 
 PORTED = {
     "bench_fl_collectives": bench_fl_collectives,

@@ -24,6 +24,9 @@ if str(ROOT) not in sys.path:  # the reference modules live in the repo's benchm
 from benchmarks import bench_async_planner as ref_async  # noqa: E402
 from benchmarks import bench_scheduler as ref_scheduler  # noqa: E402
 from benchmarks import bench_service_churn as ref_churn  # noqa: E402
+from repro_torch.testing import pin_cpu_threads  # noqa: E402
+
+pin_cpu_threads()
 
 ACC_ATOL = 2e-4
 EQUAL_KEYS = ("rounds_to_acc0.9", "degraded_frac", "n_late", "n_harvested", "parity")

@@ -17,6 +17,9 @@ if str(ROOT) not in sys.path:  # the reference runners live in the repo's benchm
 from benchmarks import fig1_controlled as ref_fig1  # noqa: E402
 from benchmarks import fig2_dirichlet as ref_fig2  # noqa: E402
 from benchmarks import table_variance as ref_table  # noqa: E402
+from repro_torch.testing import pin_cpu_threads  # noqa: E402
+
+pin_cpu_threads()
 
 
 def _rows(text: str) -> dict:

@@ -29,6 +29,9 @@ from _torch_recurrent import configs, extras, port_params, ref_params, tokens, t
 from repro.models import model as ref_model
 from repro_torch.models import model as mdl
 from repro_torch.models.layers import attention, xlstm
+from repro_torch.testing import pin_cpu_threads
+
+pin_cpu_threads()
 
 ARCHS = ["qwen2-1.5b", "llama3.2-3b", "xlstm-125m", "recurrentgemma-9b", "whisper-small"]
 BQ = 8

@@ -16,6 +16,9 @@ from repro_torch.checkpoint import io
 from repro_torch.checkpoint import peek_meta, restore_checkpoint, save_checkpoint
 from repro_torch.fl import experiment as exp
 from repro_torch.models.simple import params_from_numpy
+from repro_torch.testing import pin_cpu_threads
+
+pin_cpu_threads()
 
 SPEC = {
     "data": {"name": "by_class_shards",

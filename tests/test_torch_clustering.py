@@ -12,6 +12,9 @@ from repro.kernels.similarity.ops import make_distance_fn as ref_make_distance_f
 from repro_torch.core.clustering import backends
 from repro_torch.core.clustering.device import kmeans_labels, ward_linkage_device
 from repro_torch.kernels.similarity.ops import make_distance_fn
+from repro_torch.testing import pin_cpu_threads
+
+pin_cpu_threads()
 
 
 @pytest.mark.parametrize("n,d,seed", [(2, 3, 0), (17, 5, 1), (60, 8, 2)])

@@ -19,6 +19,9 @@ from repro_torch.launch.serve import generate
 from repro_torch.models.model import init_cache, init_params
 from repro_torch.models.simple import init_mlp
 from repro_torch.optim.sgd import sgd
+from repro_torch.testing import pin_cpu_threads
+
+pin_cpu_threads()
 
 DATA = dict(n_classes=4, clients_per_class=1, train_per_client=10, test_per_client=2, dim=8, seed=0)
 

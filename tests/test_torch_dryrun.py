@@ -30,6 +30,9 @@ from repro_torch.launch.mesh import make_host_mesh, make_meta_mesh
 from repro_torch.models import model as mdl
 from repro_torch.models.config import INPUT_SHAPES, InputShape
 from repro_torch.models.layers import xlstm
+from repro_torch.testing import pin_cpu_threads
+
+pin_cpu_threads()
 
 COUNTS = ("flops", "bytes", "kernels", "moved", "colls", "pairs")
 SMALL = dict(batch=2, seq=16)

@@ -11,6 +11,9 @@ from repro_torch.fl.engine import batched_round_step
 from repro_torch.launch.mesh import Mesh
 from repro_torch.models import simple
 from repro_torch.optim.sgd import sgd
+from repro_torch.testing import pin_cpu_threads
+
+pin_cpu_threads()
 
 M_SLOTS, N_STEPS, BATCH, DIM, HIDDEN, N_CLIENTS, N_PAD = 10, 5, 8, 16, (8,), 12, 30
 

@@ -11,6 +11,9 @@ import pytest
 import repro_torch.models.simple as port_simple
 from repro.models.simple import init_mlp as ref_init_mlp
 from repro_torch.models.simple import params_from_numpy
+from repro_torch.testing import pin_cpu_threads
+
+pin_cpu_threads()
 
 EXAMPLES = Path(__file__).resolve().parents[1] / "examples"
 NUMBER = re.compile(r"-?\d+\.\d+(?:e[-+]\d+)?")

@@ -14,6 +14,9 @@ from repro_torch.fl import experiment as exp
 from repro_torch.fl.partition import by_class_shards
 from repro_torch.kernels.sketch.ops import SRPSketcher
 from repro_torch.models.simple import params_from_numpy, params_to_numpy
+from repro_torch.testing import pin_cpu_threads
+
+pin_cpu_threads()
 
 DATA = {
     "name": "by_class_shards",

@@ -34,6 +34,9 @@ from repro.launch import fl_train as ref_fl
 from repro_torch.core import ClientPopulation
 from repro_torch.launch import fl_train
 from repro_torch.models import model as mdl
+from repro_torch.testing import pin_cpu_threads
+
+pin_cpu_threads()
 
 
 # --------------------------------------------------------------------------

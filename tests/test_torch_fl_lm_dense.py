@@ -4,6 +4,9 @@ reference's parameters (``tests/_torch_fl_lm.py``; its tolerances)."""
 import pytest
 
 from _torch_fl_lm import SAMPLERS, assert_run_matches_the_reference
+from repro_torch.testing import pin_cpu_threads
+
+pin_cpu_threads()
 
 RUNS = {name: ("qwen3-0.6b", name) for name in SAMPLERS}
 

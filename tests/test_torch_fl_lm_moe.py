@@ -4,6 +4,9 @@ package's: whole ``run_federated_lm`` runs from the reference's parameters
 import pytest
 
 from _torch_fl_lm import assert_run_matches_the_reference
+from repro_torch.testing import pin_cpu_threads
+
+pin_cpu_threads()
 
 RUNS = {f"deepseek-v2-lite-16b[{name}]": ("deepseek-v2-lite-16b", name)
         for name in ("md", "algorithm2")}

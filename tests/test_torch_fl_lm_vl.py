@@ -11,6 +11,9 @@ import torch
 from _torch_fl_lm import assert_run_matches_the_reference, configs, ref_params
 from repro.fl.aggregation import flatten_params as ref_flatten
 from repro_torch.models import model as mdl
+from repro_torch.testing import pin_cpu_threads
+
+pin_cpu_threads()
 
 ARCH = "qwen2-vl-2b"
 RUNS = {f"{ARCH}[{name}]": (ARCH, name) for name in ("md", "algorithm2")}

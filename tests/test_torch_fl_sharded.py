@@ -44,6 +44,9 @@ from repro_torch.launch.mesh import ShardedRows, make_host_mesh, resolve_fl_mesh
 from repro_torch.models import model as mdl
 from repro_torch.models.simple import params_from_numpy
 from repro_torch.optim.sgd import sgd
+from repro_torch.testing import pin_cpu_threads
+
+pin_cpu_threads()
 
 DATA = dict(dim=16, noise=0.8, train_per_client=60, test_per_client=10, seed=0)
 DS = by_class_shards(**DATA)

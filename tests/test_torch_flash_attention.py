@@ -7,7 +7,7 @@ in f32 (the reference's own; measured ≤ 6.6e-7: the two sum in other
 orders); in bf16 the outputs are bf16 of magnitude ≤ 4, so atol 1.6e-2
 (two bf16 ulps at 2–4, measured 7.8e-3) against the JAX kernel, whose p
 is rounded relative to a running max, and the reference's 3e-2 against
-its oracle.
+its oracle; in f16 the same two ulps at 2–4, 2⁻⁸ = 3.9e-3.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -21,10 +21,16 @@ from repro.models.layers.attention import attend as ref_attend
 from repro.models.layers.attention import causal_mask as ref_causal_mask
 from repro_torch.kernels.flash_attention import ops
 from repro_torch.kernels.flash_attention.ref import attention_ref, flash_attention_plain
+from repro_torch.testing import pin_cpu_threads
+
+pin_cpu_threads()
 
 F32_SHAPES = [(1, 32, 4, 4, 16), (2, 64, 8, 2, 32), (1, 48, 6, 1, 64), (2, 40, 4, 2, 8)]
 F32_ATOL = 2e-5
 BF16_ATOL = 1.6e-2
+F16_ATOL = 2.0**-8
+ATOL = {torch.float32: F32_ATOL, torch.bfloat16: BF16_ATOL, torch.float16: F16_ATOL}
+JNP = {torch.float32: jnp.float32, torch.bfloat16: jnp.bfloat16, torch.float16: jnp.float16}
 
 
 def _qkv(b, s, h, kv, hd, t=None, seed=0):
@@ -105,20 +111,63 @@ def test_wrapper_matches_the_model_layer():
     np.testing.assert_allclose(got, np.asarray(want).reshape(b, s, h, hd), atol=F32_ATOL)
 
 
-@pytest.mark.parametrize("bad", ["hd", "hd_large", "gqa", "dtype", "mixed_dtype", "shape"])
-def test_wrapper_rejects_what_the_kernel_does_not_take(bad):
+@pytest.mark.parametrize("fn", PORT_FNS)
+@pytest.mark.parametrize("hd,dtype", [(12, torch.float32), (20, torch.float32), (256, torch.float32),
+                                      (320, torch.float32), (256, torch.bfloat16),
+                                      (96, torch.float16)])
+def test_any_head_dim_and_float16_match_reference_kernel(fn, hd, dtype):
+    """Head dims that are not multiples of 8, or above the tensor-core
+    kernel's 256 and the f32 kernel's 128-column chunk, and float16: the
+    reference's kernel takes them all, at (B, S, H, KV) = (1, 40, 4, 2)."""
+    q, k, v = _qkv(1, 40, 4, 2, hd, seed=4)
+    np.testing.assert_allclose(_port(PORT_FNS[fn], q, k, v, dtype), _ref(q, k, v, JNP[dtype]),
+                               atol=ATOL[dtype])
+
+
+@pytest.mark.parametrize("case", ["hd", "hd_large", "dtype"])
+def test_wrapper_takes_what_the_reference_takes(case):
+    """Inputs the wrapper once refused: a head dim of 12 as views into
+    16-wide heads, a head dim of 256, float16."""
     q, k, v = (torch.from_numpy(a) for a in _qkv(1, 8, 4, 2, 16))
-    if bad == "hd":
+    if case == "hd":
         q, k, v = q[..., :12], k[..., :12], v[..., :12]
-    elif bad == "hd_large":
-        q, k, v = (torch.zeros(a.shape[:3] + (256,)) for a in (q, k, v))
-    elif bad == "gqa":
-        k, v = torch.zeros((1, 8, 3, 16)), torch.zeros((1, 8, 3, 16))
-    elif bad == "dtype":
+    elif case == "hd_large":
+        q, k, v = (torch.from_numpy(a) for a in _qkv(1, 8, 4, 2, 256))
+    else:
         q, k, v = q.half(), k.half(), v.half()
+    got = ops.flash_attention_padded(q, k, v)
+    assert got.dtype == q.dtype and got.shape == q.shape
+    want = ref_flash(*(jnp.asarray(a.float().numpy(), JNP[q.dtype]) for a in (q, k, v)),
+                     block_q=16, block_k=16, interpret=True)
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32),
+                               atol=ATOL[q.dtype])
+
+
+@pytest.mark.parametrize("bad", ["gqa", "mixed_dtype", "shape"])
+def test_wrapper_rejects_what_the_kernel_does_not_take(bad):
+    """H % KV != 0 and shapes that disagree, which the reference asserts on
+    too; and mixed dtypes, which the reference computes (ROADMAP Queue C)."""
+    q, k, v = (torch.from_numpy(a) for a in _qkv(1, 8, 4, 2, 16))
+    if bad == "gqa":
+        k, v = torch.zeros((1, 8, 3, 16)), torch.zeros((1, 8, 3, 16))
     elif bad == "mixed_dtype":
         v = v.bfloat16()
     else:
         v = v[:, :4]
     with pytest.raises((ValueError, TypeError)):
         ops.flash_attention_padded(q, k, v)
+
+
+def test_gradient_at_head_dim_20_matches_autograd_of_the_plain_version():
+    """``flash_attention``'s backward (``backward.py``) at a head dim that is
+    not a multiple of 8, against autograd through ``flash_attention_plain``."""
+    q, k, v = (torch.from_numpy(a) for a in _qkv(2, 24, 4, 2, 20, seed=5))
+    do = torch.from_numpy(np.random.default_rng(6).normal(size=q.shape).astype(np.float32))
+    grads = []
+    for fn in (ops.flash_attention, flash_attention_plain):
+        leaves = [a.clone().requires_grad_() for a in (q, k, v)]
+        out = fn(*leaves, causal=True)
+        out.backward(do)
+        grads.append([a.grad for a in leaves])
+    for got, want in zip(*grads):
+        np.testing.assert_allclose(got.numpy(), want.numpy(), atol=F32_ATOL)

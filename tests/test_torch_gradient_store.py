@@ -5,6 +5,9 @@ import torch
 
 from repro.fl.gradient_store import GradientStore as RefStore
 from repro_torch.fl.gradient_store import GradientStore
+from repro_torch.testing import pin_cpu_threads
+
+pin_cpu_threads()
 
 
 def _sequence(d, seed=0):

@@ -5,6 +5,10 @@ import subprocess
 import sys
 from pathlib import Path
 
+from repro_torch.testing import pin_cpu_threads, thread_env
+
+pin_cpu_threads()
+
 ROOT = Path(__file__).resolve().parents[1]
 
 SCRIPT = r'''
@@ -56,7 +60,7 @@ print("ISOLATED")
 
 
 def test_port_imports_no_jax_and_no_reference():
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    env = thread_env(dict(os.environ, PYTHONPATH=str(ROOT / "src")))
     out = subprocess.run(
         [sys.executable, "-c", SCRIPT, str(ROOT / "chip_smoke.py"),
          *sorted(str(p) for p in (ROOT / "examples").glob("torch_*.py"))],

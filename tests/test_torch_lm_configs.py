@@ -20,6 +20,9 @@ from repro.models import model as ref_model
 from repro_torch.configs import ARCH_NAMES, get_config
 from repro_torch.models import INPUT_SHAPES
 from repro_torch.models import model as mdl
+from repro_torch.testing import pin_cpu_threads
+
+pin_cpu_threads()
 
 
 def test_arch_names_and_input_shapes_equal_the_reference():

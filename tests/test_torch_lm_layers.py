@@ -19,6 +19,9 @@ from repro.models.layers import rotary as ref_rotary
 from repro_torch.configs import get_config
 from repro_torch.models import blocks
 from repro_torch.models.layers import attention, mlp, norms, rotary
+from repro_torch.testing import pin_cpu_threads
+
+pin_cpu_threads()
 
 ATOL = 1e-5
 RNG = np.random.default_rng(0)

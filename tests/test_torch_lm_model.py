@@ -27,6 +27,9 @@ from repro_torch.configs import ARCH_NAMES, get_config
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.launch import serve
 from repro_torch.models import model as mdl
+from repro_torch.testing import pin_cpu_threads
+
+pin_cpu_threads()
 
 B, P, GEN = 2, 19, 6
 F32_ATOL = 2e-5

@@ -45,6 +45,9 @@ from repro_torch.launch import steps, train
 from repro_torch.models import model as mdl
 from repro_torch.models.config import INPUT_SHAPES
 from repro_torch.optim import adamw, clip_by_global_norm, schedule
+from repro_torch.testing import pin_cpu_threads
+
+pin_cpu_threads()
 
 ARCH = "qwen3-0.6b"
 SCHED_RTOL = 1e-6

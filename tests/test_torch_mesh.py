@@ -13,6 +13,9 @@ import torch
 
 from repro.launch import mesh as ref_mesh
 from repro_torch.launch import mesh
+from repro_torch.testing import pin_cpu_threads
+
+pin_cpu_threads()
 
 SPECS = [None, "auto", "1x1", "1", "1X1", (1, 1), [1, 1], (1,), [1]]
 BAD = ["2y1", "x1", "1x", "", "axb", "1x1x1", (1, 1, 1), [], 3, 2.5, {"data": 1}]

@@ -28,6 +28,9 @@ from repro_torch.configs import get_config
 from repro_torch.launch import serve
 from repro_torch.models import model as mdl
 from repro_torch.models.layers import mla
+from repro_torch.testing import pin_cpu_threads
+
+pin_cpu_threads()
 
 ARCH = "deepseek-v2-lite-16b"
 F32_ATOL = 2e-5

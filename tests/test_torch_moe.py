@@ -26,6 +26,9 @@ from repro_torch.configs import get_config
 from repro_torch.launch import serve
 from repro_torch.models import model as mdl
 from repro_torch.models.layers import moe
+from repro_torch.testing import pin_cpu_threads
+
+pin_cpu_threads()
 
 ARCH = "qwen2-moe-a2.7b"
 OUT_ATOL = 1e-5

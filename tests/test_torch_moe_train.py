@@ -37,6 +37,9 @@ from repro_torch.launch import steps, train
 from repro_torch.models import model as mdl
 from repro_torch.models.layers import moe
 from repro_torch.optim import adamw, schedule
+from repro_torch.testing import pin_cpu_threads
+
+pin_cpu_threads()
 
 ARCHS = ["qwen2-moe-a2.7b", "deepseek-v2-lite-16b"]
 LOSS_ATOL = 2e-6

@@ -20,6 +20,9 @@ from repro_torch.fl.population import POPULATIONS, PopulationProcess, build_popu
 from repro_torch.fl.server import EmptyRoundError, FederatedServer, FLConfig
 from repro_torch.models.simple import params_from_numpy
 from repro_torch.optim.sgd import sgd
+from repro_torch.testing import pin_cpu_threads
+
+pin_cpu_threads()
 
 N = 40
 SECTIONS = {

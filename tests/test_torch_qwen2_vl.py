@@ -39,6 +39,9 @@ from repro_torch.launch import serve, steps, train
 from repro_torch.models import model as mdl
 from repro_torch.models.layers import rotary
 from repro_torch.optim import adamw
+from repro_torch.testing import pin_cpu_threads
+
+pin_cpu_threads()
 
 ARCH = "qwen2-vl-2b"
 B, P, GEN = 2, 19, 6

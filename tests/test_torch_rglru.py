@@ -32,6 +32,9 @@ from repro.models.layers import rglru as ref_rglru
 from repro_torch.launch import serve, train
 from repro_torch.models import model as mdl
 from repro_torch.models.layers import rglru
+from repro_torch.testing import pin_cpu_threads
+
+pin_cpu_threads()
 
 ARCH = "recurrentgemma-9b"
 B = 2

@@ -45,6 +45,9 @@ from repro_torch.launch.mesh import (
     mesh_chips,
 )
 from repro_torch.models.config import InputShape
+from repro_torch.testing import pin_cpu_threads, thread_env
+
+pin_cpu_threads()
 
 ROOT = os.path.join(os.path.dirname(__file__), "..")
 BYTES_CASES = {"qwen3_train": ("qwen3-0.6b", ["t", 32, 8, "train"]),
@@ -101,7 +104,7 @@ with open(sys.argv[1], "w") as f:
 def _oracle_run(tmp_path_factory):
     """The oracle subprocess, started when the module's first test starts."""
     path = str(tmp_path_factory.mktemp("roofline") / "oracle.json")
-    env = dict(os.environ, JAX_PLATFORMS="cpu", PYTHONPATH=os.path.join(ROOT, "src"))
+    env = thread_env(dict(os.environ, JAX_PLATFORMS="cpu", PYTHONPATH=os.path.join(ROOT, "src")))
     env.pop("XLA_FLAGS", None)
     proc = subprocess.Popen([sys.executable, "-c", ORACLE, path, json.dumps(BYTES_CASES),
                              json.dumps(SPECS)],

@@ -27,6 +27,9 @@ if str(ROOT) not in sys.path:  # the reference runners live in the repo's benchm
 from benchmarks import ablations as ref_ablations  # noqa: E402
 from benchmarks import beyond_paper as ref_beyond  # noqa: E402
 from benchmarks import run as ref_run  # noqa: E402
+from repro_torch.testing import pin_cpu_threads  # noqa: E402
+
+pin_cpu_threads()
 
 CELL_ROUNDS = 2
 LOSS_ATOL = 1e-4

@@ -20,6 +20,9 @@ from repro_torch.core import (
 )
 from repro_torch.core.samplers.base import conditional_plan
 from repro_torch.core.samplers.md import MDSampler
+from repro_torch.testing import pin_cpu_threads
+
+pin_cpu_threads()
 
 M, ROUNDS = 10, 50
 

@@ -26,6 +26,9 @@ from repro_torch.fl.scheduler import (
     build_scheduler,
 )
 from repro_torch.models.simple import params_from_numpy
+from repro_torch.testing import pin_cpu_threads
+
+pin_cpu_threads()
 
 DATA = {"name": "by_class_shards",
         "options": {"clients_per_class": 2, "train_per_client": 40, "dim": 8,

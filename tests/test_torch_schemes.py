@@ -40,6 +40,9 @@ ROOT = Path(__file__).resolve().parents[1]
 if str(ROOT) not in sys.path:  # the reference runner lives in the repo's benchmarks/
     sys.path.insert(0, str(ROOT))
 from benchmarks import scheme_race as ref_race  # noqa: E402
+from repro_torch.testing import pin_cpu_threads  # noqa: E402
+
+pin_cpu_threads()
 
 M, D = 10, 16
 ZOO = ("stratified", "hybrid", "dp_stratified", "importance")

@@ -12,6 +12,9 @@ import numpy as np
 
 from repro_torch.fl import experiment as exp
 from repro_torch.fl.history import History
+from repro_torch.testing import pin_cpu_threads, thread_env
+
+pin_cpu_threads()
 
 SRC = str(Path(__file__).resolve().parents[1] / "src")
 SPEC = {
@@ -31,7 +34,7 @@ def _service(tmp_path, *extra):
     cmd = [sys.executable, "-m", "repro_torch.launch.fl_service", "--device", "cpu",
            "--spec", json.dumps(SPEC), "--checkpoint", str(tmp_path / "svc.npz"),
            "--history", str(tmp_path / "history.json"), *extra]
-    env = {**os.environ, "PYTHONPATH": SRC + os.pathsep + os.environ.get("PYTHONPATH", "")}
+    env = thread_env({**os.environ, "PYTHONPATH": SRC + os.pathsep + os.environ.get("PYTHONPATH", "")})
     return subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env)
 
 
@@ -71,5 +74,5 @@ def test_service_survives_sigterm_and_resumes(tmp_path):
     proc = subprocess.run([sys.executable, "-m", "repro_torch.launch.fl_service", "--spec",
                            json.dumps(SPEC), "--checkpoint", str(tmp_path / "x.npz")],
                           capture_output=True, text=True, timeout=120,
-                          env={**os.environ, "PYTHONPATH": SRC})
+                          env=thread_env({**os.environ, "PYTHONPATH": SRC}))
     assert proc.returncode != 0 and "device='cpu'" in proc.stderr

@@ -54,6 +54,9 @@ from repro_torch.models import sharding_hints as hints
 from repro_torch.models import simple
 from repro_torch.models.config import INPUT_SHAPES, InputShape
 from repro_torch.optim.sgd import sgd
+from repro_torch.testing import pin_cpu_threads, thread_env
+
+pin_cpu_threads()
 
 ROOT = os.path.join(os.path.dirname(__file__), "..")
 NARROW = dict(d_model=64, vocab_size=256, scan_layers=False)
@@ -216,8 +219,8 @@ with open(sys.argv[1] + ".json", "w") as f:
 def _oracle_run(tmp_path_factory):
     """The oracle subprocess, started when the module's first test starts."""
     base = str(tmp_path_factory.mktemp("sharding") / "oracle")
-    env = dict(os.environ, JAX_PLATFORMS="cpu", PYTHONPATH=os.path.join(ROOT, "src"),
-               XLA_FLAGS="--xla_force_host_platform_device_count=4")
+    env = thread_env(dict(os.environ, JAX_PLATFORMS="cpu", PYTHONPATH=os.path.join(ROOT, "src"),
+                          XLA_FLAGS="--xla_force_host_platform_device_count=4"))
     shapes = {k: [v.name, v.seq_len, v.global_batch, v.kind] for k, v in SPEC_SHAPES.items()}
     rest = [RUNS, NARROW, N_STEPS, ENGINE, COUNT_MESHES]
     proc = subprocess.Popen([sys.executable, "-c", ORACLE, base, json.dumps(shapes), json.dumps(rest)],

@@ -5,6 +5,9 @@ import torch
 
 from repro.kernels.similarity.ops import make_distance_fn as ref_make_distance_fn
 from repro_torch.kernels.similarity import ops
+from repro_torch.testing import pin_cpu_threads
+
+pin_cpu_threads()
 
 MEASURES = ["arccos", "l2", "l1"]
 # (13, 101) is the ragged tier-1 gate; (12, 8300) has d > STREAM_D_THRESHOLD,

@@ -10,6 +10,9 @@ from repro_torch.kernels.sketch import SKETCHERS, Sketcher, resolve_sketcher
 from repro_torch.kernels.sketch import ops
 from repro_torch.kernels.sketch import ref as P
 from repro_torch.kernels.sketch.ops import CountSketcher, IdentitySketcher, SRPSketcher, srp_sketch
+from repro_torch.testing import pin_cpu_threads
+
+pin_cpu_threads()
 
 # 12_345 · 0x165667B1 exceeds 2**32, so its salted seed term wraps
 SEEDS = [0, 7, 2**31 - 1, 12_345]

@@ -15,6 +15,9 @@ from repro_torch.fl.partition import by_class_shards
 from repro_torch.fl.server import FederatedServer, FLConfig
 from repro_torch.models.simple import params_from_numpy, params_to_numpy
 from repro_torch.optim.sgd import sgd
+from repro_torch.testing import pin_cpu_threads
+
+pin_cpu_threads()
 
 DATA = dict(n_classes=10, clients_per_class=2, train_per_client=40, test_per_client=10, dim=16, seed=0)
 M, ROUNDS, LR = 5, 3, 0.05

@@ -42,6 +42,9 @@ from repro_torch.kernels.similarity import ops
 from repro_torch.kernels.similarity.ref import gram_ref
 from repro_torch.kernels.sketch import ops as sk_ops
 from repro_torch.kernels.sketch.ref import sketch_srp_plain, srp_sign_block
+from repro_torch.testing import pin_cpu_threads
+
+pin_cpu_threads()
 
 ROOT = Path(__file__).resolve().parents[1]
 _spec = importlib.util.spec_from_file_location("chip_smoke", ROOT / "chip_smoke.py")
@@ -274,6 +277,53 @@ def test_flash_check_rejects_wrong_kernels(shape, dtype, wrong):
     else:
         got = _flash_online(q, k, v, causal=False, exp2=exp2)
     assert smoke.flash_excess(got, want, q, k, v) > 1.0
+
+
+# the widened domain's checks: head dims 12 to 320 in f32 and bf16, f16
+FLASH_WIDE_CASES = ([((*smoke.FLASH_WIDE, hd), dtype) for hd in smoke.FLASH_WIDE_HDS
+                     for dtype in (torch.float32, torch.bfloat16)]
+                    + [(shape, torch.float16) for shape in smoke.FLASH_F16_SHAPES])
+
+
+@pytest.mark.parametrize("shape,dtype", FLASH_WIDE_CASES)
+def test_flash_check_accepts_the_kernels_order_in_the_widened_domain(shape, dtype):
+    """f32's exp, and the 16-bit kernels' exp2 with p rounded to f16 or bf16
+    against the running max: within the f16 limit (2⁻¹⁰) as the bf16 order
+    is within 2⁻⁷."""
+    from repro_torch.kernels.flash_attention.ref import flash_attention_plain
+
+    q, k, v = _qkv(*shape, dtype)
+    want = flash_attention_plain(q, k, v)
+    got = _flash_online(q, k, v, exp2=dtype != torch.float32)
+    assert smoke.flash_excess(got, want, q, k, v) <= 1.0
+
+
+@pytest.mark.parametrize("wrong", ["drop_last_partial_tile", "no_causal_mask"])
+@pytest.mark.parametrize("shape", smoke.FLASH_F16_SHAPES)
+def test_flash_check_rejects_wrong_f16_kernels(shape, wrong):
+    from repro_torch.kernels.flash_attention.ref import flash_attention_plain
+
+    q, k, v = _qkv(*shape, torch.float16)
+    want = flash_attention_plain(q, k, v)
+    got = _flash_online(q, k, v, exp2=True, drop_last_partial=wrong == "drop_last_partial_tile",
+                        causal=wrong != "no_causal_mask")
+    assert smoke.flash_excess(got, want, q, k, v) > 1.0
+
+
+@pytest.mark.parametrize("mangled,name", [
+    ("_ZN12_GLOBAL__N_113flash_fwd_mmaILi128EEEvPKtS3_S3_Pt", "flash_fwd_mma<128>"),
+    # nvcc --split-compile names the anonymous namespace after the file
+    ("_ZN51_GLOBAL__N__04cf38d3_18_flash_attention_cu_2c13897913flash_fwd_mmaI6__halfLi256EEEvPKt",
+     "flash_fwd_mma<__half,256>"),
+    ("_ZN51_GLOBAL__N__04cf38d3_18_flash_attention_cu_2c13897918flash_fwd_mma_wideI13__nv_bfloat16EEvPKt",
+     "flash_fwd_mma_wide<__nv_bfloat16>"),
+    ("void (anonymous namespace)::flash_fwd_mma<__nv_bfloat16, 128>(unsigned short const*, int)",
+     "flash_fwd_mma<__nv_bfloat16,128>"),
+])
+def test_kernel_name_reads_type_and_integer_template_arguments(mangled, name):
+    """The flash kernels' names in ptxas reports, cuobjdump and profiler
+    traces, mangled or demangled, with their element type and head dim."""
+    assert smoke._kernel_name(mangled) == name
 
 
 HD8 = next(shape for shape in smoke.FLASH_BF16_SHAPES if shape[-1] == 8)

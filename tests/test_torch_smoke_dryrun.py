@@ -26,6 +26,9 @@ from repro_torch.launch import dryrun, roofline as rl, sharding, steps
 from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.models import model as mdl
 from repro_torch.models.config import InputShape
+from repro_torch.testing import pin_cpu_threads
+
+pin_cpu_threads()
 
 ROOT = Path(__file__).resolve().parents[1]
 _spec = importlib.util.spec_from_file_location("chip_smoke", ROOT / "chip_smoke.py")

@@ -24,6 +24,9 @@ from repro_torch.core import (
 )
 from repro_torch.core import statistics as stats
 from repro_torch.core.samplers.base import conditional_plan
+from repro_torch.testing import pin_cpu_threads
+
+pin_cpu_threads()
 
 M = 10
 PLAN_STATS = (

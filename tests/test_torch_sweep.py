@@ -25,6 +25,9 @@ if str(ROOT) not in sys.path:  # the reference runners live in the repo's benchm
     sys.path.insert(0, str(ROOT))
 from benchmarks import fig1_controlled as ref_fig1  # noqa: E402
 from benchmarks import fig2_dirichlet as ref_fig2  # noqa: E402
+from repro_torch.testing import pin_cpu_threads, thread_env  # noqa: E402
+
+pin_cpu_threads()
 
 BASE = {
     "data": {"name": "by_class_shards",
@@ -145,7 +148,10 @@ def test_campaign_summary_matches_reference(tmp_path, monkeypatch):
             np.testing.assert_array_equal(g.agg_weights, w.agg_weights)
 
 
-def test_spawn_workers_match_serial(tmp_path):
+def test_spawn_workers_match_serial(tmp_path, monkeypatch):
+    # the spawned workers read their thread count from the environment
+    for name, n in thread_env({}).items():
+        monkeypatch.setenv(name, n)
     d = _sweep({"sampler.name": ["md", "algorithm1"]})
     d["base"] = copy.deepcopy(BASE)
     d["base"]["train"].update(n_rounds=2, n_local_steps=2)
@@ -158,7 +164,7 @@ def test_spawn_workers_match_serial(tmp_path):
 # the CLI
 # --------------------------------------------------------------------------
 def _cli(*args) -> subprocess.CompletedProcess:
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    env = thread_env(dict(os.environ, PYTHONPATH=str(ROOT / "src")))
     return subprocess.run([sys.executable, "-m", "repro_torch.launch.sweep", *args], env=env,
                           cwd=ROOT, capture_output=True, text=True, timeout=120)
 

@@ -43,6 +43,9 @@ from repro_torch.core import ClientPopulation
 from repro_torch.launch import fl_train, serve, steps, train
 from repro_torch.models import blocks as blk
 from repro_torch.models import model as mdl
+from repro_torch.testing import pin_cpu_threads
+
+pin_cpu_threads()
 
 ARCH = "whisper-small"
 B, P, GEN = 2, 19, 6

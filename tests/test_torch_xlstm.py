@@ -32,6 +32,9 @@ from repro.models.layers import xlstm as ref_xlstm
 from repro_torch.launch import serve, train
 from repro_torch.models import model as mdl
 from repro_torch.models.layers import xlstm
+from repro_torch.testing import pin_cpu_threads
+
+pin_cpu_threads()
 
 ARCH = "xlstm-125m"
 B, S, CHUNK = 2, 24, 8
