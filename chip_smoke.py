@@ -436,7 +436,13 @@ AGG_TOL = 2e-5
 AGG_PASS_ROWS = 8  # rows a pass of csrc/aggregate.cu, all in flight before the pass's FMAs
 WIDTH = (784, 50, 10)
 D_PRIME = 64  # sketch width of slice[srp] and the fleet (bench_store_scale's d')
-SKETCHED_SIM_SHAPE = (100, D_PRIME)  # the sketched store the similarity kernel reads
+SKETCHED_SIM_SHAPE = (100, D_PRIME)
+# the host-chunked distance path on a host G of 100 rows and 1,080,000,000 B
+# of f32, more than one slab of STREAM_D_THRESHOLD columns can ever need on
+# the card; its arccos distances against the one-shot op's: an f32 Gram
+# over 2.7 M coordinates summed in 330 slabs against one pass
+CHUNKED_HOST_D = 2_700_000
+CHUNKED_ATOL = 1e-4  # the sketched store the similarity kernel reads
 # (c, d, d'): the round's 10 rows, the fleet's 64, a ragged shape, tiny ones
 # with fewer k-tiles than splits (d = 96: 2 k-tiles, 8 splits), and 130 rows
 # over three row tiles
@@ -490,6 +496,17 @@ FLASH_WIDE_ROWS = [("flash_attention_hd256", "bfloat16", FLASH_HD256),
                    ("flash_attention_f16", "float16", FLASH_PATH),
                    ("flash_attention_hd320", "bfloat16", (4, 1000, 12, 2, 320)),
                    ("flash_attention_f32_hd200", "float32", (4, 1000, 12, 2, 200))]
+# mixed dtypes (all 24 combinations of f32, bf16 and f16 for q, k and v that
+# are not one dtype) at the reference's smallest test shape, and the serve
+# path's shape with q and k bf16 and v f32: the f32 kernel instantiated on
+# v's and q's dtypes, FLASH_F32_INSTANCES instances in all
+FLASH_MIXED_SHAPE = (1, 32, 4, 2, 16)
+FLASH_MIXED_PATH = ("bfloat16", "bfloat16", "float32")
+FLASH_MIXED_ROW = "flash_attention_mixed"
+# one k-tile: the kernel's p rounding must sit this many times closer to the
+# plain version's than p unrounded does
+FLASH_P_ROUNDING = 4.0
+FLASH_F32_INSTANCES = 9
 FLASH_F32_ATOL = 2e-5  # the reference's
 FLASH_BF16_ATOL = 3e-2  # the reference's, the loosest the bf16 limit may be
 # bf16: two ulps (2⁻⁸ each) of the output's scale, which is bounded by the
@@ -534,22 +551,42 @@ def srp_rel_err(got, want, X, d_prime: int) -> float:
     return float(((got.double() - want.double()).abs() / scale).max())
 
 
-def flash_excess(got, want, q, k, v, causal=True) -> float:
-    """max |got − want| / limit over the outputs of a call: the limit is
-    FLASH_F32_ATOL for f32, for bf16 min(FLASH_BF16_ATOL,
-    FLASH_BF16_REL·(|want| + A)) with A = Σ_j p_ij·|v_j|, the plain
-    version's f32 attention over |v|, and for f16 the same with
-    FLASH_F16_REL."""
-    import torch
+def flash_lowest(*tensors) -> str:
+    """The lowest precision among the tensors' dtypes: "bfloat16", else
+    "float16", else "float32"."""
+    names = {str(t.dtype).removeprefix("torch.") for t in tensors}
+    return next(d for d in ("bfloat16", "float16", "float32") if d in names)
 
+
+def flash_p_rounding(got, q, k, v) -> tuple[float, float]:
+    """(mean |got − plain|, mean |got − plain with p unrounded|) of a call
+    whose v is 16-bit: within one k-tile (T <= 64) the kernel's running max
+    is the row's max, so p rounded to v's dtype matches the plain version's
+    but for rare last-bit flips, and a kernel that widened v without
+    rounding p would sit as far from the plain version as the unrounded
+    form does."""
+    from repro_torch.kernels.flash_attention.ref import flash_attention_plain
+
+    want = flash_attention_plain(q, k, v).float()
+    unrounded = flash_attention_plain(q, k, v.float()).float()
+    return (float((got.float() - want).abs().mean()), float((got.float() - unrounded).abs().mean()))
+
+
+def flash_excess(got, want, q, k, v, causal=True) -> float:
+    """max |got − want| / limit over the outputs of a call, at the limit of
+    the lowest precision among q, k and v: FLASH_F32_ATOL for f32, for bf16
+    min(FLASH_BF16_ATOL, FLASH_BF16_REL·(|want| + A)) with A = Σ_j p_ij·|v_j|,
+    the plain version's f32 attention over |v|, and for f16 the same with
+    FLASH_F16_REL."""
     from repro_torch.kernels.flash_attention.ref import flash_attention_plain
 
     err = (got.float() - want.float()).abs()
-    if q.dtype == torch.float32:
+    lowest = flash_lowest(q, k, v)
+    if lowest == "float32":
         return float(err.max()) / FLASH_F32_ATOL
     scale = want.float().abs() + flash_attention_plain(q.float(), k.float(), v.float().abs(),
                                                        causal=causal)
-    rel = FLASH_BF16_REL if q.dtype == torch.bfloat16 else FLASH_F16_REL
+    rel = FLASH_BF16_REL if lowest == "bfloat16" else FLASH_F16_REL
     return float((err / (rel * scale).clamp(max=FLASH_BF16_ATOL)).max())
 
 
@@ -577,8 +614,9 @@ def time_ms(torch, fn, reps: int = 50, queued: bool = False) -> float:
 def _kernel_name(name: str) -> str:
     """``flash_fwd_mma<__half,128>`` from an Itanium-mangled kernel name
     (``_ZN12_GLOBAL__N_113flash_fwd_mmaI6__halfLi128EEEv...``: the innermost
-    length-prefixed identifier and its integer and named-type template
-    arguments), or from
+    length-prefixed identifier and its integer, named-type, builtin-type
+    (``f``: float) and repeated-type (``S1_``: the first type argument, after
+    the namespace and the template's name) template arguments), or from
     a demangled one (``void (anonymous namespace)::pairwise_partial<0, 8>(float
     const*, ...)``: the last name before the arguments)."""
     import re
@@ -601,14 +639,23 @@ def _kernel_name(name: str) -> str:
         return name[:60]
     if not name.startswith("I", i):
         return ident
-    args, i = [], i + 1  # template arguments: integers (Li128E) and named types (6__half)
-    while found := re.match(r"Li(-?\d+)E|(\d+)", name[i:]):
+    # template arguments: integers (Li128E), named types (6__half), builtin
+    # types (f) and substitutions of an earlier type argument (S1_)
+    args, types, i = [], [], i + 1
+    while found := re.match(r"Li(-?\d+)E|(\d+)|([fdijb])|S(\d*)_", name[i:]):
         i += len(found.group())
         if found.group(1) is not None:
             args.append(found.group(1))
-        else:
-            args.append(name[i:i + int(found.group(2))])
+        elif found.group(2) is not None:
+            types.append(name[i:i + int(found.group(2))])
+            args.append(types[-1])
             i += int(found.group(2))
+        elif found.group(3) is not None:
+            args.append({"f": "float", "d": "double", "i": "int", "j": "unsigned", "b": "bool"}[
+                found.group(3)])
+        else:  # S_ is the namespace, S0_ the template's name, S1_ the first type argument
+            k = 0 if found.group(4) == "" else int(found.group(4)) + 1
+            args.append(types[k - 2] if 2 <= k < len(types) + 2 else "?")
     return ident + (f"<{','.join(args)}>" if name.startswith("E", i) else "")
 
 
@@ -701,15 +748,23 @@ def phase_build():
     for name in _build.SOURCES:
         _build.load(name)
     print(f"build: {secs:.3f} s for {', '.join(s + '.cu' for s in _build.SOURCES)} (sm_90a)")
-    spills = []
+    spills, f32_kernels = [], []
     for name, log in logs.items():
         for fn, line in ptxas_report(log):
             print(f"  ptxas {name} {fn}: {line}")
-            if fn.startswith(("flash_fwd_mma", "pairwise_", "aggregate_")) and any(
+            if fn.startswith(("flash_fwd_mma", "flash_fwd_f32", "pairwise_", "aggregate_")) and any(
                     int(n) for n in re.findall(r"(\d+) bytes spill", line)):
                 spills.append(f"{fn}: {line}")
+            if fn.startswith("flash_fwd_f32") and "registers" in line:
+                f32_kernels.append(fn)
     if spills:
         fail(f"build: ptxas reports spills in {'; '.join(spills)}")
+    # flash_fwd_f32<TV, TO>: v's and the output's types, each f32, bf16 or f16
+    if len(f32_kernels) != FLASH_F32_INSTANCES:
+        fail(f"build: ptxas reports {len(f32_kernels)} flash_fwd_f32 instances, want "
+             f"{FLASH_F32_INSTANCES}: {f32_kernels}")
+    print(f"build: the {len(f32_kernels)} flash_fwd_f32 instances (the f32 and mixed-dtype "
+          f"routes), none spilling: {', '.join(sorted(f32_kernels))}")
     sim = sass_counts(_build._target("similarity")[1], SIM_SASS_OPS)
     agg = sass_loads_ahead(_build._target("aggregate")[1])
     lib = _build._target("flash_attention")[1]
@@ -787,8 +842,111 @@ def phase_kernels(torch, gen):
     sim_kernels_a_call(torch, gen)
     err["srp"] = phase_kernels_srp(torch, gen)
     err["aggregate"] = phase_kernels_agg(torch, gen)
+    kernels_trees(torch, gen)
+    kernels_chunked(torch, gen)
     err["flash"] = phase_kernels_flash(torch, gen)
     return err
+
+
+def kernels_trees(torch, gen) -> None:
+    """``aggregate_trees`` over AGG_SHAPE's rows as the MNIST MLP's
+    parameter dicts (10 clients and θ^t): one B2 launch a call, bit-equal to
+    ``aggregate_flat`` over the same flat rows, within AGG_TOL of the plain
+    version, each leaf in its shape and dtype."""
+    from repro_torch.fl.aggregation import flatten_params, unflatten_params
+    from repro_torch.kernels.aggregate import ops as agg_ops
+    from repro_torch.kernels.aggregate.ref import aggregate_ref
+    from repro_torch.models.simple import init_mlp
+
+    like = init_mlp(WIDTH, seed=0, device=DEV)
+    k = AGG_SHAPE[0]
+    trees = [{key: (SIM_SCALE * torch.randn(v.shape, generator=gen)).to(DEV) for key, v in like.items()}
+             for _ in range(k)]
+    w = torch.rand(k, generator=gen).to(DEV)
+    before = agg_ops.launches["aggregate"]
+    got = agg_ops.aggregate_trees(trees, w)
+    launched = agg_ops.launches["aggregate"] - before
+    rows = torch.stack([flatten_params(t) for t in trees])
+    if rows.shape != AGG_SHAPE:
+        fail(f"aggregate_trees: the MLP's rows are {tuple(rows.shape)}, want {AGG_SHAPE}")
+    flat = agg_ops.aggregate_flat(rows, w)
+    want = unflatten_params(flat, like)
+    plain = aggregate_ref(rows, w)
+    torch.cuda.synchronize()
+    if launched != 1:
+        fail(f"aggregate_trees: {launched} aggregate launches in one call, want 1")
+    for key, leaf in like.items():
+        if got[key].shape != leaf.shape or got[key].dtype != leaf.dtype:
+            fail(f"aggregate_trees: leaf {key} came back {got[key].dtype} {tuple(got[key].shape)}")
+        if not torch.equal(got[key], want[key]):
+            fail(f"aggregate_trees: leaf {key} differs from aggregate_flat over the same rows")
+    e = float((flatten_params(got) - plain).abs().max())
+    if not math.isfinite(e) or e > AGG_TOL * (1 + float(plain.abs().max())):
+        fail(f"aggregate_trees: max abs error {e} against the plain version")
+    print(f"kernels: aggregate_trees over {k} MNIST MLP parameter dicts {AGG_SHAPE}: one B2 launch, "
+          f"bit-equal to aggregate_flat, max_abs_err {e:.3e} against the plain version")
+
+
+def kernels_chunked(torch, gen) -> None:
+    """``pairwise_distances_chunked`` on host numpy G: at the main path's
+    (100, 39,760), B1 once a slab and Algorithm 2's plans equal to the device
+    op's (arccos and L1); at CHUNKED_HOST_D columns (at least 1 GB of f32),
+    B1 once a slab, the distances within GRAM_RTOL of the one-shot op's on
+    the whole block, and both timed (host clock, ending in a synchronise)."""
+    import numpy as np
+
+    from repro_torch.core.samplers.algorithm2 import build_plan_algorithm2
+    from repro_torch.core.types import ClientPopulation
+    from repro_torch.kernels.similarity import ops as sim_ops
+
+    n, d = SIM_SHAPES[0]
+    rng = np.random.default_rng(SRP_SEED)
+    G = (SIM_SCALE * rng.standard_normal((n, d), dtype=np.float32)).astype(np.float32)
+    pop = ClientPopulation(rng.integers(50, 500, size=n))
+    for measure in ("arccos", "l1"):
+        before = sum(sim_ops.launches.values())
+        plan = build_plan_algorithm2(pop, 10, G, measure=measure, distance_fn=lambda G, m: (
+            sim_ops.pairwise_distances_chunked(G, m)))
+        launched = sum(sim_ops.launches.values()) - before
+        want = build_plan_algorithm2(pop, 10, torch.from_numpy(G).to(DEV), measure=measure,
+                                     distance_fn="auto")
+        slabs = -(-d // sim_ops.STREAM_D_THRESHOLD)
+        if launched != slabs:
+            fail(f"chunked[{measure}] ({n}, {d}): {launched} B1 launches, want {slabs}")
+        if not (np.array_equal(plan.r_tokens, want.r_tokens)
+                and np.array_equal(plan.cluster_of, want.cluster_of)):
+            fail(f"chunked[{measure}] ({n}, {d}): the host-chunked plan differs from the device op's")
+        print(f"kernels: chunked[{measure}] host G ({n}, {d}): {launched} B1 launches "
+              f"(d_chunk {sim_ops.STREAM_D_THRESHOLD}), plan equal to the device op's")
+    d = CHUNKED_HOST_D
+    t0 = time.perf_counter()
+    G = rng.standard_normal((n, d), dtype=np.float32)
+    G *= np.float32(SIM_SCALE)
+    made = time.perf_counter() - t0
+    before = sim_ops.launches["gram"]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = sim_ops.pairwise_distances_chunked(G, "arccos")
+    torch.cuda.synchronize()
+    chunked_s = time.perf_counter() - t0
+    launched = sim_ops.launches["gram"] - before
+    t0 = time.perf_counter()
+    whole = torch.from_numpy(G).to(DEV)
+    one = sim_ops.pairwise_distances_device(whole, "arccos")
+    torch.cuda.synchronize()
+    one_s = time.perf_counter() - t0
+    del whole
+    torch.cuda.empty_cache()
+    slabs = -(-d // sim_ops.STREAM_D_THRESHOLD)
+    if launched != slabs:
+        fail(f"chunked host G ({n}, {d}): {launched} B1 launches, want {slabs}")
+    e = float((got - one).abs().max())
+    if not math.isfinite(e) or e > CHUNKED_ATOL:
+        fail(f"chunked host G ({n}, {d}): arccos distances {e} from the one-shot op's")
+    print(f"kernels: chunked host G ({n}, {d}), {G.nbytes:,} B of f32 (made in {made:.3f} s): "
+          f"{launched} B1 launches of (n, <= {sim_ops.STREAM_D_THRESHOLD}) slabs in {chunked_s:.3f} s "
+          f"(host clock, slab copies included); the one-shot op after one {G.nbytes:,} B copy "
+          f"{one_s:.3f} s; arccos max |Δ| {e:.3e} (limit {CHUNKED_ATOL})")
 
 
 def phase_kernels_agg(torch, gen) -> float:
@@ -960,8 +1118,9 @@ def _flash_check(torch, label, got, q, k, v, causal=True, again=None) -> float:
         fail(f"flash kernel {label}: max abs error {e}, {excess:.3f}× its limit")
     if again is not None and not torch.equal(got, again):
         fail(f"flash kernel {label} is not bit-reproducible")
-    limit = (f"atol {FLASH_F32_ATOL}" if q.dtype == torch.float32 else
-             f"limit min({FLASH_BF16_ATOL}, 2^-{7 if q.dtype == torch.bfloat16 else 10}·(|want| + Σ p|v|))")
+    lowest = flash_lowest(q, k, v)
+    limit = (f"atol {FLASH_F32_ATOL}" if lowest == "float32" else
+             f"limit min({FLASH_BF16_ATOL}, 2^-{7 if lowest == 'bfloat16' else 10}·(|want| + Σ p|v|))")
     print(f"kernels: flash {label} max_abs_err {e:.3e}, {excess:.3f} of its {limit}, max |want| "
           f"{float(want.float().abs().max()):.3e}" + (", reproducible" if again is not None else ""))
     return e
@@ -1047,7 +1206,121 @@ def phase_kernels_flash(torch, gen) -> dict:
         before = fa_ops.launches["flash_attention"]
         path_err[row] = check(f"{row} {dtype}", getattr(torch, dtype), shape)
         path_err["launches"][row] = fa_ops.launches["flash_attention"] - before
+    path_err.update(flash_mixed_checks(torch, gen))
+    path_err["launches"][FLASH_MIXED_ROW] = path_err.pop("mixed_launches")
     return path_err
+
+
+def _mixed_inputs(torch, gen, shape, dtypes):
+    b, s, h, kv, hd = shape
+    return tuple(torch.randn(dims, generator=gen).to(DEV, getattr(torch, dt))
+                 for dims, dt in zip(((b, s, h, hd), (b, s, kv, hd), (b, s, kv, hd)), dtypes))
+
+
+def flash_mixed_checks(torch, gen) -> dict:
+    """Every mixed-dtype combination of q, k and v at FLASH_MIXED_SHAPE,
+    and FLASH_MIXED_PATH at the serve path's shape: each call one launch,
+    within the lowest precision's limit of the plain version on the card and
+    bit-reproducible; each small combination timed beside its bound.
+    Returns the serve shape's max abs error under FLASH_MIXED_ROW, and its
+    launches under "mixed_launches"."""
+    import itertools
+
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+
+    name = torch.cuda.get_device_name(0)
+    combos = [c for c in itertools.product(("float32", "bfloat16", "float16"), repeat=3)
+              if len(set(c)) > 1]
+    before = fa_ops.launches["flash_attention"]
+    for dts in combos:
+        q, k, v = _mixed_inputs(torch, gen, FLASH_MIXED_SHAPE, dts)
+        got = fa_ops.flash_attention_padded(q, k, v)
+        again = fa_ops.flash_attention_padded(q, k, v)
+        _flash_check(torch, f"mixed (q, k, v) = {dts} {FLASH_MIXED_SHAPE}", got, q, k, v,
+                     again=again)
+        if dts[0] == "float32" and dts[2] != "float32":  # f32 out, p rounded to 16 bits
+            rounded, unrounded = flash_p_rounding(got, q, k, v)
+            if not rounded * FLASH_P_ROUNDING < unrounded:
+                fail(f"flash kernel mixed {dts}: mean error {rounded:.3e} against the plain version, "
+                     f"{unrounded:.3e} against it with p unrounded: p is not rounded to v's dtype")
+            print(f"kernels: flash mixed {dts}: p rounded to v's dtype (mean error {rounded:.3e}, "
+                  f"{unrounded:.3e} against p unrounded)")
+    launched = fa_ops.launches["flash_attention"] - before
+    if launched != 2 * len(combos):
+        fail(f"flash wrapper: {launched} launches for the mixed dtypes' {2 * len(combos)} calls")
+    print(f"kernels: flash's {len(combos)} mixed-dtype combinations launched the kernel at each "
+          f"of their {launched} calls")
+    for dts in combos:  # timed apart from the checks: launches here are not the checks'
+        flash_mixed_times(torch, name, _mixed_inputs(torch, gen, FLASH_MIXED_SHAPE, dts))
+    q, k, v = _mixed_inputs(torch, gen, FLASH_PATH, FLASH_MIXED_PATH)
+    before = fa_ops.launches["flash_attention"]
+    got = fa_ops.flash_attention_padded(q, k, v)
+    again = fa_ops.flash_attention_padded(q, k, v)
+    err = _flash_check(torch, f"{FLASH_MIXED_ROW} (q, k, v) = {FLASH_MIXED_PATH} {FLASH_PATH}",
+                       got, q, k, v, again=again)
+    return {FLASH_MIXED_ROW: err, "mixed_launches": fa_ops.launches["flash_attention"] - before}
+
+
+def flash_bound(name, q, k, v) -> tuple[float, str, int, int]:
+    """(bound ms, what bounds it, FLOP, bytes) of a flash call on q, k and
+    v: each operand and the output moved once at its own itemsize
+    (``fa_ops.work``), over the card's memory rate; and the causal QKᵀ and
+    PV, half the FLOP each, over the peak for their operands' types: the
+    16-bit tensor-core rate for two 16-bit operands of one type, TF32's
+    (half of it: exact for a bf16 × f16 product) for two of different
+    16-bit types, else the f32 rate. PV's operands are p, rounded to v's
+    type, and v."""
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+
+    _, bw, f32, bf16 = peaks_for(name)
+    b, s, h, hd = q.shape
+    t, kv = k.shape[1], k.shape[2]
+    flops, nbytes = fa_ops.work(b, s, t, h, kv, hd, itemsizes=(
+        q.element_size(), k.element_size(), v.element_size()))
+
+    def peak(x, y):
+        if x.element_size() == 2 and y.element_size() == 2:
+            return bf16 if x.dtype == y.dtype else bf16 / 2
+        return f32
+
+    t_bytes = nbytes / bw * 1e3
+    t_ops = (flops / 2 / peak(q, k) + flops / 2 / peak(v, v)) * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations", flops, nbytes
+
+
+def flash_mixed_times(torch, name, qkv, row_name=None) -> dict:
+    """The kernel's and the plain version's ms a call by events on
+    mixed-dtype q, k and v, beside the call's bound; no single library call
+    computes this function, so there is no library time."""
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention.ref import flash_attention_plain
+
+    q, k, v = qkv
+    ms = time_ms(torch, lambda: fa_ops.flash_attention_padded(q, k, v), reps=20)
+    plain_ms = time_ms(torch, lambda: flash_attention_plain(q, k, v), reps=5)
+    bound, by, flops, nbytes = flash_bound(name, q, k, v)
+    dts = tuple(str(a.dtype).removeprefix("torch.") for a in qkv)
+    b, s, h, hd = q.shape
+    print(f"times: {row_name or 'flash mixed'} (q, k, v) = {dts} {(b, s, h, k.shape[2], hd)}: "
+          f"{ms:.6f} ms, plain {plain_ms:.6f} ms, bound {bound:.6f} ms ({by}; {nbytes} B, "
+          f"{flops} FLOP); no single library call computes this function")
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by}
+
+
+def flash_mixed_row(torch, gen, name, err, launches) -> dict:
+    """The kernels line's row of the mixed route at the serve path's shape
+    (FLASH_MIXED_PATH): no model path mixes dtypes, so its launches are the
+    kernels phase's calls at this shape."""
+    qkv = _mixed_inputs(torch, gen, FLASH_PATH, FLASH_MIXED_PATH)
+    row = {"name": FLASH_MIXED_ROW, "route": "cuda",
+           "source": "src/repro_torch/csrc/flash_attention.cu",
+           "replaces": "src/repro/kernels/flash_attention/kernel.py:70", "launches": launches,
+           "max_abs_err": err, **flash_mixed_times(torch, name, qkv, FLASH_MIXED_ROW),
+           "library_ms": None, "dtypes": list(FLASH_MIXED_PATH),
+           "library_note": "no single library call computes this function",
+           "launches_from": ("the kernels phase's calls of flash_attention_padded at this shape "
+                             "and these dtypes; no model path mixes dtypes")}
+    return row
 
 
 def _small_serve_cfg(arch, dtype, **overrides):
@@ -6358,6 +6631,8 @@ def main(argv=()) -> int:
                                    lean=True))
         rows[-1]["launches_from"] = ("the kernels phase's calls of flash_attention_padded at this "
                                      "shape; no model path reaches this head dim or dtype")
+    rows.append(flash_mixed_row(torch, gen, name, err["flash"][FLASH_MIXED_ROW],
+                                err["flash"]["launches"][FLASH_MIXED_ROW]))
     paper = phase_paper(torch, gen)
     ablations = phase_ablations(torch)
     zoo = phase_zoo(torch)

@@ -35,45 +35,24 @@ DistanceFn = Callable[[object, str], np.ndarray]
 ClustererFn = Callable[..., list]
 
 
-# backend names that map to the port's similarity op: the reference's
-# jax/Pallas backends, which on the card are all the one CUDA kernel
-_DEVICE_BACKENDS = ("auto", "streamed", "chunked", "pallas", "pallas-interpret")
-
-
-def _host_distances(G, measure: str) -> np.ndarray:
-    """The f64 host measure (:func:`repro_torch.core.clustering.similarity.
-    pairwise_distances`) on a host copy of ``G``, tensor or numpy."""
-    from repro_torch.core.clustering.similarity import pairwise_distances
-
-    if isinstance(G, torch.Tensor):
-        G = G.cpu().numpy()
-    return pairwise_distances(G, measure)
-
-
-def _resolve_distance_fn(distance_fn: Union[DistanceFn, str, None]) -> DistanceFn:
+def _resolve_distance_fn(
+    distance_fn: Union[DistanceFn, str, None], *, as_numpy: bool = False
+) -> DistanceFn:
     """Map the sampler's ``distance_fn`` argument to a callable.
 
-    Every name the reference takes builds here. ``None`` and ``"numpy"``
-    are the f64 host measure (:func:`_host_distances`) — a named host
-    measure is the caller's choice. ``"auto"``, ``"streamed"``,
-    ``"chunked"``, ``"pallas"`` and ``"pallas-interpret"`` are the port's
-    similarity op (the CUDA kernel for a CUDA G, its plain version for a
-    CPU G; a host array raises), whose (n, n) output stays on G's device
-    for the clusterer to take (``"ward"`` copies it to the host,
-    ``"ward_jit"`` does not). A callable passes through.
+    A callable passes through; ``None`` is the f64 host measure; a name is
+    resolved by :func:`repro_torch.kernels.similarity.ops.
+    resolve_distance_backend`, which takes every name the reference takes.
+    The device backends' (n, n) output stays on G's device for the
+    clusterer to take (``"ward"`` copies it to the host, ``"ward_jit"``
+    does not).
     """
     if callable(distance_fn):
         return distance_fn
-    if distance_fn is None or distance_fn == "numpy":
-        return _host_distances
-    if distance_fn not in _DEVICE_BACKENDS:
-        raise ValueError(
-            f"unknown distance backend {distance_fn!r}; choose from "
-            f"{' | '.join(_DEVICE_BACKENDS)} | numpy, None or a callable"
-        )
-    from repro_torch.kernels.similarity.ops import make_distance_fn
+    from repro_torch.kernels.similarity.ops import resolve_distance_backend
 
-    return make_distance_fn()
+    return resolve_distance_backend("numpy" if distance_fn is None else distance_fn,
+                                    as_numpy=as_numpy)
 
 
 def _fit_chunks(ids: np.ndarray, mass: np.ndarray, capacity: int) -> list[np.ndarray]:

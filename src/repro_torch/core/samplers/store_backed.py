@@ -150,6 +150,11 @@ class StoreBackedSampler(ClusteredSampler):
 
     # -- introspection -------------------------------------------------------
     @property
+    def representative_gradients(self) -> np.ndarray:
+        """Host copy of the resident G — (n, d'), sketch space if sketched."""
+        return self._store.asnumpy()
+
+    @property
     def gradient_store(self):
         return self._store
 

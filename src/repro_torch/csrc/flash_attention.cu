@@ -9,15 +9,21 @@
 // and T and masks the ragged tails itself. Like the reference it takes any
 // head dim, any B and H, and any layout of q, k and v.
 //
-// Routes, chosen by dtype and head dim in the entry point at the end:
+// Routes, chosen by dtype and head dim in the two entry points at the end:
 //   - bf16 and f16, hd <= 256: `flash_fwd_mma<T, HDP>`, on the tensor cores
 //     (mma.sync m16n8k16), hd padded to HDP = 32, 64, 128 or 256;
 //   - bf16 and f16, hd > 256: `flash_fwd_mma_wide<T>`, the same products
 //     with the head dim cut into 128-column chunks (below);
-//   - f32: `flash_fwd_f32`, on the CUDA cores, every product an f32 FMA,
-//     head dims above 128 cut into 128-column chunks the same way. It is
-//     the f32 route because TF32 is not allowed where the port is held to
-//     the reference at atol 2e-5.
+//   - f32: `flash_fwd_f32<float, float>`, on the CUDA cores, every product
+//     an f32 FMA, head dims above 128 cut into 128-column chunks the same
+//     way. It is the f32 route because TF32 is not allowed where the port
+//     is held to the reference at atol 2e-5;
+//   - q, k and v of mixed dtypes (`flash_attention_fwd_mixed`): the same
+//     kernel, `flash_fwd_f32<TV, TO>`, with v read in its own dtype TV, p
+//     rounded to TV before the PV product and the output written in q's
+//     dtype TO. q and k come in f32: the wrapper widens a bf16 or f16 q or
+//     k exactly, and a product of two widened 16-bit values (bf16 × f16
+//     included) is exact in f32, as the reference's f32 dot of them is.
 //
 // Semantics shared by all, which the plain version `flash_attention_plain`
 // computes: scores in f32 from the inputs (bf16 and f16 products are exact
@@ -622,6 +628,14 @@ int launch_mma_wide(const void* q, const void* k, const void* v, void* out, int 
 // as flash_fwd_mma_wide does. Row strides are padded so that every
 // shared-memory access of a warp hits distinct banks or one broadcast
 // address. Elements are read one by one, so any alignment serves.
+//
+// Mixed dtypes take this kernel too, instantiated on v's element type TV
+// and the output's TO (nine instances, <float, float> the f32 route): v is
+// widened to f32 as its tile is loaded, each p is rounded to TV as it is
+// written to shared memory (the denominator sums it unrounded, as the
+// reference does), and the output is rounded to TO once. q and k arrive in
+// f32. No model path mixes dtypes, so the route is kept simple: its
+// products run at the f32 rate whatever the inputs' types.
 // ---------------------------------------------------------------------------
 
 constexpr int BQ = 32;          // query rows per block
@@ -633,19 +647,50 @@ constexpr int VS = DC;          // row stride of the v tile
 constexpr int PS = BK + 16;     // padded row stride of the p tile
 constexpr int SMEM_FLOATS = BQ * QS + BK * QS + BK * VS + BQ * PS;
 
-// rows r < n of a (rows, cols) operand into a tile of row stride ld, zero
-// past `valid` rows
-__device__ __forceinline__ void load_f32(float* dst, int ld, const float* src, long long stride,
+// An element type of the f32 route's v and output: widened to f32 on load,
+// and a float rounded to it (to nearest, ties to even) for p and the output.
+template <typename T>
+struct F32Io;
+
+template <>
+struct F32Io<float> {
+  static __device__ __forceinline__ float widen(float x) { return x; }
+  static __device__ __forceinline__ float narrow(float x) { return x; }
+  static __device__ __forceinline__ float round(float x) { return x; }
+};
+
+template <>
+struct F32Io<__nv_bfloat16> {
+  static __device__ __forceinline__ float widen(__nv_bfloat16 x) { return __bfloat162float(x); }
+  static __device__ __forceinline__ __nv_bfloat16 narrow(float x) { return __float2bfloat16_rn(x); }
+  static __device__ __forceinline__ float round(float x) { return widen(narrow(x)); }
+};
+
+template <>
+struct F32Io<__half> {
+  static __device__ __forceinline__ float widen(__half x) { return __half2float(x); }
+  static __device__ __forceinline__ __half narrow(float x) { return __float2half_rn(x); }
+  static __device__ __forceinline__ float round(float x) { return widen(narrow(x)); }
+};
+
+// rows r < n of a (rows, cols) operand into an f32 tile of row stride ld,
+// zero past `valid` rows
+template <typename T>
+__device__ __forceinline__ void load_f32(float* dst, int ld, const T* src, long long stride,
                                          int n, int cols, int valid, int tid) {
   for (int i = tid; i < n * cols; i += THREADS) {
     const int r = i / cols, d = i - r * cols;
-    dst[r * ld + d] = r < valid ? src[(long long)r * stride + d] : 0.f;
+    dst[r * ld + d] = r < valid ? F32Io<T>::widen(src[(long long)r * stride + d]) : 0.f;
   }
 }
 
+// TV: v's element type, which p is rounded to before the PV product; TO:
+// the output's. <float, float> is the f32 route, where both roundings are
+// the identity.
+template <typename TV, typename TO>
 __global__ void __launch_bounds__(THREADS)
 flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
-              const float* __restrict__ v, float* __restrict__ out, int nq, int nc, int S, int Tk,
+              const TV* __restrict__ v, TO* __restrict__ out, int nq, int nc, int S, int Tk,
               int H, int KV, int hd, Strides qs, Strides ks, Strides vs, Strides os, float scale,
               int causal) {
   extern __shared__ float smem[];
@@ -664,7 +709,7 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
 
   const float* qb = q + b * qs.b + h * qs.h + (long long)q0 * qs.s;
   const float* kb = k + b * ks.b + g * ks.h;
-  const float* vb = v + b * vs.b + g * vs.h;
+  const TV* vb = v + b * vs.b + g * vs.h;
 
   if (nc == 1) load_f32(sQ, QS, qb, qs.s, BQ, hd, S - q0, tid);
 
@@ -728,8 +773,8 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const float p = expf(s[i][j] - m_new);
-        psum += p;
-        sP[(rg + 8 * i) * PS + cg + 16 * j] = p;
+        psum += p;  // the denominator sums p unrounded
+        sP[(rg + 8 * i) * PS + cg + 16 * j] = F32Io<TV>::round(p);
       }
 #pragma unroll
       for (int off = 8; off >= 1; off >>= 1) psum += __shfl_xor_sync(0xffffffffu, psum, off);
@@ -756,7 +801,7 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
     }
   }
 
-  float* ob = out + b * os.b + h * os.h + oc0;
+  TO* ob = out + b * os.b + h * os.h + oc0;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int row = q0 + rg + 8 * i;
@@ -765,26 +810,43 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
       const int d = cg + 16 * j;
-      if (d < ow) ob[(long long)row * os.s + d] = acc[i][j] / denom;
+      if (d < ow) ob[(long long)row * os.s + d] = F32Io<TO>::narrow(acc[i][j] / denom);
     }
   }
 }
 
+template <typename TV, typename TO>
 int launch_f32(const void* q, const void* k, const void* v, void* out, int B, int S, int Tk, int H,
                int KV, int hd, Strides qs, Strides ks, Strides vs, Strides os, float scale,
                int causal, cudaStream_t stream) {
   const size_t smem = SMEM_FLOATS * sizeof(float);  // 92,544 B: above 48 KB, so opt in
-  const cudaError_t e =
-      cudaFuncSetAttribute(flash_fwd_f32, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  const cudaError_t e = cudaFuncSetAttribute(flash_fwd_f32<TV, TO>,
+                                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
   const int nq = (S + BQ - 1) / BQ;
   const int nc = (hd + DC - 1) / DC;
   const long long blocks = (long long)nq * nc * H * B;
   if (blocks > INT_MAX) return (int)cudaErrorInvalidValue;
-  flash_fwd_f32<<<(unsigned)blocks, THREADS, smem, stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<float*>(out), nq, nc, S, Tk, H, KV, hd, qs, ks, vs, os, scale, causal);
+  flash_fwd_f32<TV, TO><<<(unsigned)blocks, THREADS, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const TV*>(v),
+      static_cast<TO*>(out), nq, nc, S, Tk, H, KV, hd, qs, ks, vs, os, scale, causal);
   return (int)cudaGetLastError();
+}
+
+// The f32 route with v of dtype `vd` and the output of dtype `od` (0 = f32,
+// 1 = bf16, 2 = f16): one of the nine instances.
+template <typename TV>
+int launch_f32_out(int od, const void* q, const void* k, const void* v, void* out, int B, int S,
+                   int Tk, int H, int KV, int hd, Strides qs, Strides ks, Strides vs, Strides os,
+                   float scale, int causal, cudaStream_t s) {
+  if (od == 0)
+    return launch_f32<TV, float>(q, k, v, out, B, S, Tk, H, KV, hd, qs, ks, vs, os, scale, causal, s);
+  if (od == 1)
+    return launch_f32<TV, __nv_bfloat16>(q, k, v, out, B, S, Tk, H, KV, hd, qs, ks, vs, os, scale,
+                                         causal, s);
+  if (od == 2)
+    return launch_f32<TV, __half>(q, k, v, out, B, S, Tk, H, KV, hd, qs, ks, vs, os, scale, causal, s);
+  return (int)cudaErrorInvalidValue;
 }
 
 // The widest copy (16, 8 or 4 bytes, else 2) that keeps every row chunk of
@@ -836,12 +898,41 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, 
   const Strides qs{qsb, qss, qsh}, ks{ksb, kss, ksh}, vs{vsb, vss, vsh}, os{osb, oss, osh};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return launch_f32(q, k, v, out, B, S, Tk, H, KV, hd, qs, ks, vs, os, scale, causal, s);
+    return launch_f32<float, float>(q, k, v, out, B, S, Tk, H, KV, hd, qs, ks, vs, os, scale,
+                                    causal, s);
   if (dtype == 1)
     return launch_tc<__nv_bfloat16>(q, k, v, out, B, S, Tk, H, KV, hd, qs, ks, vs, os, scale,
                                     causal, s);
   if (dtype == 2)
     return launch_tc<__half>(q, k, v, out, B, S, Tk, H, KV, hd, qs, ks, vs, os, scale, causal, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// q and k of mixed dtypes, widened to f32 by the caller: q (B, S, H, hd)
+// and k (B, T, KV, hd) f32, v (B, T, KV, hd) of dtype `vdtype`, out
+// (B, S, H, hd) of dtype `odtype` (q's before the widening), each 0 = f32,
+// 1 = bf16 or 2 = f16; the rest as flash_attention_fwd. p is rounded to v's
+// dtype before the PV product.
+extern "C" int flash_attention_fwd_mixed(const void* q, const void* k, const void* v, void* out,
+                                         int vdtype, int odtype, int B, int S, int Tk, int H,
+                                         int KV, int hd, long long qsb, long long qss,
+                                         long long qsh, long long ksb, long long kss,
+                                         long long ksh, long long vsb, long long vss,
+                                         long long vsh, long long osb, long long oss,
+                                         long long osh, float scale, int causal, void* stream) {
+  if (B < 1 || S < 1 || Tk < 1 || H < 1 || KV < 1 || hd < 1 || H % KV != 0)
+    return (int)cudaErrorInvalidValue;
+  const Strides qs{qsb, qss, qsh}, ks{ksb, kss, ksh}, vs{vsb, vss, vsh}, os{osb, oss, osh};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (vdtype == 0)
+    return launch_f32_out<float>(odtype, q, k, v, out, B, S, Tk, H, KV, hd, qs, ks, vs, os, scale,
+                                 causal, s);
+  if (vdtype == 1)
+    return launch_f32_out<__nv_bfloat16>(odtype, q, k, v, out, B, S, Tk, H, KV, hd, qs, ks, vs, os,
+                                         scale, causal, s);
+  if (vdtype == 2)
+    return launch_f32_out<__half>(odtype, q, k, v, out, B, S, Tk, H, KV, hd, qs, ks, vs, os, scale,
+                                  causal, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -18,3 +18,8 @@ def resolve_device(device: "str | torch.device" = "cuda") -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {str(device)!r}; use 'cuda' or 'cpu'")
     return dev
+
+
+def resolve_or_meta(device: "str | torch.device" = "cuda") -> torch.device:
+    """:func:`resolve_device`, plus ``meta`` for building shapes without memory."""
+    return torch.device("meta") if str(device) == "meta" else resolve_device(device)

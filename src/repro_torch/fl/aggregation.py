@@ -5,7 +5,10 @@ Port of ``src/repro/fl/aggregation.py``. Unbiased schemes (eq. 4):
 models with the realized weights ``ω_i``; FedAvg-style biased sampling
 (eq. 3) adds ``stale_weight · θ^t``. Every form here stacks the flat client
 models, appends θ^t as one more row carrying ``stale_weight``, and sums the
-rows with :func:`repro_torch.kernels.aggregate.ops.aggregate_flat`.
+rows with :func:`repro_torch.kernels.aggregate.ops.aggregate_flat`:
+:func:`weighted_tree_sum` (and :func:`aggregate_round` through it) by
+:func:`~repro_torch.kernels.aggregate.ops.aggregate_trees`, the engine's
+stacked form by :func:`stack_rows`.
 
 Flat vectors follow the reference's ``jax.tree_util`` order for a dict:
 leaves sorted by key.
@@ -26,7 +29,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.aggregate.ops import aggregate_flat
+from repro_torch.kernels.aggregate.ops import aggregate_flat, aggregate_trees
 from repro_torch.launch.mesh import data_group_positions, on_shard
 
 
@@ -73,17 +76,24 @@ def aggregate_stacked(global_params: dict, stacked_params: dict, weights, stale_
     return unflatten_params(flat, global_params)
 
 
+def weighted_tree_sum(trees: Sequence, weights) -> dict:
+    """Σ_k w_k · tree_k over parameter trees of one structure, in one
+    aggregate launch (leaves in the reference's ``jax.tree_util`` order)."""
+    return aggregate_trees(trees, np.asarray(weights, dtype=np.float32))
+
+
 def aggregate_round(
     global_params: dict,
     client_params: Sequence[dict],
     client_weights: np.ndarray,
     stale_weight: float = 0.0,
 ):
-    """Combine distinct client models (+ optional stale global mass)."""
+    """Combine distinct client models (+ optional stale global mass): θ^t
+    is the last tree, carrying ``stale_weight``."""
     if len(client_params) != len(client_weights):
         raise ValueError(f"{len(client_params)} models vs {len(client_weights)} weights")
-    stacked = {k: torch.stack([c[k] for c in client_params]) for k in global_params}
-    return aggregate_stacked(global_params, stacked, client_weights, stale_weight)
+    weights = np.append(np.asarray(client_weights, dtype=np.float32), np.float32(stale_weight))
+    return weighted_tree_sum([*client_params, global_params], weights)
 
 
 def aggregate_sharded(shards: Iterable, lead: torch.device) -> torch.Tensor:

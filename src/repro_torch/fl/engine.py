@@ -353,3 +353,5 @@ def _compat_engine(dataset, m: int, config, device, mesh=None):
 #: opt, fedprox_mu)`` — or None to select the server's compat per-client
 #: loop (which ignores the mesh).
 ENGINES = Registry("engine", {"batched": _batched_engine, "compat": _compat_engine})
+
+register_engine = ENGINES.register

@@ -247,5 +247,7 @@ class GradientStore:
         ]
 
     def asnumpy(self) -> np.ndarray:
-        """Host f32 copy, for inspection and host-side reference builds."""
-        return (self._G if len(self._blocks) == 1 else self.snapshot()).cpu().numpy()
+        """Host f32 copy, for inspection and host-side reference builds (a
+        copy on the CPU too: it does not follow later scatters)."""
+        G = self._G if len(self._blocks) == 1 else self.snapshot()
+        return G.numpy().copy() if G.device.type == "cpu" else G.cpu().numpy()

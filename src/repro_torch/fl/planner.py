@@ -175,6 +175,10 @@ class PlanService:
     ``rebuild_every`` — the two scheduling policies would silently mask
     each other. Requires array-like snapshots (the drift monitor computes
     nearest-centroid assignments over them).
+
+    ``drift_monitor`` injects the :class:`AssignmentDriftMonitor` that the
+    trigger reads (a fresh one by default). Without ``drift_threshold`` an
+    injected monitor decides nothing: it is only re-baselined at each build.
     """
 
     MODES = ("sync", "async")
@@ -187,6 +191,7 @@ class PlanService:
         initial_input: Any = None,
         rebuild_every: int = 1,
         drift_threshold: Optional[float] = None,
+        drift_monitor: Optional[AssignmentDriftMonitor] = None,
     ):
         if mode not in self.MODES:
             raise ValueError(f"unknown planner mode {mode!r}; choose from {self.MODES}")
@@ -207,7 +212,11 @@ class PlanService:
         self.rebuild_every = int(rebuild_every)
         self.drift_threshold = None if drift_threshold is None else float(drift_threshold)
         self._build_fn = build_fn
-        self._monitor = AssignmentDriftMonitor() if drift_threshold is not None else None
+        self._monitor = (
+            (drift_monitor or AssignmentDriftMonitor())
+            if drift_threshold is not None
+            else drift_monitor
+        )
         self._cond = threading.Condition()
         self._current = VersionedPlan(self._timed_build(initial_input), version=0)
         if self._monitor is not None:

@@ -4,7 +4,9 @@ Port of ``src/repro/kernels/aggregate/ops.py``. :func:`aggregate_flat` is
 the kernel's wrapper: for CUDA tensors it launches ``csrc/aggregate.cu``
 on the grid of :func:`launch_plan`, for CPU tensors it runs the plain
 version in ``ref.py``. It launches on the card that holds the tensors,
-whichever device is current. :func:`work` is a call's operations and
+whichever device is current. :func:`aggregate_trees` is the weighted sum
+of parameter trees (nested dicts, lists and tuples of tensors) through one
+such call. :func:`work` is a call's operations and
 bytes; a meta input returns an empty meta output, and every route adds
 the call's work to the dry-run's running count (``_build.count_kernel``).
 """
@@ -12,9 +14,12 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import Any, Sequence
 
 import torch
 
+# the tree walk of the checkpoint bundles: jax.tree_util's leaf order
+from repro_torch.checkpoint.io import _leaves, _rebuild
 from repro_torch.kernels import _build
 from repro_torch.kernels.aggregate.ref import aggregate_ref
 
@@ -96,3 +101,29 @@ def aggregate_flat(updates: torch.Tensor, weights: torch.Tensor) -> torch.Tensor
     launches["aggregate"] += 1
     _build.tally("aggregate")
     return out
+
+
+def aggregate_trees(trees: Sequence, weights) -> Any:
+    """Σ_k weights[k] · trees[k] for trees of one structure, in one launch.
+
+    Each tree's leaves are flattened once into one f32 row of a (k, p)
+    block, the rows are summed by :func:`aggregate_flat` (one kernel launch
+    for CUDA tensors, the plain version for CPU ones), and the (p,) sum is
+    cut back into each leaf's shape and dtype. ``weights`` (k,) may be
+    numpy or a tensor; it is taken in f32.
+    """
+    if len(trees) != len(weights):
+        raise ValueError(f"{len(trees)} trees vs {len(weights)} weights")
+    like = [leaf for _, leaf in _leaves(trees[0])]
+    dev = like[0].device
+    p = sum(leaf.numel() for leaf in like)
+    rows = torch.empty((len(trees), p), dtype=torch.float32, device=dev)
+    for row, tree in zip(rows, trees):
+        torch.cat([leaf.reshape(-1) for _, leaf in _leaves(tree)], out=row)
+    w = torch.as_tensor(weights, device=dev).to(torch.float32)
+    flat = aggregate_flat(rows, w)
+    out, off = [], 0
+    for leaf in like:
+        out.append(flat[off: off + leaf.numel()].reshape(leaf.shape).to(leaf.dtype))
+        off += leaf.numel()
+    return _rebuild(trees[0], iter(out))

@@ -7,14 +7,18 @@ version in ``ref.py``. The source holds three kernels, chosen by dtype and
 head dim: bf16 and f16 go to ``flash_fwd_mma`` on the tensor cores (head
 dims up to 256) or to ``flash_fwd_mma_wide`` (above 256, the output's head
 dim cut into 128-column chunks), f32 to ``flash_fwd_f32`` on the CUDA cores
-(TF32 would break the f32 parity at atol 2e-5). They take the true S and T
+(TF32 would break the f32 parity at atol 2e-5). q, k and v of mixed dtypes
+go to ``flash_fwd_f32`` too, instantiated on v's dtype (p is rounded to it
+before the PV product) and q's (the output's), with q and k widened to f32
+by exact copies. They take the true S and T
 and mask the ragged tails themselves, so nothing is padded: q, k and v are
 read in their (B, S, H, hd) and (B, T, KV, hd) layouts by strides, and the
 output is written (B, S, H, hd). As the reference does, they take any head
 dim, any B and H, and any view: the bf16 and f16 kernels copy each operand's
 rows 16 bytes at a time where its base, strides and head dim allow it and
-8, 4 or 2 bytes where they do not. The one copy the wrapper makes is of an
-operand whose head-dim stride is not 1, which it makes contiguous. The
+8, 4 or 2 bytes where they do not. The wrapper copies an operand whose
+head-dim stride is not 1 (contiguous) and, for mixed dtypes, a 16-bit q or
+k (widened to f32); neither copy counts as the function's work. The
 reference's ``block_q`` / ``block_k`` / ``interpret`` arguments choose
 Pallas tiles and interpret mode; the CUDA tiles are fixed in the source, so
 the port has no such arguments.
@@ -43,6 +47,10 @@ from repro_torch.kernels.flash_attention.ref import flash_attention_plain
 #: Kernel launches since the count was last reset.
 launches = {"flash_attention": 0}
 
+#: The C entry points' dtype codes. One dtype for q, k and v takes
+#: ``flash_attention_fwd`` (f32 → ``flash_fwd_f32``, bf16 and f16 → the
+#: tensor-core kernels); mixed dtypes take ``flash_attention_fwd_mixed``
+#: (``flash_fwd_f32`` on v's and q's codes, q and k widened to f32).
 DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 
@@ -53,24 +61,27 @@ def _lib():
 
 
 def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
-    """``lib`` with the C signature of ``flash_attention_fwd`` bound."""
+    """``lib`` with the C signatures of ``flash_attention_fwd`` and, where
+    the library has it (an earlier source built by ``turns.py`` may not),
+    ``flash_attention_fwd_mixed`` bound."""
+    tail = [ctypes.c_longlong] * 12 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
     lib.flash_attention_fwd.restype = ctypes.c_int
-    lib.flash_attention_fwd.argtypes = (
-        [ctypes.c_void_p] * 4
-        + [ctypes.c_int] * 7
-        + [ctypes.c_longlong] * 12
-        + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
-    )
+    lib.flash_attention_fwd.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + tail
+    if hasattr(lib, "flash_attention_fwd_mixed"):
+        lib.flash_attention_fwd_mixed.restype = ctypes.c_int
+        lib.flash_attention_fwd_mixed.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + tail
     return lib
 
 
 def work(b: int, s: int, t: int, h: int, kv: int, hd: int, *, causal: bool = True,
-         itemsize: int = 4) -> tuple[int, int]:
+         itemsizes: tuple[int, int, int] = (4, 4, 4)) -> tuple[int, int]:
     """(operations, bytes) of a call: QKᵀ and PV, 2 FLOP a multiply-add,
     over the S × T scores, half of them when causal; q and the output, k
-    and v each read or written once."""
+    and v each read or written once at q's, k's and v's own itemsize (the
+    output at q's)."""
     flops = 4 * b * h * hd * s * t
-    return flops // 2 if causal else flops, itemsize * (2 * b * s * h * hd + 2 * b * t * kv * hd)
+    iq, ik, iv = itemsizes
+    return flops // 2 if causal else flops, 2 * iq * b * s * h * hd + (ik + iv) * b * t * kv * hd
 
 
 def _strides(a: torch.Tensor) -> list[int]:
@@ -82,12 +93,20 @@ def _strides(a: torch.Tensor) -> list[int]:
 def flash_attention_padded(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool = True
 ) -> torch.Tensor:
-    """q (B,S,H,hd), k/v (B,T,KV,hd), f32, bf16 or f16 -> (B,S,H,hd) in q's dtype.
+    """q (B,S,H,hd), k/v (B,T,KV,hd), each f32, bf16 or f16 -> (B,S,H,hd) in q's dtype.
 
     Query head h reads kv head h // (H / KV). With ``causal`` query i sees
     keys j <= i; without it, every key j < T. Any hd >= 1 and any strides;
     on the card an operand whose head-dim stride is not 1 is read through a
     contiguous copy.
+
+    The dtypes may differ, as in the reference: the scores are f32 dots of
+    q and k (a bf16 or f16 operand widened exactly), p is rounded to v's
+    dtype before the PV product, and the output is in q's dtype. Routes on
+    the card: one dtype for all three takes its own kernel (f32 the CUDA
+    cores, bf16 and f16 the tensor cores); any mix takes the f32 kernel,
+    instantiated on v's dtype and q's, with a 16-bit q or k widened to f32
+    first.
     """
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError(f"need 4-d q, k, v, got {q.dim()}, {k.dim()}, {v.dim()} dims")
@@ -99,15 +118,16 @@ def flash_attention_padded(
     if min(b, s, t, h, kv, hd) < 1 or h % kv:
         raise ValueError(f"need B, S, T, H, KV, hd >= 1 and H % KV == 0, got {tuple(q.shape)}, "
                          f"KV={kv}")
-    if q.dtype not in DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise TypeError(f"need one dtype of float32, bfloat16 or float16, got {q.dtype}, "
+    if not all(a.dtype in DTYPES for a in (q, k, v)):
+        raise TypeError(f"need float32, bfloat16 or float16 for q, k and v, got {q.dtype}, "
                         f"{k.dtype}, {v.dtype}")
     if not (q.device == k.device == v.device):
         raise ValueError(f"q on {q.device}, k on {k.device}, v on {v.device}")
     if q.device.type not in ("cuda", "cpu", "meta"):
         raise ValueError(f"unsupported device {q.device}")
+    sizes = (q.element_size(), k.element_size(), v.element_size())
     _build.count_kernel("flash_attention", *work(b, s, t, h, kv, hd, causal=causal,
-                                                 itemsize=q.element_size()), q)
+                                                 itemsizes=sizes), q)
     if q.device.type == "meta":
         return torch.empty((b, s, h, hd), dtype=q.dtype, device=q.device)
     if q.device.type == "cpu":
@@ -126,16 +146,21 @@ def launch(lib: ctypes.CDLL, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     nothing."""
     b, s, h, hd = q.shape
     t, kv = k.shape[1], k.shape[2]
-    with _build.uncounted():  # the wrapper's copy, not the function's work
+    out = torch.empty((b, s, h, hd), dtype=q.dtype, device=q.device)
+    mixed = not q.dtype == k.dtype == v.dtype
+    with _build.uncounted():  # the wrapper's copies, not the function's work
+        if mixed:  # exact: every bf16 and f16 value is an f32 value
+            q, k = q.to(torch.float32), k.to(torch.float32)
         q, k, v = (a if a.stride(3) == 1 or hd == 1 else a.contiguous() for a in (q, k, v))
     strides = [_strides(a) for a in (q, k, v)]
-    out = torch.empty((b, s, h, hd), dtype=q.dtype, device=q.device)
+    codes = [DTYPES[v.dtype], DTYPES[out.dtype]] if mixed else [DTYPES[q.dtype]]
+    entry = lib.flash_attention_fwd_mixed if mixed else lib.flash_attention_fwd
     # the C entry point launches (and opts in to its shared memory) on the
     # current device: make it the tensors'
     with torch.cuda.device(q.device):
-        err = lib.flash_attention_fwd(
+        err = entry(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            DTYPES[q.dtype], b, s, t, h, kv, hd,
+            *codes, b, s, t, h, kv, hd,
             *strides[0], *strides[1], *strides[2], *_strides(out),
             hd**-0.5, int(causal),
             torch.cuda.current_stream(q.device).cuda_stream,

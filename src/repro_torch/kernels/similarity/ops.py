@@ -12,7 +12,12 @@ one-shot ``pairwise_kernel`` and the masked ``pairwise_kernel_fused``)
 compute the same function, so both entry points below,
 :func:`pairwise_distances_device` and :func:`pairwise_distances_streamed`,
 launch the one CUDA kernel; :func:`make_distance_fn` keeps the
-reference's ``STREAM_D_THRESHOLD`` switch between them. :func:`work` is a
+reference's ``STREAM_D_THRESHOLD`` switch between them.
+:func:`pairwise_distances_chunked` is the reference's host-side d-chunk
+loop: a host G goes to the card one (n, ≤ d_chunk) slab at a time, one
+launch a slab, so the card never holds the whole block.
+:func:`resolve_distance_backend` maps the reference's backend names to
+these. :func:`work` is a
 call's operations and bytes; a meta input returns an empty meta output,
 and every route adds the call's work to the dry-run's running count
 (``_build.count_kernel``).
@@ -22,8 +27,10 @@ from __future__ import annotations
 import ctypes
 import functools
 
+import numpy as np
 import torch
 
+from repro_torch.device import resolve_device
 from repro_torch.kernels import _build
 from repro_torch.kernels.similarity.ref import (
     _zero_diag_symmetrize,
@@ -151,48 +158,146 @@ def pairwise_sums(G: torch.Tensor, op: str) -> torch.Tensor:
     return out
 
 
-def pairwise_distances_device(G, measure: str = "arccos") -> torch.Tensor:
-    """(n, d) representative gradients -> (n, n) distance matrix."""
+def _check_measure(measure: str) -> str:
+    """The kernel op of a measure: ``"l1"``, or ``"gram"`` for arccos and l2."""
     if measure not in ("arccos", "l2", "l1"):
         raise ValueError(f"unknown measure {measure!r}")
-    G = torch.as_tensor(G).to(torch.float32).contiguous()
+    return "l1" if measure == "l1" else "gram"
+
+
+def _from_sums(acc: torch.Tensor, measure: str) -> torch.Tensor:
+    """(n, n) distances from the kernel's Gram or L1 sums."""
     if measure == "l1":
-        return _zero_diag_symmetrize(pairwise_sums(G, "l1"))
-    return distances_from_gram(pairwise_sums(G, "gram"), measure)
+        return _zero_diag_symmetrize(acc)
+    return distances_from_gram(acc, measure)
+
+
+def pairwise_distances_device(G, measure: str = "arccos") -> torch.Tensor:
+    """(n, d) representative gradients -> (n, n) distance matrix."""
+    op = _check_measure(measure)
+    G = torch.as_tensor(G).to(torch.float32).contiguous()
+    return _from_sums(pairwise_sums(G, op), measure)
 
 
 def pairwise_distances_streamed(G, measure: str = "arccos") -> torch.Tensor:
-    """(n, d) -> (n, n) distances for model-sized d.
+    """(n, d) -> (n, n) distances for model-sized d, G on its device.
 
     The same kernel launch as :func:`pairwise_distances_device`: the kernel
     streams d in 32-column chunks through shared memory and splits it
     across blocks, so G is never padded whatever its width. The reference's two
     entry points differ (padded one-shot vs masked streaming); here the
-    switch in :func:`make_distance_fn` only keeps the reference's shape.
+    switch in :func:`make_distance_fn` only keeps the reference's shape, and
+    the reference's ``d_chunk``, which capped its tile width, has nothing to
+    cap. For a G that lives on the host, :func:`pairwise_distances_chunked`
+    moves it to the card a slab at a time.
     """
     return pairwise_distances_device(G, measure)
 
 
-def make_distance_fn():
-    """Adapter matching ``repro_torch.core.samplers.algorithm2.DistanceFn``:
-    (G, measure) -> (n, n) distances, a tensor on G's device.
+def pairwise_distances_chunked(G, measure: str = "arccos", *, d_chunk: int = STREAM_D_THRESHOLD,
+                               device=None) -> torch.Tensor:
+    """(n, d) -> (n, n) distances, summed over host-side ``d``-chunks.
 
-    The one-shot entry point is used up to :data:`STREAM_D_THRESHOLD`
-    coordinates and the streamed one beyond it. The distances stay on the
-    device: ``"ward"`` copies them to the host, ``"ward_jit"`` does not.
-    G must be a tensor: a host array would reach the plain version on the
-    CPU with the card idle, so ``fn`` raises on one instead of converting.
+    G is a host numpy array or a tensor. Each (n, ≤ d_chunk) slab is copied
+    to ``device`` (default: a tensor G's own device, the card for a numpy
+    G) as f32 and summed by one :func:`pairwise_sums` call; the Gram and L1
+    sums add exactly over coordinates, so only the slab ever lives on the
+    device, and a host G larger than the card's free memory works. The
+    slabs' sums are added in chunk order in f32, as the reference's loop
+    adds them.
+    """
+    op = _check_measure(measure)
+    n, d = G.shape
+    if d == 0:
+        raise ValueError("need at least one gradient coordinate")
+    if device is None and isinstance(G, torch.Tensor):
+        device = G.device
+    dev = resolve_device("cuda" if device is None else device)
+    d_chunk = max(int(d_chunk), 1)
+    acc = None
+    for lo in range(0, d, d_chunk):
+        if isinstance(G, torch.Tensor):
+            slab = G[:, lo: lo + d_chunk].to(device=dev, dtype=torch.float32).contiguous()
+        else:
+            slab = torch.from_numpy(np.ascontiguousarray(G[:, lo: lo + d_chunk], np.float32))
+            slab = slab.to(dev)
+        part = pairwise_sums(slab, op)
+        acc = part if acc is None else acc.add_(part)
+        del slab
+    return _from_sums(acc, measure)
+
+
+def make_distance_fn(*, streamed: bool = False, d_chunk: int = STREAM_D_THRESHOLD,
+                     chunked: bool = False, as_numpy: bool = False):
+    """Adapter matching ``repro_torch.core.samplers.algorithm2.DistanceFn``:
+    (G, measure) -> (n, n) distances.
+
+    The one-shot entry point is used up to ``d_chunk`` coordinates and the
+    streamed one beyond it (or always, with ``streamed``); ``chunked`` takes
+    :func:`pairwise_distances_chunked` instead, with ``d_chunk`` its slab
+    width (a tensor G's slabs stay on its device, a host G's go to the
+    card). By default the distances stay a tensor on G's device (``"ward"``
+    copies them to the host, ``"ward_jit"`` does not); ``as_numpy`` returns a
+    host numpy copy, as the reference's default does. Only ``chunked`` takes a host G: in the other modes a host array
+    would reach the plain version on the CPU with the card idle, so ``fn``
+    raises on one instead of converting.
     """
 
     def fn(G, measure: str):
-        if not isinstance(G, torch.Tensor):
+        if chunked:
+            out = pairwise_distances_chunked(G, measure, d_chunk=d_chunk)
+        elif not isinstance(G, torch.Tensor):
             raise TypeError(
                 f"distance op needs G as a torch tensor on its device, got "
                 f"{type(G).__name__}; move host arrays to the store's device "
-                "first (torch.as_tensor(G, device=...))"
+                "first (torch.as_tensor(G, device=...)), or take the chunked backend"
             )
-        if G.shape[1] > STREAM_D_THRESHOLD:
-            return pairwise_distances_streamed(G, measure)
-        return pairwise_distances_device(G, measure)
+        elif streamed or G.shape[1] > d_chunk:
+            out = pairwise_distances_streamed(G, measure)
+        else:
+            out = pairwise_distances_device(G, measure)
+        return out.cpu().numpy() if as_numpy else out
 
     return fn
+
+
+#: The reference's device backend names and their :func:`make_distance_fn`
+#: modes. ``auto``, ``pallas`` and ``pallas-interpret`` chose among Pallas
+#: builds of one function; here they are all the one CUDA kernel (on a CUDA
+#: G; the plain version on a CPU G).
+_MODES = {"auto": {}, "pallas": {}, "pallas-interpret": {}, "streamed": {"streamed": True},
+          "chunked": {"chunked": True}}
+DISTANCE_BACKENDS = (*_MODES, "numpy")
+
+
+def _host_distances(G, measure: str) -> np.ndarray:
+    """The f64 host measure (:func:`repro_torch.core.clustering.similarity.
+    pairwise_distances`) on a host copy of ``G``, tensor or numpy."""
+    from repro_torch.core.clustering.similarity import pairwise_distances
+
+    if isinstance(G, torch.Tensor):
+        G = G.cpu().numpy()
+    return pairwise_distances(G, measure)
+
+
+def resolve_distance_backend(backend: str = "auto", *, as_numpy: bool = True):
+    """Pick the pairwise-distance backend for Algorithm 2's O(n²d) stage.
+
+    * ``"auto"``, ``"pallas"``, ``"pallas-interpret"`` — the similarity
+      kernel, one-shot up to :data:`STREAM_D_THRESHOLD` coordinates and
+      streamed beyond (the same launch here);
+    * ``"streamed"`` — always the streamed entry point;
+    * ``"chunked"`` — :func:`pairwise_distances_chunked`, the one backend
+      that takes a host G (moved to the card a slab at a time);
+    * ``"numpy"`` — the f64 host measure, on a host copy of G.
+
+    ``as_numpy=False`` keeps the device backends' output on G's device (the
+    numpy measure is host-side either way).
+    """
+    if backend == "numpy":
+        return _host_distances
+    if backend not in _MODES:
+        raise ValueError(
+            f"unknown distance backend {backend!r}; choose from {' | '.join(DISTANCE_BACKENDS)}"
+        )
+    return make_distance_fn(as_numpy=as_numpy, **_MODES[backend])

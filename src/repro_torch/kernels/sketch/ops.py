@@ -25,14 +25,18 @@ import ctypes
 import functools
 from typing import Optional, Union
 
+import numpy as np
 import torch
 
 from repro_torch.core.registry import Registry
 from repro_torch.kernels import _build
 from repro_torch.kernels.sketch.ref import (
+    _host,
     seed_term,
     sketch_countsketch_plain,
+    sketch_countsketch_reference,
     sketch_srp_plain,
+    sketch_srp_reference,
     srp_scale,
 )
 
@@ -159,7 +163,9 @@ class Sketcher:
 
     The projection is a pure function of ``(name, d_in, d_out, seed)``, so a
     sketcher rebuilt from those four values applies the identical
-    compression.
+    compression. ``__call__`` takes tensors on their device;
+    :meth:`reference` is the numpy host path (a tensor is copied to the
+    host first) and returns numpy.
     """
 
     name = "base"
@@ -170,6 +176,9 @@ class Sketcher:
         self.seed = int(seed)
 
     def __call__(self, X):
+        raise NotImplementedError
+
+    def reference(self, X) -> np.ndarray:
         raise NotImplementedError
 
     def __repr__(self):
@@ -183,6 +192,9 @@ class IdentitySketcher(Sketcher):
 
     def __call__(self, X):
         return X
+
+    def reference(self, X) -> np.ndarray:
+        return X if isinstance(X, np.ndarray) else _host(X)
 
 
 class SRPSketcher(Sketcher):
@@ -199,6 +211,9 @@ class SRPSketcher(Sketcher):
     def __call__(self, X):
         return srp_sketch(X, self.d_out, self.seed, block_d=self.block_d)
 
+    def reference(self, X) -> np.ndarray:
+        return sketch_srp_reference(X, self.d_out, self.seed, block_d=self.block_d)
+
 
 class CountSketcher(Sketcher):
     """Seeded counting sketch: one bucket and sign per input coordinate."""
@@ -207,6 +222,9 @@ class CountSketcher(Sketcher):
 
     def __call__(self, X):
         return sketch_countsketch_plain(X, self.d_out, self.seed)
+
+    def reference(self, X) -> np.ndarray:
+        return sketch_countsketch_reference(X, self.d_out, self.seed)
 
 
 # --------------------------------------------------------------------------

@@ -1,5 +1,6 @@
 # Adapted from src/repro/kernels/sketch/ref.py: the hash in int64 tensors
-# masked to 32 bits, and the plain versions on torch tensors.
+# masked to 32 bits, the plain versions on torch tensors, and the numpy host
+# references sketch_srp_reference and sketch_countsketch_reference.
 """The shared sign/bucket hash and the plain versions of the sketches.
 
 ``srp`` is y = X @ S with S a (d, d_prime) Rademacher matrix scaled by
@@ -16,7 +17,9 @@ under 2**48. The bits equal the reference's ``np.uint32`` ones.
 
 :func:`sketch_srp_plain` is what ``ops.srp_sketch`` computes for a CPU
 tensor, and what ``chip_smoke.py`` holds the CUDA kernel against on the
-card.
+card. :func:`sketch_srp_reference` and :func:`sketch_countsketch_reference`
+are the reference's numpy host paths (each sketcher's ``.reference``): the
+same hash's blocks and buckets, applied by numpy.
 """
 from __future__ import annotations
 
@@ -146,3 +149,35 @@ def sketch_countsketch_plain(X: torch.Tensor, d_prime: int, seed: int) -> torch.
     idx = countsketch_index(bucket, int(d_prime))
     signed = torch.cat([X * sign, torch.zeros((n, 1), dtype=torch.float32, device=X.device)], dim=1)
     return signed[:, idx].sum(dim=-1)
+
+
+def _host(X) -> np.ndarray:
+    """X as a host f32 numpy array (a tensor is copied off its device)."""
+    if isinstance(X, torch.Tensor):
+        X = X.detach().cpu().numpy()
+    return np.asarray(X, np.float32)
+
+
+def sketch_srp_reference(X, d_prime: int, seed: int, *, block_d: int = 512) -> np.ndarray:
+    """Blockwise y = X @ S on the host, in numpy: the reference's own.
+
+    Each (block_d, d_prime) block of S is regenerated and applied in turn,
+    so host memory stays O(n·d_prime + block_d·d_prime) however large d is.
+    """
+    X = _host(X)
+    n, d = X.shape
+    out = np.zeros((n, int(d_prime)), np.float32)
+    for k0 in range(0, d, block_d):
+        bd = min(block_d, d - k0)
+        S = srp_sign_block(seed, k0, bd, int(d_prime), d, device="cpu").numpy()
+        out += X[:, k0 : k0 + bd] @ S
+    return out
+
+
+def sketch_countsketch_reference(X, d_prime: int, seed: int) -> np.ndarray:
+    """Seeded counting sketch on the host (numpy's unbuffered scatter-add)."""
+    X = _host(X)
+    bucket, sign = countsketch_params(X.shape[1], int(d_prime), seed, device="cpu")
+    acc = np.zeros((int(d_prime), X.shape[0]), np.float32)
+    np.add.at(acc, bucket.numpy(), (X * sign.numpy()[None, :]).T)
+    return acc.T

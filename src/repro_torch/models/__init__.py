@@ -14,6 +14,7 @@ from repro_torch.models.model import (
     init_cache,
     init_params,
     logits_from_hidden,
+    loss_fn,
     param_count,
     params_from_numpy,
 )
@@ -31,6 +32,7 @@ __all__ = [
     "forward",
     "decode_step",
     "init_cache",
+    "loss_fn",
     "logits_from_hidden",
     "param_count",
 ]

@@ -38,7 +38,7 @@ from repro_torch.models.layers import moe as moe_lib
 from repro_torch.models.layers import rglru as rglru_lib
 from repro_torch.models.layers import xlstm as xlstm_lib
 from repro_torch.models.layers.mlp import init_mlp, mlp
-from repro_torch.models.layers.norms import rmsnorm
+from repro_torch.models.layers.norms import init_rmsnorm, rmsnorm
 
 DENSE: BlockSpec = ("attn", "mlp")
 MOE: BlockSpec = ("attn", "moe")
@@ -81,17 +81,17 @@ def init_block(cfg: ModelConfig, kind: BlockSpec, gen: Optional[torch.Generator]
     ``cross``: an attention's weights), as an encoder-decoder's decoder has."""
     _check_kind(kind)
     mixer, ffn = kind
-    p = {"norm1": {"scale": torch.ones((cfg.d_model,), device=device)}}
+    p = {"norm1": init_rmsnorm(cfg.d_model, device=device)}
     if mixer in RECURRENT:
         p["rec"] = RECURRENT[mixer][0](cfg, gen, device)
     else:
         init_mixer = mla_lib.init_mla if mixer == "mla" else attn_lib.init_attention
         p["attn"] = init_mixer(cfg, gen, device)
     if cross:
-        p["cross_norm"] = {"scale": torch.ones((cfg.d_model,), device=device)}
+        p["cross_norm"] = init_rmsnorm(cfg.d_model, device=device)
         p["cross"] = attn_lib.init_attention(cfg, gen, device)
     if ffn != "none":
-        p["ffn_norm"] = {"scale": torch.ones((cfg.d_model,), device=device)}
+        p["ffn_norm"] = init_rmsnorm(cfg.d_model, device=device)
     if ffn == "moe":
         p["moe"] = moe_lib.init_moe(cfg, gen, device)
     elif ffn == "mlp":

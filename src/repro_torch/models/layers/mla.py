@@ -30,7 +30,7 @@ import torch
 
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers.attention import NEG_INF, causal_mask
-from repro_torch.models.layers.norms import rmsnorm
+from repro_torch.models.layers.norms import init_rmsnorm, rmsnorm
 from repro_torch.models.layers.rotary import apply_rope
 
 
@@ -48,7 +48,7 @@ def init_mla(cfg: ModelConfig, gen: Optional[torch.Generator], device) -> dict:
         "wq": normal((d, h * qd), d**-0.5),
         "w_dkv": normal((d, r), d**-0.5),
         "w_kr": normal((d, mla.rope_head_dim), d**-0.5),
-        "kv_norm": {"scale": torch.ones((r,), device=device)},
+        "kv_norm": init_rmsnorm(r, device=device),
         "w_uk": normal((r, h, mla.nope_head_dim), r**-0.5),
         "w_uv": normal((r, h, mla.v_head_dim), r**-0.5),
         "wo": normal((h * mla.v_head_dim, d), (h * mla.v_head_dim) ** -0.5),

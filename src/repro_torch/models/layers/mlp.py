@@ -16,14 +16,19 @@ from repro_torch.models.config import ModelConfig
 ACTS = {"silu": F.silu, "gelu": lambda x: F.gelu(x, approximate="tanh"), "relu": F.relu}
 
 
-def init_mlp(d_model: int, d_ff: int, gen: Optional[torch.Generator], device) -> dict:
-    """The gated MLP's weights (the reference's default ``gated=True``)."""
+def init_mlp(d_model: int, d_ff: int, gen: Optional[torch.Generator], device, *,
+             gated: bool = True) -> dict:
+    """The MLP's weights: ``w_up`` and ``w_down``, and with ``gated`` (the
+    default, as in the reference) ``w_gate``, which :func:`mlp` reads as the
+    gated form."""
     s_in, s_out = d_model**-0.5, d_ff**-0.5
-    return {
+    p = {
         "w_up": torch.randn((d_model, d_ff), generator=gen, device=device) * s_in,
         "w_down": torch.randn((d_ff, d_model), generator=gen, device=device) * s_out,
-        "w_gate": torch.randn((d_model, d_ff), generator=gen, device=device) * s_in,
     }
+    if gated:
+        p["w_gate"] = torch.randn((d_model, d_ff), generator=gen, device=device) * s_in
+    return p
 
 
 def mlp(cfg: ModelConfig, params: dict, x: torch.Tensor) -> torch.Tensor:

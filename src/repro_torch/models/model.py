@@ -49,12 +49,14 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.device import resolve_device
+from repro_torch.device import resolve_device, resolve_or_meta
 from repro_torch.models import blocks as blk
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers.norms import rmsnorm
+from repro_torch.models.layers.norms import init_rmsnorm, rmsnorm
 from repro_torch.models.layers.rotary import mrope_angles, rope_angles
 
+# the reference's parameter pytree; the port keeps its parameters in an LM
+Params = dict[str, Any]
 Cache = dict[str, Any]
 
 
@@ -115,11 +117,6 @@ def check_ported(cfg: ModelConfig) -> None:
             f"{', '.join(map(str, blk.PORTED))} blocks")
 
 
-def _device(device) -> torch.device:
-    """``resolve_device``, plus ``meta`` for building shapes without memory."""
-    return torch.device("meta") if str(device) == "meta" else resolve_device(device)
-
-
 def init_params(cfg: ModelConfig, seed: int = 0, *, device="cuda") -> LM:
     """Random parameters drawn from a ``torch.Generator`` on ``device``.
 
@@ -128,7 +125,7 @@ def init_params(cfg: ModelConfig, seed: int = 0, *, device="cuda") -> LM:
     :func:`params_from_numpy`. ``device="meta"`` builds the shapes only.
     """
     check_ported(cfg)
-    dev = _device(device)
+    dev = resolve_or_meta(device)
     gen = None if dev.type == "meta" else torch.Generator(device=dev).manual_seed(seed)
     d, v = cfg.d_model, cfg.vocab_size
     embed = torch.randn((v, d), generator=gen, device=dev) * d**-0.5
@@ -139,9 +136,9 @@ def init_params(cfg: ModelConfig, seed: int = 0, *, device="cuda") -> LM:
     blocks = [blk.init_block(cfg, kind, gen, dev, cross=cross) for kind in cfg.all_blocks]
     encoder = None
     if cross:
-        encoder = Encoder(torch.ones((d,), device=dev),
+        encoder = Encoder(init_rmsnorm(d, device=dev)["scale"],
                           [blk.init_block(cfg, blk.ENCODER, gen, dev) for _ in range(cfg.encoder.n_layers)])
-    return LM(embed, torch.ones((d,), device=dev), blocks, lm_head, layout=stack_layout(cfg),
+    return LM(embed, init_rmsnorm(d, device=dev)["scale"], blocks, lm_head, layout=stack_layout(cfg),
               encoder=encoder)
 
 
@@ -439,7 +436,7 @@ def init_cache(
     an encoder-decoder's blocks hold cross-attention's ``ck`` / ``cv`` over
     the encoder's ``n_frames``. ``device="meta"`` builds the shapes only."""
     check_ported(cfg)
-    dev = _device(device)
+    dev = resolve_or_meta(device)
     dtype = dtype or getattr(torch, cfg.dtype)
     cross_len = cfg.encoder.n_frames if cfg.encoder is not None else 0
     return {

@@ -6,6 +6,8 @@ These tests import no JAX, so they run on a GPU machine without it:
 
 Without a CUDA GPU every test here skips.
 """
+import itertools
+
 import numpy as np
 import pytest
 import torch
@@ -313,12 +315,14 @@ def _flash_inputs(b, s, h, kv, hd, dtype, t=None, seed=6):
 def _flash_limit(want, q, k, v, causal=True):
     """atol 2e-5 in f32; in bf16 min(3e-2, 2^-7·(|want| + Σ_j p_ij|v_j|)),
     two units of roundoff (2^-8), and in f16 the same with f16's (2^-11):
-    the limits of chip_smoke.py's flash check."""
+    the limits of chip_smoke.py's flash check, at the lowest precision
+    among q, k and v."""
     from repro_torch.kernels.flash_attention.ref import flash_attention_plain
 
-    if q.dtype == torch.float32:
+    dtypes = {q.dtype, k.dtype, v.dtype}
+    if dtypes == {torch.float32}:
         return 2e-5
-    rel = 2.0**-7 if q.dtype == torch.bfloat16 else 2.0**-10
+    rel = 2.0**-7 if torch.bfloat16 in dtypes else 2.0**-10
     scale = want.float().abs() + flash_attention_plain(q.float(), k.float(), v.float().abs(),
                                                        causal=causal)
     return (rel * scale).clamp(max=3e-2)
@@ -706,3 +710,67 @@ def test_sharded_train_step_tallies_b4_at_each_data_groups_position(cuda):
         for placed in sharding.leaves(state):
             for pos, block in enumerate(placed.blocks):
                 assert block.device == mesh.devices.flat[pos]
+
+
+# mixed dtypes: every combination of f32, bf16 and f16 for q, k and v that is
+# not one dtype, at one k-tile, a ragged shape and the serve path's head dim
+MIXED_DTYPES = [c for c in itertools.product((torch.float32, torch.bfloat16, torch.float16),
+                                             repeat=3) if len(set(c)) > 1]
+MIXED_SHAPES = [(1, 32, 4, 2, 16), (2, 130, 4, 2, 20), (1, 77, 4, 2, 128)]
+
+
+@pytest.mark.parametrize("b,s,h,kv,hd", MIXED_SHAPES)
+@pytest.mark.parametrize("dtypes", MIXED_DTYPES, ids=str)
+def test_flash_kernel_takes_mixed_dtypes(cuda, dtypes, b, s, h, kv, hd):
+    """One launch a call, the output in q's dtype, within the lowest
+    precision's limit of the plain version, bit-reproducible; at one k-tile
+    with an f32 output and a 16-bit v, p rounded to v's dtype (the mean
+    error against the plain version a quarter, at most, of the error
+    against it with p unrounded)."""
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention.ref import flash_attention_plain
+
+    q, k, v = (a.to(d) for a, d in zip(_flash_inputs(b, s, h, kv, hd, torch.float32), dtypes))
+    before = fa_ops.launches["flash_attention"]
+    got = fa_ops.flash_attention_padded(q, k, v)
+    again = fa_ops.flash_attention_padded(q, k, v)
+    assert fa_ops.launches["flash_attention"] == before + 2
+    want = flash_attention_plain(q, k, v)
+    torch.cuda.synchronize()
+    assert got.dtype == q.dtype and got.shape == q.shape
+    assert bool(((got.float() - want.float()).abs() <= _flash_limit(want, q, k, v)).all())
+    assert torch.equal(got, again)
+    if s <= 64 and q.dtype == torch.float32 and v.dtype != torch.float32:
+        unrounded = flash_attention_plain(q, k, v.float())
+        err = (got - want).abs().mean()
+        assert 4 * err < (got - unrounded).abs().mean()
+
+
+def test_aggregate_trees_is_one_launch(cuda):
+    """``aggregate_trees`` over the MNIST MLP's dicts: one B2 launch a call,
+    bit-equal to ``aggregate_flat`` over the same flat rows."""
+    from repro_torch.fl.aggregation import flatten_params, unflatten_params
+    from repro_torch.models.simple import init_mlp
+
+    like = init_mlp((784, 50, 10), seed=0, device=cuda)
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    trees = [{key: 1e-3 * torch.randn(v.shape, generator=gen, device=cuda) for key, v in like.items()}
+             for _ in range(11)]
+    w = torch.rand(11, generator=gen, device=cuda)
+    before = agg_ops.launches["aggregate"]
+    got = agg_ops.aggregate_trees(trees, w)
+    assert agg_ops.launches["aggregate"] == before + 1
+    want = unflatten_params(aggregate_flat(torch.stack([flatten_params(t) for t in trees]), w), like)
+    assert all(torch.equal(got[key], want[key]) for key in like)
+
+
+@pytest.mark.parametrize("measure", ["arccos", "l1"])
+def test_chunked_host_g_launches_once_a_slab(cuda, measure):
+    """A host numpy G goes to the card a slab at a time: one B1 launch a
+    slab, the distances on the card within 1e-4 of the one-shot op's."""
+    G = (1e-3 * np.random.default_rng(5).normal(size=(40, 20_000))).astype(np.float32)
+    before = sum(ops.launches.values())
+    got = ops.pairwise_distances_chunked(G, measure, d_chunk=6000)
+    assert sum(ops.launches.values()) == before + 4 and got.device.type == "cuda"
+    want = ops.pairwise_distances_device(torch.from_numpy(G).to(cuda), measure)
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), atol=1e-4)

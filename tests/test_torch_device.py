@@ -14,8 +14,10 @@ from repro_torch.fl.server import FederatedServer, FLConfig
 from repro_torch.kernels import _build
 from repro_torch.launch.mesh import Mesh, make_production_mesh
 from repro_torch.configs import get_config
+from repro_torch.kernels.similarity.ops import pairwise_distances_chunked
 from repro_torch.kernels.sketch.ref import countsketch_params, srp_sign_block
 from repro_torch.launch.serve import generate
+from repro_torch.models.layers.norms import init_layernorm, init_rmsnorm
 from repro_torch.models.model import init_cache, init_params
 from repro_torch.models.simple import init_mlp
 from repro_torch.optim.sgd import sgd
@@ -30,7 +32,7 @@ ENTRY_POINTS = [
     "resolve_device", "init_mlp", "GradientStore", "BatchedRoundEngine",
     "Algorithm2Sampler", "FederatedServer", "srp_sign_block", "countsketch_params",
     "GradientStore[srp]", "Algorithm2Sampler[srp,kmeans]", "init_params[lm]", "init_cache[lm]",
-    "generate[lm]",
+    "generate[lm]", "init_rmsnorm", "init_layernorm", "pairwise_distances_chunked[host]",
 ]
 
 
@@ -46,6 +48,12 @@ def _call(name, device):
         return GradientStore(4, 6, **kw)
     if name == "GradientStore[srp]":
         return GradientStore(4, 6, sketch="srp", sketch_dim=3, **kw)
+    if name == "init_rmsnorm":
+        return init_rmsnorm(8, **kw)
+    if name == "init_layernorm":
+        return init_layernorm(8, **kw)
+    if name == "pairwise_distances_chunked[host]":
+        return pairwise_distances_chunked(np.ones((3, 20), np.float32), "arccos", d_chunk=8, **kw)
     if name == "srp_sign_block":
         return srp_sign_block(0, 0, 8, 4, 8, **kw)
     if name == "countsketch_params":

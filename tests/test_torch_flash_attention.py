@@ -7,8 +7,12 @@ in f32 (the reference's own; measured ≤ 6.6e-7: the two sum in other
 orders); in bf16 the outputs are bf16 of magnitude ≤ 4, so atol 1.6e-2
 (two bf16 ulps at 2–4, measured 7.8e-3) against the JAX kernel, whose p
 is rounded relative to a running max, and the reference's 3e-2 against
-its oracle; in f16 the same two ulps at 2–4, 2⁻⁸ = 3.9e-3.
+its oracle; in f16 the same two ulps at 2–4, 2⁻⁸ = 3.9e-3. Where q, k and
+v mix dtypes the limit is the lowest precision's among the three.
 """
+import functools
+import itertools
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -31,6 +35,13 @@ BF16_ATOL = 1.6e-2
 F16_ATOL = 2.0**-8
 ATOL = {torch.float32: F32_ATOL, torch.bfloat16: BF16_ATOL, torch.float16: F16_ATOL}
 JNP = {torch.float32: jnp.float32, torch.bfloat16: jnp.bfloat16, torch.float16: jnp.float16}
+DTYPES = (torch.float32, torch.bfloat16, torch.float16)
+MIXED_SHAPES = [(1, 8, 4, 2, 16), (2, 37, 4, 2, 20)]  # the second ragged: S off the tiles, hd 20
+
+
+def _limit(*dtypes) -> float:
+    """The limit of the lowest precision among ``dtypes``."""
+    return max(ATOL[d] for d in dtypes)
 
 
 def _qkv(b, s, h, kv, hd, t=None, seed=0):
@@ -124,38 +135,63 @@ def test_any_head_dim_and_float16_match_reference_kernel(fn, hd, dtype):
                                atol=ATOL[dtype])
 
 
-@pytest.mark.parametrize("case", ["hd", "hd_large", "dtype"])
+@pytest.mark.parametrize("case", ["hd", "hd_large", "dtype", "mixed_dtype"])
 def test_wrapper_takes_what_the_reference_takes(case):
     """Inputs the wrapper once refused: a head dim of 12 as views into
-    16-wide heads, a head dim of 256, float16."""
+    16-wide heads, a head dim of 256, float16, and a bf16 v under f32 q and
+    k."""
     q, k, v = (torch.from_numpy(a) for a in _qkv(1, 8, 4, 2, 16))
     if case == "hd":
         q, k, v = q[..., :12], k[..., :12], v[..., :12]
     elif case == "hd_large":
         q, k, v = (torch.from_numpy(a) for a in _qkv(1, 8, 4, 2, 256))
-    else:
+    elif case == "dtype":
         q, k, v = q.half(), k.half(), v.half()
+    else:
+        v = v.bfloat16()
     got = ops.flash_attention_padded(q, k, v)
     assert got.dtype == q.dtype and got.shape == q.shape
-    want = ref_flash(*(jnp.asarray(a.float().numpy(), JNP[q.dtype]) for a in (q, k, v)),
+    want = ref_flash(*(jnp.asarray(a.float().numpy(), JNP[a.dtype]) for a in (q, k, v)),
                      block_q=16, block_k=16, interpret=True)
     np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32),
-                               atol=ATOL[q.dtype])
+                               atol=_limit(q.dtype, k.dtype, v.dtype))
 
 
-@pytest.mark.parametrize("bad", ["gqa", "mixed_dtype", "shape"])
+@pytest.mark.parametrize("bad", ["gqa", "int_dtype", "shape"])
 def test_wrapper_rejects_what_the_kernel_does_not_take(bad):
     """H % KV != 0 and shapes that disagree, which the reference asserts on
-    too; and mixed dtypes, which the reference computes (ROADMAP Queue C)."""
+    too; and an operand that is not f32, bf16 or f16."""
     q, k, v = (torch.from_numpy(a) for a in _qkv(1, 8, 4, 2, 16))
     if bad == "gqa":
         k, v = torch.zeros((1, 8, 3, 16)), torch.zeros((1, 8, 3, 16))
-    elif bad == "mixed_dtype":
-        v = v.bfloat16()
+    elif bad == "int_dtype":
+        v = v.to(torch.int32)
     else:
         v = v[:, :4]
     with pytest.raises((ValueError, TypeError)):
         ops.flash_attention_padded(q, k, v)
+
+
+@functools.cache
+def _mixed_ref(dtypes: tuple, shape: tuple) -> np.ndarray:
+    q, k, v = _qkv(*shape, seed=7)
+    return np.asarray(ref_flash(*(jnp.asarray(a, JNP[d]) for a, d in zip((q, k, v), dtypes)),
+                                block_q=16, block_k=16, interpret=True), np.float32)
+
+
+@pytest.mark.parametrize("fn", PORT_FNS)
+@pytest.mark.parametrize("shape", MIXED_SHAPES)
+@pytest.mark.parametrize("dq,dk,dv", list(itertools.product(DTYPES, repeat=3)))
+def test_every_dtype_combination_matches_reference_kernel(fn, shape, dq, dk, dv):
+    """All 27 combinations of f32, bf16 and f16 for q, k and v, as the
+    reference computes them: f32 scores of q and k, p rounded to v's dtype
+    before PV, the output in q's dtype; within the lowest precision's
+    limit of the reference's kernel in interpret mode."""
+    q, k, v = _qkv(*shape, seed=7)
+    got = PORT_FNS[fn](*(torch.from_numpy(a).to(d) for a, d in zip((q, k, v), (dq, dk, dv))))
+    assert got.dtype == dq and tuple(got.shape) == q.shape
+    np.testing.assert_allclose(got.float().numpy(), _mixed_ref((dq, dk, dv), shape),
+                               atol=_limit(dq, dk, dv))
 
 
 def test_gradient_at_head_dim_20_matches_autograd_of_the_plain_version():

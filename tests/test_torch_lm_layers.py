@@ -147,3 +147,32 @@ def test_attention_decode_against_a_cache(window):
         _close(got, y)
         _close(cache["v"], ref_cache["v"])
         assert cache["pos"] == int(ref_cache["pos"]) == 7 + step
+
+
+def test_norm_initialisers_equal_reference():
+    """``init_rmsnorm`` and ``init_layernorm``: the reference's keys, shapes
+    and values (unit f32 scale, zero f32 bias), on the device asked for."""
+    for got, want in ((norms.init_rmsnorm(48, device="cpu"), ref_norms.init_rmsnorm(48)),
+                      (norms.init_layernorm(48, device="cpu"), ref_norms.init_layernorm(48))):
+        assert sorted(got) == sorted(want)
+        for k in want:
+            assert got[k].dtype == torch.float32 and got[k].device.type == "cpu"
+            np.testing.assert_array_equal(got[k].numpy(), np.asarray(want[k]))
+    assert norms.init_rmsnorm(4, device="meta")["scale"].device.type == "meta"
+
+
+@pytest.mark.parametrize("gated", [True, False])
+def test_init_mlp_carried_weights_match_reference(gated):
+    """``init_mlp(..., gated=)``: the reference's keys and shapes; the
+    reference's weights carried across give the reference's MLP (atol
+    1e-5, as ``test_mlp``)."""
+    import jax
+
+    ref_cfg, cfg = _cfg(act="silu")
+    want_p = ref_mlp.init_mlp(128, 256, jax.random.PRNGKey(0), gated=gated)
+    got_p = mlp.init_mlp(128, 256, torch.Generator().manual_seed(0), "cpu", gated=gated)
+    assert sorted(got_p) == sorted(want_p)
+    assert all(tuple(got_p[k].shape) == want_p[k].shape for k in want_p)
+    x = _np(2, 7, 128)
+    carried = {k: np.asarray(v) for k, v in want_p.items()}
+    _close(mlp.mlp(cfg, _t(carried), _t(x)), ref_mlp.mlp(ref_cfg, want_p, x))

@@ -199,3 +199,45 @@ def test_resolve_sketcher_contract():
 def test_sketcher_base_is_abstract():
     with pytest.raises(NotImplementedError):
         Sketcher(4, 4, 0)(torch.zeros((1, 4)))
+
+
+# the numpy host references and each sketcher's .reference
+# --------------------------------------------------------------------------
+@pytest.mark.parametrize("seed", SEEDS)
+@pytest.mark.parametrize("n,d,d_prime,block_d", [(5, 300, 12, 512), (3, 1037, 64, 128), (7, 96, 8, 40)])
+def test_srp_reference_bit_equal(n, d, d_prime, block_d, seed):
+    """The port's numpy SRP reference against the reference's, bit for bit:
+    the same S blocks (the hash) applied by numpy in the same block order."""
+    X = _rand(n, d, seed=seed % 97)
+    got = P.sketch_srp_reference(X, d_prime, seed, block_d=block_d)
+    assert isinstance(got, np.ndarray) and got.dtype == np.float32
+    np.testing.assert_array_equal(got, R.sketch_srp_reference(X, d_prime, seed, block_d=block_d))
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+@pytest.mark.parametrize("n,d,d_prime", [(5, 300, 12), (3, 1037, 64), (7, 96, 8)])
+def test_countsketch_reference_bit_equal(n, d, d_prime, seed):
+    X = _rand(n, d, seed=seed % 89)
+    got = P.sketch_countsketch_reference(X, d_prime, seed)
+    assert isinstance(got, np.ndarray) and got.dtype == np.float32
+    np.testing.assert_array_equal(got, R.sketch_countsketch_reference(X, d_prime, seed))
+
+
+@pytest.mark.parametrize("name,d_prime", [("identity", None), ("srp", 16), ("countsketch", 16)])
+@pytest.mark.parametrize("as_tensor", [False, True], ids=["numpy", "tensor"])
+def test_every_sketcher_reference_bit_equal(name, d_prime, as_tensor):
+    """Each sketcher's ``.reference`` returns numpy, bit-equal to the
+    reference sketcher's ``.reference`` on a numpy X or on a tensor (copied
+    to the host first); identity hands a numpy X back as it is."""
+    from repro.kernels.sketch.ops import SKETCHERS as REF_SKETCHERS
+
+    X = _rand(6, 200, seed=3)
+    sk = SKETCHERS.get(name)(200, d_prime, seed=5)
+    want = REF_SKETCHERS.get(name)(200, d_prime, seed=5).reference(X)
+    got = sk.reference(torch.from_numpy(X) if as_tensor else X)
+    assert isinstance(got, np.ndarray)
+    np.testing.assert_array_equal(got, want)
+    if name == "identity" and not as_tensor:
+        assert got is X
+    with pytest.raises(NotImplementedError):
+        Sketcher(4, 4, 0).reference(X)

@@ -31,6 +31,7 @@ another kernel beside the expected ones.
 """
 import functools
 import importlib.util
+import itertools
 from pathlib import Path
 
 import numpy as np
@@ -319,6 +320,14 @@ def test_flash_check_rejects_wrong_f16_kernels(shape, wrong):
      "flash_fwd_mma_wide<__nv_bfloat16>"),
     ("void (anonymous namespace)::flash_fwd_mma<__nv_bfloat16, 128>(unsigned short const*, int)",
      "flash_fwd_mma<__nv_bfloat16,128>"),
+    # the f32 route's instances: builtin f, named types, a repeated type (S1_)
+    ("_ZN12_GLOBAL__N_113flash_fwd_f32IffEEvPKfS2_PKT_PT0_iiiiiii", "flash_fwd_f32<float,float>"),
+    ("_ZN51_GLOBAL__N__04cf38d3_18_flash_attention_cu_2c13897913flash_fwd_f32If6__halfEEvPKfS3_",
+     "flash_fwd_f32<float,__half>"),
+    ("_ZN12_GLOBAL__N_113flash_fwd_f32I13__nv_bfloat16fEEvPKfS3_", "flash_fwd_f32<__nv_bfloat16,float>"),
+    ("_ZN12_GLOBAL__N_113flash_fwd_f32I6__halfS1_EEvPKfS3_PKT_PT0_", "flash_fwd_f32<__half,__half>"),
+    ("void (anonymous namespace)::flash_fwd_f32<float, __half>(float const*, float const*, int)",
+     "flash_fwd_f32<float,__half>"),
 ])
 def test_kernel_name_reads_type_and_integer_template_arguments(mangled, name):
     """The flash kernels' names in ptxas reports, cuobjdump and profiler
@@ -466,3 +475,61 @@ def test_kernels_a_call_profiles_again_only_when_events_were_dropped(monkeypatch
         with pytest.raises(RuntimeError, match="expected each of"):
             smoke.kernels_a_call(torch, "aggregate", lambda: None, ("aggregate_",))
     assert calls == [20] * profiled
+
+
+# mixed dtypes: the f32 kernel's order (exp, 64-key tiles) with p rounded to
+# v's dtype, held at the lowest precision's limit among q, k and v
+MIXED = [c for c in itertools.product((torch.float32, torch.bfloat16, torch.float16), repeat=3)
+         if len(set(c)) > 1]
+
+
+def _mixed_qkv(shape, dtypes):
+    return tuple(a.float().to(d) for a, d in zip(_qkv(*shape, torch.float32), dtypes))
+
+
+@pytest.mark.parametrize("dtypes", MIXED, ids=str)
+def test_flash_check_accepts_the_mixed_route_order(dtypes):
+    from repro_torch.kernels.flash_attention.ref import flash_attention_plain
+
+    q, k, v = _mixed_qkv(smoke.FLASH_MIXED_SHAPE, dtypes)
+    want = flash_attention_plain(q, k, v)
+    assert smoke.flash_excess(_flash_online(q, k, v), want, q, k, v) <= 1.0
+
+
+@pytest.mark.parametrize("wrong", ["drop_last_partial_tile", "no_causal_mask"])
+@pytest.mark.parametrize("dtypes", MIXED[::5], ids=str)
+def test_flash_check_rejects_wrong_mixed_kernels(dtypes, wrong):
+    from repro_torch.kernels.flash_attention.ref import flash_attention_plain
+
+    q, k, v = _mixed_qkv((1, 130, 4, 2, 16), dtypes)
+    want = flash_attention_plain(q, k, v)
+    got = _flash_online(q, k, v, drop_last_partial=wrong == "drop_last_partial_tile",
+                        causal=wrong != "no_causal_mask")
+    assert smoke.flash_excess(got, want, q, k, v) > 1.0
+
+
+@pytest.mark.parametrize("rounds_p", [True, False])
+@pytest.mark.parametrize("dtypes", [d for d in MIXED if d[0] == torch.float32 and d[2] != torch.float32],
+                         ids=str)
+def test_p_rounding_check_tells_a_route_that_widens_v(dtypes, rounds_p):
+    """Within the limit a route that widens v without rounding p passes the
+    error check, so the smoke also compares means at one k-tile: the
+    kernel's order with p rounded passes, the unrounded form fails."""
+    from repro_torch.kernels.flash_attention.ref import flash_attention_plain
+
+    q, k, v = _mixed_qkv(smoke.FLASH_MIXED_SHAPE, dtypes)
+    got = _flash_online(q, k, v if rounds_p else v.float()).to(q.dtype)
+    assert smoke.flash_excess(got, flash_attention_plain(q, k, v), q, k, v) <= 1.0
+    rounded, unrounded = smoke.flash_p_rounding(got, q, k, v)
+    assert (rounded * smoke.FLASH_P_ROUNDING < unrounded) == rounds_p
+
+
+def test_flash_lowest_and_bound_read_each_operand():
+    q, k, v = _mixed_qkv((1, 8, 4, 2, 16), (torch.float32, torch.float16, torch.bfloat16))
+    assert smoke.flash_lowest(q, k, v) == "bfloat16"
+    assert smoke.flash_lowest(q, k) == "float16" and smoke.flash_lowest(q) == "float32"
+    bound, by, flops, nbytes = smoke.flash_bound("NVIDIA H100 80GB HBM3", q, k, v)
+    assert nbytes == 2 * 4 * 8 * 4 * 16 + (2 + 2) * 8 * 2 * 16  # q and out f32, k f16, v bf16
+    assert flops == 2 * 4 * 8 * 8 * 16  # the causal half of QKᵀ and PV
+    want_ops = (flops / 2 / 67e12 + flops / 2 / 989e12) * 1e3  # f32 × f16 QKᵀ; bf16 PV
+    assert by == "bytes" and bound == pytest.approx(max(nbytes / 3.35e12 * 1e3, want_ops))
