@@ -461,6 +461,13 @@ FLASH_F32_SHAPES = [(1, 32, 4, 4, 16), (2, 64, 8, 2, 32), (1, 48, 6, 1, 64), (2,
                     (1, 1000, 4, 2, 128)]
 FLASH_PATH = (4, 1000, 12, 2, 128)
 FLASH_MOE = (4, 1000, 16, 16, 128)  # qwen2-moe-a2.7b's prefill attention: no GQA sharing
+# qwen2-1.5b's attention at a longer prompt (its cell is prefill_32k): the
+# plain version's f32 scores are 3.2 GB
+FLASH_LONG = (1, 8192, 12, 2, 128)
+FLASH_LONG_ROW = "flash_attention_long"
+# the wgmma route's instances, flash_fwd_wgmma<T, HDP, NWG>: bf16 and f16,
+# HDP 64 and 128, one and two consumer warpgroups
+FLASH_WGMMA_INSTANCES = 8
 # whisper-small's decoder prefill attention: head dim 64, no GQA sharing
 FLASH_WHISPER = (4, 1000, 12, 12, 64)
 FLASH_BF16_SHAPES = [
@@ -673,6 +680,18 @@ def ptxas_report(log: str) -> list[tuple[str, str]]:
     return rows
 
 
+def ptxas_serialized(log: str) -> list[tuple[str, str]]:
+    """(kernel, line) for each "wgmma.mma_async instructions are serialized"
+    line of a ``-Xptxas -v`` log, attributed to the kernel it names."""
+    rows = []
+    for line in log.splitlines():
+        if "instructions are serialized" in line:
+            named = line.rsplit("'", 2)
+            fn = _kernel_name(named[-2]) if len(named) == 3 else "?"
+            rows.append((fn, line.strip()))
+    return rows
+
+
 def sass_by_kernel(lib_path) -> dict | None:
     """{kernel: its instruction lines in ``cuobjdump -sass`` of the library,
     in code order}, or None where cuobjdump is missing."""
@@ -748,17 +767,32 @@ def phase_build():
     for name in _build.SOURCES:
         _build.load(name)
     print(f"build: {secs:.3f} s for {', '.join(s + '.cu' for s in _build.SOURCES)} (sm_90a)")
-    spills, f32_kernels = [], []
+    spills, f32_kernels, serialized, wgmma_regs = [], [], [], {}
     for name, log in logs.items():
         for fn, line in ptxas_report(log):
             print(f"  ptxas {name} {fn}: {line}")
-            if fn.startswith(("flash_fwd_mma", "flash_fwd_f32", "pairwise_", "aggregate_")) and any(
+            if fn.startswith(("flash_fwd_mma", "flash_fwd_wgmma", "flash_fwd_f32", "pairwise_",
+                              "aggregate_")) and any(
                     int(n) for n in re.findall(r"(\d+) bytes spill", line)):
                 spills.append(f"{fn}: {line}")
             if fn.startswith("flash_fwd_f32") and "registers" in line:
                 f32_kernels.append(fn)
+            if fn.startswith("flash_fwd_wgmma") and "registers" in line:
+                wgmma_regs[fn] = line.split("Used", 1)[-1].strip()
+        for fn, line in ptxas_serialized(log):
+            print(f"  ptxas {name} {fn}: {line}")
+            serialized.append(f"{fn}: {line}")
     if spills:
         fail(f"build: ptxas reports spills in {'; '.join(spills)}")
+    # a serialized wgmma pipeline still runs, at mma.sync's rate or worse
+    if any(line.startswith("flash_fwd_wgmma") for line in serialized):
+        fail(f"build: ptxas serializes wgmma in {'; '.join(serialized)}")
+    if len(wgmma_regs) != FLASH_WGMMA_INSTANCES:
+        fail(f"build: ptxas reports {len(wgmma_regs)} flash_fwd_wgmma instances, want "
+             f"{FLASH_WGMMA_INSTANCES}: {sorted(wgmma_regs)}")
+    print(f"build: the {len(wgmma_regs)} flash_fwd_wgmma<T, HDP, NWG> instances (bf16 and f16 at "
+          f"32 < hd <= 128), none spilling, no wgmma serialized: "
+          + "; ".join(f"{fn} {regs}" for fn, regs in sorted(wgmma_regs.items())))
     # flash_fwd_f32<TV, TO>: v's and the output's types, each f32, bf16 or f16
     if len(f32_kernels) != FLASH_F32_INSTANCES:
         fail(f"build: ptxas reports {len(f32_kernels)} flash_fwd_f32 instances, want "
@@ -768,7 +802,7 @@ def phase_build():
     sim = sass_counts(_build._target("similarity")[1], SIM_SASS_OPS)
     agg = sass_loads_ahead(_build._target("aggregate")[1])
     lib = _build._target("flash_attention")[1]
-    counts = sass_counts(lib)
+    counts = sass_counts(lib, ("HMMA", "HGMMA"))
     if counts is None or sim is None or agg is None:
         print(f"build: cuobjdump is missing; HMMA instructions of {lib.name} not counted")
         return
@@ -781,11 +815,16 @@ def phase_build():
     for fn, c in sim.items():
         if fn.startswith("pairwise_partial<1") and (c["FFMA"] or c["FMUL"] or c["FMNMX"] or c["FSEL"]):
             fail(f"build: the L1 kernel {fn} has FP32 instructions besides FADD: {c}")
+    hgmma = {fn: c["HGMMA"] for fn, c in counts.items() if c["HGMMA"]}
     counts = {fn: c["HMMA"] for fn, c in counts.items()}
     print(f"build: HMMA instructions in cuobjdump -sass of {lib.name}: {json.dumps(counts)}")
+    print(f"build: HGMMA (wgmma) instructions: {json.dumps(hgmma)}")
     mma = {fn: n for fn, n in counts.items() if fn.startswith("flash_fwd_mma")}
     if not mma or not all(mma.values()):
         fail(f"build: the bf16 flash kernel has no HMMA instruction: {json.dumps(counts)}")
+    wg = [fn for fn in counts if fn.startswith("flash_fwd_wgmma")]
+    if len(wg) != FLASH_WGMMA_INSTANCES or not all(hgmma.get(fn) for fn in wg):
+        fail(f"build: a flash_fwd_wgmma instance issues no HGMMA: {json.dumps(hgmma)}")
 
 
 def phase_kernels(torch, gen):
@@ -1132,9 +1171,10 @@ def phase_kernels_flash(torch, gen) -> dict:
     head dims that are not multiples of 8 and above 128 and 256, f16, B·H
     past a grid axis, and bf16 views with a misaligned base, a sequence
     stride of 68 and a head-dim stride of 2 (also bit-equal to their
-    contiguous copies); returns the max abs error at the serve paths' bf16
-    shapes, by shape, and at FLASH_WIDE_ROWS, by row name, with the
-    launches of those rows' calls as ``"launches"``."""
+    contiguous copies), the wgmma route's own checks (flash_wgmma_checks)
+    and FLASH_LONG; returns the max abs error at the serve paths' bf16
+    shapes, by shape, and at FLASH_WIDE_ROWS and FLASH_LONG_ROW, by row
+    name, with the launches of those rows' calls as ``"launches"``."""
     from repro_torch.kernels.flash_attention import ops as fa_ops
 
     def inputs(b, s, h, kv, hd, dtype, t=None):
@@ -1197,11 +1237,15 @@ def phase_kernels_flash(torch, gen) -> dict:
         _flash_check(torch, f"bf16 view with {what}", got, q, k, v,
                      again=fa_ops.flash_attention_padded(q, k, v))
         calls += 3
+    calls += flash_wgmma_checks(torch, gen)
     launched = fa_ops.launches["flash_attention"] - before
     if launched != calls:
         fail(f"flash wrapper: {launched} launches for the widened domain's {calls} calls")
     print(f"kernels: flash's widened domain launched the kernel at each of its {calls} calls")
     path_err["launches"] = {}
+    before = fa_ops.launches["flash_attention"]
+    path_err[FLASH_LONG_ROW] = check(f"{FLASH_LONG_ROW} bf16", torch.bfloat16, FLASH_LONG)
+    path_err["launches"][FLASH_LONG_ROW] = fa_ops.launches["flash_attention"] - before
     for row, dtype, shape in FLASH_WIDE_ROWS:
         before = fa_ops.launches["flash_attention"]
         path_err[row] = check(f"{row} {dtype}", getattr(torch, dtype), shape)
@@ -1209,6 +1253,64 @@ def phase_kernels_flash(torch, gen) -> dict:
     path_err.update(flash_mixed_checks(torch, gen))
     path_err["launches"][FLASH_MIXED_ROW] = path_err.pop("mixed_launches")
     return path_err
+
+
+def flash_wgmma_checks(torch, gen) -> int:
+    """The wgmma route's own checks: views TMA cannot read (a sequence
+    stride of 68 at head dim 64, a base 2 bytes past 16-byte alignment at
+    128), copied by cp.async into the same swizzled tiles, bit-equal to
+    their contiguous copies, which TMA reads; and the serve shape's batch 0
+    bit-equal in the 128-row items the launch takes for the whole batch and
+    in the 64-row items it takes for batch 0 alone. Returns the kernel
+    launches it made."""
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+
+    calls = 0
+    for dtype in (torch.bfloat16, torch.float16):
+        s = 200
+        flat = torch.randn(3 * s * 68, generator=gen).to(DEV, dtype)
+        q, k, v = (flat[i * s * 68:(i + 1) * s * 68].view(1, s, 68)[..., :64].unflatten(-1, (1, 64))
+                   for i in range(3))
+        flat = torch.randn(1 + 2 * 130 * 6 * 128, generator=gen).to(DEV, dtype)
+        qm = flat[1:1 + 130 * 6 * 128].view(1, 130, 6, 128)
+        km, vm = (torch.randn((1, 130, 2, 128), generator=gen).to(DEV, dtype) for _ in range(2))
+        for what, (a, b, c) in {"a sequence stride of 68 at hd 64": (q, k, v),
+                                "a base 2 bytes past 16-byte alignment at hd 128": (qm, km, vm)}.items():
+            got = fa_ops.flash_attention_padded(a, b, c)
+            if not torch.equal(got, fa_ops.flash_attention_padded(a.contiguous(), b.contiguous(),
+                                                                  c.contiguous())):
+                fail(f"flash kernel: a {dtype} view with {what} differs from its contiguous copy")
+            _flash_check(torch, f"{dtype} view with {what} (wgmma route, copied by cp.async)", got,
+                         a, b, c, again=fa_ops.flash_attention_padded(a, b, c))
+            calls += 3
+    # FLASH_PATH's (128-row q-tile, head, batch) items fill the card, so the
+    # launch takes 128-row items (two consumers); its first batch alone
+    # does not, and takes 64-row ones: the rows of batch 0 must not move
+    b_, s_, h_, kv_, hd_ = FLASH_PATH
+    q, k, v = (torch.randn(shape, generator=gen).to(DEV, torch.bfloat16)
+               for shape in ((b_, s_, h_, hd_), (b_, s_, kv_, hd_), (b_, s_, kv_, hd_)))
+    outs, ran = {}, {}
+    for batch, args in ((b_, (q, k, v)), (1, (q[:1], k[:1], v[:1]))):
+        outs[batch] = fa_ops.flash_attention_padded(*args)
+        calls += 1
+        events = []
+        for _ in range(3):  # the profiler may keep no device event of a short window
+            events = device_events(torch, lambda a=args: fa_ops.flash_attention_padded(*a), reps=2)
+            calls += 3
+            if events:
+                break
+        ran[batch] = sorted({_kernel_name(e.name) for e in events if "flash_fwd" in e.name})
+    nwg = {b_: 2, 1: 1}  # flash_fwd_wgmma<T, HDP, NWG>'s consumer warpgroups
+    if any(len(ran[batch]) != 1 or not ran[batch][0].startswith("flash_fwd_wgmma<")
+           or not ran[batch][0].endswith(f",{n}>") for batch, n in nwg.items()):
+        fail(f"flash kernel: batches of {b_} and 1 at {FLASH_PATH} ran {ran}, want NWG {nwg}")
+    if not torch.equal(outs[b_][:1], outs[1]):
+        fail(f"flash kernel: batch 0 of {FLASH_PATH} differs between 128-row and 64-row items")
+    _flash_check(torch, f"bf16 {FLASH_PATH}, batch 0 alone, in 64-row items", outs[1], q[:1],
+                 k[:1], v[:1])
+    print(f"kernels: flash wgmma route: batch 0 of {FLASH_PATH} bit-equal in 128-row items "
+          f"({ran[b_][0]}) and alone in 64-row items ({ran[1][0]})")
+    return calls
 
 
 def _mixed_inputs(torch, gen, shape, dtypes):
@@ -1316,6 +1418,7 @@ def flash_mixed_row(torch, gen, name, err, launches) -> dict:
            "source": "src/repro_torch/csrc/flash_attention.cu",
            "replaces": "src/repro/kernels/flash_attention/kernel.py:70", "launches": launches,
            "max_abs_err": err, **flash_mixed_times(torch, name, qkv, FLASH_MIXED_ROW),
+           "kernel": "flash_fwd_f32",
            "library_ms": None, "dtypes": list(FLASH_MIXED_PATH),
            "library_note": "no single library call computes this function",
            "launches_from": ("the kernels phase's calls of flash_attention_padded at this shape "
@@ -1896,6 +1999,12 @@ def phase_serve_trace(torch, cfg, params, prompts, tag=""):
         busy, by_name = _report_trace(torch, prof, wall_ms, f"{tag}prefill",
                                       f"one prefill of ({b}, {p})")
         flash = sum(ms for name, ms in by_name.items() if "flash_fwd" in name)
+        ran = sorted({_kernel_name(name) for name in by_name if "flash_fwd" in name})
+        want = flash_kernel(str(cfg.dtype).removeprefix("torch."), cfg.resolved_head_dim)
+        if ran and any(not name.startswith(want + "<") for name in ran):
+            fail(f"trace[{tag}prefill]: the prefill ran {ran}, not {want}")
+        if ran:
+            print(f"trace[{tag}prefill]: the flash kernel that ran, by the profiler's name: {ran}")
         print(f"trace[{tag}prefill]: flash kernel {flash:.3f} ms, {flash / busy:.4f} of the "
               "device-busy time")
         tok = logits.argmax(dim=-1, keepdim=True)
@@ -1906,6 +2015,16 @@ def phase_serve_trace(torch, cfg, params, prompts, tag=""):
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
         _report_trace(torch, prof, wall_ms, f"{tag}decode", "one decode step")
+
+
+def flash_kernel(dtype: str, hd: int) -> str:
+    """The kernel that csrc/flash_attention.cu's route launches for one
+    dtype of q, k and v and a head dim."""
+    if dtype == "float32":
+        return "flash_fwd_f32"
+    if 32 < hd <= 128:
+        return "flash_fwd_wgmma"
+    return "flash_fwd_mma" if hd <= 256 else "flash_fwd_mma_wide"
 
 
 def flash_time_row(torch, gen, name, err, launches, shape=FLASH_PATH, row_name="flash_attention",
@@ -1950,6 +2069,7 @@ def flash_time_row(torch, gen, name, err, launches, shape=FLASH_PATH, row_name="
         "replaces": "src/repro/kernels/flash_attention/kernel.py:70", "launches": launches,
         "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
         "bound_by": "bytes" if t_bytes >= t_ops else "operations", "library_ms": lib_ms,
+        "kernel": flash_kernel(dtype, hd),
     }
 
     def tflops(t_ms):
@@ -1972,6 +2092,10 @@ def flash_time_row(torch, gen, name, err, launches, shape=FLASH_PATH, row_name="
     kept = [e for e in kept_device_events(torch, fns["kernel"], reps=20) if "flash_fwd" in e.name]
     if not kept:
         fail("times: the profiler kept no flash kernel of 20 launches")
+    ran = sorted({_kernel_name(e.name) for e in kept})
+    if any(not name.startswith(row["kernel"] + "<") for name in ran):
+        fail(f"times: {row_name} ran {ran}, not {row['kernel']}")
+    print(f"times: {row_name}: the profiler names the kernel that ran: {ran}")
     dev.insert(0, sum(e.time_range.end - e.time_range.start for e in kept) / 1e3 / len(kept))
     print(f"times: {row_name} with the queue filled ahead, in the same turns: "
           f"{queued['kernel'][0]:.6f}, {queued['library'][0]:.6f}, {queued['library'][1]:.6f}, "
@@ -6623,6 +6747,11 @@ def main(argv=()) -> int:
     whisper_row = flash_time_row(torch, gen, name, err["flash"][FLASH_WHISPER], None, FLASH_WHISPER,
                                  "flash_attention_whisper")
     rows.append(whisper_row)
+    rows.append(flash_time_row(torch, gen, name, err["flash"][FLASH_LONG_ROW],
+                               err["flash"]["launches"][FLASH_LONG_ROW], FLASH_LONG, FLASH_LONG_ROW))
+    rows[-1]["launches_from"] = ("the kernels phase's calls of flash_attention_padded at this shape; "
+                                 "the serve path runs qwen2-1.5b's prefill_32k cut to a prompt of "
+                                 "1,000")
     # the widened domain's instantiations, which no model path reaches: their
     # launches are the kernels phase's calls at the row's shape
     for row_name, dtype, shape in FLASH_WIDE_ROWS:

@@ -9,9 +9,14 @@
 // and T and masks the ragged tails itself. Like the reference it takes any
 // head dim, any B and H, and any layout of q, k and v.
 //
-// Routes, chosen by dtype and head dim in the two entry points at the end:
-//   - bf16 and f16, hd <= 256: `flash_fwd_mma<T, HDP>`, on the tensor cores
-//     (mma.sync m16n8k16), hd padded to HDP = 32, 64, 128 or 256;
+// Routes, chosen by dtype and head dim alone in the two entry points at
+// the end:
+//   - bf16 and f16, 32 < hd <= 128, every model path's head dim:
+//     `flash_fwd_wgmma<T, HDP, NWG>`, on Hopper's own instructions (wgmma,
+//     TMA, an mbarrier ring), hd padded to HDP = 64 or 128;
+//   - bf16 and f16, hd <= 32 and 128 < hd <= 256: `flash_fwd_mma<T, HDP>`,
+//     on the tensor cores by mma.sync m16n8k16, hd padded to HDP = 32 or
+//     256; no model path reaches them;
 //   - bf16 and f16, hd > 256: `flash_fwd_mma_wide<T>`, the same products
 //     with the head dim cut into 128-column chunks (below);
 //   - f32: `flash_fwd_f32<float, float>`, on the CUDA cores, every product
@@ -43,7 +48,58 @@
 // so the model's (B, S, H·hd) activations need no transposed copies. GQA is
 // index arithmetic: k and v are never repeated. The grid is one axis,
 // (q-tile, output chunk, head, batch) with the q-tile fastest, so B·H has
-// no limit below 2³¹ blocks.
+// no limit below 2³¹ blocks. The wgmma route walks items of
+// (q-tile, head, batch) on a persistent grid instead.
+//
+// The wgmma route, flash_fwd_wgmma<T, HDP, NWG> (its section below). What
+// bounds it on an H100 SXM (989 TFLOP/s bf16 and f16, 3.35 TB/s), causal,
+// 2·B·H·S·T·hd FLOP against q, k, v and the output moved once:
+//   (4, 1,000, 12, 2, 128)   qwen2 serve prefill  12.3 GFLOP  0.0124 ms (operations)
+//   (4, 1,000, 16, 16, 128)  qwen2-moe prefill    65.5 MB     0.0196 ms (bytes)
+//   (4, 1,024, 16, 8, 128)   qwen3 train step     17.2 GFLOP  0.0174 ms (operations)
+//   (4, 1,000, 12, 12, 64)   whisper prefill      24.6 MB     0.0073 ms (bytes)
+// The mma.sync kernel it replaces on these head dims lost to three things,
+// and each part of this design answers one:
+// - Every warp re-read the whole K and V tiles from shared memory for its
+//   own 16 rows (ldmatrix), 16 FLOP a byte, half the tensor cores' rate.
+//   Here a consumer warpgroup of 64 rows runs S = Q Kᵀ and O += P V as
+//   wgmma.mma_async m64nNk16, which reads its B tile from shared memory
+//   once for all 64 rows and issues no ldmatrix: Q and K by K-major
+//   descriptors, V (key, dim) by an MN-major descriptor with the transpose
+//   bit, P from a per-warpgroup tile in shared memory that each tile's
+//   softmax writes by stmatrix. All tiles are in the 128-byte swizzle that
+//   TMA writes and the descriptors read. (P from registers, wgmma's RS
+//   form, needs S, O and P live at once, 160 registers beside the rest:
+//   within the 168 a thread that __launch_bounds__(384, 1) gives, ptxas
+//   spills and serializes the products. setmaxnreg did not lift that
+//   limit, and with P in shared memory the consumers fit in 168, so the
+//   kernel issues none.)
+// - One k-tile was in flight, behind a block-wide barrier per tile. Here
+//   a producer warp keeps a ring of K and V stages (128 keys; 2 stages at
+//   HDP 128, 3 at 64) full by TMA (cp.async.bulk.tensor from 4-d tensor
+//   maps built per call), each stage's K and V under a full and an empty
+//   mbarrier of their own, so K of tile j + 2 loads as soon as tile j's
+//   S is done. TMA's zero fill past S, T and hd replaces the masked tails'
+//   copies. Within a warpgroup tile j's S is issued beside tile j - 1's PV,
+//   so the softmax runs under PV; the two consumer warpgroups take turns to
+//   issue (pingpong, named barriers), so one's softmax runs under the
+//   other's products.
+// - Blocks were 4 warps and 64 rows, two an SM. Here a block is one
+//   producer and NWG = 2 consumer warpgroups (128 rows), one an SM,
+//   persistent: 132 blocks walk the (128-row q-tile, head, batch) items,
+//   longest causal rows first, in a snake order that evens out the blocks'
+//   work; Q is double-buffered so that an item's Q lands while the last one
+//   runs, and the output leaves through shared memory in 16-byte stores.
+//   Grids smaller than the card take 64-row items (NWG = 1). A row's
+//   output depends on its own warpgroup's 64 rows and the fixed k-tile
+//   order alone, not on NWG or the block: the two give the same bits.
+// An operand TMA cannot read (a base or a row, head or batch stride that is
+// not a multiple of 16 bytes, such as views with a sequence stride of 68)
+// is copied by the producer warpgroup with cp.async of 16, 8 or 4 bytes (or
+// 2-byte loads) into the same swizzled stage: the products, and so the
+// output, do not depend on the copy path.
+#include <cuda.h>  // CUtensorMap and its enums; the encoder comes through the runtime
+#include <cudaTypedefs.h>  // PFN_cuTensorMapEncodeTiled
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
@@ -62,7 +118,7 @@ struct Strides {  // in elements, for the batch, sequence and head axes
 // or 4 by cp.async, 2 by plain loads), and whether the output takes 4-byte
 // stores of two columns.
 struct Widths {
-  int q, k, v, opair;
+  int q, k, v, opair, o16;
 };
 
 // This block's q-tile start, output chunk, head and batch, from the one
@@ -82,13 +138,13 @@ __device__ __forceinline__ Block block_of(int nq, int nc, int H, int bq) {
 }
 
 // ---------------------------------------------------------------------------
-// bf16 and f16 routes: flash_fwd_mma and flash_fwd_mma_wide
+// bf16 and f16 at hd <= 32 and hd > 128: flash_fwd_mma and
+// flash_fwd_mma_wide
 //
-// What bounds it on an H100 SXM at the serve path's shape (B = 4,
-// S = T = 1,000, H = 12, KV = 2, hd = 128): 2·B·H·S²·hd = 12.29 GFLOP of
-// causal work, 0.0124 ms at the 989 TFLOP/s of the bf16 tensor cores,
-// against 28.7 MB of inputs and outputs, 0.0086 ms at 3.35 TB/s: it is
-// bound by tensor-core operations. The design, FlashAttention-2's shape:
+// Ampere's instruction set, FlashAttention-2's shape, for the head dims no
+// model path reaches (the model paths' 32 < hd <= 128 take flash_fwd_wgmma
+// below). Like every route it is bound by tensor-core operations at the
+// serve batch and prompt. The design:
 //
 // - One block of 4 warps per (64-row q-tile, head, batch); each warp owns
 //   16 query rows.
@@ -130,9 +186,6 @@ __device__ __forceinline__ Block block_of(int nq, int nc, int H, int bq) {
 //   memory in 128-column chunks, and accumulates PV only for its chunk of V
 //   and O: QKᵀ is computed once per chunk of the output, the cost of any
 //   width. Its tiles are single-buffered.
-// mma.sync rather than wgmma + TMA: P is the next product's register
-// operand with no change of layout, and nothing depends on a shared-memory
-// descriptor or a driver-built tensor map.
 // ---------------------------------------------------------------------------
 
 constexpr int MMA_BQ = 64;  // query rows per block, 16 per warp
@@ -140,11 +193,11 @@ constexpr int MMA_THREADS = 128;
 constexpr int WIDE_DC = 128;  // head-dim chunk of flash_fwd_mma_wide
 
 // The tiles of a padded head dim HDP: 64 query rows, and k-tiles of BK keys,
-// 64 up to HDP 128 and 32 at 256, where a warp's 16 × 256 f32 accumulator
-// leaves no room for 64 keys' scores and P fragments beside it (with 64,
-// ptxas spills at 255 registers). Blocks an SM at each HDP (32, 64, 128,
-// 256): 4, 3, 2 and 2, so that each keeps its registers within
-// 65,536 / (blocks · 128).
+// 64 up to HDP 128 (HDP 128 is flash_fwd_mma_wide's chunk) and 32 at 256,
+// where a warp's 16 × 256 f32 accumulator leaves no room for 64 keys'
+// scores and P fragments beside it (with 64, ptxas spills at 255
+// registers). Blocks an SM: 4 at HDP 32, 2 at 256, so that each keeps its
+// registers within 65,536 / (blocks · 128).
 template <int HDP>
 struct MmaTile {
   static constexpr int BK = HDP > 128 ? 32 : 64;  // keys per k-tile
@@ -152,7 +205,7 @@ struct MmaTile {
   static constexpr int Q_ELEMS = MMA_BQ * LD;     // the q-tile
   static constexpr int KV_ELEMS = BK * LD;        // one k-tile of K or of V
   static constexpr size_t SMEM = (Q_ELEMS + 4 * KV_ELEMS) * sizeof(uint16_t);  // Q + 2 × (K, V)
-  static constexpr int BLOCKS = HDP == 32 ? 4 : HDP == 64 ? 3 : 2;
+  static constexpr int BLOCKS = HDP == 32 ? 4 : 2;
 };
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -208,6 +261,7 @@ struct Elem;
 
 template <>
 struct Elem<__nv_bfloat16> {
+  static constexpr bool BF16 = true;
   static __device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
                                              uint32_t b1) {
     asm volatile(
@@ -224,6 +278,7 @@ struct Elem<__nv_bfloat16> {
 
 template <>
 struct Elem<__half> {
+  static constexpr bool BF16 = false;
   static __device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
                                              uint32_t b1) {
     asm volatile(
@@ -607,6 +662,832 @@ int launch_mma_wide(const void* q, const void* k, const void* v, void* out, int 
 }
 
 // ---------------------------------------------------------------------------
+// bf16 and f16 at 32 < hd <= 128: flash_fwd_wgmma<T, HDP, NWG>
+//
+// Hopper's own instructions; the design and what bounds it are in the
+// header. A producer warpgroup fills a ring of K and V stages by TMA, or by
+// cp.async where TMA cannot read the operand; NWG consumer warpgroups of 64
+// query rows each run S = QKᵀ and O += PV on wgmma and the online softmax
+// on the accumulator registers.
+// ---------------------------------------------------------------------------
+
+constexpr int WG_THREADS = 128;  // a warpgroup
+constexpr int WG_ROWS = 64;      // query rows a consumer warpgroup: wgmma's M
+
+// The tiles of a padded head dim HDP (64 or 128). Every tile is stored as
+// HDP / 64 column halves of 128-byte rows in the 128-byte swizzle (16-byte
+// chunk c of row r at chunk c ^ (r % 8)), the layout TMA writes with
+// CU_TENSOR_MAP_SWIZZLE_128B and wgmma's descriptors read; each half and
+// each tile starts on a 1,024-byte boundary, the swizzle's period.
+template <int HDP>
+struct WgTile {
+  static constexpr int BK = 128;                      // keys a k-tile: S's N
+  static constexpr int STAGES = HDP == 64 ? 3 : 2;    // K and V stages in the ring
+  static constexpr int HALVES = HDP / 64;             // 64-column swizzle atoms a row
+  static constexpr int HALF_Q = WG_ROWS * 128;        // bytes of one half of a Q tile
+  static constexpr int HALF_KV = BK * 128;            // ... of a K or V tile
+  static constexpr int Q_BYTES = HALVES * HALF_Q;     // a consumer warpgroup's Q tile
+  static constexpr int KV_BYTES = HALVES * HALF_KV;   // one k-tile of K or of V
+  static constexpr int HALF_P = WG_ROWS * 128;        // one half of a P tile (64 keys)
+  static constexpr int P_BYTES = (BK / 64) * HALF_P;  // a consumer warpgroup's P tile
+  // two Q buffers of NWG tiles, K stages, V stages, NWG P tiles, then the
+  // barriers, from a base rounded up to 1,024 bytes: 230,496 B at HDP 128
+  // with two consumers (of 232,448), one block an SM
+  static constexpr size_t smem(int nwg) {
+    return 1024 + (size_t)nwg * (2 * Q_BYTES + P_BYTES) + 2 * STAGES * KV_BYTES +
+           8 * (4 * STAGES + 4);
+  }
+};
+
+// Registers and barriers --------------------------------------------------
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+// an arrival that also expects `bytes` of TMA transactions this phase
+__device__ __forceinline__ void mbar_arrive_tx(uint32_t bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ bool mbar_try_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n"
+      "}\n"
+      : "=r"(done)
+      : "r"(bar), "r"(parity)
+      : "memory");
+  return done != 0;
+}
+
+// until the phase of parity `parity` has completed
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  while (!mbar_try_wait(bar, parity)) {
+  }
+}
+
+// this thread's writes to shared memory made visible to the async proxy
+// (wgmma's reads), as cp.async and st.shared write through the generic one
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// a TMA load of the box at (c0, c1, c2, c3) of a 4-d tensor map into
+// shared memory, completing its bytes on `bar`
+__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.tile.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+__device__ __forceinline__ void cp_async16_at(uint32_t dst, const void* src, bool in) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+               "r"(in ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async8_at(uint32_t dst, const void* src, bool in) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(dst), "l"(src),
+               "r"(in ? 8 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4_at(uint32_t dst, const void* src, bool in) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src),
+               "r"(in ? 4 : 0)
+               : "memory");
+}
+
+// every cp.async this thread has issued, committed or not, has landed
+__device__ __forceinline__ void cp_async_drain() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void st_shared_u16(uint32_t dst, uint16_t x) {
+  asm volatile("st.shared.u16 [%0], %1;\n" ::"r"(dst), "h"(x) : "memory");
+}
+
+// The copy path for an operand TMA cannot read (a base or a row, head or
+// batch stride that is not a multiple of 16 bytes): rows row0 .. row0 +
+// ROWS - 1 of a (rows, hd) operand into the same swizzled tile TMA would
+// write, ROWS / BUF_ROWS buffers of BUF_ROWS rows, each buffer HDP / 64
+// halves; rows >= nrows and columns >= hd zero, as TMA fills them. `width`
+// is the bytes of each copy (16, 8, 4 or 2), which the base, the strides
+// and hd allow; the 128 producer threads share the copies.
+template <int HDP, int ROWS, int BUF_ROWS>
+__device__ __forceinline__ void copy_swizzled(uint32_t dst, const uint16_t* src,
+                                              long long row_stride, int row0, int nrows, int hd,
+                                              int width, int t) {
+  constexpr int HALF = BUF_ROWS * 128;
+  constexpr int BUF = (HDP / 64) * HALF;
+  const int per = width / 2;  // elements a copy
+  const int cpr = HDP / per;  // copies a row
+  for (int idx = t; idx < ROWS * cpr; idx += WG_THREADS) {
+    const int r = idx / cpr, e = (idx - r * cpr) * per;
+    const bool in = row0 + r < nrows && e < hd;
+    const uint16_t* g = in ? src + (long long)(row0 + r) * row_stride + e : src;
+    const int rb = r % BUF_ROWS;
+    const uint32_t d = dst + (r / BUF_ROWS) * BUF + (e / 64) * HALF + rb * 128 +
+                       ((((e % 64) >> 3) ^ (rb & 7)) << 4) + (e % 8) * 2;
+    if (width == 16)
+      cp_async16_at(d, g, in);
+    else if (width == 8)
+      cp_async8_at(d, g, in);
+    else if (width == 4)
+      cp_async4_at(d, g, in);
+    else
+      st_shared_u16(d, in ? *g : uint16_t(0));
+  }
+}
+
+// wgmma -------------------------------------------------------------------
+
+// A shared-memory matrix descriptor in the 128-byte swizzle: the start
+// address, the leading and stride byte offsets (each in 16-byte units) and
+// layout type 1 (SWIZZLE_128B) in bits 62-63. K-major tiles (Q and K: the
+// product's K, the head dim, contiguous) step 1,024 bytes from one 8-row
+// group to the next (SBO); their LBO is unused (1). The MN-major V tile
+// (keys × head dim, read with the transpose bit) steps 1,024 bytes from one
+// 8-key group to the next (SBO) and HALF_KV bytes from one 64-column half
+// of the head dim to the next (LBO).
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(sbo >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+// until at most N of this warpgroup's committed wgmma groups are pending
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Registers that an asynchronous wgmma reads or writes, held in place: the
+// compiler may not move their reads or writes across this point.
+template <int N>
+__device__ __forceinline__ void hold(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// wgmma.mma_async m64nNk16 with f32 accumulators, A and B by descriptors
+// from shared memory: A K-major; B K-major (TB "0") or MN-major, read with
+// the transpose bit (TB "1"). scale_d = 0 overwrites D.
+#define WGMMA_SS_N64(AB, TB)                                                               \
+  "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"                                             \
+  "wgmma.mma_async.sync.aligned.m64n64k16.f32." AB "." AB " {"                             \
+  "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "                 \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"         \
+  "}, %32, %33, p, 1, 1, 0, " TB ";\n}\n"
+
+#define WGMMA_SS_N128(AB, TB)                                                              \
+  "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"                                             \
+  "wgmma.mma_async.sync.aligned.m64n128k16.f32." AB "." AB " {"                            \
+  "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "                 \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "       \
+  "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "       \
+  "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"         \
+  "}, %64, %65, p, 1, 1, 0, " TB ";\n}\n"
+
+#define ACC8(d, i)                                                                         \
+  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]),              \
+      "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
+#define ACC32(d, i) ACC8(d, i), ACC8(d, i + 8), ACC8(d, i + 16), ACC8(d, i + 24)
+
+template <typename T, int N>
+struct Wgmma;
+
+#define DEFINE_WGMMA(TYPE, AB)                                                             \
+  template <>                                                                              \
+  struct Wgmma<TYPE, 64> {                                                                 \
+    static __device__ __forceinline__ void ss(float (&d)[32], uint64_t a, uint64_t b,      \
+                                              int scale_d) {                               \
+      asm volatile(WGMMA_SS_N64(AB, "0") : ACC32(d, 0) : "l"(a), "l"(b), "r"(scale_d));    \
+    }                                                                                      \
+    static __device__ __forceinline__ void ss_bt(float (&d)[32], uint64_t a, uint64_t b,   \
+                                                 int scale_d) {                            \
+      asm volatile(WGMMA_SS_N64(AB, "1") : ACC32(d, 0) : "l"(a), "l"(b), "r"(scale_d));    \
+    }                                                                                      \
+  };                                                                                       \
+  template <>                                                                              \
+  struct Wgmma<TYPE, 128> {                                                                \
+    static __device__ __forceinline__ void ss(float (&d)[64], uint64_t a, uint64_t b,      \
+                                              int scale_d) {                               \
+      asm volatile(WGMMA_SS_N128(AB, "0")                                                  \
+                   : ACC32(d, 0), ACC32(d, 32)                                             \
+                   : "l"(a), "l"(b), "r"(scale_d));                                        \
+    }                                                                                      \
+    static __device__ __forceinline__ void ss_bt(float (&d)[64], uint64_t a, uint64_t b,   \
+                                                 int scale_d) {                            \
+      asm volatile(WGMMA_SS_N128(AB, "1")                                                  \
+                   : ACC32(d, 0), ACC32(d, 32)                                             \
+                   : "l"(a), "l"(b), "r"(scale_d));                                        \
+    }                                                                                      \
+  };
+
+DEFINE_WGMMA(__nv_bfloat16, "bf16")
+DEFINE_WGMMA(__half, "f16")
+
+// The kernel ----------------------------------------------------------------
+
+// 2^x by the SFU's ex2.approx.ftz: 2^(NEG - m) is +0, as the mask needs
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// Scale, mask and the online softmax on one k-tile's S accumulators (the
+// m64nBK layout: element 4n + e of a thread is row grp + 8·(e / 2) of its
+// warp's 16, key 8n + 2·tig + e % 2 of the tile): the running max m moves
+// to the tile's, s becomes p = 2^(s·scale - m) unrounded, l becomes
+// l·α + Σ p, and α = 2^(m_old - m_new) is returned for O's rescale, which
+// waits for the PV product in flight. Every rounding is explicit
+// (__fmul_rn, __fmaf_rn), so no instance contracts differently.
+template <int BK>
+__device__ __forceinline__ void softmax_tile(float (&s)[BK / 2], float (&m)[2], float (&l)[2],
+                                             float (&alpha)[2], bool masked, int k0, int row0,
+                                             int Tk, int causal, int tig, float scale_log2) {
+  float tmax[2] = {NEG, NEG};
+#pragma unroll
+  for (int i = 0; i < BK / 2; ++i) {
+    if (masked) {
+      const int col = k0 + (i >> 2) * 8 + 2 * tig + (i & 1);
+      const int row = row0 + ((i >> 1) & 1) * 8;
+      if (col >= Tk || (causal && col > row)) s[i] = NEG;
+    }
+    tmax[(i >> 1) & 1] = fmaxf(tmax[(i >> 1) & 1], s[i]);
+  }
+  float mc[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    tmax[r] = fmaxf(tmax[r], __shfl_xor_sync(0xffffffffu, tmax[r], 1));
+    tmax[r] = fmaxf(tmax[r], __shfl_xor_sync(0xffffffffu, tmax[r], 2));
+    const float m_new = fmaxf(m[r], tmax[r]);
+    alpha[r] = exp2_approx(__fmul_rn(__fsub_rn(m[r], m_new), scale_log2));
+    m[r] = m_new;
+    mc[r] = -__fmul_rn(m_new, scale_log2);
+  }
+  float psum[2] = {0.f, 0.f};
+#pragma unroll
+  for (int i = 0; i < BK / 2; ++i) {
+    s[i] = exp2_approx(__fmaf_rn(s[i], scale_log2, mc[(i >> 1) & 1]));
+    psum[(i >> 1) & 1] = __fadd_rn(psum[(i >> 1) & 1], s[i]);
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) l[r] = __fmaf_rn(l[r], alpha[r], psum[r]);
+}
+
+// A warp's 16 rows × N columns of an m64nN accumulator (P, or O at the
+// end), rounded to T, into a K-major tile in the 128-byte swizzle (rows of
+// 64 columns, 128 bytes; column halves HALF bytes apart): one stmatrix.x4
+// for each two 8-column blocks, its 8×8 matrices the two blocks' rows 0-7
+// and 8-15, each matrix row one 16-byte chunk. Lane L gives the address of
+// row L % 8 of matrix L / 8. SCALED divides each value by its row's `den`
+// first (the output's max(l, 1e-30)).
+template <typename T, int N, bool SCALED>
+__device__ __forceinline__ void stmatrix_tile(uint32_t base, int half, const float (&d)[N / 2],
+                                              const float (&den)[2], int warp, int lane) {
+  const int mat = lane >> 3, mrow = lane & 7;
+  const int row = warp * 16 + (mat & 1) * 8 + mrow;
+#pragma unroll
+  for (int n = 0; n < N / 8; n += 2) {
+    const int blk = n + (mat >> 1);  // this lane's matrix's 8-column block
+    const uint32_t at = base + (blk / 8) * half + row * 128 + (((blk % 8) ^ (row & 7)) << 4);
+    uint32_t r[4];
+#pragma unroll
+    for (int m = 0; m < 4; ++m) {
+      const int i = 4 * (n + (m >> 1)) + 2 * (m & 1);  // block n + m / 2, rows + 8·(m % 2)
+      r[m] = SCALED ? Elem<T>::pack(__fdiv_rn(d[i], den[m & 1]), __fdiv_rn(d[i + 1], den[m & 1]))
+                    : Elem<T>::pack(d[i], d[i + 1]);
+    }
+    asm volatile("stmatrix.sync.aligned.m8n8.x4.shared.b16 [%0], {%1, %2, %3, %4};\n" ::"r"(at),
+                 "r"(r[0]), "r"(r[1]), "r"(r[2]), "r"(r[3])
+                 : "memory");
+  }
+}
+
+// The output's divisors of the thread's two rows: each row's denominator
+// (the sum over its quad, in one fixed order) as max(l, 1e-30). O is
+// divided by it in IEEE division, as the reference divides.
+__device__ __forceinline__ void row_dens(float (&l)[2], float (&den)[2]) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] = __fadd_rn(l[r], __shfl_xor_sync(0xffffffffu, l[r], 1));
+    l[r] = __fadd_rn(l[r], __shfl_xor_sync(0xffffffffu, l[r], 2));
+    den[r] = fmaxf(l[r], 1e-30f);
+  }
+}
+
+// The register path of the output, where 16-byte stores do not fit it:
+// the warpgroup's rows of O over their divisors, written as T, columns
+// 8n + 2·tig (+1) below hd, two a 4-byte store where `pair` allows it.
+template <typename T, int HDP>
+__device__ __forceinline__ void store_rows(uint16_t* ob, long long row_stride, const float (&o)[HDP / 2],
+                                           const float (&den)[2], int row0, int S, int hd, int tig,
+                                           int pair) {
+#pragma unroll
+  for (int n = 0; n < HDP / 8; ++n) {
+    const int col = n * 8 + 2 * tig;
+    if (col >= hd) continue;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = row0 + r * 8;
+      if (row >= S) continue;
+      const uint32_t two = Elem<T>::pack(__fdiv_rn(o[4 * n + 2 * r], den[r]),
+                                         __fdiv_rn(o[4 * n + 2 * r + 1], den[r]));
+      uint16_t* dst = ob + (long long)row * row_stride + col;
+      if (pair && col + 1 < hd) {
+        *reinterpret_cast<uint32_t*>(dst) = two;
+      } else {
+        dst[0] = uint16_t(two & 0xffffu);
+        if (col + 1 < hd) dst[1] = uint16_t(two >> 16);
+      }
+    }
+  }
+}
+
+// The k-tiles a consumer warpgroup whose first row is r0 reads, in order
+// from key 0: causal rows stop at the tile that holds their diagonal, so
+// the count depends on the warpgroup's 64 rows and not on the block.
+__device__ __forceinline__ int wg_tiles(int r0, int S, int Tk, int causal, int bk) {
+  if (r0 >= S) return 0;
+  const int kend = causal ? min(Tk, r0 + WG_ROWS) : Tk;
+  return (kend + bk - 1) / bk;
+}
+
+// The ring's barriers, 8 bytes each after the tiles: for each stage s a
+// full and an empty barrier for its K tile and for its V tile, then a full
+// and an empty barrier for each of the two Q buffers.
+struct Ring {
+  uint32_t base;
+  int stages;
+  __device__ __forceinline__ uint32_t full_k(int s) const { return base + 8 * s; }
+  __device__ __forceinline__ uint32_t full_v(int s) const { return base + 8 * (stages + s); }
+  __device__ __forceinline__ uint32_t empty_k(int s) const { return base + 8 * (2 * stages + s); }
+  __device__ __forceinline__ uint32_t empty_v(int s) const { return base + 8 * (3 * stages + s); }
+  __device__ __forceinline__ uint32_t q_full(int i) const { return base + 8 * (4 * stages + i); }
+  __device__ __forceinline__ uint32_t q_empty(int i) const { return base + 8 * (4 * stages + 2 + i); }
+};
+
+// One k-tile of K or V (BK rows from k0) into a stage, by TMA or by the copy
+// path, and its full barrier's arrivals: thread 0's with the TMA bytes,
+// and on the copy path each producer thread's once its copies have landed.
+template <int HDP>
+__device__ __forceinline__ void load_kv(uint32_t dst, uint32_t full, const CUtensorMap* map,
+                                        const uint16_t* src, long long row_stride, int width,
+                                        int k0, int g, int b, int Tk, int hd, int t) {
+  using Tile = WgTile<HDP>;
+  if (t == 0) {
+    mbar_arrive_tx(full, width ? 0 : Tile::KV_BYTES);
+    if (!width)
+      for (int hf = 0; hf < Tile::HALVES; ++hf)
+        tma_load_4d(dst + hf * Tile::HALF_KV, map, full, hf * 64, k0, g, b);
+  }
+  if (width) {
+    copy_swizzled<HDP, Tile::BK, Tile::BK>(dst, src, row_stride, k0, Tk, hd, width, t);
+    cp_async_drain();
+    fence_proxy_async();
+    mbar_arrive(full);
+  }
+}
+
+// A work item: a block of NWG · 64 query rows of one (head, batch). Items
+// are numbered longest causal rows first (the q-tile slowest), and block i
+// of the G resident ones takes items i, 2G - 1 - i, 2G + i, ... (a snake, so
+// that the long and short ones even out).
+struct Item {
+  int q0, h, b;
+};
+
+__device__ __forceinline__ int item_id(int round, int G) {
+  return round * G + ((round & 1) ? G - 1 - (int)blockIdx.x : (int)blockIdx.x);
+}
+
+__device__ __forceinline__ Item item_of(int id, int nq, int H, int B, int rows) {
+  const int hb = id % (H * B);
+  return {(nq - 1 - id / (H * B)) * rows, hb % H, hb / H};
+}
+
+// Widths: for each of q, k and v, 0 where TMA reads it through its tensor
+// map, else the bytes of each cp.async copy (16, 8, 4 or 2); `opair` as in
+// the mma kernels; `o16`: the output takes 16-byte stores of 8 columns.
+template <typename T, int HDP, int NWG>
+__global__ void __launch_bounds__((NWG + 1) * WG_THREADS, 1)
+flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                const __grid_constant__ CUtensorMap tv, const uint16_t* __restrict__ q,
+                const uint16_t* __restrict__ k, const uint16_t* __restrict__ v,
+                uint16_t* __restrict__ out, int nq, int items, int S, int Tk, int B, int H,
+                int KV, int hd, Strides qs, Strides ks, Strides vs, Strides os, Widths w,
+                float scale_log2, int causal) {
+  using Tile = WgTile<HDP>;
+  constexpr int BK = Tile::BK;
+  constexpr int STAGES = Tile::STAGES;
+  constexpr int ROWS = NWG * WG_ROWS;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t sQ = (smem_addr(smem_raw) + 1023u) & ~1023u;
+  const uint32_t sK = sQ + 2 * NWG * Tile::Q_BYTES;  // after two Q buffers: STAGES k-tiles of K
+  const uint32_t sV = sK + STAGES * Tile::KV_BYTES;  // STAGES k-tiles of V
+  const uint32_t sP = sV + STAGES * Tile::KV_BYTES;  // each consumer's P tile
+  const Ring ring{sP + NWG * Tile::P_BYTES, STAGES};
+  const int G = gridDim.x;
+  // the warpgroup, made visibly warp-uniform (a shuffle of lane 0)
+  const int wg = __shfl_sync(0xffffffffu, threadIdx.x / WG_THREADS, 0);
+  const int t = threadIdx.x % WG_THREADS;
+  // an item's k-tiles: those of its last warpgroup that holds a real row
+  auto block_tiles = [&](int q0) {
+    return wg_tiles(q0 + min(NWG - 1, (S - 1 - q0) / WG_ROWS) * WG_ROWS, S, Tk, causal, BK);
+  };
+
+  if (threadIdx.x == 0) {
+    // a full barrier: thread 0's arrival with the TMA bytes, and where the
+    // copy path loads the operand, each producer thread's once its copies
+    // have landed; an empty one: each consumer warp's
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(ring.full_k(s), w.k ? WG_THREADS + 1 : 1);
+      mbar_init(ring.full_v(s), w.v ? WG_THREADS + 1 : 1);
+      mbar_init(ring.empty_k(s), 4 * NWG);
+      mbar_init(ring.empty_v(s), 4 * NWG);
+    }
+    for (int i = 0; i < 2; ++i) {
+      mbar_init(ring.q_full(i), w.q ? WG_THREADS + 1 : 1);
+      mbar_init(ring.q_empty(i), 4 * NWG);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 0) {
+    // The producer: for each item, its Q once the consumers are done with
+    // the last item's, then its K and V tile by tile into the ring, each
+    // stage refilled once every consumer warp has released it. The ring
+    // runs on across items: `it` counts the tiles loaded.
+    // where TMA reads all three, one warp does the producer's work and the
+    // other three leave, so as not to take the consumers' issue slots
+    if ((w.q | w.k | w.v) == 0 && t >= 32) return;
+    int it = 0;
+    for (int round = 0;; ++round) {
+      const int id = item_id(round, G);
+      if (id >= items) break;
+      const Item itm = item_of(id, nq, H, B, ROWS);
+      const int g = itm.h / (H / KV);
+      // Q into buffer round % 2 once the consumers are done with the item
+      // two rounds back, so that an item's Q lands while the last one runs
+      const int qb = round & 1;
+      const uint32_t dQ = sQ + qb * NWG * Tile::Q_BYTES;
+      if (round > 1) mbar_wait(ring.q_empty(qb), ((round >> 1) - 1) & 1);
+      if (t == 0) {
+        mbar_arrive_tx(ring.q_full(qb), w.q ? 0 : NWG * Tile::Q_BYTES);
+        if (!w.q)
+          for (int c = 0; c < NWG; ++c)
+            for (int hf = 0; hf < Tile::HALVES; ++hf)
+              tma_load_4d(dQ + c * Tile::Q_BYTES + hf * Tile::HALF_Q, &tq, ring.q_full(qb), hf * 64,
+                          itm.q0 + c * WG_ROWS, itm.h, itm.b);
+      }
+      if (w.q) {
+        copy_swizzled<HDP, ROWS, WG_ROWS>(dQ, q + itm.b * qs.b + itm.h * qs.h, qs.s, itm.q0, S, hd,
+                                          w.q, t);
+        cp_async_drain();
+        fence_proxy_async();
+        mbar_arrive(ring.q_full(qb));
+      }
+      const uint16_t* kb = k + itm.b * ks.b + g * ks.h;
+      const uint16_t* vb = v + itm.b * vs.b + g * vs.h;
+      const int ntiles = block_tiles(itm.q0);
+      for (int j = 0; j < ntiles; ++j, ++it) {
+        const int st = it % STAGES;
+        const uint32_t parity = ((it / STAGES) - 1) & 1;  // of the release of tile it - STAGES
+        if (it >= STAGES) mbar_wait(ring.empty_k(st), parity);
+        load_kv<HDP>(sK + st * Tile::KV_BYTES, ring.full_k(st), &tk, kb, ks.s, w.k, j * BK, g,
+                     itm.b, Tk, hd, t);
+        if (it >= STAGES) mbar_wait(ring.empty_v(st), parity);
+        load_kv<HDP>(sV + st * Tile::KV_BYTES, ring.full_v(st), &tv, vb, vs.s, w.v, j * BK, g,
+                     itm.b, Tk, hd, t);
+      }
+    }
+    return;
+  }
+
+  // A consumer: 64 query rows of each item, 16 a warp. Tile j's S = Q K_j
+  // is issued beside tile j - 1's O += P V_{j-1}, so that tile j's softmax
+  // runs while the tensor cores do PV; the order of every sum is that of
+  // the loop written without the overlap. With two consumers they take
+  // turns to issue (pingpong), so that one's softmax runs under the other's
+  // products.
+  const int c = wg - 1;
+  const int lane = t & 31, warp = t >> 5;
+  const int grp = lane >> 2, tig = lane & 3;
+  const uint32_t aP = sP + c * Tile::P_BYTES;
+  uint32_t aQ = 0;  // this consumer's Q tile in the round's buffer
+
+  float o[HDP / 2];
+  float m[2], l[2];   // running max and this thread's part of the denominators of its 2 rows
+  float s[BK / 2];    // S, then P unrounded
+  float alpha[2];
+
+  // Named barriers: 1 + c is this consumer's turn to issue, which the other
+  // grants (bar.arrive); 3 + c gathers its 128 threads once P is stored.
+  // Each consumer takes ntiles + 1 turns an item; the first absorbs the
+  // second's last grant at the end.
+  auto turn = [&]() {
+    if constexpr (NWG == 2) asm volatile("bar.sync %0, 256;\n" ::"r"(1 + c) : "memory");
+  };
+  auto grant = [&]() {
+    if constexpr (NWG == 2) asm volatile("bar.arrive %0, 256;\n" ::"r"(2 - c) : "memory");
+  };
+  // S = Q K_j: 64 rows × BK keys over the head dim, 16 columns a step
+  auto issue_qk = [&](int st) {
+    const uint32_t aK = sK + st * Tile::KV_BYTES;
+    hold(s);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < HDP / 16; ++kk) {
+      const uint32_t off = (kk % 4) * 32;  // 16 columns of a 128-byte swizzled row
+      Wgmma<T, BK>::ss(s, smem_desc(aQ + (kk / 4) * Tile::HALF_Q + off, 16, 1024),
+                       smem_desc(aK + (kk / 4) * Tile::HALF_KV + off, 16, 1024), kk > 0);
+    }
+    wgmma_commit();
+  };
+  // O += P V_j: 16 keys a step, P K-major, V read (key, dim) with the
+  // transpose bit
+  auto issue_pv = [&](int st) {
+    const uint32_t aV = sV + st * Tile::KV_BYTES;
+    hold(o);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk)
+      Wgmma<T, HDP>::ss_bt(o, smem_desc(aP + (kk / 4) * Tile::HALF_P + (kk % 4) * 32, 16, 1024),
+                           smem_desc(aV + kk * 16 * 128, Tile::HALF_KV, 1024), 1);
+    wgmma_commit();
+  };
+  // P_j into shared memory, visible to the next PV of every warp
+  const float one[2] = {1.f, 1.f};  // P is stored unscaled: not read
+  auto publish_p = [&]() {
+    stmatrix_tile<T, BK, false>(aP, Tile::HALF_P, s, one, warp, lane);
+    fence_proxy_async();
+    asm volatile("bar.sync %0, 128;\n" ::"r"(3 + c) : "memory");
+  };
+  auto release = [&](uint32_t bar) {
+    if (lane == 0) mbar_arrive(bar);
+  };
+
+  if constexpr (NWG == 2)
+    if (c == 1) grant();  // the first turn is c = 0's
+  int it = 0;
+  for (int round = 0;; ++round) {
+    const int id = item_id(round, G);
+    if (id >= items) break;
+    const Item itm = item_of(id, nq, H, B, ROWS);
+    const int ntiles = block_tiles(itm.q0);
+    const int r0 = itm.q0 + c * WG_ROWS;
+    const int mine = wg_tiles(r0, S, Tk, causal, BK);
+    const int row0 = r0 + warp * 16 + grp;  // and row0 + 8
+    auto softmax = [&](int j) {
+      const int k0 = j * BK;
+      const bool masked = k0 + BK > Tk || (causal && k0 + BK - 1 > r0);
+      softmax_tile<BK>(s, m, l, alpha, masked, k0, row0, Tk, causal, tig, scale_log2);
+    };
+#pragma unroll
+    for (int i = 0; i < HDP / 2; ++i) o[i] = 0.f;
+    m[0] = m[1] = NEG;
+    l[0] = l[1] = 0.f;
+    const int qb = round & 1;
+    aQ = sQ + (qb * NWG + c) * Tile::Q_BYTES;
+    mbar_wait(ring.q_full(qb), (round >> 1) & 1);
+    if (mine > 0) {
+      mbar_wait(ring.full_k(it % STAGES), (it / STAGES) & 1);
+      turn();
+      issue_qk(it % STAGES);
+      grant();
+      wgmma_wait<0>();
+      hold(s);
+      release(ring.empty_k(it % STAGES));
+      if (mine == 1) release(ring.q_empty(qb));
+      softmax(0);  // O is 0: no rescale
+      publish_p();
+      for (int j = 1; j < mine; ++j) {
+        const int cur = it + j, prev = cur - 1;
+        mbar_wait(ring.full_k(cur % STAGES), (cur / STAGES) & 1);
+        mbar_wait(ring.full_v(prev % STAGES), (prev / STAGES) & 1);
+        turn();
+        issue_qk(cur % STAGES);
+        issue_pv(prev % STAGES);
+        grant();
+        wgmma_wait<1>();  // S_j is done; PV_{j-1} may still run
+        hold(s);
+        release(ring.empty_k(cur % STAGES));
+        if (j == mine - 1) release(ring.q_empty(qb));
+        softmax(j);
+        wgmma_wait<0>();
+        hold(o);
+        release(ring.empty_v(prev % STAGES));
+        // α = 1 exactly where a row's max stayed: O·1 is O, so a warp whose
+        // rows all kept theirs skips the rescale
+        if (__any_sync(0xffffffffu, alpha[0] != 1.f || alpha[1] != 1.f)) {
+#pragma unroll
+          for (int i = 0; i < HDP / 2; ++i) o[i] = __fmul_rn(o[i], alpha[(i >> 1) & 1]);
+        }
+        publish_p();
+      }
+      const int lst = it + mine - 1;
+      mbar_wait(ring.full_v(lst % STAGES), (lst / STAGES) & 1);
+      turn();
+      issue_pv(lst % STAGES);
+      grant();
+      wgmma_wait<0>();
+      hold(o);
+      release(ring.empty_v(lst % STAGES));
+    } else {
+      release(ring.q_empty(qb));
+      turn();
+      grant();
+    }
+    // the tiles the item loads past this warpgroup's diagonal: released
+    // unread, in order, so that every stage's phases stay in step
+    for (int j = mine; j < ntiles; ++j) {
+      const int cur = it + j;
+      turn();
+      grant();
+      mbar_wait(ring.full_k(cur % STAGES), (cur / STAGES) & 1);
+      release(ring.empty_k(cur % STAGES));
+      mbar_wait(ring.full_v(cur % STAGES), (cur / STAGES) & 1);
+      release(ring.empty_v(cur % STAGES));
+    }
+    it += ntiles;
+    if (mine > 0) {
+      uint16_t* ob = out + itm.b * os.b + itm.h * os.h;
+      float den[2];
+      row_dens(l, den);
+      if (w.o16) {
+        // O through the P tile, which the last PV has done with, so that
+        // each row leaves in 16-byte stores of whole 128-byte lines
+        stmatrix_tile<T, HDP, true>(aP, Tile::HALF_P, o, den, warp, lane);
+        asm volatile("bar.sync %0, 128;\n" ::"r"(3 + c) : "memory");
+        for (int idx = t; idx < WG_ROWS * (HDP / 8); idx += WG_THREADS) {
+          const int row = idx / (HDP / 8), ch = idx % (HDP / 8);
+          if (r0 + row >= S || ch * 8 >= hd) continue;
+          uint32_t x0, x1, x2, x3;
+          asm volatile("ld.shared.v4.b32 {%0, %1, %2, %3}, [%4];\n"
+                       : "=r"(x0), "=r"(x1), "=r"(x2), "=r"(x3)
+                       : "r"(aP + (ch / 8) * Tile::HALF_P + row * 128 +
+                             (((ch % 8) ^ (row & 7)) << 4)));
+          asm volatile("st.global.v4.b32 [%0], {%1, %2, %3, %4};\n" ::"l"(
+                           ob + (long long)(r0 + row) * os.s + ch * 8),
+                       "r"(x0), "r"(x1), "r"(x2), "r"(x3)
+                       : "memory");
+        }
+        asm volatile("bar.sync %0, 128;\n" ::"r"(3 + c) : "memory");  // the P tile is free again
+      } else {
+        store_rows<T, HDP>(ob, os.s, o, den, row0, S, hd, tig, w.opair);
+      }
+    }
+  }
+  if constexpr (NWG == 2)
+    if (c == 0) turn();  // the second consumer's last grant
+}
+
+// Host side -----------------------------------------------------------------
+
+// The widest copy (16, 8 or 4 bytes, else 2) that keeps every row chunk of
+// a 2-byte operand aligned: the base, the strides and the row's hd
+// elements all multiples of it.
+int copy_width(const void* p, Strides s, int hd) {
+  const uintptr_t a = reinterpret_cast<uintptr_t>(p);
+  for (int w = 16; w > 2; w /= 2)
+    if (a % w == 0 && (2 * s.b) % w == 0 && (2 * s.s) % w == 0 && (2 * s.h) % w == 0 &&
+        (2 * hd) % w == 0)
+      return w;
+  return 2;
+}
+
+using EncodeTiled = PFN_cuTensorMapEncodeTiled_v12000;
+
+// cuTensorMapEncodeTiled from the driver, through the runtime: the library
+// links the runtime alone; null where the driver has no such entry point
+EncodeTiled tensor_map_encoder() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found) !=
+            cudaSuccess ||
+        found != cudaDriverEntryPointSuccess)
+      return EncodeTiled(nullptr);
+    return reinterpret_cast<EncodeTiled>(p);
+  }();
+  return fn;
+}
+
+// Whether TMA reads a 2-byte operand of `rows` rows, `heads` heads and
+// `batch` batches: a 16-byte-aligned base, and every stride of an axis
+// longer than 1 a non-zero multiple of 16 bytes.
+bool tma_reads(const void* p, Strides s, int rows, int heads, int batch) {
+  auto ok = [](long long st, int n) { return n == 1 || (st > 0 && (2 * st) % 16 == 0); };
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0 && ok(s.s, rows) && ok(s.h, heads) &&
+         ok(s.b, batch);
+}
+
+// The 4-d (hd, rows, heads, batch) tensor map of an operand TMA reads,
+// boxes of 64 columns × box_rows rows in the 128-byte swizzle, zero past
+// every edge. An axis of size 1 (whose stride the wrapper passes as 0) gets
+// the stride of a packed layout, which is never used.
+int encode_map(CUtensorMap* map, const void* p, CUtensorMapDataType dt, int hd, int rows,
+               int heads, int batch, Strides s, int box_rows) {
+  const EncodeTiled encode = tensor_map_encoder();
+  if (encode == nullptr) return (int)cudaErrorNotSupported;
+  const cuuint64_t row = rows > 1 ? 2 * s.s : 16 * (((cuuint64_t)hd * 2 + 15) / 16);
+  const cuuint64_t head = heads > 1 ? 2 * s.h : row * rows;
+  const cuuint64_t bat = batch > 1 ? 2 * s.b : head * heads;
+  const cuuint64_t dims[4] = {(cuuint64_t)hd, (cuuint64_t)rows, (cuuint64_t)heads, (cuuint64_t)batch};
+  const cuuint64_t strides[3] = {row, head, bat};
+  const cuuint32_t box[4] = {64, (cuuint32_t)box_rows, 1, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  const CUresult r = encode(map, dt, 4, const_cast<void*>(p), dims, strides, box, unit,
+                            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+template <typename T, int HDP, int NWG>
+int launch_wgmma_rows(const CUtensorMap& tq, const CUtensorMap& tk, const CUtensorMap& tv,
+                      const void* q, const void* k, const void* v, void* out, int B, int S, int Tk,
+                      int H, int KV, int hd, Strides qs, Strides ks, Strides vs, Strides os,
+                      Widths w, float scale, int causal, int sms, cudaStream_t stream) {
+  const size_t smem = WgTile<HDP>::smem(NWG);
+  const cudaError_t e = cudaFuncSetAttribute(flash_fwd_wgmma<T, HDP, NWG>,
+                                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  const int nq = (S + NWG * WG_ROWS - 1) / (NWG * WG_ROWS);
+  const long long items = (long long)nq * H * B;
+  if (items > INT_MAX) return (int)cudaErrorInvalidValue;
+  const int grid = (int)(items < sms ? items : sms);  // one resident block an SM
+  const float log2e = 1.4426950408889634f;
+  flash_fwd_wgmma<T, HDP, NWG><<<grid, (NWG + 1) * WG_THREADS, smem, stream>>>(
+      tq, tk, tv, static_cast<const uint16_t*>(q), static_cast<const uint16_t*>(k),
+      static_cast<const uint16_t*>(v), static_cast<uint16_t*>(out), nq, (int)items, S, Tk, B, H,
+      KV, hd, qs, ks, vs, os, w, scale * log2e, causal);
+  return (int)cudaGetLastError();
+}
+
+template <typename T, int HDP>
+int launch_wgmma(const void* q, const void* k, const void* v, void* out, int B, int S, int Tk,
+                 int H, int KV, int hd, Strides qs, Strides ks, Strides vs, Strides os, int opair,
+                 float scale, int causal, cudaStream_t stream) {
+  const CUtensorMapDataType dt =
+      Elem<T>::BF16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_FLOAT16;
+  CUtensorMap tq{}, tk{}, tv{};  // an operand TMA does not read keeps a zero map
+  const bool o16 = reinterpret_cast<uintptr_t>(out) % 16 == 0 && (2 * os.s) % 16 == 0 &&
+                   (2 * os.h) % 16 == 0 && (2 * os.b) % 16 == 0 && hd % 8 == 0;
+  Widths w{0, 0, 0, opair, o16};
+  struct Operand {
+    CUtensorMap* map;
+    const void* p;
+    Strides s;
+    int rows, heads, box;
+    int* width;
+  } ops[3] = {{&tq, q, qs, S, H, WG_ROWS, &w.q},
+              {&tk, k, ks, Tk, KV, WgTile<HDP>::BK, &w.k},
+              {&tv, v, vs, Tk, KV, WgTile<HDP>::BK, &w.v}};
+  for (const Operand& a : ops) {
+    if (tma_reads(a.p, a.s, a.rows, a.heads, B)) {
+      const int err = encode_map(a.map, a.p, dt, hd, a.rows, a.heads, B, a.s, a.box);
+      if (err) return err;
+    } else {
+      *a.width = copy_width(a.p, a.s, hd);
+    }
+  }
+  int dev = 0, sms = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  // 128-row items (two consumers) while they fill the card; below that,
+  // 64-row items, so that no consumer idles on rows past S. A row's output
+  // is the same either way.
+  if ((long long)((S + 127) / 128) * H * B >= sms)
+    return launch_wgmma_rows<T, HDP, 2>(tq, tk, tv, q, k, v, out, B, S, Tk, H, KV, hd, qs, ks, vs,
+                                        os, w, scale, causal, sms, stream);
+  return launch_wgmma_rows<T, HDP, 1>(tq, tk, tv, q, k, v, out, B, S, Tk, H, KV, hd, qs, ks, vs, os,
+                                      w, scale, causal, sms, stream);
+}
+
+// ---------------------------------------------------------------------------
 // f32 route: flash_fwd_f32
 //
 // The f32 route, on the CUDA cores: every product is an f32 FMA (at most
@@ -849,18 +1730,6 @@ int launch_f32_out(int od, const void* q, const void* k, const void* v, void* ou
   return (int)cudaErrorInvalidValue;
 }
 
-// The widest copy (16, 8 or 4 bytes, else 2) that keeps every row chunk of
-// a 2-byte operand aligned: the base, the strides and the row's hd
-// elements all multiples of it.
-int copy_width(const void* p, Strides s, int hd) {
-  const uintptr_t a = reinterpret_cast<uintptr_t>(p);
-  for (int w = 16; w > 2; w /= 2)
-    if (a % w == 0 && (2 * s.b) % w == 0 && (2 * s.s) % w == 0 && (2 * s.h) % w == 0 &&
-        (2 * hd) % w == 0)
-      return w;
-  return 2;
-}
-
 template <typename T>
 int launch_tc(const void* q, const void* k, const void* v, void* out, int B, int S, int Tk, int H,
               int KV, int hd, Strides qs, Strides ks, Strides vs, Strides os, float scale,
@@ -871,9 +1740,11 @@ int launch_tc(const void* q, const void* k, const void* v, void* out, int B, int
   if (hd <= 32)
     return launch_mma<T, 32>(q, k, v, out, B, S, Tk, H, KV, hd, qs, ks, vs, os, w, scale, causal, s);
   if (hd <= 64)
-    return launch_mma<T, 64>(q, k, v, out, B, S, Tk, H, KV, hd, qs, ks, vs, os, w, scale, causal, s);
+    return launch_wgmma<T, 64>(q, k, v, out, B, S, Tk, H, KV, hd, qs, ks, vs, os, w.opair, scale,
+                               causal, s);
   if (hd <= 128)
-    return launch_mma<T, 128>(q, k, v, out, B, S, Tk, H, KV, hd, qs, ks, vs, os, w, scale, causal, s);
+    return launch_wgmma<T, 128>(q, k, v, out, B, S, Tk, H, KV, hd, qs, ks, vs, os, w.opair, scale,
+                                causal, s);
   if (hd <= 256)
     return launch_mma<T, 256>(q, k, v, out, B, S, Tk, H, KV, hd, qs, ks, vs, os, w, scale, causal, s);
   return launch_mma_wide<T>(q, k, v, out, B, S, Tk, H, KV, hd, qs, ks, vs, os, w, scale, causal, s);

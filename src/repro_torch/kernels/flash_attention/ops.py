@@ -3,20 +3,23 @@
 Port of ``src/repro/kernels/flash_attention/ops.py``.
 :func:`flash_attention_padded` is the kernels' wrapper: for CUDA tensors it
 launches ``csrc/flash_attention.cu``, for CPU tensors it runs the plain
-version in ``ref.py``. The source holds three kernels, chosen by dtype and
-head dim: bf16 and f16 go to ``flash_fwd_mma`` on the tensor cores (head
-dims up to 256) or to ``flash_fwd_mma_wide`` (above 256, the output's head
-dim cut into 128-column chunks), f32 to ``flash_fwd_f32`` on the CUDA cores
-(TF32 would break the f32 parity at atol 2e-5). q, k and v of mixed dtypes
+version in ``ref.py``. The source holds four kernels, chosen by dtype and
+head dim alone: bf16 and f16 at 32 < hd <= 128 (every model path's) go to
+``flash_fwd_wgmma`` (wgmma, TMA and an mbarrier ring), at hd <= 32 and up
+to 256 to ``flash_fwd_mma`` (mma.sync), above 256 to ``flash_fwd_mma_wide``
+(the output's head dim cut into 128-column chunks); f32 goes to
+``flash_fwd_f32`` on the CUDA cores (TF32 would break the f32 parity at
+atol 2e-5). q, k and v of mixed dtypes
 go to ``flash_fwd_f32`` too, instantiated on v's dtype (p is rounded to it
 before the PV product) and q's (the output's), with q and k widened to f32
 by exact copies. They take the true S and T
 and mask the ragged tails themselves, so nothing is padded: q, k and v are
 read in their (B, S, H, hd) and (B, T, KV, hd) layouts by strides, and the
 output is written (B, S, H, hd). As the reference does, they take any head
-dim, any B and H, and any view: the bf16 and f16 kernels copy each operand's
-rows 16 bytes at a time where its base, strides and head dim allow it and
-8, 4 or 2 bytes where they do not. The wrapper copies an operand whose
+dim, any B and H, and any view: the wgmma kernel loads an operand by TMA
+where its base and strides are multiples of 16 bytes, the bf16 and f16
+kernels copy it 16, 8, 4 or 2 bytes at a time where they are not, with the
+same products either way. The wrapper copies an operand whose
 head-dim stride is not 1 (contiguous) and, for mixed dtypes, a 16-bit q or
 k (widened to f32); neither copy counts as the function's work. The
 reference's ``block_q`` / ``block_k`` / ``interpret`` arguments choose
@@ -121,16 +124,18 @@ def flash_attention_padded(
     if not all(a.dtype in DTYPES for a in (q, k, v)):
         raise TypeError(f"need float32, bfloat16 or float16 for q, k and v, got {q.dtype}, "
                         f"{k.dtype}, {v.dtype}")
-    if not (q.device == k.device == v.device):
-        raise ValueError(f"q on {q.device}, k on {k.device}, v on {v.device}")
-    if q.device.type not in ("cuda", "cpu", "meta"):
-        raise ValueError(f"unsupported device {q.device}")
-    sizes = (q.element_size(), k.element_size(), v.element_size())
-    _build.count_kernel("flash_attention", *work(b, s, t, h, kv, hd, causal=causal,
-                                                 itemsizes=sizes), q)
-    if q.device.type == "meta":
-        return torch.empty((b, s, h, hd), dtype=q.dtype, device=q.device)
-    if q.device.type == "cpu":
+    device = q.device
+    if not (device == k.device == v.device):
+        raise ValueError(f"q on {device}, k on {k.device}, v on {v.device}")
+    if device.type not in ("cuda", "cpu", "meta"):
+        raise ValueError(f"unsupported device {device}")
+    if _build.counting():
+        sizes = (q.element_size(), k.element_size(), v.element_size())
+        _build.count_kernel("flash_attention", *work(b, s, t, h, kv, hd, causal=causal,
+                                                     itemsizes=sizes), q)
+    if device.type == "meta":
+        return torch.empty((b, s, h, hd), dtype=q.dtype, device=device)
+    if device.type == "cpu":
         with _build.uncounted():  # laid out (B, S, H, hd) as the kernel writes it
             return flash_attention_plain(q, k, v, causal=causal).contiguous()
     out = launch(_lib(), q, k, v, causal)
@@ -146,25 +151,28 @@ def launch(lib: ctypes.CDLL, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     nothing."""
     b, s, h, hd = q.shape
     t, kv = k.shape[1], k.shape[2]
-    out = torch.empty((b, s, h, hd), dtype=q.dtype, device=q.device)
+    device = q.device
+    out = torch.empty((b, s, h, hd), dtype=q.dtype, device=device)
     mixed = not q.dtype == k.dtype == v.dtype
-    with _build.uncounted():  # the wrapper's copies, not the function's work
-        if mixed:  # exact: every bf16 and f16 value is an f32 value
-            q, k = q.to(torch.float32), k.to(torch.float32)
-        q, k, v = (a if a.stride(3) == 1 or hd == 1 else a.contiguous() for a in (q, k, v))
-    strides = [_strides(a) for a in (q, k, v)]
-    codes = [DTYPES[v.dtype], DTYPES[out.dtype]] if mixed else [DTYPES[q.dtype]]
+    if mixed or hd > 1 and not q.stride(3) == k.stride(3) == v.stride(3) == 1:
+        with _build.uncounted():  # the wrapper's copies, not the function's work
+            if mixed:  # exact: every bf16 and f16 value is an f32 value
+                q, k = q.to(torch.float32), k.to(torch.float32)
+            q, k, v = (a if a.stride(3) == 1 or hd == 1 else a.contiguous() for a in (q, k, v))
+    codes = (DTYPES[v.dtype], DTYPES[out.dtype]) if mixed else (DTYPES[q.dtype],)
     entry = lib.flash_attention_fwd_mixed if mixed else lib.flash_attention_fwd
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), *codes, b, s, t, h, kv, hd,
+            *_strides(q), *_strides(k), *_strides(v), *_strides(out), hd**-0.5, int(causal),
+            torch._C._cuda_getCurrentRawStream(device.index))
     # the C entry point launches (and opts in to its shared memory) on the
-    # current device: make it the tensors'
-    with torch.cuda.device(q.device):
-        err = entry(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            *codes, b, s, t, h, kv, hd,
-            *strides[0], *strides[1], *strides[2], *_strides(out),
-            hd**-0.5, int(causal),
-            torch.cuda.current_stream(q.device).cuda_stream,
-        )
+    # current device: make it the tensors' where it is not. At the serve
+    # shapes a call's host path takes longer than its kernel, so it stays
+    # lean: no context switch, copy guard or stream object it does not need.
+    if device.index == torch.cuda.current_device():
+        err = entry(*args)
+    else:
+        with torch.cuda.device(device):
+            err = entry(*args)
     _build.check(lib, err, "flash attention kernel")
     return out
 

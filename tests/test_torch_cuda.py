@@ -7,6 +7,10 @@ These tests import no JAX, so they run on a GPU machine without it:
 Without a CUDA GPU every test here skips.
 """
 import itertools
+import json
+import subprocess
+import sys
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -19,7 +23,7 @@ from repro_torch.kernels.similarity import ops
 from repro_torch.kernels.similarity.ref import gram_ref, l1_ref
 from repro_torch.kernels.sketch import ops as sk_ops
 from repro_torch.kernels.sketch.ref import sketch_srp_plain, srp_sign_block
-from repro_torch.testing import pin_cpu_threads
+from repro_torch.testing import pin_cpu_threads, thread_env
 
 pin_cpu_threads()
 
@@ -447,6 +451,44 @@ def test_flash_wrapper_launches_where_it_once_raised(cuda, case):
     assert bool(((got.float() - want.float()).abs() <= _flash_limit(want, q, k, v)).all())
     if case.startswith("bf16_"):
         assert torch.equal(got, fa_ops.flash_attention_padded(q.contiguous(), k, v))
+
+
+# The wgmma route (bf16 and f16, 32 < hd <= 128): each test runs its calls in
+# a child process (tests/_torch_wgmma_child.py) with a time limit, so that a
+# barrier that never completes fails that test and not the run.
+WGMMA_CHILD = Path(__file__).resolve().parent / "_torch_wgmma_child.py"
+WGMMA_LIMIT_S = 300
+
+
+def _wgmma_child(case: dict) -> None:
+    proc = subprocess.run([sys.executable, str(WGMMA_CHILD), json.dumps(case)], capture_output=True,
+                          text=True, timeout=WGMMA_LIMIT_S, env=thread_env())
+    assert proc.returncode == 0, proc.stdout[-4000:] + proc.stderr[-4000:]
+
+
+@pytest.mark.parametrize("hd", [33, 64, 96, 128])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
+def test_flash_wgmma_route_at_the_tile_edges(cuda, dtype, hd):
+    """S = T of 1, 63, 64, 65, 127, 128, 129 and 1,000, S != T causal and
+    not, GQA groups of 1, 6 and 8: each call within the limit of the plain
+    version, bit-equal to a second call and to each repeat of its batch in
+    a call that takes 128-row items where it takes 64-row ones."""
+    _wgmma_child({"kind": "edges", "dtype": dtype, "hd": hd})
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
+def test_flash_wgmma_route_copies_views_tma_cannot_read(cuda, dtype):
+    """A sequence stride of 68 at hd 64, a base 2 bytes past 16-byte
+    alignment at hd 128, a head stride of 100 at hd 96: copied by cp.async
+    into the tiles TMA fills, so bit-equal to their contiguous copies."""
+    _wgmma_child({"kind": "views", "dtype": dtype})
+
+
+def test_flash_wgmma_route_is_the_kernel_that_runs(cuda):
+    """bf16 and f16 at hd 33, 64 and 128 launch flash_fwd_wgmma, by the
+    profiler's kernel names: one instance in 64-row items, another in
+    128-row ones."""
+    _wgmma_child({"kind": "names"})
 
 
 @pytest.mark.parametrize("bad", ["h_mod_kv"])

@@ -207,3 +207,82 @@ def test_gradient_at_head_dim_20_matches_autograd_of_the_plain_version():
         grads.append([a.grad for a in leaves])
     for got, want in zip(*grads):
         np.testing.assert_allclose(got.numpy(), want.numpy(), atol=F32_ATOL)
+
+
+# the tile edges of the card's wgmma route (64- and 128-row blocks, 128-key
+# tiles): S = T on each side of them, and the serve prompt
+EDGES = (1, 63, 64, 65, 127, 128, 129)
+
+
+@functools.cache
+def _edge_ref(b, s, h, kv, hd, dtype: str, t=None, causal=True, block=16):
+    q, k, v = _qkv(b, s, h, kv, hd, t=t, seed=8)
+    out = ref_flash(*(jnp.asarray(a, getattr(jnp, dtype)) for a in (q, k, v)), causal=causal,
+                    block_q=block, block_k=block, interpret=True)
+    return np.asarray(out, np.float32)
+
+
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("s", EDGES)
+def test_plain_version_matches_reference_kernel_at_the_tile_edges(s, hd):
+    """The card tests' oracle, ``flash_attention_plain`` in bf16, against
+    the reference's kernel in interpret mode at S = T around the 64- and
+    128-row blocks and 128-key tiles, at the model paths' head dims."""
+    q, k, v = _qkv(2, s, 2, 2, hd, seed=8)
+    got = _port(flash_attention_plain, q, k, v, torch.bfloat16)
+    np.testing.assert_allclose(got, _edge_ref(2, s, 2, 2, hd, "bfloat16"), atol=BF16_ATOL)
+
+
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("h,kv", [(6, 1), (8, 1), (8, 8)])
+def test_plain_version_matches_reference_kernel_at_gqa_groups(h, kv, hd):
+    """GQA groups of 6 and 8 query heads to a kv head, and of 1, at a
+    ragged S past the 128-row block."""
+    q, k, v = _qkv(1, 129, h, kv, hd, seed=8)
+    got = _port(flash_attention_plain, q, k, v, torch.bfloat16)
+    np.testing.assert_allclose(got, _edge_ref(1, 129, h, kv, hd, "bfloat16"), atol=BF16_ATOL)
+
+
+@pytest.mark.parametrize("s", [65, 129])
+def test_plain_version_matches_reference_kernel_in_float16_at_the_edges(s):
+    q, k, v = _qkv(1, s, 4, 2, 96, seed=8)
+    got = _port(flash_attention_plain, q, k, v, torch.float16)
+    np.testing.assert_allclose(got, _edge_ref(1, s, 4, 2, 96, "float16"), atol=F16_ATOL)
+
+
+def test_plain_version_matches_reference_kernel_at_the_serve_prompt():
+    """S = T = 1,000, the serve prompt, at head dim 128 (the reference's
+    128-row tiles, which it pads to 1,024)."""
+    q, k, v = _qkv(1, 1000, 2, 1, 128, seed=8)
+    got = _port(flash_attention_plain, q, k, v, torch.bfloat16)
+    np.testing.assert_allclose(got, _edge_ref(1, 1000, 2, 1, 128, "bfloat16", block=128),
+                               atol=BF16_ATOL)
+
+
+@pytest.mark.parametrize("t", [64, 192])
+def test_plain_version_matches_reference_kernel_non_causal_past_a_tile(t):
+    """Non-causal with T a multiple of the reference's tile on each side of
+    the 128-key tile, S ragged (the reference masks no padded key there)."""
+    q, k, v = _qkv(2, 65, 4, 2, 64, t=t, seed=8)
+    got = _port(flash_attention_plain, q, k, v, torch.bfloat16, causal=False)
+    np.testing.assert_allclose(got, _edge_ref(2, 65, 4, 2, 64, "bfloat16", t=t, causal=False),
+                               atol=BF16_ATOL)
+
+
+@pytest.mark.parametrize("variant", ["whole", "no_softmax", "no_products", "loads_only"])
+def test_probe_leaves_out_what_each_variant_names(variant):
+    """``turns.py --probe``'s variants of the committed source: the softmax
+    call and the two wgmma issues are each found once, and each variant
+    drops the parts it names and keeps the rest."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention import turns
+
+    src = (_build.CSRC / "flash_attention.cu").read_text()
+    parts = turns.PROBE[variant]
+    got = turns.probe_source(src, parts)
+    assert (turns.PROBE_SOFTMAX in got) == ("softmax" not in parts)
+    for line in turns.PROBE_PRODUCTS:
+        assert (line in got) == ("products" not in parts)
+        assert (line.replace("Wgmma", "if (0) Wgmma") in got) == ("products" in parts)
+    with pytest.raises(RuntimeError, match="copies"):
+        turns.probe_source(src.replace(turns.PROBE_SOFTMAX, ""), ("softmax",))
